@@ -1,0 +1,174 @@
+"""MetricCollection: an ordered dict of metrics sharing one call signature.
+
+Port of ``metrics_tpu/collections.py`` without the fused cross-process sync and
+the compiled step cache. The collection is an ``nn.ModuleDict``; the pure API
+carries every member's state as one dict ``{member: state}``:
+
+    state = coll.init_state()
+    state = coll.update_state(state, preds, target)
+    state = coll.update_state_masked(state, preds, target, mask=mask)
+    values = coll.compute_from(state)
+"""
+from copy import deepcopy
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
+
+from torch import nn
+
+from metrics_tpu_torch.metric import Metric
+
+
+class MetricCollection(nn.ModuleDict):
+    """An ordered dict of metrics sharing one call signature.
+
+    Args:
+        metrics: a Metric, a sequence of Metrics, or a dict name->Metric. Each
+            member keeps its own device.
+        prefix/postfix: added to every key in the output dict.
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+    ) -> None:
+        super().__init__()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self.add_metrics(metrics, *additional_metrics)
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                raise ValueError(
+                    f"You have passes extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passes extra arguments {additional_metrics} which are not compatible with first passed dictionary."
+            )
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, Metric):
+                    raise ValueError(
+                        f"Value {metric} belonging to key {name} is not an instance of `metrics_tpu_torch.Metric`"
+                    )
+                self[name] = metric
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if not isinstance(metric, Metric):
+                    raise ValueError(f"Input {metric} to `MetricCollection` is not a instance of `metrics_tpu_torch.Metric`")
+                name = type(metric).__name__
+                if name in self:
+                    raise ValueError(f"Encountered two metrics both named {name}")
+                self[name] = metric
+        else:
+            raise ValueError("Unknown input to MetricCollection.")
+
+    # ------------------------------------------------------------------- eager facade
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Call every member; returns a dict of per-batch values."""
+        return {self._set_name(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
+
+    def update(self, *args: Any, **kwargs: Any) -> None:  # type: ignore[override]
+        for _, m in self.items(keep_base=True):
+            m.update(*args, **m._filter_kwargs(**kwargs))
+
+    def compute(self) -> Dict[str, Any]:
+        return {self._set_name(k): m.compute() for k, m in self.items(keep_base=True)}
+
+    def reset(self) -> None:
+        for _, m in self.items(keep_base=True):
+            m.reset()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def persistent(self, mode: bool = True) -> None:
+        for _, m in self.items(keep_base=True):
+            m.persistent(mode)
+
+    # -------------------------------------------------------------- functional path
+
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """One dict holding all member states: {metric_name: state_dict}."""
+        return {k: m.init_state() for k, m in self.items(keep_base=True)}
+
+    def update_state(self, state: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """Pure fan-out update of all members."""
+        return {
+            k: m.update_state(state[k], *args, **m._filter_kwargs(**kwargs))
+            for k, m in self.items(keep_base=True)
+        }
+
+    def merge_states(self, a: Dict[str, Dict[str, Any]], b: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+        """Pairwise merge of two collection states (member-wise, pure)."""
+        return {k: m.merge_states(a[k], b[k]) for k, m in self.items(keep_base=True)}
+
+    def masked_update_unsupported_reason(self) -> Optional[str]:
+        """None when every member supports the mask-aware update path."""
+        for k, m in self.items(keep_base=True):
+            r = m.masked_update_unsupported_reason()
+            if r is not None:
+                return f"member {k!r}: {r}"
+        return None
+
+    def update_state_masked(
+        self, state: Dict[str, Dict[str, Any]], *args: Any, mask: Any, **kwargs: Any
+    ) -> Dict[str, Dict[str, Any]]:
+        """Mask-aware fan-out update of all members (the bucketed engine step:
+        pad rows where ``mask`` is False contribute nothing)."""
+        return {
+            k: m.update_state_masked(state[k], *args, mask=mask, **m._filter_kwargs(**kwargs))
+            for k, m in self.items(keep_base=True)
+        }
+
+    def compute_from(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        return {self._set_name(k): m.compute_from(state[k]) for k, m in self.items(keep_base=True)}
+
+    def host_compute_attrs(self) -> Dict[str, Any]:
+        """Flat ``{member.attr: value}`` of every member's host-derived compute attributes."""
+        return {f"{k}.{a}": v for k, m in self.items(keep_base=True) for a, v in m.host_compute_attrs().items()}
+
+    def restore_host_compute_attrs(self, attrs: Dict[str, Any]) -> None:
+        for k, m in self.items(keep_base=True):
+            prefix = f"{k}."
+            m.restore_host_compute_attrs({p[len(prefix):]: v for p, v in attrs.items() if p.startswith(prefix)})
+
+    # ------------------------------------------------------------------------- naming
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def items(self, keep_base: bool = False) -> Iterable[Tuple[str, Metric]]:  # type: ignore[override]
+        if keep_base:
+            return list(super().items())
+        return [(self._set_name(k), v) for k, v in super().items()]
+
+    def keys(self, keep_base: bool = False) -> Iterable[str]:  # type: ignore[override]
+        if keep_base:
+            return list(super().keys())
+        return [self._set_name(k) for k in super().keys()]

@@ -1,0 +1,177 @@
+"""Accuracy (incl. top-k and subset accuracy).
+
+Port of ``metrics_tpu/functional/classification/accuracy.py``: the same
+average/mdmc_average/subset semantics. Absent classes are marked with a -1
+denominator, which ``_reduce_stat_scores`` treats as ignored, so shapes stay
+static (and the update stays vmap-safe).
+"""
+from typing import Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.classification.stat_scores import _reduce_stat_scores, _stat_scores_update
+from metrics_tpu_torch.utils.checks import _check_classification_inputs, _input_format_classification, _input_squeeze
+from metrics_tpu_torch.utils.device import DeviceLike, as_input, tensor_device
+from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
+
+Tensor = torch.Tensor
+
+
+def _check_subset_validity(mode: DataType) -> bool:
+    return mode in (DataType.MULTILABEL, DataType.MULTIDIM_MULTICLASS)
+
+
+def _mode(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    top_k: Optional[int],
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+) -> DataType:
+    return _check_classification_inputs(
+        preds, target, threshold=threshold, top_k=top_k, num_classes=num_classes, multiclass=multiclass
+    )
+
+
+def _accuracy_update(
+    preds: Tensor,
+    target: Tensor,
+    reduce: Optional[str],
+    mdmc_reduce: Optional[str],
+    threshold: float,
+    num_classes: Optional[int],
+    top_k: Optional[int],
+    multiclass: Optional[bool],
+    ignore_index: Optional[int],
+    mode: DataType,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    if mode == DataType.MULTILABEL and top_k:
+        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+    preds, target = _input_squeeze(preds, target)
+    return _stat_scores_update(
+        preds,
+        target,
+        reduce=reduce,
+        mdmc_reduce=mdmc_reduce,
+        threshold=threshold,
+        num_classes=num_classes,
+        top_k=top_k,
+        multiclass=multiclass,
+        ignore_index=ignore_index,
+    )
+
+
+def _accuracy_compute(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    mdmc_average: Optional[str],
+    mode: DataType,
+) -> Tensor:
+    simple_average = (AverageMethod.MICRO, AverageMethod.SAMPLES)
+    if (mode == DataType.BINARY and average in simple_average) or mode == DataType.MULTILABEL:
+        numerator = tp + tn
+        denominator = tp + tn + fp + fn
+    else:
+        numerator = tp
+        denominator = tp + fn
+
+    if average == AverageMethod.MACRO and mdmc_average != MDMCAverageMethod.SAMPLEWISE:
+        # absent classes (tp+fp+fn==0): ignored via a -1 denominator
+        cond = (tp + fp + fn) == 0
+        numerator = torch.where(cond, torch.zeros_like(numerator), numerator)
+        denominator = torch.where(cond, torch.full_like(denominator, -1), denominator)
+
+    if average == AverageMethod.NONE and mdmc_average != MDMCAverageMethod.SAMPLEWISE:
+        meaningless = (tp | fn | fp) == 0
+        numerator = torch.where(meaningless, torch.full_like(numerator, -1), numerator)
+        denominator = torch.where(meaningless, torch.full_like(denominator, -1), denominator)
+
+    return _reduce_stat_scores(
+        numerator=numerator,
+        denominator=denominator,
+        weights=None if average != AverageMethod.WEIGHTED else (tp + fn),
+        average=average,
+        mdmc_average=mdmc_average,
+    )
+
+
+def _subset_accuracy_update(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    top_k: Optional[int],
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+) -> Tuple[Tensor, Tensor]:
+    preds, target = _input_squeeze(preds, target)
+    preds, target, mode = _input_format_classification(
+        preds, target, threshold=threshold, top_k=top_k, num_classes=num_classes, multiclass=multiclass
+    )
+
+    if mode == DataType.MULTILABEL and top_k:
+        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+
+    dev = preds.device
+    if mode == DataType.MULTILABEL:
+        correct = torch.sum(torch.all(preds == target, dim=1), dtype=torch.int32)
+        total = torch.tensor(target.shape[0], dtype=torch.int32, device=dev)
+    elif mode == DataType.MULTICLASS:
+        correct = torch.sum(preds * target, dtype=torch.int32)
+        total = torch.sum(target, dtype=torch.int32)
+    elif mode == DataType.MULTIDIM_MULTICLASS:
+        sample_correct = torch.sum(preds * target, dim=(1, 2), dtype=torch.int32)
+        correct = torch.sum(sample_correct == target.shape[2], dtype=torch.int32)
+        total = torch.tensor(target.shape[0], dtype=torch.int32, device=dev)
+    else:
+        correct = torch.tensor(0, dtype=torch.int32, device=dev)
+        total = torch.tensor(0, dtype=torch.int32, device=dev)
+    return correct, total
+
+
+def _subset_accuracy_compute(correct: Tensor, total: Tensor) -> Tensor:
+    return correct.to(torch.float32) / total
+
+
+def accuracy(
+    preds: Tensor,
+    target: Tensor,
+    average: str = "micro",
+    mdmc_average: Optional[str] = "global",
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    subset_accuracy: bool = False,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Tensor:
+    """Compute accuracy on ``device`` (default: the inputs' device, else ``cuda``)."""
+    allowed_average = ["micro", "macro", "weighted", "samples", "none", None]
+    if average not in allowed_average:
+        raise ValueError(f"The `average` has to be one of {allowed_average}, got {average}.")
+    if average in ["macro", "weighted", "none", None] and (not num_classes or num_classes < 1):
+        raise ValueError(f"When you set `average` as {average}, you have to provide the number of classes.")
+    allowed_mdmc_average = [None, "samplewise", "global"]
+    if mdmc_average not in allowed_mdmc_average:
+        raise ValueError(f"The `mdmc_average` has to be one of {allowed_mdmc_average}, got {mdmc_average}.")
+    if num_classes and ignore_index is not None and (not 0 <= ignore_index < num_classes or num_classes == 1):
+        raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {num_classes} classes")
+    if top_k is not None and (not isinstance(top_k, int) or top_k <= 0):
+        raise ValueError(f"The `top_k` should be an integer larger than 0, got {top_k}")
+
+    dev = tensor_device(preds, target, device=device)
+    preds, target = _input_squeeze(as_input(preds, dev), as_input(target, dev))
+    mode = _mode(preds, target, threshold, top_k, num_classes, multiclass)
+    reduce = "macro" if average in ["weighted", "none", None] else average
+
+    if subset_accuracy and _check_subset_validity(mode):
+        correct, total = _subset_accuracy_update(preds, target, threshold, top_k, num_classes, multiclass)
+        return _subset_accuracy_compute(correct, total)
+    tp, fp, tn, fn = _accuracy_update(
+        preds, target, reduce, mdmc_average, threshold, num_classes, top_k, multiclass, ignore_index, mode
+    )
+    return _accuracy_compute(tp, fp, tn, fn, average, mdmc_average, mode)

@@ -1,0 +1,425 @@
+"""Metric runtime: state registry, update/compute/reset protocol, masked updates.
+
+Port of the single-process part of ``metrics_tpu/metric.py``. A metric is an
+``nn.Module`` whose registered states are buffers, with the JAX package's pure
+API kept under the same names, working on dicts of tensors:
+
+    state = m.init_state()                        # dict of tensors
+    state = m.update_state(state, preds, target)  # pure
+    state = m.update_state_masked(state, preds, target, mask=mask)
+    value = m.compute_from(state)                 # pure
+
+The stateful facade (``update``, ``compute``, ``reset``, ``forward``,
+``state_dict``) sits on top. ``update_state`` loads the state into the
+buffers, runs the subclass ``update`` and snapshots the result, so the
+stateful-looking subclass code *is* the pure function body.
+
+The masked update is the streaming engine's padding contract: the subclass
+``update`` runs per row under ``torch.func.vmap`` (batch-of-1 rows), and each
+leaf's row-stacked deltas fold into the state through the K1 fold kernel, the
+reduction's identity standing in for masked rows. The kernels the update
+reaches (K2 histogram, K3 binned counts) are custom ops whose vmap rules
+launch once for the whole bucket.
+
+Left out of this slice (see ROADMAP.md): cross-process sync and
+``compute_synced``/``merge_stacked_states``, the scan masked strategy, the
+segmented multi-stream update, arena layouts, fingerprints and grouped hooks,
+nested (wrapper) metrics, composition operators and the compiled forward.
+"""
+import functools
+import inspect
+from copy import deepcopy
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils import _pytree as pytree
+
+from metrics_tpu_torch.ops.kernels import fold_rows_masked
+from metrics_tpu_torch.utils.data import apply_to_collection, is_batch_leaf
+from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+Tensor = torch.Tensor
+
+_MERGEABLE_FX = ("sum", "min", "max", "cat")
+
+
+def _squeeze_if_scalar(x: Any) -> Any:
+    """0-d-ify single-element tensors, mirroring the JAX package."""
+
+    def _sq(v: Tensor) -> Tensor:
+        return v.squeeze() if v.numel() == 1 and v.ndim > 0 else v
+
+    return apply_to_collection(x, Tensor, _sq)
+
+
+class Metric(nn.Module):
+    """Base class for all metrics.
+
+    Subclasses implement ``update(self, ...)`` (mutating registered state
+    attributes) and ``compute(self)`` (reading them), and register states with
+    :meth:`add_state`.
+
+    Args:
+        compute_on_step: return the metric value for the current batch from ``forward``.
+        device: where the states live and the update runs; ``None`` means
+            ``"cuda"``, which raises when CUDA is not available (pass
+            ``device="cpu"`` to run on the CPU).
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = None
+    #: compute-relevant attributes derived from data during ``update`` (host
+    #: side, outside the state dict), e.g. ``Accuracy.mode``
+    _host_derived_compute_attrs: Tuple[str, ...] = ()
+    _MASKED_FX = ("sum", "min", "max")
+    _BOOKKEEPING_ATTRS = ("_computed", "_update_called", "_forward_cache")
+
+    def __init__(self, compute_on_step: bool = True, device: DeviceLike = None, **kwargs: Any) -> None:
+        if kwargs:
+            raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
+        super().__init__()
+        self.device = resolve_device(device)
+        self.compute_on_step = compute_on_step
+        self._defaults: Dict[str, Any] = {}
+        self._reductions: Dict[str, Any] = {}
+        self._update_called = False
+        self._computed: Any = None
+        self._forward_cache: Any = None
+        self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    # ------------------------------------------------------------------ state registry
+
+    def add_state(
+        self,
+        name: str,
+        default: Any,
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a named state: a tensor (a buffer on the metric's device)
+        or an empty list. ``dist_reduce_fx`` in {"sum","mean","min","max",
+        "cat", None, callable} names how states merge."""
+        if not isinstance(default, (Tensor, np.ndarray, list)) or (isinstance(default, list) and default):
+            raise ValueError("state variable must be a tensor or an empty list (where you can append tensors)")
+        if not (dist_reduce_fx in ("sum", "mean", "min", "max", "cat", None) or callable(dist_reduce_fx)):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        self._reductions[name] = dist_reduce_fx
+        if isinstance(default, list):
+            self._defaults[name] = []
+            setattr(self, name, [])
+            return
+        default = torch.as_tensor(default).to(self.device)
+        self._defaults[name] = default
+        self.register_buffer(name, default.clone(), persistent=persistent)
+
+    def persistent(self, mode: bool = False) -> None:
+        """Include (``True``) or leave out the tensor states in ``state_dict``."""
+        for k, v in self._defaults.items():
+            if isinstance(v, Tensor):
+                if mode:
+                    self._non_persistent_buffers_set.discard(k)
+                else:
+                    self._non_persistent_buffers_set.add(k)
+
+    # ------------------------------------------------------------- functional core API
+
+    def init_state(self) -> Dict[str, Any]:
+        """A fresh state dict (name -> tensor or list); leaves are copies."""
+        return {k: (v.clone() if isinstance(v, Tensor) else list(v)) for k, v in self._defaults.items()}
+
+    def _pack_state(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self._defaults}
+
+    def _load_state(self, state: Dict[str, Any]) -> None:
+        for k, v in state.items():
+            setattr(self, k, list(v) if isinstance(v, (list, tuple)) else v)
+
+    def _snapshot_bookkeeping(self) -> Dict[str, Any]:
+        return {a: getattr(self, a) for a in self._BOOKKEEPING_ATTRS}
+
+    def _restore_bookkeeping(self, snap: Dict[str, Any]) -> None:
+        for a, v in snap.items():
+            object.__setattr__(self, a, v)
+
+    def _mark_updated(self) -> None:
+        self._computed = None
+        self._update_called = True
+
+    def update_state(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Pure update: ``new_state = f(state, batch)``.
+
+        Runs the subclass ``update`` with ``state`` loaded into the instance,
+        then snapshots the result; the registered state and the bookkeeping
+        caches are restored afterwards. Host-derived compute attributes
+        (``_host_derived_compute_attrs``) keep what the update latched.
+        """
+        saved = self._pack_state()
+        book = self._snapshot_bookkeeping()
+        self._load_state(state)
+        try:
+            self._inner_update(*args, **kwargs)
+            return self._pack_state()
+        finally:
+            self._load_state(saved)
+            self._restore_bookkeeping(book)
+
+    def compute_from(self, state: Dict[str, Any]) -> Any:
+        """Pure compute on an explicit state dict."""
+        saved = self._pack_state()
+        book = self._snapshot_bookkeeping()
+        self._load_state(state)
+        try:
+            return _squeeze_if_scalar(self._inner_compute())
+        finally:
+            self._load_state(saved)
+            self._restore_bookkeeping(book)
+
+    def merge_states(self, a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+        """Pairwise merge of two state dicts (pure): sum/min/max/cat."""
+        out: Dict[str, Any] = {}
+        for k in self._defaults:
+            fx = self._reductions[k]
+            va, vb = a[k], b[k]
+            if isinstance(self._defaults[k], list):
+                out[k] = list(va) + list(vb)
+            elif fx == "sum":
+                out[k] = va + vb
+            elif fx == "min":
+                out[k] = torch.minimum(va, vb)
+            elif fx == "max":
+                out[k] = torch.maximum(va, vb)
+            elif fx == "cat":
+                out[k] = torch.cat([torch.atleast_1d(va), torch.atleast_1d(vb)], dim=0)
+            else:
+                raise MetricsTPUUserError(
+                    f"State '{k}' of {type(self).__name__} has a custom/None dist_reduce_fx; cannot merge pairwise."
+                )
+        return out
+
+    @property
+    def _states_mergeable(self) -> bool:
+        if self.full_state_update is not None:
+            return not self.full_state_update
+        return all(
+            isinstance(self._defaults[k], list) or fx in _MERGEABLE_FX for k, fx in self._reductions.items()
+        )
+
+    # ------------------------------------------------------------- masked update
+
+    def masked_update_strategy(self) -> Optional[str]:
+        """How :meth:`update_state_masked` runs: ``"custom"`` (the subclass
+        overrides it), ``"delta"`` (the vmapped row-delta path: every state
+        reduces with sum/min/max, whose identities make pad rows inert), or
+        ``None`` (not maskable in this port; the JAX package's sequential scan
+        strategy is not ported yet)."""
+        if type(self).update_state_masked is not Metric.update_state_masked:
+            return "custom"
+        if self._delta_masked_reason() is None:
+            return "delta"
+        return None
+
+    def _delta_masked_reason(self) -> Optional[str]:
+        """None when the vmapped row-delta masked path is exact."""
+        if self.full_state_update:
+            return "full_state_update metrics read the accumulated state in update; row deltas are not exact"
+        for k, v in self._defaults.items():
+            if isinstance(v, list):
+                return f"state {k!r} is a list (cat/gather) state"
+            if self._reductions[k] not in self._MASKED_FX:
+                return f"state {k!r} has dist_reduce_fx={self._reductions[k]!r}"
+        return None
+
+    def masked_update_unsupported_reason(self) -> Optional[str]:
+        """None when :meth:`update_state_masked` applies, else the reason."""
+        if self.masked_update_strategy() is not None:
+            return None
+        return self._delta_masked_reason()
+
+    def update_state_masked(self, state: Dict[str, Any], *args: Any, mask: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Pure mask-aware update: rows of the leading batch axis where
+        ``mask`` is False contribute NOTHING to the new state.
+
+        The subclass ``update`` runs per row (``torch.func.vmap`` over
+        batch-of-1 rows — exact for every delta-mergeable metric) and each
+        state's row-stacked deltas fold into ``state`` with the state's own
+        reduction, its identity standing in for masked rows. Every tensor leaf
+        of ``args``/``kwargs`` whose leading dimension equals ``mask.shape[0]``
+        is batch-carried; everything else broadcasts.
+        """
+        if self.masked_update_strategy() is None:
+            raise MetricsTPUUserError(
+                f"{type(self).__name__} has no mask-aware update: "
+                f"{self.masked_update_unsupported_reason()}. "
+                "Override `update_state_masked` or stream it eagerly (unbucketed)."
+            )
+        mask = as_input(mask, self.device).to(torch.bool)
+        stacked = self._stacked_row_deltas(args, kwargs, mask.shape[0])
+        return self._masked_reduce_into(state, stacked, mask)
+
+    def _split_batch_leaves(self, args: Any, kwargs: Any, n_rows: int):
+        """Flatten ``(args, kwargs)`` and classify leaves against ``n_rows``,
+        reshaping each batch-carried leaf to ``(n_rows, 1, ...)`` so a per-row
+        body sees the batch-of-1 shapes the subclass validates. Returns
+        ``(leaves, in_dims, treedef)``."""
+        leaves, treedef = pytree.tree_flatten((args, kwargs))
+        batched: List[Any] = []
+        in_dims: List[Optional[int]] = []
+        for leaf in leaves:
+            leaf = as_input(leaf, self.device)
+            if isinstance(leaf, Tensor) and is_batch_leaf(leaf, n_rows):
+                batched.append(leaf.reshape((n_rows, 1) + tuple(leaf.shape[1:])))
+                in_dims.append(0)
+            else:
+                batched.append(leaf)
+                in_dims.append(None)
+        return batched, in_dims, treedef
+
+    def _stacked_row_deltas(self, args: Any, kwargs: Any, n_rows: int) -> Dict[str, Any]:
+        """Row-stacked state deltas (leading axis = rows): the subclass update
+        vmapped over batch-of-1 rows, the finest batch partition."""
+        batched, in_dims, treedef = self._split_batch_leaves(args, kwargs, n_rows)
+
+        def per_row(*row_leaves: Any) -> Dict[str, Any]:
+            a, kw = pytree.tree_unflatten(list(row_leaves), treedef)
+            return self.update_state(self.init_state(), *a, **kw)
+
+        return torch.func.vmap(per_row, in_dims=tuple(in_dims))(*batched)
+
+    def _masked_reduce_into(self, state: Dict[str, Any], stacked: Dict[str, Any], mask: Tensor) -> Dict[str, Any]:
+        """Fold row-stacked deltas into ``state`` through the kernel library
+        (the CUDA fold kernel on the card, its plain version on the CPU),
+        skipping masked-out rows via each reduction's identity."""
+        out: Dict[str, Any] = {}
+        for k in self._defaults:
+            fx = self._reductions[k]
+            if fx not in self._MASKED_FX:  # pragma: no cover - guarded by masked_update_strategy
+                raise MetricsTPUUserError(f"no masked reduction for dist_reduce_fx={fx!r}")
+            out[k] = fold_rows_masked(state[k], stacked[k], mask, fx)
+        return out
+
+    # -------------------------------------------------------- host-derived attributes
+
+    def host_compute_attrs(self) -> Dict[str, Any]:
+        """``{name: value}`` of the declared host-derived compute attributes."""
+        return {a: getattr(self, a, None) for a in self._host_derived_compute_attrs}
+
+    def restore_host_compute_attrs(self, attrs: Dict[str, Any]) -> None:
+        """Inverse of :meth:`host_compute_attrs`; unknown names are ignored."""
+        for a in self._host_derived_compute_attrs:
+            if a in attrs:
+                setattr(self, a, attrs[a])
+
+    # ------------------------------------------------------------------ stateful facade
+
+    def _inner_update(self, *args: Any, **kwargs: Any) -> None:
+        """The unwrapped subclass update, inputs moved to the metric's device."""
+        args, kwargs = pytree.tree_map(lambda x: as_input(x, self.device), (args, kwargs))
+        type(self).update(self, *args, **kwargs)
+
+    def _inner_compute(self) -> Any:
+        return type(self).compute(self)
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._computed = None
+            self._update_called = True
+            self._inner_update(*args, **kwargs)
+
+        return wrapped_func
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if not self._update_called:
+                rank_zero_warn(
+                    f"The ``compute`` method of metric {type(self).__name__} was called before "
+                    "the ``update`` method which may lead to errors, as metric states have not "
+                    "yet been updated.",
+                    UserWarning,
+                )
+            if self._computed is not None:
+                return self._computed
+            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            return self._computed
+
+        return wrapped_func
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate global state and (optionally) return the batch-local value.
+
+        One ``update`` per call when states merge pairwise: the batch value is
+        computed from the state delta and the delta merged into the global
+        state. Otherwise the global state is snapshotted and the batch value
+        computed with a second update.
+        """
+        if self._states_mergeable:
+            delta = self.update_state(self.init_state(), *args, **kwargs)
+            self._load_state(self.merge_states(self._pack_state(), delta))
+            self._mark_updated()
+            self._forward_cache = self.compute_from(delta) if self.compute_on_step else None
+            return self._forward_cache
+        self.update(*args, **kwargs)
+        if not self.compute_on_step:
+            self._forward_cache = None
+            return None
+        cache = self._pack_state()
+        self._load_state(self.init_state())
+        self.update(*args, **kwargs)
+        self._forward_cache = self.compute()
+        self._load_state(cache)
+        self._mark_updated()
+        return self._forward_cache
+
+    def reset(self) -> None:
+        """Reset state to defaults."""
+        self._update_called = False
+        self._forward_cache = None
+        self._computed = None
+        self._load_state(self.init_state())
+
+    def clone(self) -> "Metric":
+        return deepcopy(self)
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """Keep only kwargs the (unwrapped) update accepts."""
+        params = inspect.signature(type(self).update).parameters
+        if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        return {
+            k: v
+            for k, v in kwargs.items()
+            if k in params and params[k].kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY)
+        }
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # the wrapped methods close over this instance: drop them, re-wrap on load
+        state = self.__dict__.copy()
+        state.pop("update", None)
+        state.pop("compute", None)
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        super().__setstate__(state)
+        self.update = self._wrap_update(type(self).update.__get__(self))
+        self.compute = self._wrap_compute(type(self).compute.__get__(self))
+
+    def __hash__(self) -> int:
+        return hash((type(self).__name__, id(self)))
+
+    def extra_repr(self) -> str:
+        return f"device={self.device}"
+
+    # subclass contract ---------------------------------------------------------------
+
+    def update(self, *args: Any, **kwargs: Any) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def compute(self) -> Any:  # pragma: no cover - abstract
+        raise NotImplementedError

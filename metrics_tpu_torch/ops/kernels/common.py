@@ -1,0 +1,57 @@
+"""Shared pieces of the streaming-update kernel library.
+
+Port of ``metrics_tpu/ops/kernels/common.py``. The reduction identities live
+here so the plain versions and the CUDA kernels fold masked-out rows with the
+SAME element. The TPU's VMEM block sizing (``block_rows``) has no counterpart:
+the CUDA kernels pick their own launch shapes.
+"""
+from typing import Tuple
+
+import torch
+
+#: the reductions the kernel library implements — exactly the set
+#: ``Metric._MASKED_FX`` serves through the delta masked path
+REDUCE_OPS = ("sum", "min", "max")
+
+
+def reduce_identity(dtype: torch.dtype, fx: str) -> torch.Tensor:
+    """The identity element of sum/min/max over ``dtype`` (masked rows reduce
+    to it), as a 0-d CPU tensor."""
+    if fx == "sum":
+        return torch.zeros((), dtype=dtype)
+    if dtype.is_floating_point:
+        return torch.tensor(float("inf") if fx == "min" else float("-inf"), dtype=dtype)
+    if dtype == torch.bool:
+        # min over bool is AND (identity True), max is OR (identity False)
+        return torch.tensor(fx == "min", dtype=dtype)
+    info = torch.iinfo(dtype)
+    return torch.tensor(info.max if fx == "min" else info.min, dtype=dtype)
+
+
+def combine(a: torch.Tensor, b: torch.Tensor, fx: str) -> torch.Tensor:
+    """Fold two partial reductions (the between-blocks combine)."""
+    if fx == "sum":
+        return a + b
+    if fx == "min":
+        return torch.minimum(a, b)
+    return torch.maximum(a, b)
+
+
+def supported_dtype(dtype: torch.dtype) -> bool:
+    """Dtypes the CUDA fold kernel takes: f32/bf16 floats and int32.
+
+    Sub-32-bit ints and bool are excluded as on the TPU: a sum over them
+    promotes, and a fixed-dtype kernel cannot reproduce that promotion."""
+    return dtype in (torch.float32, torch.bfloat16, torch.int32)
+
+
+def as_2d_rows(rows: torch.Tensor, n_rows: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Collapse ``(N, *leaf)`` to the kernels' canonical ``(N, F)`` layout.
+
+    Returns the reshaped tensor and the trailing leaf shape. F is at least 1
+    (scalar leaves become one column)."""
+    trailing = tuple(int(d) for d in rows.shape[1:])
+    f = 1
+    for d in trailing:
+        f *= d
+    return rows.reshape(n_rows, f), trailing
