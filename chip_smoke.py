@@ -9,21 +9,43 @@ It needs a CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin
 and exits non-zero, printing no result, without them. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``metrics_tpu_torch/ops/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version on the card: at the shapes
-   the main path gives it, on edge cases, and through its ``torch.func.vmap``
-   rule at a 1024-row bucket; then time kernel, plain version and (where one
-   PyTorch call computes the same function) that call;
+2. build the CUDA kernels K1–K7 from ``metrics_tpu_torch/ops/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
+3. hold K1–K3 against their plain PyTorch versions on the card: at the shapes
+   the main path gives them, on edge cases, and through their
+   ``torch.func.vmap`` rules at a 1024-row bucket; then time kernel, plain
+   version and (where one PyTorch call computes the same function) that call;
 4. the main path: the flagship collection (Accuracy, macro F1, binned AP over
    100 thresholds, confusion matrix; 10 classes) updated over 65 536 rows in
    batches, then computed; held against the same collection on the CPU and
    against numpy oracles for every count;
 5. the masked bucket step: the same rows as ragged 1024-row buckets padded
-   with garbage through ``update_state_masked``; its state must equal phase 4's.
+   with garbage through ``update_state_masked``; its state must equal phase 4's;
+6. hold K4–K7 (segment reduce, megastep fold, megastep segment and its q8
+   decode) against their plain versions on edge cases and, exactly, at the
+   engine's shapes, and time them there;
+7. ``StreamingEngine`` under ``kernel_backend="megastep"`` over the same rows
+   as ragged 16–1024-row batches: bit-equal to phase 4, two K5 launches per
+   step (one per arena dtype) and no K1;
+8. the unsharded ``MultiStreamEngine``: 64 streams, Zipf(1.05) stream ids,
+   the same rows in 16–1024-row batches; every stream bit-equal to a numpy
+   oracle over its rows; K4 on every step;
+9. the paged ``MultiStreamEngine``: 10 000 streams, Zipf(1.05), 128 resident
+   slots, 8–64-row batches, so rows spill and page back in; (a) exact under
+   ``"megastep"``, bit-equal to the per-stream oracle; (b) binned AP
+   quantized ``q8_block`` with ``compress_payloads=True``: K7 decodes staged
+   slots, int states exact; (c) (b)'s twin that decodes on the host instead:
+   bit-identical to (b).
 
-Every kernel's launch count is set to 0 before phase 4 and read after phase 5;
-each must be non-zero. The line before the last is the ``kernels`` JSON
-object; the last line is ``{"ok": true, "device": {...}}``.
+Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
+each must be non-zero. A ``torch.profiler`` trace of one megastep bucket and
+one per-leaf masked bucket (``update_state_masked``) gives the device's busy
+share. The line before the last is the ``kernels`` JSON object: in it
+``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
+int32 cases, ``max_abs_err_bf16`` over the bf16 cases (null where there are
+none), and ``bound_ms`` counts the bytes this run's data needs (unmasked rows
+only; K7's codes and scales of the flagged slots only). The last line is
+``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -43,6 +65,13 @@ NUM_CLASSES = 10
 THRESHOLDS = 100
 BUCKET = 1024
 TIMED_RUNS = 25
+# the engine phases: 64 streams unsharded; the paged tenancy configuration of
+# metrics_tpu/engine/stream_bench.py (10 000 streams, Zipf 1.05, 128 resident)
+ALPHA = 1.05
+MS_STREAMS = 64
+PAGED_STREAMS = 10_000
+RESIDENT = 128
+PAGED_BUCKETS = (64, 256)
 
 # bounds: NVIDIA's H100 SXM data sheet (HBM3 bandwidth; f32 rate outside the
 # tensor cores, also taken as the rate of the int32 compares and adds here)
@@ -97,7 +126,7 @@ def fold_phase(dev, rng):
     from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
 
     i32 = torch.iinfo(torch.int32)
-    err = 0.0
+    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
     cases = []
     for f in (1000, 100, 10, 1):  # the masked step's leaves: binned AP, confmat, macro counts, scalars
         cases += [("float32", "sum", BUCKET, f, "ragged"), ("int32", "sum", BUCKET, f, "ragged")]
@@ -130,21 +159,10 @@ def fold_phase(dev, rng):
                 mask[:] = False
                 mask[0] = True
         m = torch.from_numpy(mask.astype(np.int32))
-        rows, state, m = rows.to(dev), state.to(dev), m.to(dev)
-        got = fold_rows_cuda(state, rows, m, fx)
-        want = fold_rows_plain(state, rows, m, fx)
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype, f"fold {dt}/{fx}: dtype {got.dtype} != {want.dtype}")
-        e = max_abs_err(got, want)
-        scale = float(want.double().abs().nan_to_num(posinf=0, neginf=0).max()) if want.numel() else 0.0
-        if dt == "int32" or fx != "sum":
-            check(e == 0.0, f"fold {dt}/{fx}/{n}x{f}/{pattern}: not exact (err {e})")
-        elif dt == "float32":
-            check(e <= 1e-5 + 1e-6 * scale, f"fold f32 sum {n}x{f}/{pattern}: err {e}")
-        else:  # bf16: both round one f32 sum once, so at most one bf16 step apart
-            check(e <= 2.0 ** -7 * max(scale, 1.0), f"fold bf16 sum {n}x{f}/{pattern}: err {e}")
-        if dt != "bfloat16":
-            err = max(err, e)
+        got = fold_rows_cuda(state.to(dev), rows.to(dev), m.to(dev), fx)
+        want = fold_rows_plain(state.to(dev), rows.to(dev), m.to(dev), fx)
+        e = _check_close(got, want, f"fold {dt}/{fx}/{n}x{f}/{pattern}", fx == "sum", _row_sums(rows, m, None, 1))
+        err[dt == "bfloat16"] = max(err[dt == "bfloat16"], e)
 
     # timed at the masked step's widest leaf: binned AP's (10, 100) f32 counts over 1024 rows
     n, f = BUCKET, NUM_CLASSES * THRESHOLDS
@@ -152,17 +170,22 @@ def fold_phase(dev, rng):
     state = torch.zeros(f, device=dev)
     m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
     mf = m.to(torch.float32)
-    check(max_abs_err(fold_rows_cuda(state, rows, m, "sum"), torch.addmv(state, rows.t(), mf)) == 0.0,
-          "fold: kernel disagrees with addmv on 0/1 rows")
+    # 0/1 rows: every sum is an integer, so kernel, plain version and library call agree exactly
+    got = fold_rows_cuda(state, rows, m, "sum")
+    check(max_abs_err(got, fold_rows_plain(state, rows, m, "sum")) == 0.0,
+          "fold: kernel disagrees with its plain version at the main path's shape")
+    check(max_abs_err(got, torch.addmv(state, rows.t(), mf)) == 0.0, "fold: kernel disagrees with addmv on 0/1 rows")
     entry = {
         "name": "fold_rows", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
         "replaces": "metrics_tpu/ops/kernels/pallas_fold.py:48", "shape": f"rows ({n}, {f}) f32, sum",
-        "max_abs_err": err,
+        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
         "ms": gpu_ms(lambda: fold_rows_cuda(state, rows, m, "sum")),
         "plain_ms": gpu_ms(lambda: fold_rows_plain(state, rows, m, "sum")),
         "library_ms": gpu_ms(lambda: torch.addmv(state, rows.t(), mf)),
     }
-    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * n * f + 4 * n + 2 * 4 * f, n * f)
+    # unmasked rows and the mask read once, the state read and written once
+    live = int(m.sum())
+    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 4 * n + 2 * 4 * f, live * f)
     return entry
 
 
@@ -170,7 +193,7 @@ def hist_phase(dev, rng):
     from metrics_tpu_torch.ops.kernels import histogram_accumulate
     from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
 
-    err = 0.0
+    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
     # counts: the one-shot confmat shape, short/long histograms (shared and global
     # paths), out-of-range indices on both sides, empty input
     for n, length in ((BATCH, 100), (1037, 1), (1037, 7), (4099, 12289), (BUCKET, 102400), (0, 5), (1, 3)):
@@ -191,7 +214,7 @@ def hist_phase(dev, rng):
         e = max_abs_err(got, want)
         # f32 atomics add in no fixed order: reassociation error of sums of <= n terms in [0, 1)
         check(e <= 1e-4, f"hist weights {n}/{length}/{k}/{wdt}: err {e}")
-        err = max(err, e)
+        err[wdt == torch.bfloat16] = max(err[wdt == torch.bfloat16], e)
     # the vmap rule at one 1024-row bucket: one launch over B * L bins
     rows_idx = torch.from_numpy(rng.randint(-2, 102, (BUCKET, 1)).astype(np.int32))
     before = histogram_cuda.launches
@@ -209,7 +232,7 @@ def hist_phase(dev, rng):
     entry = {
         "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
         "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55", "shape": f"idx ({n},) int32, L={length} counts",
-        "max_abs_err": err,
+        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
         "ms": gpu_ms(lambda: histogram_cuda(idx, length)),
         "plain_ms": gpu_ms(lambda: histogram_plain(idx, length)),
         "library_ms": gpu_ms(lambda: torch.bincount(idx, minlength=length)),
@@ -273,7 +296,7 @@ def binned_phase(dev, rng):
     entry = {
         "name": "binned_counts", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/binned.cu",
         "replaces": "metrics_tpu/ops/binned_update.py:69", "shape": f"preds ({n}, {c}) f32, T={t}",
-        "max_abs_err": 0.0,
+        "max_abs_err": 0.0, "max_abs_err_bf16": None,  # f32 preds only
         "ms": gpu_ms(lambda: binned_counts_cuda(p, y, th)),
         "plain_ms": gpu_ms(lambda: binned_counts_torch(p, y, th)),
         "library_ms": None,
@@ -288,15 +311,282 @@ def binned_phase(dev, rng):
     return entry, extra
 
 
+def _segment_case(rng, dtype, n, s, f, pattern):
+    """Rows, state, int32 mask and ids: masked rows carry ids in {-7, S, 2**31-1}."""
+    i32 = torch.iinfo(torch.int32)
+    if dtype == torch.int32:
+        rows = torch.from_numpy(rng.randint(-1000, 1000, (n, f)).astype(np.int32))
+        state = torch.from_numpy(rng.randint(-1000, 1000, (s, f)).astype(np.int32))
+        if pattern == "limits":
+            rows[::3] = i32.max
+            rows[1::3] = i32.min
+    else:
+        rows = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(dtype)
+        state = torch.from_numpy(rng.randn(s, f).astype(np.float32)).to(dtype)
+        if pattern == "nan" and n > 9:
+            rows[7, : min(f, 5)] = float("nan")
+            rows[9, :] = float("-inf")
+    mask = rng.rand(n) > 0.3
+    ids = rng.randint(0, s, n).astype(np.int32)
+    if pattern == "one_segment":
+        ids[:] = s - 1
+    if pattern == "all_masked":
+        mask[:] = False
+    ids[~mask] = rng.choice(np.array([-7, s, 2**31 - 1], np.int64), int((~mask).sum())).astype(np.int32)
+    return rows, state, torch.from_numpy(mask.astype(np.int32)), torch.from_numpy(ids)
+
+
+def _row_sums(rows, mask, ids, s):
+    """Each ``(segment, column)`` cell's exact (float64) sum of the unmasked
+    rows its id addresses; ``ids`` None means one segment, shape ``(F,)``."""
+    m = mask.bool()
+    if ids is None:
+        return rows[m].double().sum(0)
+    return torch.zeros((s, rows.shape[1]), dtype=torch.float64).index_add_(0, ids[m].long(), rows[m].double())
+
+
+def _check_close(got, want, what, sum_cols, row_sums):
+    """``got`` against ``want`` cell by cell; returns the largest |got - want|.
+    Ints, and every column outside ``sum_cols`` (a bool or an ``(F,)`` bool
+    tensor), exact; f32 sums within 1e-5 + 1e-6 * scale; a bf16 sum rounds
+    twice in both (the rows' f32 sum, then its add to the state), so within
+    2**-8 * (2|R| + |got| + |want|), R the cell's exact row sum (``row_sums``)."""
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype/shape")
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    diff = torch.where(same, torch.zeros_like(g), (g - w).abs())
+    sums = torch.as_tensor(sum_cols).expand(g.shape)
+    if got.dtype == torch.int32:
+        tol = torch.zeros_like(g)
+    elif got.dtype == torch.float32:
+        scale = float(w.abs().nan_to_num(posinf=0, neginf=0).max()) if w.numel() else 0.0
+        tol = torch.where(sums, 1e-5 + 1e-6 * scale, 0.0)
+    else:
+        tol = torch.where(sums, 2.0 ** -8 * (2 * row_sums.abs() + g.abs() + w.abs()), 0.0)
+    bad = ~same & ~(diff <= tol)  # a NaN difference fails too
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} cells off, err {float(diff[bad].max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def segment_phase(dev, rng):
+    """K4 against its plain version; timed at the unsharded engine's widest
+    leaf (64 streams, a 1024-row bucket, binned AP's 1000 f32 columns)."""
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
+    cases = []
+    for dt in (torch.float32, torch.int32, torch.bfloat16):
+        for fx in ("sum", "min", "max"):
+            for s in (1, 7, 128, 5000):
+                cases.append((dt, fx, 1037, s, 33, "random"))
+            cases += [(dt, fx, 300, 7, 1, "one_segment"), (dt, fx, 300, 7, 9, "all_masked"),
+                      (dt, fx, 0, 4, 5, "random"), (dt, fx, 1, 1, 1, "random"), (dt, fx, 500, 13000, 3, "random")]
+    cases += [(torch.int32, fx, BUCKET, 64, 64, "limits") for fx in ("sum", "min", "max")]
+    cases += [(torch.float32, fx, 300, 17, 17, "nan") for fx in ("sum", "min", "max")]
+    for dt, fx, n, s, f, pattern in cases:
+        rows, state, mask, ids = _segment_case(rng, dt, n, s, f, pattern)
+        got = segment_reduce_cuda(state.to(dev), rows.to(dev), mask.to(dev), ids.to(dev), fx)
+        want = segment_reduce_plain(state, rows, mask, ids, s, fx)
+        e = _check_close(got, want, f"segment {dt}/{fx}/{n}x{f}/S={s}/{pattern}", fx == "sum",
+                         _row_sums(rows, mask, ids, s))
+        err[dt == torch.bfloat16] = max(err[dt == torch.bfloat16], e)
+
+    n, s, f = BUCKET, 64, NUM_CLASSES * THRESHOLDS
+    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
+    state = torch.zeros((s, f), device=dev)
+    m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.randint(0, s, n).astype(np.int32)).to(dev)
+    masked_rows, ids64 = rows * m[:, None].float(), ids.long()
+    # 0/1 rows: every sum is an integer, so kernel, plain version and library call agree exactly
+    got = segment_reduce_cuda(state, rows, m, ids, "sum")
+    check(max_abs_err(got, segment_reduce_plain(state, rows, m, ids, s, "sum")) == 0.0,
+          "segment: kernel disagrees with its plain version at the main path's shape")
+    check(max_abs_err(got, state.index_add(0, ids64, masked_rows)) == 0.0,
+          "segment: kernel disagrees with index_add on 0/1 rows")
+    entry = {
+        "name": "segment_reduce", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_segment.py:57", "shape": f"state ({s}, {f}), rows ({n}, {f}) f32, sum",
+        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
+        "ms": gpu_ms(lambda: segment_reduce_cuda(state, rows, m, ids, "sum")),
+        "plain_ms": gpu_ms(lambda: segment_reduce_plain(state, rows, m, ids, s, "sum")),
+        "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
+    }
+    # unmasked rows, mask and ids read once; the state read and written once
+    live = int(m.sum())
+    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
+    return entry
+
+
+def _op_rows(f):
+    """A uniform row per op and a mixed one (runs of each op, as leaves lay
+    out), each with its bool mask of sum columns."""
+    mixed = np.zeros(f, np.int32)
+    mixed[f // 3: 2 * f // 3] = 1
+    mixed[2 * f // 3:] = 2
+    rows = [(fx, torch.full((f,), i, dtype=torch.int32)) for i, fx in enumerate(("sum", "min", "max"))]
+    return [(u, ops, ops == 0) for u, ops in rows + [(None, torch.from_numpy(mixed))]]
+
+
+def megastep_fold_phase(dev, rng):
+    """K5 against its plain version; timed at the flagship arena's f32 buffer
+    (3000 columns) over a 1024-row bucket."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda, megastep_fold_plain
+
+    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
+    for dt in (torch.float32, torch.int32, torch.bfloat16):
+        for n, f, pattern in ((1037, 300, "random"), (BUCKET, 146, "random"), (0, 7, "random"), (300, 1, "random"),
+                              (300, 40, "all_masked"), (BUCKET, 64, "limits" if dt == torch.int32 else "nan")):
+            for uniform, ops, sum_cols in _op_rows(f):
+                rows, state, mask, _ = _segment_case(rng, dt, n, 1, f, pattern)
+                got = megastep_fold_cuda(state[0].to(dev), rows.to(dev), mask.to(dev), ops.to(dev), uniform)
+                want = megastep_fold_plain(state[0], rows, mask, ops)
+                e = _check_close(got, want, f"megastep_fold {dt}/{uniform}/{n}x{f}/{pattern}", sum_cols,
+                                 _row_sums(rows, mask, None, 1))
+                err[dt == torch.bfloat16] = max(err[dt == torch.bfloat16], e)
+
+    n, f = BUCKET, 3 * NUM_CLASSES * THRESHOLDS
+    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
+    state = torch.zeros(f, device=dev)
+    m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
+    mf = m.to(torch.float32)
+    ops = torch.zeros(f, dtype=torch.int32, device=dev)
+    # 0/1 rows: every sum is an integer, so kernel, plain version and library call agree exactly
+    got = megastep_fold_cuda(state, rows, m, ops, "sum")
+    check(max_abs_err(got, megastep_fold_plain(state, rows, m, ops)) == 0.0,
+          "megastep_fold: kernel disagrees with its plain version at the main path's shape")
+    check(max_abs_err(got, torch.addmv(state, rows.t(), mf)) == 0.0,
+          "megastep_fold: kernel disagrees with addmv on 0/1 rows")
+    entry = {
+        "name": "megastep_fold", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:86", "shape": f"arena ({f},), rows ({n}, {f}) f32, sum",
+        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
+        "ms": gpu_ms(lambda: megastep_fold_cuda(state, rows, m, ops, "sum")),
+        "plain_ms": gpu_ms(lambda: megastep_fold_plain(state, rows, m, ops)),
+        "library_ms": gpu_ms(lambda: torch.addmv(state, rows.t(), mf)),
+    }
+    # unmasked rows and the mask read once, the arena read and written once (a
+    # uniform op row is not read)
+    live = int(m.sum())
+    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 4 * n + 2 * 4 * f, live * f)
+    return entry
+
+
+def megastep_segment_phase(dev, rng):
+    """K6 and K7 against their plain versions, K7 also bit-identical to K6 on
+    a host-decoded state; timed at the paged engine's f32 arena: 128 resident
+    slots of 3000 columns, a 64-row bucket."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_segment_cuda,
+        megastep_segment_plain,
+        megastep_segment_q8_cuda,
+    )
+
+    err6 = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
+    err7 = {False: 0.0, True: 0.0}
+    for dt in (torch.float32, torch.int32, torch.bfloat16):
+        for n, s, f, pattern in ((1037, 7, 33, "random"), (300, 128, 300, "random"), (200, 5000, 3, "random"),
+                                 (300, 7, 9, "one_segment"), (300, 7, 9, "all_masked"), (0, 4, 5, "random"),
+                                 (64, 1, 1, "random"), (BUCKET, 64, 64, "limits" if dt == torch.int32 else "nan")):
+            for uniform, ops, sum_cols in _op_rows(f):
+                rows, state, mask, ids = _segment_case(rng, dt, n, s, f, pattern)
+                got = megastep_segment_cuda(state.to(dev), rows.to(dev), mask.to(dev), ids.to(dev), ops.to(dev),
+                                            uniform)
+                want = megastep_segment_plain(state, rows, mask, ids, ops)
+                e = _check_close(got, want, f"megastep_segment {dt}/{uniform}/{n}x{f}/S={s}/{pattern}", sum_cols,
+                                 _row_sums(rows, mask, ids, s))
+                err6[dt == torch.bfloat16] = max(err6[dt == torch.bfloat16], e)
+    # K7: flagged slots decode, touched or not, also with no rows
+    for dt in (torch.float32, torch.bfloat16):
+        for n, s, f in ((0, 16, 96), (211, 16, 96), (BUCKET, 128, 300), (5, 1, 1)):
+            for uniform, ops, sum_cols in _op_rows(f):
+                rows, state, mask, ids = _segment_case(rng, dt, n, s, f, "random")
+                ids = torch.where(mask.bool(), ids % max(s // 2, 1), ids)  # the upper slots stay untouched
+                flags = torch.from_numpy((np.arange(s) % 3 != 1).astype(np.int32))
+                codes = torch.from_numpy(rng.randint(-127, 128, (s, f)).astype(np.int8))
+                scales = torch.from_numpy((rng.rand(s, f) * 1e-2).astype(np.float32))
+                qcol = torch.from_numpy((np.arange(f) % 4 != 3).astype(np.int32))
+                q8 = (flags, codes, scales, qcol)
+                got = megastep_segment_q8_cuda(state.to(dev), rows.to(dev), mask.to(dev), ids.to(dev), ops.to(dev),
+                                               uniform, *(t.to(dev) for t in q8))
+                want = megastep_segment_plain(state, rows, mask, ids, ops, q8=q8)
+                what = f"megastep_segment_q8 {dt}/{uniform}/{n}x{f}/S={s}"
+                e = _check_close(got, want, what, sum_cols, _row_sums(rows, mask, ids, s))
+                err7[dt == torch.bfloat16] = max(err7[dt == torch.bfloat16], e)
+                on = (flags[:, None] != 0) & (qcol[None, :] != 0)
+                decoded = torch.where(on, (codes.float() * scales).to(dt), state)  # the host codec's arithmetic
+                twin = megastep_segment_cuda(decoded.to(dev), rows.to(dev), mask.to(dev), ids.to(dev), ops.to(dev),
+                                             uniform)
+                torch.cuda.synchronize()
+                check(torch.equal(got, twin), f"{what}: not bit-identical to K6 on the host-decoded state")
+
+    n, s, f = 64, 128, 3 * NUM_CLASSES * THRESHOLDS
+    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
+    state = torch.zeros((s, f), device=dev)
+    m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.randint(0, s, n).astype(np.int32)).to(dev)
+    ops = torch.zeros(f, dtype=torch.int32, device=dev)
+    masked_rows, ids64 = rows * m[:, None].float(), ids.long()
+    flags = torch.zeros(s, dtype=torch.int32, device=dev)
+    flagged = 4  # a few slots paged in per step, as in the engine
+    flags[:flagged] = 1
+    codes = torch.from_numpy(rng.randint(-127, 128, (s, f)).astype(np.int8)).to(dev)
+    scales = torch.from_numpy(rng.rand(s, f).astype(np.float32)).to(dev)
+    qcol = torch.ones(f, dtype=torch.int32, device=dev)
+    q8 = (flags, codes, scales, qcol)
+    # 0/1 rows: every sum is an integer, so kernel, plain version and library
+    # call agree exactly; K7 adds each decoded seed once, as its plain version does
+    got = megastep_segment_cuda(state, rows, m, ids, ops, "sum")
+    check(max_abs_err(got, megastep_segment_plain(state, rows, m, ids, ops)) == 0.0,
+          "megastep_segment: kernel disagrees with its plain version at the main path's shape")
+    check(max_abs_err(got, state.index_add(0, ids64, masked_rows)) == 0.0,
+          "megastep_segment: kernel disagrees with index_add on 0/1 rows")
+    check(max_abs_err(megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8),
+                      megastep_segment_plain(state, rows, m, ids, ops, q8=q8)) == 0.0,
+          "megastep_segment_q8: kernel disagrees with its plain version at the main path's shape")
+    live = int(m.sum())
+    k6 = {
+        "name": "megastep_segment", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:210",
+        "shape": f"arena ({s}, {f}), rows ({n}, {f}) f32, sum",
+        "max_abs_err": err6[False], "max_abs_err_bf16": err6[True],
+        "ms": gpu_ms(lambda: megastep_segment_cuda(state, rows, m, ids, ops, "sum")),
+        "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops)),
+        "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
+    }
+    # unmasked rows, mask and ids read once; the arena read and written once (a
+    # uniform op row is not read)
+    k6["bound_ms"], k6["bound_by"] = bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
+    k7 = {
+        "name": "megastep_segment_q8", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:258",
+        "shape": f"arena ({s}, {f}), rows ({n}, {f}) f32, sum, {flagged} staged slots",
+        "max_abs_err": err7[False], "max_abs_err_bf16": err7[True],
+        "ms": gpu_ms(lambda: megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8)),
+        "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops, q8=q8)),
+        "library_ms": None,
+    }
+    # as K6, plus the flags and the column mask, and the codes and scales of the
+    # flagged slots only; those slots' quantized columns are decoded, not read
+    qcols = int(qcol.sum())
+    state_read = 4 * ((s - flagged) * f + flagged * (f - qcols))
+    k7["bound_ms"], k7["bound_by"] = bound_ms(
+        4 * live * f + 8 * n + state_read + 4 * s * f + 4 * s + 4 * f + 5 * flagged * qcols,
+        live * f + flagged * qcols)
+    return k6, k7
+
+
 # ------------------------------------------------------------------------- main path
 
-def make_collection(device):
+def make_collection(device, ap_precision=None):
     from metrics_tpu_torch import Accuracy, BinnedAveragePrecision, ConfusionMatrix, F1Score, MetricCollection
 
     return MetricCollection({
         "acc": Accuracy(device=device),
         "f1": F1Score(num_classes=NUM_CLASSES, average="macro", device=device),
-        "binned_ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=device),
+        "binned_ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=device,
+                                            sync_precision=ap_precision),
         "confmat": ConfusionMatrix(num_classes=NUM_CLASSES, device=device),
     })
 
@@ -383,6 +673,142 @@ def masked_path(dev, preds, target, rng):
     return state, values, buckets, time.perf_counter() - t0
 
 
+def zipf_stream_ids(num_streams, n, alpha, seed):
+    """``n`` stream ids in ``[0, num_streams)`` from a bounded Zipf(alpha): rank
+    ``r`` has probability ~ ``1/(r+1)**alpha`` and maps to an id through a
+    seeded permutation (the draw of ``metrics_tpu/engine/traffic.py``)."""
+    rng = np.random.RandomState(seed)
+    w = 1.0 / np.power(np.arange(1, num_streams + 1, dtype=np.float64), float(alpha))
+    perm = np.random.RandomState(seed ^ 0x5A1F).permutation(num_streams)
+    return perm[rng.choice(num_streams, size=int(n), p=w / w.sum())].astype(np.int32)
+
+
+def ragged_batches(seed, lo, hi):
+    """Consecutive ``[start, stop)`` row ranges of ``lo``..``hi`` rows over the main path's rows."""
+    rng = np.random.RandomState(seed)
+    out, start = [], 0
+    while start < N_ROWS:
+        stop = min(N_ROWS, start + int(rng.randint(lo, hi + 1)))
+        out.append((start, stop))
+        start = stop
+    return out
+
+
+def streaming_megastep_phase(dev, preds, target):
+    """Phase 7: the megastep engine over the main path's rows, ragged."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"))
+    t0 = time.perf_counter()
+    with eng:
+        for start, stop in ragged_batches(SEED + 2, 16, BUCKET):
+            eng.submit(preds[start:stop], target[start:stop])
+    seconds = time.perf_counter() - t0
+    check(eng.stats.kernel_fallbacks_by_reason() == {}, f"megastep engine fell back: {eng.stats.kernel_fallbacks}")
+    return eng, seconds
+
+
+def stream_rows(sids, batches):
+    """Row indices of every stream, in submit order."""
+    rows = {}
+    for sid, (start, stop) in zip(sids, batches):
+        rows.setdefault(int(sid), []).append(np.arange(start, stop))
+    return {sid: np.concatenate(r) for sid, r in rows.items()}
+
+
+def check_streams(eng, per_stream, preds_np, target_np, streams, what, int_only=False):
+    """Every listed stream's state against the numpy oracle over its rows."""
+    empty = np.zeros(0, np.int64)
+    for sid in streams:
+        idx = per_stream.get(sid, empty)
+        want = oracle_states(preds_np[idx], target_np[idx])
+        if int_only:
+            want = {k: v for k, v in want.items() if k != "binned_ap"}
+        compare_states(eng.stream_state(sid), want, f"{what}: stream {sid}")
+
+
+def multistream_phase(dev, preds, target, preds_np, target_np):
+    """Phase 8: the unsharded engine, 64 streams, Zipf stream ids."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    batches = ragged_batches(SEED + 3, 16, BUCKET)
+    sids = zipf_stream_ids(MS_STREAMS, len(batches), ALPHA, SEED + 3)
+    eng = MultiStreamEngine(make_collection(dev), MS_STREAMS, EngineConfig(buckets=(256, BUCKET)))
+    t0 = time.perf_counter()
+    with eng:
+        for sid, (start, stop) in zip(sids, batches):
+            eng.submit(int(sid), preds[start:stop], target[start:stop])
+    seconds = time.perf_counter() - t0
+    check_streams(eng, stream_rows(sids, batches), preds_np, target_np, range(MS_STREAMS), "multistream")
+    return eng, seconds
+
+
+def paged_phase(dev, preds, target, preds_np, target_np, q8, stage=True):
+    """Phase 9: the paged engine, 10 000 streams in 128 slots under "megastep"."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
+    eng = MultiStreamEngine(make_collection(dev, ap_precision="q8_block" if q8 else None), PAGED_STREAMS,
+                            EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=q8),
+                            stream_shard=True, resident_streams=RESIDENT)
+    if not stage:  # the twin: spilled rows decode on the host before seating
+        eng._q8_enabled = False
+        eng._q8_reset_stage()
+    t0 = time.perf_counter()
+    with eng:
+        for sid, (start, stop) in zip(sids, batches):
+            eng.submit(int(sid), preds[start:stop], target[start:stop])
+    seconds = time.perf_counter() - t0
+    per_stream = stream_rows(sids, batches)
+    st = eng.stats
+    check(st.page_outs > 0, "paged: nothing was spilled")
+    check(st.page_ins > len(per_stream), "paged: no spilled row was paged back in")  # first touches load init rows
+    untouched = [s for s in range(0, PAGED_STREAMS, 97) if s not in per_stream][:20]
+    check_streams(eng, per_stream, preds_np, target_np, sorted(per_stream) + untouched,
+                  f"paged q8={q8} stage={stage}", int_only=q8)
+    return eng, seconds, per_stream
+
+
+def profile_bucket(dev, preds, target):
+    """Device-busy share of one megastep bucket and one per-leaf masked bucket:
+    the kernel time of a torch.profiler trace of one bucket over the bucket's
+    host wall time without the profiler (median of 5)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(BUCKET,), kernel_backend="megastep"))
+    coll = make_collection(dev)
+    p, t = preds[:BUCKET], target[:BUCKET]
+    mask = torch.ones(BUCKET, dtype=torch.bool, device=dev)
+    runs = {"megastep_bucket": lambda: eng.submit(p, t),
+            "masked_bucket": lambda: coll.update_state_masked(coll.init_state(), p, t, mask=mask)}
+    out = {}
+    for name, fn in runs.items():
+        walls = []
+        for _ in range(6):  # the first run warms up
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e6)
+        wall_us = float(np.median(walls[1:]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # device-side entries only (kernels, memcpys): a CPU op's self device
+        # time repeats the time of the kernels it launched
+        busy = {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        total = float(sum(busy.values()))
+        out[name] = {"wall_us": wall_us, "device_busy_us": total, "device_busy_share": total / wall_us,
+                     "device_ops": len(busy),
+                     "top": [(k[:60], v) for k, v in sorted(busy.items(), key=lambda kv: -kv[1])[:6]]}
+    check(out["megastep_bucket"]["device_busy_us"] > 0, "profiler: no device time in the megastep bucket")
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -398,6 +824,12 @@ def main():
     from metrics_tpu_torch.ops.kernels import build
     from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
     from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_fold_cuda,
+        megastep_segment_cuda,
+        megastep_segment_q8_cuda,
+    )
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
@@ -415,7 +847,12 @@ def main():
     fold_entry = fold_phase(dev, rng)
     hist_entry, hist_extra = hist_phase(dev, rng)
     binned_entry, binned_extra = binned_phase(dev, rng)
-    print(f"kernel phases: pass ({time.perf_counter() - t0:.2f} s)")
+    print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    segment_entry = segment_phase(dev, rng)
+    mega_fold_entry = megastep_fold_phase(dev, rng)
+    mega_seg_entry, mega_q8_entry = megastep_segment_phase(dev, rng)
+    print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s)")
 
     data_rng = np.random.RandomState(SEED)
     preds_np = data_rng.rand(N_ROWS, NUM_CLASSES).astype(np.float32)
@@ -423,19 +860,76 @@ def main():
     target_np = data_rng.randint(0, NUM_CLASSES, N_ROWS)
     preds, target = torch.from_numpy(preds_np).to(dev), torch.from_numpy(target_np).to(dev)
 
-    kernels = {"fold_rows": fold_rows_cuda, "histogram": histogram_cuda, "binned_counts": binned_counts_cuda}
+    kernels = {"fold_rows": fold_rows_cuda, "histogram": histogram_cuda, "binned_counts": binned_counts_cuda,
+               "segment_reduce": segment_reduce_cuda, "megastep_fold": megastep_fold_cuda,
+               "megastep_segment": megastep_segment_cuda, "megastep_segment_q8": megastep_segment_q8_cuda}
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def delta(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in kernels}
+
     for fn in kernels.values():
         fn.launches = 0
+    phases = {}
     gpu_state, gpu_values, one_shot_s = main_path(dev, preds, target)
-    one_shot = {k: fn.launches for k, fn in kernels.items()}
+    one_shot = counts()
     masked_state, masked_values, buckets, masked_s = masked_path(dev, preds_np, target_np, np.random.RandomState(SEED + 1))
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    masked = {k: launches[k] - one_shot[k] for k in kernels}
+    masked = delta(one_shot)
+    for k in ("fold_rows", "histogram", "binned_counts"):
+        check(masked[k] > 0, f"kernel {k} was not launched by the masked bucket step")
+    check(one_shot["histogram"] > 0 and one_shot["binned_counts"] > 0, "one-shot update skipped a kernel")
+
+    # phase 7: the megastep engine; 2 K5 launches per step, no K1
+    before = counts()
+    mega_eng, seconds = streaming_megastep_phase(dev, preds, target)
+    phases["streaming_megastep"] = {"seconds": seconds, "steps": mega_eng.steps, "launches": delta(before)}
+    d = phases["streaming_megastep"]["launches"]
+    check(d["megastep_fold"] == 2 * mega_eng.steps and d["fold_rows"] == 0,
+          f"megastep engine: {d['megastep_fold']} K5 and {d['fold_rows']} K1 launches in {mega_eng.steps} steps")
+    compare_states(mega_eng.state(), gpu_state, "megastep engine vs one-shot")
+
+    # phase 8: unsharded multi-stream; K4 on every step (one per state leaf)
+    before = counts()
+    ms_eng, seconds = multistream_phase(dev, preds, target, preds_np, target_np)
+    phases["multistream"] = {"seconds": seconds, "steps": ms_eng.steps, "streams": MS_STREAMS,
+                             "launches": delta(before)}
+    n_leaves = ms_eng.arena_layout.num_leaves
+    check(phases["multistream"]["launches"]["segment_reduce"] == n_leaves * ms_eng.steps,
+          "multistream: K4 did not launch once per leaf on every step")
+
+    # phase 9: paged, (a) exact, (b) q8 staged decode, (c) (b)'s host-decode twin
+    for name, q8, stage in (("paged_exact", False, True), ("paged_q8", True, True), ("paged_q8_twin", True, False)):
+        before = counts()
+        eng, seconds, per_stream = paged_phase(dev, preds, target, preds_np, target_np, q8, stage)
+        st = eng.stats
+        phases[name] = {"seconds": seconds, "steps": eng.steps, "streams": PAGED_STREAMS, "resident": RESIDENT,
+                        "touched": len(per_stream), "page_ins": st.page_ins, "page_outs": st.page_outs,
+                        "page_hits": st.page_hits, "q8_staged_rows": st.q8_staged_rows, "launches": delta(before)}
+        d = phases[name]["launches"]
+        # one launch per arena dtype per step: K7 for the staged f32 arena of (b), K6 for the rest
+        k7_per_step = 1 if name == "paged_q8" else 0
+        check(d["megastep_segment"] == (2 - k7_per_step) * eng.steps and
+              d["megastep_segment_q8"] == k7_per_step * eng.steps,
+              f"{name}: {d['megastep_segment']} K6 and {d['megastep_segment_q8']} K7 launches in {eng.steps} steps")
+        if name == "paged_q8":
+            check(st.q8_staged_rows > 0, "paged q8: no spilled row was seated for K7 to decode")
+            q8_eng, q8_streams = eng, sorted(per_stream)
+        if name == "paged_q8_twin":
+            check(st.q8_staged_rows == 0, "paged twin: staged anyway")
+            for sid in q8_streams:
+                a, b = q8_eng.stream_state(sid), eng.stream_state(sid)
+                for k in a:
+                    for sname in a[k]:
+                        check(torch.equal(a[k][sname], b[k][sname]), f"paged q8 vs twin: stream {sid} {k}.{sname}")
+    launches = counts()
+    profile = profile_bucket(dev, preds, target)
+    phases_line = {"engine_phases": phases, "profile": profile, "card": card}
     print(json.dumps({"launches": {"one_shot_update": one_shot, "masked_buckets": masked}}))
     for k in kernels:
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
-        check(masked[k] > 0, f"kernel {k} was not launched by the masked bucket step")
-    check(one_shot["histogram"] > 0 and one_shot["binned_counts"] > 0, "one-shot update skipped a kernel")
 
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
@@ -457,9 +951,10 @@ def main():
                       "mean_ap": float(gpu_values["binned_ap"].mean())},
         "kernel_shapes": [hist_extra, binned_extra], "card": card,
     }))
+    print(json.dumps(phases_line))
 
     entries = []
-    for e in (fold_entry, hist_entry, binned_entry):
+    for e in (fold_entry, hist_entry, binned_entry, segment_entry, mega_fold_entry, mega_seg_entry, mega_q8_entry):
         e["launches"] = launches[e["name"]]
         entries.append(e)
     print(json.dumps({"kernels": entries}))

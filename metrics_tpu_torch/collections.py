@@ -8,13 +8,16 @@ carries every member's state as one dict ``{member: state}``:
     state = coll.update_state(state, preds, target)
     state = coll.update_state_masked(state, preds, target, mask=mask)
     values = coll.compute_from(state)
+
+The serving hooks (``update_state_segmented``, ``arena_layout``, the
+``sync_precision`` policy) fan out to the members as the JAX package's do.
 """
 from copy import deepcopy
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 from torch import nn
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, sync_precision_tag_of
 
 
 class MetricCollection(nn.ModuleDict):
@@ -144,6 +147,68 @@ class MetricCollection(nn.ModuleDict):
             k: m.update_state_masked(state[k], *args, mask=mask, **m._filter_kwargs(**kwargs))
             for k, m in self.items(keep_base=True)
         }
+
+    def abstract_state(self) -> Dict[str, Dict[str, Any]]:
+        """Every member's :meth:`Metric.abstract_state` (the arena template)."""
+        return {k: m.abstract_state() for k, m in self.items(keep_base=True)}
+
+    def segmented_update_unsupported_reason(self) -> Optional[str]:
+        """None when every member supports the multi-stream segmented update."""
+        for k, m in self.items(keep_base=True):
+            r = m.segmented_update_unsupported_reason()
+            if r is not None:
+                return f"member {k!r}: {r}"
+        return None
+
+    def update_state_segmented(
+        self,
+        state: Dict[str, Dict[str, Any]],
+        *args: Any,
+        mask: Any,
+        segment_ids: Any,
+        num_segments: int,
+        **kwargs: Any,
+    ) -> Dict[str, Dict[str, Any]]:
+        """Multi-stream fan-out update: every member's stream-stacked state
+        rows addressed by ``segment_ids`` take the row deltas."""
+        return {
+            k: m.update_state_segmented(
+                state[k], *args, mask=mask, segment_ids=segment_ids,
+                num_segments=num_segments, **m._filter_kwargs(**kwargs),
+            )
+            for k, m in self.items(keep_base=True)
+        }
+
+    def arena_layout(self) -> Any:
+        """Per-dtype packing plan over ALL member states (``engine/arena.py``)."""
+        from metrics_tpu_torch.engine.arena import ArenaLayout
+
+        return ArenaLayout.for_state(self.abstract_state())
+
+    def set_sync_precision(self, spec: Union[str, Dict[str, Union[str, Dict[str, str]]]]) -> "MetricCollection":
+        """The collection's quantization policy (chainable): a blanket string
+        fans out to every member, a dict keyed by member name routes
+        per-member specs."""
+        if isinstance(spec, str):
+            for _, m in self.items(keep_base=True):
+                m.set_sync_precision(spec)
+        elif isinstance(spec, dict):
+            for name, sub in spec.items():
+                if name not in self:
+                    raise ValueError(f"no member named {name!r} in this collection")
+                self[name].set_sync_precision(sub)
+        else:
+            raise ValueError(f"sync_precision spec must be a string or a per-member dict, got {type(spec).__name__}")
+        return self
+
+    def state_sync_precisions(self) -> Dict[str, str]:
+        """Flat ``{member.state: precision}`` over every member."""
+        return {f"{k}.{path}": prec for k, m in self.items(keep_base=True)
+                for path, prec in m.state_sync_precisions().items()}
+
+    def sync_precision_tag(self) -> str:
+        """Policy tag (see ``Metric.sync_precision_tag``)."""
+        return sync_precision_tag_of(self.state_sync_precisions())
 
     def compute_from(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
         return {self._set_name(k): m.compute_from(state[k]) for k, m in self.items(keep_base=True)}

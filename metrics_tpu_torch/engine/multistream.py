@@ -1,0 +1,435 @@
+"""Multi-stream serving: S independent evaluation streams through one engine.
+
+Port of the synchronous core of ``metrics_tpu/engine/multistream.py``. Two
+forms:
+
+* **Unsharded** (default): every state leaf gains a leading stream axis of
+  length ``num_streams``; a step takes ``(state, (stream_ids,) + batch,
+  mask)`` and the vmapped per-row deltas fold into the addressed stream rows
+  with each state's own reduction (``Metric.update_state_segmented``: one K4
+  launch per leaf on the card). The stream-stacked arena packs the stream axis
+  inside each leaf's columns, so no op row describes it: under
+  ``kernel_backend="megastep"`` this form records ``engine:stacked_layout``
+  and keeps K4.
+* **Paged** (``stream_shard=True``): the JAX package's stream-sharded engine
+  on a one-device mesh (world = 1). The carried state is one ``(resident, n)``
+  slot-stacked buffer per dtype, where ``n`` is one stream's packed arena row;
+  an LRU pager (``engine/paging.py``) spills cold streams' rows to host RAM
+  and faults them back in on their next submit, so device memory is bounded
+  by the working set, not by S. Pager slot ids are the segment ids. Under
+  ``"megastep"`` the step is :meth:`MegastepPlan.apply_segmented`: one K6
+  launch per eligible dtype, and with ``compress_payloads=True`` the dtypes
+  the q8 codec compresses take K7 on every step, which decodes the slots
+  paged in as int8 codes on touch ("q8-resident" rows: the host never
+  dequantizes them).
+
+``submit`` routes, pages and steps on the caller's thread. The dispatcher
+thread, coalescing across streams, snapshots, windows and multi-GPU stream
+sharding over ``torch.distributed`` are not ported yet (ROADMAP §A);
+``results()`` computes stream by stream.
+"""
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.engine.bucketing import pad_rows
+from metrics_tpu_torch.engine.paging import StreamPager
+from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
+from metrics_tpu_torch.engine.quantize import ArenaRowCodec
+from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.utils.data import infer_batch_size, is_batch_leaf
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+__all__ = ["MultiStreamEngine"]
+
+_SHARD = 0  # the one shard of the world-1 pager
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device row as host numpy (bf16 widens to f32: numpy has no bf16)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+class MultiStreamEngine(StreamingEngine):
+    """Serve ``num_streams`` independent accumulations of one metric.
+
+    Args:
+        metric: the served metric/collection (segmented update path required).
+        num_streams: S — independent accumulations.
+        config: engine config; ``stream_shard`` requires ``use_arena=True``.
+        stream_shard: the paged form (one device): per-stream arena rows in
+            ``resident_streams`` slots, cold streams spilled to host RAM.
+        resident_streams: slot count of the paged form (default S: everything
+            resident, paging never fires).
+    """
+
+    def __init__(
+        self,
+        metric: Any,
+        num_streams: int,
+        config: Optional[EngineConfig] = None,
+        stream_shard: bool = False,
+        resident_streams: Optional[int] = None,
+    ):
+        if not isinstance(num_streams, int) or num_streams <= 0:
+            raise MetricsTPUUserError(f"num_streams must be a positive int, got {num_streams!r}")
+        self._num_streams = num_streams
+        self._stream_shard = bool(stream_shard)
+        self._pager: Optional[StreamPager] = None
+        if self._stream_shard:
+            if config is not None and not config.use_arena:
+                raise MetricsTPUUserError(
+                    "stream_shard=True requires use_arena=True: the paged per-stream arena rows are the unit "
+                    "the pager spills and faults"
+                )
+            r = int(resident_streams) if resident_streams is not None else num_streams
+            if r <= 0:
+                raise MetricsTPUUserError(f"resident_streams must be positive, got {resident_streams!r}")
+            self._resident = min(r, num_streams)
+        else:
+            if resident_streams is not None:
+                raise MetricsTPUUserError(
+                    "resident_streams only applies to stream_shard=True engines (the unsharded engine carries "
+                    "every stream resident)"
+                )
+            self._resident = 0
+        super().__init__(metric, config=config)
+        self._row_codec: Optional[ArenaRowCodec] = None
+        if self._stream_shard:
+            self._pager = StreamPager(1, self._resident)
+            # one stream's packed init row per dtype, host numpy: the fault-in
+            # source for never-touched (and reset) streams
+            self._init_row = {k: _host(v) for k, v in self._layout.pack(self._metric.init_state()).items()}
+            # decode capability exists whenever the policy quantizes anything;
+            # ENCODING spilled rows is gated on compress_payloads
+            self._row_codec = ArenaRowCodec.for_metric(self._metric)
+        # q8-RESIDENT cold rows: under "megastep" a compressing paged engine
+        # seats faulted-in spilled rows without the host dequant for the
+        # eligible dtypes: their quantized columns stay ZERO in the arena
+        # while the int8 codes and per-element f32 scales sit in device
+        # staging buffers, and K7 decodes them on the next step's touch. A
+        # staging lives for exactly one round.
+        self._q8_enabled = (
+            self._stream_shard and self._compress and self._row_codec is not None
+            and self._megastep_plan is not None
+        )
+        self._q8_keys: Tuple[str, ...] = ()
+        self._q8_stage: Dict[str, Any] = {}
+        self._q8_reset_stage()
+
+    # -------------------------------------------------------------- capability checks
+
+    def _update_path_unsupported_reason(self, metric: Any) -> Optional[str]:
+        return metric.segmented_update_unsupported_reason()
+
+    def _megastep_unsupported_reason(self) -> Optional[str]:
+        if self._layout is None:
+            return "no_arena"
+        if not self._stream_shard:
+            # the (S, ...)-stacked arena packs the stream axis INSIDE each
+            # leaf's columns: no per-column op row describes that buffer
+            return "stacked_layout"
+        return None
+
+    # ----------------------------------------------------------------- state plumbing
+
+    @property
+    def num_streams(self) -> int:
+        return self._num_streams
+
+    @property
+    def stream_shard(self) -> bool:
+        return self._stream_shard
+
+    @property
+    def resident_streams(self) -> Optional[int]:
+        """Slot count of the paged form (None for the unsharded engine)."""
+        return self._resident if self._stream_shard else None
+
+    def _kind_init_state_tree(self) -> Any:
+        base = self._metric.init_state()
+        if self._stream_shard:
+            return base  # ONE stream's row: _put_state tiles it over the slots
+        return tree_map(lambda x: x.unsqueeze(0).repeat((self._num_streams,) + (1,) * x.ndim), base)
+
+    def _kind_abstract_state_tree(self) -> Any:
+        base = self._metric.abstract_state()
+        if self._stream_shard:
+            return base  # the layout describes one row, the pager's spill unit
+        return tree_map(lambda s: StateSpec((self._num_streams,) + s.shape, s.dtype), base)
+
+    def _put_state(self, tree: Any) -> Any:
+        if not self._stream_shard:
+            return super()._put_state(tree)
+        row = super()._put_state(tree)
+        return {k: v.reshape(1, -1).repeat(self._resident, 1) for k, v in row.items()}
+
+    # -------------------------------------------------------------------- the step
+
+    def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor) -> Any:
+        a, kw = payload
+        ids, rest = a[0], a[1:]
+        # paged mode addresses pager SLOTS, unsharded mode stream rows
+        num = self._resident if self._stream_shard else self._num_streams
+        return self._metric.update_state_segmented(state_tree, *rest, mask=mask, segment_ids=ids,
+                                                   num_segments=num, **kw)
+
+    def _step_state(self, state: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
+        if not self._stream_shard:
+            return super()._step_state(state, a, kw, mask)
+        if self._megastep_plan is not None:
+            return self._megastep_plan.apply_segmented(state, a[1:], kw, mask, a[0], self._resident,
+                                                       q8_stage=self._q8_payload(), q8_cols=self._q8_cols_dev)
+        tree = self._layout.unpack_stacked(state)
+        return self._layout.pack_stacked(self._traced_update(tree, (a, kw), mask))
+
+    def _check_stream(self, stream_id: Any) -> int:
+        sid = int(stream_id)
+        if not 0 <= sid < self._num_streams:
+            raise MetricsTPUUserError(f"stream_id {sid} out of range for num_streams={self._num_streams}")
+        return sid
+
+    def submit(self, stream_id: int, *args: Any, **kwargs: Any) -> None:  # type: ignore[override]
+        """Fold one (ragged) batch into ``stream_id``'s accumulation."""
+        sid = self._check_stream(stream_id)
+        n = infer_batch_size(tree_leaves((args, kwargs)))
+        if n is None:
+            raise ValueError("no array argument with a leading batch dimension")
+        self._stats.batches_submitted += 1
+        if n == 0:
+            return
+        ids = np.full((n,), sid, np.int32)
+        if self._stream_shard:
+            self._execute_routed(ids, args, kwargs, n)
+        else:
+            self._execute_payload(((ids,) + tuple(args), kwargs), n)
+
+    # ------------------------------------------------------------ the paged form
+
+    def _execute_routed(self, sids: np.ndarray, args: Tuple[Any, ...], kwargs: Dict[str, Any], n: int) -> None:
+        """Run a batch through the pager in ROUNDS (the JAX package's routed
+        execution at world 1): each round takes up to the top bucket's rows
+        and at most ``resident`` distinct streams (so the pager can always
+        seat it), pages those streams resident, and runs ONE padded step
+        whose segment ids are the pager's slot indices."""
+        leaves, treedef = tree_flatten((tuple(args), kwargs))
+        locs = sids.astype(np.int64)  # world 1: a stream's local index is its id
+        per_top = self._policy.buckets[-1]
+        cursor = 0
+        while cursor < n:
+            end, distinct = cursor, set()
+            while end < n and end - cursor < per_top:
+                loc = int(locs[end])
+                if loc not in distinct and len(distinct) >= self._resident:
+                    break
+                distinct.add(loc)
+                end += 1
+            valid = end - cursor
+            bucket = self._policy.bucket_for(valid)
+            round_locs = locs[cursor:end]
+            self._page_round([int(x) for x in round_locs])
+            ambiguous = {bucket} - {n}
+            out_leaves = []
+            for leaf in leaves:
+                if is_batch_leaf(leaf, n):
+                    out_leaves.append(pad_rows(leaf[cursor:end], bucket, self._cfg.pad_value))
+                elif any(is_batch_leaf(leaf, b) for b in ambiguous):
+                    raise ValueError(
+                        f"non-batch array argument with leading dimension {leaf.shape[0]} is ambiguous against "
+                        f"routed bucket {bucket} (batch size here is {n}); reshape it (e.g. add a leading axis "
+                        "of 1) or choose buckets that cannot collide"
+                    )
+                else:
+                    out_leaves.append(leaf)
+            uniq = np.unique(round_locs)
+            slots = np.asarray([self._pager.slot_of(_SHARD, int(u)) for u in uniq], np.int32)
+            slot_ids = np.zeros((bucket,), np.int32)  # pad rows address slot 0, masked
+            slot_ids[:valid] = slots[np.searchsorted(uniq, round_locs)]
+            mask = np.zeros((bucket,), bool)
+            mask[:valid] = True
+            a_pad, kw_pad = tree_unflatten(treedef, out_leaves)
+            try:
+                self._run_padded_step((torch.from_numpy(slot_ids).to(self._device),) + tuple(a_pad), kw_pad,
+                                      mask, bucket, valid)
+            except BaseException:
+                # a failed step never ran the kernel's decode: seat the staged
+                # slots through the host decode before anything reads them
+                self._q8_flush()
+                raise
+            self._q8_clear()  # the step decoded every staged slot
+            self._stats.routed_steps += 1
+            self._pager.touch(_SHARD, [int(x) for x in round_locs])
+            cursor = end
+
+    def _page_round(self, streams: List[int]) -> None:
+        """Make every stream in ``streams`` resident: plan with the pager,
+        spill the evicted rows to host RAM (encoded under
+        ``compress_payloads``), write the faulted-in rows (spilled, staged or
+        init) into their slots, then commit the bookkeeping. The arena
+        buffers are updated in place."""
+        ops, hits, faults = self._pager.plan_residency(_SHARD, streams)
+        self._stats.page_hits += hits
+        self._stats.page_faults += faults
+        evicts = [op for op in ops if op.kind == "evict"]
+        loads = [op for op in ops if op.kind == "load"]
+        spilled: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+        if evicts:
+            js = torch.tensor([op.slot for op in evicts], device=self._device)
+            rows = {k: _host(v[js]) for k, v in self._state.items()}  # one gather per dtype
+            if self._compress and self._row_codec is not None:
+                rows = self._row_codec.encode_buffers(rows)  # quantize BEFORE host RAM holds them
+            for i, op in enumerate(evicts):
+                spilled[(op.shard, op.stream)] = {k: rows[k][i].copy() for k in rows}
+            self._stats.page_outs += len(evicts)
+        if loads:
+            src_rows: List[Dict[str, np.ndarray]] = []
+            staged: List[Any] = []
+            for op in loads:
+                raw = self._pager.spilled_row(_SHARD, op.stream) if self._q8_keys else None
+                if raw is not None and self._row_codec.is_encoded(raw):
+                    # q8-resident seat: the staged dtypes' quantized columns
+                    # stay zero here; K7 decodes them on the next step
+                    seed, st = self._row_codec.stage_buffers(raw, self._q8_keys)
+                    src_rows.append(seed)
+                    staged.append(st)
+                else:
+                    src_rows.append(self._decoded_spill_row(op.stream) or self._init_row)
+                    staged.append(None)
+            js = torch.tensor([op.slot for op in loads], device=self._device)
+            for k, buf in self._state.items():
+                buf[js] = torch.from_numpy(np.stack([r[k] for r in src_rows])).to(self._device, buf.dtype)
+            for op, st in zip(loads, staged):
+                if st is not None:
+                    self._stats.q8_staged_rows += 1
+                    self._q8_stage["flags"][op.slot] = 1
+                    for k in self._q8_keys:
+                        codes, scales = self._q8_stage[k]
+                        codes[op.slot] = torch.from_numpy(st[k][0]).to(self._device)
+                        scales[op.slot] = torch.from_numpy(st[k][1]).to(self._device)
+            self._stats.page_ins += len(loads)
+        if ops:
+            self._pager.commit(ops, spilled)
+
+    # -------------------------------------------------------- q8-resident staging
+
+    def _q8_reset_stage(self) -> None:
+        """Judge the staged dtype set (megastep-eligible dtypes the codec
+        compresses) and allocate the device staging buffers: flags
+        ``(resident,)`` int32 plus per dtype codes ``(resident, n)`` int8 and
+        scales ``(resident, n)`` f32."""
+        self._q8_cols: Optional[Dict[str, np.ndarray]] = None
+        self._q8_cols_dev: Optional[Dict[str, torch.Tensor]] = None
+        if not self._q8_enabled:
+            self._q8_keys, self._q8_stage = (), {}
+            return
+        q_mask = self._row_codec.q_mask
+        self._q8_keys = tuple(k for k in self._megastep_plan.eligible_keys() if k in q_mask)
+        if not self._q8_keys:
+            self._q8_stage = {}
+            return
+        sizes = self._layout.buffer_sizes()
+        r, dev = self._resident, self._device
+        self._q8_stage = {"flags": torch.zeros((r,), dtype=torch.int32, device=dev)}
+        for k in self._q8_keys:
+            self._q8_stage[k] = (torch.zeros((r, sizes[k]), dtype=torch.int8, device=dev),
+                                 torch.zeros((r, sizes[k]), dtype=torch.float32, device=dev))
+        self._q8_cols = {k: q_mask[k] for k in self._q8_keys}
+        # the same masks on the device, made once: K7 reads them on every step
+        self._q8_cols_dev = {k: torch.from_numpy(q_mask[k].astype(np.int32)).to(dev) for k in self._q8_keys}
+
+    def _q8_payload(self) -> Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]:
+        """The staging every step of a q8 engine passes to K7 (all flags zero
+        when nothing is staged); None when staging is off."""
+        if not self._q8_keys:
+            return None
+        flags = self._q8_stage["flags"]
+        return {k: (flags,) + tuple(self._q8_stage[k]) for k in self._q8_keys}
+
+    def _q8_clear(self) -> None:
+        if self._q8_keys:
+            self._q8_stage["flags"].zero_()
+
+    def _q8_flush(self) -> None:
+        """Seat any PENDING staged slots through the host decode (the codec's
+        own arithmetic: int8→f32, one f32 multiply, one cast), for a step that
+        never ran the kernel's seed."""
+        if not self._q8_keys:
+            return
+        js = torch.nonzero(self._q8_stage["flags"]).reshape(-1)
+        if js.numel():
+            for k in self._q8_keys:
+                codes, scales = (_host(t[js]) for t in self._q8_stage[k])
+                mask = self._q8_cols[k]
+                rows = _host(self._state[k][js])
+                rows[:, mask] = (codes.astype(np.float32) * scales)[:, mask]
+                self._state[k][js] = torch.from_numpy(rows).to(self._device, self._state[k].dtype)
+        self._q8_clear()
+
+    # --------------------------------------------------------------------- readers
+
+    def _decoded_spill_row(self, stream: int) -> Optional[Dict[str, np.ndarray]]:
+        """One stream's spilled row from host RAM, decoded when stored compressed."""
+        row = self._pager.spilled_row(_SHARD, stream)
+        if row is not None and self._row_codec is not None and self._row_codec.is_encoded(row):
+            row = self._row_codec.decode_buffers(row)
+        return row
+
+    def _fetch_row(self, sid: int) -> Dict[str, torch.Tensor]:
+        """ONE stream's packed arena row on the device: its slot when resident,
+        the host-spilled copy when paged out (no eviction), else the init row."""
+        slot = self._pager.slot_of(_SHARD, sid)
+        if slot is not None:
+            return {k: v[slot] for k, v in self._state.items()}
+        row = self._decoded_spill_row(sid) or self._init_row
+        return {k: torch.from_numpy(np.asarray(v)).to(self._device, self._state[k].dtype) for k, v in row.items()}
+
+    def _stream_tree(self, sid: int) -> Any:
+        """One stream's logical state tree (views of the live state)."""
+        if self._stream_shard:
+            return self._layout.unpack(self._fetch_row(sid))
+        return tree_map(lambda x: x[sid], self._unpack(self._state))
+
+    def result(self, stream_id: int) -> Any:  # type: ignore[override]
+        """``stream_id``'s value: the paged form reads ONLY that stream's row."""
+        return self._metric.compute_from(self._stream_tree(self._check_stream(stream_id)))
+
+    def results(self) -> Dict[int, Any]:
+        """Every stream's value, computed stream by stream."""
+        return {sid: self.result(sid) for sid in range(self._num_streams)}
+
+    def stream_state(self, stream_id: int) -> Any:
+        """A copy of one stream's LOGICAL state tree."""
+        return tree_map(torch.clone, self._stream_tree(self._check_stream(stream_id)))
+
+    def state(self) -> Any:
+        """The (S, ...)-stacked LOGICAL state of all streams (the paged form
+        reassembles it from resident, spilled and init rows)."""
+        if not self._stream_shard:
+            return super().state()
+        rows = [self._fetch_row(sid) for sid in range(self._num_streams)]
+        return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+    def reset_stream(self, stream_id: int) -> None:
+        """Zero ONE stream's accumulation; the paged form simply forgets the
+        stream (slot freed, spill entry dropped) and its next access faults in
+        the init row."""
+        sid = self._check_stream(stream_id)
+        if self._stream_shard:
+            self._pager.drop(_SHARD, sid)
+            return
+        init = tree_leaves(self._metric.init_state())
+        for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
+            leaf[sid] = fresh.to(leaf.device)  # in place: the leaves view the arena
+
+    def reset(self) -> None:
+        if self._pager is not None:
+            self._pager.reset()
+            self._q8_clear()
+        super().reset()
+
+    @property
+    def pager(self) -> Optional[StreamPager]:
+        return self._pager

@@ -19,12 +19,16 @@ The masked update is the streaming engine's padding contract: the subclass
 leaf's row-stacked deltas fold into the state through the K1 fold kernel, the
 reduction's identity standing in for masked rows. The kernels the update
 reaches (K2 histogram, K3 binned counts) are custom ops whose vmap rules
-launch once for the whole bucket.
+launch once for the whole bucket. The segmented update (the multi-stream
+engine's step) scatters the same row deltas into stream rows through K4.
 
-Left out of this slice (see ROADMAP.md): cross-process sync and
-``compute_synced``/``merge_stacked_states``, the scan masked strategy, the
-segmented multi-stream update, arena layouts, fingerprints and grouped hooks,
-nested (wrapper) metrics, composition operators and the compiled forward.
+The ``sync_precision`` policy (which float ``sum`` states may be quantized)
+is kept, without the sync itself: the engine's at-rest codec reads it.
+
+Left out so far (see ROADMAP.md): cross-process sync and
+``compute_synced``/``merge_stacked_states``, the scan masked strategy,
+fingerprints and grouped hooks, nested (wrapper) metrics, composition
+operators and the compiled forward.
 """
 import functools
 import inspect
@@ -36,7 +40,8 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from metrics_tpu_torch.ops.kernels import fold_rows_masked
+from metrics_tpu_torch.ops.kernels import fold_rows_masked, segment_reduce_masked
+from metrics_tpu_torch.parallel.collectives import SYNC_PRECISIONS
 from metrics_tpu_torch.utils.data import apply_to_collection, is_batch_leaf
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -45,6 +50,37 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 Tensor = torch.Tensor
 
 _MERGEABLE_FX = ("sum", "min", "max", "cat")
+#: dtypes whose "sum" states may ride a quantized (q8_block) payload
+_FLOAT_SUM_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+class StateSpec:
+    """Shape and dtype of one state leaf, with no storage: the port's
+    counterpart of ``jax.ShapeDtypeStruct`` in :meth:`Metric.abstract_state`."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape: Tuple[int, ...], dtype: torch.dtype) -> None:
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = dtype
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, StateSpec) and (self.shape, self.dtype) == (other.shape, other.dtype)
+
+    def __repr__(self) -> str:
+        return f"StateSpec({self.shape}, {self.dtype})"
+
+
+def sync_precision_tag_of(precisions: Dict[str, str]) -> str:
+    """The canonical tag of a sync-precision map (``"exact"`` or
+    ``"q8:<digest>"`` over the sorted quantized paths), shared by ``Metric``
+    and ``MetricCollection``."""
+    quantized = sorted(f"{k}={v}" for k, v in precisions.items() if v != "exact")
+    if not quantized:
+        return "exact"
+    import hashlib
+
+    return "q8:" + hashlib.sha256(";".join(quantized).encode()).hexdigest()[:10]
 
 
 def _squeeze_if_scalar(x: Any) -> Any:
@@ -68,6 +104,13 @@ class Metric(nn.Module):
         device: where the states live and the update runs; ``None`` means
             ``"cuda"``, which raises when CUDA is not available (pass
             ``device="cpu"`` to run on the CPU).
+        sync_precision: which states may be quantized (default exact).
+            ``"q8_block"`` marks every ELIGIBLE state (float
+            ``dist_reduce_fx="sum"`` accumulators); counts, cat buffers and
+            min/max states stay exact. A ``{state_name: precision}`` dict
+            targets states explicitly and raises on ineligible ones. The
+            engine's at-rest codec (``engine/quantize.py``) compresses what
+            the policy marks.
     """
 
     is_differentiable: Optional[bool] = None
@@ -79,7 +122,13 @@ class Metric(nn.Module):
     _MASKED_FX = ("sum", "min", "max")
     _BOOKKEEPING_ATTRS = ("_computed", "_update_called", "_forward_cache")
 
-    def __init__(self, compute_on_step: bool = True, device: DeviceLike = None, **kwargs: Any) -> None:
+    def __init__(
+        self,
+        compute_on_step: bool = True,
+        device: DeviceLike = None,
+        sync_precision: Optional[Union[str, Dict[str, str]]] = None,
+        **kwargs: Any,
+    ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
         super().__init__()
@@ -87,6 +136,10 @@ class Metric(nn.Module):
         self.compute_on_step = compute_on_step
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Any] = {}
+        # per-state precision (absent = "exact"); the constructor spec applies
+        # as states register, since subclasses add_state after this __init__
+        self._sync_precision: Dict[str, str] = {}
+        self._sync_precision_spec = self._check_sync_precision_spec(sync_precision)
         self._update_called = False
         self._computed: Any = None
         self._forward_cache: Any = None
@@ -113,10 +166,93 @@ class Metric(nn.Module):
         if isinstance(default, list):
             self._defaults[name] = []
             setattr(self, name, [])
+        else:
+            default = torch.as_tensor(default).to(self.device)
+            self._defaults[name] = default
+            self.register_buffer(name, default.clone(), persistent=persistent)
+        spec = self._sync_precision_spec
+        if isinstance(spec, str):
+            # blanket policy: quantize what is eligible, leave the rest exact
+            if spec != "exact" and self._sync_precision_ineligible_reason(name) is None:
+                self._sync_precision[name] = spec
+        elif isinstance(spec, dict) and name in spec:
+            self._set_state_precision(name, spec[name])
+
+    # ------------------------------------------------------- sync precision policy
+
+    @staticmethod
+    def _check_sync_precision_spec(spec: Any) -> Any:
+        if spec is None or isinstance(spec, dict):
+            return spec
+        if isinstance(spec, str):
+            if spec not in SYNC_PRECISIONS:
+                raise ValueError(f"unknown sync_precision {spec!r}; expected one of {SYNC_PRECISIONS}")
+            return spec
+        raise ValueError(f"sync_precision must be a string or a {{state: precision}} dict, got {type(spec).__name__}")
+
+    def _sync_precision_ineligible_reason(self, name: str) -> Optional[str]:
+        """None when state ``name`` may be quantized: a fixed-shape float
+        ``dist_reduce_fx="sum"`` accumulator. Counts, cat buffers and min/max
+        states must stay exact."""
+        if name not in self._defaults:
+            return f"no registered state named {name!r}"
+        if isinstance(self._defaults[name], list):
+            return "list (cat/gather) states must stay exact"
+        fx = self._reductions[name]
+        if fx != "sum":
+            return f"dist_reduce_fx={fx!r} states must stay exact (only float 'sum' accumulators quantize)"
+        if self._defaults[name].dtype not in _FLOAT_SUM_DTYPES:
+            return "integer/count states must stay exact (they keep the bit-exact digit rider)"
+        return None
+
+    def _set_state_precision(self, name: str, prec: str) -> None:
+        if prec not in SYNC_PRECISIONS:
+            raise ValueError(f"unknown sync_precision {prec!r}; expected one of {SYNC_PRECISIONS}")
+        if prec == "exact":
+            self._sync_precision.pop(name, None)
             return
-        default = torch.as_tensor(default).to(self.device)
-        self._defaults[name] = default
-        self.register_buffer(name, default.clone(), persistent=persistent)
+        reason = self._sync_precision_ineligible_reason(name)
+        if reason is not None:
+            raise MetricsTPUUserError(f"state {name!r} of {type(self).__name__} cannot ride a quantized sync: {reason}")
+        self._sync_precision[name] = prec
+
+    def set_sync_precision(self, spec: Union[str, Dict[str, str]]) -> "Metric":
+        """Declare which states tolerate quantization (chainable): a blanket
+        string applies to every eligible state (``"exact"`` clears the
+        policy); a ``{state_name: precision}`` dict raises on ineligible
+        states."""
+        spec = self._check_sync_precision_spec(spec)
+        if spec is None:
+            return self
+        if isinstance(spec, str):
+            for name in self._defaults:
+                if spec == "exact":
+                    self._sync_precision.pop(name, None)
+                elif self._sync_precision_ineligible_reason(name) is None:
+                    self._sync_precision[name] = spec
+        else:
+            for name, prec in spec.items():
+                self._set_state_precision(name, prec)
+        return self
+
+    def state_sync_precisions(self) -> Dict[str, str]:
+        """``{state_name: precision}`` for every registered state (default
+        ``"exact"``). A constructor dict naming a state never registered
+        raises here, where the policy is first read."""
+        spec = self._sync_precision_spec
+        if isinstance(spec, dict):
+            unknown = sorted(k for k in spec if k not in self._defaults)
+            if unknown:
+                raise MetricsTPUUserError(
+                    f"sync_precision names states {type(self).__name__} never registered: {unknown} "
+                    f"(registered: {sorted(self._defaults)})"
+                )
+        return {k: self._sync_precision.get(k, "exact") for k in self._defaults}
+
+    def sync_precision_tag(self) -> str:
+        """``"exact"`` when nothing quantizes, else ``"q8:<digest>"`` over the
+        sorted quantized state names."""
+        return sync_precision_tag_of(self.state_sync_precisions())
 
     def persistent(self, mode: bool = False) -> None:
         """Include (``True``) or leave out the tensor states in ``state_dict``."""
@@ -132,6 +268,12 @@ class Metric(nn.Module):
     def init_state(self) -> Dict[str, Any]:
         """A fresh state dict (name -> tensor or list); leaves are copies."""
         return {k: (v.clone() if isinstance(v, Tensor) else list(v)) for k, v in self._defaults.items()}
+
+    def abstract_state(self) -> Dict[str, Any]:
+        """:class:`StateSpec` (shape, dtype) per tensor state, ``[]`` per list
+        state, mirroring :meth:`init_state` without storage: the template of
+        the engine's :class:`~metrics_tpu_torch.engine.arena.ArenaLayout`."""
+        return {k: (StateSpec(v.shape, v.dtype) if isinstance(v, Tensor) else []) for k, v in self._defaults.items()}
 
     def _pack_state(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in self._defaults}
@@ -302,6 +444,62 @@ class Metric(nn.Module):
                 raise MetricsTPUUserError(f"no masked reduction for dist_reduce_fx={fx!r}")
             out[k] = fold_rows_masked(state[k], stacked[k], mask, fx)
         return out
+
+    # ------------------------------------------------- multi-stream serving hooks
+
+    def segmented_update_unsupported_reason(self) -> Optional[str]:
+        """None when :meth:`update_state_segmented` applies: the generic
+        row-delta path must hold (a custom fused masked form has no segmented
+        counterpart)."""
+        if type(self).update_state_masked is not Metric.update_state_masked:
+            return "custom update_state_masked override has no segmented form"
+        return self._delta_masked_reason()
+
+    def update_state_segmented(
+        self,
+        state: Dict[str, Any],
+        *args: Any,
+        mask: Any,
+        segment_ids: Any,
+        num_segments: int,
+        **kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Pure multi-stream update: ``state`` leaves carry a leading stream
+        axis of length ``num_segments``; each batch row updates the stream row
+        addressed by ``segment_ids`` (masked-out rows update nothing).
+
+        The ``MultiStreamEngine`` step: the vmapped row deltas fold into the
+        addressed state rows with each state's own reduction, one K4 launch
+        per leaf on the card. Exact for the same metrics as the delta masked
+        path, stream by stream.
+        """
+        reason = self.segmented_update_unsupported_reason()
+        if reason is not None:
+            raise MetricsTPUUserError(f"{type(self).__name__} has no segmented (multi-stream) update: {reason}.")
+        mask = as_input(mask, self.device).to(torch.bool)
+        segment_ids = as_input(segment_ids, self.device).to(torch.int32)
+        stacked = self._stacked_row_deltas(args, kwargs, mask.shape[0])
+        return self._segment_reduce_into(state, stacked, mask, segment_ids, num_segments)
+
+    def _segment_reduce_into(
+        self, state: Dict[str, Any], stacked: Dict[str, Any], mask: Tensor, segment_ids: Tensor, num_segments: int
+    ) -> Dict[str, Any]:
+        """Scatter row-stacked deltas into the addressed stream rows of a
+        stream-stacked ``state``, masked rows folding into nothing."""
+        out: Dict[str, Any] = {}
+        for k in self._defaults:
+            fx = self._reductions[k]
+            if fx not in self._MASKED_FX:  # pragma: no cover - guarded by segmented_update_unsupported_reason
+                raise MetricsTPUUserError(f"no segmented reduction for dist_reduce_fx={fx!r}")
+            out[k] = segment_reduce_masked(state[k], stacked[k], mask, segment_ids, num_segments, fx)
+        return out
+
+    def arena_layout(self) -> Any:
+        """Packing plan collapsing this metric's state into one contiguous
+        buffer per dtype (``engine/arena.py``)."""
+        from metrics_tpu_torch.engine.arena import ArenaLayout
+
+        return ArenaLayout.for_state(self.abstract_state())
 
     # -------------------------------------------------------- host-derived attributes
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles, with ``nvcc``
 alone, into its own shared library that :mod:`ctypes` loads; no source includes
 PyTorch's headers, so a build takes seconds. The libraries go to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) under a
-name that carries a hash of the source, so an edited source builds anew and an
-unchanged one is reused. The first call to :func:`library` builds every kernel
+name that carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source builds anew and an unchanged one is
+reused. The first call to :func:`library` builds every kernel
 at once, one ``nvcc`` process per source, all started together.
 
 Nothing here runs at import: the CPU tests import every module of the package,
@@ -23,7 +24,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fold", "hist", "binned")
+SOURCES = ("fold", "hist", "binned", "segment")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -38,12 +39,13 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # argument types of each library's C entry points (see the csrc sources)
 _SIGNATURES = {
-    "fold": {"fold_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "fold": {"fold_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
     "hist": {
         "histogram_counts": (_P, _L, _I, _P, _P),
         "histogram_weights": (_P, _P, _L, _I, _I, _I, _P, _P),
     },
     "binned": {"binned_counts": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P)},
+    "segment": {"segment_fold": (_P,) * 13 + (_I, _I, _I, _I, _I, _P)},
 }
 
 _lock = threading.Lock()
@@ -70,6 +72,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -4,7 +4,7 @@ Port of ``metrics_tpu/utils/data.py``. One-hot and top-k masks are built by
 comparing against an ``arange`` rather than by scatter, so they run unchanged
 under ``torch.func.vmap`` (the masked engine step vmaps every update).
 """
-from typing import Any, Callable, List, Union
+from typing import Any, Callable, List, Optional, Union
 
 import torch
 
@@ -22,6 +22,17 @@ def is_batch_leaf(leaf: Any, n_rows: int) -> bool:
     ``Metric.update_state_masked``)."""
     shape = getattr(leaf, "shape", None)
     return shape is not None and len(shape) >= 1 and shape[0] == n_rows
+
+
+def infer_batch_size(leaves: List[Any]) -> Optional[int]:
+    """Leading dimension of the FIRST array-shaped leaf — the batch size every
+    other leaf is classified against by :func:`is_batch_leaf`. None when no
+    leaf has a leading axis."""
+    for leaf in leaves:
+        shape = getattr(leaf, "shape", None)
+        if shape is not None and len(shape) >= 1:
+            return int(shape[0])
+    return None
 
 
 def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:

@@ -7,9 +7,15 @@ computed on the card; :func:`state_to_numpy` goes the other way. Each leaf
 keeps the dtype and shape the port's metric registered (int32 counts, f32
 sums) and is checked against them. The JAX package's host-derived compute
 attributes (``Accuracy.mode``) travel separately, through ``host_attrs``.
+
+An ENGINE's state crosses the same way: :func:`engine_state_from_numpy` seats
+a JAX engine's packed arena (per-dtype numpy buffers) and, for the paged
+multi-stream engine, its pager's ``snapshot_payload()`` in the port's engine;
+:func:`engine_state_to_numpy` is the inverse. Both first check that the two
+packages pack the state the same way (``ArenaLayout.leaf_slices()``).
 """
 from enum import Enum
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,3 +83,66 @@ def state_to_numpy(state: Any) -> Any:
     if isinstance(state, (list, tuple)):
         return type(state)(state_to_numpy(v) for v in state)
     return state
+
+
+def _slices_signature(slices: Sequence[Tuple[Any, ...]]) -> Tuple[Tuple[Any, ...], ...]:
+    """``leaf_slices()`` with every dtype spelled by name, comparable across
+    packages (jnp and torch dtypes differ as objects)."""
+    return tuple((str(k), int(o), int(s), tuple(int(d) for d in shape), str(dt).replace("torch.", ""))
+                 for k, o, s, shape, dt in slices)
+
+
+def _host_array(value: Any) -> np.ndarray:
+    arr = np.asarray(value)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr  # numpy has no bf16 without JAX
+
+
+def engine_state_from_numpy(
+    engine: Any,
+    arena: Dict[str, Any],
+    leaf_slices: Sequence[Tuple[Any, ...]],
+    pager_payload: Optional[Dict[str, Any]] = None,
+    host_attrs: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Seat a JAX engine's state in the port's ``engine``.
+
+    ``arena`` is the JAX engine's carried arena as numpy, one buffer per
+    dtype: flat ``(n,)`` for a ``StreamingEngine`` or an unsharded
+    ``MultiStreamEngine``, ``(1, R, n)`` for the paged one (stream-sharded on
+    a one-device mesh), whose ``pager_payload`` (``snapshot_payload()``:
+    slot table and spilled rows, compressed or not) is required then.
+    ``leaf_slices`` is the JAX engine's ``arena_layout.leaf_slices()``; it
+    must equal the port engine's, or this raises before touching anything.
+    ``host_attrs`` are set on the port's metric, as in :func:`state_from_numpy`.
+    """
+    layout = engine.arena_layout
+    if layout is None:
+        raise ValueError("engine state crosses as a packed arena: the port engine needs use_arena=True")
+    if _slices_signature(leaf_slices) != _slices_signature(layout.leaf_slices()):
+        raise ValueError("the two packages pack this state differently (ArenaLayout.leaf_slices() differ)")
+    paged = bool(getattr(engine, "stream_shard", False))
+    if paged != (pager_payload is not None):
+        raise ValueError("a pager payload goes with the paged (stream_shard) engine, and only with it")
+    state = {}
+    for k, buf in engine._state.items():
+        arr = _host_array(arena[k])
+        arr = arr.reshape(arr.shape[1:]) if paged and arr.ndim == 3 and arr.shape[0] == 1 else arr
+        if tuple(arr.shape) != tuple(buf.shape):
+            raise ValueError(f"arena buffer {k!r}: shape {arr.shape} does not fit the port's {tuple(buf.shape)}")
+        state[k] = torch.from_numpy(np.array(arr)).to(device=buf.device, dtype=buf.dtype)
+    if paged:
+        engine.pager.load_payload({k: _host_array(v) for k, v in pager_payload.items()})
+    engine._state = state
+    if host_attrs:
+        engine._metric.restore_host_compute_attrs({k: _port_value(v) for k, v in host_attrs.items()})
+
+
+def engine_state_to_numpy(engine: Any) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, Any]]]:
+    """The inverse of :func:`engine_state_from_numpy`: the port engine's arena
+    in the JAX engine's form (``(1, R, n)`` buffers for the paged engine) and,
+    for the paged engine, its pager's ``snapshot_payload()`` (else None)."""
+    paged = bool(getattr(engine, "stream_shard", False))
+    arena = {k: state_to_numpy(v) for k, v in engine._state.items()}
+    if paged:
+        return {k: v[None] for k, v in arena.items()}, engine.pager.snapshot_payload()
+    return arena, None

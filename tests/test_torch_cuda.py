@@ -74,3 +74,114 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
     with pytest.raises(TypeError):  # int16 is not a kernel dtype: raise, never fall back
         fold_rows_masked(torch.zeros(4, dtype=torch.int16, device=cuda),
                          torch.ones(8, 4, dtype=torch.int16, device=cuda), torch.ones(8, device=cuda), "sum")
+
+
+def _segment_case(rng, dtype, n, s, f, nan=False):
+    """Rows, state, int32 mask and ids on the CPU: masked rows carry garbage ids."""
+    rows = torch.from_numpy(rng.randint(-100, 100, (n, f))).to(dtype)
+    state = torch.from_numpy(rng.randint(-100, 100, (s, f))).to(dtype)
+    if nan and n > 4:
+        rows[2, 0] = float("nan")
+        rows[4, :] = float("-inf")
+    mask = rng.rand(n) > 0.3
+    ids = rng.randint(0, s, n).astype(np.int32)
+    ids[~mask] = rng.choice([-7, s, 2**31 - 1], int((~mask).sum()))
+    return rows, state, torch.from_numpy(mask.astype(np.int32)), torch.from_numpy(ids)
+
+
+def _same(got, want, dtype, fx_sum):
+    # small integers: f32 and int32 sums are exact; bf16 sums round once in both
+    atol = 2.0 ** -7 * 4096 if dtype == torch.bfloat16 and fx_sum else 0
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=0, atol=atol, equal_nan=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("fx", ["sum", "min", "max"])
+@pytest.mark.parametrize("s", [1, 7, 128, 5000, 13000])
+def test_segment_kernel_matches_plain_on_card(cuda, dtype, fx, s):
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    rng = np.random.RandomState(s)
+    rows, state, mask, ids = _segment_case(rng, dtype, 1037, s, 33, nan=dtype != torch.int32)
+    before = segment_reduce_cuda.launches
+    got = segment_reduce_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), fx)
+    assert segment_reduce_cuda.launches == before + 1
+    _same(got, segment_reduce_plain(state, rows, mask, ids, s, fx), dtype, fx == "sum")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("uniform", ["sum", "min", "max", None])
+def test_megastep_kernels_match_plain_on_card(cuda, dtype, uniform):
+    from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_fold_cuda,
+        megastep_fold_plain,
+        megastep_segment_cuda,
+        megastep_segment_plain,
+    )
+
+    rng = np.random.RandomState(3)
+    f = 300
+    ops = np.full(f, REDUCE_OPS.index(uniform) if uniform else 0, np.int32)
+    if uniform is None:
+        ops[100:150], ops[150:170] = 1, 2
+    ops = torch.from_numpy(ops)
+    rows, state, mask, ids = _segment_case(rng, dtype, 517, 9, f, nan=dtype != torch.int32)
+    got = megastep_fold_cuda(state[0].to(cuda), rows.to(cuda), mask.to(cuda), ops.to(cuda), uniform)
+    _same(got, megastep_fold_plain(state[0], rows, mask, ops), dtype, True)
+    got = megastep_segment_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), ops.to(cuda), uniform)
+    _same(got, megastep_segment_plain(state, rows, mask, ids, ops), dtype, True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [0, 211])
+def test_q8_segment_kernel_decodes_like_the_host_codec(cuda, n):
+    """K7 equals K6 run on a state decoded beforehand, bit for bit, including
+    flagged slots no row touches and a step without rows."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_segment_cuda,
+        megastep_segment_plain,
+        megastep_segment_q8_cuda,
+    )
+
+    rng = np.random.RandomState(4)
+    s, f = 16, 96
+    rows = torch.from_numpy(rng.rand(n, f).astype(np.float32))
+    state = torch.from_numpy(rng.rand(s, f).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(n) > 0.2).astype(np.int32))
+    ids = torch.from_numpy(rng.randint(0, s // 2, n).astype(np.int32))  # slots >= s/2 untouched
+    flags = torch.from_numpy((np.arange(s) % 3 != 1).astype(np.int32))
+    codes = torch.from_numpy(rng.randint(-127, 128, (s, f)).astype(np.int8))
+    scales = torch.from_numpy((rng.rand(s, f) * 1e-2).astype(np.float32))
+    qcol = torch.from_numpy((np.arange(f) < 64).astype(np.int32))
+    ops = torch.zeros(f, dtype=torch.int32)
+    q8 = [t.to(cuda) for t in (flags, codes, scales, qcol)]
+    got = megastep_segment_q8_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), ops.to(cuda),
+                                   "sum", *q8)
+    decoded = state.numpy().copy()
+    host = (codes.numpy().astype(np.float32) * scales.numpy()).astype(np.float32)  # _decode_blocks
+    on = (flags.numpy()[:, None] != 0) & (qcol.numpy()[None, :] != 0)
+    decoded[on] = host[on]
+    twin = megastep_segment_cuda(torch.from_numpy(decoded).to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda),
+                                 ops.to(cuda), "sum")
+    assert torch.equal(got, twin)
+    want = megastep_segment_plain(state, rows, mask, ids, ops, q8=(flags, codes, scales, qcol))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_dispatch_launches_the_q8_kernel_on_an_empty_step(cuda):
+    from metrics_tpu_torch.ops.kernels import megastep_segment
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_segment_q8_cuda
+
+    s, f = 4, 8
+    state = torch.zeros(s, f, device=cuda)
+    q8 = (torch.ones(s, dtype=torch.int32), torch.full((s, f), 3, dtype=torch.int8), torch.full((s, f), 0.5),
+          np.ones(f, bool))
+    before = megastep_segment_q8_cuda.launches
+    out = megastep_segment(state, torch.zeros(0, f, device=cuda), torch.zeros(0, device=cuda),
+                           torch.zeros(0, device=cuda), s, np.zeros(f, np.int32), q8=q8)
+    assert megastep_segment_q8_cuda.launches == before + 1
+    assert torch.equal(out.cpu(), torch.full((s, f), 1.5))

@@ -184,3 +184,22 @@ def test_value_checks_are_skipped_under_vmap_only():
     seen = []
     torch.func.vmap(lambda p, t: seen.append(_compute_value_stats(p, t)) or p)(preds, target)
     assert seen == [None]
+
+
+def test_sync_precision_policy_matches_jax():
+    """The quantization policy the engine's codec reads: which states a
+    blanket ``q8_block`` marks, and the tag, as in the JAX package."""
+    jc, pc = _collection(mt), _collection(mp, device="cpu")
+    for c in (jc, pc):
+        c.set_sync_precision({"ap": "q8_block"})
+    assert pc.state_sync_precisions() == jc.state_sync_precisions()
+    assert pc.sync_precision_tag() == jc.sync_precision_tag() != "exact"
+    assert {k for k, v in pc.state_sync_precisions().items() if v == "q8_block"} == {"ap.TPs", "ap.FPs", "ap.FNs"}
+    # counts never quantize: a dict naming one raises, a blanket string skips it
+    with pytest.raises(MetricsTPUUserError, match="exact"):
+        mp.ConfusionMatrix(num_classes=C, device="cpu", sync_precision={"confmat": "q8_block"})
+    assert mp.ConfusionMatrix(num_classes=C, device="cpu", sync_precision="q8_block").sync_precision_tag() == "exact"
+    with pytest.raises(MetricsTPUUserError, match="never registered"):
+        mp.Accuracy(device="cpu", sync_precision={"nope": "q8_block"}).state_sync_precisions()
+    with pytest.raises(ValueError, match="sync_precision"):
+        mp.Accuracy(device="cpu", sync_precision="q4")

@@ -81,3 +81,33 @@ def test_bridge_checks_shapes_and_names():
         state_from_numpy(pm, {}, device="cpu")
     state = state_from_numpy(pm, {"confmat": np.ones((C, C), np.int64)}, device="cpu")
     assert state["confmat"].dtype == torch.int32
+
+
+def test_engine_arena_carries_across_both_ways():
+    """A JAX engine's packed arena (here packed by the JAX layout from a JAX
+    state) seats in the port's StreamingEngine, which finishes the stream;
+    the port engine's arena unpacks with the JAX layout to the JAX state."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+    from metrics_tpu_torch.utils.state_bridge import engine_state_from_numpy, engine_state_to_numpy
+
+    jc = _collection(mt)
+    batches = _batches(4, 40, 2)
+    js = jc.init_state()
+    with use_backend("pallas_interpret"):
+        for i, (p, t) in enumerate(batches):
+            js = jc.update_state(js, jnp.asarray(p), jnp.asarray(t))
+            if i == 1:
+                half = jc.arena_layout().pack(js)
+    engine = StreamingEngine(_collection(mp, device="cpu"), EngineConfig(buckets=(16, 64), kernel_backend="megastep"))
+    engine_state_from_numpy(engine, {k: np.asarray(v) for k, v in half.items()}, jc.arena_layout().leaf_slices(),
+                            host_attrs=jc.host_compute_attrs())
+    for p, t in batches[2:]:
+        engine.submit(torch.from_numpy(p), torch.from_numpy(t))
+    arena, payload = engine_state_to_numpy(engine)
+    assert payload is None
+    back = jc.arena_layout().unpack({k: jnp.asarray(v) for k, v in arena.items()})
+    for k, member in js.items():
+        for s, w in member.items():
+            np.testing.assert_array_equal(np.asarray(back[k][s]), np.asarray(w))
+    with pytest.raises(ValueError, match="pager payload"):
+        engine_state_from_numpy(engine, arena, jc.arena_layout().leaf_slices(), pager_payload={})
