@@ -23,7 +23,10 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    with garbage through ``update_state_masked``; its state must equal phase 4's;
 6. hold K4–K7 (segment reduce, megastep fold, megastep segment and its q8
    decode) against their plain versions on edge cases and, exactly, at the
-   engine's shapes, and time them there;
+   engine's shapes, and time them there: K4, K6 and K7 once with random ids
+   and once as the one-stream step the engines send (every unmasked row in
+   one segment; K4 at a 1000- and a 10-column leaf), each also held exactly
+   against ``index_add`` and K7 bit-identical to K6 on a host-decoded state;
 7. ``StreamingEngine`` under ``kernel_backend="megastep"`` over the same rows
    as ragged 16–1024-row batches: bit-equal to phase 4, two K5 launches per
    step (one per arena dtype) and no K1;
@@ -40,7 +43,9 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
 each must be non-zero. A ``torch.profiler`` trace of one megastep bucket and
 one per-leaf masked bucket (``update_state_masked``) gives the device's busy
-share. The line before the last is the ``kernels`` JSON object: in it
+share. The line before the last is the ``kernels`` JSON object (K4, K6 and
+K7 have one entry per ``traffic``, random ids and one stream, each with
+``device_us``, the device time of each of its two kernels): in it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
 int32 cases, ``max_abs_err_bf16`` over the bf16 cases (null where there are
 none), and ``bound_ms`` counts the bytes this run's data needs (unmasked rows
@@ -48,6 +53,7 @@ only; K7's codes and scales of the flagged slots only). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -118,6 +124,27 @@ def gpu_ms(fn, runs=TIMED_RUNS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_us(fn, runs=20):
+    """Mean device µs per call of each CUDA kernel ``fn`` launches, by kernel
+    name, from a ``torch.profiler`` trace of ``runs`` calls. A kernel launched
+    early (programmatic dependent launch) counts its wait for the one before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = re.search(r"::(\w+)", e.key)
+            out[name.group(1) if name else e.key[:40]] = e.self_device_time_total / runs
+    return out
 
 
 # --------------------------------------------------------------------------- kernels
@@ -393,6 +420,9 @@ def segment_phase(dev, rng):
                          _row_sums(rows, mask, ids, s))
         err[dt == torch.bfloat16] = max(err[dt == torch.bfloat16], e)
 
+    def bound(n, s, f, live):  # unmasked rows, mask and ids read once; the state read and written once
+        return bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
+
     n, s, f = BUCKET, 64, NUM_CLASSES * THRESHOLDS
     rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
     state = torch.zeros((s, f), device=dev)
@@ -413,10 +443,45 @@ def segment_phase(dev, rng):
         "plain_ms": gpu_ms(lambda: segment_reduce_plain(state, rows, m, ids, s, "sum")),
         "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
     }
-    # unmasked rows, mask and ids read once; the state read and written once
-    live = int(m.sum())
-    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
-    return entry
+    entry["bound_ms"], entry["bound_by"] = bound(n, s, f, int(m.sum()))
+    entry["traffic"] = "random ids"
+    entry["device_us"] = device_us(lambda: segment_reduce_cuda(state, rows, m, ids, "sum"))
+    entries = [entry]
+
+    # the step the multi-stream engine sends: one stream's rows, at binned AP's leaf and at a narrow one
+    one_rng = np.random.RandomState(SEED + 5)  # its own draws: the entry above keeps its inputs and bound
+    for f in (NUM_CLASSES * THRESHOLDS, NUM_CLASSES):
+        state = torch.zeros((s, f), device=dev)
+        rows, m, ids, sid = _one_stream(one_rng, n, s, f, dev)
+        masked_rows, ids64 = rows * m[:, None].float(), torch.where(m.bool(), ids, sid).long()
+        got = segment_reduce_cuda(state, rows, m, ids, "sum")
+        check(max_abs_err(got, segment_reduce_plain(state, rows, m, ids, s, "sum")) == 0.0,
+              f"segment: kernel disagrees with its plain version on one stream, F={f}")
+        check(max_abs_err(got, state.index_add(0, ids64, masked_rows)) == 0.0,
+              f"segment: kernel disagrees with index_add on one stream's 0/1 rows, F={f}")
+        one = {k: entry[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "max_abs_err_bf16")}
+        one.update({
+            "shape": f"state ({s}, {f}), rows ({n}, {f}) f32, sum", "traffic": "one stream",
+            "ms": gpu_ms(lambda: segment_reduce_cuda(state, rows, m, ids, "sum")),
+            "plain_ms": gpu_ms(lambda: segment_reduce_plain(state, rows, m, ids, s, "sum")),
+            "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
+            "device_us": device_us(lambda: segment_reduce_cuda(state, rows, m, ids, "sum")),
+        })
+        one["bound_ms"], one["bound_by"] = bound(n, s, f, int(m.sum()))
+        entries.append(one)
+    return entries
+
+
+def _one_stream(rng, n, s, f, dev):
+    """The engines' one-stream step: 0/1 f32 rows, about 10 % masked; every
+    unmasked row carries one stream id, drawn in ``[0, S)``, and masked rows
+    garbage ids. Returns rows, int32 mask, int32 ids and the stream id."""
+    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
+    mask = rng.rand(n) > 0.1
+    sid = int(rng.randint(0, s))
+    ids = np.full(n, sid, np.int32)
+    ids[~mask] = rng.choice(np.array([-7, s, 2**31 - 1], np.int64), int((~mask).sum())).astype(np.int32)
+    return rows, torch.from_numpy(mask.astype(np.int32)).to(dev), torch.from_numpy(ids).to(dev), sid
 
 
 def _op_rows(f):
@@ -545,6 +610,17 @@ def megastep_segment_phase(dev, rng):
     check(max_abs_err(megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8),
                       megastep_segment_plain(state, rows, m, ids, ops, q8=q8)) == 0.0,
           "megastep_segment_q8: kernel disagrees with its plain version at the main path's shape")
+    qcols = int(qcol.sum())
+    state_read = 4 * ((s - flagged) * f + flagged * (f - qcols))
+
+    def k6_bound(live):  # unmasked rows, mask and ids read once; the arena read and written once
+        return bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
+
+    def k7_bound(live):  # as K6, plus the flags and the column mask, and the codes and scales of the
+        # flagged slots only; those slots' quantized columns are decoded, not read
+        return bound_ms(4 * live * f + 8 * n + state_read + 4 * s * f + 4 * s + 4 * f + 5 * flagged * qcols,
+                        live * f + flagged * qcols)
+
     live = int(m.sum())
     k6 = {
         "name": "megastep_segment", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
@@ -555,9 +631,7 @@ def megastep_segment_phase(dev, rng):
         "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops)),
         "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
     }
-    # unmasked rows, mask and ids read once; the arena read and written once (a
-    # uniform op row is not read)
-    k6["bound_ms"], k6["bound_by"] = bound_ms(4 * live * f + 8 * n + 2 * 4 * s * f, live * f)
+    k6["bound_ms"], k6["bound_by"] = k6_bound(live)  # a uniform op row is not read
     k7 = {
         "name": "megastep_segment_q8", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
         "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:258",
@@ -567,14 +641,51 @@ def megastep_segment_phase(dev, rng):
         "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops, q8=q8)),
         "library_ms": None,
     }
-    # as K6, plus the flags and the column mask, and the codes and scales of the
-    # flagged slots only; those slots' quantized columns are decoded, not read
-    qcols = int(qcol.sum())
-    state_read = 4 * ((s - flagged) * f + flagged * (f - qcols))
-    k7["bound_ms"], k7["bound_by"] = bound_ms(
-        4 * live * f + 8 * n + state_read + 4 * s * f + 4 * s + 4 * f + 5 * flagged * qcols,
-        live * f + flagged * qcols)
-    return k6, k7
+    k7["bound_ms"], k7["bound_by"] = k7_bound(live)
+    k6["traffic"] = k7["traffic"] = "random ids"
+    k6["device_us"] = device_us(lambda: megastep_segment_cuda(state, rows, m, ids, ops, "sum"))
+    k7["device_us"] = device_us(lambda: megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8))
+
+    # the step the paged engine sends: one stream's rows into its slot, just paged in (flagged)
+    one_rng = np.random.RandomState(SEED + 6)  # its own draws: the entries above keep their inputs and bounds
+    rows, m, ids, sid = _one_stream(one_rng, n, s, f, dev)
+    masked_rows, ids64 = rows * m[:, None].float(), torch.where(m.bool(), ids, sid).long()
+    flags = torch.zeros(s, dtype=torch.int32, device=dev)
+    flags[[sid] + [x for x in range(s) if x != sid][:flagged - 1]] = 1
+    q8 = (flags, codes, scales, qcol)
+    got = megastep_segment_cuda(state, rows, m, ids, ops, "sum")
+    check(max_abs_err(got, megastep_segment_plain(state, rows, m, ids, ops)) == 0.0,
+          "megastep_segment: kernel disagrees with its plain version on one stream")
+    check(max_abs_err(got, state.index_add(0, ids64, masked_rows)) == 0.0,
+          "megastep_segment: kernel disagrees with index_add on one stream's 0/1 rows")
+    got = megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8)
+    check(max_abs_err(got, megastep_segment_plain(state, rows, m, ids, ops, q8=q8)) == 0.0,
+          "megastep_segment_q8: kernel disagrees with its plain version on one stream")
+    decoded = torch.where((flags[:, None] != 0) & (qcol[None, :] != 0), codes.float() * scales, state)
+    twin = megastep_segment_cuda(decoded, rows, m, ids, ops, "sum")
+    torch.cuda.synchronize()
+    check(torch.equal(got, twin), "megastep_segment_q8: not bit-identical to K6 on the host-decoded state, one stream")
+    live = int(m.sum())
+    keys = ("name", "route", "source", "replaces", "max_abs_err", "max_abs_err_bf16")
+    k6_one = {k: k6[k] for k in keys}
+    k6_one.update({
+        "shape": k6["shape"], "traffic": "one stream",
+        "ms": gpu_ms(lambda: megastep_segment_cuda(state, rows, m, ids, ops, "sum")),
+        "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops)),
+        "library_ms": gpu_ms(lambda: state.index_add(0, ids64, masked_rows)),
+        "device_us": device_us(lambda: megastep_segment_cuda(state, rows, m, ids, ops, "sum")),
+    })
+    k6_one["bound_ms"], k6_one["bound_by"] = k6_bound(live)
+    k7_one = {k: k7[k] for k in keys}
+    k7_one.update({
+        "shape": k7["shape"], "traffic": "one stream",
+        "ms": gpu_ms(lambda: megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8)),
+        "plain_ms": gpu_ms(lambda: megastep_segment_plain(state, rows, m, ids, ops, q8=q8)),
+        "library_ms": None,
+        "device_us": device_us(lambda: megastep_segment_q8_cuda(state, rows, m, ids, ops, "sum", *q8)),
+    })
+    k7_one["bound_ms"], k7_one["bound_by"] = k7_bound(live)
+    return [k6, k6_one], [k7, k7_one]
 
 
 # ------------------------------------------------------------------------- main path
@@ -849,9 +960,9 @@ def main():
     binned_entry, binned_extra = binned_phase(dev, rng)
     print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
-    segment_entry = segment_phase(dev, rng)
+    segment_entries = segment_phase(dev, rng)
     mega_fold_entry = megastep_fold_phase(dev, rng)
-    mega_seg_entry, mega_q8_entry = megastep_segment_phase(dev, rng)
+    mega_seg_entries, mega_q8_entries = megastep_segment_phase(dev, rng)
     print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s)")
 
     data_rng = np.random.RandomState(SEED)
@@ -954,7 +1065,8 @@ def main():
     print(json.dumps(phases_line))
 
     entries = []
-    for e in (fold_entry, hist_entry, binned_entry, segment_entry, mega_fold_entry, mega_seg_entry, mega_q8_entry):
+    for e in (fold_entry, hist_entry, binned_entry, *segment_entries, mega_fold_entry, *mega_seg_entries,
+              *mega_q8_entries):
         e["launches"] = launches[e["name"]]
         entries.append(e)
     print(json.dumps({"kernels": entries}))

@@ -45,8 +45,10 @@ _SIGNATURES = {
         "histogram_weights": (_P, _P, _L, _I, _I, _I, _P, _P),
     },
     "binned": {"binned_counts": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P)},
-    "segment": {"segment_fold": (_P,) * 13 + (_I, _I, _I, _I, _I, _P)},
+    "segment": {"segment_fold": (_P,) * 11 + (_I,) * 5 + (_P,), "segment_scratch_ints": (_I, _I, _I)},
 }
+# return types other than int (a CUDA error code)
+_RESTYPES = {"segment_scratch_ints": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -115,7 +117,7 @@ def library(name: str) -> ctypes.CDLL:
                 for fn_name, argtypes in _SIGNATURES[lib_name].items():
                     fn = getattr(lib, fn_name)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
                 _libs[lib_name] = lib
         return _libs[name]
 

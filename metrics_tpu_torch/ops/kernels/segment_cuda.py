@@ -2,15 +2,24 @@
 launcher the megastep segment forms (K6, K7) share with it.
 
 Replaces ``metrics_tpu/ops/kernels/pallas_segment.py::segment_reduce_pallas``.
-The kernel (``csrc/segment.cu``) sorts the row indices by segment in one warp
-(a stable counting sort; masked rows and out-of-range ids go to a bin that is
-never read), then gives every ``(segment, column)`` cell one thread that folds
-that segment's rows in row order: no atomics, and float sums the same on every
-run. It takes every S and F: the TPU's VMEM gates (``block_rows``, the
-``num_segments * f * itemsize`` test) have no counterpart. It is bound by
-bytes (rows read once, the ``(S, F)`` state read and written once).
-:func:`segment_reduce_cuda` is the wrapper; the plain version is
-:func:`segment_reduce_plain` (``xla_ref.segment_reduce_ref``).
+The kernel (``csrc/segment.cu``) is bound by bytes (rows read once, the
+``(S, F)`` state read and written once) and runs in two launches. Pass 0, one
+block of 1024 threads, reads ids and mask once and sorts the row indices by
+segment (a stable counting sort: each warp counts a contiguous range of rows
+into a ``(segment, warp)`` table that the whole block scans; masked rows and
+out-of-range ids drop, their ids never used as addresses), and cuts every
+segment of more than 64 rows into 64-row chunks. Pass 1 gives every
+``(segment, 128-column tile)`` one block: a short segment is folded in row
+order straight into the output, an untouched one copied through, and a long
+one (the engines' one-stream step puts every row in one segment) is folded
+by one block per chunk into partials that the tile's last block to finish
+folds in chunk order. One writer per cell, no float atomics: float sums are
+the same on every run. It takes every S and F: the TPU's VMEM gates
+(``block_rows``, the ``num_segments * f * itemsize`` test) have no
+counterpart. The kernel allocates nothing: the wrapper sizes one int32
+scratch buffer with ``segment_scratch_ints``. :func:`segment_reduce_cuda` is
+the wrapper; the plain version is :func:`segment_reduce_plain`
+(``xla_ref.segment_reduce_ref``).
 """
 from typing import Optional, Tuple
 
@@ -24,7 +33,6 @@ __all__ = ["segment_reduce_cuda", "segment_reduce_plain"]
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 MIXED = 3  # the kernels' code for an op row that is not uniform
-_SHARED_BINS = 12288  # keep in step with csrc/segment.cu: past this the bins go to global memory
 
 
 def check_inputs(name: str, state: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
@@ -60,22 +68,19 @@ def launch_segment_fold(name: str, state: torch.Tensor, rows: torch.Tensor, mask
     s, f = state.shape
     n = rows.shape[0]
     dev = state.device
-    offsets = torch.empty(s + 2, dtype=torch.int32, device=dev)
-    cursor = torch.empty(s + 1, dtype=torch.int32, device=dev) if s + 1 > _SHARED_BINS else None
-    order = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    lib = build.library("segment")
+    scratch = torch.empty(lib.segment_scratch_ints(n, s, f), dtype=torch.int32, device=dev)
     out = torch.empty_like(state)
     flags, codes, scales, qcol = q8 if q8 is not None else (None, None, None, None)
 
     def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
         return None if t is None else t.data_ptr()
 
-    lib = build.library("segment")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segment_fold(state.data_ptr(), rows.data_ptr(), ids.data_ptr(), mask.data_ptr(), ptr(ops),
-                               ptr(flags), ptr(codes), ptr(scales), ptr(qcol), offsets.data_ptr(),
-                               ptr(cursor), order.data_ptr(), out.data_ptr(), n, f, s,
-                               DTYPE_CODE[state.dtype], uniform, stream)
+                               ptr(flags), ptr(codes), ptr(scales), ptr(qcol), scratch.data_ptr(),
+                               out.data_ptr(), n, f, s, DTYPE_CODE[state.dtype], uniform, stream)
     build.check(err, f"{name} launch")
     return out
 

@@ -89,6 +89,12 @@ def _segment_case(rng, dtype, n, s, f, nan=False):
     return rows, state, torch.from_numpy(mask.astype(np.int32)), torch.from_numpy(ids)
 
 
+def _sum_bound(n, seed, rows, mask):
+    """Per cell, how far two f32 sums of the same ``n`` terms taken in other
+    orders can lie apart: each side within ``n * 2**-24 * sum|terms|``."""
+    return 2 * n * 2.0 ** -24 * (seed.abs() + (rows.abs() * mask[:, None]).sum(0)).cpu()
+
+
 def _same(got, want, dtype, fx_sum):
     # small integers: f32 and int32 sums are exact; bf16 sums round once in both
     atol = 2.0 ** -7 * 4096 if dtype == torch.bfloat16 and fx_sum else 0
@@ -108,6 +114,95 @@ def test_segment_kernel_matches_plain_on_card(cuda, dtype, fx, s):
     got = segment_reduce_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), fx)
     assert segment_reduce_cuda.launches == before + 1
     _same(got, segment_reduce_plain(state, rows, mask, ids, s, fx), dtype, fx == "sum")
+
+
+R = 64  # csrc/segment.cu's chunk: a segment of more rows is folded by one block per chunk
+
+
+def _long_segments(rng, lengths, s, f, extra_masked=0):
+    """Rows (small ints, f32), a state and int32 mask/ids in which segment
+    ``k`` holds ``lengths[k]`` live rows, interleaved in row order, plus
+    ``extra_masked`` masked rows with garbage ids."""
+    sids = np.concatenate([np.full(n, k, np.int32) for k, n in enumerate(lengths)] +
+                          [np.full(extra_masked, -1, np.int32)])
+    rng.shuffle(sids)
+    n = len(sids)
+    mask = (sids >= 0).astype(np.int32)
+    ids = np.where(sids >= 0, sids, rng.choice([-7, s, 2**31 - 1], n)).astype(np.int32)
+    rows = torch.from_numpy(rng.randint(-100, 100, (n, f)).astype(np.float32))
+    state = torch.from_numpy(rng.randint(-100, 100, (s, f)).astype(np.float32))
+    return rows, state, torch.from_numpy(mask), torch.from_numpy(ids)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [R - 1, R, R + 1, 4096])
+@pytest.mark.parametrize("f", [1, 1000])
+@pytest.mark.parametrize("fx", ["sum", "max"])
+def test_segment_kernel_folds_one_long_segment(cuda, n, f, fx):
+    """The engines' one-stream step: every live row in one segment, so its
+    chunks fold into partials and the last block of each tile folds those."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_segment_cuda, megastep_segment_plain
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    rng = np.random.RandomState(n + f)
+    s = 64
+    rows, state, mask, ids = _long_segments(rng, [0] * 5 + [n], s, f, extra_masked=n // 8)
+    got = segment_reduce_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), fx)
+    _same(got, segment_reduce_plain(state, rows, mask, ids, s, fx), torch.float32, fx == "sum")
+    ops = torch.from_numpy(rng.randint(0, 3, f).astype(np.int32))  # a mixed op row through K6
+    got = megastep_segment_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), ops.to(cuda), None)
+    _same(got, megastep_segment_plain(state, rows, mask, ids, ops), torch.float32, True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(R + 1, 2 * R + 5), (3 * R + 7, 0, R, 2 * R + 1)])
+def test_segment_kernel_folds_long_segments_sharing_a_chunk_boundary(cuda, dtype, lengths):
+    """Long segments side by side in the sorted order: a chunk of R rows would
+    straddle two of them, so each segment's chunks start at its own first row."""
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    rng = np.random.RandomState(len(lengths))
+    s, f = 9, 200
+    rows, state, mask, ids = _long_segments(rng, lengths, s, f, extra_masked=13)
+    rows, state = rows.to(dtype), state.to(dtype)
+    for fx in ("sum", "min", "max"):
+        got = segment_reduce_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), fx)
+        _same(got, segment_reduce_plain(state, rows, mask, ids, s, fx), dtype, fx == "sum")
+
+
+@pytest.mark.requires_cuda
+def test_segment_kernel_folds_a_long_segment_past_the_shared_table(cuda):
+    """S = 13 000: the sort's (segment, warp) table lives in global memory."""
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    rng = np.random.RandomState(7)
+    s, f = 13000, 33
+    lengths = [0] * s
+    lengths[12345], lengths[3] = 700, 5
+    rows, state, mask, ids = _long_segments(rng, lengths, s, f, extra_masked=40)
+    got = segment_reduce_cuda(state.to(cuda), rows.to(cuda), mask.to(cuda), ids.to(cuda), "sum")
+    _same(got, segment_reduce_plain(state, rows, mask, ids, s, "sum"), torch.float32, True)
+
+
+@pytest.mark.requires_cuda
+def test_segment_kernel_sums_are_the_same_on_every_run(cuda):
+    """f32 sums of random (non-integer) rows at the one-stream shape: no float
+    atomics, so every run gives the same bits."""
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    rng = np.random.RandomState(8)
+    s, n, f = 64, 1024, 1000
+    rows = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(cuda)
+    state = torch.from_numpy(rng.randn(s, f).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(cuda)
+    ids = torch.where(mask.bool(), 17, -7).to(torch.int32)
+    first = segment_reduce_cuda(state, rows, mask, ids, "sum")
+    for _ in range(5):
+        assert torch.equal(segment_reduce_cuda(state, rows, mask, ids, "sum"), first)
+    want = segment_reduce_plain(state, rows, mask, ids, s, "sum")
+    assert ((first - want).abs()[17].cpu() <= _sum_bound(n, state[17], rows, mask)).all()
+    assert torch.equal(torch.cat([first[:17], first[18:]]), torch.cat([state[:17], state[18:]]))
 
 
 @pytest.mark.requires_cuda
@@ -136,10 +231,11 @@ def test_megastep_kernels_match_plain_on_card(cuda, dtype, uniform):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n", [0, 211])
-def test_q8_segment_kernel_decodes_like_the_host_codec(cuda, n):
+@pytest.mark.parametrize("n, one_stream", [(0, False), (211, False), (500, True)])
+def test_q8_segment_kernel_decodes_like_the_host_codec(cuda, n, one_stream):
     """K7 equals K6 run on a state decoded beforehand, bit for bit, including
-    flagged slots no row touches and a step without rows."""
+    flagged slots no row touches, a step without rows, and one flagged slot
+    that takes every row (a long segment, folded through partials)."""
     from metrics_tpu_torch.ops.kernels.megastep_cuda import (
         megastep_segment_cuda,
         megastep_segment_plain,
@@ -152,6 +248,8 @@ def test_q8_segment_kernel_decodes_like_the_host_codec(cuda, n):
     state = torch.from_numpy(rng.rand(s, f).astype(np.float32))
     mask = torch.from_numpy((rng.rand(n) > 0.2).astype(np.int32))
     ids = torch.from_numpy(rng.randint(0, s // 2, n).astype(np.int32))  # slots >= s/2 untouched
+    if one_stream:
+        ids[:] = 2  # a flagged slot
     flags = torch.from_numpy((np.arange(s) % 3 != 1).astype(np.int32))
     codes = torch.from_numpy(rng.randint(-127, 128, (s, f)).astype(np.int8))
     scales = torch.from_numpy((rng.rand(s, f) * 1e-2).astype(np.float32))
@@ -168,6 +266,9 @@ def test_q8_segment_kernel_decodes_like_the_host_codec(cuda, n):
                                  ops.to(cuda), "sum")
     assert torch.equal(got, twin)
     want = megastep_segment_plain(state, rows, mask, ids, ops, q8=(flags, codes, scales, qcol))
+    if one_stream:  # one slot sums ~400 rows: the two sum orders differ by up to the bound
+        assert ((got.cpu() - want).abs()[2] <= _sum_bound(n, torch.from_numpy(decoded[2]), rows, mask)).all()
+        got, want = torch.cat([got[:2], got[3:]]), torch.cat([want[:2], want[3:]])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
 
 

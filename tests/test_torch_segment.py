@@ -29,17 +29,27 @@ from metrics_tpu_torch.ops.kernels import dispatch as pd
 DTYPES = {"float32": (jnp.float32, torch.float32), "int32": (jnp.int32, torch.int32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 S, N, F = 7, 61, 9
+N_ONE_STREAM = 257  # on the card the kernel cuts a segment this long into five 64-row chunks
 
 
-def _case(seed, dtype, n=N, s=S, nan=True):
+def _case(seed, dtype, n=N, s=S, nan=True, one_stream=False):
+    """Rows, state, bool mask and int32 ids; with ``one_stream`` every unmasked
+    row carries one id (the engines' step), else ids are random in ``[0, S)``.
+    Masked rows carry garbage ids either way. One stream's rows lie in
+    {-1, 0, 1}, so every partial sum of its segment is an integer of at most
+    256 in magnitude, exact in bf16: the JAX plain path's bf16 scatter-add
+    rounds once per row, which the tolerance does not cover."""
     rng = np.random.RandomState(seed)
-    rows = rng.randint(-50, 50, (n, F)).astype(np.float32)
+    rows = rng.randint(-1, 2, (n, F)) if one_stream else rng.randint(-50, 50, (n, F))
+    rows = rows.astype(np.float32)
     state = rng.randint(-50, 50, (s, F)).astype(np.float32)
     if dtype != "int32" and nan and n > 5:
         rows[3, 1] = np.nan
         rows[5, 2] = -np.inf
     mask = rng.rand(n) > 0.3
     ids = rng.randint(0, s, n).astype(np.int32)
+    if one_stream:
+        ids[:] = rng.randint(0, s)
     ids[~mask] = rng.choice([-7, s, 2**31 - 1], int((~mask).sum()))
     return rows, state, mask, ids
 
@@ -79,10 +89,7 @@ def _ops(kind, seed):
     return np.random.RandomState(seed).randint(0, 3, F).astype(np.int32)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("fx", ["sum", "min", "max"])
-def test_segment_reduce_matches_jax(dtype, fx):
-    rows, state, mask, ids = _case(0, dtype)
+def _segment_reduce_parity(dtype, fx, rows, state, mask, ids):
     with use_backend("pallas_interpret"):
         kern = jd.segment_reduce_masked(_j(state, dtype), _j(rows, dtype), jnp.asarray(mask), jnp.asarray(ids), S, fx)
     ref = jref.segment_reduce_ref(_j(state, dtype), _j(rows, dtype), jnp.asarray(mask), jnp.asarray(ids), S, fx)
@@ -91,6 +98,19 @@ def test_segment_reduce_matches_jax(dtype, fx):
     sums = _row_sums(rows, mask, ids, S)
     _assert_same(got, kern, dtype, fx == "sum", sums)
     _assert_same(got, ref, dtype, fx == "sum", sums)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fx", ["sum", "min", "max"])
+def test_segment_reduce_matches_jax(dtype, fx):
+    _segment_reduce_parity(dtype, fx, *_case(0, dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fx", ["sum", "min", "max"])
+def test_segment_reduce_matches_jax_on_one_stream(dtype, fx):
+    """The multi-stream engine's step: every unmasked row in one segment."""
+    _segment_reduce_parity(dtype, fx, *_case(6, dtype, n=N_ONE_STREAM, one_stream=True))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -107,11 +127,7 @@ def test_megastep_fold_matches_jax(dtype, ops):
     _assert_same(got, np.asarray(ref)[0], dtype, op == 0, sums)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("ops", ["sum", "min", "max", "mixed"])
-def test_megastep_segment_matches_jax(dtype, ops):
-    rows, state, mask, ids = _case(2, dtype)
-    op = _ops(ops, 2)
+def _megastep_segment_parity(dtype, op, rows, state, mask, ids):
     with use_backend("megastep_interpret"):
         kern = jd.megastep_segment(_j(state, dtype), _j(rows, dtype), jnp.asarray(mask), jnp.asarray(ids), S, op)
     ref = jref.megastep_segment_ref(_j(state, dtype), _j(rows, dtype), jnp.asarray(mask), jnp.asarray(ids), S,
@@ -120,6 +136,19 @@ def test_megastep_segment_matches_jax(dtype, ops):
     sums = _row_sums(rows, mask, ids, S)
     _assert_same(got, kern, dtype, op == 0, sums)
     _assert_same(got, ref, dtype, op == 0, sums)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ops", ["sum", "min", "max", "mixed"])
+def test_megastep_segment_matches_jax(dtype, ops):
+    _megastep_segment_parity(dtype, _ops(ops, 2), *_case(2, dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ops", ["sum", "min", "max", "mixed"])
+def test_megastep_segment_matches_jax_on_one_stream(dtype, ops):
+    """The paged engine's step: every unmasked row in one slot."""
+    _megastep_segment_parity(dtype, _ops(ops, 7), *_case(7, dtype, n=N_ONE_STREAM, one_stream=True))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
