@@ -14,7 +14,11 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
 3. hold K1–K3 against their plain PyTorch versions on the card: at the shapes
    the main path gives them, on edge cases, and through their
    ``torch.func.vmap`` rules at a 1024-row bucket; then time kernel, plain
-   version and (where one PyTorch call computes the same function) that call;
+   version and (where one PyTorch call computes the same function) that call
+   at each shape the main path launches: K1 at the masked step's leaves over
+   a 1024-row bucket (1000 f32, 100, 10 and 1 int32 columns), K3 at the
+   one-shot (16 384, 10) batch and at the vmapped (1, B*10) row of the 64-,
+   256- and 1024-row buckets, each against 100 thresholds;
 4. the main path: the flagship collection (Accuracy, macro F1, binned AP over
    100 thresholds, confusion matrix; 10 classes) updated over 65 536 rows in
    batches, then computed; held against the same collection on the CPU and
@@ -23,7 +27,9 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    with garbage through ``update_state_masked``; its state must equal phase 4's;
 6. hold K4–K7 (segment reduce, megastep fold, megastep segment and its q8
    decode) against their plain versions on edge cases and, exactly, at the
-   engine's shapes, and time them there: K4, K6 and K7 once with random ids
+   engine's shapes, and time them there: K5 at the flagship arena's two
+   buffers (3000 f32 and 146 int32 columns) over 1024- and 256-row buckets;
+   K4, K6 and K7 once with random ids
    and once as the one-stream step the engines send (every unmasked row in
    one segment; K4 at a 1000- and a 10-column leaf), each also held exactly
    against ``index_add`` and K7 bit-identical to K6 on a host-decoded state;
@@ -43,9 +49,10 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
 each must be non-zero. A ``torch.profiler`` trace of one megastep bucket and
 one per-leaf masked bucket (``update_state_masked``) gives the device's busy
-share. The line before the last is the ``kernels`` JSON object (K4, K6 and
-K7 have one entry per ``traffic``, random ids and one stream, each with
-``device_us``, the device time of each of its two kernels): in it
+share. The line before the last is the ``kernels`` JSON object: K1, K3 and
+K5 have one entry per shape above, K4, K6 and K7 one per ``traffic``
+(random ids and one stream), each with ``device_us``, the device time of
+each CUDA kernel the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
 int32 cases, ``max_abs_err_bf16`` over the bf16 cases (null where there are
 none), and ``bound_ms`` counts the bytes this run's data needs (unmasked rows
@@ -135,15 +142,18 @@ def device_us(fn, runs=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            name = re.search(r"::(\w+)", e.key)
-            out[name.group(1) if name else e.key[:40]] = e.self_device_time_total / runs
+    for _ in range(3):  # a trace now and then comes back without device events: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                name = re.search(r"::(\w+)", e.key)
+                out[name.group(1) if name else e.key[:40]] = e.self_device_time_total / runs
+        if out:
+            break
     return out
 
 
@@ -188,29 +198,44 @@ def fold_phase(dev, rng):
         m = torch.from_numpy(mask.astype(np.int32))
         got = fold_rows_cuda(state.to(dev), rows.to(dev), m.to(dev), fx)
         want = fold_rows_plain(state.to(dev), rows.to(dev), m.to(dev), fx)
-        e = _check_close(got, want, f"fold {dt}/{fx}/{n}x{f}/{pattern}", fx == "sum", _row_sums(rows, m, None, 1))
+        e = _check_close(got, want, f"fold {dt}/{fx}/{n}x{f}/{pattern}", fx == "sum", _row_sums(rows, m, None, 1),
+                         _reassociation_bound(rows, m, state))
         err[dt == "bfloat16"] = max(err[dt == "bfloat16"], e)
 
-    # timed at the masked step's widest leaf: binned AP's (10, 100) f32 counts over 1024 rows
-    n, f = BUCKET, NUM_CLASSES * THRESHOLDS
-    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
-    state = torch.zeros(f, device=dev)
+    # timed at the masked step's leaves over a 1024-row bucket: binned AP's (10, 100) f32
+    # counts, the confusion matrix, F1's per-class counts, accuracy's scalars (int32)
+    head = {"name": "fold_rows", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
+            "replaces": "metrics_tpu/ops/kernels/pallas_fold.py:48",
+            "max_abs_err": err[False], "max_abs_err_bf16": err[True]}
+    return [_timed_fold(head, lambda s, r, m: fold_rows_cuda(s, r, m, "sum"),
+                        lambda s, r, m: fold_rows_plain(s, r, m, "sum"), dtype, BUCKET, f, rng, dev)
+            for f, dtype in ((NUM_CLASSES * THRESHOLDS, torch.float32), (NUM_CLASSES * NUM_CLASSES, torch.int32),
+                             (NUM_CLASSES, torch.int32), (1, torch.int32))]
+
+
+def _timed_fold(head, kernel, plain, dtype, n, f, rng, dev):
+    """One ``kernels`` entry of a masked sum fold (K1 or K5) of ``(n, f)``
+    rows: 0/1 rows, about 10 % masked, so kernel, plain version and
+    ``torch.addmv`` agree exactly; then each is timed. ``kernel`` and ``plain``
+    take (state, rows, mask). An int32 fold's ``addmv`` runs on float copies,
+    made before the timing: only the call is timed."""
+    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.int32)).to(dev, dtype)
+    state = torch.zeros(f, dtype=dtype, device=dev)
     m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
-    mf = m.to(torch.float32)
-    # 0/1 rows: every sum is an integer, so kernel, plain version and library call agree exactly
-    got = fold_rows_cuda(state, rows, m, "sum")
-    check(max_abs_err(got, fold_rows_plain(state, rows, m, "sum")) == 0.0,
-          "fold: kernel disagrees with its plain version at the main path's shape")
-    check(max_abs_err(got, torch.addmv(state, rows.t(), mf)) == 0.0, "fold: kernel disagrees with addmv on 0/1 rows")
-    entry = {
-        "name": "fold_rows", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
-        "replaces": "metrics_tpu/ops/kernels/pallas_fold.py:48", "shape": f"rows ({n}, {f}) f32, sum",
-        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
-        "ms": gpu_ms(lambda: fold_rows_cuda(state, rows, m, "sum")),
-        "plain_ms": gpu_ms(lambda: fold_rows_plain(state, rows, m, "sum")),
-        "library_ms": gpu_ms(lambda: torch.addmv(state, rows.t(), mf)),
-    }
-    # unmasked rows and the mask read once, the state read and written once
+    rows_f, state_f, mf = rows.float(), state.float(), m.float()
+    got = kernel(state, rows, m)
+    what = f"{head['name']} ({n}, {f}) {dtype}"
+    check(max_abs_err(got, plain(state, rows, m)) == 0.0, f"{what}: kernel disagrees with its plain version")
+    check(max_abs_err(got.float(), torch.addmv(state_f, rows_f.t(), mf)) == 0.0, f"{what}: kernel disagrees with addmv")
+    entry = dict(head, shape=f"rows ({n}, {f}) {str(dtype).replace('torch.', '')}, sum")
+    entry.update({
+        "ms": gpu_ms(lambda: kernel(state, rows, m)),
+        "plain_ms": gpu_ms(lambda: plain(state, rows, m)),
+        "library_ms": gpu_ms(lambda: torch.addmv(state_f, rows_f.t(), mf)),
+        "device_us": device_us(lambda: kernel(state, rows, m)),
+    })
+    # unmasked rows and the mask read once, the state read and written once (a
+    # uniform op row is not read)
     live = int(m.sum())
     entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 4 * n + 2 * 4 * f, live * f)
     return entry
@@ -317,25 +342,31 @@ def binned_phase(dev, rng):
     for g, w in zip(got, want):
         check(g.shape == (BUCKET, NUM_CLASSES, THRESHOLDS) and torch.equal(g.cpu(), w), "binned vmap rule")
 
-    n, c, t = BATCH, NUM_CLASSES, THRESHOLDS
-    p, y = data(n, c, False)
+    # timed at the one-shot batch and at the vmapped buckets that carry nearly every
+    # launch: phase 9's 64 and 256 rows, phases 5 and 7's 1024, each one (1, B*C) row
+    c, t = NUM_CLASSES, THRESHOLDS
+    p, y = data(BATCH, c, False)
     th = thr(t)
-    entry = {
-        "name": "binned_counts", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/binned.cu",
-        "replaces": "metrics_tpu/ops/binned_update.py:69", "shape": f"preds ({n}, {c}) f32, T={t}",
-        "max_abs_err": 0.0, "max_abs_err_bf16": None,  # f32 preds only
-        "ms": gpu_ms(lambda: binned_counts_cuda(p, y, th)),
-        "plain_ms": gpu_ms(lambda: binned_counts_torch(p, y, th)),
-        "library_ms": None,
-    }
-    entry["bound_ms"], entry["bound_by"] = bound_ms(n * c * 5 + 4 * t + 3 * 4 * c * t, n * c * t)
-    wp, wy = p[:BUCKET].reshape(1, -1).contiguous(), y[:BUCKET].reshape(1, -1).contiguous()
-    extra = {"name": "binned_counts", "shape": f"preds (1, {BUCKET * c}) f32, T={t} (vmapped bucket)",
-             "ms": gpu_ms(lambda: binned_counts_cuda(wp, wy, th)),
-             "plain_ms": gpu_ms(lambda: binned_counts_torch(wp, wy, th))}
-    extra["bound_ms"], extra["bound_by"] = bound_ms(BUCKET * c * 5 + 4 * t + 3 * 4 * BUCKET * c * t,
-                                                    BUCKET * c * t)
-    return entry, extra
+    entries = []
+    for rows, wide in ((BATCH, False), (PAGED_BUCKETS[0], True), (PAGED_BUCKETS[1], True), (BUCKET, True)):
+        pp, yy = (p[:rows].reshape(1, -1).contiguous(), y[:rows].reshape(1, -1).contiguous()) if wide else (p, y)
+        n, cc = pp.shape
+        check(all(torch.equal(g, w) for g, w in zip(binned_counts_cuda(pp, yy, th), binned_counts_torch(pp, yy, th))),
+              f"binned ({n}, {cc}) x {t}: kernel != plain at a timed shape")
+        entry = {
+            "name": "binned_counts", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/binned.cu",
+            "replaces": "metrics_tpu/ops/binned_update.py:69",
+            "shape": f"preds ({n}, {cc}) f32, T={t}" + (f" (vmapped {rows}-row bucket)" if wide else " (one-shot batch)"),
+            "max_abs_err": 0.0, "max_abs_err_bf16": None,  # f32 preds only; counts exact
+            "ms": gpu_ms(lambda: binned_counts_cuda(pp, yy, th)),
+            "plain_ms": gpu_ms(lambda: binned_counts_torch(pp, yy, th)),
+            "library_ms": None,
+            "device_us": device_us(lambda: binned_counts_cuda(pp, yy, th)),
+        }
+        # preds (4 bytes) and target (1) read once, the thresholds once, three (C, T) f32 written
+        entry["bound_ms"], entry["bound_by"] = bound_ms(n * cc * 5 + 4 * t + 3 * 4 * cc * t, n * cc * t)
+        entries.append(entry)
+    return entries
 
 
 def _segment_case(rng, dtype, n, s, f, pattern):
@@ -372,12 +403,24 @@ def _row_sums(rows, mask, ids, s):
     return torch.zeros((s, rows.shape[1]), dtype=torch.float64).index_add_(0, ids[m].long(), rows[m].double())
 
 
-def _check_close(got, want, what, sum_cols, row_sums):
+def _reassociation_bound(rows, mask, state):
+    """Per column, how far two f32 sums of the state and the unmasked rows,
+    taken in other orders, can lie apart: each within n * 2**-24 * sum|terms|
+    of the exact sum, n the number of terms."""
+    m = mask.bool()
+    terms = int(m.sum()) + 1
+    return 2 * terms * 2.0 ** -24 * (state.double().abs() + rows[m].double().abs().sum(0))
+
+
+def _check_close(got, want, what, sum_cols, row_sums, reassociation=None):
     """``got`` against ``want`` cell by cell; returns the largest |got - want|.
     Ints, and every column outside ``sum_cols`` (a bool or an ``(F,)`` bool
-    tensor), exact; f32 sums within 1e-5 + 1e-6 * scale; a bf16 sum rounds
-    twice in both (the rows' f32 sum, then its add to the state), so within
-    2**-8 * (2|R| + |got| + |want|), R the cell's exact row sum (``row_sums``)."""
+    tensor), exact; f32 sums within 1e-5 + 1e-6 * scale, or, where the kernel
+    folds in an order of its own (K1 and K5: row lanes, a tree, cluster
+    ranks), within the larger ``reassociation`` bound per cell; a bf16 sum
+    rounds twice in both (the rows' f32 sum, then its add to the state), so
+    within 2**-8 * (2|R| + |got| + |want|), R the cell's exact row sum
+    (``row_sums``)."""
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype/shape")
     g, w = got.detach().double().cpu(), want.detach().double().cpu()
@@ -388,7 +431,10 @@ def _check_close(got, want, what, sum_cols, row_sums):
         tol = torch.zeros_like(g)
     elif got.dtype == torch.float32:
         scale = float(w.abs().nan_to_num(posinf=0, neginf=0).max()) if w.numel() else 0.0
-        tol = torch.where(sums, 1e-5 + 1e-6 * scale, 0.0)
+        tol = torch.full_like(g, 1e-5 + 1e-6 * scale)
+        if reassociation is not None:
+            tol = torch.maximum(tol, reassociation.expand(g.shape))
+        tol = torch.where(sums, tol, 0.0)
     else:
         tol = torch.where(sums, 2.0 ** -8 * (2 * row_sums.abs() + g.abs() + w.abs()), 0.0)
     bad = ~same & ~(diff <= tol)  # a NaN difference fails too
@@ -508,34 +554,23 @@ def megastep_fold_phase(dev, rng):
                 got = megastep_fold_cuda(state[0].to(dev), rows.to(dev), mask.to(dev), ops.to(dev), uniform)
                 want = megastep_fold_plain(state[0], rows, mask, ops)
                 e = _check_close(got, want, f"megastep_fold {dt}/{uniform}/{n}x{f}/{pattern}", sum_cols,
-                                 _row_sums(rows, mask, None, 1))
+                                 _row_sums(rows, mask, None, 1), _reassociation_bound(rows, mask, state[0]))
                 err[dt == torch.bfloat16] = max(err[dt == torch.bfloat16], e)
 
-    n, f = BUCKET, 3 * NUM_CLASSES * THRESHOLDS
-    rows = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
-    state = torch.zeros(f, device=dev)
-    m = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(dev)
-    mf = m.to(torch.float32)
-    ops = torch.zeros(f, dtype=torch.int32, device=dev)
-    # 0/1 rows: every sum is an integer, so kernel, plain version and library call agree exactly
-    got = megastep_fold_cuda(state, rows, m, ops, "sum")
-    check(max_abs_err(got, megastep_fold_plain(state, rows, m, ops)) == 0.0,
-          "megastep_fold: kernel disagrees with its plain version at the main path's shape")
-    check(max_abs_err(got, torch.addmv(state, rows.t(), mf)) == 0.0,
-          "megastep_fold: kernel disagrees with addmv on 0/1 rows")
-    entry = {
-        "name": "megastep_fold", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
-        "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:86", "shape": f"arena ({f},), rows ({n}, {f}) f32, sum",
-        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
-        "ms": gpu_ms(lambda: megastep_fold_cuda(state, rows, m, ops, "sum")),
-        "plain_ms": gpu_ms(lambda: megastep_fold_plain(state, rows, m, ops)),
-        "library_ms": gpu_ms(lambda: torch.addmv(state, rows.t(), mf)),
-    }
-    # unmasked rows and the mask read once, the arena read and written once (a
-    # uniform op row is not read)
-    live = int(m.sum())
-    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 4 * n + 2 * 4 * f, live * f)
-    return entry
+    # timed at the flagship arena's two buffers (both uniform sum rows, as phase 7 sends
+    # them): 3000 f32 columns and the int32 width ArenaLayout gives, over both buckets
+    widths = make_collection(torch.device("cpu")).arena_layout().buffer_sizes()
+    head = {"name": "megastep_fold", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
+            "replaces": "metrics_tpu/ops/kernels/pallas_megastep.py:86",
+            "max_abs_err": err[False], "max_abs_err_bf16": err[True]}
+    entries = []
+    for key, dtype in (("float32", torch.float32), ("int32", torch.int32)):
+        ops = torch.zeros(widths[key], dtype=torch.int32, device=dev)
+        for n in (BUCKET, 256):
+            entries.append(_timed_fold(head, lambda s, r, m: megastep_fold_cuda(s, r, m, ops, "sum"),
+                                       lambda s, r, m: megastep_fold_plain(s, r, m, ops), dtype, n, widths[key],
+                                       rng, dev))
+    return entries
 
 
 def megastep_segment_phase(dev, rng):
@@ -955,13 +990,13 @@ def main():
 
     rng = np.random.RandomState(SEED)
     t0 = time.perf_counter()
-    fold_entry = fold_phase(dev, rng)
+    fold_entries = fold_phase(dev, rng)
     hist_entry, hist_extra = hist_phase(dev, rng)
-    binned_entry, binned_extra = binned_phase(dev, rng)
+    binned_entries = binned_phase(dev, rng)
     print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
     segment_entries = segment_phase(dev, rng)
-    mega_fold_entry = megastep_fold_phase(dev, rng)
+    mega_fold_entries = megastep_fold_phase(dev, rng)
     mega_seg_entries, mega_q8_entries = megastep_segment_phase(dev, rng)
     print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s)")
 
@@ -1060,12 +1095,12 @@ def main():
                       "masked_update_compute_s": masked_s,
                       "accuracy": float(gpu_values["acc"]), "f1": float(gpu_values["f1"]),
                       "mean_ap": float(gpu_values["binned_ap"].mean())},
-        "kernel_shapes": [hist_extra, binned_extra], "card": card,
+        "kernel_shapes": [hist_extra], "card": card,
     }))
     print(json.dumps(phases_line))
 
     entries = []
-    for e in (fold_entry, hist_entry, binned_entry, *segment_entries, mega_fold_entry, *mega_seg_entries,
+    for e in (*fold_entries, hist_entry, *binned_entries, *segment_entries, *mega_fold_entries, *mega_seg_entries,
               *mega_q8_entries):
         e["launches"] = launches[e["name"]]
         entries.append(e)

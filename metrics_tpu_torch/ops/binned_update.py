@@ -5,10 +5,13 @@ Port of ``metrics_tpu/ops/binned_update.py``; the kernel
 (``csrc/binned.cu``) replaces ``binned_counts_pallas``. The binned curve
 metrics accumulate TP/FP/FN counts of shape ``(C, T)`` from ``(N, C)``
 probabilities against ``T`` thresholds. The plain version broadcasts an
-``(N, C, T)`` intermediate; the kernel gives each ``(class, threshold)`` pair
-a thread that counts a chunk of rows in registers, adds the counts to an int32
-buffer with atomics (exact, deterministic) and converts them to f32 at the
-end, so device memory sees the ``(N, C)`` inputs once.
+``(N, C, T)`` intermediate; the kernel is one launch in which a thread counts
+a class against four thresholds in registers and writes its f32 counts
+itself when one row chunk holds every row (the vmapped step). With many rows,
+row chunks add their counts to an int32 buffer with atomics (exact,
+deterministic) and the last chunk of each pair tile writes them out and leaves
+the buffer zero. Device memory sees the ``(N, C)`` inputs and the outputs
+once.
 
 The masked engine step vmaps each update over batch-of-1 rows. The vmap rule
 launches the kernel once: ``(B, N, C)`` preds become ``(N, B*C)`` (the batch
@@ -16,7 +19,7 @@ widens the class axis) and the ``(B*C, T)`` result is reshaped to
 ``(B, C, T)``. On a CUDA tensor the op launches the kernel; on a CPU tensor it
 runs the plain version.
 """
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -36,6 +39,21 @@ def binned_counts_torch(preds: torch.Tensor, target_bool: torch.Tensor, threshol
     fps = torch.sum(~t3 & p3, dim=0, dtype=torch.int32).to(torch.float32)
     fns = torch.sum(t3 & ~p3, dim=0, dtype=torch.int32).to(torch.float32)
     return tps, fps, fns
+
+
+_zeroed: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _zeroed_scratch(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    """An int32 buffer of at least ``numel`` zeros for the kernel's many-row
+    form on ``stream`` (a ``cuda_stream`` handle). The kernel leaves its sums
+    and finish counters zero when it ends, so the buffer is made once per
+    (device, stream), never shared by two streams, and grown, zeroed anew,
+    only when a call needs more."""
+    buf = _zeroed.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = _zeroed[(device, stream)] = torch.zeros(numel, dtype=torch.int32, device=device)
+    return buf
 
 
 def binned_counts_cuda(preds: torch.Tensor, target_bool: torch.Tensor, thresholds: torch.Tensor) -> Counts:
@@ -58,12 +76,13 @@ def binned_counts_cuda(preds: torch.Tensor, target_bool: torch.Tensor, threshold
     if c == 0 or t == 0 or 3 * c * t >= 2**31:
         raise ValueError(f"binned_counts_cuda: cannot take {c} classes x {t} thresholds")
     lib = build.library("binned")
-    counts = torch.empty(3 * c * t, dtype=torch.int32, device=dev)
     tp, fp, fn = (torch.empty((c, t), dtype=torch.float32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        need = lib.binned_scratch_ints(n, c, t)
+        scratch = _zeroed_scratch(dev, stream, need).data_ptr() if need else None
         err = lib.binned_counts(preds.data_ptr(), target_bool.data_ptr(), thresholds.data_ptr(), n, c, t,
-                                counts.data_ptr(), tp.data_ptr(), fp.data_ptr(), fn.data_ptr(), stream)
+                                scratch, tp.data_ptr(), fp.data_ptr(), fn.data_ptr(), stream)
     build.check(err, "binned_counts launch")
     binned_counts_cuda.launches += 1
     return tp, fp, fn

@@ -39,16 +39,19 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # argument types of each library's C entry points (see the csrc sources)
 _SIGNATURES = {
-    "fold": {"fold_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "fold": {"fold_rows": (_P,) * 5 + (_I,) * 4 + (_P,)},
     "hist": {
         "histogram_counts": (_P, _L, _I, _P, _P),
         "histogram_weights": (_P, _P, _L, _I, _I, _I, _P, _P),
     },
-    "binned": {"binned_counts": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P)},
+    "binned": {
+        "binned_counts": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
+        "binned_scratch_ints": (_L, _I, _I),
+    },
     "segment": {"segment_fold": (_P,) * 11 + (_I,) * 5 + (_P,), "segment_scratch_ints": (_I, _I, _I)},
 }
 # return types other than int (a CUDA error code)
-_RESTYPES = {"segment_scratch_ints": _L}
+_RESTYPES = {"segment_scratch_ints": _L, "binned_scratch_ints": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -60,4 +60,28 @@ __device__ __forceinline__ __nv_bfloat16 store(__nv_bfloat16 state, float acc) {
   return __float2bfloat16(combine<FX>(__bfloat162float(state), red));
 }
 
+// The same three with the op known only at run time (a per-column op row); with a
+// compile-time op the switch folds away.
+template <typename A> __device__ __forceinline__ A identity_op(int op) {
+  switch (op) {
+    case SUM: return identity<A, SUM>();
+    case MIN: return identity<A, MIN>();
+    default: return identity<A, MAX>();
+  }
+}
+template <typename A> __device__ __forceinline__ A combine_op(int op, A a, A b) {
+  switch (op) {
+    case SUM: return combine<SUM>(a, b);
+    case MIN: return combine<MIN>(a, b);
+    default: return combine<MAX>(a, b);
+  }
+}
+template <typename T, typename A> __device__ __forceinline__ T store_op(int op, T state, A acc) {
+  switch (op) {
+    case SUM: return store<SUM>(state, acc);
+    case MIN: return store<MIN>(state, acc);
+    default: return store<MAX>(state, acc);
+  }
+}
+
 }  // namespace reduce

@@ -277,15 +277,6 @@ __device__ __forceinline__ A fold_partials_op(int op, const A* partials, int fir
   }
 }
 
-template <typename T, typename A>
-__device__ __forceinline__ T store_op(int op, T seed, A acc) {
-  switch (op) {
-    case SUM: return store<SUM>(seed, acc);
-    case MIN: return store<MIN>(seed, acc);
-    default: return store<MAX>(seed, acc);
-  }
-}
-
 // The host codec's _decode_blocks arithmetic: an exact int8 -> f32 convert, ONE f32
 // multiply, one cast. __fmul_rn is never contracted into an FMA with the fold's first
 // add, which would round differently from the host decode.

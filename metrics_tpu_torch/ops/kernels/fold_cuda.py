@@ -1,10 +1,12 @@
 """K1: the CUDA masked row fold, and its plain version beside it.
 
 Replaces ``metrics_tpu/ops/kernels/pallas_fold.py::fold_rows_pallas``. The
-kernel (``csrc/fold.cu``) is two deterministic passes, column tiles x row
-chunks into partials and then one ordered fold per column, because Hopper's
-thread blocks do not run in sequence the way the TPU grid does. It is bound by
-bytes: the rows are read once. :func:`fold_rows_cuda` is the wrapper; the plain
+kernel (``csrc/fold.cu``) is one launch over column tiles x row chunks, the
+chunks of a tile one thread-block cluster: each chunk folds its rows with
+16-byte loads, and the cluster's first block folds the chunks' values in a
+fixed order through distributed shared memory, because Hopper's thread blocks
+do not run in sequence the way the TPU grid does. It is bound by bytes: the
+unmasked rows are read once. :func:`fold_rows_cuda` is the wrapper; the plain
 version is :func:`fold_rows_plain` (``xla_ref.fold_rows_ref``). The same
 kernel, with a per-column op row, is K5 (``megastep_cuda``), which launches it
 through :func:`launch_fold`.
@@ -19,8 +21,6 @@ from metrics_tpu_torch.ops.kernels.segment_cuda import DTYPE_CODE, check_inputs
 from metrics_tpu_torch.ops.kernels.xla_ref import fold_rows_ref as fold_rows_plain
 
 __all__ = ["fold_rows_cuda", "fold_rows_plain"]
-
-_ROW_CHUNK = 64  # rows per pass-1 block: 16 chunks x 32 column tiles at (1024, 1000)
 
 
 def fold_rows_cuda(state: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor, fx: str) -> torch.Tensor:
@@ -48,15 +48,13 @@ def launch_fold(name: str, state: torch.Tensor, rows: torch.Tensor, mask: torch.
     ``(F,)`` int32 op row."""
     n, f = rows.shape
     dev = state.device
-    acc_dtype = torch.int32 if state.dtype == torch.int32 else torch.float32
-    partials = torch.empty((max(-(-n // _ROW_CHUNK), 1), f), dtype=acc_dtype, device=dev)
     out = torch.empty_like(state)
     lib = build.library("fold")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fold_rows(state.data_ptr(), rows.data_ptr(), mask.data_ptr(),
-                            None if ops is None else ops.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                            n, f, _ROW_CHUNK, DTYPE_CODE[state.dtype], uniform, stream)
+                            None if ops is None else ops.data_ptr(), out.data_ptr(), n, f,
+                            DTYPE_CODE[state.dtype], uniform, stream)
     build.check(err, f"{name} launch")
     return out
 

@@ -7,9 +7,9 @@ int32 op row: 0 sum, 1 min, 2 max; a uniform row takes a body without the
 per-column select).
 
 * K5 :func:`megastep_fold_cuda` (``megastep_fold_pallas``): the ``(F,)`` arena
-  of the single-stream engine, K1's kernel (``csrc/fold.cu``: two
-  deterministic passes, column tiles x row chunks, then an ordered fold per
-  column) given the op row.
+  of the single-stream engine, K1's kernel (``csrc/fold.cu``: one launch over
+  column tiles x row chunks, each tile's chunks one cluster folding their
+  values in a fixed order) given the op row.
 * K6 :func:`megastep_segment_cuda` (``_mega_segment_kernel``): the paged
   engine's ``(S, F)`` slot-stacked arena, ``csrc/segment.cu`` (K4's sort and
   one-writer-per-cell fold) with the op row.

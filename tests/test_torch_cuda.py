@@ -286,3 +286,170 @@ def test_dispatch_launches_the_q8_kernel_on_an_empty_step(cuda):
                            torch.zeros(0, device=cuda), s, np.zeros(f, np.int32), q8=q8)
     assert megastep_segment_q8_cuda.launches == before + 1
     assert torch.equal(out.cpu(), torch.full((s, f), 1.5))
+
+
+def _fold_case(rng, dtype, n, f):
+    """Small-integer rows and state (exact sums in every dtype), an int32 mask
+    with about a third masked, and a mixed op row in runs, as leaves lay out."""
+    rows = torch.from_numpy(rng.randint(-100, 100, (n, f))).to(dtype)
+    state = torch.from_numpy(rng.randint(-100, 100, (f,))).to(dtype)
+    mask = torch.from_numpy((rng.rand(n) > 0.3).astype(np.int32))
+    ops = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32), -(-f // 3))[:f].copy())
+    return rows, state, mask, ops
+
+
+def _check_folds(cuda, rows, state, mask, ops, dtype):
+    """K1 under each op and K5 under each uniform op row and the mixed one,
+    one launch per call, against their plain versions."""
+    from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda, megastep_fold_plain
+
+    d_rows, d_state, d_mask = rows.to(cuda), state.to(cuda), mask.to(cuda)
+    for fx in REDUCE_OPS:
+        before = fold_rows_cuda.launches
+        got = fold_rows_cuda(d_state, d_rows, d_mask, fx)
+        assert fold_rows_cuda.launches == before + 1
+        _same(got, fold_rows_plain(state, rows, mask, fx), dtype, fx == "sum")
+    f = state.shape[0]
+    for uniform, op_row in [(fx, torch.full((f,), i, dtype=torch.int32)) for i, fx in enumerate(REDUCE_OPS)] + \
+            [(None, ops)]:
+        got = megastep_fold_cuda(d_state, d_rows, d_mask, op_row.to(cuda), uniform)
+        _same(got, megastep_fold_plain(state, rows, mask, op_row), dtype, True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 3, 4, 7, 33, 146, 3000])
+def test_fold_kernels_take_every_column_width(cuda, dtype, f):
+    """F a whole number of 16-byte vectors takes the vector body; any other F,
+    and rows whose base is not on 16 bytes, the scalar body."""
+    rng = np.random.RandomState(f)
+    rows, state, mask, ops = _fold_case(rng, dtype, 517, f)
+    _check_folds(cuda, rows, state, mask, ops, dtype)
+    flat = torch.zeros(rows.numel() + 1, dtype=dtype)
+    flat[1:] = rows.reshape(-1)
+    shifted = flat.to(cuda)[1:].view(rows.shape)  # contiguous, its base one element past 16 bytes
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
+
+    _same(fold_rows_cuda(state.to(cuda), shifted, mask.to(cuda), "sum"), fold_rows_plain(state, rows, mask, "sum"),
+          dtype, True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4096])
+def test_fold_kernels_take_every_row_count(cuda, dtype, n):
+    """Row counts on both sides of the chunk and unroll boundaries, and none."""
+    rng = np.random.RandomState(n)
+    rows, state, mask, ops = _fold_case(rng, dtype, n, 300)
+    _check_folds(cuda, rows, state, mask, ops, dtype)
+
+
+@pytest.mark.requires_cuda
+def test_fold_kernel_sums_are_the_same_on_every_run(cuda):
+    """f32 sums of random rows at the megastep arena's shape: no float atomics,
+    so 20 calls give the same bits, within the reassociation bound of the plain sum."""
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
+
+    rng = np.random.RandomState(9)
+    n, f = 1024, 3000
+    rows = torch.from_numpy(rng.randn(n, f).astype(np.float32)).to(cuda)
+    state = torch.from_numpy(rng.randn(f).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(n) > 0.1).astype(np.int32)).to(cuda)
+    first = fold_rows_cuda(state, rows, mask, "sum")
+    for _ in range(20):
+        assert torch.equal(fold_rows_cuda(state, rows, mask, "sum"), first)
+    want = fold_rows_plain(state, rows, mask, "sum")
+    assert ((first - want).abs().cpu() <= _sum_bound(n, state, rows, mask)).all()
+
+
+@pytest.mark.requires_cuda
+def test_fold_kernels_run_many_shapes_in_a_row(cuda):
+    """Many calls in a row, at shapes with other tile, chunk and cluster
+    counts in turn, each against its plain version: nothing one call leaves
+    on the card changes the next."""
+    rng = np.random.RandomState(10)
+    cases = [_fold_case(rng, dtype, n, f) + (dtype,) for dtype, n, f in
+             ((torch.float32, 1024, 3000), (torch.int32, 256, 146), (torch.bfloat16, 65, 7),
+              (torch.int32, 1024, 1), (torch.float32, 256, 3000))]
+    for _ in range(10):
+        for rows, state, mask, ops, dtype in cases:
+            _check_folds(cuda, rows, state, mask, ops, dtype)
+
+
+def _binned_check(cuda, preds, target, thresholds):
+    """K3 on the card against the plain version and numpy, bit for bit, one launch."""
+    from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
+
+    before = binned_counts_cuda.launches
+    got = binned_counts_cuda(preds.to(cuda), target.to(cuda), thresholds.to(cuda))
+    assert binned_counts_cuda.launches == before + 1
+    want = binned_counts_torch(preds, target, thresholds)
+    p, y, t = preds.numpy(), target.numpy(), thresholds.numpy()
+    ge = p[:, :, None] >= t[None, None, :]
+    oracle = ((y[:, :, None] & ge).sum(0), (~y[:, :, None] & ge).sum(0), (y[:, :, None] & ~ge).sum(0))
+    for g, w, o in zip(got, want, oracle):
+        assert torch.equal(g.cpu(), w)
+        assert np.array_equal(g.cpu().numpy(), o.astype(np.float32))
+
+
+def _binned_inputs(rng, n, c, edge=False):
+    preds = rng.rand(n, c).astype(np.float32)
+    target = rng.rand(n, c) > 0.7
+    if edge and n >= 40:
+        preds[3:9, 0] = np.nan
+        preds[10:30] = -np.inf  # pad rows: -inf preds, target 0
+        target[10:30] = False
+        preds[31] = np.inf
+        preds[32] = 1.0
+        preds[33] = 0.0
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bucket", [64, 256, 1024])
+def test_binned_kernel_at_the_vmapped_buckets(cuda, bucket):
+    """The vmapped masked step's one launch: a (1, B*10) row against 100 thresholds."""
+    rng = np.random.RandomState(bucket)
+    preds, target = _binned_inputs(rng, bucket, 10, edge=True)
+    _binned_check(cuda, preds.reshape(1, -1), target.reshape(1, -1), torch.linspace(0, 1, 100))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 16384])
+def test_binned_kernel_takes_every_row_count(cuda, n):
+    """One row chunk, and row chunks folded through the int32 sums; the second
+    call finds the sums and counters the first left zero."""
+    rng = np.random.RandomState(n)
+    preds, target = _binned_inputs(rng, n, 10, edge=True)
+    for _ in range(2):
+        _binned_check(cuda, preds, target, torch.linspace(0, 1, 100))
+
+
+def _odd_thresholds(kind, t, rng):
+    thr = np.linspace(0, 1, t).astype(np.float32)
+    if kind == "unsorted":
+        rng.shuffle(thr)
+    elif kind == "duplicated":
+        thr[1::3] = thr[::3][: len(thr[1::3])]
+    elif kind == "infinite":
+        thr[0], thr[-1] = -np.inf, np.inf
+    elif kind == "nan":
+        thr[t // 2] = np.nan
+    return torch.from_numpy(thr)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["unsorted", "duplicated", "infinite", "nan"])
+@pytest.mark.parametrize("n, c, t", [(1, 2560, 100), (1037, 10, 100), (300, 3, 7), (65, 5, 9)])
+def test_binned_kernel_takes_any_thresholds(cuda, kind, n, c, t):
+    """Thresholds in any order, repeated, infinite or NaN, with NaN, infinite
+    and -inf pad-row preds; C*T not a multiple of 4 takes one threshold a thread."""
+    rng = np.random.RandomState(n + c + t)
+    preds, target = _binned_inputs(rng, n, c, edge=True)
+    if n == 1:
+        preds[0, ::7] = float("nan")
+        preds[0, 1::7] = float("-inf")
+        preds[0, 2::7] = float("inf")
+    _binned_check(cuda, preds, target, _odd_thresholds(kind, t, rng))

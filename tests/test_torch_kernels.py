@@ -229,3 +229,39 @@ def test_binned_vmap_rule_matches_rows():
     for g, w in zip(got, want):
         assert g.shape == (b, c, t)
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _odd_thresholds(kind, t, rng):
+    thr = np.linspace(0, 1, t).astype(np.float32)
+    if kind == "unsorted":
+        rng.shuffle(thr)
+    elif kind == "duplicated":
+        thr[1::3] = thr[::3][: len(thr[1::3])]
+    elif kind == "infinite":
+        thr[0], thr[-1] = -np.inf, np.inf
+    elif kind == "nan":
+        thr[t // 2] = np.nan
+    return thr
+
+
+@pytest.mark.parametrize("kind", ["unsorted", "duplicated", "infinite", "nan"])
+@pytest.mark.parametrize("nan_preds", [False, True])
+@pytest.mark.parametrize("n,c,t", [(67, 3, 8), (1, 40, 12), (5, 3, 7)])
+def test_binned_counts_match_pallas_interpret_on_any_thresholds(kind, nan_preds, n, c, t):
+    """What the CUDA kernel must count: thresholds in any order, repeated,
+    infinite or NaN, against preds with NaN, +-inf and -inf pad rows (target 0), held
+    bit for bit against the Pallas kernel's own logic."""
+    rng = np.random.RandomState(zlib.crc32(f"{kind}/{nan_preds}/{n}/{c}/{t}".encode()))
+    preds = rng.rand(n, c).astype(np.float32)
+    target = rng.rand(n, c) > 0.6
+    if nan_preds:
+        preds.reshape(-1)[::5] = np.nan
+        preds.reshape(-1)[1::5] = np.inf
+        preds[-1] = -np.inf
+        target[-1] = False
+    thresholds = _odd_thresholds(kind, t, rng)
+    with use_backend("pallas_interpret"):
+        want = jax_binned_counts(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(thresholds))
+    got = binned_counts(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds))
+    for g, w in zip(got, want):
+        _assert_close(g, w, exact=True)
