@@ -16,9 +16,12 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    ``torch.func.vmap`` rules at a 1024-row bucket; then time kernel, plain
    version and (where one PyTorch call computes the same function) that call
    at each shape the main path launches: K1 at the masked step's leaves over
-   a 1024-row bucket (1000 f32, 100, 10 and 1 int32 columns), K3 at the
-   one-shot (16 384, 10) batch and at the vmapped (1, B*10) row of the 64-,
-   256- and 1024-row buckets, each against 100 thresholds;
+   a 1024-row bucket (1000 f32, 100, 10 and 1 int32 columns), K2 at the
+   vmapped confusion matrix's (B, 1) int64 indices into 100 bins and at the
+   one-shot (16 384,) batch, with the whole call's time, host µs and device
+   launches beside the kernel's, K3 at the one-shot (16 384, 10) batch and at
+   the vmapped (1, B*10) row, each against 100 thresholds; B is 64, 256 and
+   1024, the engines' buckets;
 4. the main path: the flagship collection (Accuracy, macro F1, binned AP over
    100 thresholds, confusion matrix; 10 classes) updated over 65 536 rows in
    batches, then computed; held against the same collection on the CPU and
@@ -47,12 +50,13 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    bit-identical to (b).
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
-each must be non-zero. A ``torch.profiler`` trace of one megastep bucket and
-one per-leaf masked bucket (``update_state_masked``) gives the device's busy
-share. The line before the last is the ``kernels`` JSON object: K1, K3 and
-K5 have one entry per shape above, K4, K6 and K7 one per ``traffic``
-(random ids and one stream), each with ``device_us``, the device time of
-each CUDA kernel the call launches. In it
+each must be non-zero, and K2 must launch once per batch and per step. A
+``torch.profiler`` trace of one megastep bucket and one per-leaf masked bucket
+(``update_state_masked``) gives the device's busy share and device launches.
+The line before the last is the ``kernels`` JSON object: K1, K2, K3 and K5
+have one entry per shape above, K4, K6 and K7 one per ``traffic`` (random ids
+and one stream), each with ``device_us``, the device time of each CUDA kernel
+the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
 int32 cases, ``max_abs_err_bf16`` over the bf16 cases (null where there are
 none), and ``bound_ms`` counts the bytes this run's data needs (unmasked rows
@@ -133,28 +137,49 @@ def gpu_ms(fn, runs=TIMED_RUNS):
     return float(np.median(times))
 
 
-def device_us(fn, runs=20):
-    """Mean device µs per call of each CUDA kernel ``fn`` launches, by kernel
-    name, from a ``torch.profiler`` trace of ``runs`` calls. A kernel launched
-    early (programmatic dependent launch) counts its wait for the one before."""
+def device_trace(fn, runs=20):
+    """Per CUDA kernel name (memsets and copies too), the mean device µs and
+    the launches of one call of ``fn``, from a ``torch.profiler`` trace of
+    ``runs`` calls. A kernel launched early (programmatic dependent launch)
+    counts its wait for the one before."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    out = {}
-    for _ in range(3):  # a trace now and then comes back without device events: take another
+    for _ in range(3):  # a trace now and then comes back without some device events: take another
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
+        out = {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                name = re.search(r"::(\w+)", e.key)
-                out[name.group(1) if name else e.key[:40]] = e.self_device_time_total / runs
-        if out:
+                name = re.search(r"::(\w+)\s*[<(]", e.key)  # "void at::native::foo<...>(...)" -> foo
+                name = name.group(1) if name else e.key[:40]
+                us, count = out.get(name, (0.0, 0.0))  # kernels of one name (templates) add up
+                out[name] = (us + e.self_device_time_total / runs, count + e.count / runs)
+        if out and all(float(count).is_integer() for _, count in out.values()):
             break
     return out
+
+
+def device_us(fn, runs=20):
+    """Mean device µs per call of each CUDA kernel ``fn`` launches, by name."""
+    return {k: us for k, (us, _) in device_trace(fn, runs).items()}
+
+
+def host_us(fn, calls=200):
+    """Host µs per call of ``fn`` over ``calls`` calls in a row, with one
+    synchronise at the end: what a caller's thread spends to issue it."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 # --------------------------------------------------------------------------- kernels
@@ -241,62 +266,163 @@ def _timed_fold(head, kernel, plain, dtype, n, f, rng, dev):
     return entry
 
 
+def _hist_indices(rng, b, n, length):
+    """int64 (B, N) indices in [-3, L + 3), every fifth past int32 on either
+    side (2**32 + 1 would land in bin 1 if it wrapped)."""
+    idx = rng.randint(-3, length + 3, (b, n)).astype(np.int64)
+    big = np.array([2**31, 2**32 + 1, 2**33 + length - 1, -(2**31) - 1, -(2**40)], np.int64)
+    idx.flat[::5] = rng.choice(big, idx.flat[::5].shape)
+    return torch.from_numpy(idx)
+
+
+def _hist_oracle(idx, length, mask=None, weights=None):
+    """numpy's bincount of each row (weights summed in float64 or int64)."""
+    idx = idx.cpu().numpy()
+    v = np.clip(idx, 0, None)
+    keep = v < length
+    if mask is not None:
+        keep &= mask.cpu().numpy() != 0
+    rows = np.broadcast_to(np.arange(idx.shape[0])[:, None], idx.shape)
+    if weights is None:
+        out = np.zeros((idx.shape[0], length), np.int64)
+        np.add.at(out, (rows[keep], v[keep]), 1)
+        return out
+    w = weights.cpu().double().numpy() if weights.dtype.is_floating_point else weights.cpu().numpy().astype(np.int64)
+    out = np.zeros((idx.shape[0], length, w.shape[2]), w.dtype)
+    np.add.at(out, (rows[keep], v[keep]), w[keep])
+    return out
+
+
+_HIST_OUT_EPS = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
 def hist_phase(dev, rng):
+    """K2 against its plain version and numpy: both forms, masks batched and
+    expanded with stride 0, every weight dtype, the vmap rule's one launch;
+    then :func:`hist_timing`."""
+    from metrics_tpu_torch.ops.kernels import histogram_accumulate
+    from metrics_tpu_torch.ops.kernels.hist_cuda import WEIGHT_DTYPES, histogram_cuda, histogram_plain
+
+    # counts: the main path's shapes, both forms, bin tiles past 48 KB, no indices
+    for b, n, length in ((1, BATCH, 100), (64, 1, 100), (BUCKET, 1, 100), (256, 3, 12289), (1, 1037, 1),
+                         (1, 4099, 12289), (8, BATCH, 102400), (64, 1, 102400), (3, 0, 5), (1, 1, 3)):
+        idx = _hist_indices(rng, b, n, length).to(dev)
+        mask = torch.from_numpy(rng.rand(b, n) > 0.3).to(dev)
+        row_mask = mask[:1].to(torch.int32).expand(b, n)  # one row's int32 mask, stride 0
+        for i, m in ((idx, None), (idx, mask), (idx[:1].expand(b, n), row_mask), (idx.to(torch.int32), mask)):
+            got = histogram_cuda(i, length, m)
+            want = histogram_plain(i, length, m)
+            torch.cuda.synchronize()
+            what = f"hist counts ({b}, {n}) L={length} {i.dtype} mask={None if m is None else m.dtype}"
+            check(got.dtype == torch.int32 and torch.equal(got, want), f"{what}: kernel != plain")
+            check(np.array_equal(got.cpu().numpy(), _hist_oracle(i, length, m)), f"{what}: != numpy")
+    # weighted sums in every dtype, direct and shared form, weights batched and stride 0
+    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
+    for dtype in WEIGHT_DTYPES:
+        for b, n, length, k in ((64, 3, 37, 3), (2, 5000, 37, 3), (1, 3001, 5000, 1)):
+            idx = _hist_indices(rng, b, n, length).to(dev)
+            mask = torch.from_numpy(rng.rand(b, n) > 0.3).to(dev)
+            if dtype.is_floating_point:
+                w = torch.from_numpy(rng.randn(b, n, k) * 10).to(dev, dtype)
+            else:
+                info = torch.iinfo(dtype)
+                w = torch.from_numpy(rng.randint(max(info.min, -(2**40)), min(info.max, 2**40), (b, n, k)))
+                w = w.to(dev, dtype)
+            for ww in (w, w[:1].expand(b, n, k)):
+                got = histogram_cuda(idx, length, mask, ww)
+                want = histogram_plain(idx, length, mask, ww)
+                torch.cuda.synchronize()
+                what = f"hist weights {dtype} ({b}, {n}, {k}) L={length}"
+                check(got.dtype == dtype and got.shape == (b, length, k), f"{what}: dtype/shape")
+                if not dtype.is_floating_point:  # exact, wrapping as the dtype does
+                    check(torch.equal(got, want), f"{what}: kernel != plain")
+                    oracle = _hist_oracle(idx, length, mask, ww).astype(str(dtype).replace("torch.", ""))
+                    check(np.array_equal(got.cpu().numpy(), oracle), f"{what}: != numpy")
+                    continue
+                # the reassociation bound of the accumulator, plus one step of a bf16/f16 output
+                abs_sums = torch.from_numpy(_hist_oracle(idx, length, mask, ww.abs())).to(dev)
+                eps = 2.0**-53 if dtype == torch.float64 else 2.0**-24
+                tol = (2 * n * eps + _HIST_OUT_EPS.get(dtype, 0.0)) * abs_sums
+                diff = (got.double() - want.double()).abs()
+                check(bool((diff <= tol).all()), f"{what}: err {float(diff.max())}")
+                if dtype in (torch.float32, torch.bfloat16):
+                    err[dtype == torch.bfloat16] = max(err[dtype == torch.bfloat16], float(diff.max()))
+    # the vmap rule: one launch for the whole bucket, a stride-0 mask passed through
+    rows_idx = _hist_indices(rng, BUCKET, 1, 100)
+    row_mask = torch.from_numpy(rng.rand(1) > 0.5)
+    for m in (None, row_mask):
+        def call(i, m_dev):
+            return torch.func.vmap(lambda r: histogram_accumulate(r, 100, mask=m_dev))(i)
+        before = histogram_cuda.launches
+        got = call(rows_idx.to(dev), None if m is None else m.to(dev))
+        check(histogram_cuda.launches == before + 1, "hist vmap rule: expected exactly one launch")
+        oracle = _hist_oracle(rows_idx, 100, None if m is None else m.expand(BUCKET, 1))
+        check(torch.equal(got.cpu(), call(rows_idx, m)) and np.array_equal(got.cpu().numpy(), oracle), "hist vmap rule")
+    return hist_timing(dev, rng, err)
+
+
+def _k2(fn, idx, length):
+    """``fn`` (K2's wrapper or its plain version) on ``(B, N)`` indices, as a
+    closure for timing. A tree from before the batched kernel (a parent
+    unpacked in ``build/baseline`` for a comparison in one call) takes 1-D
+    int32 indices into one histogram of B * L bins; for it the batch is folded
+    into the bins beforehand, outside the closure."""
+    from metrics_tpu_torch.ops.kernels import hist_cuda
+
+    if hasattr(hist_cuda, "histogram_op"):
+        return lambda: fn(idx, length)
+    b = idx.shape[0]
+    flat = (idx.clamp(min=0) + torch.arange(b, device=idx.device)[:, None] * length).reshape(-1).to(torch.int32)
+    return lambda: fn(flat, b * length)
+
+
+def hist_timing(dev, rng, err=None):
+    """One ``kernels`` entry per shape the main path launches K2 at: the
+    vmapped confusion matrix, ``(B, 1)`` int64 indices into L = 100 bins at the
+    64-, 256- and 1024-row buckets (phases 9, 5, 7 and 8), and the one-shot
+    ``(16 384,)`` batch (phase 4). Each holds the kernel's ms and
+    ``device_us``, the whole call's (``histogram_accumulate``, vmapped or not)
+    ms, host µs and device launches, the plain version's ms,
+    ``torch.bincount`` of the indices folded into B * L bins beforehand, and
+    the bound. Runs in an unpacked parent tree as well (:func:`_k2`)."""
     from metrics_tpu_torch.ops.kernels import histogram_accumulate
     from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
 
-    err = {False: 0.0, True: 0.0}  # the f32/int32 cases, the bf16 cases
-    # counts: the one-shot confmat shape, short/long histograms (shared and global
-    # paths), out-of-range indices on both sides, empty input
-    for n, length in ((BATCH, 100), (1037, 1), (1037, 7), (4099, 12289), (BUCKET, 102400), (0, 5), (1, 3)):
-        idx = torch.from_numpy(rng.randint(-3, length + 3, n).astype(np.int32)).to(dev)
-        got = histogram_cuda(idx, length)
-        want = histogram_plain(idx, length)
-        oracle = np.bincount(np.clip(idx.cpu().numpy(), 0, None), minlength=length + 3)[:length]
-        torch.cuda.synchronize()
-        check(got.dtype == torch.int32 and torch.equal(got.cpu(), want.cpu()), f"hist counts {n}/{length}")
-        check(np.array_equal(got.cpu().numpy(), oracle), f"hist counts {n}/{length} vs np.bincount")
-    # weighted sums, f32 and bf16, shared and global paths
-    for n, length, k, wdt in ((2000, 19, 1, torch.float32), (2000, 19, 3, torch.float32),
-                              (3001, 5000, 3, torch.float32), (2000, 64, 2, torch.bfloat16)):
-        idx = torch.from_numpy(rng.randint(-2, length + 2, n).astype(np.int32)).to(dev)
-        w = torch.from_numpy(rng.rand(n, k).astype(np.float32)).to(dev, wdt)
-        got = histogram_cuda(idx, length, w)
-        want = histogram_plain(idx, length, w)
-        e = max_abs_err(got, want)
-        # f32 atomics add in no fixed order: reassociation error of sums of <= n terms in [0, 1)
-        check(e <= 1e-4, f"hist weights {n}/{length}/{k}/{wdt}: err {e}")
-        err[wdt == torch.bfloat16] = max(err[wdt == torch.bfloat16], e)
-    # the vmap rule at one 1024-row bucket: one launch over B * L bins
-    rows_idx = torch.from_numpy(rng.randint(-2, 102, (BUCKET, 1)).astype(np.int32))
-    before = histogram_cuda.launches
-    got = torch.func.vmap(lambda i: histogram_accumulate(i, 100))(rows_idx.to(dev))
-    check(histogram_cuda.launches == before + 1, "hist vmap rule: expected exactly one launch")
-    want = torch.func.vmap(lambda i: histogram_accumulate(i, 100))(rows_idx)
-    oracle = np.zeros((BUCKET, 100), np.int32)
-    for b, v in enumerate(rows_idx[:, 0].numpy()):
-        if max(v, 0) < 100:
-            oracle[b, max(v, 0)] += 1
-    check(torch.equal(got.cpu(), want) and np.array_equal(want.numpy(), oracle), "hist vmap rule")
-
-    n, length = BATCH, NUM_CLASSES * NUM_CLASSES
-    idx = torch.from_numpy(rng.randint(0, length, n).astype(np.int32)).to(dev)
-    entry = {
-        "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
-        "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55", "shape": f"idx ({n},) int32, L={length} counts",
-        "max_abs_err": err[False], "max_abs_err_bf16": err[True],
-        "ms": gpu_ms(lambda: histogram_cuda(idx, length)),
-        "plain_ms": gpu_ms(lambda: histogram_plain(idx, length)),
-        "library_ms": gpu_ms(lambda: torch.bincount(idx, minlength=length)),
-    }
-    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * n + 4 * length, n)
-    # the masked step's shape: the vmapped confmat over one bucket, B * L bins
-    vidx = torch.from_numpy(rng.randint(0, BUCKET * length, BUCKET).astype(np.int32)).to(dev)
-    extra = {"name": "histogram", "shape": f"idx ({BUCKET},) int32, L={BUCKET * length} (vmapped bucket)",
-             "ms": gpu_ms(lambda: histogram_cuda(vidx, BUCKET * length)),
-             "plain_ms": gpu_ms(lambda: histogram_plain(vidx, BUCKET * length))}
-    extra["bound_ms"], extra["bound_by"] = bound_ms(4 * BUCKET + 4 * BUCKET * length, BUCKET)
-    return entry, extra
+    length = NUM_CLASSES * NUM_CLASSES
+    entries = []
+    for rows in (*PAGED_BUCKETS, BUCKET, None):
+        # target * C + pred: int64, in range, as the confusion matrix computes it
+        b, n = (rows, 1) if rows else (1, BATCH)
+        idx = torch.from_numpy(rng.randint(0, length, (b, n))).to(dev)
+        if rows:
+            call = torch.func.vmap(lambda i: histogram_accumulate(i, length))
+            whole = lambda: call(idx)  # noqa: E731
+        else:
+            flat_idx = idx.reshape(-1)
+            whole = lambda: histogram_accumulate(flat_idx, length)  # noqa: E731
+        kernel, plain = _k2(histogram_cuda, idx, length), _k2(histogram_plain, idx, length)
+        folded = (idx + torch.arange(b, device=dev)[:, None] * length).reshape(-1)
+        library = lambda: torch.bincount(folded, minlength=b * length)  # noqa: E731
+        want = library().reshape(b, length).to(torch.int32)
+        for f in (kernel, plain, whole):
+            check(torch.equal(f().reshape(b, length), want), f"hist ({b}, {n}): disagrees with torch.bincount")
+        trace = device_trace(whole)
+        entry = {
+            "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
+            "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55",
+            "shape": f"idx ({b}, {n}) int64, L={length} counts" + (f" (vmapped {rows}-row bucket)" if rows
+                                                                  else " (one-shot batch)"),
+            "max_abs_err": None if err is None else err[False], "max_abs_err_bf16": None if err is None else err[True],
+            "ms": gpu_ms(kernel), "plain_ms": gpu_ms(plain), "library_ms": gpu_ms(library),
+            "device_us": device_us(kernel),
+            "call_ms": gpu_ms(whole), "call_host_us": host_us(whole),
+            "call_device_us": {k: us for k, (us, _) in trace.items()},
+            "call_device_launches": sum(c for _, c in trace.values()),
+        }
+        # each index read once, each output element written once; one add per index
+        entry["bound_ms"], entry["bound_by"] = bound_ms(8 * b * n + 4 * b * length, b * n)
+        entries.append(entry)
+    return entries
 
 
 def binned_phase(dev, rng):
@@ -945,11 +1071,12 @@ def profile_bucket(dev, preds, target):
             torch.cuda.synchronize()
         # device-side entries only (kernels, memcpys): a CPU op's self device
         # time repeats the time of the kernels it launched
-        busy = {e.key: e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = {e.key: e.self_device_time_total for e in device}
         total = float(sum(busy.values()))
+        # device_ops: distinct kernel names; device_launches: every kernel, memset and copy
         out[name] = {"wall_us": wall_us, "device_busy_us": total, "device_busy_share": total / wall_us,
-                     "device_ops": len(busy),
+                     "device_ops": len(busy), "device_launches": sum(e.count for e in device),
                      "top": [(k[:60], v) for k, v in sorted(busy.items(), key=lambda kv: -kv[1])[:6]]}
     check(out["megastep_bucket"]["device_busy_us"] > 0, "profiler: no device time in the megastep bucket")
     return out
@@ -991,7 +1118,7 @@ def main():
     rng = np.random.RandomState(SEED)
     t0 = time.perf_counter()
     fold_entries = fold_phase(dev, rng)
-    hist_entry, hist_extra = hist_phase(dev, rng)
+    hist_entries = hist_phase(dev, rng)
     binned_entries = binned_phase(dev, rng)
     print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
@@ -1027,6 +1154,8 @@ def main():
     for k in ("fold_rows", "histogram", "binned_counts"):
         check(masked[k] > 0, f"kernel {k} was not launched by the masked bucket step")
     check(one_shot["histogram"] > 0 and one_shot["binned_counts"] > 0, "one-shot update skipped a kernel")
+    check(one_shot["histogram"] == N_ROWS // BATCH and masked["histogram"] == buckets,
+          "K2: not one launch per batch and per masked bucket")
 
     # phase 7: the megastep engine; 2 K5 launches per step, no K1
     before = counts()
@@ -1036,6 +1165,7 @@ def main():
     check(d["megastep_fold"] == 2 * mega_eng.steps and d["fold_rows"] == 0,
           f"megastep engine: {d['megastep_fold']} K5 and {d['fold_rows']} K1 launches in {mega_eng.steps} steps")
     compare_states(mega_eng.state(), gpu_state, "megastep engine vs one-shot")
+    check(d["histogram"] == mega_eng.steps, "megastep engine: K2 not one launch per step")
 
     # phase 8: unsharded multi-stream; K4 on every step (one per state leaf)
     before = counts()
@@ -1045,6 +1175,7 @@ def main():
     n_leaves = ms_eng.arena_layout.num_leaves
     check(phases["multistream"]["launches"]["segment_reduce"] == n_leaves * ms_eng.steps,
           "multistream: K4 did not launch once per leaf on every step")
+    check(phases["multistream"]["launches"]["histogram"] == ms_eng.steps, "multistream: K2 not one launch per step")
 
     # phase 9: paged, (a) exact, (b) q8 staged decode, (c) (b)'s host-decode twin
     for name, q8, stage in (("paged_exact", False, True), ("paged_q8", True, True), ("paged_q8_twin", True, False)):
@@ -1060,6 +1191,7 @@ def main():
         check(d["megastep_segment"] == (2 - k7_per_step) * eng.steps and
               d["megastep_segment_q8"] == k7_per_step * eng.steps,
               f"{name}: {d['megastep_segment']} K6 and {d['megastep_segment_q8']} K7 launches in {eng.steps} steps")
+        check(d["histogram"] == eng.steps, f"{name}: K2 not one launch per step")
         if name == "paged_q8":
             check(st.q8_staged_rows > 0, "paged q8: no spilled row was seated for K7 to decode")
             q8_eng, q8_streams = eng, sorted(per_stream)
@@ -1095,12 +1227,12 @@ def main():
                       "masked_update_compute_s": masked_s,
                       "accuracy": float(gpu_values["acc"]), "f1": float(gpu_values["f1"]),
                       "mean_ap": float(gpu_values["binned_ap"].mean())},
-        "kernel_shapes": [hist_extra], "card": card,
+        "card": card,
     }))
     print(json.dumps(phases_line))
 
     entries = []
-    for e in (*fold_entries, hist_entry, *binned_entries, *segment_entries, *mega_fold_entries, *mega_seg_entries,
+    for e in (*fold_entries, *hist_entries, *binned_entries, *segment_entries, *mega_fold_entries, *mega_seg_entries,
               *mega_q8_entries):
         e["launches"] = launches[e["name"]]
         entries.append(e)

@@ -40,10 +40,7 @@ _L = ctypes.c_int64
 # argument types of each library's C entry points (see the csrc sources)
 _SIGNATURES = {
     "fold": {"fold_rows": (_P,) * 5 + (_I,) * 4 + (_P,)},
-    "hist": {
-        "histogram_counts": (_P, _L, _I, _P, _P),
-        "histogram_weights": (_P, _P, _L, _I, _I, _I, _P, _P),
-    },
+    "hist": {"histogram": (_P, _I, _L, _L, _P, _I, _L, _L, _P, _I, _L, _L, _L, _L, _L, _L, _I, _P, _P)},
     "binned": {
         "binned_counts": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
         "binned_scratch_ints": (_L, _I, _I),

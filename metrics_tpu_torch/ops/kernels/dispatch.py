@@ -24,6 +24,7 @@ kernel needs VMEM block sizing: the segment kernels take every S and F, so the
 ``block_rows``/``VMEM_BLOCK_BYTES``/``num_segments * f * itemsize`` gates are
 gone too.
 """
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +32,7 @@ import torch
 
 from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, as_2d_rows
 from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
-from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_counts_op, histogram_weights_op
+from metrics_tpu_torch.ops.kernels.hist_cuda import INDEX_DTYPES, MASK_DTYPES, WEIGHT_DTYPES, histogram_op
 from metrics_tpu_torch.ops.kernels.megastep_cuda import (
     megastep_fold_cuda,
     megastep_segment_cuda,
@@ -209,26 +210,29 @@ def histogram_accumulate(
 
     ``jnp.bincount(x, length=length)`` semantics — negative indices clip to
     bin 0, indices ``>= length`` are dropped — extended with optional per-row
-    ``weights`` (f32 or bf16, ``(N,)`` or ``(N, K)``; other dtypes raise) and an
-    optional row ``mask``. Returns int32 counts (no weights) or the
-    weights-dtype sums, shape ``(length,)`` / ``(length, K)`` matching the
-    weights' rank. Works under
-    ``torch.func.vmap``: the custom ops' vmap rules launch one kernel for the
-    whole batch.
+    ``weights`` (``(N,)`` or ``(N, K)``, any dtype in
+    :data:`~metrics_tpu_torch.ops.kernels.hist_cuda.WEIGHT_DTYPES`; bool and
+    complex raise) and an optional row ``mask``. Returns int32 counts (no
+    weights) or the sums in the weights' dtype, shape ``(length,)`` /
+    ``(length, K)`` matching the weights' rank. The call is the batched op at
+    ``B = 1``: indices and a mask of the dtypes the kernel reads go in as they
+    are. Under ``torch.func.vmap`` the op's vmap rule makes the whole
+    batch one launch.
     """
     length = int(length)
-    # both paths go through the custom ops, whose CPU implementation is the
+    # both paths go through the custom op, whose CPU implementation is the
     # plain version: that is what lets the plain path run under vmap too
-    idx = indices.reshape(-1).to(torch.int32)
+    idx = indices.reshape(1, -1)
+    if idx.dtype not in INDEX_DTYPES:
+        idx = idx.to(torch.int64)
     if mask is not None:
-        # a masked row takes index `length`: out of range, so it drops
-        idx = torch.where(mask.to(torch.bool), idx, torch.full_like(idx, length))
-    idx = idx.contiguous()
+        mask = mask.reshape(1, -1)
+        if mask.dtype not in MASK_DTYPES:
+            mask = mask.to(torch.bool)
     if weights is None:
-        return histogram_counts_op(idx, length)
-    if weights.dtype not in (torch.float32, torch.bfloat16):
-        # the kernel sums in f32: integer weights would lose exactness past 2**24
-        raise TypeError(f"histogram_accumulate takes f32 or bf16 weights, got {weights.dtype}")
-    cols = weights.reshape(idx.shape[0], -1).contiguous()
-    out = histogram_weights_op(idx, cols, length).to(weights.dtype)
-    return out[:, 0] if weights.ndim == 1 else out
+        return histogram_op(idx, mask, None, length)[0]
+    if weights.dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"histogram_accumulate cannot sum {weights.dtype} weights; it takes {WEIGHT_DTYPES}")
+    k = math.prod(weights.shape[1:])
+    out = histogram_op(idx, mask, weights.reshape(1, idx.shape[1], k), length)[0]
+    return out.reshape((length,) + tuple(weights.shape[1:]))

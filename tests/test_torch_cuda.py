@@ -47,8 +47,108 @@ def test_histogram_kernel_matches_plain_on_card(cuda):
 
     rng = np.random.RandomState(1)
     for length in (7, 100, 102400):
-        idx = torch.from_numpy(rng.randint(-3, length + 3, 5000).astype(np.int32)).to(cuda)
+        idx = torch.from_numpy(rng.randint(-3, length + 3, (1, 5000)).astype(np.int32)).to(cuda)
         assert torch.equal(histogram_cuda(idx, length), histogram_plain(idx, length))
+
+
+def _hist_indices(rng, b, n, length):
+    """int64 (B, N) indices: in range, negative, >= L, and past int32 on both
+    sides (2**32 + 1 would land in bin 1 if it wrapped)."""
+    idx = rng.randint(-3, length + 3, (b, n)).astype(np.int64)
+    far = np.array([2**31, 2**32 + 1, 2**33 + length - 1, -(2**31) - 1, -(2**40)], np.int64)
+    idx.flat[::5] = rng.choice(far, idx.flat[::5].shape)
+    return torch.from_numpy(idx)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("length", [1, 100, 12289, 102400])
+@pytest.mark.parametrize("n", [1, 3, 16384])
+@pytest.mark.parametrize("b", [1, 64, 256, 1024])
+def test_histogram_kernel_takes_every_shape(cuda, b, n, length):
+    """Both forms (direct N <= 16, shared with bin tiles past 48 KB) against
+    the plain version, exactly, one launch a call: int64 indices with no
+    mask; int32 indices under a batched bool mask; one row expanded to B with
+    stride 0 under a stride-0 int32 mask; a uint8 mask over a transposed view."""
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+
+    rng = np.random.RandomState(b + n + length)
+    idx = _hist_indices(rng, b, n, length).to(cuda)
+    mask = torch.from_numpy(rng.rand(b, n) > 0.3).to(cuda)
+    row = idx[:1].expand(b, n)
+    row_mask = mask[:1].to(torch.int32).expand(b, n)
+    t_idx = idx.to(torch.int32).t().contiguous().t()  # (B, N) with element stride B
+    t_mask = mask.to(torch.uint8).t().contiguous().t()
+    for i, m in ((idx, None), (idx.to(torch.int32), mask), (row, row_mask), (t_idx, t_mask)):
+        before = histogram_cuda.launches
+        got = histogram_cuda(i, length, m)
+        assert histogram_cuda.launches == before + 1
+        assert got.shape == (b, length) and torch.equal(got, histogram_plain(i, length, m))
+
+
+_OUT_EPS = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int8,
+                                   torch.int16, torch.int32, torch.int64, torch.uint8])
+@pytest.mark.parametrize("b, n", [(64, 3), (2, 5000)])
+def test_histogram_kernel_sums_every_weight_dtype(cuda, dtype, b, n):
+    """Weighted sums in the weights' dtype, direct and shared form: integer
+    dtypes exactly (wrapping), floats within the reassociation bound of their
+    accumulator (2 * n * eps * sum|w| a cell) plus one step of the output
+    dtype for bf16 and f16. Weights are also read through a stride-0 batch."""
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+
+    rng = np.random.RandomState(n)
+    length, k = 37, 3
+    idx = _hist_indices(rng, b, n, length).to(cuda)
+    mask = torch.from_numpy(rng.rand(b, n) > 0.3).to(cuda)
+    if dtype.is_floating_point:
+        w = torch.from_numpy(rng.randn(b, n, k) * 10).to(cuda, dtype)
+    else:
+        info = torch.iinfo(dtype)
+        w = torch.from_numpy(rng.randint(max(info.min, -(2**40)), min(info.max, 2**40), (b, n, k))).to(cuda, dtype)
+    for ww in (w, w[:1].expand(b, n, k)):
+        got = histogram_cuda(idx, length, mask, ww)
+        want = histogram_plain(idx, length, mask, ww)
+        assert got.dtype == dtype and got.shape == (b, length, k)
+        if not dtype.is_floating_point:
+            assert torch.equal(got, want)
+            continue
+        abs_sums = histogram_plain(idx, length, mask, ww.abs().double())
+        eps = 2.0**-53 if dtype == torch.float64 else 2.0**-24
+        tol = (2 * n * eps + _OUT_EPS.get(dtype, 0.0)) * abs_sums
+        assert ((got.double() - want.double()).abs() <= tol).all()
+
+
+_IN_DIMS = [(i, m, w) for i in (0, None) for m in ("none", 0, None) for w in ("none", 0, None) if 0 in (i, m, w)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("idx_dim, mask_dim, w_dim", _IN_DIMS)
+def test_histogram_vmap_is_one_launch_on_card(cuda, idx_dim, mask_dim, w_dim):
+    """Every batched/unbatched combination of indices, mask and weights
+    through ``torch.func.vmap``: one launch, and the same result as the CPU
+    path (the plain version under the same vmap rule)."""
+    from metrics_tpu_torch.ops.kernels import histogram_accumulate
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    rng = np.random.RandomState(17)
+    b, n, length = 64, 1, 100
+
+    def draw(dim, shape, make):
+        return None if dim == "none" else make((b,) + shape if dim == 0 else shape)
+
+    idx = draw(idx_dim, (n,), lambda s: torch.from_numpy(rng.randint(-2, length + 2, s)))
+    mask = draw(mask_dim, (n,), lambda s: torch.from_numpy(rng.rand(*s) > 0.3))
+    w = draw(w_dim, (n,), lambda s: torch.from_numpy(rng.randint(0, 2, s).astype(np.float32)))
+    dims = tuple(None if d == "none" else d for d in (idx_dim, mask_dim, w_dim))
+    fn = torch.func.vmap(lambda i, m, ww: histogram_accumulate(i, length, weights=ww, mask=m), in_dims=dims)
+    args = [x if x is None else x.to(cuda) for x in (idx, mask, w)]
+    before = histogram_cuda.launches
+    got = fn(*args)
+    assert histogram_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), fn(idx, mask, w))  # 0/1 weights: the sums are exact
 
 
 @pytest.mark.requires_cuda

@@ -7,11 +7,15 @@ the Pallas kernels' own logic interpreted on the CPU, on the case matrix of
 ``tests/ops/test_kernel_parity.py``. Integer results must be bit-exact; float
 sums within the reassociation tolerance of that file. The vmap rules, which
 launch one kernel for a whole bucket, are held against the plain version
-applied row by row. The CUDA kernels themselves are held against the plain
-versions in ``test_torch_cuda.py``.
+applied row by row and, for K2, against ``jax.vmap`` of the reference in
+every batched/unbatched combination of its arguments. K2's int64 and f64
+weights, and int64 indices past int32, have numpy as their oracle: JAX
+without x64 narrows them to 32 bits. The CUDA kernels themselves are held
+against the plain versions in ``test_torch_cuda.py``.
 """
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +27,6 @@ from metrics_tpu.ops.kernels import histogram_accumulate as jax_hist
 from metrics_tpu.ops.kernels import use_backend
 from metrics_tpu_torch.ops.binned_update import binned_counts, binned_counts_torch
 from metrics_tpu_torch.ops.kernels import fold_rows_masked, histogram_accumulate
-from metrics_tpu_torch.ops.kernels.hist_cuda import fold_batch_into_bins
 
 _RTOL = 1e-6
 _ATOL = 1e-5
@@ -162,9 +165,87 @@ def test_histogram_bf16_weights_keep_their_dtype():
     np.testing.assert_allclose(_np(got), _np(want), rtol=2.0 ** -7, atol=0)
 
 
-def test_histogram_refuses_integer_weights():
-    with pytest.raises(TypeError, match="f32 or bf16"):
-        histogram_accumulate(torch.zeros(3, dtype=torch.int32), 4, weights=torch.ones(3, dtype=torch.int32))
+def _weights(dtype, shape, rng):
+    """Weights that overflow the narrow integer dtypes when summed (both sides
+    wrap), and floats of mixed sign."""
+    if dtype in ("float16", "float64"):
+        return (rng.randn(*shape) * 100).astype(dtype)
+    info = np.iinfo(dtype)
+    lo, hi = (info.min, info.max) if dtype != "int64" else (-(2**40), 2**40)
+    w = rng.randint(lo, hi, shape, dtype=np.int64).astype(dtype)
+    if dtype == "int64":
+        w.flat[::7] = np.int64(2**62)  # 64-bit sums wrap too
+    return w
+
+
+def _numpy_hist(idx, length, w, mask):
+    """The oracle: a bincount in the weights' own dtype, one add per row."""
+    v = np.clip(np.asarray(idx, np.int64), 0, None)
+    keep = mask & (v < length)
+    out = np.zeros((length,) + w.shape[1:], w.dtype)
+    np.add.at(out, v[keep], w[keep])
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "uint8", "float16"])
+def test_histogram_weight_dtypes_match_the_reference(dtype):
+    """Integer and f16 weights sum in their own dtype, as the reference's
+    ``histogram_ref`` does: integers exactly (wrapping), f16 within
+    n * 2**-11 * sum|w| a cell (the reference adds in f16, the port in f32 and
+    rounds once)."""
+    rng = np.random.RandomState(zlib.crc32(dtype.encode()))
+    n, length = 211, 7
+    idx = rng.randint(-2, length + 2, n).astype(np.int32)
+    w = _weights(dtype, (n, 2), rng)
+    mask = rng.rand(n) > 0.3
+    with use_backend("pallas_interpret"):
+        want = jax_hist(jnp.asarray(idx), length, weights=jnp.asarray(w), mask=jnp.asarray(mask))
+    got = histogram_accumulate(torch.from_numpy(idx), length, weights=torch.from_numpy(w),
+                               mask=torch.from_numpy(mask))
+    assert str(got.dtype) == f"torch.{dtype}" and str(want.dtype) == dtype
+    if dtype == "float16":
+        abs_sums = _numpy_hist(idx, length, np.abs(w.astype(np.float64)), mask)
+        assert (np.abs(got.numpy().astype(np.float64) - np.asarray(want, np.float64)) <= n * 2.0**-11 * abs_sums).all()
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), _numpy_hist(idx, length, w, mask))
+
+
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+def test_histogram_64bit_weights_match_numpy(dtype):
+    """int64 and f64 weights keep 64 bits (JAX without x64 narrows them to 32,
+    so numpy is the oracle): int64 exactly, wrapping; f64 within the f64
+    reassociation bound."""
+    rng = np.random.RandomState(zlib.crc32(dtype.encode()))
+    n, length = 300, 11
+    idx = rng.randint(-2, length + 2, n).astype(np.int64)
+    w = _weights(dtype, (n,), rng)
+    mask = rng.rand(n) > 0.3
+    got = histogram_accumulate(torch.from_numpy(idx), length, weights=torch.from_numpy(w),
+                               mask=torch.from_numpy(mask))
+    want = _numpy_hist(idx, length, w, mask)
+    assert str(got.dtype) == f"torch.{dtype}" and got.shape == (length,)
+    if dtype == "int64":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        bound = 2 * n * 2.0**-53 * _numpy_hist(idx, length, np.abs(w), mask)
+        assert (np.abs(got.numpy() - want) <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.complex64])
+def test_histogram_refuses_bool_and_complex_weights(dtype):
+    with pytest.raises(TypeError, match=str(dtype)):
+        histogram_accumulate(torch.zeros(3, dtype=torch.int32), 4, weights=torch.ones(3, dtype=dtype))
+
+
+def _past_int32(idx, length, rng):
+    """int64 indices past int32 on both sides, some of which would land in
+    range if they wrapped (2**32 + 1 -> 1), and what they mean to a 32-bit
+    reference: a positive one drops (index ``length``), a negative one counts
+    in bin 0 (index -1)."""
+    far = np.array([2**31, 2**32 + 1, 2**33 + length - 1, 2**62, -(2**31) - 1, -(2**40)], np.int64)
+    idx.flat[::4] = rng.choice(far, idx.flat[::4].shape)
+    return np.where(idx >= 2**31, length, np.where(idx < -(2**31), -1, idx)).astype(np.int32)
 
 
 @pytest.mark.parametrize("length", [4, 100])
@@ -182,10 +263,62 @@ def test_histogram_vmap_rule_matches_rows(length):
     torch.testing.assert_close(got_w, want_w, rtol=0, atol=1e-6)
 
 
-def test_fold_batch_into_bins_drops_out_of_range():
-    idx = torch.tensor([[-1, 2, 3], [0, 5, 1]], dtype=torch.int32)
-    flat = fold_batch_into_bins(idx, 4)
-    assert flat.tolist() == [0, 2, 3, 4, 8, 5]  # 5 >= L maps to B*L = 8, which drops
+@pytest.mark.parametrize("idx_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("length", [1, 100, 300])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_histogram_vmap_matches_pallas_interpret(b, n, length, idx_dtype):
+    """The vmapped confusion-matrix call (one row of N indices per batch
+    element) against ``jax.vmap`` of the reference's Pallas kernel, with
+    negatives, indices >= L and, for int64, indices past int32 (which drop or
+    count in bin 0, never wrap): exact, and exact against numpy row by row."""
+    rng = np.random.RandomState(zlib.crc32(f"{b}/{n}/{length}/{idx_dtype}".encode()))
+    idx = rng.randint(-3, length + 3, (b, n)).astype(idx_dtype)
+    jax_idx = _past_int32(idx, length, rng) if idx_dtype == "int64" else idx
+    with use_backend("pallas_interpret"):
+        want = jax.vmap(lambda i: jax_hist(i, length))(jnp.asarray(jax_idx))
+    got = torch.func.vmap(lambda i: histogram_accumulate(i, length))(torch.from_numpy(idx))
+    assert got.dtype == torch.int32 and got.shape == (b, length)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    oracle = [_numpy_hist(row, length, np.ones(n, np.int32), np.ones(n, bool)) for row in idx]
+    np.testing.assert_array_equal(got.numpy(), np.stack(oracle))
+
+
+_IN_DIMS = [(i, m, w) for i in (0, None) for m in ("none", 0, None) for w in ("none", 0, None)
+            if 0 in (i, m, w)]
+
+
+@pytest.mark.parametrize("idx_dim, mask_dim, w_dim", _IN_DIMS)
+def test_histogram_vmap_in_dims_match_pallas_interpret(idx_dim, mask_dim, w_dim):
+    """Every batched/unbatched combination of indices, mask and weights
+    ("none": not passed) through the vmap rule, against ``jax.vmap`` of the
+    reference with the same axes: counts exact, f32 sums within the
+    reassociation bound 2 * n * 2**-24 * sum|w| a cell."""
+    rng = np.random.RandomState(zlib.crc32(f"{idx_dim}/{mask_dim}/{w_dim}".encode()))
+    b, n, length, k = 8, 3, 7, 2
+
+    def draw(dim, shape, make):
+        return None if dim == "none" else make((b,) + shape if dim == 0 else shape)
+
+    idx = draw(idx_dim, (n,), lambda s: rng.randint(-2, length + 2, s).astype(np.int64))
+    mask = draw(mask_dim, (n,), lambda s: rng.rand(*s) > 0.4)
+    w = draw(w_dim, (n, k), lambda s: rng.randn(*s).astype(np.float32))
+    dims = tuple(None if d == "none" else d for d in (idx_dim, mask_dim, w_dim))
+    with use_backend("pallas_interpret"):
+        want = jax.vmap(lambda i, m, ww: jax_hist(i, length, weights=ww, mask=m), in_axes=dims)(
+            *(None if x is None else jnp.asarray(x.astype(np.int32) if x.dtype == np.int64 else x)
+              for x in (idx, mask, w)))
+    got = torch.func.vmap(lambda i, m, ww: histogram_accumulate(i, length, weights=ww, mask=m), in_dims=dims)(
+        *(None if x is None else torch.from_numpy(x) for x in (idx, mask, w)))
+    shape = (b, length) if w is None else (b, length, k)
+    assert got.shape == shape and got.dtype == (torch.int32 if w is None else torch.float32)
+    if w is None:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    rows = [(idx if idx_dim is None else idx[r], np.ones(n, bool) if mask is None else
+             (mask if mask_dim is None else mask[r]), np.abs(w if w_dim is None else w[r])) for r in range(b)]
+    bound = 2 * n * 2.0**-24 * np.stack([_numpy_hist(i, length, aw, m) for i, m, aw in rows])
+    assert (np.abs(got.numpy() - np.asarray(want)) <= bound).all()
 
 
 # --------------------------------------------------------------- K3 binned counts
