@@ -44,14 +44,29 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    oracle over its rows; K4 on every step;
 9. the paged ``MultiStreamEngine``: 10 000 streams, Zipf(1.05), 128 resident
    slots, 8–64-row batches, so rows spill and page back in; (a) exact under
-   ``"megastep"``, bit-equal to the per-stream oracle; (b) binned AP
-   quantized ``q8_block`` with ``compress_payloads=True``: K7 decodes staged
-   slots, int states exact; (c) (b)'s twin that decodes on the host instead:
-   bit-identical to (b).
+   ``"megastep"``, bit-equal to the per-stream oracle, coalescing queued
+   batches across streams, and once more with ``coalesce=1`` for the step
+   count without coalescing; (b) binned AP quantized ``q8_block`` with
+   ``compress_payloads=True``: K7 decodes staged slots, int states exact;
+   (c) (b)'s twin that decodes on the host instead: bit-identical to (b).
+   (b) and (c) keep ``coalesce=1``: grouping follows timing, and a q8 spill
+   taken at another step quantizes differently.
+
+The engines run in their production form: ``submit`` enqueues, a dispatcher
+thread coalesces queued batches and replays each (bucket, signature) step as
+a CUDA graph captured once (``engine/aot.py``). Phases 7, 8 and 9a run once
+more through the uncaptured step (the engine's private ``_capture = False``)
+in the same call: the states must be bit-equal and the phase line prints
+both host s/step. Each engine's ``aot_cache`` makes at most ``len(buckets)``
+misses per payload signature, and phase 7 runs a warm twin engine over an
+equal collection sharing the cache: it captures nothing. A capture runs the
+step once on a copy of the state first (a warm-up), so each launch check
+counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
 each must be non-zero, and K2 must launch once per batch and per step. A
-``torch.profiler`` trace of one megastep bucket and one per-leaf masked bucket
+``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
+captured and uncaptured) and one per-leaf masked bucket
 (``update_state_masked``) gives the device's busy share and device launches.
 The line before the last is the ``kernels`` JSON object: K1, K2, K3 and K5
 have one entry per shape above, K4, K6 and K7 one per ``traffic`` (random ids
@@ -63,6 +78,7 @@ none), and ``bound_ms`` counts the bytes this run's data needs (unmasked rows
 only; K7's codes and scales of the flagged slots only). The last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import re
 import subprocess
@@ -966,16 +982,26 @@ def ragged_batches(seed, lo, hi):
     return out
 
 
-def streaming_megastep_phase(dev, preds, target):
+def run_engine(eng, capture, batches, submit):
+    """Drive ``eng`` through its entry points (``with`` + ``submit``): host
+    seconds from the first submit until the dispatcher has drained and the
+    device finished. ``capture=False`` takes the uncaptured step."""
+    eng._capture = capture
+    t0 = time.perf_counter()
+    with eng:
+        for b in batches:
+            submit(eng, b)
+    return time.perf_counter() - t0
+
+
+def streaming_megastep_phase(dev, preds, target, capture=True, aot_cache=None):
     """Phase 7: the megastep engine over the main path's rows, ragged."""
     from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
 
-    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"))
-    t0 = time.perf_counter()
-    with eng:
-        for start, stop in ragged_batches(SEED + 2, 16, BUCKET):
-            eng.submit(preds[start:stop], target[start:stop])
-    seconds = time.perf_counter() - t0
+    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"),
+                          aot_cache=aot_cache)
+    seconds = run_engine(eng, capture, ragged_batches(SEED + 2, 16, BUCKET),
+                         lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
     check(eng.stats.kernel_fallbacks_by_reason() == {}, f"megastep engine fell back: {eng.stats.kernel_fallbacks}")
     return eng, seconds
 
@@ -999,64 +1025,121 @@ def check_streams(eng, per_stream, preds_np, target_np, streams, what, int_only=
         compare_states(eng.stream_state(sid), want, f"{what}: stream {sid}")
 
 
-def multistream_phase(dev, preds, target, preds_np, target_np):
+def dispatcher_alone(dev, preds, target, aot_cache):
+    """Phase 7's batches through a warm engine (sharing ``aot_cache``: no
+    capture) twice: the producer submitting while the dispatcher steps (the
+    two threads share the interpreter lock), and the producer first, alone,
+    with the dispatcher held on the engine's state lock, then the dispatcher
+    draining the whole backlog alone. Host seconds per step of each, and the
+    producer's host µs per ``submit``."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    out = {}
+    for mode in ("together", "apart"):
+        eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep",
+                                                                 max_queue=len(batches)), aot_cache=aot_cache)
+        eng.start()
+        held = eng._state_lock if mode == "apart" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with held:
+            for start, stop in batches:
+                eng.submit(preds[start:stop], target[start:stop])
+            t_submit = time.perf_counter()
+        eng.stop()
+        t_end = time.perf_counter()
+        check(eng.stats.warmup_steps == 0, "dispatcher_alone: the warm engine captured")
+        out[mode] = {"steps": eng.steps, "submit_us_per_batch": (t_submit - t0) / len(batches) * 1e6,
+                     "s_per_step": (t_end - (t_submit if mode == "apart" else t0)) / eng.steps}
+    return out
+
+
+def multistream_phase(dev, preds, target, preds_np, target_np, capture=True):
     """Phase 8: the unsharded engine, 64 streams, Zipf stream ids."""
     from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
 
     batches = ragged_batches(SEED + 3, 16, BUCKET)
     sids = zipf_stream_ids(MS_STREAMS, len(batches), ALPHA, SEED + 3)
     eng = MultiStreamEngine(make_collection(dev), MS_STREAMS, EngineConfig(buckets=(256, BUCKET)))
-    t0 = time.perf_counter()
-    with eng:
-        for sid, (start, stop) in zip(sids, batches):
-            eng.submit(int(sid), preds[start:stop], target[start:stop])
-    seconds = time.perf_counter() - t0
-    check_streams(eng, stream_rows(sids, batches), preds_np, target_np, range(MS_STREAMS), "multistream")
+    seconds = run_engine(eng, capture, list(zip(sids, batches)),
+                         lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]]))
+    if capture:
+        check_streams(eng, stream_rows(sids, batches), preds_np, target_np, range(MS_STREAMS), "multistream")
     return eng, seconds
 
 
-def paged_phase(dev, preds, target, preds_np, target_np, q8, stage=True):
+def paged_phase(dev, preds, target, preds_np, target_np, q8, stage=True, capture=True, coalesce=8):
     """Phase 9: the paged engine, 10 000 streams in 128 slots under "megastep"."""
     from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
 
     batches = ragged_batches(SEED + 4, 8, 64)
     sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
     eng = MultiStreamEngine(make_collection(dev, ap_precision="q8_block" if q8 else None), PAGED_STREAMS,
-                            EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=q8),
+                            EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=q8,
+                                         coalesce=coalesce),
                             stream_shard=True, resident_streams=RESIDENT)
     if not stage:  # the twin: spilled rows decode on the host before seating
         eng._q8_enabled = False
         eng._q8_reset_stage()
-    t0 = time.perf_counter()
-    with eng:
-        for sid, (start, stop) in zip(sids, batches):
-            eng.submit(int(sid), preds[start:stop], target[start:stop])
-    seconds = time.perf_counter() - t0
+    seconds = run_engine(eng, capture, list(zip(sids, batches)),
+                         lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]]))
     per_stream = stream_rows(sids, batches)
     st = eng.stats
     check(st.page_outs > 0, "paged: nothing was spilled")
     check(st.page_ins > len(per_stream), "paged: no spilled row was paged back in")  # first touches load init rows
-    untouched = [s for s in range(0, PAGED_STREAMS, 97) if s not in per_stream][:20]
-    check_streams(eng, per_stream, preds_np, target_np, sorted(per_stream) + untouched,
-                  f"paged q8={q8} stage={stage}", int_only=q8)
+    if capture:
+        untouched = [s for s in range(0, PAGED_STREAMS, 97) if s not in per_stream][:20]
+        check_streams(eng, per_stream, preds_np, target_np, sorted(per_stream) + untouched,
+                      f"paged q8={q8} stage={stage}", int_only=q8)
     return eng, seconds, per_stream
 
 
+def engine_states_equal(a, b, streams, what):
+    """Two multi-stream engines' states, stream by stream, bit for bit (one
+    flush each: the per-stream reads find nothing pending)."""
+    for sid in streams:
+        x, y = a.stream_state(sid), b.stream_state(sid)
+        for k in x:
+            for s in x[k]:
+                check(torch.equal(x[k][s], y[k][s]), f"{what}: stream {sid} {k}.{s}")
+
+
+def check_cache(eng, what, signatures=1):
+    """A cold engine captures at most one step per bucket and signature."""
+    misses = eng.aot_cache.misses
+    check(misses <= signatures * len(eng._cfg.buckets),
+          f"{what}: {misses} captures for {len(eng._cfg.buckets)} buckets")
+    return eng.aot_cache.stats()
+
+
 def profile_bucket(dev, preds, target):
-    """Device-busy share of one megastep bucket and one per-leaf masked bucket:
-    the kernel time of a torch.profiler trace of one bucket over the bucket's
-    host wall time without the profiler (median of 5)."""
+    """Device-busy share of one megastep bucket through the engine's entry
+    points (``submit`` + ``flush``: the dispatcher's captured graph replay,
+    and the uncaptured step) and of one per-leaf masked bucket
+    (``update_state_masked``): the kernel time of a torch.profiler trace of
+    one bucket over the bucket's host wall time without the profiler (median
+    of 5)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
 
-    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(BUCKET,), kernel_backend="megastep"))
+    engines = {}
+    for name, capture in (("megastep_bucket_captured", True), ("megastep_bucket_uncaptured", False)):
+        eng = engines[name] = StreamingEngine(make_collection(dev),
+                                              EngineConfig(buckets=(BUCKET,), kernel_backend="megastep"))
+        eng._capture = capture
+        eng.start()
     coll = make_collection(dev)
     p, t = preds[:BUCKET], target[:BUCKET]
     mask = torch.ones(BUCKET, dtype=torch.bool, device=dev)
-    runs = {"megastep_bucket": lambda: eng.submit(p, t),
-            "masked_bucket": lambda: coll.update_state_masked(coll.init_state(), p, t, mask=mask)}
+
+    def bucket(eng):
+        eng.submit(p, t)
+        eng.flush()
+
+    runs = {name: (lambda e=eng: bucket(e)) for name, eng in engines.items()}
+    runs["masked_bucket"] = lambda: coll.update_state_masked(coll.init_state(), p, t, mask=mask)
     out = {}
     for name, fn in runs.items():
         walls = []
@@ -1078,8 +1161,142 @@ def profile_bucket(dev, preds, target):
         out[name] = {"wall_us": wall_us, "device_busy_us": total, "device_busy_share": total / wall_us,
                      "device_ops": len(busy), "device_launches": sum(e.count for e in device),
                      "top": [(k[:60], v) for k, v in sorted(busy.items(), key=lambda kv: -kv[1])[:6]]}
-    check(out["megastep_bucket"]["device_busy_us"] > 0, "profiler: no device time in the megastep bucket")
+    for eng in engines.values():
+        eng.stop()
+    for name in engines:
+        check(out[name]["device_busy_us"] > 0, f"profiler: no device time in the {name}")
     return out
+
+
+def kernel_wrappers():
+    """The kernel wrappers K1-K7 by name, each with its ``.launches`` count."""
+    from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_fold_cuda,
+        megastep_segment_cuda,
+        megastep_segment_q8_cuda,
+    )
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+
+    return {"fold_rows": fold_rows_cuda, "histogram": histogram_cuda, "binned_counts": binned_counts_cuda,
+            "segment_reduce": segment_reduce_cuda, "megastep_fold": megastep_fold_cuda,
+            "megastep_segment": megastep_segment_cuda, "megastep_segment_q8": megastep_segment_q8_cuda}
+
+
+def counts():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def delta(before):
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def main_rows(dev):
+    """The main path's seeded rows: ``(preds, target)`` on ``dev`` and as numpy."""
+    data_rng = np.random.RandomState(SEED)
+    preds_np = data_rng.rand(N_ROWS, NUM_CLASSES).astype(np.float32)
+    preds_np /= preds_np.sum(axis=1, keepdims=True)
+    target_np = data_rng.randint(0, NUM_CLASSES, N_ROWS)
+    return torch.from_numpy(preds_np).to(dev), torch.from_numpy(target_np).to(dev), preds_np, target_np
+
+
+def engine_phases(dev, preds, target, preds_np, target_np, gpu_state):
+    """Phases 7-9: every engine in its production form (dispatcher, captured
+    steps), with the uncaptured twins, the warm twin, the oracle, twin and
+    launch checks. Returns the phases' numbers."""
+    phases = {}
+
+    def per_step(eng):  # every step the card ran: the served ones and each capture's warm-up
+        return eng.steps + eng.stats.warmup_steps
+
+    # phase 7: the megastep engine; 2 K5 launches per step, no K1
+    before = counts()
+    mega_eng, seconds = streaming_megastep_phase(dev, preds, target)
+    d = delta(before)
+    n7 = per_step(mega_eng)
+    check(d["megastep_fold"] == 2 * n7 and d["fold_rows"] == 0,
+          f"megastep engine: {d['megastep_fold']} K5 and {d['fold_rows']} K1 launches in {n7} steps")
+    compare_states(mega_eng.state(), gpu_state, "megastep engine vs one-shot")
+    check(d["histogram"] == n7, "megastep engine: K2 not one launch per step")
+    aot7 = check_cache(mega_eng, "megastep engine")
+    # its warm twin shares the cache: every step a hit, nothing captured
+    before = counts()
+    twin_eng, twin_seconds = streaming_megastep_phase(dev, preds, target, aot_cache=mega_eng.aot_cache)
+    dt = delta(before)
+    check(twin_eng.aot_cache.misses == aot7["misses"] and twin_eng.stats.warmup_steps == 0,
+          f"warm twin engine captured: {twin_eng.aot_cache.stats()}")
+    check(dt["megastep_fold"] == 2 * twin_eng.steps and dt["histogram"] == twin_eng.steps,
+          "warm twin engine: launches not credited per replay")
+    compare_states(twin_eng.state(), gpu_state, "warm twin engine vs one-shot")
+    unc_eng, unc_seconds = streaming_megastep_phase(dev, preds, target, capture=False)
+    compare_states(unc_eng.state(), mega_eng.state(), "megastep engine: captured vs uncaptured")
+    phases["streaming_megastep"] = {
+        "seconds": seconds, "steps": mega_eng.steps, "warmup_steps": mega_eng.stats.warmup_steps,
+        "megasteps": mega_eng.stats.megasteps, "batches": mega_eng.stats.batches_submitted,
+        "s_per_step": seconds / mega_eng.steps, "launches": d, "aot": aot7,
+        "uncaptured": {"seconds": unc_seconds, "steps": unc_eng.steps, "s_per_step": unc_seconds / unc_eng.steps},
+        "warm_twin": {"seconds": twin_seconds, "steps": twin_eng.steps, "aot": twin_eng.aot_cache.stats()},
+        "dispatcher_alone": dispatcher_alone(dev, preds, target, mega_eng.aot_cache),
+    }
+
+    # phase 8: unsharded multi-stream; K4 on every step (one per state leaf)
+    before = counts()
+    ms_eng, seconds = multistream_phase(dev, preds, target, preds_np, target_np)
+    d = delta(before)
+    n8 = per_step(ms_eng)
+    n_leaves = ms_eng.arena_layout.num_leaves
+    check(d["segment_reduce"] == n_leaves * n8, "multistream: K4 did not launch once per leaf on every step")
+    check(d["histogram"] == n8, "multistream: K2 not one launch per step")
+    unc_eng, unc_seconds = multistream_phase(dev, preds, target, preds_np, target_np, capture=False)
+    engine_states_equal(ms_eng, unc_eng, range(MS_STREAMS), "multistream: captured vs uncaptured")
+    phases["multistream"] = {
+        "seconds": seconds, "steps": ms_eng.steps, "warmup_steps": ms_eng.stats.warmup_steps,
+        "megasteps": ms_eng.stats.megasteps, "batches": ms_eng.stats.batches_submitted,
+        "s_per_step": seconds / ms_eng.steps, "streams": MS_STREAMS, "launches": d,
+        "aot": check_cache(ms_eng, "multistream"),
+        "uncaptured": {"seconds": unc_seconds, "steps": unc_eng.steps, "s_per_step": unc_seconds / unc_eng.steps},
+    }
+
+    # phase 9: paged, (a) exact, coalesced and not, (b) q8 staged decode, (c) (b)'s host-decode twin
+    for name, q8, stage, coalesce in (("paged_exact", False, True, 8), ("paged_exact_coalesce1", False, True, 1),
+                                      ("paged_q8", True, True, 1), ("paged_q8_twin", True, False, 1)):
+        before = counts()
+        eng, seconds, per_stream = paged_phase(dev, preds, target, preds_np, target_np, q8, stage, coalesce=coalesce)
+        st = eng.stats
+        d = delta(before)
+        n9 = per_step(eng)
+        phases[name] = {"seconds": seconds, "steps": eng.steps, "warmup_steps": st.warmup_steps,
+                        "megasteps": st.megasteps, "batches_coalesced": st.batches_coalesced,
+                        "batches": st.batches_submitted, "s_per_step": seconds / eng.steps, "coalesce": coalesce,
+                        "streams": PAGED_STREAMS, "resident": RESIDENT, "touched": len(per_stream),
+                        "page_ins": st.page_ins, "page_outs": st.page_outs, "page_hits": st.page_hits,
+                        "q8_staged_rows": st.q8_staged_rows, "launches": d,
+                        "aot": check_cache(eng, name)}
+        # one launch per arena dtype per step: K7 for the staged f32 arena of (b), K6 for the rest
+        k7_per_step = 1 if name == "paged_q8" else 0
+        check(d["megastep_segment"] == (2 - k7_per_step) * n9 and d["megastep_segment_q8"] == k7_per_step * n9,
+              f"{name}: {d['megastep_segment']} K6 and {d['megastep_segment_q8']} K7 launches in {n9} steps")
+        check(d["histogram"] == n9, f"{name}: K2 not one launch per step")
+        if name == "paged_exact":
+            check(st.megasteps > 0, "paged: no queued batches coalesced")
+            exact_eng, exact_streams = eng, sorted(per_stream)
+            unc_eng, unc_seconds, _ = paged_phase(dev, preds, target, preds_np, target_np, False, capture=False)
+            engine_states_equal(eng, unc_eng, exact_streams, "paged: captured vs uncaptured")
+            phases[name]["uncaptured"] = {"seconds": unc_seconds, "steps": unc_eng.steps,
+                                          "s_per_step": unc_seconds / unc_eng.steps}
+        if name == "paged_exact_coalesce1":
+            check(st.megasteps == 0, "paged coalesce=1: a step carried several batches")
+            engine_states_equal(exact_eng, eng, exact_streams, "paged: coalesced vs not")
+        if name == "paged_q8":
+            check(st.q8_staged_rows > 0, "paged q8: no spilled row was seated for K7 to decode")
+            q8_eng, q8_streams = eng, sorted(per_stream)
+        if name == "paged_q8_twin":
+            check(st.q8_staged_rows == 0, "paged twin: staged anyway")
+            engine_states_equal(q8_eng, eng, q8_streams, "paged q8 vs twin")
+    return phases
 
 
 def nvidia_smi_line():
@@ -1093,16 +1310,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
-    from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
     from metrics_tpu_torch.ops.kernels import build
-    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
-    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
-    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
-        megastep_fold_cuda,
-        megastep_segment_cuda,
-        megastep_segment_q8_cuda,
-    )
-    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
@@ -1113,40 +1321,24 @@ def main():
     build.build_all()
     for name in build.SOURCES:
         build.library(name)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.last_build_seconds:.2f} s)")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.last_build_seconds:.2f} s) on {card}")
 
     rng = np.random.RandomState(SEED)
     t0 = time.perf_counter()
     fold_entries = fold_phase(dev, rng)
     hist_entries = hist_phase(dev, rng)
     binned_entries = binned_phase(dev, rng)
-    print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s)")
+    print(f"kernel phases K1-K3: pass ({time.perf_counter() - t0:.2f} s on {card})")
     t0 = time.perf_counter()
     segment_entries = segment_phase(dev, rng)
     mega_fold_entries = megastep_fold_phase(dev, rng)
     mega_seg_entries, mega_q8_entries = megastep_segment_phase(dev, rng)
-    print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s)")
+    print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s on {card})")
 
-    data_rng = np.random.RandomState(SEED)
-    preds_np = data_rng.rand(N_ROWS, NUM_CLASSES).astype(np.float32)
-    preds_np /= preds_np.sum(axis=1, keepdims=True)
-    target_np = data_rng.randint(0, NUM_CLASSES, N_ROWS)
-    preds, target = torch.from_numpy(preds_np).to(dev), torch.from_numpy(target_np).to(dev)
-
-    kernels = {"fold_rows": fold_rows_cuda, "histogram": histogram_cuda, "binned_counts": binned_counts_cuda,
-               "segment_reduce": segment_reduce_cuda, "megastep_fold": megastep_fold_cuda,
-               "megastep_segment": megastep_segment_cuda, "megastep_segment_q8": megastep_segment_q8_cuda}
-
-    def counts():
-        return {k: fn.launches for k, fn in kernels.items()}
-
-    def delta(before):
-        now = counts()
-        return {k: now[k] - before[k] for k in kernels}
-
+    preds, target, preds_np, target_np = main_rows(dev)
+    kernels = kernel_wrappers()
     for fn in kernels.values():
         fn.launches = 0
-    phases = {}
     gpu_state, gpu_values, one_shot_s = main_path(dev, preds, target)
     one_shot = counts()
     masked_state, masked_values, buckets, masked_s = masked_path(dev, preds_np, target_np, np.random.RandomState(SEED + 1))
@@ -1157,51 +1349,7 @@ def main():
     check(one_shot["histogram"] == N_ROWS // BATCH and masked["histogram"] == buckets,
           "K2: not one launch per batch and per masked bucket")
 
-    # phase 7: the megastep engine; 2 K5 launches per step, no K1
-    before = counts()
-    mega_eng, seconds = streaming_megastep_phase(dev, preds, target)
-    phases["streaming_megastep"] = {"seconds": seconds, "steps": mega_eng.steps, "launches": delta(before)}
-    d = phases["streaming_megastep"]["launches"]
-    check(d["megastep_fold"] == 2 * mega_eng.steps and d["fold_rows"] == 0,
-          f"megastep engine: {d['megastep_fold']} K5 and {d['fold_rows']} K1 launches in {mega_eng.steps} steps")
-    compare_states(mega_eng.state(), gpu_state, "megastep engine vs one-shot")
-    check(d["histogram"] == mega_eng.steps, "megastep engine: K2 not one launch per step")
-
-    # phase 8: unsharded multi-stream; K4 on every step (one per state leaf)
-    before = counts()
-    ms_eng, seconds = multistream_phase(dev, preds, target, preds_np, target_np)
-    phases["multistream"] = {"seconds": seconds, "steps": ms_eng.steps, "streams": MS_STREAMS,
-                             "launches": delta(before)}
-    n_leaves = ms_eng.arena_layout.num_leaves
-    check(phases["multistream"]["launches"]["segment_reduce"] == n_leaves * ms_eng.steps,
-          "multistream: K4 did not launch once per leaf on every step")
-    check(phases["multistream"]["launches"]["histogram"] == ms_eng.steps, "multistream: K2 not one launch per step")
-
-    # phase 9: paged, (a) exact, (b) q8 staged decode, (c) (b)'s host-decode twin
-    for name, q8, stage in (("paged_exact", False, True), ("paged_q8", True, True), ("paged_q8_twin", True, False)):
-        before = counts()
-        eng, seconds, per_stream = paged_phase(dev, preds, target, preds_np, target_np, q8, stage)
-        st = eng.stats
-        phases[name] = {"seconds": seconds, "steps": eng.steps, "streams": PAGED_STREAMS, "resident": RESIDENT,
-                        "touched": len(per_stream), "page_ins": st.page_ins, "page_outs": st.page_outs,
-                        "page_hits": st.page_hits, "q8_staged_rows": st.q8_staged_rows, "launches": delta(before)}
-        d = phases[name]["launches"]
-        # one launch per arena dtype per step: K7 for the staged f32 arena of (b), K6 for the rest
-        k7_per_step = 1 if name == "paged_q8" else 0
-        check(d["megastep_segment"] == (2 - k7_per_step) * eng.steps and
-              d["megastep_segment_q8"] == k7_per_step * eng.steps,
-              f"{name}: {d['megastep_segment']} K6 and {d['megastep_segment_q8']} K7 launches in {eng.steps} steps")
-        check(d["histogram"] == eng.steps, f"{name}: K2 not one launch per step")
-        if name == "paged_q8":
-            check(st.q8_staged_rows > 0, "paged q8: no spilled row was seated for K7 to decode")
-            q8_eng, q8_streams = eng, sorted(per_stream)
-        if name == "paged_q8_twin":
-            check(st.q8_staged_rows == 0, "paged twin: staged anyway")
-            for sid in q8_streams:
-                a, b = q8_eng.stream_state(sid), eng.stream_state(sid)
-                for k in a:
-                    for sname in a[k]:
-                        check(torch.equal(a[k][sname], b[k][sname]), f"paged q8 vs twin: stream {sid} {k}.{sname}")
+    phases = engine_phases(dev, preds, target, preds_np, target_np, gpu_state)
     launches = counts()
     profile = profile_bucket(dev, preds, target)
     phases_line = {"engine_phases": phases, "profile": profile, "card": card}
@@ -1235,6 +1383,7 @@ def main():
     for e in (*fold_entries, *hist_entries, *binned_entries, *segment_entries, *mega_fold_entries, *mega_seg_entries,
               *mega_q8_entries):
         e["launches"] = launches[e["name"]]
+        e["card"] = card
         entries.append(e)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,24 +23,30 @@ forms:
   paged in as int8 codes on touch ("q8-resident" rows: the host never
   dequantizes them).
 
-``submit`` routes, pages and steps on the caller's thread. The dispatcher
-thread, coalescing across streams, snapshots, windows and multi-GPU stream
-sharding over ``torch.distributed`` are not ported yet (ROADMAP §A);
-``results()`` computes stream by stream.
+``submit(stream_id, ...)`` enqueues ``(stream_id, args, kwargs)`` for the
+dispatcher thread of :class:`~metrics_tpu_torch.engine.pipeline.StreamingEngine`.
+Stream ids never block coalescing: queued batches of different streams form
+one megabatch whose per-row id column carries them, and the paged form routes
+it in rounds of at most ``resident`` distinct streams. The pager's plan,
+spills and page-ins and the q8 flag clearing run on the engine stream outside
+any graph; only the segment step is captured (its slot ids are a fixed device
+buffer, its q8 staging a fixed set of buffers). Snapshots, windows and
+multi-GPU stream sharding over ``torch.distributed`` are not ported yet
+(ROADMAP §A); ``results()`` computes stream by stream.
 """
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from metrics_tpu_torch.engine.bucketing import pad_rows
+from metrics_tpu_torch.engine.aot import AotCache
+from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.metric import StateSpec
-from metrics_tpu_torch.utils.data import infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
-from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["MultiStreamEngine"]
 
@@ -60,6 +66,7 @@ class MultiStreamEngine(StreamingEngine):
         metric: the served metric/collection (segmented update path required).
         num_streams: S — independent accumulations.
         config: engine config; ``stream_shard`` requires ``use_arena=True``.
+        aot_cache: the captured-step cache, as for ``StreamingEngine``.
         stream_shard: the paged form (one device): per-stream arena rows in
             ``resident_streams`` slots, cold streams spilled to host RAM.
         resident_streams: slot count of the paged form (default S: everything
@@ -71,6 +78,7 @@ class MultiStreamEngine(StreamingEngine):
         metric: Any,
         num_streams: int,
         config: Optional[EngineConfig] = None,
+        aot_cache: Optional[AotCache] = None,
         stream_shard: bool = False,
         resident_streams: Optional[int] = None,
     ):
@@ -96,7 +104,7 @@ class MultiStreamEngine(StreamingEngine):
                     "every stream resident)"
                 )
             self._resident = 0
-        super().__init__(metric, config=config)
+        super().__init__(metric, config=config, aot_cache=aot_cache)
         self._row_codec: Optional[ArenaRowCodec] = None
         if self._stream_shard:
             self._pager = StreamPager(1, self._resident)
@@ -177,14 +185,23 @@ class MultiStreamEngine(StreamingEngine):
         return self._metric.update_state_segmented(state_tree, *rest, mask=mask, segment_ids=ids,
                                                    num_segments=num, **kw)
 
-    def _step_state(self, state: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
+    def _step_aux(self) -> Any:
+        return self._q8_payload()
+
+    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
         if not self._stream_shard:
-            return super()._step_state(state, a, kw, mask)
+            return super()._step_state(state, aux, a, kw, mask)
         if self._megastep_plan is not None:
             return self._megastep_plan.apply_segmented(state, a[1:], kw, mask, a[0], self._resident,
-                                                       q8_stage=self._q8_payload(), q8_cols=self._q8_cols_dev)
+                                                       q8_stage=aux, q8_cols=self._q8_cols_dev)
         tree = self._layout.unpack_stacked(state)
         return self._layout.pack_stacked(self._traced_update(tree, (a, kw), mask))
+
+    def _update_kind(self) -> str:
+        return f"paged.{self._resident}" if self._stream_shard else f"segmented.{self._num_streams}"
+
+    def _graph_keepalive(self) -> Tuple[Any, ...]:
+        return super()._graph_keepalive() + (self._q8_cols_dev,)
 
     def _check_stream(self, stream_id: Any) -> int:
         sid = int(stream_id)
@@ -192,30 +209,56 @@ class MultiStreamEngine(StreamingEngine):
             raise MetricsTPUUserError(f"stream_id {sid} out of range for num_streams={self._num_streams}")
         return sid
 
-    def submit(self, stream_id: int, *args: Any, **kwargs: Any) -> None:  # type: ignore[override]
-        """Fold one (ragged) batch into ``stream_id``'s accumulation."""
+    def submit(self, stream_id: int, *args: Any, timeout: Optional[float] = None,  # type: ignore[override]
+               **kwargs: Any) -> None:
+        """Enqueue one (ragged) batch for ``stream_id``; blocks and times out
+        as ``StreamingEngine.submit`` does."""
         sid = self._check_stream(stream_id)
-        n = infer_batch_size(tree_leaves((args, kwargs)))
-        if n is None:
-            raise ValueError("no array argument with a leading batch dimension")
-        self._stats.batches_submitted += 1
-        if n == 0:
+        self._submit_item((sid, args, kwargs), timeout)
+
+    # ------------------------------------------------------------ dispatcher hooks
+
+    def _item_rows(self, item: Any) -> int:
+        return super()._item_rows(item[1:])
+
+    def _coalescible(self, ref: Any, item: Any) -> bool:
+        # stream ids NEVER block coalescing: cross-stream megabatches are the
+        # point; only the (args, kwargs) payloads must concatenate
+        return super()._coalescible(ref[1:], item[1:])
+
+    def _merge_sized(self, nonempty: List[Tuple[Any, int]]) -> Optional[Tuple[Tuple[Any, ...], Dict[str, Any]]]:
+        """The megabatch with its per-row stream-id column leading the args."""
+        if not nonempty:
+            return None
+        ids = np.concatenate([np.full((n,), sid, np.int32) for (sid, _, _), n in nonempty])
+        args, kwargs = self._concat_sized([((a, kw), n) for (_, a, kw), n in nonempty])
+        return (ids,) + tuple(args), kwargs
+
+    def _latch_payload(self, merged: Any) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
+        args, kwargs = merged
+        return tuple(args[1:]), kwargs
+
+    def _group_context(self, group: List[Any]) -> Dict[str, Any]:
+        sids = sorted({it[0] for it in group if isinstance(it, tuple) and len(it) == 3})
+        return {"stream_ids": sids} if sids else {}
+
+    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
+        if not self._stream_shard:
+            super()._execute_payload(merged, n, coalesced)
             return
-        ids = np.full((n,), sid, np.int32)
-        if self._stream_shard:
-            self._execute_routed(ids, args, kwargs, n)
-        else:
-            self._execute_payload(((ids,) + tuple(args), kwargs), n)
+        args, kwargs = merged
+        self._execute_routed(args[0], tuple(args[1:]), kwargs, n, coalesced)
 
     # ------------------------------------------------------------ the paged form
 
-    def _execute_routed(self, sids: np.ndarray, args: Tuple[Any, ...], kwargs: Dict[str, Any], n: int) -> None:
+    def _execute_routed(self, sids: np.ndarray, args: Tuple[Any, ...], kwargs: Dict[str, Any], n: int,
+                        coalesced: int) -> None:
         """Run a batch through the pager in ROUNDS (the JAX package's routed
         execution at world 1): each round takes up to the top bucket's rows
         and at most ``resident`` distinct streams (so the pager can always
         seat it), pages those streams resident, and runs ONE padded step
         whose segment ids are the pager's slot indices."""
-        leaves, treedef = tree_flatten((tuple(args), kwargs))
+        leaves, _ = tree_flatten((tuple(args), kwargs))
         locs = sids.astype(np.int64)  # world 1: a stream's local index is its id
         per_top = self._policy.buckets[-1]
         cursor = 0
@@ -230,30 +273,17 @@ class MultiStreamEngine(StreamingEngine):
             valid = end - cursor
             bucket = self._policy.bucket_for(valid)
             round_locs = locs[cursor:end]
+            kinds = classify_leaves(leaves, n, bucket)
             self._page_round([int(x) for x in round_locs])
-            ambiguous = {bucket} - {n}
-            out_leaves = []
-            for leaf in leaves:
-                if is_batch_leaf(leaf, n):
-                    out_leaves.append(pad_rows(leaf[cursor:end], bucket, self._cfg.pad_value))
-                elif any(is_batch_leaf(leaf, b) for b in ambiguous):
-                    raise ValueError(
-                        f"non-batch array argument with leading dimension {leaf.shape[0]} is ambiguous against "
-                        f"routed bucket {bucket} (batch size here is {n}); reshape it (e.g. add a leading axis "
-                        "of 1) or choose buckets that cannot collide"
-                    )
-                else:
-                    out_leaves.append(leaf)
             uniq = np.unique(round_locs)
             slots = np.asarray([self._pager.slot_of(_SHARD, int(u)) for u in uniq], np.int32)
             slot_ids = np.zeros((bucket,), np.int32)  # pad rows address slot 0, masked
             slot_ids[:valid] = slots[np.searchsorted(uniq, round_locs)]
-            mask = np.zeros((bucket,), bool)
-            mask[:valid] = True
-            a_pad, kw_pad = tree_unflatten(treedef, out_leaves)
+            # the slot ids lead the args as one whole (bucket,) leaf
+            step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(args), kwargs))
             try:
-                self._run_padded_step((torch.from_numpy(slot_ids).to(self._device),) + tuple(a_pad), kw_pad,
-                                      mask, bucket, valid)
+                self._run_padded_step(step_leaves, [WHOLE] + kinds, step_def, cursor, end, bucket,
+                                      coalesced if cursor == 0 else 1)
             except BaseException:
                 # a failed step never ran the kernel's decode: seat the staged
                 # slots through the host decode before anything reads them
@@ -393,42 +423,55 @@ class MultiStreamEngine(StreamingEngine):
         return tree_map(lambda x: x[sid], self._unpack(self._state))
 
     def result(self, stream_id: int) -> Any:  # type: ignore[override]
-        """``stream_id``'s value: the paged form reads ONLY that stream's row."""
-        return self._metric.compute_from(self._stream_tree(self._check_stream(stream_id)))
+        """``stream_id``'s value (after a flush): the paged form reads ONLY
+        that stream's row."""
+        sid = self._check_stream(stream_id)
+        self.flush()
+        with self._device_section():
+            return self._metric.compute_from(self._stream_tree(sid))
 
     def results(self) -> Dict[int, Any]:
-        """Every stream's value, computed stream by stream."""
-        return {sid: self.result(sid) for sid in range(self._num_streams)}
+        """Every stream's value, computed stream by stream after one flush."""
+        self.flush()
+        with self._device_section():
+            return {sid: self._metric.compute_from(self._stream_tree(sid)) for sid in range(self._num_streams)}
 
     def stream_state(self, stream_id: int) -> Any:
-        """A copy of one stream's LOGICAL state tree."""
-        return tree_map(torch.clone, self._stream_tree(self._check_stream(stream_id)))
+        """A copy of one stream's LOGICAL state tree (after a flush)."""
+        sid = self._check_stream(stream_id)
+        self.flush()
+        with self._device_section():
+            return tree_map(torch.clone, self._stream_tree(sid))
 
     def state(self) -> Any:
         """The (S, ...)-stacked LOGICAL state of all streams (the paged form
         reassembles it from resident, spilled and init rows)."""
         if not self._stream_shard:
             return super().state()
-        rows = [self._fetch_row(sid) for sid in range(self._num_streams)]
-        return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+        self.flush()
+        with self._device_section():
+            rows = [self._fetch_row(sid) for sid in range(self._num_streams)]
+            return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
 
     def reset_stream(self, stream_id: int) -> None:
-        """Zero ONE stream's accumulation; the paged form simply forgets the
-        stream (slot freed, spill entry dropped) and its next access faults in
-        the init row."""
+        """Zero ONE stream's accumulation (after a flush); the paged form
+        simply forgets the stream (slot freed, spill entry dropped) and its
+        next access faults in the init row."""
         sid = self._check_stream(stream_id)
-        if self._stream_shard:
-            self._pager.drop(_SHARD, sid)
-            return
-        init = tree_leaves(self._metric.init_state())
-        for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
-            leaf[sid] = fresh.to(leaf.device)  # in place: the leaves view the arena
+        self.flush()
+        with self._device_section():
+            if self._stream_shard:
+                self._pager.drop(_SHARD, sid)
+                return
+            init = tree_leaves(self._metric.init_state())
+            for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
+                leaf[sid] = fresh.to(leaf.device)  # in place: the leaves view the arena
 
-    def reset(self) -> None:
+    def _reset_locked(self) -> None:
         if self._pager is not None:
             self._pager.reset()
             self._q8_clear()
-        super().reset()
+        super()._reset_locked()
 
     @property
     def pager(self) -> Optional[StreamPager]:

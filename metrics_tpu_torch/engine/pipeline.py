@@ -1,38 +1,68 @@
-"""The streaming engine's step: bucket, pad and fold ragged batches into a
-carried metric state on the card.
+"""The streaming engine: bucket, pad and fold ragged batches into a carried
+metric state on the card, on a dispatcher thread, through captured steps.
 
-Port of the synchronous core of ``metrics_tpu/engine/pipeline.py``. A caller
-``submit``s ragged batches; each is split into bucketed chunks
-(``engine/bucketing.py``), padded with an inert fill and a validity mask, and
-folded into the carried state at once, on the caller's thread. With
-``use_arena=True`` (the default) the carried state is the per-dtype arena
-(``engine/arena.py``). The step is the metric's masked update, whose per-leaf
-folds are the K1 kernel; under ``kernel_backend="megastep"`` it is
-:meth:`MegastepPlan.apply_masked`, one K5 launch per eligible arena dtype.
+Port of ``metrics_tpu/engine/pipeline.py``'s serving core. ``submit``
+enqueues a ragged batch on a bounded queue (``max_queue``; a full queue
+blocks the producer, ``submit(timeout=)`` bounds the wait) and returns. A
+dispatcher thread drains the queue, concatenates up to ``coalesce`` queued
+compatible batches into one megabatch (waiting up to ``coalesce_window_ms``
+for more), splits it into bucketed chunks (``engine/bucketing.py``), and
+folds each chunk into the carried state: with ``use_arena=True`` (the
+default) the per-dtype arena (``engine/arena.py``), through the metric's
+masked update (per-leaf K1 folds) or, under ``kernel_backend="megastep"``,
+:meth:`MegastepPlan.apply_masked` (one K5 launch per eligible arena dtype).
 
-The JAX engine's dispatcher thread, queue and coalescing, its AOT program
-cache, snapshots, fault injection and recovery, tracing, admission control,
-windows and meshes are not ported yet (ROADMAP §A): their ``EngineConfig``
-fields raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
+On the card every step runs on one engine-owned CUDA stream. Each (bucket,
+payload signature) step is captured once into a CUDA graph (``engine/aot.py``)
+and replayed after: the chunk's rows, pad fill and mask are copied into the
+graph's fixed buffers, the carried state in and the new state back into the
+engine's own buffers, which are never rebound. At most ``in_flight`` steps run
+ahead of the host. A capture or replay that fails is the dispatcher's sticky
+error, raised from ``flush``/``result``/``state``/``submit`` as
+:class:`~metrics_tpu_torch.engine.faults.EngineDispatchError`; nothing falls
+back to the eager step or to the CPU. On the CPU the step runs eagerly on the
+dispatcher thread. Readers flush first: ``with engine:`` or ``flush()`` before
+reading.
+
+Snapshots, fault injection and recovery, tracing, admission control, windows,
+meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A): their
+``EngineConfig`` fields raise
+:class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
 """
-from typing import Any, Dict, Optional, Tuple
+import queue
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.engine.aot import EAGER, AotCache, CapturedStep, metric_fingerprint
 from metrics_tpu_torch.engine.arena import ArenaLayout
-from metrics_tpu_torch.engine.bucketing import BucketPolicy
+from metrics_tpu_torch.engine.bucketing import (
+    BucketPolicy,
+    PinnedRing,
+    StepBuffers,
+    classify_leaves,
+    on_card,
+    pad_leaves,
+    padded_shape,
+    torch_dtype,
+)
+from metrics_tpu_torch.engine.faults import BackpressureTimeout, EngineDispatchError
 from metrics_tpu_torch.engine.megastep import MegastepPlan
-from metrics_tpu_torch.utils.data import infer_batch_size
+from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError, NotPortedError
-from metrics_tpu_torch.utils.tree import tree_leaves, tree_map
+from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = (
-    "max_queue", "in_flight", "coalesce", "coalesce_window_ms", "snapshot_every", "snapshot_dir",
-    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "snapshot_keep",
+    "snapshot_every", "snapshot_dir", "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "snapshot_keep",
     "fault_injector", "screen", "quarantine_capacity", "max_retries", "backoff_base_ms", "backoff_max_ms",
     "step_timeout_s", "transactional", "degrade_kernel", "trace", "admission", "ladder", "elastic_min_world",
     "window", "drift",
@@ -62,6 +92,18 @@ class EngineConfig:
 
     Args:
         buckets: allowed padded batch sizes (the closed shape set).
+        max_queue: bounded ingest queue capacity, in batches. ``submit``
+            blocks when full: backpressure to the producer.
+        in_flight: device steps allowed un-synced before the dispatcher
+            blocks on the oldest (double-buffering depth).
+        coalesce: max SUBMITTED batches the dispatcher may drain and
+            concatenate into one megabatch step (1 disables). Compatible
+            batches only (same structure, batch leaves of one trailing shape
+            and dtype, equal non-batch arguments); an incompatible batch ends
+            the group and runs next.
+        coalesce_window_ms: how long the dispatcher may WAIT for more
+            coalescible traffic once the queue runs dry (0: never wait, only
+            already-queued batches coalesce).
         use_arena: carry the state as per-dtype packed arenas
             (``engine/arena.py``) instead of the per-leaf tree.
         kernel_backend: None or ``"auto"``: the per-leaf kernels (K1 in the
@@ -85,6 +127,10 @@ class EngineConfig:
     def __init__(
         self,
         buckets: Tuple[int, ...] = (256, 1024),
+        max_queue: int = 64,
+        in_flight: int = 2,
+        coalesce: int = 8,
+        coalesce_window_ms: float = 0.0,
         use_arena: bool = True,
         kernel_backend: Optional[str] = None,
         pad_value: Any = 0,
@@ -97,24 +143,33 @@ class EngineConfig:
         if fields:
             raise TypeError(f"EngineConfig got unexpected fields {sorted(fields)}")
         self.buckets = tuple(int(b) for b in buckets)
+        self.max_queue = int(max_queue)
+        self.in_flight = int(in_flight)
+        self.coalesce = int(coalesce)
+        self.coalesce_window_ms = float(coalesce_window_ms)
         self.use_arena = bool(use_arena)
         self.kernel_backend = kernel_backend
         self.pad_value = pad_value
         self.compress_payloads = bool(compress_payloads)
 
     def __repr__(self) -> str:
-        return (f"EngineConfig(buckets={self.buckets}, use_arena={self.use_arena}, "
+        return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
+                f"coalesce={self.coalesce}, coalesce_window_ms={self.coalesce_window_ms}, use_arena={self.use_arena}, "
                 f"kernel_backend={self.kernel_backend!r}, pad_value={self.pad_value!r}, "
                 f"compress_payloads={self.compress_payloads})")
 
 
 class EngineStats:
-    """Counters of one engine: steps, valid and padded rows, kernel fallback
-    verdicts, and the pager's page traffic (paged multi-stream engine)."""
+    """Counters of one engine: steps, coalesced megasteps, valid and padded
+    rows, capture warm-ups, kernel fallback verdicts, and the pager's page
+    traffic (paged multi-stream engine)."""
 
     def __init__(self) -> None:
         self.steps = 0
         self.batches_submitted = 0
+        self.batches_coalesced = 0  # submitted batches folded into a shared step
+        self.megasteps = 0  # steps that carried > 1 submitted batch
+        self.warmup_steps = 0  # steps run once on a copy of the state before a capture
         self.rows_in = 0
         self.rows_padded = 0
         self.routed_steps = 0
@@ -125,10 +180,13 @@ class EngineStats:
         self.q8_staged_rows = 0  # page-ins seated as int8 codes for K7 to decode
         self.kernel_fallbacks: Dict[str, int] = {}
 
-    def record_step(self, bucket: int, valid: int) -> None:
+    def record_step(self, bucket: int, valid: int, coalesced: int = 1) -> None:
         self.steps += 1
         self.rows_in += int(valid)
         self.rows_padded += int(bucket)
+        if coalesced > 1:
+            self.megasteps += 1
+            self.batches_coalesced += int(coalesced)
 
     def record_kernel_fallback(self, reason: str) -> None:
         self.kernel_fallbacks[reason] = self.kernel_fallbacks.get(reason, 0) + 1
@@ -137,6 +195,35 @@ class EngineStats:
         """Per-reason counts: ``engine:<reason>`` when the engine cannot take
         the megastep path at all, ``dtype.<key>:<why>`` per degraded dtype."""
         return dict(self.kernel_fallbacks)
+
+
+_STOP = object()  # the dispatcher's stop sentinel
+
+
+def _attach_ctx(exc: BaseException, **kv: Any) -> None:
+    """Tag an exception with engine failure context (batch cursor, step,
+    bucket, stream ids) without changing its type; ``_raise_if_failed``
+    folds the tags into :class:`EngineDispatchError`. The innermost value of
+    a key wins."""
+    ctx = getattr(exc, "_engine_ctx", None)
+    if ctx is None:
+        try:
+            exc._engine_ctx = ctx = {}
+        except Exception:  # noqa: BLE001 - exceptions with __slots__
+            return
+    for k, v in kv.items():
+        if v is not None and (not isinstance(v, (list, tuple)) or len(v)):
+            ctx.setdefault(k, v)
+
+
+def _same_batch_leaf(a: Any, b: Any) -> bool:
+    """Two batch-carried leaves that concatenate: both numpy, or both tensors
+    on one device, of one dtype and trailing shape."""
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return a.dtype == b.dtype and a.shape[1:] == b.shape[1:]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.dtype == b.dtype and a.device == b.device and a.shape[1:] == b.shape[1:]
+    return False
 
 
 def _metric_device(metric: Any) -> torch.device:
@@ -151,12 +238,16 @@ def _metric_device(metric: Any) -> torch.device:
 class StreamingEngine:
     """Drive a ``Metric``/``MetricCollection`` as a stream of ragged batches.
 
-    ``submit`` pads and folds each batch at once; ``result`` computes the
-    accumulated value; ``state`` returns a copy of the logical state tree.
-    The state lives on the metric's device (``cuda`` by default).
+    ``submit`` enqueues a batch and returns; the dispatcher thread folds it
+    into the state. ``flush`` waits for every submitted batch; ``result`` and
+    ``state`` flush first. ``with engine:`` starts the dispatcher and, on
+    exit, drains it and raises its sticky error. The state lives on the
+    metric's device (``cuda`` by default). ``aot_cache`` (an :class:`AotCache`)
+    may be shared by several engines: equally configured engines share its
+    captured steps.
     """
 
-    def __init__(self, metric: Any, config: Optional[EngineConfig] = None):
+    def __init__(self, metric: Any, config: Optional[EngineConfig] = None, aot_cache: Optional[AotCache] = None):
         self._metric = metric
         self._cfg = config if config is not None else EngineConfig()
         reason = self._update_path_unsupported_reason(metric)
@@ -184,6 +275,30 @@ class StreamingEngine:
                 for key, why in sorted(self._megastep_plan.fallback_reasons().items()):
                     self._stats.record_kernel_fallback(f"dtype.{key}:{why}")
         self._state = self._put_state(self._init_state_tree())
+        # -- the dispatcher and its captured steps
+        self._aot = aot_cache if aot_cache is not None else AotCache()
+        cuda = self._device.type == "cuda"
+        #: every copy, replay and page-in of this engine runs on this stream
+        self._stream: Optional[torch.cuda.Stream] = torch.cuda.Stream(self._device) if cuda else None
+        # the production step on the card is the captured one; the eager step
+        # stays reachable here only to compare the two (bit-equality, timing)
+        self._capture = cuda
+        self._queue: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, self._cfg.max_queue))
+        self._worker: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._state_lock = threading.RLock()
+        self._submit_lock = threading.Lock()
+        self._inflight: Deque[torch.cuda.Event] = deque()
+        self._batches_done = 0
+        # metrics that DERIVE compute attrs from data (Accuracy's input-mode
+        # latch) latch them before any step key is built: a warm twin replays
+        # captured steps and never runs the update's Python
+        self._needs_attr_latch = any(v is None for v in metric.host_compute_attrs().values())
+        self._metric_fp: Optional[str] = None
+        self._carried_sig: Optional[Tuple] = None
+        # payload signature -> (cache entry, pinned ring): the steady-state
+        # lookup skips the structural key
+        self._program_memo: Dict[Tuple, Tuple[Any, Optional[PinnedRing]]] = {}
 
     # -------------------------------------------------------------- capability checks
 
@@ -216,6 +331,31 @@ class StreamingEngine:
         """The carried form of a logical state tree, on the engine's device."""
         return self._pack(tree_map(lambda x: torch.as_tensor(x).to(self._device), tree))
 
+    def _write_state(self, carried: Any) -> None:
+        """Copy a carried state into the engine's buffers, in place: the
+        buffers are never rebound, so captured steps and the pager's
+        page-ins keep addressing them."""
+        for dst, src in zip(tree_leaves(self._state), tree_leaves(carried)):
+            if dst is not src:
+                dst.copy_(src)
+
+    @contextmanager
+    def _device_section(self) -> Iterator[None]:
+        """Hold the state lock for a read or write of the carried state on the
+        caller's thread: the caller's stream first waits for the engine
+        stream's work, and the engine stream's later work waits for the
+        caller's."""
+        with self._state_lock:
+            if self._stream is None:
+                yield
+                return
+            caller = torch.cuda.current_stream(self._device)
+            caller.wait_stream(self._stream)
+            try:
+                yield
+            finally:
+                self._stream.wait_stream(caller)
+
     # -------------------------------------------------------------------- the step
 
     def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor) -> Any:
@@ -224,62 +364,476 @@ class StreamingEngine:
         a, kw = payload
         return self._metric.update_state_masked(state_tree, *a, mask=mask, **kw)
 
-    def _step_state(self, state: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
-        """One padded step on the carried state; returns the new carried state."""
+    def _step_aux(self) -> Any:
+        """The engine's per-step extras besides the carried state (the paged
+        engine's q8 staging); None here."""
+        return None
+
+    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
+        """One padded step on the carried state; returns the new carried
+        state and writes none of its inputs (it is what a graph captures)."""
         if self._megastep_plan is not None:
             return self._megastep_plan.apply_masked(state, a, kw, mask)
         return self._pack(self._traced_update(self._unpack(state), (a, kw), mask))
 
-    def _run_padded_step(self, a: Tuple[Any, ...], kw: Dict[str, Any], mask: np.ndarray, bucket: int,
-                         valid: int) -> None:
-        mask_t = torch.from_numpy(mask).to(self._device)
-        self._state = self._step_state(self._state, a, kw, mask_t)
+    def _kernel_tag(self) -> str:
+        return "megastep" if self._megastep_plan is not None else "auto"
+
+    def _update_kind(self) -> str:
+        return "update"
+
+    def _graph_keepalive(self) -> Tuple[Any, ...]:
+        """What a captured step reads without owning it: the metric (its
+        config tensors) and the megastep plan (its op rows)."""
+        return (self._metric, self._megastep_plan)
+
+    def _program(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
+                 bucket: int) -> Tuple[Any, Optional[PinnedRing]]:
+        """The cache entry of this step's signature and the engine's pinned
+        ring for it (None without host leaves). A miss on the card captures
+        the step from this chunk."""
+        abstract = tree_unflatten(treedef, [
+            leaf if kind is None else StateSpec(padded_shape(leaf, kind, bucket), torch_dtype(leaf.dtype))
+            for leaf, kind in zip(leaves, kinds)])
+        host = tuple(kind is not None and not on_card(leaf) for leaf, kind in zip(leaves, kinds))
+        memo_key = (AotCache.signature_of(abstract), bucket, host)
+        hit = self._program_memo.get(memo_key)
+        if hit is not None:
+            self._aot.count_hit()
+            return hit
+        if self._metric_fp is None:
+            self._metric_fp = metric_fingerprint(self._metric)
+        if self._carried_sig is None:
+            self._carried_sig = AotCache.signature_of((self._state, self._step_aux()))
+        key = self._aot.program_key(
+            f"{self._update_kind()}+k.{self._kernel_tag()}", self._metric_fp,
+            arg_tree=(self._carried_sig, abstract, tuple(kinds), StateSpec((bucket,), torch.bool)),
+            layout=self._layout, backend=self._kernel_tag(), device=self._device,
+            precision=self._metric.sync_precision_tag(),
+        )
+        if not self._capture:
+            entry, ring = self._aot.get_or_capture(key, lambda: EAGER), None
+        else:
+            specs = {i: (padded_shape(leaf, kind, bucket), torch_dtype(leaf.dtype))
+                     for i, (leaf, kind, on_host) in enumerate(zip(leaves, kinds, host)) if on_host}
+            ring = PinnedRing(specs, self._cfg.in_flight + 1) if specs else None
+
+            def build() -> CapturedStep:
+                inputs = StepBuffers(leaves, kinds, treedef, bucket, self._device)
+                prog = CapturedStep(self._state, self._step_aux(), inputs, self._graph_keepalive())
+                inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
+                prog.load(self._state, self._step_aux())  # the warm-up runs on this copy, never the live state
+                self._aot.capture(prog, self._step_state, self._device)
+                self._stats.warmup_steps += 1
+                return prog
+
+            entry = self._aot.get_or_capture(key, build)
+        self._program_memo[memo_key] = (entry, ring)
+        return entry, ring
+
+    def _padded_tensors(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
+                        bucket: int) -> Tuple[Tuple[Any, ...], Dict[str, Any], torch.Tensor]:
+        """The uncaptured step's padded chunk, as fresh tensors on the device."""
+        out = pad_leaves(leaves, kinds, start, stop, bucket, self._cfg.pad_value)
+        out = [leaf if kind is None else torch.as_tensor(np.array(leaf) if isinstance(leaf, np.ndarray) else leaf)
+               .to(self._device) for leaf, kind in zip(out, kinds)]
+        a, kw = tree_unflatten(treedef, out)
+        mask = torch.arange(bucket, device=self._device) < (stop - start)
+        return a, kw, mask
+
+    def _run_padded_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
+                         bucket: int, coalesced: int) -> None:
+        """One padded step: rows ``[start, stop)`` of the ROWS leaves padded to
+        ``bucket``, the other leaves as they are. On the card it replays the
+        step's captured graph (capturing it on a miss); elsewhere it runs
+        eagerly. Failures carry the step and bucket."""
+        try:
+            if self._capture:
+                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
+                with self._aot.exclusive(self._stream):
+                    prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
+                    prog.replay(self._state, self._step_aux())
+            else:
+                if self._stream is None:
+                    self._program(leaves, kinds, treedef, start, stop, bucket)
+                a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
+                self._write_state(self._step_state(self._state, self._step_aux(), a, kw, mask))
+        except Exception as e:
+            _attach_ctx(e, step=self._step, bucket=bucket)
+            raise
         self._step += 1
-        self._stats.record_step(bucket, valid)
+        self._stats.record_step(bucket, stop - start, coalesced)
+        self._bound_inflight()
 
-    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int) -> None:
-        """Run one (args, kwargs) batch of ``n`` rows through its bucketed chunks."""
-        args, kwargs = merged
-        for start, stop, bucket in self._policy.chunks(n):
-            a, kw, mask = self._policy.pad_chunk(args, kwargs, start, stop, bucket)
-            self._run_padded_step(a, kw, mask, bucket, stop - start)
+    def _bound_inflight(self) -> None:
+        """At most ``in_flight`` steps run ahead of the host: past that, wait
+        for the oldest."""
+        if self._stream is None:
+            return
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        self._inflight.append(ev)
+        if len(self._inflight) > max(1, self._cfg.in_flight):
+            self._inflight.popleft().synchronize()
 
-    # ------------------------------------------------------------------ public API
+    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
+        """Run one merged (args, kwargs) batch of ``n`` rows through its
+        bucketed chunks; the first chunk's step counts the coalesced batches."""
+        leaves, treedef = tree_flatten(merged)
+        for i, (start, stop, bucket) in enumerate(self._policy.chunks(n)):
+            kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
+            self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1)
 
-    def submit(self, *args: Any, **kwargs: Any) -> None:
-        """Fold one (ragged) batch into the state, on the caller's thread.
-        Tensors or numpy arrays; a batch of zero rows is a no-op."""
-        n = infer_batch_size(tree_leaves((args, kwargs)))
+    def _latch_payload(self, merged: Any) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
+        """The (args, kwargs) a host-attr latch row is cut from (the
+        multi-stream engine strips its stream ids)."""
+        return merged
+
+    def _latch_host_attrs(self, merged: Any) -> None:
+        """Latch host-derived compute attrs (Accuracy's input mode) with ONE
+        eager 1-row update of the members that declare them, before any step
+        key is built: the latched values are part of the metric's fingerprint,
+        and an engine whose steps are all cache hits never runs the update's
+        Python. The row's state is discarded."""
+        args, kwargs = self._latch_payload(merged)
+        leaves, treedef = tree_flatten((args, kwargs))
+        n = infer_batch_size(leaves)
+        a, kw = tree_unflatten(treedef, [leaf[:1] if is_batch_leaf(leaf, n) else leaf for leaf in leaves])
+        members = self._metric.items(keep_base=True) if not hasattr(self._metric, "_defaults") else [(None, self._metric)]
+        for _, m in members:
+            if any(v is None for v in m.host_compute_attrs().values()):
+                m.update_state(m.init_state(), *a, **m._filter_kwargs(**kw))
+        self._needs_attr_latch = False
+        self._metric_fp = None
+
+    # ------------------------------------------------------------------ dispatcher
+
+    def start(self) -> "StreamingEngine":
+        """Start the dispatcher thread (a no-op while it runs)."""
+        if self._worker is None or not self._worker.is_alive():
+            if self._stream is not None:  # what the caller's stream made (the state) comes first
+                self._stream.wait_stream(torch.cuda.current_stream(self._device))
+            self._worker = threading.Thread(target=self._run, name="metrics-tpu-torch-engine", daemon=True)
+            self._worker.start()
+        return self
+
+    def stop(self) -> None:
+        """Drain the queue and stop the dispatcher (idempotent); the device
+        has finished every step when it returns."""
+        if self._worker is not None:
+            while self._worker.is_alive():
+                try:
+                    self._queue.put(_STOP, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            self._worker.join()
+            self._worker = None
+        with self._state_lock:
+            self._sync()
+
+    def __enter__(self) -> "StreamingEngine":
+        return self.start()
+
+    def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
+        self.stop()
+        if exc_type is None:
+            self._raise_if_failed()
+        return False
+
+    def _raise_if_failed(self) -> None:
+        if self._error is None:
+            return
+        ctx = getattr(self._error, "_engine_ctx", None) or {}
+        detail = "".join(f"; {k}={v}" for k, v in sorted(ctx.items()))
+        raise EngineDispatchError(
+            f"streaming engine dispatcher failed: {type(self._error).__name__}: {self._error}{detail}",
+            context=ctx,
+        ) from self._error
+
+    def _run(self) -> None:
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self._stream.device)
+                torch.cuda.set_stream(self._stream)  # thread-local: every launch of this thread goes there
+            torch.set_grad_enabled(False)
+        except Exception as e:  # noqa: BLE001 - no batch may be dropped unreported
+            self._error = e
+        pending: Optional[Any] = None
+        while True:
+            if pending is not None:
+                first, pending = pending, None
+            else:
+                first = self._queue.get()
+            if first is _STOP:
+                self._queue.task_done()
+                return
+            group, saw_stop = [first], False
+            if self._error is None:
+                group, pending, saw_stop = self._coalesce_group(first)
+            try:
+                if self._error is None:  # after a failure: drain without work
+                    self._process_group(group)
+            except Exception as e:  # noqa: BLE001 - surfaced via _raise_if_failed
+                _attach_ctx(e, cursor=self._batches_done, **self._group_context(group))
+                self._error = e
+            finally:
+                for _ in group:
+                    self._queue.task_done()
+            if saw_stop:
+                self._queue.task_done()
+                return
+
+    def _group_context(self, group: List[Any]) -> Dict[str, Any]:
+        """Extra failure context for a group (the multi-stream engine adds
+        stream ids)."""
+        return {}
+
+    def _process_group(self, group: List[Any]) -> None:
+        with self._state_lock:
+            sized = [(it, self._item_rows(it)) for it in group]
+            nonempty = [(it, n) for it, n in sized if n > 0]
+            merged = self._merge_sized(nonempty)
+            if merged is not None:
+                if self._needs_attr_latch:
+                    self._latch_host_attrs(merged)
+                self._execute_payload(merged, sum(n for _, n in nonempty), len(nonempty))
+            self._batches_done += len(group)
+
+    def _join_queue(self) -> None:
+        """``queue.join()`` that survives a dispatcher that is gone: a live
+        worker drains normally (waited on in slices, liveness re-checked);
+        without one the backlog is drained here, or unfinished items would
+        pin every later join."""
+        while self._worker is not None and self._worker.is_alive():
+            with self._queue.all_tasks_done:
+                if self._queue.unfinished_tasks == 0:
+                    return
+                self._queue.all_tasks_done.wait(timeout=0.1)
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+            self._queue.task_done()
+        with self._queue.all_tasks_done:
+            if self._queue.unfinished_tasks:
+                self._queue.unfinished_tasks = 0
+                self._queue.all_tasks_done.notify_all()
+
+    def _sync(self) -> None:
+        """Wait for every step enqueued on the engine stream."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._inflight.clear()
+
+    # ------------------------------------------------------------------- coalescing
+
+    def _item_rows(self, item: Any) -> int:
+        n = infer_batch_size(tree_leaves(item))
         if n is None:
-            raise ValueError("no array argument with a leading batch dimension")
-        self._stats.batches_submitted += 1
-        if n > 0:
-            self._execute_payload((args, kwargs), n)
+            raise MetricsTPUUserError("submit() needs at least one array argument with a batch dimension")
+        return int(n)
+
+    def _item_rows_safe(self, item: Any) -> Optional[int]:
+        """Row count, or None for a malformed item: the coalesce path must
+        never raise (errors surface through the step instead)."""
+        try:
+            return self._item_rows(item)
+        except Exception:  # noqa: BLE001
+            return None
+
+    def _coalesce_group(self, first: Any) -> Tuple[List[Any], Optional[Any], bool]:
+        """Drain further compatible queued batches behind ``first``. Returns
+        ``(group, pending_incompatible_item, saw_stop)``. Bounded by
+        ``coalesce`` batches and by the top bucket's row count (a fuller
+        megabatch would just re-chunk); waits up to ``coalesce_window_ms`` for
+        more traffic once the queue runs dry."""
+        limit = max(1, self._cfg.coalesce)
+        group = [first]
+        if limit <= 1:
+            return group, None, False
+        rows = self._item_rows_safe(first)
+        if rows is None:  # malformed: run alone so the error surfaces cleanly
+            return group, None, False
+        top = self._policy.buckets[-1]
+        deadline = time.perf_counter() + self._cfg.coalesce_window_ms / 1e3
+        ref = first if rows else None
+        while len(group) < limit and rows < top:
+            try:
+                timeout = deadline - time.perf_counter()
+                item = self._queue.get(timeout=timeout) if timeout > 0 else self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is _STOP:
+                return group, None, True
+            n = self._item_rows_safe(item)
+            if n is None:
+                return group, item, False
+            if n == 0:
+                group.append(item)  # cursor-only; nothing to concatenate
+                continue
+            if ref is not None and not self._coalescible(ref, item):
+                return group, item, False
+            if ref is None:
+                ref = item
+            group.append(item)
+            rows += n
+        return group, None, False
+
+    def _coalescible(self, ref: Any, item: Any) -> bool:
+        """Can ``item`` concatenate behind ``ref`` into one megabatch? Same
+        structure, batch-carried leaves agreeing on trailing shape, dtype and
+        kind (numpy, or tensors on one device), and non-batch (broadcast)
+        leaves EQUAL: a differing broadcast argument changes the math and runs
+        as its own step. Never raises: a leaf that breaks a probe just does
+        not coalesce."""
+        try:
+            ref_leaves, ref_def = tree_flatten(ref)
+            leaves, treedef = tree_flatten(item)
+            if treedef != ref_def or len(leaves) != len(ref_leaves):
+                return False
+            n_ref, n_item = infer_batch_size(ref_leaves), infer_batch_size(leaves)
+            for rl, il in zip(ref_leaves, leaves):
+                rb, ib = is_batch_leaf(rl, n_ref), is_batch_leaf(il, n_item)
+                if rb != ib:
+                    return False
+                if rb:
+                    if not _same_batch_leaf(rl, il):
+                        return False
+                elif not _aux_leaves_equal(rl, il):
+                    return False
+            return True
+        except Exception:  # noqa: BLE001 - don't coalesce what we can't probe
+            return False
+
+    def _merge_sized(self, nonempty: List[Tuple[Any, int]]) -> Optional[Tuple[Tuple[Any, ...], Dict[str, Any]]]:
+        """One (args, kwargs) megabatch of pre-sized non-empty items (None
+        when there are none)."""
+        return self._concat_sized(nonempty)
+
+    @staticmethod
+    def _concat_sized(nonempty: List[Tuple[Any, int]]) -> Optional[Tuple[Tuple[Any, ...], Dict[str, Any]]]:
+        """Concatenate the batch-carried leaves of the items in order (numpy
+        on the host, tensors on their device: a CUDA concatenation runs on the
+        dispatcher's stream), taking the first item's other leaves."""
+        if not nonempty:
+            return None
+        if len(nonempty) == 1:
+            return nonempty[0][0]
+        flat = [tree_flatten(it) for it, _ in nonempty]
+        treedef = flat[0][1]
+        n0 = nonempty[0][1]
+        out_leaves: List[Any] = []
+        for i, leaf0 in enumerate(flat[0][0]):
+            if is_batch_leaf(leaf0, n0):
+                parts = [leaves[i] for leaves, _ in flat]
+                out_leaves.append(torch.cat(parts) if isinstance(leaf0, torch.Tensor) else np.concatenate(parts))
+            else:
+                out_leaves.append(leaf0)
+        return tree_unflatten(treedef, out_leaves)
+
+    # ------------------------------------------------------------------ producers
+
+    def _order_inputs(self, item: Any) -> None:
+        """Order the engine stream after the producer's work on the item's
+        CUDA tensors, and keep their memory from reuse until the engine
+        stream is done with them."""
+        if self._stream is None:
+            return
+        events: Dict[Any, torch.cuda.Event] = {}
+        for leaf in tree_leaves(item):
+            if on_card(leaf):
+                leaf.record_stream(self._stream)
+                producer = torch.cuda.current_stream(leaf.device)
+                if producer not in events:
+                    events[producer] = ev = torch.cuda.Event()
+                    ev.record(producer)
+                    self._stream.wait_event(ev)
+
+    def _submit_item(self, item: Any, timeout: Optional[float]) -> None:
+        self._raise_if_failed()
+        self.start()
+        self._order_inputs(item)
+        self._enqueue(item, timeout)
+        with self._submit_lock:
+            self._stats.batches_submitted += 1
+
+    def submit(self, *args: Any, timeout: Optional[float] = None, **kwargs: Any) -> None:
+        """Enqueue one (ragged) batch: tensors or numpy arrays. Blocks while
+        the queue is full; ``timeout`` (seconds) bounds the wait, after which
+        the sticky dispatcher error is raised if there is one, else
+        :class:`BackpressureTimeout`. A batch of zero rows only advances the
+        cursor."""
+        self._submit_item((args, kwargs), timeout)
+
+    def _enqueue(self, item: Any, timeout: Optional[float]) -> None:
+        if timeout is None:
+            self._queue.put(item)
+            return
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            # poll the sticky error each slice: a producer blocked on a full
+            # queue must learn the dispatcher failed
+            self._raise_if_failed()
+            try:
+                self._queue.put_nowait(item)  # timeout=0 still tries once
+                return
+            except queue.Full:
+                pass
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                self._raise_if_failed()
+                alive = self._worker is not None and self._worker.is_alive()
+                raise BackpressureTimeout(
+                    f"submit() timed out after {timeout}s: queue full "
+                    f"({self._queue.qsize()}/{max(1, self._cfg.max_queue)} batches), "
+                    f"{len(self._inflight)} device steps in flight, and the dispatcher is "
+                    f"{'alive but not draining' if alive else 'not running'}"
+                )
+            try:
+                self._queue.put(item, timeout=min(0.05, remaining))
+                return
+            except queue.Full:
+                continue
+
+    # --------------------------------------------------------------------- readers
 
     def flush(self) -> None:
-        """Block until the device has finished every submitted step."""
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        """Block until every submitted batch is folded into the state and the
+        device has finished its steps; raises the sticky dispatcher error."""
+        self._raise_if_failed()
+        self._join_queue()
+        with self._state_lock:
+            self._sync()
+        self._raise_if_failed()
 
     def result(self) -> Any:
         """The metric's value over everything submitted since the last reset."""
-        return self._metric.compute_from(self._unpack(self._state))
+        self.flush()
+        with self._device_section():
+            return self._metric.compute_from(self._unpack(self._state))
 
     def state(self) -> Any:
         """A copy of the accumulated LOGICAL state tree (arenas unpacked)."""
-        return tree_map(torch.clone, self._unpack(self._state))
+        self.flush()
+        with self._device_section():
+            return tree_map(torch.clone, self._unpack(self._state))
 
     def reset(self) -> None:
-        """Fresh accumulation."""
-        self._state = self._put_state(self._init_state_tree())
+        """Fresh accumulation, written into the state's buffers in place;
+        captured steps are kept. Also the recovery path after a dispatcher
+        failure: the backlog is drained unfolded and the error cleared."""
+        self._join_queue()
+        with self._device_section():
+            self._error = None
+            self._sync()
+            self._reset_locked()
+
+    def _reset_locked(self) -> None:
+        self._write_state(self._put_state(self._init_state_tree()))
         self._step = 0
-
-    def __enter__(self) -> "StreamingEngine":
-        return self
-
-    def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
-        self.flush()
-        return False
+        self._batches_done = 0
 
     @property
     def steps(self) -> int:
@@ -293,3 +847,6 @@ class StreamingEngine:
     def arena_layout(self) -> Optional[ArenaLayout]:
         return self._layout
 
+    @property
+    def aot_cache(self) -> AotCache:
+        return self._aot

@@ -118,17 +118,17 @@ def _subset_accuracy_update(
     dev = preds.device
     if mode == DataType.MULTILABEL:
         correct = torch.sum(torch.all(preds == target, dim=1), dtype=torch.int32)
-        total = torch.tensor(target.shape[0], dtype=torch.int32, device=dev)
+        total = torch.full((), target.shape[0], dtype=torch.int32, device=dev)
     elif mode == DataType.MULTICLASS:
         correct = torch.sum(preds * target, dtype=torch.int32)
         total = torch.sum(target, dtype=torch.int32)
     elif mode == DataType.MULTIDIM_MULTICLASS:
         sample_correct = torch.sum(preds * target, dim=(1, 2), dtype=torch.int32)
         correct = torch.sum(sample_correct == target.shape[2], dtype=torch.int32)
-        total = torch.tensor(target.shape[0], dtype=torch.int32, device=dev)
+        total = torch.full((), target.shape[0], dtype=torch.int32, device=dev)
     else:
-        correct = torch.tensor(0, dtype=torch.int32, device=dev)
-        total = torch.tensor(0, dtype=torch.int32, device=dev)
+        correct = torch.zeros((), dtype=torch.int32, device=dev)
+        total = torch.zeros((), dtype=torch.int32, device=dev)
     return correct, total
 
 

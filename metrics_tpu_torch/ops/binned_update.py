@@ -19,7 +19,7 @@ widens the class axis) and the ``(B*C, T)`` result is reshaped to
 ``(B, C, T)``. On a CUDA tensor the op launches the kernel; on a CPU tensor it
 runs the plain version.
 """
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -42,6 +42,8 @@ def binned_counts_torch(preds: torch.Tensor, target_bool: torch.Tensor, threshol
 
 
 _zeroed: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# buffers a larger one replaced: a CUDA graph captured with one still reads it
+_outgrown: List[torch.Tensor] = []
 
 
 def _zeroed_scratch(device: torch.device, stream: int, numel: int) -> torch.Tensor:
@@ -49,9 +51,13 @@ def _zeroed_scratch(device: torch.device, stream: int, numel: int) -> torch.Tens
     form on ``stream`` (a ``cuda_stream`` handle). The kernel leaves its sums
     and finish counters zero when it ends, so the buffer is made once per
     (device, stream), never shared by two streams, and grown, zeroed anew,
-    only when a call needs more."""
+    only when a call needs more; an outgrown buffer is kept, never freed.
+    The engine's warm-up step makes it for its capture stream before a
+    capture, so no graph holds a memset."""
     buf = _zeroed.get((device, stream))
     if buf is None or buf.numel() < numel:
+        if buf is not None:
+            _outgrown.append(buf)
         buf = _zeroed[(device, stream)] = torch.zeros(numel, dtype=torch.int32, device=device)
     return buf
 

@@ -6,11 +6,15 @@ under ``torch.func.vmap`` (the masked engine step vmaps every update).
 """
 from typing import Any, Callable, List, Optional, Union
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.kernels import histogram_accumulate
 
 METRIC_EPS = 1e-6
+#: non-batch (broadcast) leaves larger than this are never compared element by
+#: element when the dispatcher decides whether two batches can share a step
+_COALESCE_AUX_COMPARE_CAP = 4096
 
 Tensor = torch.Tensor
 
@@ -33,6 +37,29 @@ def infer_batch_size(leaves: List[Any]) -> Optional[int]:
         if shape is not None and len(shape) >= 1:
             return int(shape[0])
     return None
+
+
+def _aux_leaves_equal(a: Any, b: Any) -> bool:
+    """Equality for non-batch (broadcast/config) leaves, cheap and safe:
+    unequal on doubt, so an uncertain comparison costs one un-coalesced step,
+    never a wrong result. Arrays are rejected on metadata first; a tensor off
+    the CPU, or any array larger than the compare cap, is never read."""
+    if a is b:
+        return True
+    try:
+        arrays = (np.ndarray, torch.Tensor)
+        if isinstance(a, arrays) or isinstance(b, arrays):
+            if type(a) is not type(b) or tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                return False
+            if int(np.prod(a.shape)) > _COALESCE_AUX_COMPARE_CAP:
+                return False
+            if isinstance(a, torch.Tensor):
+                # a device-resident leaf would cost a copy to the host per check
+                return a.device.type == "cpu" and b.device.type == "cpu" and bool(torch.equal(a, b))
+            return bool(np.array_equal(a, b))
+        return bool(a == b)
+    except Exception:  # noqa: BLE001 - any exotic leaf: just don't coalesce
+        return False
 
 
 def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:

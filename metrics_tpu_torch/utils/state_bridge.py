@@ -11,8 +11,9 @@ attributes (``Accuracy.mode``) travel separately, through ``host_attrs``.
 An ENGINE's state crosses the same way: :func:`engine_state_from_numpy` seats
 a JAX engine's packed arena (per-dtype numpy buffers) and, for the paged
 multi-stream engine, its pager's ``snapshot_payload()`` in the port's engine;
-:func:`engine_state_to_numpy` is the inverse. Both first check that the two
-packages pack the state the same way (``ArenaLayout.leaf_slices()``).
+:func:`engine_state_to_numpy` is the inverse. Seating first checks that the
+two packages pack the state the same way (``ArenaLayout.leaf_slices()``).
+Both flush the engine first and write or read its state buffers in place.
 """
 from enum import Enum
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -123,16 +124,18 @@ def engine_state_from_numpy(
     paged = bool(getattr(engine, "stream_shard", False))
     if paged != (pager_payload is not None):
         raise ValueError("a pager payload goes with the paged (stream_shard) engine, and only with it")
-    state = {}
-    for k, buf in engine._state.items():
-        arr = _host_array(arena[k])
-        arr = arr.reshape(arr.shape[1:]) if paged and arr.ndim == 3 and arr.shape[0] == 1 else arr
-        if tuple(arr.shape) != tuple(buf.shape):
-            raise ValueError(f"arena buffer {k!r}: shape {arr.shape} does not fit the port's {tuple(buf.shape)}")
-        state[k] = torch.from_numpy(np.array(arr)).to(device=buf.device, dtype=buf.dtype)
-    if paged:
-        engine.pager.load_payload({k: _host_array(v) for k, v in pager_payload.items()})
-    engine._state = state
+    engine.flush()  # every batch submitted before lands first
+    with engine._device_section():
+        state = {}
+        for k, buf in engine._state.items():
+            arr = _host_array(arena[k])
+            arr = arr.reshape(arr.shape[1:]) if paged and arr.ndim == 3 and arr.shape[0] == 1 else arr
+            if tuple(arr.shape) != tuple(buf.shape):
+                raise ValueError(f"arena buffer {k!r}: shape {arr.shape} does not fit the port's {tuple(buf.shape)}")
+            state[k] = torch.from_numpy(np.array(arr)).to(device=buf.device, dtype=buf.dtype)
+        if paged:
+            engine.pager.load_payload({k: _host_array(v) for k, v in pager_payload.items()})
+        engine._write_state(state)  # in place: captured steps address these buffers
     if host_attrs:
         engine._metric.restore_host_compute_attrs({k: _port_value(v) for k, v in host_attrs.items()})
 
@@ -142,7 +145,9 @@ def engine_state_to_numpy(engine: Any) -> Tuple[Dict[str, np.ndarray], Optional[
     in the JAX engine's form (``(1, R, n)`` buffers for the paged engine) and,
     for the paged engine, its pager's ``snapshot_payload()`` (else None)."""
     paged = bool(getattr(engine, "stream_shard", False))
-    arena = {k: state_to_numpy(v) for k, v in engine._state.items()}
+    engine.flush()
+    with engine._device_section():
+        arena = {k: state_to_numpy(v) for k, v in engine._state.items()}
     if paged:
         return {k: v[None] for k, v in arena.items()}, engine.pager.snapshot_payload()
     return arena, None

@@ -553,3 +553,171 @@ def test_binned_kernel_takes_any_thresholds(cuda, kind, n, c, t):
         preds[0, 1::7] = float("-inf")
         preds[0, 2::7] = float("inf")
     _binned_check(cuda, preds, target, _odd_thresholds(kind, t, rng))
+
+
+# --------------------------------------------------------------- captured engine steps
+
+def _engine_collection(device, q8=False):
+    from metrics_tpu_torch import Accuracy, BinnedAveragePrecision, ConfusionMatrix, MetricCollection
+
+    return MetricCollection({
+        "acc": Accuracy(device=device),
+        "ap": BinnedAveragePrecision(num_classes=4, thresholds=11, device=device,
+                                     sync_precision="q8_block" if q8 else None),
+        "cm": ConfusionMatrix(num_classes=4, device=device),
+    })
+
+
+def _engine_traffic(seed, n_batches=24, streams=12):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        n = int(rng.randint(1, 40))
+        p = rng.rand(n, 4).astype(np.float32)
+        out.append((int(rng.randint(0, streams)), p / p.sum(1, keepdims=True), rng.randint(0, 4, n)))
+    return out
+
+
+def _make_engine(kind, device, capture, cache=None):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    q8 = kind == "paged_q8"
+    coalesce = 1 if q8 else 8  # a q8 spill taken at another step quantizes differently
+    cfg = EngineConfig(buckets=(16, 64), kernel_backend="auto" if kind == "streaming_auto" else "megastep",
+                       compress_payloads=q8, coalesce=coalesce)
+    coll = _engine_collection(device, q8)
+    if kind.startswith("streaming"):
+        eng = StreamingEngine(coll, cfg, aot_cache=cache)
+    elif kind == "unsharded":
+        eng = MultiStreamEngine(coll, 12, cfg, aot_cache=cache)
+    else:
+        eng = MultiStreamEngine(coll, 12, cfg, stream_shard=True, resident_streams=3, aot_cache=cache)
+    eng._capture = capture
+    return eng
+
+
+def _drive(eng, traffic, cuda_inputs, device):
+    multi = hasattr(eng, "num_streams")
+    with eng:
+        for sid, p, t in traffic:
+            p, t = (torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) if cuda_inputs else (p, t)
+            if multi:
+                eng.submit(sid, p, t)
+            else:
+                eng.submit(p, t)
+    if multi:
+        return [eng.stream_state(s) for s in range(eng.num_streams)]
+    return eng.state()
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cuda_inputs", [False, True])
+@pytest.mark.parametrize("kind", ["streaming_auto", "streaming_megastep", "unsharded", "paged_exact", "paged_q8"])
+def test_captured_step_is_bit_equal_to_uncaptured(cuda, kind, cuda_inputs):
+    """Each engine replaying captured graphs ends bit-equal to the same engine
+    running its steps eagerly, numpy inputs (pinned staging) and CUDA inputs
+    (device copies) alike; the captured one captured at most one step per
+    bucket."""
+    traffic = _engine_traffic(3)
+    captured = _make_engine(kind, cuda, True)
+    got = _drive(captured, traffic, cuda_inputs, cuda)
+    want = _drive(_make_engine(kind, cuda, False), traffic, cuda_inputs, cuda)
+    assert captured.steps > 0 and captured.stats.rows_in == sum(len(t) for _, _, t in traffic)
+    assert captured.aot_cache.misses <= 2 and captured.stats.warmup_steps == captured.aot_cache.misses
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_replays_credit_the_launch_counters(cuda):
+    """A replay makes no Python call to a wrapper, yet each kernel's count
+    rises by what one step launches: K5 twice a step (two arena dtypes), K2
+    once, and the capture itself counts nothing."""
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda
+
+    eng = _make_engine("streaming_megastep", cuda, True)
+    traffic = _engine_traffic(4)
+    k5, k2 = megastep_fold_cuda.launches, histogram_cuda.launches
+    _drive(eng, traffic, True, cuda)
+    steps = eng.steps + eng.stats.warmup_steps
+    assert eng.stats.warmup_steps >= 1 and eng.aot_cache.hits >= 1
+    assert megastep_fold_cuda.launches - k5 == 2 * steps
+    assert histogram_cuda.launches - k2 == steps
+
+
+@pytest.mark.requires_cuda
+def test_warm_twin_engine_captures_nothing(cuda):
+    from metrics_tpu_torch.engine import AotCache
+
+    cache = AotCache()
+    traffic = _engine_traffic(5)
+    first = _drive(_make_engine("streaming_megastep", cuda, True, cache), traffic, True, cuda)
+    misses = cache.misses
+    twin = _make_engine("streaming_megastep", cuda, True, cache)
+    second = _drive(twin, traffic, True, cuda)
+    assert cache.misses == misses and twin.stats.warmup_steps == 0
+    for g, w in zip(_flat(second), _flat(first)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_input_is_read_after_its_producer_stream(cuda):
+    """A batch the caller wrote on its own stream, still being written when
+    ``submit`` returns, is read by the engine only after that write."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+    from metrics_tpu_torch import ConfusionMatrix
+
+    eng = StreamingEngine(ConfusionMatrix(num_classes=3, device=cuda), EngineConfig(buckets=(64,)))
+    eng.start()  # before the producer's stream is current: start orders the engine after the caller's stream
+    producer = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(producer):
+        preds = torch.zeros(64, dtype=torch.int64, device=cuda)
+        target = torch.zeros(64, dtype=torch.int64, device=cuda)
+        torch.cuda._sleep(50_000_000)  # the producer's stream is busy for a while
+        preds.fill_(2)
+        target.fill_(1)
+        eng.submit(preds, target)
+        del preds, target  # the engine keeps the memory alive
+    eng.stop()
+    cm = eng.state()["confmat"]
+    assert int(cm[1, 2]) == 64 and int(cm.sum()) == 64
+
+
+@pytest.mark.requires_cuda
+def test_a_capture_failure_raises_and_never_runs_eagerly(cuda):
+    """A step that reads a value to the host (``.item()``) runs eagerly (the
+    warm-up, on a copy) but cannot be captured: the capture error is the
+    dispatcher's sticky error, and the live state never saw the batch."""
+    from metrics_tpu_torch.engine import EngineConfig, EngineDispatchError, StreamingEngine
+    from metrics_tpu_torch.metric import Metric
+
+    class HostReading(Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.scale = torch.ones((), device=self.device)
+            self.add_state("total", default=torch.zeros(()), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + x.sum() * self.scale.item()
+
+        def compute(self):
+            return self.total
+
+    eng = StreamingEngine(HostReading(device=cuda), EngineConfig(buckets=(8,)))
+    eng.submit(torch.ones(5, device=cuda))
+    with pytest.raises(EngineDispatchError) as info:
+        eng.flush()
+    assert info.value.bucket == 8 and info.value.__cause__ is not None
+    assert eng.stats.steps == 0 and eng.aot_cache.misses == 1 and len(eng.aot_cache) == 0
+    eng._error = None
+    assert float(eng.state()["total"]) == 0.0
+    eng.stop()

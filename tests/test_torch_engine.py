@@ -21,8 +21,12 @@
   the rest on the port, against the all-JAX run;
 * the typed refusals.
 
-The JAX engines coalesce nothing (``coalesce=1``) and are flushed after every
-batch, so both packages page the same streams at the same steps. Integer
+The JAX paged engines coalesce nothing (``coalesce=1``) and are flushed after
+every batch; the port's paged engines pin ``coalesce=1`` too, so both packages
+page the same streams at the same steps (a q8 spill taken at another step
+quantizes differently). The port's ``StreamingEngine`` pins ``coalesce=1`` where
+the test counts one step per batch; coalesced parity is
+``tests/test_torch_dispatcher.py``'s. Integer
 states must be bit-exact; the f32 states hold integer counts (exact) or, where
 a row was spilled through the q8 codec, the same decoded values folded the
 same way (rtol 1e-6).
@@ -104,7 +108,7 @@ def _jax_paged(q8, traffic):
 
 
 def _port_paged(q8, traffic, stage=True):
-    eng = MultiStreamEngine(_port(q8), S, EngineConfig(buckets=BUCKETS, kernel_backend="megastep",
+    eng = MultiStreamEngine(_port(q8), S, EngineConfig(buckets=BUCKETS, kernel_backend="megastep", coalesce=1,
                                                        compress_payloads=q8),
                             stream_shard=True, resident_streams=2)
     if not stage:
@@ -112,6 +116,7 @@ def _port_paged(q8, traffic, stage=True):
         eng._q8_reset_stage()
     for sid, p, t in traffic:
         eng.submit(sid, torch.from_numpy(p), torch.from_numpy(t))
+    eng.flush()  # the dispatcher has folded every batch: the pager's stats are final
     return eng
 
 
@@ -130,7 +135,7 @@ def test_streaming_engine_megastep_matches_jax():
         for _, p, t in traffic:
             jeng.submit(p, t)
         want, want_value = jeng.state(), jeng.result()
-    peng = StreamingEngine(_port(), EngineConfig(buckets=BUCKETS, kernel_backend="megastep"))
+    peng = StreamingEngine(_port(), EngineConfig(buckets=BUCKETS, kernel_backend="megastep", coalesce=1))
     with peng:
         for _, p, t in traffic:
             peng.submit(torch.from_numpy(p), torch.from_numpy(t))
@@ -189,7 +194,7 @@ def test_paged_engine_state_carries_from_jax_to_port(paged_q8):
     half = len(traffic) // 2
     jeng = _jax_paged(True, traffic[:half])
     arena = {k: np.asarray(v) for k, v in jeng._state.items()}
-    peng = MultiStreamEngine(_port(True), S, EngineConfig(buckets=BUCKETS, kernel_backend="megastep",
+    peng = MultiStreamEngine(_port(True), S, EngineConfig(buckets=BUCKETS, kernel_backend="megastep", coalesce=1,
                                                           compress_payloads=True),
                              stream_shard=True, resident_streams=2)
     engine_state_from_numpy(peng, arena, jeng.arena_layout.leaf_slices(), jeng._pager.snapshot_payload(),
@@ -211,8 +216,8 @@ def test_typed_refusals():
     for backend in ("xla", "pallas_interpret", "megastep_interpret"):
         with pytest.raises(KernelBackendError, match="device"):
             StreamingEngine(_port(), EngineConfig(kernel_backend=backend))
-    with pytest.raises(NotPortedError, match="coalesce"):
-        EngineConfig(coalesce=4)
+    with pytest.raises(NotPortedError, match="snapshot_every"):
+        EngineConfig(snapshot_every=2)
     with pytest.raises(NotPortedError, match="mesh"):
         EngineConfig(mesh=object(), mesh_sync="deferred")
     with pytest.raises(TypeError):

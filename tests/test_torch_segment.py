@@ -217,9 +217,11 @@ def test_megastep_plan_canonicalizes_each_op_row_once():
     eng = StreamingEngine(coll, EngineConfig(buckets=(8,), kernel_backend="megastep"))
     rng = np.random.RandomState(6)
     eng.submit(torch.from_numpy(rng.rand(5, 3).astype(np.float32)), torch.from_numpy(rng.randint(0, 3, 5)))
+    eng.flush()  # the dispatcher has run the first step
     plan = eng._megastep_plan
     first = dict(plan._op_rows)
     eng.submit(torch.from_numpy(rng.rand(7, 3).astype(np.float32)), torch.from_numpy(rng.randint(0, 3, 7)))
+    eng.flush()
     assert first and set(first) == {(k, torch.device("cpu")) for k in plan.eligible_keys()}
     assert all(plan._op_rows[k] is v for k, v in first.items())
 
