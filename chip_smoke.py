@@ -50,7 +50,24 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    ``compress_payloads=True``: K7 decodes staged slots, int states exact;
    (c) (b)'s twin that decodes on the host instead: bit-identical to (b).
    (b) and (c) keep ``coalesce=1``: grouping follows timing, and a q8 spill
-   taken at another step quantizes differently.
+   taken at another step quantizes differently. Phases 8 and 9a end with one
+   batched ``results()`` (every stream's value from one vmapped compute),
+   held against ``result()`` of each of 64 (8) or 200 sampled (9a: resident,
+   spilled and never-touched) streams and timed against that loop;
+10. the classification dashboard (macro Precision, Recall and Specificity,
+   HammingDistance, JaccardIndex, CohenKappa, MatthewsCorrCoef, HingeLoss)
+   on the same rows, its launch counts set to 0 before it: (a) eager in
+   4 batches, with ``CalibrationError(n_bins=15)`` in all three norms (K2's
+   weighted form, one launch per ``compute``), ``KLDivergence`` against a
+   second seeded distribution and ``dice_score``; counts equal to numpy's and
+   to the CPU port's, the hinge measure, KL and calibration errors within
+   the reassociation bounds of float64 oracles, other values within 1e-6
+   relative; then through the per-leaf masked bucket step (K1); (b) the
+   captured megastep ``StreamingEngine`` of phase 7 (two K5 and three K2
+   launches a step); (c) the captured paged ``MultiStreamEngine`` of phase 9a
+   (two K6 and three K2 launches a step), its 200 sampled streams against
+   numpy, then one ``results()``; (d) the times of (a)-(c) and of that
+   ``results()`` beside the per-stream loop.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -63,13 +80,17 @@ equal collection sharing the cache: it captures nothing. A capture runs the
 step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
-Every kernel's launch count is set to 0 before phase 4 and read after phase 9;
-each must be non-zero, and K2 must launch once per batch and per step. A
+Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
+and set to 0 again before phase 10 and read after it; each must be non-zero
+(phase 10: K1, K2, K5 and K6), and K2 must launch once per batch and per step
+for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
 (``update_state_masked``) gives the device's busy share and device launches.
 The line before the last is the ``kernels`` JSON object: K1, K2, K3 and K5
-have one entry per shape above, K4, K6 and K7 one per ``traffic`` (random ids
+have one entry per shape above (K2 also at phase 10's calibration shape:
+65 536 int64 indices into 15 bins, ``(65 536, 3)`` f32 weights, with
+``index_add_`` into a zeroed ``(15, 3)`` output as its library call), K4, K6 and K7 one per ``traffic`` (random ids
 and one stream), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
@@ -938,8 +959,8 @@ def main_path(dev, preds, target):
     return state, values, seconds
 
 
-def masked_path(dev, preds, target, rng):
-    coll = make_collection(dev)
+def masked_path(dev, preds, target, rng, make=make_collection):
+    coll = make(dev)
     state = coll.init_state()
     lo, buckets = 0, 0
     t0 = time.perf_counter()
@@ -1252,12 +1273,14 @@ def engine_phases(dev, preds, target, preds_np, target_np, gpu_state):
     check(d["histogram"] == n8, "multistream: K2 not one launch per step")
     unc_eng, unc_seconds = multistream_phase(dev, preds, target, preds_np, target_np, capture=False)
     engine_states_equal(ms_eng, unc_eng, range(MS_STREAMS), "multistream: captured vs uncaptured")
+    ms_results = results_timing(ms_eng, range(MS_STREAMS))
     phases["multistream"] = {
         "seconds": seconds, "steps": ms_eng.steps, "warmup_steps": ms_eng.stats.warmup_steps,
         "megasteps": ms_eng.stats.megasteps, "batches": ms_eng.stats.batches_submitted,
         "s_per_step": seconds / ms_eng.steps, "streams": MS_STREAMS, "launches": d,
         "aot": check_cache(ms_eng, "multistream"),
         "uncaptured": {"seconds": unc_seconds, "steps": unc_eng.steps, "s_per_step": unc_seconds / unc_eng.steps},
+        "results": ms_results,
     }
 
     # phase 9: paged, (a) exact, coalesced and not, (b) q8 staged decode, (c) (b)'s host-decode twin
@@ -1287,6 +1310,7 @@ def engine_phases(dev, preds, target, preds_np, target_np, gpu_state):
             engine_states_equal(eng, unc_eng, exact_streams, "paged: captured vs uncaptured")
             phases[name]["uncaptured"] = {"seconds": unc_seconds, "steps": unc_eng.steps,
                                           "s_per_step": unc_seconds / unc_eng.steps}
+            phases[name]["results"] = results_timing(eng, result_sample(eng, per_stream))
         if name == "paged_exact_coalesce1":
             check(st.megasteps == 0, "paged coalesce=1: a step carried several batches")
             engine_states_equal(exact_eng, eng, exact_streams, "paged: coalesced vs not")
@@ -1297,6 +1321,327 @@ def engine_phases(dev, preds, target, preds_np, target_np, gpu_state):
             check(st.q8_staged_rows == 0, "paged twin: staged anyway")
             engine_states_equal(q8_eng, eng, q8_streams, "paged q8 vs twin")
     return phases
+
+
+# ------------------------------------------------------- phase 10: the dashboard
+
+CAL_BINS = 15
+RESULT_SAMPLES = 200  # streams whose result() is held against results(), as stream_bench samples them
+
+
+def make_dashboard(device):
+    """The classification dashboard: every counting metric the engines serve."""
+    from metrics_tpu_torch import (CohenKappa, HammingDistance, HingeLoss, JaccardIndex, MatthewsCorrCoef,
+                                   MetricCollection, Precision, Recall, Specificity)
+
+    c = NUM_CLASSES
+    return MetricCollection({
+        "precision": Precision(average="macro", num_classes=c, device=device),
+        "recall": Recall(average="macro", num_classes=c, device=device),
+        "specificity": Specificity(average="macro", num_classes=c, device=device),
+        "hamming": HammingDistance(device=device),
+        "jaccard": JaccardIndex(num_classes=c, device=device),
+        "kappa": CohenKappa(num_classes=c, device=device),
+        "mcc": MatthewsCorrCoef(num_classes=c, device=device),
+        "hinge": HingeLoss(device=device),
+    })
+
+
+def dashboard_oracle(preds, target):
+    """Every count of the dashboard from numpy alone, and its hinge measure
+    (Crammer-Singer: 1 minus the true class's score over the best other, at
+    least 0) in float64 with the absolute sum of its terms."""
+    base = oracle_states(preds, target)
+    macro, cm = base["f1"], base["confmat"]["confmat"]
+    n, c = len(target), NUM_CLASSES
+    rows = np.arange(n)
+    p = preds.astype(np.float64)
+    other = p.copy()
+    other[rows, target] = -np.inf
+    terms = np.maximum(0.0, 1.0 - (p[rows, target] - other.max(1)))
+    # one-hot preds against one-hot targets: a wrong row differs in two places
+    counts = {"precision": macro, "recall": macro, "specificity": macro,
+              "hamming": {"correct": n * c - 2 * (n - int(np.trace(cm))), "total": n * c},
+              "jaccard": {"confmat": cm}, "kappa": {"confmat": cm}, "mcc": {"confmat": cm}, "hinge": {"total": n}}
+    return counts, float(terms.sum()), float(np.abs(terms).sum())
+
+
+def check_dashboard_state(state, oracle, what):
+    """Counts equal to numpy's (``oracle``: :func:`dashboard_oracle` of the
+    same rows); the f32 hinge measure within the reassociation bound of its
+    float64 sum (each term rounds twice, the sum of n terms reassociates)."""
+    counts, measure, abs_sum = oracle
+    compare_states(state, counts, what)
+    got = float(state["hinge"]["measure"])
+    tol = (2 * counts["hinge"]["total"] + 4) * 2.0**-24 * abs_sum
+    check(abs(got - measure) <= tol, f"{what}: hinge measure {got} vs {measure} (tol {tol})")
+    return tol
+
+
+def close_value(got, want, what, slack=0.0):
+    """One metric value against another: within 1e-6 relative plus 1e-6
+    absolute (f32 arithmetic on the same counts in another order: a value
+    near 0 such as a kappa of 1 - 0.99 keeps the absolute error of its
+    terms), plus ``slack``, what reassociated f32 sums can move it."""
+    g, w = float(got), float(want)
+    ok = abs(g - w) <= 1e-6 * abs(w) + 1e-6 + slack or (np.isnan(g) and np.isnan(w))
+    check(ok, f"{what}: {g} vs {w} (slack {slack})")
+
+
+def same_values(got, want, what):
+    """Two value trees leaf by leaf: integers exact, floats by :func:`close_value`."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree.detach().cpu()]
+
+    a, b = leaves(got), leaves(want)
+    check(len(a) == len(b), f"{what}: {len(a)} leaves vs {len(b)}")
+    for x, y in zip(a, b):
+        check(x.dtype == y.dtype and x.shape == y.shape, f"{what}: dtype/shape {x.dtype} {y.dtype}")
+        if x.is_floating_point():
+            for g, w in zip(x.reshape(-1).tolist(), y.reshape(-1).tolist()):
+                close_value(g, w, what)
+        else:
+            check(torch.equal(x, y), f"{what}: integers differ")
+
+
+def calibration_oracle(preds, target):
+    """The calibration errors of the main rows in float64 (the port's f32
+    bin boundaries, ``searchsorted(left) - 1``, confidence 0 in no bin), each
+    with how far f32 bin sums within their reassociation bounds
+    (2 * n_b * 2**-24 * the bin's sum) can move it."""
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_boundaries
+
+    conf = preds.max(1)
+    acc = (preds.argmax(1) == target).astype(np.float64)
+    idx = np.searchsorted(_bin_boundaries(CAL_BINS).numpy(), conf, side="left") - 1
+    keep = idx >= 0
+    idx = idx[keep]
+    count = np.bincount(idx, minlength=CAL_BINS).astype(np.float64)
+    conf_sum = np.bincount(idx, weights=conf[keep].astype(np.float64), minlength=CAL_BINS)
+    acc_sum = np.bincount(idx, weights=acc[keep], minlength=CAL_BINS)
+    safe, prop = np.maximum(count, 1.0), count / len(conf)
+    gap = np.abs(acc_sum - conf_sum) / safe
+    move = 2 * count * 2.0**-24 * (conf_sum + acc_sum) / safe
+    sq, sq_move = (gap**2 * prop).sum(), ((2 * gap * move + move**2) * prop).sum()
+    return {"l1": (float((gap * prop).sum()), float((move * prop).sum())),
+            "l2": (float(np.sqrt(sq)), float(np.sqrt(sq + sq_move) - np.sqrt(max(sq - sq_move, 0.0)))),
+            "max": (float(gap.max()), float(move.max()))}
+
+
+def kl_inputs(dev):
+    """A second seeded softmax distribution over the main rows' classes: KL's ``q``."""
+    rng = np.random.RandomState(SEED + 5)
+    q = rng.rand(N_ROWS, NUM_CLASSES).astype(np.float32)
+    q /= q.sum(axis=1, keepdims=True)
+    return torch.from_numpy(q).to(dev), q
+
+
+def dashboard_eager(dev, preds, target, q):
+    """Phase 10(a) on ``dev``: the dashboard's ``update`` over the rows in
+    batches, then ``compute``; the calibration error in all three norms
+    (K2's weighted form, one launch per ``compute``), KL against ``q`` and
+    ``dice_score`` on the same rows."""
+    from metrics_tpu_torch import CalibrationError, KLDivergence
+    from metrics_tpu_torch.functional import dice_score
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    coll = make_dashboard(dev)
+    t0 = time.perf_counter()
+    for lo in range(0, N_ROWS, BATCH):
+        coll.update(preds[lo:lo + BATCH], target[lo:lo + BATCH])
+    values = flat_values(coll.compute())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    state = {k: {s: getattr(m, s) for s in m._defaults} for k, m in coll.items(keep_base=True)}
+    cal, cal_launches = {}, 0
+    for norm in ("l1", "l2", "max"):
+        m = CalibrationError(n_bins=CAL_BINS, norm=norm, device=dev)
+        m.update(preds, target)
+        before = histogram_cuda.launches
+        cal[norm] = float(m.compute())
+        cal_launches += histogram_cuda.launches - before
+    kl = KLDivergence(device=dev)
+    kl.update(preds, q)
+    return state, values, seconds, cal, cal_launches, float(kl.compute()), float(dice_score(preds, target))
+
+
+def result_sample(eng, per_stream):
+    """200 streams of a paged engine: resident, spilled and never touched."""
+    rng = np.random.RandomState(SEED + 6)
+    resident = sorted(eng.pager.resident_streams(0))
+    spilled = sorted(eng.pager.spilled_streams(0))
+    untouched = [s for s in range(eng.num_streams) if s not in per_stream]
+    k_res, k_spill = min(50, len(resident)), min(100, len(spilled))
+    k_new = RESULT_SAMPLES - k_res - k_spill
+    check(k_res > 0 and k_spill > 0 and 0 < k_new <= len(untouched), "result sample: too few streams")
+    picks = [rng.choice(resident, k_res, replace=False), rng.choice(spilled, k_spill, replace=False),
+             rng.choice(untouched, k_new, replace=False)]
+    return sorted(int(s) for p in picks for s in p)
+
+
+def results_timing(eng, sample):
+    """One batched ``results()`` against ``result()`` of each sampled
+    stream: one more device computation, equal values. Host ms of the
+    ``results()`` (flush, assembly, one vmapped compute, one copy to the
+    host) and of the per-stream loop, and the device launches and µs of one
+    ``results()`` from a profiler trace."""
+    calls = eng.stats.result_device_calls
+    t0 = time.perf_counter()
+    values = eng.results()
+    results_ms = (time.perf_counter() - t0) * 1e3
+    check(eng.stats.result_device_calls == calls + 1, "results(): not one device computation")
+    t0 = time.perf_counter()
+    singles = {sid: eng.result(sid) for sid in sample}
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    for sid in sample:
+        same_values(values[sid], singles[sid], f"results() vs result({sid})")
+    trace = device_trace(eng.results, runs=2)
+    return {"streams": eng.num_streams, "results_ms": results_ms,
+            "results_device_launches": sum(c for _, c in trace.values()),
+            "results_device_us": sum(us for us, _ in trace.values()),
+            "sampled_streams": len(sample), "per_stream_result_ms": single_ms,
+            "per_stream_result_ms_each": single_ms / len(sample)}
+
+
+def dashboard_phase(dev, preds, target, preds_np, target_np):
+    """Phase 10: the classification dashboard. (a) eager on the card, held
+    against the port's CPU run and numpy (with the calibration error, KL and
+    dice), and through the per-leaf masked bucket step; (b) the captured
+    megastep ``StreamingEngine``; (c) the captured paged ``MultiStreamEngine``
+    of phase 9a, then one ``results()``; (d) their times."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    out = {}
+    q, q_np = kl_inputs(dev)
+    gpu = dashboard_eager(dev, preds, target, q)
+    cpu = dashboard_eager(torch.device("cpu"), torch.from_numpy(preds_np), torch.from_numpy(target_np),
+                          torch.from_numpy(q_np))
+    gpu_state, gpu_values, eager_s, cal, cal_launches, kl, dice = gpu
+    check(cal_launches == 3, f"calibration error: {cal_launches} K2 launches for 3 computes")
+    oracle = dashboard_oracle(preds_np, target_np)
+    tol = check_dashboard_state(gpu_state, oracle, "dashboard (card)")
+    check_dashboard_state(cpu[0], oracle, "dashboard (CPU)")
+    compare_states({k: {s: v for s, v in m.items() if k != "hinge" or s != "measure"} for k, m in gpu_state.items()},
+                   {k: {s: v for s, v in m.items() if k != "hinge" or s != "measure"} for k, m in cpu[0].items()},
+                   "dashboard: card vs CPU")
+    for k, v in gpu_values.items():
+        close_value(v, cpu[1][k], f"dashboard value {k}", 2 * tol / N_ROWS if k == "hinge" else 0.0)
+    for norm, (want, slack) in calibration_oracle(preds_np, target_np).items():
+        close_value(cal[norm], want, f"calibration {norm} (card)", slack)
+        close_value(cpu[3][norm], want, f"calibration {norm} (CPU)", slack)
+    p64, q64 = preds_np.astype(np.float64), q_np.astype(np.float64)
+    p64, q64 = p64 / p64.sum(1, keepdims=True), q64 / q64.sum(1, keepdims=True)
+    elems = p64 * np.log(p64 / np.maximum(q64, 1e-6))
+    kl_slack = (2 * N_ROWS + 8) * 2.0**-24 * float(np.abs(elems).sum()) / N_ROWS
+    close_value(kl, float(elems.sum()) / N_ROWS, "KL divergence (card)", kl_slack)
+    close_value(kl, cpu[5], "KL divergence card vs CPU", 2 * kl_slack)
+    close_value(dice, cpu[6], "dice score card vs CPU")
+    masked_state, _, buckets, masked_s = masked_path(dev, preds_np, target_np, np.random.RandomState(SEED + 1),
+                                                     make=make_dashboard)
+    check_dashboard_state(masked_state, oracle, "dashboard masked buckets")
+    out["eager"] = {"update_compute_s": eager_s, "calibration": cal, "calibration_k2_launches": cal_launches,
+                    "kl_divergence": kl, "dice": dice, "masked_buckets": buckets, "masked_update_compute_s": masked_s,
+                    "values": {k: float(v) for k, v in gpu_values.items()}}
+
+    # (b) the megastep engine: two K5 launches a step (int32 and f32 arenas), three K2 (one per confusion matrix)
+    before = counts()
+    eng = StreamingEngine(make_dashboard(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"))
+    seconds = run_engine(eng, True, ragged_batches(SEED + 2, 16, BUCKET),
+                         lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
+    d = delta(before)
+    n = eng.steps + eng.stats.warmup_steps
+    check(eng.stats.kernel_fallbacks_by_reason() == {}, f"dashboard megastep fell back: {eng.stats.kernel_fallbacks}")
+    check(d["megastep_fold"] == 2 * n and d["fold_rows"] == 0 and d["histogram"] == 3 * n,
+          f"dashboard megastep: {d['megastep_fold']} K5, {d['fold_rows']} K1, {d['histogram']} K2 in {n} steps")
+    check_dashboard_state(eng.state(), oracle, "dashboard megastep engine")
+    out["streaming_megastep"] = {"seconds": seconds, "steps": eng.steps, "warmup_steps": eng.stats.warmup_steps,
+                                 "megasteps": eng.stats.megasteps, "s_per_step": seconds / eng.steps,
+                                 "launches": d, "aot": check_cache(eng, "dashboard megastep")}
+
+    # (c) the paged engine of phase 9a: two K6 launches a step, three K2; then one results()
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
+    before = counts()
+    eng = MultiStreamEngine(make_dashboard(dev), PAGED_STREAMS,
+                            EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", coalesce=8),
+                            stream_shard=True, resident_streams=RESIDENT)
+    seconds = run_engine(eng, True, list(zip(sids, batches)),
+                         lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]]))
+    d = delta(before)
+    n = eng.steps + eng.stats.warmup_steps
+    check(d["megastep_segment"] == 2 * n and d["megastep_segment_q8"] == 0 and d["histogram"] == 3 * n,
+          f"dashboard paged: {d['megastep_segment']} K6, {d['histogram']} K2 in {n} steps")
+    check(eng.stats.page_outs > 0, "dashboard paged: nothing was spilled")
+    per_stream = stream_rows(sids, batches)
+    sample = result_sample(eng, per_stream)
+    empty = np.zeros(0, np.int64)
+    for sid in sample:
+        idx = per_stream.get(sid, empty)
+        check_dashboard_state(eng.stream_state(sid), dashboard_oracle(preds_np[idx], target_np[idx]),
+                              f"dashboard paged stream {sid}")
+    st = eng.stats
+    out["paged"] = {"seconds": seconds, "steps": eng.steps, "warmup_steps": st.warmup_steps,
+                    "megasteps": st.megasteps, "batches": st.batches_submitted, "s_per_step": seconds / eng.steps,
+                    "streams": PAGED_STREAMS, "resident": RESIDENT, "touched": len(per_stream),
+                    "page_ins": st.page_ins, "page_outs": st.page_outs, "launches": d,
+                    "aot": check_cache(eng, "dashboard paged"),
+                    # (d) the batched results() against the per-stream loop
+                    "results": results_timing(eng, sample)}
+    return out
+
+
+def hist_calibration_timing(dev, preds, target):
+    """K2's weighted one-shot form as phase 10's calibration error launches
+    it: the main rows' top-label confidences binned into 15 bins, ``(N, 3)``
+    f32 weights (in-bin flag, confidence, accuracy). Counts exact; the sums
+    within the reassociation bound of the plain version's and of
+    ``index_add_``'s. The library call is ``index_add_`` into a zeroed
+    ``(15, 3)`` output."""
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_boundaries, _ce_update
+    from metrics_tpu_torch.ops.kernels import histogram_accumulate
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+
+    conf, acc = _ce_update(preds, target)
+    idx = torch.searchsorted(_bin_boundaries(CAL_BINS, dev), conf, side="left") - 1
+    w = (idx >= 0).to(torch.float32)
+    idx = idx.clamp(0, CAL_BINS - 1)
+    weights = torch.stack([w, conf * w, acc * w], dim=-1)
+    i2, w3 = idx[None], weights[None]
+    kernel = lambda: histogram_cuda(i2, CAL_BINS, None, w3)  # noqa: E731
+    plain = lambda: histogram_plain(i2, CAL_BINS, None, w3)  # noqa: E731
+    whole = lambda: histogram_accumulate(idx, CAL_BINS, weights=weights)  # noqa: E731
+    library = lambda: torch.zeros((CAL_BINS, 3), device=dev).index_add_(0, idx, weights)  # noqa: E731
+    want = plain()[0]
+    tol = 2 * idx.numel() * 2.0**-24 * histogram_plain(i2, CAL_BINS, None, w3.abs())[0].double()
+    err = 0.0
+    for name, got in (("kernel", kernel()[0]), ("call", whole()), ("index_add_", library())):
+        torch.cuda.synchronize()
+        check(torch.equal(got[:, 0], want[:, 0]), f"hist calibration {name}: counts differ")
+        diff = (got.double() - want.double()).abs()
+        check(bool((diff <= tol).all()), f"hist calibration {name}: err {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    trace = device_trace(whole)
+    n = idx.numel()
+    entry = {
+        "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55",
+        "shape": f"idx ({n},) int64 into {CAL_BINS} bins, ({n}, 3) f32 weights (calibration error, one-shot)",
+        "max_abs_err": err, "max_abs_err_bf16": None,
+        "ms": gpu_ms(kernel), "plain_ms": gpu_ms(plain), "library_ms": gpu_ms(library),
+        "device_us": device_us(kernel),
+        "call_ms": gpu_ms(whole), "call_host_us": host_us(whole),
+        "call_device_us": {k: us for k, (us, _) in trace.items()},
+        "call_device_launches": sum(c for _, c in trace.values()),
+    }
+    # the indices and weights read once, the (15, 3) sums written once; one add per weight
+    entry["bound_ms"], entry["bound_by"] = bound_ms(8 * n + 12 * n + 4 * 3 * CAL_BINS, 3 * n)
+    return entry
 
 
 def nvidia_smi_line():
@@ -1336,6 +1681,7 @@ def main():
     print(f"kernel phases K4-K7: pass ({time.perf_counter() - t0:.2f} s on {card})")
 
     preds, target, preds_np, target_np = main_rows(dev)
+    hist_cal_entry = hist_calibration_timing(dev, preds, target)
     kernels = kernel_wrappers()
     for fn in kernels.values():
         fn.launches = 0
@@ -1356,6 +1702,18 @@ def main():
     print(json.dumps({"launches": {"one_shot_update": one_shot, "masked_buckets": masked}}))
     for k in kernels:
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+
+    # phase 10, its counts from 0: K1 (masked buckets), K2 (all three forms), K5 and K6 must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    dashboard = dashboard_phase(dev, preds, target, preds_np, target_np)
+    dashboard_launches = counts()
+    for k in ("fold_rows", "histogram", "megastep_fold", "megastep_segment"):
+        check(dashboard_launches[k] > 0, f"kernel {k} was not launched by the dashboard phase")
+    launches = {k: launches[k] + dashboard_launches[k] for k in launches}
+    print(json.dumps({"dashboard_phase": dashboard, "launches": dashboard_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
@@ -1380,8 +1738,9 @@ def main():
     print(json.dumps(phases_line))
 
     entries = []
-    for e in (*fold_entries, *hist_entries, *binned_entries, *segment_entries, *mega_fold_entries, *mega_seg_entries,
-              *mega_q8_entries):
+    hist_cal_entry["calibration_launches"] = dashboard["eager"]["calibration_k2_launches"]
+    for e in (*fold_entries, *hist_entries, hist_cal_entry, *binned_entries, *segment_entries, *mega_fold_entries,
+              *mega_seg_entries, *mega_q8_entries):
         e["launches"] = launches[e["name"]]
         e["card"] = card
         entries.append(e)

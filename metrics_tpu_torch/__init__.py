@@ -9,9 +9,22 @@ from metrics_tpu_torch.classification import (
     Accuracy,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
+    CalibrationError,
+    CohenKappa,
     ConfusionMatrix,
     F1Score,
     FBeta,
+    HammingDistance,
+    Hinge,
+    HingeLoss,
+    IoU,
+    JaccardIndex,
+    KLDivergence,
+    MatthewsCorrCoef,
+    MatthewsCorrcoef,
+    Precision,
+    Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
@@ -21,10 +34,23 @@ __all__ = [
     "Accuracy",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
+    "CalibrationError",
+    "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
     "FBeta",
+    "HammingDistance",
+    "Hinge",
+    "HingeLoss",
+    "IoU",
+    "JaccardIndex",
+    "KLDivergence",
+    "MatthewsCorrCoef",
+    "MatthewsCorrcoef",
     "Metric",
     "MetricCollection",
+    "Precision",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

@@ -4,16 +4,38 @@ from metrics_tpu_torch.classification.binned_precision_recall import (
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
 )
+from metrics_tpu_torch.classification.calibration_error import CalibrationError
+from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
 from metrics_tpu_torch.classification.f_beta import F1Score, FBeta
+from metrics_tpu_torch.classification.hamming_distance import HammingDistance
+from metrics_tpu_torch.classification.hinge import Hinge, HingeLoss
+from metrics_tpu_torch.classification.jaccard import IoU, JaccardIndex
+from metrics_tpu_torch.classification.kl_divergence import KLDivergence
+from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrcoef, MatthewsCorrCoef
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall
+from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 
 __all__ = [
     "Accuracy",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
+    "CalibrationError",
+    "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
     "FBeta",
+    "HammingDistance",
+    "Hinge",
+    "HingeLoss",
+    "IoU",
+    "JaccardIndex",
+    "KLDivergence",
+    "MatthewsCorrCoef",
+    "MatthewsCorrcoef",
+    "Precision",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

@@ -3,13 +3,13 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.stat_scores import StatScores
+from metrics_tpu_torch.classification.stat_scores import _AveragedStatScores
 from metrics_tpu_torch.functional.classification.f_beta import _fbeta_compute
 
 Tensor = torch.Tensor
 
 
-class FBeta(StatScores):
+class FBeta(_AveragedStatScores):
     """F-beta score with configurable beta."""
 
     is_differentiable = False
@@ -27,21 +27,9 @@ class FBeta(StatScores):
         multiclass: Optional[bool] = None,
         **kwargs: Any,
     ) -> None:
-        allowed_average = ["micro", "macro", "weighted", "samples", "none", None]
-        if average not in allowed_average:
-            raise ValueError(f"The `average` has to be one of {allowed_average}, got {average}.")
-        super().__init__(
-            reduce="macro" if average in ["weighted", "none", None] else average,
-            mdmc_reduce=mdmc_average,
-            threshold=threshold,
-            top_k=top_k,
-            num_classes=num_classes,
-            multiclass=multiclass,
-            ignore_index=ignore_index,
-            **kwargs,
-        )
+        super().__init__(num_classes=num_classes, threshold=threshold, average=average, mdmc_average=mdmc_average,
+                         ignore_index=ignore_index, top_k=top_k, multiclass=multiclass, **kwargs)
         self.beta = beta
-        self.average = average
 
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._get_final_stats()

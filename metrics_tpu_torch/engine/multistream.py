@@ -30,9 +30,12 @@ one megabatch whose per-row id column carries them, and the paged form routes
 it in rounds of at most ``resident`` distinct streams. The pager's plan,
 spills and page-ins and the q8 flag clearing run on the engine stream outside
 any graph; only the segment step is captured (its slot ids are a fixed device
-buffer, its q8 staging a fixed set of buffers). Snapshots, windows and
-multi-GPU stream sharding over ``torch.distributed`` are not ported yet
-(ROADMAP §A); ``results()`` computes stream by stream.
+buffer, its q8 staging a fixed set of buffers). ``results()`` computes every
+stream's value in ONE batched computation for any S (``torch.func.vmap`` of
+the metric's ``compute_from`` over the stream axis; the paged form first
+assembles every stream's row on the device) and copies the values to the
+host once. Snapshots, windows and multi-GPU stream sharding over
+``torch.distributed`` are not ported yet (ROADMAP §A).
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -46,7 +49,7 @@ from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
-from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map
+from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["MultiStreamEngine"]
 
@@ -57,6 +60,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
     """A device row as host numpy (bf16 widens to f32: numpy has no bf16)."""
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _values_to_host(values: Any, num_streams: int) -> List[Any]:
+    """Per-stream host copies of a values tree whose every leaf leads with
+    the stream axis, through ONE device-to-host transfer: each leaf's bytes
+    side by side in one ``(S, bytes)`` uint8 buffer, split again on the host."""
+    leaves, treedef = tree_flatten(values)
+    rows = [leaf.detach().contiguous().reshape(num_streams, -1) for leaf in leaves]
+    raw = torch.cat([r.view(torch.uint8) for r in rows], dim=1).cpu()
+    host, at = [], 0
+    for leaf, r in zip(leaves, rows):
+        width = r.shape[1] * r.element_size()
+        part = raw[:, at:at + width].contiguous().view(leaf.dtype).reshape(leaf.shape)
+        host.append(part.unbind(0))
+        at += width
+    return [tree_unflatten(treedef, list(per_stream)) for per_stream in zip(*host)]
 
 
 class MultiStreamEngine(StreamingEngine):
@@ -416,11 +435,49 @@ class MultiStreamEngine(StreamingEngine):
         row = self._decoded_spill_row(sid) or self._init_row
         return {k: torch.from_numpy(np.asarray(v)).to(self._device, self._state[k].dtype) for k, v in row.items()}
 
+    def _all_rows(self) -> Dict[str, torch.Tensor]:
+        """Every stream's packed row, ``(S, n)`` per dtype on the device: the
+        init row tiled, the spilled rows (decoded when stored compressed)
+        written in one upload per dtype, then the resident slots in one device
+        gather per dtype (a resident stream has no spill entry)."""
+        dev, s = self._device, self._num_streams
+        out = {k: torch.from_numpy(self._init_row[k]).to(dev, buf.dtype).expand(s, -1).clone()
+               for k, buf in self._state.items()}
+        encoded: List[Tuple[int, Dict[str, np.ndarray]]] = []
+        plain: List[Tuple[int, Dict[str, np.ndarray]]] = []
+        for sid in self._pager.spilled_streams(_SHARD):
+            row = self._pager.spilled_row(_SHARD, sid)
+            is_enc = self._row_codec is not None and self._row_codec.is_encoded(row)
+            (encoded if is_enc else plain).append((sid, row))
+        for group, decode in ((encoded, True), (plain, False)):
+            if not group:
+                continue
+            sids = torch.from_numpy(np.asarray([g[0] for g in group], np.int64)).to(dev)
+            stacked = {key: np.stack([g[1][key] for g in group]) for key in group[0][1]}
+            if decode:
+                stacked = self._row_codec.decode_buffers(stacked)
+            for k, buf in self._state.items():
+                out[k][sids] = torch.from_numpy(stacked[k]).to(dev, buf.dtype)
+        resident = self._pager.resident_streams(_SHARD)
+        if resident:
+            sids = torch.from_numpy(np.asarray(resident, np.int64)).to(dev)
+            slots = torch.from_numpy(np.asarray([self._pager.slot_of(_SHARD, r) for r in resident], np.int64)).to(dev)
+            for k, buf in self._state.items():
+                out[k][sids] = buf[slots]
+        return out
+
     def _stream_tree(self, sid: int) -> Any:
         """One stream's logical state tree (views of the live state)."""
         if self._stream_shard:
             return self._layout.unpack(self._fetch_row(sid))
         return tree_map(lambda x: x[sid], self._unpack(self._state))
+
+    def _stacked_tree(self) -> Any:
+        """The ``(S, ...)``-stacked logical state of every stream (views of the
+        live state when unsharded; the paged form assembles it afresh)."""
+        if self._stream_shard:
+            return self._layout.unpack_stacked(self._all_rows())
+        return self._unpack(self._state)
 
     def result(self, stream_id: int) -> Any:  # type: ignore[override]
         """``stream_id``'s value (after a flush): the paged form reads ONLY
@@ -428,13 +485,21 @@ class MultiStreamEngine(StreamingEngine):
         sid = self._check_stream(stream_id)
         self.flush()
         with self._device_section():
-            return self._metric.compute_from(self._stream_tree(sid))
+            value = self._metric.compute_from(self._stream_tree(sid))
+            self._stats.result_device_calls += 1
+            return value
 
     def results(self) -> Dict[int, Any]:
-        """Every stream's value, computed stream by stream after one flush."""
+        """Every stream's value, on the host, from ONE batched computation for
+        any S: after one flush, ``torch.func.vmap`` of the metric's
+        ``compute_from`` over the stream axis of the stacked state, then one
+        device-to-host copy of the values, sliced per stream."""
         self.flush()
         with self._device_section():
-            return {sid: self._metric.compute_from(self._stream_tree(sid)) for sid in range(self._num_streams)}
+            values = torch.func.vmap(self._metric.compute_from)(self._stacked_tree())
+            self._stats.result_device_calls += 1
+            per_stream = _values_to_host(values, self._num_streams)
+        return dict(enumerate(per_stream))
 
     def stream_state(self, stream_id: int) -> Any:
         """A copy of one stream's LOGICAL state tree (after a flush)."""
@@ -450,8 +515,7 @@ class MultiStreamEngine(StreamingEngine):
             return super().state()
         self.flush()
         with self._device_section():
-            rows = [self._fetch_row(sid) for sid in range(self._num_streams)]
-            return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+            return self._stacked_tree()
 
     def reset_stream(self, stream_id: int) -> None:
         """Zero ONE stream's accumulation (after a flush); the paged form

@@ -173,6 +173,9 @@ class EngineStats:
         self.rows_in = 0
         self.rows_padded = 0
         self.routed_steps = 0
+        # device computations of MultiStreamEngine.result()/results(): one per
+        # results() call, whatever the number of streams
+        self.result_device_calls = 0
         self.page_hits = 0
         self.page_faults = 0
         self.page_ins = 0

@@ -67,7 +67,8 @@ def _average_precision_compute_with_precision_recall(
 
     if average in ("macro", "weighted"):
         res_t = torch.stack(res)
-        if bool(torch.any(torch.isnan(res_t))):
+        # the warning reads the data: not under vmap (a batched results()), where it cannot branch
+        if not torch._C._functorch.is_batchedtensor(res_t) and bool(torch.any(torch.isnan(res_t))):
             warnings.warn("Average precision score for one or more classes was `nan`. Ignoring these classes "
                           f"in {average}-average", UserWarning)
         if average == "macro":

@@ -3,8 +3,9 @@ from typing import Optional
 
 import torch
 
-from metrics_tpu_torch.functional.classification.stat_scores import _reduce_stat_scores, _stat_scores_update
-from metrics_tpu_torch.utils.device import DeviceLike, as_input, tensor_device
+from metrics_tpu_torch.functional.classification.precision_recall import _stat_scores_for
+from metrics_tpu_torch.functional.classification.stat_scores import _reduce_stat_scores
+from metrics_tpu_torch.utils.device import DeviceLike
 from metrics_tpu_torch.utils.enums import AverageMethod as AvgMethod
 from metrics_tpu_torch.utils.enums import MDMCAverageMethod
 
@@ -82,24 +83,8 @@ def fbeta(
     device: DeviceLike = None,
 ) -> Tensor:
     """Compute F-beta on ``device`` (default: the inputs' device, else ``cuda``)."""
-    allowed_average = ("micro", "macro", "weighted", "samples", "none", None)
-    if average not in allowed_average:
-        raise ValueError(f"The `average` has to be one of {allowed_average}, got {average}.")
-    if average in ("macro", "weighted", "none", None) and (not num_classes or num_classes < 1):
-        raise ValueError(f"When you set `average` as {average}, you have to provide the number of classes.")
-    allowed_mdmc_average = (None, "samplewise", "global")
-    if mdmc_average not in allowed_mdmc_average:
-        raise ValueError(f"The `mdmc_average` has to be one of {allowed_mdmc_average}, got {mdmc_average}.")
-    if num_classes and ignore_index is not None and (not 0 <= ignore_index < num_classes or num_classes == 1):
-        raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {num_classes} classes")
-
-    dev = tensor_device(preds, target, device=device)
-    reduce = "macro" if average in ("weighted", "none", None) else average
-    tp, fp, tn, fn = _stat_scores_update(
-        as_input(preds, dev), as_input(target, dev), reduce=reduce, mdmc_reduce=mdmc_average,
-        threshold=threshold, num_classes=num_classes, top_k=top_k, multiclass=multiclass,
-        ignore_index=ignore_index,
-    )
+    tp, fp, tn, fn = _stat_scores_for(preds, target, average, mdmc_average, ignore_index, num_classes, threshold,
+                                      top_k, multiclass, device)
     return _fbeta_compute(tp, fp, tn, fn, beta, ignore_index, average, mdmc_average)
 
 

@@ -378,9 +378,14 @@ class Metric(nn.Module):
         return None
 
     def masked_update_unsupported_reason(self) -> Optional[str]:
-        """None when :meth:`update_state_masked` applies, else the reason."""
+        """None when :meth:`update_state_masked` applies, else the reason (for
+        a list state, the JAX package's: no masked strategy has a static shape
+        to fold it into)."""
         if self.masked_update_strategy() is not None:
             return None
+        for k, v in self._defaults.items():
+            if isinstance(v, list):
+                return f"state {k!r} is a list (cat/gather) state with no static shape"
         return self._delta_masked_reason()
 
     def update_state_masked(self, state: Dict[str, Any], *args: Any, mask: Any, **kwargs: Any) -> Dict[str, Any]:

@@ -233,6 +233,14 @@ def _check_classification_inputs(
     return case
 
 
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    if tuple(preds.shape) != tuple(target.shape):
+        raise RuntimeError(
+            "Predictions and targets are expected to have the same shape, "
+            f"got {tuple(preds.shape)} and {tuple(target.shape)}."
+        )
+
+
 def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """Remove excess size-1 dims (all but the leading N)."""
     if preds.shape[0] == 1:

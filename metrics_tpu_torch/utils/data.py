@@ -83,6 +83,11 @@ def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:
     return (labels == _class_axis(num_classes, labels.ndim, labels.device)).to(torch.int32)
 
 
+def to_categorical(tensor: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities/one-hot ``(N, C, ...)`` -> integer labels ``(N, ...)``."""
+    return torch.argmax(tensor, dim=argmax_dim)
+
+
 def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """int32 mask of the top-k entries along ``dim``."""
     moved = prob_tensor.movedim(dim, -1)

@@ -721,3 +721,116 @@ def test_a_capture_failure_raises_and_never_runs_eagerly(cuda):
     eng._error = None
     assert float(eng.state()["total"]) == 0.0
     eng.stop()
+
+
+# ------------------------------------------- counting metrics, calibration and results()
+
+def _calibration_inputs(device, n=65536, n_bins=15, seed=11):
+    """The calibration error's one histogram call at the main path's shape:
+    searchsorted bins of top-label confidences and the (N, 3) weight columns."""
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_boundaries, _ce_update
+
+    rng = np.random.RandomState(seed)
+    p = rng.rand(n, 10).astype(np.float32)
+    p /= p.sum(1, keepdims=True)
+    p[:7, :] = 0.0  # confidence 0: in no bin
+    conf, acc = _ce_update(torch.from_numpy(p).to(device), torch.from_numpy(rng.randint(0, 10, n)).to(device))
+    idx = torch.searchsorted(_bin_boundaries(n_bins, device), conf, side="left") - 1
+    w = (idx >= 0).to(torch.float32)
+    return idx.clamp(0, n_bins - 1), torch.stack([w, conf * w, acc * w], dim=-1)
+
+
+@pytest.mark.requires_cuda
+def test_histogram_weighted_form_at_the_calibration_shape(cuda):
+    """K2's weighted form as the calibration error sends it: one launch, the
+    counts column exact, the f32 sums within the reassociation bound
+    2 * n * 2**-24 * sum|terms| of the plain version's."""
+    from metrics_tpu_torch.ops.kernels import histogram_accumulate
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+
+    idx, w = _calibration_inputs(cuda)
+    before = histogram_cuda.launches
+    got = histogram_accumulate(idx, 15, weights=w)
+    assert histogram_cuda.launches == before + 1 and got.shape == (15, 3) and got.dtype == torch.float32
+    want = histogram_plain(idx[None], 15, None, w[None])[0]
+    assert torch.equal(got[:, 0], want[:, 0])
+    abs_sums = histogram_plain(idx[None], 15, None, w.abs()[None])[0].double()
+    assert bool(((got.double() - want.double()).abs() <= 2 * idx.numel() * 2.0**-24 * abs_sums).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("norm", ["l1", "l2", "max"])
+def test_calibration_error_on_card_is_one_histogram_launch(cuda, norm):
+    from metrics_tpu_torch import CalibrationError
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    rng = np.random.RandomState(12)
+    p = rng.rand(4096, 10).astype(np.float32)
+    p /= p.sum(1, keepdims=True)
+    t = rng.randint(0, 10, 4096)
+    card, cpu = CalibrationError(norm=norm, device=cuda), CalibrationError(norm=norm, device="cpu")
+    card.update(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+    cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+    before = histogram_cuda.launches
+    value = card.compute()
+    assert histogram_cuda.launches == before + 1
+    # f32 bin sums of up to 4096 terms in two orders: 4096 * 2**-24 relative, twice
+    torch.testing.assert_close(value.cpu(), cpu.compute(), rtol=2 * 4096 * 2.0**-24, atol=1e-6)
+
+
+def _dashboard_collection(device):
+    from metrics_tpu_torch import (CohenKappa, HammingDistance, HingeLoss, JaccardIndex, MatthewsCorrCoef,
+                                   MetricCollection, Precision, Recall, Specificity)
+
+    return MetricCollection({
+        "precision": Precision(num_classes=4, average="macro", device=device),
+        "recall": Recall(num_classes=4, average="macro", device=device),
+        "specificity": Specificity(num_classes=4, average="macro", device=device),
+        "hamming": HammingDistance(device=device),
+        "jaccard": JaccardIndex(num_classes=4, device=device),
+        "kappa": CohenKappa(num_classes=4, device=device),
+        "mcc": MatthewsCorrCoef(num_classes=4, device=device),
+        "hinge": HingeLoss(device=device),
+    })
+
+
+def _same_values(got, want, exact_ints=True):
+    for g, w in zip(_flat(got), _flat(want)):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if exact_ints and not g.is_floating_point():
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("collection", ["flagship", "dashboard"])
+def test_results_of_a_captured_engine_is_one_batched_call(cuda, paged, collection):
+    """``results()`` of an engine whose steps replayed captured graphs: one
+    device computation, every stream's value equal to its ``result()`` and to
+    the same traffic's values through a CPU engine."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    make = _engine_collection if collection == "flagship" else _dashboard_collection
+    kw = {"stream_shard": True, "resident_streams": 3} if paged else {}
+    traffic = _engine_traffic(6, n_batches=40, streams=12)
+    engines = []
+    for device in (cuda, torch.device("cpu")):
+        eng = MultiStreamEngine(make(device), 16, EngineConfig(buckets=(16, 64), kernel_backend="megastep",
+                                                               coalesce=1), **kw)
+        _drive(eng, traffic, False, device)
+        engines.append(eng)
+    card, cpu = engines
+    assert card.stats.warmup_steps >= 1 and card.aot_cache.hits >= 1
+    if paged:
+        assert card.pager.spilled_count() > 0
+    before = card.stats.result_device_calls
+    got = card.results()
+    assert card.stats.result_device_calls == before + 1
+    want = cpu.results()
+    for sid in range(16):  # streams 12-15 never saw a batch
+        assert all(v.device.type == "cpu" for v in _flat(got[sid]))
+        _same_values(got[sid], card.result(sid))
+        _same_values(got[sid], want[sid])
