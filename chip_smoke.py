@@ -67,7 +67,24 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    launches a step); (c) the captured paged ``MultiStreamEngine`` of phase 9a
    (two K6 and three K2 launches a step), its 200 sampled streams against
    numpy, then one ``results()``; (d) the times of (a)-(c) and of that
-   ``results()`` beside the per-stream loop.
+   ``results()`` beside the per-stream loop;
+11. the exact curves on the same rows, their launch counts set to 0 before
+   them: (a) eager in 4 batches, AUROC macro and weighted (its class support
+   one K2 launch), the binary AUROC of class 0 up to fpr 0.3, AP macro, ROC,
+   the PR curve, AUC of class 0's ROC, ``BinnedRecallAtFixedPrecision`` (K3)
+   and the aggregators, with ``AUROC``/``AveragePrecision(capacity=65 536)``;
+   each value within its stated f32 bound of a float64 oracle
+   (Mann-Whitney AUROC from ``scipy.stats.rankdata``, step AP), curves and
+   counts bit-equal to the CPU port's; (b) the flagship collection plus
+   ``AUROC`` and ``AveragePrecision(num_classes=10, capacity=65 536)``
+   through phase 7's captured megastep ``StreamingEngine``: the scan members
+   demote every arena dtype (the JAX package's fallback reasons, no K5),
+   their buffers bit-equal to the CPU port's eager capacity update, the
+   flagship's states to phase 4's, with capture seconds, host ms per step
+   and one 1024-row bucket's device µs and launches; an uncaptured twin on a
+   prefix of the batches, bit-equal too; (c) both forms of
+   ``MultiStreamEngine`` refuse the scan members with the JAX package's
+   reason.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -81,8 +98,9 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before phase 10 and read after it; each must be non-zero
-(phase 10: K1, K2, K5 and K6), and K2 must launch once per batch and per step
+and set to 0 again before phase 10 and read after it, and before phase 11
+and read after it; each must be non-zero (phase 10: K1, K2, K5 and K6;
+phase 11: K1, K2 and K3), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -90,7 +108,9 @@ captured and uncaptured) and one per-leaf masked bucket
 The line before the last is the ``kernels`` JSON object: K1, K2, K3 and K5
 have one entry per shape above (K2 also at phase 10's calibration shape:
 65 536 int64 indices into 15 bins, ``(65 536, 3)`` f32 weights, with
-``index_add_`` into a zeroed ``(15, 3)`` output as its library call), K4, K6 and K7 one per ``traffic`` (random ids
+``index_add_`` into a zeroed ``(15, 3)`` output as its library call, and at
+phase 11's AUROC support shape: 65 536 int64 labels into 10 bins, with
+``torch.bincount`` as its library call), K4, K6 and K7 one per ``traffic`` (random ids
 and one stream), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
@@ -1644,6 +1664,339 @@ def hist_calibration_timing(dev, preds, target):
     return entry
 
 
+# ------------------------------------------------------------- phase 11: the curves
+
+F32_EPS = 2.0**-24
+CURVE_PREFIX_BATCHES = 6  # the uncaptured twin's batches: its eager scan takes ~1 s of host per 1024-row step
+CAPACITY_KEYS = ("preds_buf", "target_buf", "valid_buf", "count", "overflow")
+SCAN_REASON = "state 'preds_buf' has dist_reduce_fx='cat'"  # the JAX package's segmented refusal
+SCAN_FALLBACKS = {"dtype.bool:strategy": 1, "dtype.float32:strategy": 1, "dtype.int32:strategy": 1}
+
+
+def curve_oracle(scores, positive):
+    """One class's exact AUROC (Mann-Whitney with scipy's average ranks) and
+    step AP in float64 from the f32 scores, with the bounds the port's f32
+    computations are held to: the trapezoid over ``m`` curve points and the
+    step sum over ``m`` PR points, (4m + 8) * 2**-24 (fpr, tpr and precision
+    rounded once, each difference and product once more, the sum
+    reassociated: 2 * m * 2**-24 * sum|terms| with sum|terms| <= 1); the
+    capacity form's rank sum, 2 * P * 2**-24 * sum(positive ranks) plus the
+    rounding of P(P+1)/2, over P * N; its AP sum (2m + 4) * 2**-24 * AP."""
+    from scipy.stats import rankdata
+
+    s = scores.astype(np.float64)
+    p = int(positive.sum())
+    nn = len(s) - p
+    s_pos = float(rankdata(s)[positive].sum())
+    auroc = (s_pos - p * (p + 1) / 2) / (p * nn)
+    order = np.argsort(-s, kind="stable")
+    ys, ss = positive[order], s[order]
+    end = np.r_[ss[1:] != ss[:-1], True]
+    tp, fp = np.cumsum(ys)[end], np.cumsum(~ys)[end]
+    ap = float((np.diff(np.r_[0, tp]) * tp / (tp + fp)).sum() / p)
+    m = int(end.sum()) + 1
+    return {"auroc": auroc, "ap": ap, "points": m, "support": p, "tol_curve": (4 * m + 8) * F32_EPS,
+            "tol_ranks": ((2 * p + 1) * s_pos + p * (p + 1) / 2) * F32_EPS / (p * nn) + 4 * F32_EPS,
+            "tol_capacity_ap": (2 * m + 4) * F32_EPS * ap + F32_EPS}
+
+
+def partial_auroc_oracle(scores, positive, max_fpr):
+    """Binary AUROC up to ``max_fpr`` with the McClish correction, in float64
+    (the ROC at distinct thresholds, a point added at ``max_fpr`` by linear
+    interpolation), and its bound: the trapezoid's (4m + 16) * 2**-24 times
+    the correction's scale 0.5 / (max_fpr - max_fpr**2 / 2)."""
+    s = scores.astype(np.float64)
+    order = np.argsort(-s, kind="stable")
+    ys, ss = positive[order], s[order]
+    end = np.r_[ss[1:] != ss[:-1], True]
+    tps, fps = np.r_[0, np.cumsum(ys)[end]], np.r_[0, np.cumsum(~ys)[end]]
+    fpr, tpr = fps / fps[-1], tps / tps[-1]
+    stop = int(np.searchsorted(fpr, max_fpr, side="right"))
+    w = (max_fpr - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
+    tpr = np.r_[tpr[:stop], tpr[stop - 1] + w * (tpr[stop] - tpr[stop - 1])]
+    fpr = np.r_[fpr[:stop], max_fpr]
+    partial = float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+    min_area = 0.5 * max_fpr**2
+    scale = 0.5 / (max_fpr - min_area)
+    return 0.5 * (1 + (partial - min_area) / (max_fpr - min_area)), scale * (4 * len(fpr) + 16) * F32_EPS
+
+
+def make_curve_collection(device):
+    """The flagship collection with an exact AUROC and AP over static buffers
+    that hold every main row: the scan members of phase 11(b)."""
+    from metrics_tpu_torch import AUROC, AveragePrecision
+
+    coll = make_collection(device)
+    coll.add_metrics({"auroc": AUROC(num_classes=NUM_CLASSES, capacity=N_ROWS, device=device),
+                      "ap": AveragePrecision(num_classes=NUM_CLASSES, capacity=N_ROWS, device=device)})
+    return coll
+
+
+def curves_eager(dev, preds, target):
+    """Phase 11(a) on ``dev``: every exact curve metric over the main rows
+    in 4 batches (AUROC macro and weighted, AP macro, ROC, PR curve, AUC of
+    class 0's ROC, the binary AUROC of class 0 up to fpr 0.3), binned recall
+    at precision 0.15 over 100 thresholds, the aggregators over the
+    top-label confidences, and the AUROC and AP capacity states. Returns the
+    values, the K2 launches of the weighted compute and the seconds."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    c = NUM_CLASSES
+    ms = {"auroc_macro": mp.AUROC(num_classes=c, device=dev),
+          "auroc_weighted": mp.AUROC(num_classes=c, average="weighted", device=dev),
+          "ap_macro": mp.AveragePrecision(num_classes=c, device=dev),
+          "roc": mp.ROC(num_classes=c, device=dev),
+          "pr_curve": mp.PrecisionRecallCurve(num_classes=c, device=dev),
+          "binned_recall": mp.BinnedRecallAtFixedPrecision(num_classes=c, min_precision=0.15,
+                                                           thresholds=THRESHOLDS, device=dev),
+          "auroc_capacity": mp.AUROC(num_classes=c, capacity=N_ROWS, device=dev),
+          "ap_capacity": mp.AveragePrecision(num_classes=c, capacity=N_ROWS, device=dev)}
+    binary = mp.AUROC(max_fpr=0.3, device=dev)
+    aggs = {"mean": mp.MeanMetric(device=dev), "sum": mp.SumMetric(device=dev), "max": mp.MaxMetric(device=dev),
+            "min": mp.MinMetric(device=dev), "cat": mp.CatMetric(device=dev)}
+    conf = preds.max(dim=1).values
+    t0 = time.perf_counter()
+    for lo in range(0, N_ROWS, BATCH):
+        p, t = preds[lo:lo + BATCH], target[lo:lo + BATCH]
+        for m in ms.values():
+            m.update(p, t)
+        binary.update(p[:, 0], (t == 0).to(torch.int64))
+        for m in aggs.values():
+            m.update(conf[lo:lo + BATCH])
+    before = histogram_cuda.launches
+    out = {k: m.compute() for k, m in ms.items()}
+    support_launches = histogram_cuda.launches - before
+    out["auroc_binary_max_fpr"] = binary.compute()
+    auc = mp.AUC(device=dev)
+    auc.update(out["roc"][0][0], out["roc"][1][0])
+    out["auc_class0"] = auc.compute()
+    out.update({f"agg_{k}": m.compute() for k, m in aggs.items()})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    states = {k: {s: getattr(ms[k], s) for s in CAPACITY_KEYS} for k in ("auroc_capacity", "ap_capacity")}
+    states["binned_recall"] = {s: getattr(ms["binned_recall"], s) for s in ("TPs", "FPs", "FNs")}
+    return out, states, support_launches, seconds
+
+
+def hist_auroc_support_timing(dev, target):
+    """K2's one-shot form as the weighted AUROC counts class support:
+    ``(65 536,)`` int64 labels into 10 bins, exact against its plain
+    version and ``torch.bincount`` (the library call)."""
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+    from metrics_tpu_torch.utils.data import _bincount
+
+    idx = target.reshape(-1)
+    i2 = idx[None]
+    kernel = lambda: histogram_cuda(i2, NUM_CLASSES)  # noqa: E731
+    plain = lambda: histogram_plain(i2, NUM_CLASSES)  # noqa: E731
+    whole = lambda: _bincount(idx, NUM_CLASSES)  # noqa: E731
+    library = lambda: torch.bincount(idx, minlength=NUM_CLASSES)  # noqa: E731
+    want = plain()[0]
+    for name, got in (("kernel", kernel()[0]), ("call", whole()), ("bincount", library())):
+        check(torch.equal(got.to(want.dtype), want), f"hist AUROC support {name}: counts differ")
+    trace = device_trace(whole)
+    n = idx.numel()
+    entry = {
+        "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55",
+        "shape": f"idx ({n},) int64 into {NUM_CLASSES} bins (weighted AUROC support, one-shot)",
+        "max_abs_err": 0.0, "max_abs_err_bf16": None,  # counts: held exactly above
+        "ms": gpu_ms(kernel), "plain_ms": gpu_ms(plain), "library_ms": gpu_ms(library),
+        "device_us": device_us(kernel),
+        "call_ms": gpu_ms(whole), "call_host_us": host_us(whole),
+        "call_device_us": {k: us for k, (us, _) in trace.items()},
+        "call_device_launches": sum(c for _, c in trace.values()),
+    }
+    # the labels read once, the 10 int32 counts written once; one add per label
+    entry["bound_ms"], entry["bound_by"] = bound_ms(8 * n + 4 * NUM_CLASSES, n)
+    return entry
+
+
+def close_within(got, want, tol, what):
+    g = float(got)
+    check(abs(g - want) <= tol, f"{what}: {g} vs {want} (tol {tol})")
+    return abs(g - want)
+
+
+def check_curve_values(values, oracles, preds_np, what):
+    """(a)'s values against the float64 oracles, each within its bound.
+    Returns the largest error beside each bound."""
+    errs = {}
+    per = oracles["classes"]
+    w = np.array([o["support"] for o in per], np.float64) / N_ROWS
+    tol_curve = np.array([o["tol_curve"] for o in per])
+    tol_ranks = np.array([o["tol_ranks"] for o in per])
+    auroc = np.array([o["auroc"] for o in per])
+    ap = np.array([o["ap"] for o in per])
+    for key, want, tol in (
+        ("auroc_macro", auroc.mean(), tol_curve.mean() + 16 * F32_EPS),
+        ("auroc_weighted", (auroc * w).sum(), (tol_curve * w).sum() + 16 * F32_EPS),
+        ("ap_macro", ap.mean(), tol_curve.mean() + 16 * F32_EPS),
+        ("auroc_capacity", auroc.mean(), tol_ranks.mean() + 16 * F32_EPS),
+        ("ap_capacity", ap.mean(), np.mean([o["tol_capacity_ap"] for o in per]) + 16 * F32_EPS),
+        ("auc_class0", auroc[0], tol_curve[0]),
+        ("auroc_binary_max_fpr", *oracles["binary_max_fpr"]),
+    ):
+        errs[key] = (close_within(values[key], float(want), float(tol), f"{what}: {key}"), float(tol))
+    conf = preds_np.max(1).astype(np.float64)
+    total = float(conf.sum())
+    tol = (2 * N_ROWS + 4) * F32_EPS * total
+    errs["agg_sum"] = (close_within(values["agg_sum"], total, tol, f"{what}: sum"), tol)
+    errs["agg_mean"] = (close_within(values["agg_mean"], total / N_ROWS, 2 * tol / N_ROWS, f"{what}: mean"),
+                        2 * tol / N_ROWS)
+    check(float(values["agg_max"]) == float(preds_np.max(1).max()), f"{what}: max")
+    check(float(values["agg_min"]) == float(preds_np.max(1).min()), f"{what}: min")
+    check(torch.equal(values["agg_cat"].cpu(), torch.from_numpy(preds_np.max(1))), f"{what}: cat")
+    return errs
+
+
+def curve_capacity_reference(preds_np, target_np, batches):
+    """The CPU port's eager capacity update over ``batches``: the bit-exact
+    reference of the engine's scan-folded buffers."""
+    from metrics_tpu_torch import AUROC, AveragePrecision
+
+    ms = {"auroc": AUROC(num_classes=NUM_CLASSES, capacity=N_ROWS, device="cpu"),
+          "ap": AveragePrecision(num_classes=NUM_CLASSES, capacity=N_ROWS, device="cpu")}
+    for start, stop in batches:
+        p, t = torch.from_numpy(preds_np[start:stop]), torch.from_numpy(target_np[start:stop])
+        for m in ms.values():
+            m.update(p, t)
+    return {k: {s: getattr(m, s) for s in CAPACITY_KEYS} for k, m in ms.items()}
+
+
+def curve_engine_run(dev, preds, target, batches, capture, aot_cache=None):
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    eng = StreamingEngine(make_curve_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"),
+                          aot_cache=aot_cache)
+    seconds = run_engine(eng, capture, batches, lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
+    check(eng.stats.kernel_fallbacks_by_reason() == SCAN_FALLBACKS,
+          f"curve engine fallbacks {eng.stats.kernel_fallbacks_by_reason()}")
+    return eng, seconds
+
+
+def profile_scan_bucket(dev, preds, target, aot_cache):
+    """One 1024-row bucket through a warm twin of the curve engine (its
+    captured graph replayed): host wall µs of ``submit`` + ``flush`` (median
+    of 5), and from one profiler trace the device µs and device launches of
+    the replay (the graph's kernel nodes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    eng = StreamingEngine(make_curve_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"),
+                          aot_cache=aot_cache)
+    p, t = preds[:BUCKET], target[:BUCKET]
+
+    def bucket():
+        eng.submit(p, t)
+        eng.flush()
+
+    eng.start()
+    walls = []
+    for _ in range(6):  # at most 64 buckets into the 65 536-row buffers: no overflow
+        t0 = time.perf_counter()
+        bucket()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bucket()
+        torch.cuda.synchronize()
+    eng.stop()
+    check(eng.stats.warmup_steps == 0, "scan bucket profile: the warm twin captured a step")
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = float(sum(e.self_device_time_total for e in device))
+    wall = float(np.median(walls[1:]))
+    check(busy > 0, "profiler: no device time in the scan bucket")
+    return {"wall_us": wall, "device_busy_us": busy, "device_busy_share": busy / wall,
+            "device_launches": sum(e.count for e in device),
+            "top": [(e.key[:60], e.self_device_time_total) for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]]}
+
+
+def flat_curves(v):
+    """The tensors of a curve value (tuples and per-class lists), in order."""
+    if isinstance(v, (list, tuple)):
+        return [x for e in v for x in flat_curves(e)]
+    return [v]
+
+
+def curves_phase(dev, preds, target, preds_np, target_np):
+    """Phase 11: the exact curves. (a) eager on the card against float64
+    oracles and the CPU port, with the weighted AUROC's support in one K2
+    launch; (b) the flagship collection plus capacity AUROC and AP through
+    the captured megastep engine (the scan members demote every arena dtype:
+    no K5), buffers bit-equal to the CPU port's eager capacity update, an
+    uncaptured twin on a prefix; (c) both multi-stream forms refuse the scan
+    members with the JAX package's reason."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    out = {}
+    oracles = {"classes": [curve_oracle(preds_np[:, k], target_np == k) for k in range(NUM_CLASSES)],
+               "binary_max_fpr": partial_auroc_oracle(preds_np[:, 0], target_np == 0, 0.3)}
+    gpu, gpu_states, support_launches, eager_s = curves_eager(dev, preds, target)
+    cpu, cpu_states, _, _ = curves_eager(torch.device("cpu"), torch.from_numpy(preds_np), torch.from_numpy(target_np))
+    check(support_launches == 1, f"weighted AUROC: {support_launches} K2 launches in its compute")
+    errs = check_curve_values(gpu, oracles, preds_np, "curves (card)")
+    check_curve_values(cpu, oracles, preds_np, "curves (CPU)")
+    compare_states(gpu_states, cpu_states, "curves: card vs CPU")
+    compare_states({"binned_recall": gpu_states["binned_recall"]},
+                   {"binned_recall": oracle_states(preds_np, target_np)["binned_ap"]}, "binned recall vs numpy")
+    for k in ("roc", "pr_curve", "binned_recall"):  # counts and f32 ratios of them: bit-equal
+        for g, w in zip(flat_curves(gpu[k]), flat_curves(cpu[k])):
+            check(g.dtype == w.dtype and torch.equal(g.cpu(), w), f"curves: {k} card vs CPU")
+    out["eager"] = {"update_compute_s": eager_s, "auroc_support_k2_launches": support_launches,
+                    "values": {k: float(v) for k, v in gpu.items() if k.startswith(("auroc", "ap", "auc", "agg_"))
+                               and k != "agg_cat"},
+                    "err_and_bound": errs}
+
+    # (b) the captured megastep engine with two scan members
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    before = counts()
+    eng, seconds = curve_engine_run(dev, preds, target, batches, True)
+    d = delta(before)
+    n = eng.steps + eng.stats.warmup_steps
+    check(d["megastep_fold"] == 0 and d["fold_rows"] > 0 and d["histogram"] == n and d["binned_counts"] == n,
+          f"curve engine: {d} in {n} steps")
+    state = eng.state()
+    compare_states({k: state[k] for k in ("auroc", "ap")}, curve_capacity_reference(preds_np, target_np, batches),
+                   "curve engine vs CPU eager capacity update")
+    main_state, _, _ = main_path(dev, preds, target)
+    compare_states({k: state[k] for k in main_state}, main_state, "curve engine flagship vs phase 4")
+    values = eng.result()
+    for key, member in (("auroc_capacity", "auroc"), ("ap_capacity", "ap")):
+        tol = errs[key][1]
+        close_within(values[member], float(gpu[key]), 2 * tol, f"curve engine {member} vs eager capacity")
+    close_within(values["auroc"], float(gpu["auroc_macro"]), errs["auroc_macro"][1] + errs["auroc_capacity"][1],
+                 "curve engine AUROC vs eager default mode")
+    aot = check_cache(eng, "curve engine")
+    prefix = batches[:CURVE_PREFIX_BATCHES]
+    twin, twin_s = curve_engine_run(dev, preds, target, prefix, False)
+    compare_states({k: twin.state()[k] for k in ("auroc", "ap")}, curve_capacity_reference(preds_np, target_np, prefix),
+                   "uncaptured curve engine vs CPU eager capacity update")
+    out["streaming_megastep"] = {
+        "seconds": seconds, "steps": eng.steps, "warmup_steps": eng.stats.warmup_steps, "batches": len(batches),
+        "ms_per_step": seconds / eng.steps * 1e3, "capture_seconds": aot["capture_seconds"], "aot": aot,
+        "launches": d, "fallbacks": eng.stats.kernel_fallbacks_by_reason(),
+        "uncaptured_prefix": {"batches": len(prefix), "steps": twin.steps, "seconds": twin_s,
+                              "ms_per_step": twin_s / twin.steps * 1e3},
+        "bucket_1024": profile_scan_bucket(dev, preds, target, eng.aot_cache)}
+
+    # (c) the multi-stream engines refuse the scan members
+    refusals = {}
+    for name, kw in (("unsharded", {}), ("paged", {"stream_shard": True, "resident_streams": RESIDENT})):
+        try:
+            MultiStreamEngine(make_curve_collection(dev), MS_STREAMS, EngineConfig(buckets=(256, BUCKET)), **kw)
+        except MetricsTPUUserError as e:
+            refusals[name] = str(e)
+        check(SCAN_REASON in refusals.get(name, ""), f"{name} multi-stream engine did not refuse the scan members")
+    out["refusals"] = refusals
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1682,6 +2035,7 @@ def main():
 
     preds, target, preds_np, target_np = main_rows(dev)
     hist_cal_entry = hist_calibration_timing(dev, preds, target)
+    hist_auroc_entry = hist_auroc_support_timing(dev, target)
     kernels = kernel_wrappers()
     for fn in kernels.values():
         fn.launches = 0
@@ -1715,6 +2069,18 @@ def main():
     print(json.dumps({"dashboard_phase": dashboard, "launches": dashboard_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 11, its counts from 0: K1 (the delta members, leaf by leaf), K2 and K3 must launch; no K5 (checked inside)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    curves = curves_phase(dev, preds, target, preds_np, target_np)
+    curve_launches = counts()
+    for k in ("fold_rows", "histogram", "binned_counts"):
+        check(curve_launches[k] > 0, f"kernel {k} was not launched by the curves phase")
+    launches = {k: launches[k] + curve_launches[k] for k in launches}
+    print(json.dumps({"curves_phase": curves, "launches": curve_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -1739,7 +2105,8 @@ def main():
 
     entries = []
     hist_cal_entry["calibration_launches"] = dashboard["eager"]["calibration_k2_launches"]
-    for e in (*fold_entries, *hist_entries, hist_cal_entry, *binned_entries, *segment_entries, *mega_fold_entries,
+    hist_auroc_entry["auroc_support_launches"] = curves["eager"]["auroc_support_k2_launches"]
+    for e in (*fold_entries, *hist_entries, hist_cal_entry, hist_auroc_entry, *binned_entries, *segment_entries, *mega_fold_entries,
               *mega_seg_entries, *mega_q8_entries):
         e["launches"] = launches[e["name"]]
         e["card"] = card

@@ -5,10 +5,15 @@ metrics as ``nn.Module``s on an explicit device (``"cuda"`` by default) and
 the JAX package's Pallas kernels replaced by hand-written CUDA kernels for
 Hopper (``ops/kernels/csrc``), built with ``nvcc`` on first use.
 """
+from metrics_tpu_torch.aggregation import BaseAggregator, CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
+    AUC,
+    AUROC,
     Accuracy,
+    AveragePrecision,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
     CalibrationError,
     CohenKappa,
     ConfusionMatrix,
@@ -23,6 +28,8 @@ from metrics_tpu_torch.classification import (
     MatthewsCorrCoef,
     MatthewsCorrcoef,
     Precision,
+    PrecisionRecallCurve,
+    ROC,
     Recall,
     Specificity,
     StatScores,
@@ -31,10 +38,16 @@ from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
+    "BaseAggregator",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
     "CalibrationError",
+    "CatMetric",
     "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
@@ -47,10 +60,16 @@ __all__ = [
     "KLDivergence",
     "MatthewsCorrCoef",
     "MatthewsCorrcoef",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "Specificity",
     "StatScores",
+    "SumMetric",
 ]

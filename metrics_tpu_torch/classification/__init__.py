@@ -1,8 +1,12 @@
 """Module metrics for classification."""
 from metrics_tpu_torch.classification.accuracy import Accuracy
+from metrics_tpu_torch.classification.auc import AUC
+from metrics_tpu_torch.classification.auroc import AUROC
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision
 from metrics_tpu_torch.classification.binned_precision_recall import (
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
 )
 from metrics_tpu_torch.classification.calibration_error import CalibrationError
 from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
@@ -14,13 +18,19 @@ from metrics_tpu_torch.classification.jaccard import IoU, JaccardIndex
 from metrics_tpu_torch.classification.kl_divergence import KLDivergence
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrcoef, MatthewsCorrCoef
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
+from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
     "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
@@ -35,6 +45,8 @@ __all__ = [
     "MatthewsCorrCoef",
     "MatthewsCorrcoef",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "Specificity",
     "StatScores",

@@ -1,6 +1,7 @@
 """Binned (constant-memory, static-shape) precision-recall curve metrics.
 
-Port of ``BinnedPrecisionRecallCurve`` and ``BinnedAveragePrecision`` from
+Port of ``BinnedPrecisionRecallCurve``, ``BinnedAveragePrecision`` and
+``BinnedRecallAtFixedPrecision`` from
 ``metrics_tpu/classification/binned_precision_recall.py``. States are fixed
 ``(C, T)`` f32 sum counters; the counting goes through
 ``ops/binned_update.binned_counts`` — the K3 kernel on the card, its plain
@@ -18,6 +19,30 @@ from metrics_tpu_torch.ops.binned_update import binned_counts
 from metrics_tpu_torch.utils.data import METRIC_EPS, to_onehot
 
 Tensor = torch.Tensor
+
+
+def _recall_at_precision(
+    precision: Tensor, recall: Tensor, thresholds: Tensor, min_precision: float
+) -> Tuple[Tensor, Tensor]:
+    """Max recall subject to ``precision >= min_precision``, with static
+    shapes: only the first ``len(thresholds)`` curve points count, and ties
+    break toward the highest (recall, precision, threshold), as the
+    reference's ``max`` over tuples does."""
+    n = thresholds.shape[0]
+    p, r = precision[:n], recall[:n]
+    valid = p >= min_precision
+    masked_recall = torch.where(valid, r, float("-inf"))
+    best_r = torch.max(masked_recall)
+    tie = masked_recall == best_r
+    masked_p = torch.where(tie, p, float("-inf"))
+    best_p = torch.max(masked_p)
+    tie2 = tie & (masked_p == best_p)
+    best_t = torch.max(torch.where(tie2, thresholds, float("-inf")))
+    any_valid = torch.any(valid)
+    max_recall = torch.where(any_valid, best_r, 0.0)
+    best_threshold = torch.where(any_valid, best_t, 0.0)
+    best_threshold = torch.where(max_recall == 0.0, 1e6, best_threshold)
+    return max_recall, best_threshold
 
 
 def _unit_linspace(num: int) -> Tensor:
@@ -93,3 +118,27 @@ class BinnedAveragePrecision(BinnedPrecisionRecallCurve):
     def compute(self) -> Union[List[Tensor], Tensor]:
         precisions, recalls, _ = super().compute()
         return _average_precision_compute_with_precision_recall(precisions, recalls, self.num_classes, average=None)
+
+
+class BinnedRecallAtFixedPrecision(BinnedPrecisionRecallCurve):
+    """Highest recall subject to a minimum precision, per class."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        min_precision: float,
+        thresholds: Union[int, Tensor, List[float]] = 100,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_classes=num_classes, thresholds=thresholds, **kwargs)
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:
+        """``(max_recall, best_threshold)`` per class (scalars for binary):
+        one ``torch.func.vmap`` over the stacked curves."""
+        precisions, recalls = self._stacked_curves()
+        if self.num_classes == 1:
+            return _recall_at_precision(precisions[0], recalls[0], self.thresholds, self.min_precision)
+        return torch.func.vmap(_recall_at_precision, in_dims=(0, 0, None, None))(
+            precisions, recalls, self.thresholds, self.min_precision
+        )

@@ -138,11 +138,17 @@ class MetricCollection(nn.ModuleDict):
                 return f"member {k!r}: {r}"
         return None
 
+    def masked_update_strategies(self) -> Dict[str, Optional[str]]:
+        """Each member's :meth:`Metric.masked_update_strategy`: which members
+        ride the vmapped delta path and which take the sequential scan."""
+        return {k: m.masked_update_strategy() for k, m in self.items(keep_base=True)}
+
     def update_state_masked(
         self, state: Dict[str, Dict[str, Any]], *args: Any, mask: Any, **kwargs: Any
     ) -> Dict[str, Dict[str, Any]]:
         """Mask-aware fan-out update of all members (the bucketed engine step:
-        pad rows where ``mask`` is False contribute nothing)."""
+        pad rows where ``mask`` is False contribute nothing; a scan member
+        folds its rows in order inside the same step)."""
         return {
             k: m.update_state_masked(state[k], *args, mask=mask, **m._filter_kwargs(**kwargs))
             for k, m in self.items(keep_base=True)

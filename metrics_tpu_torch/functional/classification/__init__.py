@@ -1,5 +1,7 @@
 """Functional classification metrics of the port."""
 from metrics_tpu_torch.functional.classification.accuracy import accuracy
+from metrics_tpu_torch.functional.classification.auc import auc
+from metrics_tpu_torch.functional.classification.auroc import auroc
 from metrics_tpu_torch.functional.classification.average_precision import average_precision
 from metrics_tpu_torch.functional.classification.calibration_error import calibration_error
 from metrics_tpu_torch.functional.classification.cohen_kappa import cohen_kappa
@@ -13,11 +15,14 @@ from metrics_tpu_torch.functional.classification.kl_divergence import kl_diverge
 from metrics_tpu_torch.functional.classification.matthews_corrcoef import matthews_corrcoef
 from metrics_tpu_torch.functional.classification.precision_recall import precision, precision_recall, recall
 from metrics_tpu_torch.functional.classification.precision_recall_curve import precision_recall_curve
+from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.functional.classification.specificity import specificity
 from metrics_tpu_torch.functional.classification.stat_scores import stat_scores
 
 __all__ = [
     "accuracy",
+    "auc",
+    "auroc",
     "average_precision",
     "calibration_error",
     "cohen_kappa",
@@ -36,6 +41,7 @@ __all__ = [
     "precision_recall",
     "precision_recall_curve",
     "recall",
+    "roc",
     "specificity",
     "stat_scores",
 ]

@@ -19,16 +19,19 @@ The masked update is the streaming engine's padding contract: the subclass
 leaf's row-stacked deltas fold into the state through the K1 fold kernel, the
 reduction's identity standing in for masked rows. The kernels the update
 reaches (K2 histogram, K3 binned counts) are custom ops whose vmap rules
-launch once for the whole bucket. The segmented update (the multi-stream
-engine's step) scatters the same row deltas into stream rows through K4.
+launch once for the whole bucket. States with no row-neutral identity (the
+static-capacity curve buffers) take the scan strategy instead: the update
+runs row by row in submission order, masked rows carrying the state through.
+The segmented update (the multi-stream engine's step) scatters the row deltas
+into stream rows through K4.
 
 The ``sync_precision`` policy (which float ``sum`` states may be quantized)
 is kept, without the sync itself: the engine's at-rest codec reads it.
 
 Left out so far (see ROADMAP.md): cross-process sync and
-``compute_synced``/``merge_stacked_states``, the scan masked strategy,
-fingerprints and grouped hooks, nested (wrapper) metrics, composition
-operators and the compiled forward.
+``compute_synced``/``merge_stacked_states``, fingerprints, the grouped
+strategy and its hooks (the ragged engine is not ported), nested (wrapper)
+metrics, composition operators and the compiled forward.
 """
 import functools
 import inspect
@@ -42,6 +45,7 @@ from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.ops.kernels import fold_rows_masked, segment_reduce_masked
 from metrics_tpu_torch.parallel.collectives import SYNC_PRECISIONS
+from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import apply_to_collection, is_batch_leaf
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -357,13 +361,18 @@ class Metric(nn.Module):
     def masked_update_strategy(self) -> Optional[str]:
         """How :meth:`update_state_masked` runs: ``"custom"`` (the subclass
         overrides it), ``"delta"`` (the vmapped row-delta path: every state
-        reduces with sum/min/max, whose identities make pad rows inert), or
-        ``None`` (not maskable in this port; the JAX package's sequential scan
-        strategy is not ported yet)."""
+        reduces with sum/min/max, whose identities make pad rows inert),
+        ``"scan"`` (the sequential fold: array states with no row-neutral
+        identity, such as the static-capacity curve buffers, take the subclass
+        ``update`` one row at a time, masked rows carrying the state through
+        unchanged), or ``None`` (not maskable: list states grow with data,
+        ``full_state_update`` reads the accumulated state per batch)."""
         if type(self).update_state_masked is not Metric.update_state_masked:
             return "custom"
         if self._delta_masked_reason() is None:
             return "delta"
+        if self._scan_masked_reason() is None:
+            return "scan"
         return None
 
     def _delta_masked_reason(self) -> Optional[str]:
@@ -377,16 +386,23 @@ class Metric(nn.Module):
                 return f"state {k!r} has dist_reduce_fx={self._reductions[k]!r}"
         return None
 
-    def masked_update_unsupported_reason(self) -> Optional[str]:
-        """None when :meth:`update_state_masked` applies, else the reason (for
-        a list state, the JAX package's: no masked strategy has a static shape
-        to fold it into)."""
-        if self.masked_update_strategy() is not None:
-            return None
+    def _scan_masked_reason(self) -> Optional[str]:
+        """None when the sequential scan fold is exact: every state is a
+        fixed-shape tensor and ``update`` does not read the accumulated state
+        (``full_state_update``)."""
+        if self.full_state_update:
+            return "full_state_update metrics read the accumulated state in update; a row fold is not exact"
         for k, v in self._defaults.items():
             if isinstance(v, list):
                 return f"state {k!r} is a list (cat/gather) state with no static shape"
-        return self._delta_masked_reason()
+        return None
+
+    def masked_update_unsupported_reason(self) -> Optional[str]:
+        """None when :meth:`update_state_masked` applies (any strategy), else
+        the reason."""
+        if self.masked_update_strategy() is not None:
+            return None
+        return self._scan_masked_reason() or self._delta_masked_reason()
 
     def update_state_masked(self, state: Dict[str, Any], *args: Any, mask: Any, **kwargs: Any) -> Dict[str, Any]:
         """Pure mask-aware update: rows of the leading batch axis where
@@ -395,7 +411,8 @@ class Metric(nn.Module):
         The subclass ``update`` runs per row (``torch.func.vmap`` over
         batch-of-1 rows — exact for every delta-mergeable metric) and each
         state's row-stacked deltas fold into ``state`` with the state's own
-        reduction, its identity standing in for masked rows. Every tensor leaf
+        reduction, its identity standing in for masked rows; a ``"scan"``
+        metric folds its rows one at a time instead. Every tensor leaf
         of ``args``/``kwargs`` whose leading dimension equals ``mask.shape[0]``
         is batch-carried; everything else broadcasts.
         """
@@ -406,6 +423,8 @@ class Metric(nn.Module):
                 "Override `update_state_masked` or stream it eagerly (unbucketed)."
             )
         mask = as_input(mask, self.device).to(torch.bool)
+        if self.masked_update_strategy() == "scan":
+            return self._masked_update_scan(state, args, kwargs, mask)
         stacked = self._stacked_row_deltas(args, kwargs, mask.shape[0])
         return self._masked_reduce_into(state, stacked, mask)
 
@@ -437,6 +456,26 @@ class Metric(nn.Module):
             return self.update_state(self.init_state(), *a, **kw)
 
         return torch.func.vmap(per_row, in_dims=tuple(in_dims))(*batched)
+
+    def _masked_update_scan(self, state: Dict[str, Any], args: Any, kwargs: Any, mask: Tensor) -> Dict[str, Any]:
+        """Sequential masked fold for states with no row-neutral reduction
+        identity: the subclass ``update`` runs on one batch-of-1 row at a time
+        in submission order, and every leaf keeps the old value where the
+        row's mask is False. Exact whenever a batch update equals its rows
+        applied in order (the static-capacity buffers write rows in order).
+        The loop reads nothing on the host (the row's mask stays a device
+        tensor; value checks are off inside :func:`traced_rows`), so it runs
+        inside graph capture; its cost grows with the bucket's rows."""
+        batched, in_dims, treedef = self._split_batch_leaves(args, kwargs, mask.shape[0])
+        carry = {k: as_input(v, self.device) for k, v in state.items()}
+        with traced_rows():
+            for i in range(mask.shape[0]):
+                row = [b[i] if d == 0 else b for b, d in zip(batched, in_dims)]
+                a, kw = pytree.tree_unflatten(row, treedef)
+                new = self.update_state(carry, *a, **kw)
+                m = mask[i]
+                carry = {k: torch.where(m, new[k], v).to(v.dtype) for k, v in carry.items()}
+        return carry
 
     def _masked_reduce_into(self, state: Dict[str, Any], stacked: Dict[str, Any], mask: Tensor) -> Dict[str, Any]:
         """Fold row-stacked deltas into ``state`` through the kernel library

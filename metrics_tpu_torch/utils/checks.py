@@ -7,12 +7,16 @@ Port of the classification part of ``metrics_tpu/utils/checks.py``: the same
 Shape- and dtype-driven checks always run. Value-dependent checks
 (``target.max() > 1`` and the like) need the values on the host; they run
 eagerly exactly as the JAX package runs them eagerly, and are skipped when an
-input is a ``torch.func.vmap`` batched tensor — the port's counterpart of the
-JAX package skipping them on tracers, and necessary, since a data-dependent
-``if`` on a batched tensor raises. The JAX package's deferred in-graph error
+input is a ``torch.func.vmap`` batched tensor, or inside :func:`traced_rows`
+(the scan masked update's row loop) — the port's counterpart of the JAX
+package skipping them on tracers, and necessary, since a data-dependent
+``if`` on a batched tensor raises and a host read inside CUDA-graph capture
+fails. The JAX package's deferred in-graph error
 codes serve its compiled ``jit`` forward, which the port does not have.
 """
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+import threading
+from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +32,32 @@ def _is_batched(x) -> bool:
     return isinstance(x, torch.Tensor) and torch._C._functorch.is_batchedtensor(x)
 
 
+_rows = threading.local()
+
+
+@contextlib.contextmanager
+def traced_rows() -> Iterator[None]:
+    """Run the body as the JAX package runs a ``lax.scan`` body: every input
+    counts as traced, so no value check reads it on the host (the scan
+    masked update loops over device rows, possibly inside graph capture)."""
+    depth = getattr(_rows, "depth", 0)
+    _rows.depth = depth + 1
+    try:
+        yield
+    finally:
+        _rows.depth = depth
+
+
+def _is_traced(x: Any) -> bool:
+    """The port's ``_is_tracer``: a ``torch.func.vmap`` batched tensor, any
+    input inside :func:`traced_rows`, or a CUDA tensor while this thread's
+    current stream is capturing a graph. Data-dependent host reads and checks
+    are skipped for such inputs."""
+    if _is_batched(x) or getattr(_rows, "depth", 0):
+        return True
+    return isinstance(x, torch.Tensor) and x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class _ValueStats(NamedTuple):
     """Min/max of preds+target, fetched from the device in ONE transfer."""
 
@@ -38,8 +68,8 @@ class _ValueStats(NamedTuple):
 
 
 def _compute_value_stats(preds: Tensor, target: Tensor) -> Optional[_ValueStats]:
-    """None under vmap (value checks are skipped there); else one fetch."""
-    if _is_batched(preds) or _is_batched(target):
+    """None for traced inputs (value checks are skipped there); else one fetch."""
+    if _is_traced(preds) or _is_traced(target):
         return None
     pf = preds.reshape(-1).to(torch.float32)
     tf = target.reshape(-1).to(torch.float32)

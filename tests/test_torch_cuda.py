@@ -834,3 +834,81 @@ def test_results_of_a_captured_engine_is_one_batched_call(cuda, paged, collectio
         assert all(v.device.type == "cpu" for v in _flat(got[sid]))
         _same_values(got[sid], card.result(sid))
         _same_values(got[sid], want[sid])
+
+
+def _curve_collection(device):
+    from metrics_tpu_torch import AUROC, Accuracy, AveragePrecision, MetricCollection
+
+    return MetricCollection({"acc": Accuracy(device=device),
+                             "auroc": AUROC(num_classes=4, capacity=1024, device=device),
+                             "ap": AveragePrecision(num_classes=4, average="weighted", capacity=1024, device=device)})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("backend", ["megastep", "auto"])
+def test_captured_scan_step_is_bit_equal_to_uncaptured(cuda, backend):
+    """A collection with capacity members (the scan strategy: rows folded in
+    order, no host read) captures as one graph per bucket: its buffers end
+    bit-equal to the uncaptured engine's and to the CPU engine's, and no
+    megastep launch happens (every arena dtype is demoted)."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda
+
+    traffic = _engine_traffic(7, n_batches=24)
+    states = []
+    for device, capture in ((cuda, True), (cuda, False), (torch.device("cpu"), False)):
+        eng = StreamingEngine(_curve_collection(device), EngineConfig(buckets=(16, 64), kernel_backend=backend))
+        eng._capture = capture
+        k5 = megastep_fold_cuda.launches
+        states.append(_drive(eng, traffic, False, device))
+        assert megastep_fold_cuda.launches == k5
+        if capture:
+            assert eng.stats.warmup_steps >= 1 and eng.aot_cache.hits >= 1
+        if backend == "megastep":
+            assert eng.stats.kernel_fallbacks_by_reason() == {
+                "dtype.bool:strategy": 1, "dtype.float32:strategy": 1, "dtype.int32:strategy": 1}
+    assert int(states[0]["auroc"]["count"]) == sum(len(t) for _, _, t in traffic)
+    for other in states[1:]:
+        for g, w in zip(_flat(states[0]), _flat(other)):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.requires_cuda
+def test_weighted_auroc_counts_support_in_one_histogram_launch(cuda):
+    """The eager weighted AUROC counts class support with ``_bincount``: one
+    K2 launch; the value within 1e-5 of the CPU port's (f32 trapezoids and
+    the weighted sum over 4096 rows in another order)."""
+    from metrics_tpu_torch.functional import auroc
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    rng = np.random.RandomState(14)
+    p = rng.rand(4096, 10).astype(np.float32)
+    p /= p.sum(1, keepdims=True)
+    t = rng.randint(0, 10, 4096)
+    before = histogram_cuda.launches
+    got = auroc(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda), num_classes=10, average="weighted")
+    assert histogram_cuda.launches == before + 1
+    want = auroc(torch.from_numpy(p), torch.from_numpy(t), num_classes=10, average="weighted")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_binned_recall_at_fixed_precision_counts_on_the_binned_kernel(cuda):
+    """``BinnedRecallAtFixedPrecision`` updates through K3 (one launch per
+    update): its counts equal the CPU port's exactly, and so do its values."""
+    from metrics_tpu_torch import BinnedRecallAtFixedPrecision
+    from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
+
+    rng = np.random.RandomState(15)
+    p = rng.rand(2048, 10).astype(np.float32)
+    t = rng.randint(0, 10, 2048)
+    card = BinnedRecallAtFixedPrecision(num_classes=10, min_precision=0.15, device=cuda)
+    cpu = BinnedRecallAtFixedPrecision(num_classes=10, min_precision=0.15, device="cpu")
+    before = binned_counts_cuda.launches
+    card.update(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+    assert binned_counts_cuda.launches == before + 1
+    cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+    for k in ("TPs", "FPs", "FNs"):
+        assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+    for g, w in zip(card.compute(), cpu.compute()):
+        assert torch.equal(g.cpu(), w)
