@@ -84,7 +84,30 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    and one 1024-row bucket's device µs and launches; an uncaptured twin on a
    prefix of the batches, bit-equal too; (c) both forms of
    ``MultiStreamEngine`` refuse the scan members with the JAX package's
-   reason.
+   reason;
+12. wrappers and composition on the same rows, their launch counts set to 0
+   before them: (a) eager in 4 batches, each against a numpy oracle:
+   ``MinMaxMetric`` over macro F1 (the prefix extremes, and with
+   ``fold_on_compute``), ``MultioutputWrapper`` over two heads with NaN rows
+   removed, ``BootStrapper`` (10 replicas, poisson from the same seeded
+   numpy draws, multinomial from a generator in the same state: replica
+   counts exact, mean, std, median and raw within 1e-6), the composition
+   ``2 * P * R / (P + R)`` of macro Precision and Recall (its harmonic mean;
+   per class against ``F1Score(average="none")``), a scalar operand, a
+   comparison, an index, and ``MetricTracker`` over the flagship collection
+   for 3 epochs with ``best_metric(return_step=True)``; (b) the flagship plus
+   that composition and a multinomial ``BootStrapper`` through phase 7's
+   captured megastep ``StreamingEngine`` (three K5 launches a step: f32,
+   int32 and the uint32 draw counter), with its uncaptured twin, a warm twin
+   that captures nothing and a profile of a 1024-row bucket, and through
+   phase 9a's captured paged ``MultiStreamEngine`` (an uncaptured twin on its
+   first 460 batches; its sums over streams and 23 streams against numpy);
+   ``MultioutputWrapper(remove_nans=False)`` through the megastep engine on
+   two-head rows; every integer state, children included, bit-equal to the
+   twins and to numpy (each occurrence of a shared operand counts every row
+   twice; each replica sees each row once; ``draw_count`` counts the rows);
+   (c) both engines refuse ``MinMaxMetric`` with the JAX package's reason,
+   and a masked update of ``MultioutputWrapper(remove_nans=True)`` raises.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -98,9 +121,9 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before phase 10 and read after it, and before phase 11
-and read after it; each must be non-zero (phase 10: K1, K2, K5 and K6;
-phase 11: K1, K2 and K3), and K2 must launch once per batch and per step
+and set to 0 again before each of phases 10, 11 and 12 and read after it;
+each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
+K3; phase 12: K2, K3, K5 and K6), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -1153,13 +1176,13 @@ def check_cache(eng, what, signatures=1):
     return eng.aot_cache.stats()
 
 
-def profile_bucket(dev, preds, target):
-    """Device-busy share of one megastep bucket through the engine's entry
-    points (``submit`` + ``flush``: the dispatcher's captured graph replay,
-    and the uncaptured step) and of one per-leaf masked bucket
-    (``update_state_masked``): the kernel time of a torch.profiler trace of
-    one bucket over the bucket's host wall time without the profiler (median
-    of 5)."""
+def profile_bucket(dev, preds, target, make=make_collection):
+    """Device-busy share of one megastep bucket of ``make``'s collection
+    through the engine's entry points (``submit`` + ``flush``: the
+    dispatcher's captured graph replay, and the uncaptured step) and of one
+    per-leaf masked bucket (``update_state_masked``): the kernel time of a
+    torch.profiler trace of one bucket over the bucket's host wall time
+    without the profiler (median of 5)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1167,11 +1190,10 @@ def profile_bucket(dev, preds, target):
 
     engines = {}
     for name, capture in (("megastep_bucket_captured", True), ("megastep_bucket_uncaptured", False)):
-        eng = engines[name] = StreamingEngine(make_collection(dev),
-                                              EngineConfig(buckets=(BUCKET,), kernel_backend="megastep"))
+        eng = engines[name] = StreamingEngine(make(dev), EngineConfig(buckets=(BUCKET,), kernel_backend="megastep"))
         eng._capture = capture
         eng.start()
-    coll = make_collection(dev)
+    coll = make(dev)
     p, t = preds[:BUCKET], target[:BUCKET]
     mask = torch.ones(BUCKET, dtype=torch.bool, device=dev)
 
@@ -1997,6 +2019,351 @@ def curves_phase(dev, preds, target, preds_np, target_np):
     return out
 
 
+# -------------------------------------------- phase 12: wrappers and composition
+
+BOOTSTRAPS = 10
+TRACKER_EPOCHS = 3
+PAGED_TWIN_BATCHES = 460  # the uncaptured paged twin's prefix (a quarter of the 1840 batches)
+REFUSAL = "full_state_update metrics read the accumulated state in update"
+
+
+def f1_composition(dev, average="macro"):
+    """``2 * P * R / (P + R)`` over fresh Precision and Recall: each operand
+    sits in both branches of the tree."""
+    from metrics_tpu_torch import Precision, Recall
+
+    p = Precision(num_classes=NUM_CLASSES, average=average, device=dev)
+    r = Recall(num_classes=NUM_CLASSES, average=average, device=dev)
+    return 2 * p * r / (p + r)
+
+
+def make_wrapper_collection(device):
+    """The flagship collection plus a composed F1 and a multinomial bootstrap
+    of the accuracy: phase 12's served collection."""
+    from metrics_tpu_torch import Accuracy, BootStrapper
+
+    coll = make_collection(device)
+    coll.add_metrics({
+        "f1_composed": f1_composition(device),
+        "boot": BootStrapper(Accuracy(num_classes=NUM_CLASSES, device=device), num_bootstraps=BOOTSTRAPS,
+                             sampling_strategy="multinomial", seed=SEED),
+    })
+    return coll
+
+
+def make_multioutput_collection(device, remove_nans=False):
+    from metrics_tpu_torch import Accuracy, MetricCollection, MultioutputWrapper
+
+    return MetricCollection({"multi": MultioutputWrapper(Accuracy(num_classes=NUM_CLASSES, device=device),
+                                                         num_outputs=2, remove_nans=remove_nans)})
+
+
+def two_head_rows(dev, preds_np, target_np):
+    """Two heads over the main rows: head 0 the main rows, head 1 a second
+    seeded distribution and labels; ``(N, 10, 2)`` probabilities, ``(N, 2)``
+    labels."""
+    rng = np.random.RandomState(SEED + 7)
+    q = rng.rand(N_ROWS, NUM_CLASSES).astype(np.float32)
+    q /= q.sum(axis=1, keepdims=True)
+    p2 = np.ascontiguousarray(np.stack([preds_np, q], axis=-1))
+    t2 = np.ascontiguousarray(np.stack([target_np, rng.randint(0, NUM_CLASSES, N_ROWS)], axis=-1))
+    return p2, t2
+
+
+def macro_f1_of(counts):
+    tp, fp, fn = (np.asarray(counts[k], np.float64) for k in ("tp", "fp", "fn"))
+    return float(np.mean(2 * tp / (2 * tp + fp + fn)))
+
+
+def micro_accuracy(pred_label, target):
+    return float((pred_label == target).mean())
+
+
+def compare_trees(got, want, what):
+    """Every leaf ``want`` names, in ``got``, equal to it (numbers exact)."""
+    if isinstance(want, dict):
+        for k, v in want.items():
+            check(k in got, f"{what}: no {k}")
+            compare_trees(got[k], v, f"{what}.{k}")
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} entries")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare_trees(g, w, f"{what}[{i}]")
+    else:
+        g = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) else np.asarray(want)
+        check(g.shape == w.shape and np.array_equal(g.astype(np.float64), w.astype(np.float64)),
+              f"{what}: differs")
+
+
+def same_trees(a, b, what):
+    """Two state trees bit for bit (same dtypes)."""
+    from metrics_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} vs {len(lb)} leaves")
+    for x, y in zip(la, lb):
+        check(x.dtype == y.dtype and torch.equal(x, y), f"{what}: a leaf differs")
+
+
+def wrapper_oracle(preds, target, template):
+    """Every integer state of the served collection from numpy: the
+    flagship's, the composition's (each occurrence of P and R counts every
+    row twice: the operand is updated once per occurrence, as in the JAX
+    package; ``template`` is the composition's state tree) and the
+    bootstrap's (each replica sees each row once, ``draw_count`` counts the
+    rows)."""
+    base = oracle_states(preds, target)
+    macro2 = {k: 2 * np.asarray(v) for k, v in base["f1"].items()}
+
+    def doubled(tree):
+        if isinstance(tree, list):
+            return [doubled(v) for v in tree]
+        return {k: doubled(v) if isinstance(v, (dict, list)) else macro2[k] for k, v in tree.items()}
+
+    base["f1_composed"] = doubled(template)
+    base["boot"] = {"draw_count": len(target), "_children": {"metrics": [base["acc"]] * BOOTSTRAPS}}
+    return base
+
+
+def wrapper_eager(dev, preds, target, preds_np, target_np):
+    """Phase 12(a): the wrappers and compositions eagerly in 4 batches on the
+    card, each against a numpy oracle (values within 1e-6, counts exact)."""
+    from metrics_tpu_torch import (Accuracy, BootStrapper, F1Score, MetricTracker, MinMaxMetric, Precision,
+                                   Recall)
+
+    out = {}
+    t0 = time.perf_counter()
+    label = preds_np.argmax(1)
+    batches = [(lo, lo + BATCH) for lo in range(0, N_ROWS, BATCH)]
+    prefix_f1 = [macro_f1_of(oracle_states(preds_np[:hi], target_np[:hi])["f1"]) for _, hi in batches]
+    # MinMax: prefix semantics, and the fold at compute
+    for fold in (False, True):
+        mm = MinMaxMetric(F1Score(num_classes=NUM_CLASSES, average="macro", device=dev), fold_on_compute=fold)
+        for lo, hi in batches:
+            mm.update(preds[lo:hi], target[lo:hi])
+        v = mm.compute()
+        lo_want, hi_want = (prefix_f1[-1], prefix_f1[-1]) if fold else (min(prefix_f1), max(prefix_f1))
+        close_value(v["raw"], prefix_f1[-1], f"minmax fold={fold} raw")
+        close_value(v["min"], lo_want, f"minmax fold={fold} min")
+        close_value(v["max"], hi_want, f"minmax fold={fold} max")
+        out[f"minmax{'_fold_on_compute' if fold else ''}"] = {k: float(x) for k, x in v.items()}
+    # Multioutput over two heads, NaN rows planted, removed per head
+    p2, t2 = two_head_rows(dev, preds_np, target_np)
+    nan_rows = {0: [5, 1000, N_ROWS * 5 // 8], 1: [77, N_ROWS - 1]}
+    for h, rows in nan_rows.items():
+        p2[rows, 3, h] = np.nan
+    mo = make_multioutput_collection(dev, remove_nans=True)["multi"]
+    p2d, t2d = torch.from_numpy(p2).to(dev), torch.from_numpy(t2).to(dev)
+    for lo, hi in batches:
+        mo.update(p2d[lo:hi], t2d[lo:hi])
+    v = mo.compute()
+    for h, rows in nan_rows.items():
+        keep = np.ones(N_ROWS, bool)
+        keep[rows] = False
+        close_value(v[h], micro_accuracy(p2[keep, :, h].argmax(1), t2[keep, h]), f"multioutput head {h}")
+        check(int(mo.metrics[h].tp + mo.metrics[h].fn) == N_ROWS - len(rows), f"multioutput head {h}: rows kept")
+    out["multioutput"] = [float(x) for x in v]
+    # BootStrapper: poisson (the same numpy draws) and multinomial (the same generator state)
+    for strategy in ("poisson", "multinomial"):
+        boot = BootStrapper(Accuracy(num_classes=NUM_CLASSES, device=dev), num_bootstraps=BOOTSTRAPS, quantile=0.5,
+                            raw=True, sampling_strategy=strategy, seed=SEED)
+        rng, gen = np.random.RandomState(SEED), torch.Generator()
+        gen.set_state(boot._generator.get_state())
+        correct, total = np.zeros(BOOTSTRAPS), np.zeros(BOOTSTRAPS)
+        for lo, hi in batches:
+            boot.update(preds[lo:hi], target[lo:hi])
+            for r in range(BOOTSTRAPS):
+                if strategy == "poisson":
+                    idx = np.repeat(np.arange(hi - lo), rng.poisson(1, hi - lo))
+                else:
+                    idx = torch.randint(0, hi - lo, (hi - lo,), generator=gen).numpy()
+                correct[r] += (label[lo:hi][idx] == target_np[lo:hi][idx]).sum()
+                total[r] += idx.size
+        v = boot.compute()
+        raw = correct / total
+        for r, m in enumerate(boot.metrics):
+            check(int(m.tp) == int(correct[r]) and int(m.tp + m.fn) == int(total[r]), f"bootstrap {strategy}: replica {r}")
+        for got, want, name in ((v["mean"], raw.mean(), "mean"), (v["std"], raw.std(ddof=1), "std"),
+                                (v["quantile"], np.quantile(raw, 0.5), "quantile")):
+            close_value(got, want, f"bootstrap {strategy} {name}")
+        for got, want in zip(v["raw"].tolist(), raw):
+            close_value(got, want, f"bootstrap {strategy} raw")
+        out[f"bootstrap_{strategy}"] = {"mean": float(v["mean"]), "std": float(v["std"])}
+    # compositions: the F1 harmonic mean, a scalar operand, a comparison, an index
+    macro = oracle_states(preds_np, target_np)["f1"]
+    tp, fp, fn = (np.asarray(macro[k], np.float64) for k in ("tp", "fp", "fn"))
+    prec_c, rec_c = tp / (tp + fp), tp / (tp + fn)
+    pm, rm = prec_c.mean(), rec_c.mean()
+    f1c, f1c_pct = f1_composition(dev), f1_composition(dev) * 100.0
+    p_gt_r = Precision(num_classes=NUM_CLASSES, average="macro", device=dev) > Recall(
+        num_classes=NUM_CLASSES, average="macro", device=dev)
+    p3 = Precision(num_classes=NUM_CLASSES, average="none", device=dev)[3]
+    per_class, f1_none = f1_composition(dev, "none"), F1Score(num_classes=NUM_CLASSES, average="none", device=dev)
+    comps = (f1c, f1c_pct, p_gt_r, p3, per_class, f1_none)
+    for lo, hi in batches:
+        for c in comps:
+            c.update(preds[lo:hi], target[lo:hi])
+    close_value(f1c.compute(), 2 * pm * rm / (pm + rm), "composed F1")
+    close_value(f1c_pct.compute(), 100 * 2 * pm * rm / (pm + rm), "composed F1 x 100")
+    check(bool(p_gt_r.compute()) == bool(pm > rm), "P > R")
+    close_value(p3.compute(), prec_c[3], "precision[3]")
+    for got, want in zip(per_class.compute().tolist(), f1_none.compute().tolist()):
+        close_value(got, want, "per-class composition vs F1Score(average='none')")
+    compare_trees(f1c.metric_b.metric_a._pack_state(), {k: 2 * np.asarray(v) for k, v in macro.items()},
+                  "composed F1: P's counts (two occurrences)")
+    out["composition"] = {"f1_composed": float(f1c.compute()), "macro_f1": macro_f1_of(macro),
+                          "precision_gt_recall": bool(p_gt_r.compute())}
+    # MetricTracker over the flagship collection, 3 epochs (one batch each)
+    tracker = MetricTracker(make_collection(dev), maximize=[True, True, True, True])
+    f1_tracker = MetricTracker(F1Score(num_classes=NUM_CLASSES, average="macro", device=dev))
+    epoch_f1 = []
+    for lo, hi in batches[:TRACKER_EPOCHS]:
+        for t in (tracker, f1_tracker):
+            t.increment()
+            t.update(preds[lo:hi], target[lo:hi])
+        epoch_f1.append(macro_f1_of(oracle_states(preds_np[lo:hi], target_np[lo:hi])["f1"]))
+    allv = tracker.compute_all()
+    for e, (lo, hi) in enumerate(batches[:TRACKER_EPOCHS]):
+        close_value(allv["f1"][e], epoch_f1[e], f"tracker epoch {e} F1")
+        close_value(allv["acc"][e], micro_accuracy(label[lo:hi], target_np[lo:hi]), f"tracker epoch {e} accuracy")
+        compare_trees(allv["confmat"][e], oracle_states(preds_np[lo:hi], target_np[lo:hi])["confmat"]["confmat"],
+                      f"tracker epoch {e} confmat")
+    step, best = f1_tracker.best_metric(return_step=True)
+    check(step == int(np.argmax(epoch_f1)), f"tracker best step {step}")
+    close_value(best, max(epoch_f1), "tracker best F1")
+    out["tracker"] = {"best_step": step, "best_f1": best}
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def wrapper_engine_run(dev, batches, submit, capture, make, cfg, aot_cache=None, **kw):
+    from metrics_tpu_torch.engine import MultiStreamEngine, StreamingEngine
+
+    if kw:
+        eng = MultiStreamEngine(make(dev), PAGED_STREAMS, cfg, aot_cache=aot_cache, **kw)
+    else:
+        eng = StreamingEngine(make(dev), cfg, aot_cache=aot_cache)
+    return eng, run_engine(eng, capture, batches, submit)
+
+
+def wrapper_phase(dev, preds, target, preds_np, target_np):
+    """Phase 12: (a) the wrappers and compositions eagerly; (b) the flagship
+    plus a composed F1 and a multinomial BootStrapper through the captured
+    megastep ``StreamingEngine`` (with its uncaptured and warm twins) and the
+    captured paged ``MultiStreamEngine`` (an uncaptured twin on a prefix),
+    and ``MultioutputWrapper(remove_nans=False)`` through the megastep engine
+    on two-head rows; integer states, children included, bit-equal to the
+    twins and to numpy; (c) the refusals."""
+    from metrics_tpu_torch import Accuracy, MetricCollection, MinMaxMetric
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+    from metrics_tpu_torch.utils.tree import tree_map
+
+    out = {"eager": wrapper_eager(dev, preds, target, preds_np, target_np)}
+    template = make_wrapper_collection(torch.device("cpu")).init_state()["f1_composed"]
+
+    # (b) the captured megastep engine, its uncaptured twin and a warm twin
+    mega = EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep")
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    submit = lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]])  # noqa: E731
+    before = counts()
+    eng, seconds = wrapper_engine_run(dev, batches, submit, True, make_wrapper_collection, mega)
+    d = delta(before)
+    n = eng.steps + eng.stats.warmup_steps
+    check(eng.stats.kernel_fallbacks_by_reason() == {}, f"wrapper engine fell back: {eng.stats.kernel_fallbacks}")
+    check(d["megastep_fold"] == 3 * n and d["fold_rows"] == 0, f"wrapper engine: {d} in {n} steps")
+    state = eng.state()
+    compare_trees(state, wrapper_oracle(preds_np, target_np, template), "wrapper engine vs numpy")
+    aot = check_cache(eng, "wrapper engine")
+    unc, unc_seconds = wrapper_engine_run(dev, batches, submit, False, make_wrapper_collection, mega)
+    same_trees(unc.state(), state, "wrapper engine: uncaptured vs captured")
+    twin, twin_seconds = wrapper_engine_run(dev, batches, submit, True, make_wrapper_collection, mega,
+                                            aot_cache=eng.aot_cache)
+    check(twin.stats.warmup_steps == 0 and eng.aot_cache.misses == aot["misses"], "wrapper warm twin captured")
+    same_trees(twin.state(), state, "wrapper engine: warm twin vs first")
+    value = eng.result()
+    close_value(value["boot"]["mean"], value["acc"], "served bootstrap mean vs accuracy")
+    close_value(value["boot"]["std"], 0.0, "served bootstrap std")
+    out["streaming_megastep"] = {
+        "steps": eng.steps, "batches": len(batches), "seconds": seconds, "ms_per_step": seconds / eng.steps * 1e3,
+        "capture_seconds": aot["capture_seconds"], "aot": aot, "launches": d,
+        "uncaptured_ms_per_step": unc_seconds / unc.steps * 1e3,
+        "warm_twin": {"warmup_steps": twin.stats.warmup_steps, "ms_per_step": twin_seconds / twin.steps * 1e3},
+        "bucket_1024": profile_bucket(dev, preds, target, make=make_wrapper_collection)}
+
+    # the paged engine: an uncaptured twin on a prefix, then the rest captured
+    paged = EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep")
+    pbatches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(pbatches), ALPHA, SEED + 4)
+    items = list(zip(sids, pbatches))
+    psubmit = lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]])  # noqa: E731
+    pkw = {"stream_shard": True, "resident_streams": RESIDENT}
+    before = counts()
+    peng, p_first = wrapper_engine_run(dev, items[:PAGED_TWIN_BATCHES], psubmit, True, make_wrapper_collection, paged,
+                                       **pkw)
+    punc, punc_seconds = wrapper_engine_run(dev, items[:PAGED_TWIN_BATCHES], psubmit, False, make_wrapper_collection,
+                                            paged, **pkw)
+    same_trees(punc.state(), peng.state(), "paged wrapper engine: uncaptured vs captured prefix")
+    p_rest = run_engine(peng, True, items[PAGED_TWIN_BATCHES:], psubmit)
+    pd = delta(before)
+    check(pd["megastep_segment"] > 0 and peng.stats.kernel_fallbacks_by_reason() == {},
+          f"paged wrapper engine: {pd}, {peng.stats.kernel_fallbacks}")
+    check(peng.stats.page_outs > 0, "paged wrapper engine: nothing was spilled")
+    # every stream: the sums over streams equal the counts over all rows
+    stacked = tree_map(lambda x: x.cpu().numpy().astype(np.int64).sum(0) if not x.is_floating_point()
+                       else x.double().sum(0).cpu().numpy(), peng.state())
+    compare_trees(stacked, wrapper_oracle(preds_np, target_np, template), "paged wrapper engine: sum over streams")
+    per_stream = stream_rows(sids, pbatches)
+    busiest = sorted(per_stream, key=lambda s: -len(per_stream[s]))[:10]
+    quiet = [s for s in sorted(per_stream) if len(per_stream[s]) < 64][:10]
+    for sid in busiest + quiet + [s for s in range(0, PAGED_STREAMS, 997) if s not in per_stream][:3]:
+        idx = per_stream.get(sid, np.zeros(0, np.int64))
+        compare_trees(peng.stream_state(sid), wrapper_oracle(preds_np[idx], target_np[idx], template),
+                      f"paged wrapper engine: stream {sid}")
+    paot = check_cache(peng, "paged wrapper engine")
+    out["paged"] = {"steps": peng.steps, "batches": len(items), "seconds": p_first + p_rest,
+                    "ms_per_step": (p_first + p_rest) / peng.steps * 1e3, "capture_seconds": paot["capture_seconds"],
+                    "aot": paot, "launches": pd, "page_outs": peng.stats.page_outs, "page_ins": peng.stats.page_ins,
+                    "uncaptured_prefix": {"batches": PAGED_TWIN_BATCHES, "steps": punc.steps,
+                                          "ms_per_step": punc_seconds / punc.steps * 1e3}}
+
+    # MultioutputWrapper(remove_nans=False) through the megastep engine on two-head rows
+    p2, t2 = two_head_rows(dev, preds_np, target_np)
+    p2d, t2d = torch.from_numpy(p2).to(dev), torch.from_numpy(t2).to(dev)
+    msubmit = lambda e, b: e.submit(p2d[b[0]:b[1]], t2d[b[0]:b[1]])  # noqa: E731
+    meng, m_seconds = wrapper_engine_run(dev, batches, msubmit, True, make_multioutput_collection, mega)
+    munc, _ = wrapper_engine_run(dev, batches, msubmit, False, make_multioutput_collection, mega)
+    same_trees(munc.state(), meng.state(), "multioutput engine: uncaptured vs captured")
+    want = {"multi": {"_children": {"metrics": [oracle_states(p2[:, :, h], t2[:, h])["acc"] for h in range(2)]}}}
+    compare_trees(meng.state(), want, "multioutput engine vs numpy")
+    out["multioutput_megastep"] = {"steps": meng.steps, "ms_per_step": m_seconds / meng.steps * 1e3,
+                                   "capture_seconds": meng.aot_cache.stats()["capture_seconds"]}
+
+    # (c) the refusals
+    refusals = {}
+    minmax = MetricCollection({"minmax": MinMaxMetric(Accuracy(device=dev))})
+    for name, build in (("streaming", lambda: StreamingEngine(minmax, mega)),
+                        ("paged", lambda: MultiStreamEngine(minmax, PAGED_STREAMS, paged, **pkw))):
+        try:
+            build()
+        except MetricsTPUUserError as e:
+            refusals[name] = str(e)
+        check(REFUSAL in refusals.get(name, ""), f"the {name} engine did not refuse MinMaxMetric")
+    nan_multi = make_multioutput_collection(dev, remove_nans=True)
+    try:
+        nan_multi.update_state_masked(nan_multi.init_state(), p2d[:BUCKET], t2d[:BUCKET],
+                                      mask=torch.ones(BUCKET, dtype=torch.bool, device=dev))
+        refusals["multioutput_remove_nans_masked"] = None
+    except RuntimeError as e:
+        refusals["multioutput_remove_nans_masked"] = str(e)[:120]
+    check(refusals["multioutput_remove_nans_masked"] is not None,
+          "a masked update of MultioutputWrapper(remove_nans=True) did not raise")
+    out["refusals"] = refusals
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2079,6 +2446,18 @@ def main():
         check(curve_launches[k] > 0, f"kernel {k} was not launched by the curves phase")
     launches = {k: launches[k] + curve_launches[k] for k in launches}
     print(json.dumps({"curves_phase": curves, "launches": curve_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 12, its counts from 0: K2, K3, K5 (megastep engine) and K6 (paged engine) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wrappers = wrapper_phase(dev, preds, target, preds_np, target_np)
+    wrapper_launches = counts()
+    for k in ("histogram", "binned_counts", "megastep_fold", "megastep_segment"):
+        check(wrapper_launches[k] > 0, f"kernel {k} was not launched by the wrapper phase")
+    launches = {k: launches[k] + wrapper_launches[k] for k in launches}
+    print(json.dumps({"wrapper_phase": wrappers, "launches": wrapper_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

@@ -35,7 +35,8 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.wrappers import BootStrapper, MetricTracker, MinMaxMetric, MultioutputWrapper
 
 __all__ = [
     "AUC",
@@ -46,9 +47,11 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
     "CohenKappa",
+    "CompositionalMetric",
     "ConfusionMatrix",
     "F1Score",
     "FBeta",
@@ -64,7 +67,10 @@ __all__ = [
     "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
     "Precision",
     "PrecisionRecallCurve",
     "ROC",

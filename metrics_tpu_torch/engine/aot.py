@@ -79,7 +79,11 @@ def _fingerprint_array(arr: np.ndarray, h: "hashlib._Hash") -> None:
 
 
 def _fingerprint_value(v: Any, h: "hashlib._Hash") -> None:
-    if isinstance(v, (bool, int, float, str, bytes, type(None), torch.dtype, torch.device, Enum)):
+    if isinstance(v, (torch.Generator, np.random.RandomState, np.random.Generator)):
+        # a random stream is state, not configuration (a BootStrapper's draws),
+        # and its repr carries its address: its type alone
+        h.update(type(v).__name__.encode())
+    elif isinstance(v, (bool, int, float, str, bytes, type(None), torch.dtype, torch.device, Enum)):
         h.update(repr(v).encode())
     elif isinstance(v, np.generic):  # numpy scalars are not Python ints/floats
         h.update(f"{v.dtype}:{v!r}".encode())
@@ -130,6 +134,9 @@ def metric_fingerprint(metric: Any) -> str:
                     _fingerprint_value(buf, h)
             for name, child in sorted(m._modules.items()):
                 h.update(name.encode())
+                visit(child)
+        elif isinstance(m, nn.ModuleList):  # a wrapper's list of inner metrics
+            for child in m:
                 visit(child)
         elif hasattr(m, "items"):  # a MetricCollection
             for k, v in m.items(keep_base=True):

@@ -22,14 +22,32 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from metrics_tpu_torch.ops.kernels.common import int32_bits
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
-__all__ = ["ArenaLayout", "dtype_key"]
+__all__ = ["ArenaLayout", "dtype_key", "gather_rows", "scatter_rows"]
 
 
 def dtype_key(dtype: torch.dtype) -> str:
     """The buffer key of a torch dtype: its name as numpy and JAX spell it."""
     return str(dtype).replace("torch.", "")
+
+
+def gather_rows(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``buf[idx]``; a uint32 buffer through its int32 bits (torch has no
+    uint32 index kernels)."""
+    if buf.dtype == torch.uint32:
+        return int32_bits(buf)[idx].view(torch.uint32)
+    return buf[idx]
+
+
+def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """``buf[idx] = rows`` in place; a uint32 buffer through its int32 bits."""
+    rows = rows.to(buf.dtype)
+    if buf.dtype == torch.uint32:
+        int32_bits(buf)[idx] = int32_bits(rows)
+    else:
+        buf[idx] = rows
 
 
 class _LeafSpec:

@@ -46,6 +46,19 @@ def _is_collection(m: Any) -> bool:
     return hasattr(m, "items") and not hasattr(m, "_defaults")
 
 
+def _metric_fx_tree(m: Any, foldable: bool) -> Dict[str, Any]:
+    """Per-leaf reduction names, congruent to ``m``'s state tree: a foldable
+    (delta-strategy) member gives each state's own reduction, recursing into
+    nested metrics with THEIRS (the leaves ``Metric._masked_reduce_into``
+    folds); anything else marks every leaf :data:`NO_FOLD`."""
+    out: Dict[str, Any] = {k: (m._reductions[k] if foldable and m._reductions[k] in REDUCE_OPS else NO_FOLD)
+                           for k in m._defaults}
+    children = m._map_children(lambda c: _metric_fx_tree(c, foldable))
+    if children:
+        out[m._CHILD_KEY] = children
+    return out
+
+
 def flat_reductions(metric: Any) -> List[str]:
     """Per-leaf reduction names (``"sum"``/``"min"``/``"max"``/``"none"``)
     in ``abstract_state`` flatten order — the opcode source for
@@ -55,9 +68,7 @@ def flat_reductions(metric: Any) -> List[str]:
     def ptree(m: Any) -> Any:
         if _is_collection(m):
             return {k: ptree(mm) for k, mm in m.items(keep_base=True)}
-        foldable = m.masked_update_strategy() == "delta"
-        return {k: (m._reductions[k] if foldable and m._reductions[k] in REDUCE_OPS else NO_FOLD)
-                for k in m._defaults}
+        return _metric_fx_tree(m, m.masked_update_strategy() == "delta")
 
     return [str(f) for f in tree_leaves(ptree(metric))]
 
@@ -70,7 +81,7 @@ class MegastepPlan:
         self._layout = layout
         self._fx = flat_reductions(metric)
         slices = layout.leaf_slices()
-        if len(self._fx) != len(slices):  # pragma: no cover - same flatten order
+        if len(self._fx) != len(slices):  # nested leaves the op row missed would fold with the wrong ops
             raise ValueError(f"reduction list ({len(self._fx)}) does not align with the arena "
                              f"layout ({len(slices)} leaves)")
         #: dtype key -> [(leaf_index, offset, size, shape, dtype)]

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.engine.aot import AotCache
+from metrics_tpu_torch.engine.arena import gather_rows, scatter_rows
 from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
@@ -327,7 +328,7 @@ class MultiStreamEngine(StreamingEngine):
         spilled: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
         if evicts:
             js = torch.tensor([op.slot for op in evicts], device=self._device)
-            rows = {k: _host(v[js]) for k, v in self._state.items()}  # one gather per dtype
+            rows = {k: _host(gather_rows(v, js)) for k, v in self._state.items()}  # one gather per dtype
             if self._compress and self._row_codec is not None:
                 rows = self._row_codec.encode_buffers(rows)  # quantize BEFORE host RAM holds them
             for i, op in enumerate(evicts):
@@ -349,7 +350,7 @@ class MultiStreamEngine(StreamingEngine):
                     staged.append(None)
             js = torch.tensor([op.slot for op in loads], device=self._device)
             for k, buf in self._state.items():
-                buf[js] = torch.from_numpy(np.stack([r[k] for r in src_rows])).to(self._device, buf.dtype)
+                scatter_rows(buf, js, torch.from_numpy(np.stack([r[k] for r in src_rows])).to(self._device))
             for op, st in zip(loads, staged):
                 if st is not None:
                     self._stats.q8_staged_rows += 1
@@ -456,14 +457,14 @@ class MultiStreamEngine(StreamingEngine):
             stacked = {key: np.stack([g[1][key] for g in group]) for key in group[0][1]}
             if decode:
                 stacked = self._row_codec.decode_buffers(stacked)
-            for k, buf in self._state.items():
-                out[k][sids] = torch.from_numpy(stacked[k]).to(dev, buf.dtype)
+            for k in self._state:
+                scatter_rows(out[k], sids, torch.from_numpy(stacked[k]).to(dev))
         resident = self._pager.resident_streams(_SHARD)
         if resident:
             sids = torch.from_numpy(np.asarray(resident, np.int64)).to(dev)
             slots = torch.from_numpy(np.asarray([self._pager.slot_of(_SHARD, r) for r in resident], np.int64)).to(dev)
             for k, buf in self._state.items():
-                out[k][sids] = buf[slots]
+                scatter_rows(out[k], sids, gather_rows(buf, slots))
         return out
 
     def _stream_tree(self, sid: int) -> Any:

@@ -1,28 +1,49 @@
 """Block-scaled int8 codec for state at rest: the stream pager's compressed
-spill rows.
+spill rows, and compressed state trees.
 
-Port of the buffer form of ``metrics_tpu/engine/quantize.py`` (the tree form
-for snapshots waits for snapshots). The ``sync_precision`` policy decides
-what compresses: float ``sum`` states a metric declared ``"q8_block"``;
-counts and min/max states stay verbatim. One encode→decode round trip costs
-at most ``block_absmax / 254`` per element.
+Port of ``metrics_tpu/engine/quantize.py``. The ``sync_precision`` policy
+decides what compresses: float ``sum`` states a metric declared
+``"q8_block"``; counts and min/max states stay verbatim. One encode→decode
+round trip costs at most ``block_absmax / 254`` per element.
 
-:class:`ArenaRowCodec` works on the per-dtype arena vectors the pager spills:
-the quantized leaves' element positions within each dtype buffer split into a
-coded section (``<dtype>#q8c`` codes + ``<dtype>#q8s`` scales) and a verbatim
-remainder (``<dtype>#ex``). The positions come from the metric's
-:class:`~metrics_tpu_torch.engine.arena.ArenaLayout`, which takes leaves in
-the JAX package's order, so a row encoded by either package decodes in the
-other. Everything here is host numpy.
+* **Tree form** (:func:`encode_state_tree`/:func:`decode_state_tree`): a
+  logical state tree, nested metrics' ``"_children"`` included. A quantized
+  leaf becomes a self-describing dict (marker, codes, scales, shape, dtype),
+  so decoding needs no metric; the JAX package's dicts decode here and the
+  other way round. Snapshots, which would store it, are not ported yet.
+* **Buffer form** (:class:`ArenaRowCodec`): the per-dtype arena vectors the
+  pager spills. The quantized leaves' element positions within each dtype
+  buffer split into a coded section (``<dtype>#q8c`` codes + ``<dtype>#q8s``
+  scales) and a verbatim remainder (``<dtype>#ex``). The positions come from
+  the metric's :class:`~metrics_tpu_torch.engine.arena.ArenaLayout`, which
+  takes leaves in the JAX package's order, so a row encoded by either
+  package decodes in the other.
+
+Everything here is host numpy.
 """
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from metrics_tpu_torch.parallel.collectives import Q8_BLOCK, Q8_FLUSH
 from metrics_tpu_torch.utils.tree import tree_leaves
 
-__all__ = ["ArenaRowCodec", "host_dtype"]
+__all__ = [
+    "ArenaRowCodec",
+    "CODEC_ID",
+    "decode_state_tree",
+    "encode_state_tree",
+    "host_dtype",
+    "is_q8_leaf",
+    "q8_decode_array",
+    "q8_encode_array",
+]
+
+#: the codec id: the scheme and its block size
+CODEC_ID = f"q8b{Q8_BLOCK}"
+
+_MARKER = "__q8b__"
 
 
 def host_dtype(key: str) -> np.dtype:
@@ -55,6 +76,70 @@ def _decode_blocks(codes: np.ndarray, scales: np.ndarray, n: int, block: int) ->
     nb = scales.shape[1]
     vals = codes.astype(np.float32).reshape(rows, nb, block) * scales[:, :, None]
     return vals.reshape(rows, nb * block)[:, :n]
+
+
+def q8_encode_array(arr: Any, block: int = Q8_BLOCK) -> Dict[str, Any]:
+    """One array -> its self-describing compressed leaf dict."""
+    a = _host_array(arr)
+    codes, scales = _encode_blocks(a.astype(np.float32).reshape(1, -1), block)
+    return {_MARKER: int(block), "codes": codes[0], "scales": scales[0],
+            "shape": np.asarray(a.shape, np.int64), "dtype": str(a.dtype)}
+
+
+def q8_decode_array(leaf: Dict[str, Any]) -> np.ndarray:
+    """Inverse of :func:`q8_encode_array`."""
+    block = int(np.asarray(leaf[_MARKER]))
+    shape = tuple(int(d) for d in np.asarray(leaf["shape"]))
+    n = int(np.prod(shape, dtype=np.int64))
+    codes = np.asarray(leaf["codes"]).reshape(1, -1)
+    scales = np.asarray(leaf["scales"]).reshape(1, -1)
+    flat = _decode_blocks(codes, scales, n, block)[0]
+    return flat.reshape(shape).astype(np.dtype(str(leaf["dtype"])))
+
+
+def is_q8_leaf(x: Any) -> bool:
+    return isinstance(x, dict) and _MARKER in x
+
+
+def _host_array(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):  # numpy has no bf16, which widens losslessly
+        x = x.detach().cpu()
+        x = x.float() if x.dtype == torch.bfloat16 else x
+    return np.asarray(x)
+
+
+def encode_state_tree(metric: Any, state: Any) -> Any:
+    """Wrap the quantized-policy leaves of a logical state tree in compressed
+    leaf dicts, recursing into nested metrics; everything else passes
+    verbatim. ``metric`` (a Metric or a MetricCollection) supplies the
+    policy."""
+    if not isinstance(state, dict):
+        return state
+    if hasattr(metric, "items") and not hasattr(metric, "_defaults"):
+        return {k: encode_state_tree(m, state.get(k, {})) for k, m in metric.items(keep_base=True)}
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        if k == metric._CHILD_KEY:
+            out[k] = metric._map_children(encode_state_tree, v)
+        elif metric._sync_precision.get(k, "exact") == "q8_block" and not isinstance(v, list):
+            out[k] = q8_encode_array(v)
+        else:
+            out[k] = v
+    return out
+
+
+def decode_state_tree(tree: Any) -> Any:
+    """Unwrap every compressed leaf anywhere in a tree (self-describing: no
+    metric needed)."""
+    if is_q8_leaf(tree):
+        return q8_decode_array(tree)
+    if isinstance(tree, dict):
+        return {k: decode_state_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [decode_state_tree(v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(decode_state_tree(v) for v in tree)
+    return tree
 
 
 class ArenaRowCodec:
@@ -183,11 +268,16 @@ class ArenaRowCodec:
 
 
 def _flat_precisions(metric: Any) -> List[str]:
-    """Per-leaf precision strings in ``abstract_state`` flatten order."""
+    """Per-leaf precision strings in ``abstract_state`` flatten order, nested
+    metrics' included."""
 
     def ptree(m: Any) -> Any:
         if hasattr(m, "items") and not hasattr(m, "_defaults"):
             return {k: ptree(mm) for k, mm in m.items(keep_base=True)}
-        return {k: m._sync_precision.get(k, "exact") for k in m._defaults}
+        out: Dict[str, Any] = {k: m._sync_precision.get(k, "exact") for k in m._defaults}
+        children = m._map_children(ptree)
+        if children:
+            out[m._CHILD_KEY] = children
+        return out
 
     return [str(p) for p in tree_leaves(ptree(metric))]

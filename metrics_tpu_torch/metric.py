@@ -14,6 +14,13 @@ The stateful facade (``update``, ``compute``, ``reset``, ``forward``,
 buffers, runs the subclass ``update`` and snapshots the result, so the
 stateful-looking subclass code *is* the pure function body.
 
+A metric held as an attribute of another (a wrapper's inner metrics, the
+operands of a :class:`CompositionalMetric`) is a child module: its state
+travels inside its parent's under the reserved ``"_children"`` key, with the
+JAX package's attribute names, and every function of the pure API recurses
+into it. Lists of children are ``nn.ModuleList``s, so ``state_dict`` keys
+read ``metrics.0.<state>`` as in the JAX package and ``.to()`` recurses.
+
 The masked update is the streaming engine's padding contract: the subclass
 ``update`` runs per row under ``torch.func.vmap`` (batch-of-1 rows), and each
 leaf's row-stacked deltas fold into the state through the K1 fold kernel, the
@@ -29,9 +36,8 @@ The ``sync_precision`` policy (which float ``sum`` states may be quantized)
 is kept, without the sync itself: the engine's at-rest codec reads it.
 
 Left out so far (see ROADMAP.md): cross-process sync and
-``compute_synced``/``merge_stacked_states``, fingerprints, the grouped
-strategy and its hooks (the ragged engine is not ported), nested (wrapper)
-metrics, composition operators and the compiled forward.
+``compute_synced``/``merge_stacked_states``, the grouped strategy and its
+hooks (the ragged engine is not ported) and the compiled forward.
 """
 import functools
 import inspect
@@ -43,8 +49,9 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from metrics_tpu_torch.ops.kernels import fold_rows_masked, segment_reduce_masked
+from metrics_tpu_torch.ops.kernels import combine, fold_rows_masked, segment_reduce_masked
 from metrics_tpu_torch.parallel.collectives import SYNC_PRECISIONS
+from metrics_tpu_torch.ops.kernels.common import int32_bits
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import apply_to_collection, is_batch_leaf
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
@@ -94,6 +101,14 @@ def _squeeze_if_scalar(x: Any) -> Any:
         return v.squeeze() if v.numel() == 1 and v.ndim > 0 else v
 
     return apply_to_collection(x, Tensor, _sq)
+
+
+def _keep_where(keep: Tensor, new: Tensor, old: Tensor) -> Tensor:
+    """``new`` where the row's mask ``keep`` holds, else ``old``, in ``old``'s
+    dtype (uint32 through its int32 bits: torch has no uint32 select)."""
+    if old.dtype == torch.uint32:
+        return torch.where(keep, int32_bits(new.to(old.dtype)), int32_bits(old)).view(torch.uint32)
+    return torch.where(keep, new, old).to(old.dtype)
 
 
 class Metric(nn.Module):
@@ -162,6 +177,8 @@ class Metric(nn.Module):
         """Register a named state: a tensor (a buffer on the metric's device)
         or an empty list. ``dist_reduce_fx`` in {"sum","mean","min","max",
         "cat", None, callable} names how states merge."""
+        if name == self._CHILD_KEY:
+            raise ValueError(f"state name {self._CHILD_KEY!r} is reserved for nested metric states")
         if not isinstance(default, (Tensor, np.ndarray, list)) or (isinstance(default, list) and default):
             raise ValueError("state variable must be a tensor or an empty list (where you can append tensors)")
         if not (dist_reduce_fx in ("sum", "mean", "min", "max", "cat", None) or callable(dist_reduce_fx)):
@@ -234,13 +251,15 @@ class Metric(nn.Module):
                     self._sync_precision.pop(name, None)
                 elif self._sync_precision_ineligible_reason(name) is None:
                     self._sync_precision[name] = spec
+            self._for_each_child(lambda c: c.set_sync_precision(spec))
         else:
             for name, prec in spec.items():
                 self._set_state_precision(name, prec)
         return self
 
     def state_sync_precisions(self) -> Dict[str, str]:
-        """``{state_name: precision}`` for every registered state (default
+        """Flat ``{state_path: precision}`` for every registered state of self
+        and nested metrics (``name.state``, ``name[i].state``; default
         ``"exact"``). A constructor dict naming a state never registered
         raises here, where the policy is first read."""
         spec = self._sync_precision_spec
@@ -251,7 +270,10 @@ class Metric(nn.Module):
                     f"sync_precision names states {type(self).__name__} never registered: {unknown} "
                     f"(registered: {sorted(self._defaults)})"
                 )
-        return {k: self._sync_precision.get(k, "exact") for k in self._defaults}
+        out = {k: self._sync_precision.get(k, "exact") for k in self._defaults}
+        for path, child in self._child_paths():
+            out.update({f"{path}.{k}": v for k, v in child.state_sync_precisions().items()})
+        return out
 
     def sync_precision_tag(self) -> str:
         """``"exact"`` when nothing quantizes, else ``"q8:<digest>"`` over the
@@ -259,43 +281,132 @@ class Metric(nn.Module):
         return sync_precision_tag_of(self.state_sync_precisions())
 
     def persistent(self, mode: bool = False) -> None:
-        """Include (``True``) or leave out the tensor states in ``state_dict``."""
+        """Include (``True``) or leave out the tensor states, nested metrics'
+        too, in ``state_dict``."""
         for k, v in self._defaults.items():
             if isinstance(v, Tensor):
                 if mode:
                     self._non_persistent_buffers_set.discard(k)
                 else:
                     self._non_persistent_buffers_set.add(k)
+        self._for_each_child(lambda c: c.persistent(mode))
+
+    # --------------------------------------------------------------- nested metrics
+
+    _CHILD_KEY = "_children"
+
+    def _child_metrics(self) -> Dict[str, Any]:
+        """Child metrics held as attributes (a wrapper's inner metrics, a
+        composition's operands): name -> Metric, or name -> list of Metrics,
+        in sorted name order. The pure API recurses through them, so a
+        wrapper's state carries its inner metrics' under ``"_children"``."""
+        out: Dict[str, Any] = {}
+        for name in sorted(self._modules):
+            v = self._modules[name]
+            if isinstance(v, Metric):
+                out[name] = v
+            elif isinstance(v, nn.ModuleList) and len(v) and all(isinstance(x, Metric) for x in v):
+                out[name] = list(v)
+        return out
+
+    def _child_paths(self) -> List[Tuple[str, "Metric"]]:
+        """``(path, child)`` per nested metric: ``name`` or ``name[i]``."""
+        out: List[Tuple[str, Metric]] = []
+        for name, child in self._child_metrics().items():
+            if isinstance(child, list):
+                out.extend((f"{name}[{i}]", c) for i, c in enumerate(child))
+            else:
+                out.append((name, child))
+        return out
+
+    def _for_each_child(self, fn: Callable[["Metric"], Any]) -> None:
+        for _, child in self._child_paths():
+            fn(child)
+
+    def _map_children(self, fn: Callable[..., Any], *trees: Any) -> Dict[str, Any]:
+        """``{name: fn(child, *subtrees)}`` over the nested metrics (a list
+        of results for a list of children); ``trees`` are ``"_children"``
+        subtrees aligned with them."""
+        out: Dict[str, Any] = {}
+        for name, child in self._child_metrics().items():
+            subs = [t[name] for t in trees]
+            if isinstance(child, list):
+                out[name] = [fn(c, *parts) for c, *parts in zip(child, *subs)]
+            else:
+                out[name] = fn(child, *subs)
+        return out
 
     # ------------------------------------------------------------- functional core API
 
     def init_state(self) -> Dict[str, Any]:
-        """A fresh state dict (name -> tensor or list); leaves are copies."""
-        return {k: (v.clone() if isinstance(v, Tensor) else list(v)) for k, v in self._defaults.items()}
+        """A fresh state dict (name -> tensor or list; nested metrics' states
+        under the reserved ``"_children"`` key); leaves are copies."""
+        state = {k: (v.clone() if isinstance(v, Tensor) else list(v)) for k, v in self._defaults.items()}
+        if self._modules:
+            children = self._map_children(lambda c: c.init_state())
+            if children:
+                state[self._CHILD_KEY] = children
+        return state
 
     def abstract_state(self) -> Dict[str, Any]:
         """:class:`StateSpec` (shape, dtype) per tensor state, ``[]`` per list
         state, mirroring :meth:`init_state` without storage: the template of
         the engine's :class:`~metrics_tpu_torch.engine.arena.ArenaLayout`."""
-        return {k: (StateSpec(v.shape, v.dtype) if isinstance(v, Tensor) else []) for k, v in self._defaults.items()}
+        state = {k: (StateSpec(v.shape, v.dtype) if isinstance(v, Tensor) else []) for k, v in self._defaults.items()}
+        if self._modules:
+            children = self._map_children(lambda c: c.abstract_state())
+            if children:
+                state[self._CHILD_KEY] = children
+        return state
 
     def _pack_state(self) -> Dict[str, Any]:
-        return {k: getattr(self, k) for k in self._defaults}
+        state = {k: getattr(self, k) for k in self._defaults}
+        if self._modules:
+            children = self._map_children(lambda c: c._pack_state())
+            if children:
+                state[self._CHILD_KEY] = children
+        return state
 
     def _load_state(self, state: Dict[str, Any]) -> None:
         for k, v in state.items():
+            if k == self._CHILD_KEY:
+                children = self._child_metrics()
+                for name, sub in v.items():
+                    child = children.get(name)
+                    if isinstance(child, list):
+                        for c, cs in zip(child, sub):
+                            c._load_state(cs)
+                    elif child is not None:
+                        child._load_state(sub)
+                continue
             setattr(self, k, list(v) if isinstance(v, (list, tuple)) else v)
 
-    def _snapshot_bookkeeping(self) -> Dict[str, Any]:
-        return {a: getattr(self, a) for a in self._BOOKKEEPING_ATTRS}
+    def _snapshot_bookkeeping(self) -> Dict[int, Dict[str, Any]]:
+        """The host-side caches of self and every nested metric: a child's
+        wrapped ``compute`` caches ``_computed`` while the pure API runs."""
+        snap: Dict[int, Dict[str, Any]] = {}
 
-    def _restore_bookkeeping(self, snap: Dict[str, Any]) -> None:
-        for a, v in snap.items():
-            object.__setattr__(self, a, v)
+        def visit(m: "Metric") -> None:
+            snap[id(m)] = {a: getattr(m, a) for a in self._BOOKKEEPING_ATTRS}
+            m._for_each_child(visit)
+
+        visit(self)
+        return snap
+
+    def _restore_bookkeeping(self, snap: Dict[int, Dict[str, Any]]) -> None:
+        def visit(m: "Metric") -> None:
+            for a, v in snap.get(id(m), {}).items():
+                object.__setattr__(m, a, v)
+            m._for_each_child(visit)
+
+        visit(self)
 
     def _mark_updated(self) -> None:
+        """Post-update bookkeeping on self and nested metrics: a wrapper's
+        forward accumulates its children's state too."""
         self._computed = None
         self._update_called = True
+        self._for_each_child(lambda c: c._mark_updated())
 
     def update_state(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Pure update: ``new_state = f(state, batch)``.
@@ -327,19 +438,29 @@ class Metric(nn.Module):
             self._restore_bookkeeping(book)
 
     def merge_states(self, a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
-        """Pairwise merge of two state dicts (pure): sum/min/max/cat."""
+        """Pairwise merge of two state dicts (pure): sum/min/max/cat, nested
+        metrics with their own reductions."""
         out: Dict[str, Any] = {}
+        if self._CHILD_KEY in a or self._CHILD_KEY in b:
+            ca, cb = a.get(self._CHILD_KEY, {}), b.get(self._CHILD_KEY, {})
+            children = self._child_metrics()
+            merged: Dict[str, Any] = {}
+            for name in {**ca, **cb}:
+                child, x, y = children.get(name), ca.get(name), cb.get(name)
+                if child is None or x is None or y is None:
+                    merged[name] = x if x is not None else y
+                elif isinstance(child, list):
+                    merged[name] = [c.merge_states(xs, ys) for c, xs, ys in zip(child, x, y)]
+                else:
+                    merged[name] = child.merge_states(x, y)
+            out[self._CHILD_KEY] = merged
         for k in self._defaults:
             fx = self._reductions[k]
             va, vb = a[k], b[k]
             if isinstance(self._defaults[k], list):
                 out[k] = list(va) + list(vb)
-            elif fx == "sum":
-                out[k] = va + vb
-            elif fx == "min":
-                out[k] = torch.minimum(va, vb)
-            elif fx == "max":
-                out[k] = torch.maximum(va, vb)
+            elif fx in self._MASKED_FX:
+                out[k] = combine(va, vb, fx)
             elif fx == "cat":
                 out[k] = torch.cat([torch.atleast_1d(va), torch.atleast_1d(vb)], dim=0)
             else:
@@ -352,9 +473,10 @@ class Metric(nn.Module):
     def _states_mergeable(self) -> bool:
         if self.full_state_update is not None:
             return not self.full_state_update
-        return all(
-            isinstance(self._defaults[k], list) or fx in _MERGEABLE_FX for k, fx in self._reductions.items()
-        )
+        if not all(isinstance(self._defaults[k], list) or fx in _MERGEABLE_FX for k, fx in self._reductions.items()):
+            return False
+        # a wrapper is only delta-mergeable if every nested metric is
+        return all(c._states_mergeable for _, c in self._child_paths())
 
     # ------------------------------------------------------------- masked update
 
@@ -384,6 +506,11 @@ class Metric(nn.Module):
                 return f"state {k!r} is a list (cat/gather) state"
             if self._reductions[k] not in self._MASKED_FX:
                 return f"state {k!r} has dist_reduce_fx={self._reductions[k]!r}"
+        for name, child in self._child_metrics().items():
+            for c in child if isinstance(child, list) else [child]:
+                r = c._delta_masked_reason() if type(c).update_state_masked is Metric.update_state_masked else None
+                if r is not None:
+                    return f"nested metric {name!r}: {r}"
         return None
 
     def _scan_masked_reason(self) -> Optional[str]:
@@ -395,6 +522,10 @@ class Metric(nn.Module):
         for k, v in self._defaults.items():
             if isinstance(v, list):
                 return f"state {k!r} is a list (cat/gather) state with no static shape"
+        for name, child in self._child_metrics().items():
+            for c in child if isinstance(child, list) else [child]:
+                if c.masked_update_strategy() is None:
+                    return f"nested metric {name!r}: {c._scan_masked_reason()}"
         return None
 
     def masked_update_unsupported_reason(self) -> Optional[str]:
@@ -467,14 +598,13 @@ class Metric(nn.Module):
         tensor; value checks are off inside :func:`traced_rows`), so it runs
         inside graph capture; its cost grows with the bucket's rows."""
         batched, in_dims, treedef = self._split_batch_leaves(args, kwargs, mask.shape[0])
-        carry = {k: as_input(v, self.device) for k, v in state.items()}
+        carry = pytree.tree_map(lambda v: as_input(v, self.device), state)
         with traced_rows():
             for i in range(mask.shape[0]):
                 row = [b[i] if d == 0 else b for b, d in zip(batched, in_dims)]
                 a, kw = pytree.tree_unflatten(row, treedef)
                 new = self.update_state(carry, *a, **kw)
-                m = mask[i]
-                carry = {k: torch.where(m, new[k], v).to(v.dtype) for k, v in carry.items()}
+                carry = pytree.tree_map(functools.partial(_keep_where, mask[i]), new, carry)
         return carry
 
     def _masked_reduce_into(self, state: Dict[str, Any], stacked: Dict[str, Any], mask: Tensor) -> Dict[str, Any]:
@@ -482,6 +612,10 @@ class Metric(nn.Module):
         (the CUDA fold kernel on the card, its plain version on the CPU),
         skipping masked-out rows via each reduction's identity."""
         out: Dict[str, Any] = {}
+        if self._CHILD_KEY in stacked:
+            out[self._CHILD_KEY] = self._map_children(
+                lambda c, cs, cd: c._masked_reduce_into(cs, cd, mask), state[self._CHILD_KEY],
+                stacked[self._CHILD_KEY])
         for k in self._defaults:
             fx = self._reductions[k]
             if fx not in self._MASKED_FX:  # pragma: no cover - guarded by masked_update_strategy
@@ -531,6 +665,10 @@ class Metric(nn.Module):
         """Scatter row-stacked deltas into the addressed stream rows of a
         stream-stacked ``state``, masked rows folding into nothing."""
         out: Dict[str, Any] = {}
+        if self._CHILD_KEY in stacked:
+            out[self._CHILD_KEY] = self._map_children(
+                lambda c, cs, cd: c._segment_reduce_into(cs, cd, mask, segment_ids, num_segments),
+                state[self._CHILD_KEY], stacked[self._CHILD_KEY])
         for k in self._defaults:
             fx = self._reductions[k]
             if fx not in self._MASKED_FX:  # pragma: no cover - guarded by segmented_update_unsupported_reason
@@ -548,14 +686,24 @@ class Metric(nn.Module):
     # -------------------------------------------------------- host-derived attributes
 
     def host_compute_attrs(self) -> Dict[str, Any]:
-        """``{name: value}`` of the declared host-derived compute attributes."""
-        return {a: getattr(self, a, None) for a in self._host_derived_compute_attrs}
+        """Flat ``{path: value}`` of the declared host-derived compute
+        attributes of self and nested metrics (``name.attr``,
+        ``name[i].attr``)."""
+        out = {a: getattr(self, a, None) for a in self._host_derived_compute_attrs}
+        for path, child in self._child_paths():
+            out.update({f"{path}.{k}": v for k, v in child.host_compute_attrs().items()})
+        return out
 
     def restore_host_compute_attrs(self, attrs: Dict[str, Any]) -> None:
-        """Inverse of :meth:`host_compute_attrs`; unknown names are ignored."""
+        """Inverse of :meth:`host_compute_attrs`; unknown paths are ignored."""
         for a in self._host_derived_compute_attrs:
             if a in attrs:
                 setattr(self, a, attrs[a])
+        for path, child in self._child_paths():
+            prefix = f"{path}."
+            sub = {k[len(prefix):]: v for k, v in attrs.items() if k.startswith(prefix)}
+            if sub:
+                child.restore_host_compute_attrs(sub)
 
     # ------------------------------------------------------------------ stateful facade
 
@@ -629,6 +777,34 @@ class Metric(nn.Module):
     def clone(self) -> "Metric":
         return deepcopy(self)
 
+    def load_state_dict(self, state_dict: Any, strict: bool = True, assign: bool = False) -> Any:
+        """``nn.Module.load_state_dict`` that also takes the JAX package's
+        ``state_dict()`` (numpy values under the same dotted keys)."""
+        state_dict = {k: torch.from_numpy(np.array(v)) if isinstance(v, (np.ndarray, np.generic)) else v
+                      for k, v in state_dict.items()}
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+    def _apply(self, fn: Callable[[Tensor], Tensor], recurse: bool = True) -> "Metric":
+        """``nn.Module._apply`` (``.to()``, ``.cuda()``, ``.half()``...) over
+        the states, the defaults ``reset`` restores, list states and
+        ``self.device`` alike; nested metrics recurse."""
+        super()._apply(fn, recurse)
+        self._defaults = {k: fn(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
+        for k, v in self._defaults.items():
+            if isinstance(v, list):
+                setattr(self, k, [fn(x) for x in getattr(self, k)])
+        self.device = fn(torch.empty(0, device=self.device)).device
+        return self
+
+    def to_device(self, device: DeviceLike) -> "Metric":
+        """Move all states, defaults and nested metrics to ``device``."""
+        return self.to(resolve_device(device))
+
+    def astype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the floating-point states (and their defaults), nested
+        metrics' too."""
+        return self._apply(lambda t: t.to(dtype) if t.is_floating_point() else t)
+
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep only kwargs the (unwrapped) update accepts."""
         params = inspect.signature(type(self).update).parameters
@@ -665,3 +841,135 @@ class Metric(nn.Module):
 
     def compute(self) -> Any:  # pragma: no cover - abstract
         raise NotImplementedError
+
+    # operator overloads -> CompositionalMetric ------------------------------------------
+    # ``==`` builds a metric too (always truthy): compare metrics with ``is``.
+
+    def __add__(self, other): return CompositionalMetric(torch.add, self, other)
+    def __radd__(self, other): return CompositionalMetric(torch.add, other, self)
+    def __sub__(self, other): return CompositionalMetric(torch.subtract, self, other)
+    def __rsub__(self, other): return CompositionalMetric(torch.subtract, other, self)
+    def __mul__(self, other): return CompositionalMetric(torch.multiply, self, other)
+    def __rmul__(self, other): return CompositionalMetric(torch.multiply, other, self)
+    def __truediv__(self, other): return CompositionalMetric(torch.true_divide, self, other)
+    def __rtruediv__(self, other): return CompositionalMetric(torch.true_divide, other, self)
+    def __floordiv__(self, other): return CompositionalMetric(torch.floor_divide, self, other)
+    def __rfloordiv__(self, other): return CompositionalMetric(torch.floor_divide, other, self)
+    def __mod__(self, other): return CompositionalMetric(torch.remainder, self, other)
+    def __rmod__(self, other): return CompositionalMetric(torch.remainder, other, self)
+    def __pow__(self, other): return CompositionalMetric(torch.pow, self, other)
+    def __rpow__(self, other): return CompositionalMetric(torch.pow, other, self)
+    def __matmul__(self, other): return CompositionalMetric(torch.matmul, self, other)
+    def __rmatmul__(self, other): return CompositionalMetric(torch.matmul, other, self)
+    def __and__(self, other): return CompositionalMetric(torch.bitwise_and, self, other)
+    def __rand__(self, other): return CompositionalMetric(torch.bitwise_and, other, self)
+    def __or__(self, other): return CompositionalMetric(torch.bitwise_or, self, other)
+    def __ror__(self, other): return CompositionalMetric(torch.bitwise_or, other, self)
+    def __xor__(self, other): return CompositionalMetric(torch.bitwise_xor, self, other)
+    def __rxor__(self, other): return CompositionalMetric(torch.bitwise_xor, other, self)
+    def __eq__(self, other): return CompositionalMetric(torch.eq, self, other)  # type: ignore[override]
+    def __ne__(self, other): return CompositionalMetric(torch.ne, self, other)  # type: ignore[override]
+    def __lt__(self, other): return CompositionalMetric(torch.lt, self, other)
+    def __le__(self, other): return CompositionalMetric(torch.le, self, other)
+    def __gt__(self, other): return CompositionalMetric(torch.gt, self, other)
+    def __ge__(self, other): return CompositionalMetric(torch.ge, self, other)
+    def __abs__(self): return CompositionalMetric(torch.abs, self, None)
+    def __neg__(self): return CompositionalMetric(_neg, self, None)
+    def __pos__(self): return CompositionalMetric(torch.abs, self, None)
+    def __invert__(self): return CompositionalMetric(torch.logical_not, self, None)
+    def __getitem__(self, idx): return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: Tensor) -> Tensor:
+    """The reference's ``-metric``: ``-abs(value)``, not a plain negation."""
+    return -torch.abs(x)
+
+
+def _operand(x: Any, device: torch.device) -> Tensor:
+    """A constant operand as a tensor on ``device``, in the JAX package's
+    32-bit types (x64 off): Python and numpy ints become int32, floats
+    float32."""
+    t = as_input(torch.as_tensor(np.asarray(x)) if not isinstance(x, Tensor) else x, device)
+    return t.to(torch.int32) if t.dtype == torch.int64 else t
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic composition of metrics (``2 * p * r / (p + r)``).
+
+    Port of the JAX package's ``CompositionalMetric``. ``update`` and
+    ``reset`` go to the operand metrics, ``compute`` applies ``operator`` to
+    their values; it has no state of its own. A metric operand is a child
+    module (``metric_a``, ``metric_b``), a constant operand a buffer on the
+    composition's device (which ``.to()`` moves). An operand metric that
+    appears twice in a tree is updated once per occurrence, and each
+    occurrence has its own ``"_children"`` subtree, as in the JAX package.
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, int, float, Tensor],
+        metric_b: Union[Metric, int, float, Tensor, None],
+    ) -> None:
+        device = next(m.device for m in (metric_a, metric_b) if isinstance(m, Metric))
+        super().__init__(device=device)
+        self.op = operator
+        for name, operand in (("metric_a", metric_a), ("metric_b", metric_b)):
+            if isinstance(operand, Metric) or operand is None:
+                setattr(self, name, operand)
+            else:
+                self.register_buffer(name, _operand(operand, device), persistent=False)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            if isinstance(self.metric_b, Metric):
+                self._forward_cache = None
+            else:
+                self._forward_cache = self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_called = False
+        self._forward_cache = None
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op_name = getattr(self.op, "__name__", "fn")
+        return f"{type(self).__name__}(\n  {op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"

@@ -5,7 +5,7 @@ here so the plain versions and the CUDA kernels fold masked-out rows with the
 SAME element. The TPU's VMEM block sizing (``block_rows``) has no counterpart:
 the CUDA kernels pick their own launch shapes.
 """
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -28,8 +28,29 @@ def reduce_identity(dtype: torch.dtype, fx: str) -> torch.Tensor:
     return torch.tensor(info.max if fx == "min" else info.min, dtype=dtype)
 
 
+#: int32's sign bit: XOR with it maps the order of uint32 values onto int32's
+SIGN_BIT = -(2**31)
+
+
+def int32_bits(x: torch.Tensor, flip: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
+    """A uint32 tensor as int32 of the same bits. Torch has no uint32 add,
+    select or index kernels, and a two's-complement int32 sum gives a uint32
+    sum's bits; ``flip`` (:data:`SIGN_BIT`, or a per-column row of it and
+    zeros) is XORed in where min/max must order the values as uint32."""
+    x = x.view(torch.int32)
+    return x if flip is None else torch.bitwise_xor(x, flip)
+
+
+def uint32_from_bits(x: torch.Tensor, flip: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
+    """Inverse of :func:`int32_bits`."""
+    return (x if flip is None else torch.bitwise_xor(x, flip)).view(torch.uint32)
+
+
 def combine(a: torch.Tensor, b: torch.Tensor, fx: str) -> torch.Tensor:
     """Fold two partial reductions (the between-blocks combine)."""
+    if a.dtype == torch.uint32:
+        flip = None if fx == "sum" else SIGN_BIT
+        return uint32_from_bits(combine(int32_bits(a, flip), int32_bits(b.to(torch.uint32), flip), fx), flip)
     if fx == "sum":
         return a + b
     if fx == "min":
@@ -38,11 +59,12 @@ def combine(a: torch.Tensor, b: torch.Tensor, fx: str) -> torch.Tensor:
 
 
 def supported_dtype(dtype: torch.dtype) -> bool:
-    """Dtypes the CUDA fold kernel takes: f32/bf16 floats and int32.
+    """Dtypes the CUDA fold kernels take: f32/bf16 floats and the 32-bit
+    ints (uint32 as its int32 bits, :func:`int32_bits`).
 
     Sub-32-bit ints and bool are excluded as on the TPU: a sum over them
     promotes, and a fixed-dtype kernel cannot reproduce that promotion."""
-    return dtype in (torch.float32, torch.bfloat16, torch.int32)
+    return dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint32)
 
 
 def as_2d_rows(rows: torch.Tensor, n_rows: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:

@@ -23,6 +23,10 @@ int32, so neither ``MAX_HIST_LENGTH`` nor ``_HIST_EXACT_ROWS`` applies, and no
 kernel needs VMEM block sizing: the segment kernels take every S and F, so the
 ``block_rows``/``VMEM_BLOCK_BYTES``/``num_segments * f * itemsize`` gates are
 gone too.
+
+A uint32 state (``BootStrapper``'s draw counter) folds as its int32 bits
+(``common.int32_bits``), with the sign bit flipped in its min/max columns:
+torch has no uint32 arithmetic kernels, and neither do the CUDA kernels.
 """
 import math
 from typing import NamedTuple, Optional
@@ -30,7 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, as_2d_rows
+from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, SIGN_BIT, as_2d_rows, int32_bits, uint32_from_bits
 from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
 from metrics_tpu_torch.ops.kernels.hist_cuda import INDEX_DTYPES, MASK_DTYPES, WEIGHT_DTYPES, histogram_op
 from metrics_tpu_torch.ops.kernels.megastep_cuda import (
@@ -57,6 +61,9 @@ def fold_rows_masked(state: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor
     if fx not in REDUCE_OPS:
         raise ValueError(f"fold_rows_masked supports {REDUCE_OPS}, got {fx!r}")
     rows = rows.to(state.dtype)
+    if state.dtype == torch.uint32:
+        flip = None if fx == "sum" else SIGN_BIT
+        return uint32_from_bits(fold_rows_masked(int32_bits(state, flip), int32_bits(rows, flip), mask, fx), flip)
     if state.device.type != "cuda":
         return fold_rows_ref(state, rows, mask, fx)
     n = int(rows.shape[0])
@@ -87,6 +94,11 @@ def segment_reduce_masked(
     if fx not in REDUCE_OPS:
         raise ValueError(f"segment_reduce_masked supports {REDUCE_OPS}, got {fx!r}")
     rows = rows.to(state.dtype)
+    if state.dtype == torch.uint32:
+        flip = None if fx == "sum" else SIGN_BIT
+        out = segment_reduce_masked(int32_bits(state, flip), int32_bits(rows, flip), mask, segment_ids,
+                                    num_segments, fx)
+        return uint32_from_bits(out, flip)
     if state.device.type != "cuda":
         return segment_reduce_ref(state, rows, mask, segment_ids, num_segments, fx)
     n = int(rows.shape[0])
@@ -128,6 +140,17 @@ def _op_row_info(op_row, f: int, device: torch.device) -> OpRow:
     return OpRow(torch.from_numpy(op_np.copy()).to(device), uniform)
 
 
+def _order_flip(op_row: OpRow):
+    """What :func:`~metrics_tpu_torch.ops.kernels.common.int32_bits` XORs into
+    a uint32 buffer under ``op_row``: nothing for sum columns, the sign bit
+    for min/max columns."""
+    if op_row.uniform == "sum":
+        return None
+    if op_row.uniform is not None:
+        return SIGN_BIT
+    return (op_row.ops != 0).to(torch.int32) * SIGN_BIT
+
+
 def megastep_fold(state_buf: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor, op_row) -> torch.Tensor:
     """Whole-arena masked fold: ONE launch folds every leaf of a dtype.
 
@@ -144,6 +167,10 @@ def megastep_fold(state_buf: torch.Tensor, rows: torch.Tensor, mask: torch.Tenso
         return state_buf
     f = int(rows.shape[1])
     ops, uniform = _op_row_info(op_row, f, state_buf.device)
+    if state_buf.dtype == torch.uint32:
+        row = OpRow(ops, uniform)
+        flip = _order_flip(row)
+        return uint32_from_bits(megastep_fold(int32_bits(state_buf, flip), int32_bits(rows, flip), mask, row), flip)
     if state_buf.device.type != "cuda":
         return megastep_fold_ref(state_buf.reshape(1, f), rows, mask, ops).reshape(state_buf.shape)
     out = megastep_fold_cuda(state_buf.reshape(f).contiguous(), rows.contiguous(),
@@ -176,6 +203,12 @@ def megastep_segment(
     f = int(state_buf.shape[-1])
     dev = state_buf.device
     ops, uniform = _op_row_info(op_row, f, dev)
+    if state_buf.dtype == torch.uint32:  # never quantized: only float columns are
+        row = OpRow(ops, uniform)
+        flip = _order_flip(row)
+        out = megastep_segment(int32_bits(state_buf, flip), int32_bits(rows, flip), mask, segment_ids,
+                               num_segments, row)
+        return uint32_from_bits(out, flip)
     q8c = None
     if q8 is not None:
         flags, codes, scales, qcol = q8

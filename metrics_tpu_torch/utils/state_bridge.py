@@ -5,8 +5,10 @@ A state accumulated in ``metrics_tpu`` (taken to the host with
 :func:`state_from_numpy`, so a stream begun on a TPU can be finished and
 computed on the card; :func:`state_to_numpy` goes the other way. Each leaf
 keeps the dtype and shape the port's metric registered (int32 counts, f32
-sums) and is checked against them. The JAX package's host-derived compute
-attributes (``Accuracy.mode``) travel separately, through ``host_attrs``.
+sums) and is checked against them; a wrapper's or a composition's nested
+metrics cross in their ``"_children"`` subtree. The JAX package's
+host-derived compute attributes (``Accuracy.mode``) travel separately,
+through ``host_attrs``.
 
 An ENGINE's state crosses the same way: :func:`engine_state_from_numpy` seats
 a JAX engine's packed arena (per-dtype numpy buffers) and, for the paged
@@ -37,10 +39,18 @@ def _leaf_from_numpy(name: str, value: Any, default: Any, device: torch.device) 
 
 
 def _metric_state(metric: Metric, np_state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    missing = sorted(set(metric._defaults) - set(np_state))
+    """``np_state`` seated as ``metric``'s state, nested metrics' ``"_children"``
+    subtree included."""
+    has_children = bool(metric._child_metrics())
+    missing = sorted(set(metric._defaults) - set(np_state)) + (
+        [metric._CHILD_KEY] if has_children and metric._CHILD_KEY not in np_state else [])
     if missing:
         raise KeyError(f"{type(metric).__name__}: state has no {missing}")
-    return {k: _leaf_from_numpy(k, np_state[k], d, device) for k, d in metric._defaults.items()}
+    state = {k: _leaf_from_numpy(k, np_state[k], d, device) for k, d in metric._defaults.items()}
+    if has_children:
+        state[metric._CHILD_KEY] = metric._map_children(lambda c, cs: _metric_state(c, cs, device),
+                                                         np_state[metric._CHILD_KEY])
+    return state
 
 
 def _port_value(value: Any) -> Any:

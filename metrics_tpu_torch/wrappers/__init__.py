@@ -1,0 +1,6 @@
+from metrics_tpu_torch.wrappers.bootstrapping import BootStrapper
+from metrics_tpu_torch.wrappers.minmax import MinMaxMetric
+from metrics_tpu_torch.wrappers.multioutput import MultioutputWrapper
+from metrics_tpu_torch.wrappers.tracker import MetricTracker
+
+__all__ = ["BootStrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper"]

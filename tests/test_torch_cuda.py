@@ -912,3 +912,141 @@ def test_binned_recall_at_fixed_precision_counts_on_the_binned_kernel(cuda):
         assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
     for g, w in zip(card.compute(), cpu.compute()):
         assert torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------------ wrappers and nested metrics
+
+def _wrapper_collection(device, heads=False):
+    from metrics_tpu_torch import Accuracy, BootStrapper, MetricCollection, MultioutputWrapper, Precision, Recall
+
+    if heads:
+        return MetricCollection({"multi": MultioutputWrapper(Accuracy(num_classes=4, device=device), num_outputs=2,
+                                                             remove_nans=False)})
+    p, r = Precision(num_classes=4, average="macro", device=device), Recall(num_classes=4, average="macro",
+                                                                             device=device)
+    return MetricCollection({
+        "acc": Accuracy(device=device),
+        "f1_composed": 2 * p * r / (p + r),
+        "boot": BootStrapper(Accuracy(num_classes=4, device=device), num_bootstraps=3,
+                             sampling_strategy="multinomial", seed=0),
+    })
+
+
+def _make_wrapper_engine(kind, device, capture, cache=None, heads=False):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    cfg = EngineConfig(buckets=(16, 64), kernel_backend="megastep")
+    coll = _wrapper_collection(device, heads)
+    if kind == "streaming":
+        eng = StreamingEngine(coll, cfg, aot_cache=cache)
+    elif kind == "unsharded":
+        eng = MultiStreamEngine(coll, 12, cfg, aot_cache=cache)
+    else:
+        eng = MultiStreamEngine(coll, 12, cfg, stream_shard=True, resident_streams=3, aot_cache=cache)
+    eng._capture = capture
+    return eng
+
+
+def _two_head_traffic(seed, n_batches=16):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        n = int(rng.randint(1, 40))
+        p = rng.rand(n, 4, 2).astype(np.float32)
+        out.append((int(rng.randint(0, 12)), p / p.sum(1, keepdims=True), rng.randint(0, 4, (n, 2))))
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("heads", [False, True], ids=["wrappers", "multioutput"])
+@pytest.mark.parametrize("kind", ["streaming", "unsharded", "paged"])
+def test_captured_wrapper_step_is_bit_equal_to_uncaptured(cuda, kind, heads):
+    """Wrapped and composed members through the captured engines: bit-equal
+    to the uncaptured twin, K5 (megastep) or K6 (paged) launched; every
+    bootstrap replica equals the plain accuracy and ``draw_count`` counts the
+    rows."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda, megastep_segment_cuda
+
+    traffic = _two_head_traffic(6) if heads else _engine_traffic(6)
+    k5, k6 = megastep_fold_cuda.launches, megastep_segment_cuda.launches
+    captured = _make_wrapper_engine(kind, cuda, True, heads=heads)
+    got = _drive(captured, traffic, True, cuda)
+    launched = {"streaming": megastep_fold_cuda.launches - k5, "paged": megastep_segment_cuda.launches - k6}
+    assert launched.get(kind, 1) > 0 and captured.stats.warmup_steps >= 1
+    want = _drive(_make_wrapper_engine(kind, cuda, False, heads=heads), traffic, True, cuda)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if heads:
+        return
+    states = [got] if kind == "streaming" else got
+    rows = sum(len(t) for _, _, t in traffic)
+    assert sum(int(s["boot"]["draw_count"].view(torch.int32)) for s in states) == rows
+    for s in states:
+        for child in s["boot"]["_children"]["metrics"]:
+            for k, v in s["acc"].items():
+                assert torch.equal(child[k], v)
+
+
+@pytest.mark.requires_cuda
+def test_warm_twin_wrapper_engine_captures_nothing(cuda):
+    """The fingerprint of a BootStrapper leaves its generators out: a twin
+    over an equally configured collection replays the first one's graphs."""
+    from metrics_tpu_torch.engine import AotCache
+
+    cache = AotCache()
+    traffic = _engine_traffic(7)
+    first = _drive(_make_wrapper_engine("streaming", cuda, True, cache), traffic, True, cuda)
+    misses = cache.misses
+    twin = _make_wrapper_engine("streaming", cuda, True, cache)
+    second = _drive(twin, traffic, True, cuda)
+    assert misses >= 1 and cache.misses == misses and twin.stats.warmup_steps == 0
+    for g, w in zip(_flat(second), _flat(first)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fx", ["sum", "min", "max"])
+def test_uint32_states_fold_on_their_int32_bits(cuda, fx):
+    """K1, K4, K5 and K6 fold a uint32 leaf as its int32 bits (sign bit
+    flipped for min/max): equal to the plain versions on the CPU."""
+    from metrics_tpu_torch.ops.kernels import megastep_fold, megastep_segment, segment_reduce_masked
+
+    rng = np.random.RandomState(1)
+    rows = torch.from_numpy(rng.randint(0, 2**32, (300, 7), dtype=np.uint64).astype(np.uint32))
+    state = torch.from_numpy(rng.randint(0, 2**32, (7,), dtype=np.uint64).astype(np.uint32))
+    mask = torch.from_numpy(rng.rand(300) > 0.2)
+    ids = torch.from_numpy(rng.randint(0, 3, 300).astype(np.int32))
+    ops = np.full((7,), ("sum", "min", "max").index(fx), np.int32)
+    ops[0] = 0  # a mixed op row
+    on = lambda *xs: [x.to(cuda) for x in xs]  # noqa: E731
+    pairs = [
+        (fold_rows_masked(*on(state, rows, mask), fx), fold_rows_masked(state, rows, mask, fx)),
+        (megastep_fold(*on(state, rows, mask), ops), megastep_fold(state, rows, mask, ops)),
+        (segment_reduce_masked(*on(state.expand(3, -1).clone(), rows, mask, ids), 3, fx),
+         segment_reduce_masked(state.expand(3, -1).clone(), rows, mask, ids, 3, fx)),
+        (megastep_segment(*on(state.expand(3, -1).clone(), rows, mask, ids), 3, ops),
+         megastep_segment(state.expand(3, -1).clone(), rows, mask, ids, 3, ops)),
+    ]
+    for got, want in pairs:
+        assert got.dtype == torch.uint32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.requires_cuda
+def test_to_device_moves_states_and_defaults(cuda):
+    """``to_device("cpu")`` then ``reset()`` keeps the states on the CPU (the
+    defaults moved too), through nested metrics and constant operands."""
+    from metrics_tpu_torch import Accuracy, MinMaxMetric
+
+    mm, comp = MinMaxMetric(Accuracy(device=cuda)), Accuracy(device=cuda) * 2.0
+    for m in (mm, comp):
+        m.update(torch.tensor([0, 1, 1], device=cuda), torch.tensor([0, 1, 0], device=cuda))
+        m.to_device("cpu")
+        m.reset()
+        m.update(torch.tensor([0, 1]), torch.tensor([0, 1]))
+    inner = mm._base_metric
+    assert mm.device.type == inner.device.type == comp.device.type == comp.metric_b.device.type == "cpu"
+    assert inner.tp.device.type == "cpu" and all(v.device.type == "cpu" for v in inner._defaults.values())
+    assert float(mm.compute()["raw"]) == 1.0 and float(comp.compute()) == 2.0
+    mm.to(cuda)
+    mm.reset()
+    assert inner.tp.device.type == "cuda" and mm.min_val.device.type == "cuda"
