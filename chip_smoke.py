@@ -107,7 +107,29 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    twins and to numpy (each occurrence of a shared operand counts every row
    twice; each replica sees each row once; ``draw_count`` counts the rows);
    (c) both engines refuse ``MinMaxMetric`` with the JAX package's reason,
-   and a masked update of ``MultioutputWrapper(remove_nans=True)`` raises.
+   and a masked update of ``MultioutputWrapper(remove_nans=True)`` raises;
+13. regression and pairwise on 65 536 seeded rows (gamma(2, 1) targets, the
+   targets times log-normal noise as predictions), their launch counts set
+   to 0 before them: (a) each of the 11 regression metrics over 4 batches
+   and each functional over every row, Tweedie at powers 0, 1, 1.5, 2 and
+   3, against float64 numpy: every f32 sum within 2^-24 (2 n Σ|term| +
+   8 Σ parts) of the exact one, counts exact, each value within 1e-6
+   relative plus the move its sums' bounds allow; Pearson (also as Chan's
+   fold of 4 hand-stacked shards), Spearman and the cosine similarity within
+   1e-5 of scipy and numpy; the eight served members through the masked
+   bucket step (K1), padded with rows outside every domain; (b) the eight
+   members whose value is served (MSE, RMSE, MAE, MSLE, MAPE, SMAPE,
+   ExplainedVariance, Tweedie at 1.5) and R2Score alone through phase 7's
+   captured megastep engine (two K5 a step), phase 8's unsharded engine (K4
+   per leaf) and phase 9a's paged one (two K6 a step), one batch a step,
+   each first over an uncaptured twin's prefix (bit-equal), every stream's
+   states within their bounds of the per-stream oracle, the values of
+   ``result()`` and of one timed ``results()`` against the oracle's, and
+   R2Score's served ``result()``/``results()`` raising; a profile of one
+   1024-row bucket; (c) the engines refuse Pearson, Spearman and
+   CosineSimilarity with the JAX package's reasons; (d) the pairwise
+   cosine, linear and euclidean at (8192, 512) x (8192, 512) and manhatten
+   at (1024, 512) x (1024, 512) against float64 numpy on sampled rows.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -121,9 +143,9 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10, 11 and 12 and read after it;
+and set to 0 again before each of phases 10 to 13 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
-K3; phase 12: K2, K3, K5 and K6), and K2 must launch once per batch and per step
+K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -148,6 +170,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1212,14 +1235,18 @@ def profile_bucket(dev, preds, target, make=make_collection):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e6)
         wall_us = float(np.median(walls[1:]))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device-side entries only (kernels, memcpys): a CPU op's self device
-        # time repeats the time of the kernels it launched
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = {e.key: e.self_device_time_total for e in device}
-        total = float(sum(busy.values()))
+        for _ in range(3):  # a trace now and then comes back without its device events: take another
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            # device-side entries only (kernels, memcpys): a CPU op's self device
+            # time repeats the time of the kernels it launched
+            device = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            busy = {e.key: e.self_device_time_total for e in device}
+            total = float(sum(busy.values()))
+            if total > 0:
+                break
         # device_ops: distinct kernel names; device_launches: every kernel, memset and copy
         out[name] = {"wall_us": wall_us, "device_busy_us": total, "device_busy_share": total / wall_us,
                      "device_ops": len(busy), "device_launches": sum(e.count for e in device),
@@ -2364,6 +2391,531 @@ def wrapper_phase(dev, preds, target, preds_np, target_np):
     return out
 
 
+# ---------------------------------------------------- phase 13: regression and pairwise
+
+TWEEDIE_POWERS = (0.0, 1.0, 1.5, 2.0, 3.0)
+SERVED_POWER = 1.5
+MAPE_EPS = 1.17e-06
+U32 = 2.0 ** -24  # the f32 unit roundoff
+CORR_TOL = 1e-5
+COSINE_DIM = 16
+REG_SHARDS = 4
+# the uncaptured twins' prefixes (each engine's captured run goes on past it)
+REG_TWIN_BATCHES = {"streaming_megastep": 24, "multistream": 24, "paged": 240}
+PAIR_ROWS, PAIR_DIM, MANHATTEN_ROWS, PAIR_SAMPLE = 8192, 512, 1024, 256
+REG_REFUSALS = {  # the JAX package's reasons
+    ("pearson", "streaming"): "full_state_update metrics read the accumulated state in update; a row fold is not exact",
+    ("pearson", "multistream"): "full_state_update metrics read the accumulated state in update; row deltas are not exact",
+    ("list", "streaming"): "state 'preds' is a list (cat/gather) state with no static shape",
+    ("list", "multistream"): "state 'preds' is a list (cat/gather) state",
+}
+R2_REASON = "R2Score's compute reads n_obs on the host"
+
+
+def regression_rows(dev):
+    """Phase 13's seeded rows: gamma(2, 1) targets, and the targets times
+    log-normal(0, 0.3) noise as predictions. Both are positive, so the log
+    error and every Tweedie power are defined."""
+    rng = np.random.RandomState(SEED + 13)
+    t = rng.gamma(2.0, 1.0, N_ROWS).astype(np.float32)
+    p = (t * np.exp(rng.normal(0.0, 0.3, N_ROWS))).astype(np.float32)
+    return torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev), p, t
+
+
+def make_regression_collection(device):
+    """The eight members whose value the engines serve (phase 13(b))."""
+    from metrics_tpu_torch import (ExplainedVariance, MeanAbsoluteError, MeanAbsolutePercentageError,
+                                   MeanSquaredError, MeanSquaredLogError, MetricCollection,
+                                   SymmetricMeanAbsolutePercentageError, TweedieDevianceScore)
+
+    return MetricCollection({
+        "mse": MeanSquaredError(device=device),
+        "rmse": MeanSquaredError(squared=False, device=device),
+        "mae": MeanAbsoluteError(device=device),
+        "msle": MeanSquaredLogError(device=device),
+        "mape": MeanAbsolutePercentageError(device=device),
+        "smape": SymmetricMeanAbsolutePercentageError(device=device),
+        "explained_variance": ExplainedVariance(device=device),
+        "tweedie": TweedieDevianceScore(power=SERVED_POWER, device=device),
+    })
+
+
+def make_r2_collection(device):
+    """R2Score alone: its updates serve, its value does not."""
+    from metrics_tpu_torch import MetricCollection, R2Score
+
+    return MetricCollection({"r2": R2Score(device=device)})
+
+
+def tweedie_parts(p, t, power):
+    """The float64 deviance per row at ``power``, and the magnitude of the
+    parts each is computed from (what its f32 rounding scales with)."""
+    if power == 0:
+        d = (t - p) ** 2
+        return d, d
+    if power == 1:
+        a = t * np.log(t / p)
+        return 2 * (a + p - t), 2 * (np.abs(a) + p + t)
+    if power == 2:
+        a = np.log(p / t)
+        return 2 * (a + t / p - 1), 2 * (np.abs(a) + t / p + 1)
+    t1 = t ** (2 - power) / ((1 - power) * (2 - power))
+    t2 = t * p ** (1 - power) / (1 - power)
+    t3 = p ** (2 - power) / (2 - power)
+    return 2 * (t1 - t2 + t3), 2 * (np.abs(t1) + np.abs(t2) + np.abs(t3))
+
+
+def regression_terms(p, t, power=SERVED_POWER):
+    """Per row, every state of the served members and of R2Score in float64:
+    ``(term, parts)`` for an f32 sum (``parts`` bounds the term's own
+    rounding), a plain array for an integer count."""
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    d = p - t
+    lp, lt = np.log1p(p), np.log1p(t)
+    ld = lp - lt
+    ones = np.ones_like(p)
+    ape = np.abs(d) / np.maximum(np.abs(t), MAPE_EPS)
+    sape = 2 * np.abs(d) / np.maximum(np.abs(t) + np.abs(p), MAPE_EPS)
+    dev, parts = tweedie_parts(p, t, power)
+    sq = (d * d, d * d)
+    return {
+        "mse": {"sum_squared_error": sq, "total": ones},
+        "rmse": {"sum_squared_error": sq, "total": ones},
+        "mae": {"sum_abs_error": (np.abs(d), np.abs(d)), "total": ones},
+        "msle": {"sum_squared_log_error": (ld * ld, 2 * np.abs(ld) * (np.abs(lp) + np.abs(lt) + np.abs(ld))),
+                 "total": ones},
+        "mape": {"sum_abs_per_error": (ape, ape), "total": (ones, ones)},
+        "smape": {"sum_abs_per_error": (sape, sape), "total": (ones, ones)},
+        "explained_variance": {"sum_error": (-d, np.abs(d)), "sum_squared_error": sq, "sum_target": (t, t),
+                               "sum_squared_target": (t * t, t * t), "n_obs": (ones, ones)},
+        "tweedie": {"sum_deviance_score": (dev, parts), "num_observations": ones},
+        "r2": {"sum_squared_error": (t * t, t * t), "sum_error": (t, t), "residual": sq, "total": ones},
+    }
+
+
+def regression_oracle(p, t, groups=None, num_groups=1, power=SERVED_POWER):
+    """Every state's float64 sum, per group of rows (``groups``: each row's
+    stream; None: one group), as ``{member: {state: (sum, bound)}}``; an
+    integer count's bound is 0. An f32 sum of n terms is within
+    2^-24 (2 n Σ|term| + 8 Σ parts) of the exact one: the reassociation
+    bound of the masked folds, plus each term's own rounding."""
+    groups = np.zeros(len(p), np.int64) if groups is None else groups
+    n = np.bincount(groups, minlength=num_groups).astype(np.float64)
+    out = {}
+    for member, states in regression_terms(p, t, power).items():
+        out[member] = {}
+        for name, v in states.items():
+            if isinstance(v, tuple):
+                term, parts = v
+                s = np.bincount(groups, weights=term, minlength=num_groups)
+                mag = np.bincount(groups, weights=np.abs(term), minlength=num_groups)
+                par = np.bincount(groups, weights=parts, minlength=num_groups)
+                out[member][name] = (s, U32 * (2 * n * mag + 8 * par))
+            else:
+                out[member][name] = (np.bincount(groups, weights=v, minlength=num_groups), np.zeros(num_groups))
+    return out
+
+
+def check_regression_states(state, oracle, what):
+    """Every leaf of ``state`` (stream-stacked or not) within its oracle bound;
+    integer counts exact."""
+    errs = {}
+    for member, states in oracle.items():
+        if member not in state:
+            continue
+        for name, (want, bound) in states.items():
+            got = state[member][name].detach().double().cpu().numpy().reshape(len(want))
+            err = np.abs(got - want)
+            if state[member][name].is_floating_point():
+                check(np.all(err <= bound), f"{what}: {member}.{name} err {err.max()} over bound {bound.max()}")
+            else:
+                check(np.array_equal(got, want), f"{what}: {member}.{name} count differs")
+            errs[f"{member}.{name}"] = float(err.max()) if err.size else 0.0
+    return errs
+
+
+def _ev(s):
+    n = s["n_obs"]
+    num = s["sum_squared_error"] / n - (s["sum_error"] / n) ** 2
+    den = s["sum_squared_target"] / n - (s["sum_target"] / n) ** 2
+    return np.where((num != 0) & (den != 0), 1 - num / np.where(den != 0, den, 1), np.where(num != 0, 0.0, 1.0))
+
+
+def _r2(s):
+    n = s["total"]
+    return 1 - s["residual"] / (s["sum_squared_error"] - s["sum_error"] * s["sum_error"] / n)
+
+
+REG_VALUES = {
+    "mse": lambda s: s["sum_squared_error"] / s["total"],
+    "rmse": lambda s: np.sqrt(s["sum_squared_error"] / s["total"]),
+    "mae": lambda s: s["sum_abs_error"] / s["total"],
+    "msle": lambda s: s["sum_squared_log_error"] / s["total"],
+    "mape": lambda s: s["sum_abs_per_error"] / s["total"],
+    "smape": lambda s: s["sum_abs_per_error"] / s["total"],
+    "explained_variance": _ev,
+    "tweedie": lambda s: s["sum_deviance_score"] / s["num_observations"],
+    "r2": _r2,
+}
+
+
+def regression_values(oracle):
+    """Each member's value from its oracle sums, with the slack its f32
+    compute may take: the value's move under each sum moved by its bound,
+    plus 8 roundings of the intermediates the explained variance and R2
+    subtract (their cancellation). Returns ``{member: (value, slack)}``."""
+    out = {}
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for member, states in oracle.items():
+            s = {k: v for k, (v, _) in states.items()}
+            fn = REG_VALUES[member]
+            value = fn(s)
+            slack = np.zeros_like(value)
+            for k, (v, b) in states.items():
+                move = np.zeros_like(value)
+                for sign in (1, -1):
+                    move = np.maximum(move, np.nan_to_num(np.abs(fn({**s, k: v + sign * b}) - value)))
+                slack = slack + move
+            n = s.get("n_obs", s.get("total"))
+            if member == "explained_variance":
+                a, b = s["sum_squared_error"] / n, (s["sum_error"] / n) ** 2
+                c, e = s["sum_squared_target"] / n, (s["sum_target"] / n) ** 2
+                slack = slack + 8 * U32 * np.nan_to_num((a + b) / np.abs(c - e) + np.abs(a - b) * (c + e) / (c - e) ** 2)
+            if member == "r2":
+                ss, se, rss = s["sum_squared_error"], s["sum_error"], s["residual"]
+                tss = ss - se * se / n
+                slack = slack + 8 * U32 * np.nan_to_num(rss * (ss + se * se / n) / tss ** 2 + np.abs(rss / tss))
+            out[member] = (value, slack)
+    return out
+
+
+def check_regression_values(values, oracle_values, what):
+    """``values`` (``{member: tensor}``, stream-stacked or not) within 1e-6
+    relative plus 1e-6 of the oracle's, plus its slack; equal NaNs agree
+    (an untouched stream's 0/0)."""
+    worst = {}
+    for member, got in values.items():
+        want, slack = oracle_values[member]
+        g = np.asarray([float(x) for x in got], np.float64) if isinstance(got, list) else \
+            got.detach().double().cpu().numpy().reshape(len(want))
+        err = np.abs(g - want)
+        ok = (err <= 1e-6 * np.abs(want) + 1e-6 + slack) | (np.isnan(g) & np.isnan(want))
+        check(np.all(ok), f"{what}: {member} {g[~ok][:3]} vs {want[~ok][:3]} (slack {slack[~ok][:3]})")
+        worst[member] = float(np.nanmax(np.where(np.isnan(err), 0, err))) if err.size else 0.0
+    return worst
+
+
+def regression_eager(dev, p, t, pn, tn):
+    """Phase 13(a): each regression metric over 4 batches and each functional
+    over all rows on the card, against float64 numpy (scipy's correlations);
+    Tweedie at every power; Pearson's Chan fold of 4 hand-stacked shards; the
+    served collection through the masked bucket step (K1), padded with rows
+    outside every domain."""
+    from scipy import stats
+
+    import metrics_tpu_torch.functional as F
+    from metrics_tpu_torch import CosineSimilarity, PearsonCorrCoef, R2Score, SpearmanCorrCoef, TweedieDevianceScore
+
+    out = {}
+    t0 = time.perf_counter()
+    batches = [(lo, lo + BATCH) for lo in range(0, N_ROWS, BATCH)]
+    oracle = regression_oracle(pn, tn)
+    want = regression_values(oracle)
+    # the served members and R2Score
+    coll, r2 = make_regression_collection(dev), R2Score(device=dev)
+    for lo, hi in batches:
+        coll.update(p[lo:hi], t[lo:hi])
+        r2.update(p[lo:hi], t[lo:hi])
+    state = {k: m._pack_state() for k, m in coll.items(keep_base=True)}
+    state["r2"] = r2._pack_state()
+    out["state_err"] = check_regression_states(state, oracle, "eager")
+    values = {k: v for k, v in coll.compute().items()}
+    values["r2"] = r2.compute()
+    out["value_err"] = check_regression_values(values, want, "eager")
+    out["values"] = {k: float(v) for k, v in values.items()}
+    # the functionals over every row at once
+    fvalues = {"mse": F.mean_squared_error(p, t), "rmse": F.mean_squared_error(p, t, squared=False),
+               "mae": F.mean_absolute_error(p, t), "msle": F.mean_squared_log_error(p, t),
+               "mape": F.mean_absolute_percentage_error(p, t), "smape": F.symmetric_mean_absolute_percentage_error(p, t),
+               "explained_variance": F.explained_variance(p, t), "r2": F.r2_score(p, t),
+               "tweedie": F.tweedie_deviance_score(p, t, power=SERVED_POWER)}
+    out["functional_err"] = check_regression_values(fvalues, want, "functional")
+    # Tweedie at every power, metric and functional
+    tweedie = {}
+    for power in TWEEDIE_POWERS:
+        sub = {"tweedie": regression_oracle(pn, tn, power=power)["tweedie"]}
+        m = TweedieDevianceScore(power=power, device=dev)
+        for lo, hi in batches:
+            m.update(p[lo:hi], t[lo:hi])
+        check_regression_states({"tweedie": m._pack_state()}, sub, f"tweedie power {power}")
+        w = regression_values(sub)
+        check_regression_values({"tweedie": m.compute()}, w, f"tweedie power {power}")
+        check_regression_values({"tweedie": F.tweedie_deviance_score(p, t, power=power)}, w,
+                                f"tweedie functional power {power}")
+        tweedie[str(power)] = float(m.compute())
+    out["tweedie"] = tweedie
+    # the correlations, against scipy in float64
+    p64, t64 = pn.astype(np.float64), tn.astype(np.float64)
+    pearson_want, spearman_want = stats.pearsonr(p64, t64)[0], stats.spearmanr(p64, t64)[0]
+    pearson, spearman = PearsonCorrCoef(device=dev), SpearmanCorrCoef(device=dev)
+    shards = [PearsonCorrCoef(device=dev) for _ in range(REG_SHARDS)]
+    for (lo, hi), shard in zip(batches, shards):
+        for m in (pearson, spearman, shard):
+            m.update(p[lo:hi], t[lo:hi])
+    stacked = {k: torch.stack([getattr(s, k) for s in shards]) for k in shards[0]._defaults}
+    corr = {"pearson": float(pearson.compute()), "pearson_functional": float(F.pearson_corrcoef(p, t)),
+            "pearson_chan_fold": float(pearson.compute_from(stacked)),
+            "spearman": float(spearman.compute()), "spearman_functional": float(F.spearman_corrcoef(p, t))}
+    for k, v in corr.items():
+        w = spearman_want if k.startswith("spearman") else pearson_want
+        check(abs(v - w) <= CORR_TOL, f"{k}: {v} vs scipy {w}")
+    out["correlations"] = {**corr, "scipy_pearson": float(pearson_want), "scipy_spearman": float(spearman_want)}
+    # cosine similarity of (N / 16, 16) vectors
+    pv, tv = p.reshape(-1, COSINE_DIM), t.reshape(-1, COSINE_DIM)
+    p2, t2 = p64.reshape(-1, COSINE_DIM), t64.reshape(-1, COSINE_DIM)
+    cos = (p2 * t2).sum(1) / np.sqrt((p2 * p2).sum(1) * (t2 * t2).sum(1))
+    cosine = CosineSimilarity(reduction="mean", device=dev)
+    rows = len(pv) // REG_SHARDS
+    for lo in range(0, len(pv), rows):
+        cosine.update(pv[lo:lo + rows], tv[lo:lo + rows])
+    got = {"mean": float(cosine.compute()), "sum": float(F.cosine_similarity(pv, tv))}
+    check(abs(got["mean"] - cos.mean()) <= CORR_TOL, f"cosine mean: {got['mean']} vs {cos.mean()}")
+    check(abs(got["sum"] - cos.sum()) <= CORR_TOL * len(cos), f"cosine sum: {got['sum']} vs {cos.sum()}")
+    none = F.cosine_similarity(pv, tv, reduction="none").double().cpu().numpy()
+    check(np.abs(none - cos).max() <= CORR_TOL, "cosine per row")
+    out["cosine"] = got
+    # the served collection through masked 1024-row buckets (K1), padding outside every domain
+    rng = np.random.RandomState(SEED + 15)
+    mcoll = make_regression_collection(dev)
+    mstate = mcoll.init_state()
+    lo, buckets = 0, 0
+    while lo < N_ROWS:
+        valid = min(int(rng.randint(BUCKET // 2, BUCKET + 1)), N_ROWS - lo)
+        bp = np.full(BUCKET, -1.0, np.float32)  # log1p(-1) = -inf, a negative Tweedie prediction
+        bt = np.full(BUCKET, np.nan, np.float32)
+        bp[:valid], bt[:valid] = pn[lo:lo + valid], tn[lo:lo + valid]
+        mask = np.arange(BUCKET) < valid
+        mstate = mcoll.update_state_masked(mstate, torch.from_numpy(bp).to(dev), torch.from_numpy(bt).to(dev),
+                                           mask=torch.from_numpy(mask).to(dev))
+        lo += valid
+        buckets += 1
+    out["masked_buckets"] = buckets
+    out["masked_state_err"] = check_regression_states(mstate, oracle, "masked buckets")
+    check_regression_values(mcoll.compute_from(mstate), want, "masked buckets")
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def regression_engine(dev, make, kind, capture, items):
+    """A regression engine of ``kind`` (phase 7's megastep ``StreamingEngine``,
+    phase 8's unsharded or phase 9a's paged ``MultiStreamEngine``), one batch
+    a step (``coalesce=1``: grouping follows timing, and f32 sums folded in
+    other groups differ in their last bits), driven over ``items``."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    if kind == "streaming_megastep":
+        eng = StreamingEngine(make(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep", coalesce=1))
+    elif kind == "multistream":
+        eng = MultiStreamEngine(make(dev), MS_STREAMS, EngineConfig(buckets=(256, BUCKET), coalesce=1))
+    else:
+        eng = MultiStreamEngine(make(dev), PAGED_STREAMS, EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep",
+                                                                       coalesce=1),
+                                stream_shard=True, resident_streams=RESIDENT)
+    return eng, regression_run(eng, capture, items)
+
+
+def regression_run(eng, capture, items):
+    return run_engine(eng, capture, items, lambda e, b: e.submit(*b))
+
+
+def regression_served(dev, p, t, pn, tn):
+    """Phase 13(b): the served collection and R2Score alone through three
+    engines, each first over an uncaptured twin's prefix (bit-equal), then
+    on to every row captured; every state (every stream's) within its bound
+    of the float64 oracle; the collection's values from ``result()`` or one
+    timed ``results()`` against the oracle's; R2Score's served value raises."""
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    out = {}
+    layouts = {
+        "streaming_megastep": (ragged_batches(SEED + 2, 16, BUCKET), None),
+        "multistream": (ragged_batches(SEED + 3, 16, BUCKET), MS_STREAMS),
+        "paged": (ragged_batches(SEED + 4, 8, 64), PAGED_STREAMS),
+    }
+    for kind, (batches, streams) in layouts.items():
+        if streams is None:
+            items = [(p[a:b], t[a:b]) for a, b in batches]
+            groups, num = None, 1
+        else:
+            sids = zipf_stream_ids(streams, len(batches), ALPHA, SEED + (3 if kind == "multistream" else 4))
+            items = [(int(s), p[a:b], t[a:b]) for s, (a, b) in zip(sids, batches)]
+            groups = np.repeat(sids.astype(np.int64), [b - a for a, b in batches])
+            num = streams
+        oracle = regression_oracle(pn, tn, groups, num)
+        prefix = REG_TWIN_BATCHES[kind]
+        for name, make in (("regression", make_regression_collection), ("r2", make_r2_collection)):
+            before = counts()
+            eng, first = regression_engine(dev, make, kind, True, items[:prefix])
+            mid = counts()
+            twin, twin_seconds = regression_engine(dev, make, kind, False, items[:prefix])
+            d_twin = delta(mid)
+            same_trees(twin.state(), eng.state(), f"{kind} {name}: uncaptured twin vs captured, {prefix} batches")
+            resumed = counts()
+            rest = regression_run(eng, True, items[prefix:])
+            d = {k: v + mid[k] - before[k] for k, v in delta(resumed).items()}
+            check(eng.stats.kernel_fallbacks_by_reason() == {}, f"{kind} {name} fell back: {eng.stats.kernel_fallbacks}")
+            # every step the card ran: the served ones and each capture's warm-up; two arena dtypes (f32, int32)
+            for e, launched in ((eng, d), (twin, d_twin)):
+                n = e.steps + e.stats.warmup_steps
+                if kind == "streaming_megastep":
+                    ok = launched["megastep_fold"] == 2 * n and launched["fold_rows"] == 0
+                elif kind == "multistream":
+                    ok = launched["segment_reduce"] == e.arena_layout.num_leaves * n
+                else:
+                    ok = launched["megastep_segment"] == 2 * n and e.stats.page_outs > 0
+                check(ok, f"{kind} {name}: {launched} in {n} steps")
+            state = eng.state()
+            entry = {"steps": eng.steps, "batches": len(items), "seconds": first + rest,
+                     "ms_per_step": (first + rest) / eng.steps * 1e3, "launches": d,
+                     "aot": check_cache(eng, f"{kind} {name}"),
+                     "uncaptured_prefix": {"batches": prefix, "steps": twin.steps,
+                                           "ms_per_step": twin_seconds / twin.steps * 1e3},
+                     "state_err": check_regression_states(state, {k: oracle[k] for k in state}, f"{kind} {name}")}
+            if kind == "paged":
+                entry.update(page_ins=eng.stats.page_ins, page_outs=eng.stats.page_outs)
+            want = regression_values({k: oracle[k] for k in state})
+            if name == "r2":
+                for call in ([eng.result] if streams is None else [eng.results, lambda: eng.result(0)]):
+                    try:
+                        call()
+                        raised = None
+                    except MetricsTPUUserError as e:
+                        raised = str(e)
+                    check(raised is not None and R2_REASON in raised, f"{kind}: R2Score's served value did not raise")
+                entry["served_value_raises"] = raised[:80]
+                # the eager compute of the served state works: every stream's would take seconds, so 16 of them
+                r2 = eng._metric["r2"]
+                picked = [0] if streams is None else sorted(int(s) for s in np.unique(groups)[:: max(1, num // 16)])
+                got = [r2.compute_from(eng.state()["r2"] if streams is None else eng.stream_state(sid)["r2"])
+                       for sid in picked]
+                w, slack = want["r2"]
+                entry["value_err_eager"] = check_regression_values(
+                    {"r2": got}, {"r2": (w[picked], slack[picked])}, f"{kind} r2 eager on served state")
+            elif streams is None:
+                entry["value_err"] = check_regression_values(eng.result(), want, f"{kind} result()")
+            else:
+                sample = range(streams) if kind == "multistream" else \
+                    result_sample(eng, {int(s) for s in np.unique(groups)})
+                entry["results"] = results_timing(eng, sample)
+                values = eng.results()
+                stacked = {m: [values[sid][m] for sid in range(streams)] for m in want}
+                entry["value_err"] = check_regression_values(stacked, want, f"{kind} results()")
+            out[f"{kind}_{name}"] = entry
+    return out
+
+
+def regression_refusals(dev):
+    """Phase 13(c): the engines refuse Pearson, Spearman and CosineSimilarity
+    with the JAX package's reasons."""
+    from metrics_tpu_torch import CosineSimilarity, MetricCollection, PearsonCorrCoef, SpearmanCorrCoef
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    out = {}
+    engines = {
+        "streaming": lambda c: StreamingEngine(c, EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep")),
+        "multistream": lambda c: MultiStreamEngine(c, MS_STREAMS, EngineConfig(buckets=(256, BUCKET))),
+        "paged": lambda c: MultiStreamEngine(c, PAGED_STREAMS, EngineConfig(buckets=PAGED_BUCKETS,
+                                                                            kernel_backend="megastep"),
+                                             stream_shard=True, resident_streams=RESIDENT),
+    }
+    for name, cls in (("pearson", PearsonCorrCoef), ("spearman", SpearmanCorrCoef), ("cosine", CosineSimilarity)):
+        for kind, build in engines.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # Spearman's buffer warning
+                coll = MetricCollection({"x": cls(device=dev)})
+            try:
+                build(coll)
+                reason = None
+            except MetricsTPUUserError as e:
+                reason = str(e)
+            want = REG_REFUSALS[("pearson" if name == "pearson" else "list",
+                                 "streaming" if kind == "streaming" else "multistream")]
+            check(reason is not None and reason.endswith(want), f"{kind} engine: {name} refusal {reason!r}")
+            out[f"{name}_{kind}"] = reason
+    return out
+
+
+def pairwise_phase(dev):
+    """Phase 13(d): the four pairwise functions on the card against float64
+    numpy on a sample of rows: cosine, linear and euclidean at
+    (8192, 512) x (8192, 512), manhatten at (1024, 512) x (1024, 512) (its
+    (N, M, d) broadcast holds 2 GiB). An f32 dot product over d terms is
+    within 2 d 2^-24 Σ|x_k y_k| of the exact one; a euclidean distance within
+    the square root of its expansion's bound, or that bound over the
+    distance where smaller; a manhatten distance within (2 d + 2) 2^-24 of
+    its own size."""
+    import metrics_tpu_torch.functional as F
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the products would not be f32")
+    rng = np.random.RandomState(SEED + 16)
+    x = rng.normal(size=(PAIR_ROWS, PAIR_DIM)).astype(np.float32)
+    y = rng.normal(size=(PAIR_ROWS, PAIR_DIM)).astype(np.float32)
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    rows = np.sort(rng.choice(PAIR_ROWS, PAIR_SAMPLE, replace=False))
+    xs, y64 = x[rows].astype(np.float64), y.astype(np.float64)
+    dots, absdots = xs @ y64.T, np.abs(xs) @ np.abs(y64).T
+    nx, ny = (xs * xs).sum(1)[:, None], (y64 * y64).sum(1)[None, :]
+    d = PAIR_DIM
+    out = {}
+
+    picked = torch.from_numpy(rows).to(dev)
+
+    def held(name, fn, want, allowed):
+        err = np.abs(fn()[picked].double().cpu().numpy() - want)
+        check(np.all(err <= allowed), f"pairwise {name}: err {err.max()} over its bound")
+        out[name] = {"max_abs_err": float(err.max()), "ms": gpu_ms(fn, runs=5)}
+
+    held("linear", lambda: F.pairwise_linear_similarity(xd, yd), dots, 2 * d * U32 * absdots + 1e-30)
+    cos_want = dots / np.sqrt(nx * ny)
+    held("cosine", lambda: F.pairwise_cosine_similarity(xd, yd), cos_want,
+         2 * (d + 4) * U32 * absdots / np.sqrt(nx * ny) + 1e-30)
+    sq = nx + ny - 2 * dots
+    euc_want = np.sqrt(np.maximum(sq, 0))
+    bsq = 2 * (d + 2) * U32 * (nx + ny + 2 * absdots)
+    held("euclidean", lambda: F.pairwise_euclidean_distance(xd, yd), euc_want,
+         np.minimum(np.sqrt(bsq), bsq / np.maximum(euc_want, 1e-30)))
+    # the reductions over the same matrix: a row's mean of the sampled rows' full rows
+    mean = F.pairwise_linear_similarity(xd, yd, reduction="mean")[picked].double().cpu().numpy()
+    check(np.all(np.abs(mean - dots.mean(1)) <= (2 * d * U32 * absdots).mean(1) + 1e-6 * np.abs(dots).mean(1)),
+          "pairwise linear mean")
+    xm, ym = x[:MANHATTEN_ROWS], y[:MANHATTEN_ROWS]
+    msample = rows[rows < MANHATTEN_ROWS]
+    man_want = np.abs(xm[msample].astype(np.float64)[:, None, :] - ym.astype(np.float64)[None, :, :]).sum(-1)
+    got = F.pairwise_manhatten_distance(xd[:MANHATTEN_ROWS], yd[:MANHATTEN_ROWS])
+    err = np.abs(got[torch.from_numpy(msample).to(dev)].double().cpu().numpy() - man_want)
+    check(np.all(err <= (2 * d + 2) * U32 * man_want), f"pairwise manhatten: err {err.max()}")
+    out["manhatten"] = {"max_abs_err": float(err.max()), "sampled_rows": int(len(msample)),
+                        "ms": gpu_ms(lambda: F.pairwise_manhatten_distance(xd[:MANHATTEN_ROWS], yd[:MANHATTEN_ROWS]),
+                                     runs=5)}
+    zero = F.pairwise_euclidean_distance(xd[:64])
+    check(bool((torch.diagonal(zero) == 0).all()), "pairwise euclidean: x against itself keeps its diagonal")
+    out["sampled_rows"] = PAIR_SAMPLE
+    return out
+
+
+def regression_phase(dev):
+    """Phase 13: regression and pairwise on the flagship's 65 536 rows."""
+    p, t, pn, tn = regression_rows(dev)
+    out = {"eager": regression_eager(dev, p, t, pn, tn)}
+    out["served"] = regression_served(dev, p, t, pn, tn)
+    out["bucket_1024"] = profile_bucket(dev, p, t, make=make_regression_collection)
+    out["refusals"] = regression_refusals(dev)
+    out["pairwise"] = pairwise_phase(dev)
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2458,6 +3010,18 @@ def main():
         check(wrapper_launches[k] > 0, f"kernel {k} was not launched by the wrapper phase")
     launches = {k: launches[k] + wrapper_launches[k] for k in launches}
     print(json.dumps({"wrapper_phase": wrappers, "launches": wrapper_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 13, its counts from 0: K1 (masked buckets), K4 (unsharded), K5 (megastep) and K6 (paged) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    regression = regression_phase(dev)
+    regression_launches = counts()
+    for k in ("fold_rows", "segment_reduce", "megastep_fold", "megastep_segment"):
+        check(regression_launches[k] > 0, f"kernel {k} was not launched by the regression phase")
+    launches = {k: launches[k] + regression_launches[k] for k in launches}
+    print(json.dumps({"regression_phase": regression, "launches": regression_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

@@ -49,6 +49,7 @@ from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -482,10 +483,10 @@ class MultiStreamEngine(StreamingEngine):
 
     def result(self, stream_id: int) -> Any:  # type: ignore[override]
         """``stream_id``'s value (after a flush): the paged form reads ONLY
-        that stream's row."""
+        that stream's row. Computed traced, as :meth:`StreamingEngine.result`."""
         sid = self._check_stream(stream_id)
         self.flush()
-        with self._device_section():
+        with self._device_section(), traced_rows():
             value = self._metric.compute_from(self._stream_tree(sid))
             self._stats.result_device_calls += 1
             return value
@@ -496,7 +497,7 @@ class MultiStreamEngine(StreamingEngine):
         ``compute_from`` over the stream axis of the stacked state, then one
         device-to-host copy of the values, sliced per stream."""
         self.flush()
-        with self._device_section():
+        with self._device_section(), traced_rows():
             values = torch.func.vmap(self._metric.compute_from)(self._stacked_tree())
             self._stats.result_device_calls += 1
             per_stream = _values_to_host(values, self._num_streams)

@@ -54,6 +54,7 @@ from metrics_tpu_torch.engine.bucketing import (
 from metrics_tpu_torch.engine.faults import BackpressureTimeout, EngineDispatchError
 from metrics_tpu_torch.engine.megastep import MegastepPlan
 from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError, NotPortedError
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -812,9 +813,13 @@ class StreamingEngine:
         self._raise_if_failed()
 
     def result(self) -> Any:
-        """The metric's value over everything submitted since the last reset."""
+        """The metric's value over everything submitted since the last reset.
+
+        The compute runs as the JAX package's compiled compute program does:
+        traced (``traced_rows``), so no value check reads the state on the
+        host, and a compute that must read it (``R2Score``) raises."""
         self.flush()
-        with self._device_section():
+        with self._device_section(), traced_rows():
             return self._metric.compute_from(self._unpack(self._state))
 
     def state(self) -> Any:

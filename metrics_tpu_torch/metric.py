@@ -19,7 +19,9 @@ operands of a :class:`CompositionalMetric`) is a child module: its state
 travels inside its parent's under the reserved ``"_children"`` key, with the
 JAX package's attribute names, and every function of the pure API recurses
 into it. Lists of children are ``nn.ModuleList``s, so ``state_dict`` keys
-read ``metrics.0.<state>`` as in the JAX package and ``.to()`` recurses.
+read ``metrics.0.<state>`` as in the JAX package and ``.to()`` recurses; a
+plain non-empty list or tuple of metrics assigned as an attribute becomes
+one, since the JAX package takes such a list as children too.
 
 The masked update is the streaming engine's padding contract: the subclass
 ``update`` runs per row under ``torch.func.vmap`` (batch-of-1 rows), and each
@@ -155,6 +157,8 @@ class Metric(nn.Module):
         self.compute_on_step = compute_on_step
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Any] = {}
+        # list states are no buffers: ``state_dict`` carries the persistent ones itself
+        self._persistent_lists: set = set()
         # per-state precision (absent = "exact"); the constructor spec applies
         # as states register, since subclasses add_state after this __init__
         self._sync_precision: Dict[str, str] = {}
@@ -164,6 +168,14 @@ class Metric(nn.Module):
         self._forward_cache: Any = None
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        # a plain non-empty list or tuple of metrics is a list of children, as
+        # in the JAX package: held as an ``nn.ModuleList``, it is registered,
+        # so ``.to()``, ``astype``, ``state_dict`` and the pure API follow it
+        if isinstance(value, (list, tuple)) and value and all(isinstance(v, Metric) for v in value):
+            value = nn.ModuleList(value)
+        super().__setattr__(name, value)
 
     # ------------------------------------------------------------------ state registry
 
@@ -187,6 +199,8 @@ class Metric(nn.Module):
         if isinstance(default, list):
             self._defaults[name] = []
             setattr(self, name, [])
+            if persistent:
+                self._persistent_lists.add(name)
         else:
             default = torch.as_tensor(default).to(self.device)
             self._defaults[name] = default
@@ -289,6 +303,10 @@ class Metric(nn.Module):
                     self._non_persistent_buffers_set.discard(k)
                 else:
                     self._non_persistent_buffers_set.add(k)
+            elif mode:
+                self._persistent_lists.add(k)
+            else:
+                self._persistent_lists.discard(k)
         self._for_each_child(lambda c: c.persistent(mode))
 
     # --------------------------------------------------------------- nested metrics
@@ -776,6 +794,29 @@ class Metric(nn.Module):
 
     def clone(self) -> "Metric":
         return deepcopy(self)
+
+    def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
+        """Buffers as ``nn.Module`` saves them, plus the persistent list
+        states as lists of tensors, as the JAX package's ``state_dict``
+        holds them."""
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        for k in sorted(self._persistent_lists):
+            destination[prefix + k] = [x if keep_vars else x.detach() for x in getattr(self, k)]
+
+    def _load_from_state_dict(self, state_dict: Dict[str, Any], prefix: str, local_metadata: Any, strict: bool,
+                              missing_keys: List[str], unexpected_keys: List[str], error_msgs: List[str]) -> None:
+        lists = {prefix + k: k for k, v in self._defaults.items() if isinstance(v, list)}
+        for k, v in self._defaults.items():
+            # a scalar state may have grown by broadcasting (ExplainedVariance's sums over 2-D rows)
+            grown = state_dict.get(prefix + k) if isinstance(v, Tensor) and v.ndim == 0 else None
+            if grown is not None and tuple(grown.shape) != tuple(getattr(self, k).shape):
+                setattr(self, k, torch.zeros(tuple(grown.shape), dtype=v.dtype, device=self.device))
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        for key, name in lists.items():
+            if key in state_dict:
+                setattr(self, name, [as_input(torch.as_tensor(np.array(x)), self.device) for x in state_dict[key]])
+        unexpected_keys[:] = [k for k in unexpected_keys if k not in lists]
 
     def load_state_dict(self, state_dict: Any, strict: bool = True, assign: bool = False) -> Any:
         """``nn.Module.load_state_dict`` that also takes the JAX package's

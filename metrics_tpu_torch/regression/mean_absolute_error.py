@@ -1,0 +1,32 @@
+"""MeanAbsoluteError module metric (port of ``metrics_tpu/regression/mean_absolute_error.py``)."""
+from typing import Any
+
+import torch
+
+from metrics_tpu_torch.functional.regression.mean_absolute_error import (
+    _mean_absolute_error_compute,
+    _mean_absolute_error_update,
+)
+from metrics_tpu_torch.metric import Metric
+
+Tensor = torch.Tensor
+
+
+class MeanAbsoluteError(Metric):
+    """Mean absolute error."""
+
+    is_differentiable = True
+    higher_is_better = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.add_state("sum_abs_error", default=torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("total", default=torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        sum_abs_error, n_obs = _mean_absolute_error_update(preds, target)
+        self.sum_abs_error = self.sum_abs_error + sum_abs_error
+        self.total = self.total + n_obs
+
+    def compute(self) -> Tensor:
+        return _mean_absolute_error_compute(self.sum_abs_error, self.total)

@@ -8,7 +8,7 @@ Shape- and dtype-driven checks always run. Value-dependent checks
 (``target.max() > 1`` and the like) need the values on the host; they run
 eagerly exactly as the JAX package runs them eagerly, and are skipped when an
 input is a ``torch.func.vmap`` batched tensor, or inside :func:`traced_rows`
-(the scan masked update's row loop) — the port's counterpart of the JAX
+(the scan masked update's row loop, the engines' result computes) — the port's counterpart of the JAX
 package skipping them on tracers, and necessary, since a data-dependent
 ``if`` on a batched tensor raises and a host read inside CUDA-graph capture
 fails. The JAX package's deferred in-graph error
@@ -37,9 +37,11 @@ _rows = threading.local()
 
 @contextlib.contextmanager
 def traced_rows() -> Iterator[None]:
-    """Run the body as the JAX package runs a ``lax.scan`` body: every input
-    counts as traced, so no value check reads it on the host (the scan
-    masked update loops over device rows, possibly inside graph capture)."""
+    """Run the body as the JAX package runs a traced body: every input
+    counts as traced, so no value check reads it on the host. The scan
+    masked update loops over device rows in it (possibly inside graph
+    capture), as JAX runs a ``lax.scan`` body; the engines' ``result`` and
+    ``results`` compute in it, as JAX runs their compiled compute program."""
     depth = getattr(_rows, "depth", 0)
     _rows.depth = depth + 1
     try:

@@ -5,7 +5,8 @@ A state accumulated in ``metrics_tpu`` (taken to the host with
 :func:`state_from_numpy`, so a stream begun on a TPU can be finished and
 computed on the card; :func:`state_to_numpy` goes the other way. Each leaf
 keeps the dtype and shape the port's metric registered (int32 counts, f32
-sums) and is checked against them; a wrapper's or a composition's nested
+sums; a bf16 state crosses as an ``ml_dtypes.bfloat16`` array, as JAX's
+does) and is checked against them; a wrapper's or a composition's nested
 metrics cross in their ``"_children"`` subtree. The JAX package's
 host-derived compute attributes (``Accuracy.mode``) travel separately,
 through ``host_attrs``.
@@ -29,13 +30,42 @@ from metrics_tpu_torch.utils import enums
 from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
+def _bf16_numpy_dtype(leaf: str) -> Any:
+    """numpy's bfloat16, which only the ``ml_dtypes`` package provides: it
+    is imported here, when a bf16 leaf is first met."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        raise TypeError(
+            f"state {leaf!r} is bfloat16, which numpy holds only through the ml_dtypes package, and that is "
+            "not installed; install it, or cast the state to float32 before it crosses"
+        ) from None
+    return ml_dtypes.bfloat16
+
+
+def _tensor_to_numpy(t: torch.Tensor, leaf: str) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_bf16_numpy_dtype(leaf))
+    return t.numpy()
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A writable copy of ``arr`` as a tensor; a bf16 array keeps its bits."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _leaf_from_numpy(name: str, value: Any, default: Any, device: torch.device) -> Any:
     if isinstance(default, list):
-        return [torch.as_tensor(np.asarray(v)).to(device) for v in value]
+        return [_tensor_from_numpy(v).to(device) for v in value]
     arr = np.asarray(value)
-    if tuple(arr.shape) != tuple(default.shape):
+    # a scalar default may have grown by broadcasting (ExplainedVariance's sums over 2-D rows)
+    if default.ndim and tuple(arr.shape) != tuple(default.shape):
         raise ValueError(f"state {name!r}: shape {arr.shape} does not match the port's {tuple(default.shape)}")
-    return torch.from_numpy(np.array(arr)).to(device=device, dtype=default.dtype)  # a writable copy
+    return _tensor_from_numpy(arr).to(device=device, dtype=default.dtype)
 
 
 def _metric_state(metric: Metric, np_state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -83,16 +113,16 @@ def state_from_numpy(
     return state
 
 
-def state_to_numpy(state: Any) -> Any:
-    """The same structure with every tensor as a numpy array (bf16 widened
-    to f32, which numpy has no type for)."""
+def state_to_numpy(state: Any, _path: str = "state") -> Any:
+    """The same structure with every tensor as a numpy array of its dtype: a
+    bf16 leaf becomes an ``ml_dtypes.bfloat16`` array (the JAX package's own
+    host form), and raises, naming the leaf, where ``ml_dtypes`` is missing."""
     if isinstance(state, torch.Tensor):
-        t = state.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return _tensor_to_numpy(state, _path)
     if isinstance(state, dict):
-        return {k: state_to_numpy(v) for k, v in state.items()}
+        return {k: state_to_numpy(v, f"{_path}.{k}") for k, v in state.items()}
     if isinstance(state, (list, tuple)):
-        return type(state)(state_to_numpy(v) for v in state)
+        return type(state)(state_to_numpy(v, f"{_path}[{i}]") for i, v in enumerate(state))
     return state
 
 
@@ -103,9 +133,11 @@ def _slices_signature(slices: Sequence[Tuple[Any, ...]]) -> Tuple[Tuple[Any, ...
                  for k, o, s, shape, dt in slices)
 
 
-def _host_array(value: Any) -> np.ndarray:
+def _pager_row(value: Any) -> np.ndarray:
+    """A spilled row as the port's pager holds it: bf16 widened to f32,
+    losslessly (``engine/quantize.py``'s host dtype)."""
     arr = np.asarray(value)
-    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr  # numpy has no bf16 without JAX
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
 
 
 def engine_state_from_numpy(
@@ -138,13 +170,13 @@ def engine_state_from_numpy(
     with engine._device_section():
         state = {}
         for k, buf in engine._state.items():
-            arr = _host_array(arena[k])
+            arr = np.asarray(arena[k])
             arr = arr.reshape(arr.shape[1:]) if paged and arr.ndim == 3 and arr.shape[0] == 1 else arr
             if tuple(arr.shape) != tuple(buf.shape):
                 raise ValueError(f"arena buffer {k!r}: shape {arr.shape} does not fit the port's {tuple(buf.shape)}")
-            state[k] = torch.from_numpy(np.array(arr)).to(device=buf.device, dtype=buf.dtype)
+            state[k] = _tensor_from_numpy(arr).to(device=buf.device, dtype=buf.dtype)
         if paged:
-            engine.pager.load_payload({k: _host_array(v) for k, v in pager_payload.items()})
+            engine.pager.load_payload({k: _pager_row(v) for k, v in pager_payload.items()})
         engine._write_state(state)  # in place: captured steps address these buffers
     if host_attrs:
         engine._metric.restore_host_compute_attrs({k: _port_value(v) for k, v in host_attrs.items()})
@@ -157,7 +189,7 @@ def engine_state_to_numpy(engine: Any) -> Tuple[Dict[str, np.ndarray], Optional[
     paged = bool(getattr(engine, "stream_shard", False))
     engine.flush()
     with engine._device_section():
-        arena = {k: state_to_numpy(v) for k, v in engine._state.items()}
+        arena = {k: state_to_numpy(v, f"arena[{k!r}]") for k, v in engine._state.items()}
     if paged:
         return {k: v[None] for k, v in arena.items()}, engine.pager.snapshot_payload()
     return arena, None

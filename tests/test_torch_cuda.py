@@ -1050,3 +1050,89 @@ def test_to_device_moves_states_and_defaults(cuda):
     mm.to(cuda)
     mm.reset()
     assert inner.tp.device.type == "cuda" and mm.min_val.device.type == "cuda"
+
+
+def _regression_collection(device):
+    from metrics_tpu_torch import (ExplainedVariance, MeanAbsoluteError, MeanAbsolutePercentageError,
+                                   MeanSquaredError, MeanSquaredLogError, MetricCollection, R2Score,
+                                   SymmetricMeanAbsolutePercentageError, TweedieDevianceScore)
+
+    return MetricCollection({
+        "mse": MeanSquaredError(device=device), "rmse": MeanSquaredError(squared=False, device=device),
+        "mae": MeanAbsoluteError(device=device), "msle": MeanSquaredLogError(device=device),
+        "mape": MeanAbsolutePercentageError(device=device),
+        "smape": SymmetricMeanAbsolutePercentageError(device=device),
+        "explained_variance": ExplainedVariance(device=device),
+        "tweedie": TweedieDevianceScore(power=1.5, device=device), "r2": R2Score(device=device),
+    })
+
+
+# members whose every term and sum is exact in f32 on the dyadic rows below
+_EXACT_MEMBERS = ("mse", "rmse", "mae", "explained_variance", "r2")
+
+
+def _regression_traffic(seed, n_batches=24, streams=12):
+    """Positive rows on a 1/4 grid up to 8: differences, squares and their
+    sums over a few hundred rows are exact in f32, whatever the order."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        n = int(rng.randint(1, 40))
+        out.append((int(rng.randint(0, streams)), rng.randint(1, 33, n).astype(np.float32) / 4,
+                    rng.randint(1, 33, n).astype(np.float32) / 4))
+    return out
+
+
+def _make_regression_engine(kind, device, capture):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    coll = _regression_collection(device)
+    if kind == "streaming":
+        eng = StreamingEngine(coll, EngineConfig(buckets=(16, 64), kernel_backend="megastep", coalesce=1))
+    elif kind == "unsharded":
+        eng = MultiStreamEngine(coll, 12, EngineConfig(buckets=(16, 64), coalesce=1))
+    else:
+        eng = MultiStreamEngine(coll, 12, EngineConfig(buckets=(16, 64), kernel_backend="megastep", coalesce=1),
+                                stream_shard=True, resident_streams=3)
+    eng._capture = capture
+    return eng
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["streaming", "unsharded", "paged"])
+def test_captured_regression_engine_matches_the_cpu_port(cuda, kind):
+    """The served regression members (and R2Score's states) through the
+    captured engines: bit-equal to the uncaptured twin on the card; counts
+    and the exact members' sums bit-equal to the CPU port's on the same
+    rows; the log, percentage and Tweedie sums (whose terms the card's and
+    the CPU's math libraries may round apart) within (2 n + 8) 2^-24 of
+    theirs, every term being non-negative; K5, K4 or K6 launched. The
+    served R2 value raises on the card too."""
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import megastep_fold_cuda, megastep_segment_cuda
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    traffic = _regression_traffic(5)
+    wrappers = {"streaming": megastep_fold_cuda, "unsharded": segment_reduce_cuda, "paged": megastep_segment_cuda}
+    before = wrappers[kind].launches
+    captured = _make_regression_engine(kind, cuda, True)
+    got = _drive(captured, traffic, True, cuda)
+    assert wrappers[kind].launches > before and captured.stats.warmup_steps >= 1
+    assert captured.stats.kernel_fallbacks_by_reason() == {}
+    twin = _drive(_make_regression_engine(kind, cuda, False), traffic, True, cuda)
+    for g, w in zip(_flat(got), _flat(twin)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    cpu = torch.device("cpu")
+    want = _drive(_make_regression_engine(kind, cpu, False), traffic, False, cpu)
+    rows = sum(len(t) for _, _, t in traffic)
+    for g_tree, w_tree in zip([got] if kind == "streaming" else got, [want] if kind == "streaming" else want):
+        for member in w_tree:
+            for name, w in w_tree[member].items():
+                g = g_tree[member][name].cpu()
+                assert g.dtype == w.dtype, (member, name)
+                if member in _EXACT_MEMBERS or not w.is_floating_point():
+                    assert torch.equal(g, w), (member, name)
+                else:
+                    assert torch.all((g - w).abs() <= (2 * rows + 8) * 2.0 ** -24 * w.abs()), (member, name)
+    with pytest.raises(MetricsTPUUserError, match="reads n_obs on the host"):
+        captured.result() if kind == "streaming" else captured.results()

@@ -111,3 +111,92 @@ def test_engine_arena_carries_across_both_ways():
             np.testing.assert_array_equal(np.asarray(back[k][s]), np.asarray(w))
     with pytest.raises(ValueError, match="pager payload"):
         engine_state_from_numpy(engine, arena, jc.arena_layout().leaf_slices(), pager_payload={})
+
+
+def _bf16(x):
+    return torch.tensor(x, dtype=torch.bfloat16)
+
+
+def _assert_bf16_round_trip(port_state, jax_state):
+    """``jax_state`` (JAX arrays) carries ``port_state``'s bf16 leaves as
+    bf16, bit for bit, and its other leaves unchanged."""
+    for k, v in port_state.items():
+        assert str(jax_state[k].dtype) == str(v.dtype).replace("torch.", ""), k
+        np.testing.assert_array_equal(np.asarray(jax_state[k]).astype(np.float64), v.double().numpy())
+
+
+def test_bf16_mean_metric_state_keeps_its_dtype_both_ways():
+    pm = mp.MeanMetric(device="cpu").astype(torch.bfloat16)
+    state = {"value": pm.init_state()["value"] + _bf16(6.75), "weight": pm.init_state()["weight"] + _bf16(3.0)}
+    assert {v.dtype for v in state.values()} == {torch.bfloat16}
+    host = state_to_numpy(state)
+    assert {v.dtype.name for v in host.values()} == {"bfloat16"}
+    js = jax.tree.map(jnp.asarray, host)
+    _assert_bf16_round_trip(state, js)
+    jm = mt.MeanMetric().astype(jnp.bfloat16)
+    assert float(jm.compute_from(js)) == float(pm.compute_from(state)) == 2.25
+    back = state_from_numpy(pm, jax.tree.map(np.asarray, js), device="cpu")
+    for k in state:
+        assert back[k].dtype == torch.bfloat16 and torch.equal(back[k], state[k])
+
+
+def test_bf16_mean_squared_error_state_crosses_to_jax_and_back():
+    """A bf16 ``MeanSquaredError`` updated on bf16 rows (its sum stays bf16,
+    its count int32) crosses to JAX, which computes the same value and
+    updates it further in bf16; that state comes back to the port as bf16."""
+    pm = mp.MeanSquaredError(device="cpu").astype(torch.bfloat16)
+    jm = mt.MeanSquaredError().astype(jnp.bfloat16)
+    rng = np.random.RandomState(3)
+    p, t = rng.rand(2, 16).astype(np.float32) * 4
+    state = pm.update_state(pm.init_state(), torch.from_numpy(p).bfloat16(), torch.from_numpy(t).bfloat16())
+    assert state["sum_squared_error"].dtype == torch.bfloat16 and state["total"].dtype == torch.int32
+    js = jax.tree.map(jnp.asarray, state_to_numpy(state))
+    _assert_bf16_round_trip(state, js)
+    np.testing.assert_array_equal(np.asarray(jm.compute_from(js), np.float64), pm.compute_from(state).double().numpy())
+    back = state_from_numpy(pm, jax.tree.map(np.asarray, js), device="cpu")
+    assert all(torch.equal(back[k], state[k]) and back[k].dtype == state[k].dtype for k in state)
+    js2 = jm.update_state(js, jnp.asarray(t, jnp.bfloat16), jnp.asarray(p, jnp.bfloat16))
+    assert js2["sum_squared_error"].dtype == jnp.bfloat16
+    back2 = state_from_numpy(pm, jax.tree.map(np.asarray, js2), device="cpu")
+    assert back2["sum_squared_error"].dtype == torch.bfloat16 and int(back2["total"]) == 32
+    np.testing.assert_array_equal(back2["sum_squared_error"].double().numpy(),
+                                  np.asarray(js2["sum_squared_error"]).astype(np.float64))
+
+
+def test_bf16_engine_arena_keeps_its_dtype_both_ways():
+    """A bf16 ``MeanSquaredError`` served by the port's megastep engine: its
+    arena's bf16 buffer goes to numpy and JAX as bf16, and back into a second
+    port engine bit for bit."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+    from metrics_tpu_torch.utils.state_bridge import engine_state_from_numpy, engine_state_to_numpy
+
+    def engine():
+        return StreamingEngine(mp.MeanSquaredError(device="cpu").astype(torch.bfloat16),
+                               EngineConfig(buckets=(8, 32), kernel_backend="megastep"))
+
+    eng = engine()
+    rng = np.random.RandomState(4)
+    with eng:
+        for n in (3, 9, 5):
+            p, t = rng.rand(2, n).astype(np.float32) * 4
+            eng.submit(torch.from_numpy(p).bfloat16(), torch.from_numpy(t).bfloat16())
+    assert sorted(eng.arena_layout.dtype_keys) == ["bfloat16", "int32"]
+    arena, payload = engine_state_to_numpy(eng)
+    assert payload is None and arena["bfloat16"].dtype.name == "bfloat16"
+    jarena = {k: jnp.asarray(v) for k, v in arena.items()}
+    assert jarena["bfloat16"].dtype == jnp.bfloat16
+    twin = engine()
+    engine_state_from_numpy(twin, {k: np.asarray(v) for k, v in jarena.items()}, eng.arena_layout.leaf_slices())
+    for k, buf in eng._state.items():
+        assert twin._state[k].dtype == buf.dtype and torch.equal(twin._state[k], buf), k
+    assert int(twin.state()["total"]) == 17
+
+
+def test_bf16_leaf_without_ml_dtypes_raises_naming_the_leaf(monkeypatch):
+    """numpy has bfloat16 only through ml_dtypes: without it the bridge
+    raises, naming the leaf, and never widens."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    with pytest.raises(TypeError, match=r"state\.sum_squared_error.*ml_dtypes"):
+        state_to_numpy({"sum_squared_error": _bf16(1.0), "total": torch.tensor(1, dtype=torch.int32)})

@@ -456,3 +456,97 @@ def test_engines_refuse_minmax_with_jax_reason():
     for kw in ({}, {"stream_shard": True, "resident_streams": 2}):
         with pytest.raises(MetricsTPUUserError, match=FULL_STATE):
             MultiStreamEngine(pm, 4, EngineConfig(buckets=(8,), kernel_backend="megastep"), **kw)
+
+
+def _list_wrapper(m, container):
+    """A user's own wrapper that holds its inner metrics in a plain list (or
+    tuple) attribute, written the same way on both packages."""
+
+    class Pair(m.Metric):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.inner = container([m.MeanSquaredError(**kwargs), m.MeanAbsoluteError(**kwargs)])
+
+        def update(self, preds, target):
+            for metric in self.inner:
+                metric.update(preds, target)
+
+        def compute(self):
+            return {"mse": self.inner[0].compute(), "mae": self.inner[1].compute()}
+
+    return Pair
+
+
+def _regression_rows(n, seed):
+    rng = np.random.RandomState(seed)
+    t = rng.gamma(2.0, 1.0, n).astype(np.float32)
+    return (t * np.exp(rng.normal(0.0, 0.3, n))).astype(np.float32), t
+
+
+@pytest.mark.parametrize("container", [list, tuple], ids=["list", "tuple"])
+def test_plain_list_of_metrics_is_a_child_as_in_jax(container):
+    """The state tree, eager values and ``state_dict`` keys of a wrapper
+    holding a plain list or tuple equal JAX's; the port holds it as an
+    ``nn.ModuleList``, so ``.to()`` and ``astype`` follow it."""
+    jm, pm = _list_wrapper(mt, container)(), _list_wrapper(mp, container)(device="cpu")
+    assert isinstance(pm.inner, torch.nn.ModuleList) and sorted(pm._child_metrics()) == ["inner"]
+    _assert_tree(pm.init_state(), jm.init_state())
+    assert len(pm.init_state()["_children"]["inner"]) == 2
+    assert pm.masked_update_strategy() == jm.masked_update_strategy() == "delta"
+    for seed in range(2):
+        p, t = _regression_rows(12 + seed, seed)
+        pm.update(p, t)
+        jm.update(jnp.asarray(p), jnp.asarray(t))
+    _assert_tree(pm._pack_state(), jm._pack_state())
+    _assert_tree(pm.compute(), jm.compute())
+    p, t = _regression_rows(5, 7)
+    _assert_tree(pm(p, t), jm(jnp.asarray(p), jnp.asarray(t)))
+    jm.persistent(True)
+    pm.persistent(True)
+    assert sorted(pm.state_dict()) == sorted(jm.state_dict()) == [
+        "inner.0.sum_squared_error", "inner.0.total", "inner.1.sum_abs_error", "inner.1.total"]
+    pm.astype(torch.float64)
+    assert pm.inner[0].sum_squared_error.dtype == torch.float64 and pm.inner[1].total.dtype == torch.int32
+
+
+@pytest.mark.parametrize("container", [list, tuple], ids=["list", "tuple"])
+def test_plain_list_child_masked_fold_matches_jax(container):
+    jm, pm = _list_wrapper(mt, container)(), _list_wrapper(mp, container)(device="cpu")
+    p, t = _regression_rows(20, 3)
+    p[14:] = np.nan  # garbage in the masked rows
+    mask = np.arange(20) < 14
+    with use_backend("xla"):
+        want = jm.update_state_masked(jm.init_state(), jnp.asarray(p), jnp.asarray(t), mask=jnp.asarray(mask))
+    got = pm.update_state_masked(pm.init_state(), torch.from_numpy(p), torch.from_numpy(t),
+                                 mask=torch.from_numpy(mask))
+    _assert_tree(got, jax.tree.map(np.asarray, want))
+    assert int(got["_children"]["inner"][0]["total"]) == 14
+
+
+@pytest.mark.parametrize("container", [list, tuple], ids=["list", "tuple"])
+def test_plain_list_child_served_by_the_megastep_engine_as_in_jax(container):
+    """One pass through the port's megastep ``StreamingEngine`` and JAX's
+    under ``"xla"``: the two arenas lay the list's leaves out alike, and the
+    port's arena, taken out through ``engine_state_to_numpy``, unpacks with
+    JAX's layout to JAX's state."""
+    from metrics_tpu_torch.utils.state_bridge import engine_state_to_numpy
+
+    batches = [_regression_rows(n, 20 + i) for i, n in enumerate((3, 9, 1, 13, 6))]
+    jeng = JaxStreaming(_list_wrapper(mt, container)(), JaxConfig(buckets=(8, 32), kernel_backend="xla", coalesce=1))
+    with jeng:
+        for p, t in batches:
+            jeng.submit(p, t)
+    peng = StreamingEngine(_list_wrapper(mp, container)(device="cpu"),
+                           EngineConfig(buckets=(8, 32), kernel_backend="megastep"))
+    with peng:
+        for p, t in batches:
+            peng.submit(torch.from_numpy(p), torch.from_numpy(t))
+    assert peng.stats.kernel_fallbacks_by_reason() == {}
+    spell = lambda layout: [(k, o, n, tuple(sh), str(dt).replace("torch.", ""))  # noqa: E731
+                            for k, o, n, sh, dt in layout.leaf_slices()]
+    assert spell(peng.arena_layout) == spell(jeng.arena_layout)
+    arena, _ = engine_state_to_numpy(peng)
+    back = jeng.arena_layout.unpack({k: jnp.asarray(v) for k, v in arena.items()})
+    _assert_tree(jax.tree.map(np.asarray, back), jax.tree.map(np.asarray, jeng.state()))
+    assert int(back["_children"]["inner"][1]["total"]) == sum(len(t) for _, t in batches)
+    _assert_tree(peng.result(), jeng.result())
