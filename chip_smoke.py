@@ -130,6 +130,24 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    CosineSimilarity with the JAX package's reasons; (d) the pairwise
    cosine, linear and euclidean at (8192, 512) x (8192, 512) and manhatten
    at (1024, 512) x (1024, 512) against float64 numpy on sampled rows.
+14. Cross-process sync on ``torch.distributed``: (a) NCCL at world 1 on the
+   card: the flagship collection plus capacity AUROC and AP over phase 4's
+   rows, and phase 13's eight served members plus Pearson and a
+   ``MinMaxMetric`` of an MSE (the min/max bucket) with the MSE's sum on the
+   q8 carrier, over phase 13's rows, update on the card (K2, K3); each
+   metric's eager ``sync()`` (forced at world 1) and one fused
+   ``sync_states`` bundle per collection, whose collectives are counted
+   against ``fused_sync_plan``; every value equals the unsynced one bit for
+   bit (the flagship's states equal phase 4's), the q8 leaf its one-rank
+   round trip; (b) two spawned processes on the same card, world 2 over
+   gloo with the CUDA tensors themselves (gloo takes every dtype the bundle
+   sends), each updating on half the rows: the merged states equal (a)'s,
+   integers, buffers and min/max bit for bit, f32 sums within the
+   reassociation bound, the q8 sum within ``q8_sum_error_bound``, and every
+   rank's eager ``compute()`` gives (a)'s values. NCCL at world > 1 is not
+   run: one card takes one NCCL rank. The phase line holds the collectives
+   per sync, the payload bytes exact and with q8, host ms per sync (median
+   of 20) at world 1 and 2, and the K2/K3 launches.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -143,9 +161,10 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 13 and read after it;
+and set to 0 again before each of phases 10 to 14 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
-K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6), and K2 must launch once per batch and per step
+K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phase 14: K2
+and K3), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -166,6 +185,7 @@ only; K7's codes and scales of the flagged slots only). The last line is
 """
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2916,6 +2936,311 @@ def regression_phase(dev):
     return out
 
 
+# ------------------------------------------------ phase 14: cross-process sync
+
+SYNC_TIMED = 20  # syncs per host-ms median
+SYNC_BATCHES = 4  # update batches over all rows, as phases 4 and 13(a)
+
+
+def make_sync_collections(device, capacity):
+    """Phase 14's two collections: the flagship plus capacity AUROC and AP
+    (phase 4's rows), and phase 13's served members plus Pearson (stacked
+    None moments) and a ``MinMaxMetric`` of an MSE (min/max states), the
+    MSE's squared-error sum on the q8 carrier (phase 13's rows)."""
+    from metrics_tpu_torch import AUROC, AveragePrecision, MeanSquaredError, MinMaxMetric, PearsonCorrCoef
+
+    cls = make_collection(device)
+    cls.add_metrics({"auroc": AUROC(num_classes=NUM_CLASSES, capacity=capacity, device=device),
+                     "ap": AveragePrecision(num_classes=NUM_CLASSES, capacity=capacity, device=device)})
+    reg = make_regression_collection(device)
+    reg.add_metrics({"pearson": PearsonCorrCoef(device=device),
+                     "minmax": MinMaxMetric(MeanSquaredError(device=device))})
+    reg["mse"].set_sync_precision("q8_block")
+    return cls, reg
+
+
+def sync_rows(dev, lo, hi):
+    """Rows ``lo:hi`` of phase 4's and of phase 13's seeded rows, on ``dev``."""
+    preds, target, _, _ = main_rows(dev)
+    rp, rt, _, _ = regression_rows(dev)
+    return (preds[lo:hi], target[lo:hi]), (rp[lo:hi], rt[lo:hi])
+
+
+def sync_update(colls, rows, batches):
+    for coll, (p, t) in zip(colls, rows):
+        step = p.shape[0] // batches
+        for lo in range(0, p.shape[0], step):
+            coll.update(p[lo:lo + step], t[lo:lo + step])
+
+
+def coll_state(coll):
+    return {k: m._pack_state() for k, m in coll.items(keep_base=True)}
+
+
+def host_tree(x, fn=lambda t: t.detach().cpu()):
+    """A state or value tree with ``fn`` applied to every tensor (default: a
+    host copy)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: host_tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [host_tree(v, fn) for v in x]
+    return x
+
+
+def numpy_tree(x):
+    """``host_tree`` as numpy arrays: what a rank sends through a queue (a
+    tensor would travel as a file descriptor the exiting rank closes)."""
+    return host_tree(x, lambda t: t.detach().cpu().numpy())
+
+
+def timed_syncs(coll, state, dev):
+    """Median host ms of one ``sync_states`` of ``state`` (device drained)."""
+    times = []
+    for _ in range(SYNC_TIMED):
+        t0 = time.perf_counter()
+        coll.sync_states(state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def bundle_numbers(coll, state, world):
+    """One counted ``sync_states``: its collectives against the plan's, and
+    the payload bytes of the declared precisions and of all-exact ones."""
+    from metrics_tpu_torch.parallel import collectives as col
+
+    leaves = coll.sync_leaf_info()
+    col.reset_collective_counts()
+    synced = coll.sync_states(state)
+    got = col.collective_counts()
+    plan = col.fused_sync_plan(leaves, world)
+    check(got["all_reduce"] + got["all_gather"] == plan["collectives"],
+          f"sync bundle: {got} collectives, the plan names {plan['collectives']}")
+    return synced, {"collectives": got, "plan_collectives": plan["collectives"],
+                    "payload_bytes": col.sync_payload_bytes(leaves, world),
+                    "payload_bytes_exact": col.sync_payload_bytes([(f, l, "exact") for f, l, _ in leaves], world)}
+
+
+def sync_rank(rank, store, device, queue):
+    """One rank of phase 14(b): gloo at world 2 with the tensors on ``device``
+    (the first card); updates its half of the rows, syncs, computes; sends
+    the host copies back."""
+    import torch.distributed as dist
+
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+        half = N_ROWS // 2
+        colls = make_sync_collections(dev, half)
+        sync_update(colls, sync_rows(dev, rank * half, (rank + 1) * half), SYNC_BATCHES // 2)
+        out = {"local": [], "synced": [], "values": [], "bundle": [], "sync_ms": []}
+        for coll in colls:
+            state = coll_state(coll)
+            synced, numbers = bundle_numbers(coll, state, 2)
+            check(all(v.device == dev for v in tensor_leaves(synced)), "gloo sync left the card")
+            out["local"].append(host_tree(state))
+            out["synced"].append(host_tree(synced))
+            out["values"].append(host_tree(coll.compute()))  # eager: every member syncs itself
+            out["bundle"].append(numbers)
+            out["sync_ms"].append(timed_syncs(coll, state, dev))
+        dist.destroy_process_group()
+        queue.put((rank, True, numpy_tree(out)))
+    except BaseException:  # noqa: BLE001 - the parent reports it and fails
+        import traceback
+
+        queue.put((rank, False, traceback.format_exc()))
+
+
+def tensor_tree(x):
+    """Inverse of :func:`numpy_tree`."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, dict):
+        return {k: tensor_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [tensor_tree(v) for v in x]
+    return x
+
+
+def tensor_leaves(tree):
+    """Every tensor of a state tree."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return []
+
+
+def same_tree(got, want, what):
+    """Bit-equal trees of host tensors."""
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{what}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_tree(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{what}: lengths differ")
+        for i, (g, x) in enumerate(zip(got, want)):
+            same_tree(g, x, f"{what}[{i}]")
+    else:
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"{what}: differs ({got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})")
+
+
+def sync_phase(dev, gpu_state, gpu_values):
+    """Phase 14: (a) NCCL at world 1, (b) gloo at world 2 in two processes on
+    the card, held against (a). Returns the phase's numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from metrics_tpu_torch.parallel.collectives import q8_roundtrip, q8_sum_error_bound
+
+    out = {}
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    t0 = time.perf_counter()
+    # (a) NCCL, world 1 (gloo when rehearsed on the CPU)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "world1"), 1), rank=0, world_size=1)
+    try:
+        colls = make_sync_collections(dev, N_ROWS)
+        sync_update(colls, sync_rows(dev, 0, N_ROWS), SYNC_BATCHES)
+        world1 = {"local": [], "synced": [], "values": [], "bundle": [], "sync_ms": []}
+        for coll in colls:
+            state = coll_state(coll)
+            values = host_tree(coll.compute())  # world 1: no eager sync
+            for k, m in coll.items(keep_base=True):  # the eager transport, forced at world 1
+                with m.sync_context(distributed_available_fn=lambda: True):
+                    check(m._is_synced, f"14(a) {k}: the eager sync did not run")
+                    eager = host_tree(m.compute_from(m._pack_state()))
+                same_tree(host_tree(m._pack_state()), host_tree(state[k]), f"14(a) {k} restored after unsync")
+                check(tree_err(eager, values[k]) == 0, f"14(a) {k}: eager synced value differs")
+            synced, numbers = bundle_numbers(coll, state, 1)
+            synced_values = host_tree(coll.compute_from(synced))
+            world1["local"].append(host_tree(state))
+            world1["synced"].append(host_tree(synced))
+            world1["values"].append(values)
+            world1["bundle"].append(numbers)
+            world1["sync_ms"].append(timed_syncs(coll, state, dev))
+            for k, v in values.items():
+                if k not in ("mse", "rmse"):  # the q8 leaf: checked below
+                    check(tree_err(synced_values[k], v) == 0, f"14(a) compute_synced {k} differs from compute")
+    finally:
+        dist.destroy_process_group()
+    cls_local, reg_local = world1["local"]
+    cls_synced, reg_synced = world1["synced"]
+    for k in ("acc", "f1", "binned_ap", "confmat"):
+        same_tree(host_tree({s: cls_local[k][s] for s in gpu_state[k]}), host_tree(gpu_state[k]), f"14(a) {k} vs phase 4")
+        check(tree_err(world1["values"][0][k], gpu_values[k]) == 0, f"14(a) {k} value vs phase 4")
+    for i, (local, synced) in enumerate(zip(world1["local"], world1["synced"])):
+        for k in local:
+            for s, v in local[k].items():
+                if k == "mse" and s == "sum_squared_error":
+                    want = torch.from_numpy(q8_roundtrip(v)).reshape(v.shape)
+                    check(torch.equal(synced[k][s], want), "14(a) q8 leaf is not its one-rank round trip")
+                elif s == "_children":
+                    continue
+                elif synced[k][s].shape != v.shape:  # fx=None: stacked (1, ...)
+                    check(torch.equal(synced[k][s], v[None]), f"14(a) {k}.{s} not stacked")
+                else:
+                    check(torch.equal(synced[k][s], v), f"14(a) {k}.{s} changed by a world-1 sync")
+    out["world1"] = {"backend": backend, "bundles": world1["bundle"], "sync_host_ms": world1["sync_ms"],
+                     "seconds": time.perf_counter() - t0}
+
+    # (b) gloo, world 2: two processes on the card, half the rows each
+    t0 = time.perf_counter()
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(store_dir, "gloo")
+    procs = [ctx.Process(target=sync_rank, args=(r, store, str(dev), queue)) for r in range(2)]
+    for proc in procs:
+        proc.start()
+    try:
+        got = {}
+        for _ in procs:
+            rank, ok, res = queue.get(timeout=300)
+            check(ok, f"14(b) rank {rank} failed:\n{res}")
+            got[rank] = tensor_tree(res)
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+    check(all(proc.exitcode == 0 for proc in procs), "14(b): a rank did not exit cleanly")
+    ranks = [got[0], got[1]]
+    for i in range(2):
+        same_tree(ranks[1]["synced"][i], ranks[0]["synced"][i], "14(b) ranks' synced states")
+    # the flagship's counts and the capacity buffers: bit for bit
+    b_cls, b_reg = ranks[0]["synced"]
+    for k in cls_local:
+        same_tree(b_cls[k], cls_local[k], f"14(b) {k}")
+    errs = {}
+    for k, member in reg_local.items():
+        for s, want in member.items():
+            if s == "_children":
+                continue
+            parts = torch.stack([r["local"][1][k][s] for r in ranks])
+            gotv = b_reg[k][s]
+            if not want.is_floating_point():
+                check(torch.equal(gotv, want), f"14(b) {k}.{s} differs")
+            elif k == "minmax":
+                fold = parts.min(0).values if s == "min_val" else parts.max(0).values
+                check(torch.equal(gotv, fold), f"14(b) {k}.{s} differs from the ranks' fold")
+            elif k == "pearson":
+                check(gotv.shape == (2,) + tuple(want.shape), f"14(b) pearson {s} not stacked")
+            else:
+                # four roundings apart: (a) summed four batch sums in a row, (b) two per rank then the ranks
+                bound = 2.0**-22 * (parts.abs().sum(0).double() + want.abs().double())
+                if k == "mse" and s == "sum_squared_error":
+                    bound = bound + torch.from_numpy(q8_sum_error_bound(parts)).double()
+                err = (gotv.double() - want.double()).abs()
+                check(bool((err <= bound).all()), f"14(b) {k}.{s}: err {float(err.max())} > {float(bound.max())}")
+                errs[f"{k}.{s}"] = float(err.max())
+    for r in ranks:
+        for i, want_vals in enumerate(world1["values"]):
+            for k, v in want_vals.items():
+                gotv = r["values"][i][k]
+                if k == "minmax":  # its extremes follow each rank's own prefixes
+                    gotv, v = gotv["raw"], v["raw"]
+                e = tree_err(gotv, v)
+                tol = 0.0 if i == 0 else 2e-5 * max(1.0, flat_tree_abs(v))
+                check(e <= tol, f"14(b) compute() {k}: err {e} > {tol}")
+    out["world2"] = {"backend": "gloo", "transport": f"gloo/{dev.type}", "bundles": ranks[0]["bundle"],
+                     "sync_host_ms": [r["sync_ms"] for r in ranks], "f32_sum_max_abs_err": errs,
+                     "seconds": time.perf_counter() - t0}
+    out["nccl_world_gt_1"] = "not run: one card takes one NCCL rank"
+    return out
+
+
+def tree_err(got, want):
+    """``max_abs_err`` over value trees (a list of per-class tensors stacks)."""
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"value keys {sorted(got)} != {sorted(want)}")
+        return max(tree_err(got[k], want[k]) for k in want)
+    got = torch.stack(list(got)) if isinstance(got, (list, tuple)) else got
+    want = torch.stack(list(want)) if isinstance(want, (list, tuple)) else want
+    return max_abs_err(got, want)
+
+
+def flat_tree_abs(x):
+    """The largest |value| of a value tree (for a relative tolerance)."""
+    if isinstance(x, dict):
+        return max(flat_tree_abs(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return max(flat_tree_abs(v) for v in x)
+    return float(torch.as_tensor(x).double().abs().max())
+
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3022,6 +3347,18 @@ def main():
         check(regression_launches[k] > 0, f"kernel {k} was not launched by the regression phase")
     launches = {k: launches[k] + regression_launches[k] for k in launches}
     print(json.dumps({"regression_phase": regression, "launches": regression_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 14, its counts from 0: K2 and K3 (the flagship's rank-local update) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sync = sync_phase(dev, gpu_state, gpu_values)
+    sync_launches = counts()
+    for k in ("histogram", "binned_counts"):
+        check(sync_launches[k] > 0, f"kernel {k} was not launched by the sync phase")
+    launches = {k: launches[k] + sync_launches[k] for k in launches}
+    print(json.dumps({"sync_phase": sync, "launches": sync_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

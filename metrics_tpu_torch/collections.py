@@ -1,23 +1,27 @@
 """MetricCollection: an ordered dict of metrics sharing one call signature.
 
-Port of ``metrics_tpu/collections.py`` without the fused cross-process sync and
-the compiled step cache. The collection is an ``nn.ModuleDict``; the pure API
+Port of ``metrics_tpu/collections.py`` without the fused forward and the
+compiled step cache. The collection is an ``nn.ModuleDict``; the pure API
 carries every member's state as one dict ``{member: state}``:
 
     state = coll.init_state()
     state = coll.update_state(state, preds, target)
     state = coll.update_state_masked(state, preds, target, mask=mask)
     values = coll.compute_from(state)
+    values = coll.compute_synced(state)           # across a process group
 
 The serving hooks (``update_state_segmented``, ``arena_layout``, the
-``sync_precision`` policy) fan out to the members as the JAX package's do.
+``sync_precision`` policy) fan out to the members as the JAX package's do;
+``sync_states`` syncs every member, nested metrics included, in one fused
+bundle of collectives.
 """
 from copy import deepcopy
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from torch import nn
 
-from metrics_tpu_torch.metric import Metric, sync_precision_tag_of
+from metrics_tpu_torch.metric import Metric, _sync_trees, sync_precision_tag_of
+from metrics_tpu_torch.parallel.mesh import current_metric_axis
 
 
 class MetricCollection(nn.ModuleDict):
@@ -218,6 +222,43 @@ class MetricCollection(nn.ModuleDict):
 
     def compute_from(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
         return {self._set_name(k): m.compute_from(state[k]) for k, m in self.items(keep_base=True)}
+
+    # ------------------------------------------------------------------ sync
+
+    def sync_states(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Dict[str, Any]]:
+        """Every member's :meth:`Metric.sync_states` in ONE fused bundle of
+        collectives, however many members and nested metrics: ``group``, else
+        the ambient group, else the default one. Unchanged without an
+        initialised group."""
+        members = self.items(keep_base=True)
+        synced = _sync_trees([(m, state[k]) for k, m in members],
+                             group if group is not None else current_metric_axis())
+        return {k: s for (k, _), s in zip(members, synced)}
+
+    def compute_synced(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Any]:
+        return self.compute_from(self.sync_states(state, group))
+
+    def merge_stacked_states(self, stacked: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+        """Member-wise :meth:`Metric.merge_stacked_states`."""
+        return {k: m.merge_stacked_states(stacked[k]) for k, m in self.items(keep_base=True)}
+
+    def stacked_merge_unsupported_reason(self) -> Optional[str]:
+        """None when every member's states fold across a stack axis."""
+        for k, m in self.items(keep_base=True):
+            r = m.stacked_merge_unsupported_reason()
+            if r is not None:
+                return f"member {k!r}: {r}"
+        return None
+
+    def sync_leaf_info(self) -> List[Any]:
+        """Every member's :meth:`Metric.sync_leaf_info`, in member order."""
+        return [leaf for _, m in self.items(keep_base=True) for leaf in m.sync_leaf_info()]
+
+    def sync_error_bounds(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Every member's :meth:`Metric.sync_error_bounds` over a rank-stacked
+        collection state, keys prefixed by member name."""
+        return {f"{k}.{path}": bound for k, m in self.items(keep_base=True)
+                for path, bound in m.sync_error_bounds(state[k]).items()}
 
     def host_compute_attrs(self) -> Dict[str, Any]:
         """Flat ``{member.attr: value}`` of every member's host-derived compute attributes."""

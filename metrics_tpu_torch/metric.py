@@ -34,15 +34,26 @@ runs row by row in submission order, masked rows carrying the state through.
 The segmented update (the multi-stream engine's step) scatters the row deltas
 into stream rows through K4.
 
-The ``sync_precision`` policy (which float ``sum`` states may be quantized)
-is kept, without the sync itself: the engine's at-rest codec reads it.
+Cross-process sync runs over a ``torch.distributed`` process group where
+the JAX package names a mesh axis: ``sync_axis``/``process_group`` take a
+``ProcessGroup`` (``None``: the ambient group of
+:func:`~metrics_tpu_torch.parallel.metric_axis`, else the default group).
+``compute()`` runs under :meth:`Metric.sync_context`, which syncs eagerly
+with the JAX package's multi-host semantics when the group has more than
+one rank; :meth:`Metric.sync_states` / :meth:`Metric.compute_synced` are the
+pure form, one fused bundle of collectives for the metric and its nested
+metrics (``parallel/collectives.py``), with the ``sync_precision`` policy's
+q8 leaves; :meth:`Metric.merge_stacked_states` folds a leading stack axis
+of per-rank states without communicating. The pure API (``update_state``,
+``compute_from``) never communicates.
 
-Left out so far (see ROADMAP.md): cross-process sync and
-``compute_synced``/``merge_stacked_states``, the grouped strategy and its
-hooks (the ragged engine is not ported) and the compiled forward.
+Left out so far (see ROADMAP.md): the grouped strategy and its hooks (the
+ragged engine is not ported) and the compiled forward.
 """
+import contextlib
 import functools
 import inspect
+import threading
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -51,11 +62,19 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from metrics_tpu_torch.ops.kernels import combine, fold_rows_masked, segment_reduce_masked
-from metrics_tpu_torch.parallel.collectives import SYNC_PRECISIONS
+from metrics_tpu_torch.ops.kernels import combine, fold_rows_masked, segment_reduce_masked, stack_reduce
+from metrics_tpu_torch.parallel.collectives import (
+    SYNC_PRECISIONS,
+    all_gather_stack,
+    fused_axis_sync,
+    group_size,
+    in_mapped_context,
+    q8_sum_error_bound,
+)
+from metrics_tpu_torch.parallel.mesh import current_metric_axis
 from metrics_tpu_torch.ops.kernels.common import int32_bits
 from metrics_tpu_torch.utils.checks import traced_rows
-from metrics_tpu_torch.utils.data import apply_to_collection, is_batch_leaf
+from metrics_tpu_torch.utils.data import apply_to_collection, dim_zero_cat, is_batch_leaf
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -96,6 +115,100 @@ def sync_precision_tag_of(precisions: Dict[str, str]) -> str:
     return "q8:" + hashlib.sha256(";".join(quantized).encode()).hexdigest()[:10]
 
 
+def distributed_available(group: Optional[Any] = None) -> bool:
+    """True when metric state can differ across ranks: ``group`` (None = the
+    default group) is initialised here and has more than one rank."""
+    return in_mapped_context(group)
+
+
+_PURE = threading.local()
+
+
+@contextlib.contextmanager
+def _pure_call():
+    """While the pure API runs (a wrapper's ``compute`` reaching a child's
+    wrapped ``compute`` inside ``compute_from``), no sync communicates: the
+    state handed in is the one to compute, synced or not."""
+    _PURE.depth = getattr(_PURE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _PURE.depth -= 1
+
+
+def _check_group(name: str, group: Any) -> None:
+    if isinstance(group, str):
+        raise TypeError(
+            f"`{name}` takes a torch.distributed ProcessGroup (None: the default group), not a mesh axis "
+            f"name ({group!r}): create the group with torch.distributed.new_group"
+        )
+
+
+def _check_list_lengths(entries: List[Tuple["Metric", str, Any]], group: Any) -> None:
+    """One small gather of every list state's row count and size: ranks
+    whose lists differ raise, naming the states, rather than hang or
+    gather garbage (the JAX package's all-gather cannot take them either)."""
+    lists = [(m, k, v) for m, k, v in entries if isinstance(v, list)]
+    if not lists:
+        return
+    sizes = []
+    for _, _, v in lists:
+        cat = dim_zero_cat(v) if v else torch.zeros((0,))
+        sizes += [int(cat.shape[0]), int(cat.numel())]
+    gathered = all_gather_stack(torch.tensor(sizes, dtype=torch.int64, device=lists[0][0].device), group).cpu()
+    bad = [f"{type(m).__name__}.{k} (rows per rank: {gathered[:, 2 * i].tolist()})"
+           for i, (m, k, _) in enumerate(lists)
+           if not bool((gathered[:, 2 * i : 2 * i + 2] == gathered[0, 2 * i : 2 * i + 2]).all())]
+    if bad:
+        raise MetricsTPUUserError(
+            f"list states differ in size across ranks and cannot be gathered: {', '.join(bad)}"
+        )
+
+
+def _sync_entries(entries: List[Tuple["Metric", str, Any]], group: Any, eager: bool) -> List[Any]:
+    """Sync ``(metric, state name, value)`` entries over ``group`` in one fused
+    bundle. List states are concatenated first (fx=None gathers them flat,
+    as ``cat``). ``eager`` is the multi-host semantics of ``sync()``: exact
+    precisions, list states returned as a one-element list, ``dist_sync_fn``
+    not called; otherwise a metric's ``dist_sync_fn`` takes its leaves as
+    ``(fx, value, group)`` and its ``sync_precision`` policy applies."""
+    _check_list_lengths(entries, group)
+    results: List[Any] = [None] * len(entries)
+    bundle: List[Tuple[Any, Tensor]] = []
+    precs: List[str] = []
+    slots: List[int] = []
+    for j, (m, k, v) in enumerate(entries):
+        was_list = isinstance(v, list)
+        fx = m._reductions[k]
+        fx = "cat" if fx is None and was_list else fx
+        if was_list:
+            v = dim_zero_cat(v) if v else torch.zeros((0,), device=m.device)
+        if not eager and m.dist_sync_fn is not None:
+            results[j] = m.dist_sync_fn(fx, v, group)
+            continue
+        bundle.append((fx, v))
+        precs.append("exact" if eager or was_list else m._sync_precision.get(k, "exact"))
+        slots.append(j)
+    for j, synced in zip(slots, fused_axis_sync(bundle, group, precisions=precs) if bundle else []):
+        results[j] = [synced] if eager and isinstance(entries[j][2], list) else synced
+    return results
+
+
+def _sync_trees(pairs: List[Tuple["Metric", Dict[str, Any]]], group: Any) -> List[Dict[str, Any]]:
+    """The pure sync of several ``(metric, state)`` pairs (a collection's
+    members) in one fused bundle; the synced states, in order. Unchanged
+    without an initialised group, or outside ``group``."""
+    if group_size(group) < 1:
+        return [state for _, state in pairs]
+    entries: List[Tuple[Metric, str, Any]] = []
+    for metric, state in pairs:
+        metric._sync_tree_entries(state, entries)
+    for m in {id(m): m for m, _, _ in entries}.values():
+        m._check_spec_consumed()
+    synced = iter(_sync_entries(entries, group, eager=False))
+    return [metric._sync_tree_build(state, synced) for metric, state in pairs]
+
+
 def _squeeze_if_scalar(x: Any) -> Any:
     """0-d-ify single-element tensors, mirroring the JAX package."""
 
@@ -122,6 +235,19 @@ class Metric(nn.Module):
 
     Args:
         compute_on_step: return the metric value for the current batch from ``forward``.
+        dist_sync_on_step: ``forward`` syncs the batch's state across the
+            group before computing its value.
+        sync_axis: the ``torch.distributed`` process group to sync over (the
+            JAX package's mesh axis name); None takes the ambient group of
+            :func:`~metrics_tpu_torch.parallel.metric_axis`, else the default
+            group.
+        dist_sync_fn: a leaf-sync override ``(reduce_fx, value, group) ->
+            value`` that :meth:`sync_states` calls for each of this metric's
+            states instead of the fused bundle. As in the JAX package, the
+            eager ``sync()`` does not call it.
+        process_group: the reference's name for ``sync_axis`` (used when
+            ``sync_axis`` is None). A group travels with ``clone()``; a
+            pickled metric forgets it (a group does not cross processes).
         device: where the states live and the update runs; ``None`` means
             ``"cuda"``, which raises when CUDA is not available (pass
             ``device="cpu"`` to run on the CPU).
@@ -146,15 +272,28 @@ class Metric(nn.Module):
     def __init__(
         self,
         compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        sync_axis: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
         device: DeviceLike = None,
         sync_precision: Optional[Union[str, Dict[str, str]]] = None,
         **kwargs: Any,
     ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
+        _check_group("sync_axis", sync_axis)
+        _check_group("process_group", process_group)
         super().__init__()
         self.device = resolve_device(device)
         self.compute_on_step = compute_on_step
+        self.dist_sync_on_step = dist_sync_on_step
+        self.sync_axis = sync_axis if sync_axis is not None else process_group
+        self.dist_sync_fn = dist_sync_fn
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
+        self._to_sync = True
+        self._should_unsync = True
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Any] = {}
         # list states are no buffers: ``state_dict`` carries the persistent ones itself
@@ -276,14 +415,7 @@ class Metric(nn.Module):
         and nested metrics (``name.state``, ``name[i].state``; default
         ``"exact"``). A constructor dict naming a state never registered
         raises here, where the policy is first read."""
-        spec = self._sync_precision_spec
-        if isinstance(spec, dict):
-            unknown = sorted(k for k in spec if k not in self._defaults)
-            if unknown:
-                raise MetricsTPUUserError(
-                    f"sync_precision names states {type(self).__name__} never registered: {unknown} "
-                    f"(registered: {sorted(self._defaults)})"
-                )
+        self._check_spec_consumed()
         out = {k: self._sync_precision.get(k, "exact") for k in self._defaults}
         for path, child in self._child_paths():
             out.update({f"{path}.{k}": v for k, v in child.state_sync_precisions().items()})
@@ -438,7 +570,8 @@ class Metric(nn.Module):
         book = self._snapshot_bookkeeping()
         self._load_state(state)
         try:
-            self._inner_update(*args, **kwargs)
+            with _pure_call():
+                self._inner_update(*args, **kwargs)
             return self._pack_state()
         finally:
             self._load_state(saved)
@@ -450,10 +583,166 @@ class Metric(nn.Module):
         book = self._snapshot_bookkeeping()
         self._load_state(state)
         try:
-            return _squeeze_if_scalar(self._inner_compute())
+            with _pure_call():
+                return _squeeze_if_scalar(self._inner_compute())
         finally:
             self._load_state(saved)
             self._restore_bookkeeping(book)
+
+    # ---------------------------------------------------------------- functional sync
+
+    def _group(self, group: Optional[Any] = None) -> Optional[Any]:
+        """The process group a sync runs over: ``group``, else ``sync_axis``,
+        else the ambient one; None is the default group."""
+        for g in (group, self.sync_axis, current_metric_axis()):
+            if g is not None:
+                return g
+        return None
+
+    def _sync_tree_entries(self, state: Dict[str, Any], out: List[Tuple["Metric", str, Any]]) -> None:
+        """``(metric, state name, value)`` for every leaf of ``state``, nested
+        metrics' included (a subtree with no metric of its name is left out
+        and passes through)."""
+        children = self._child_metrics()
+        for k, v in state.items():
+            if k != self._CHILD_KEY:
+                out.append((self, k, v))
+                continue
+            for name, sub in v.items():
+                child = children.get(name)
+                pairs = zip(child, sub) if isinstance(child, list) else [(child, sub)] if child is not None else []
+                for c, cs in pairs:
+                    c._sync_tree_entries(cs, out)
+
+    def _sync_tree_build(self, state: Dict[str, Any], synced: Any) -> Dict[str, Any]:
+        """``state`` rebuilt from the iterator ``synced``, in the order of
+        :meth:`_sync_tree_entries`."""
+        out: Dict[str, Any] = {}
+        children = self._child_metrics()
+        for k, v in state.items():
+            if k != self._CHILD_KEY:
+                out[k] = next(synced)
+                continue
+            out[k] = {}
+            for name, sub in v.items():
+                child = children.get(name)
+                if isinstance(child, list):
+                    out[k][name] = [c._sync_tree_build(cs, synced) for c, cs in zip(child, sub)]
+                else:
+                    out[k][name] = sub if child is None else child._sync_tree_build(sub, synced)
+        return out
+
+    def _check_spec_consumed(self) -> None:
+        """A constructor ``sync_precision`` dict naming a state never
+        registered raises where the policy is first read."""
+        spec = self._sync_precision_spec
+        if isinstance(spec, dict):
+            unknown = sorted(k for k in spec if k not in self._defaults)
+            if unknown:
+                raise MetricsTPUUserError(
+                    f"sync_precision names states {type(self).__name__} never registered: {unknown} "
+                    f"(registered: {sorted(self._defaults)})"
+                )
+
+    def sync_states(self, state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
+        """Pure sync: every state of ``state`` reduced across ``group`` by its
+        ``dist_reduce_fx`` (see :meth:`_group` for the default), nested
+        metrics' with their own, in ONE fused bundle of collectives
+        (``parallel/collectives.py``). List states are concatenated and
+        gathered flat; a tensor state under fx=None arrives stacked
+        ``(world, ...)``; ``q8_block`` states ride the quantized carrier. A
+        metric's ``dist_sync_fn`` takes its own leaves instead. Without an
+        initialised group (or outside it) the state comes back unchanged; at
+        world 1 the bundle still runs, as the JAX package's does on a
+        one-device mesh."""
+        return _sync_trees([(self, state)], self._group(group))[0]
+
+    def _sync_child_states(self, children_state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
+        """Sync a ``"_children"`` subtree alone, each nested metric with its
+        own reductions (one bundle)."""
+        return self.sync_states({self._CHILD_KEY: children_state}, group)[self._CHILD_KEY]
+
+    def compute_synced(self, state: Dict[str, Any], group: Optional[Any] = None) -> Any:
+        """Pure sync then compute: the global value of the ranks' states."""
+        return self.compute_from(self.sync_states(state, group))
+
+    def stacked_merge_unsupported_reason(self) -> Optional[str]:
+        """None when :meth:`merge_stacked_states` applies: every state
+        (recursively) is a fixed-shape tensor whose ``dist_reduce_fx`` is one
+        of sum/min/max/cat."""
+        for k, v in self._defaults.items():
+            if isinstance(v, list):
+                return f"state {k!r} is a list (cat/gather) state with no static shape"
+            if self._reductions[k] not in _MERGEABLE_FX:
+                return f"state {k!r} has dist_reduce_fx={self._reductions[k]!r} (no stacked merge)"
+        for name, child in self._child_metrics().items():
+            for c in child if isinstance(child, list) else [child]:
+                r = c.stacked_merge_unsupported_reason()
+                if r is not None:
+                    return f"nested metric {name!r}: {r}"
+        return None
+
+    def merge_stacked_states(self, stacked: Dict[str, Any]) -> Dict[str, Any]:
+        """Fold a leading STACK axis of per-rank states into one global state,
+        with no communication: sum/min/max through the kernel library's
+        pairwise ``combine`` (dtype-preserving), ``cat`` flattening the stack
+        axis into dim 0 (the layout of the synced gather). Nested metrics
+        fold with their own reductions; a subtree with no metric of its name
+        passes through."""
+        out: Dict[str, Any] = {}
+        if self._CHILD_KEY in stacked:
+            children = self._child_metrics()
+            out[self._CHILD_KEY] = {}
+            for name, sub in stacked[self._CHILD_KEY].items():
+                child = children.get(name)
+                if child is None:
+                    out[self._CHILD_KEY][name] = sub
+                elif isinstance(child, list):
+                    out[self._CHILD_KEY][name] = [c.merge_stacked_states(cs) for c, cs in zip(child, sub)]
+                else:
+                    out[self._CHILD_KEY][name] = child.merge_stacked_states(sub)
+        for k in self._defaults:
+            fx = self._reductions[k]
+            if isinstance(self._defaults[k], list) or fx not in _MERGEABLE_FX:
+                raise MetricsTPUUserError(
+                    f"{type(self).__name__} has no stacked state merge: {self.stacked_merge_unsupported_reason()}."
+                )
+            v = as_input(stacked[k], self.device)
+            if fx == "cat":
+                # a per-rank scalar cat state: the stack is the cat
+                out[k] = v if v.ndim == 1 else v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
+            else:
+                out[k] = stack_reduce(v, fx)
+        return out
+
+    def sync_leaf_info(self) -> List[Any]:
+        """``(dist_reduce_fx, StateSpec, precision)`` per fixed-shape state
+        leaf, nested metrics' appended, in :meth:`sync_states` order: the
+        input of ``fused_sync_plan``/``sync_payload_bytes``. List states are
+        left out (their payload depends on the data)."""
+        abstract = self.abstract_state()
+        out: List[Any] = [(self._reductions[k], abstract[k], self._sync_precision.get(k, "exact"))
+                          for k, v in self._defaults.items() if not isinstance(v, list)]
+        for _, child in self._child_paths():
+            out.extend(child.sync_leaf_info())
+        return out
+
+    def sync_error_bounds(self, stacked: Dict[str, Any]) -> Dict[str, Any]:
+        """Per-element |error| bounds of a quantized sync of ``stacked`` (a
+        rank-stacked state, leading axis = rank) against the exact one, per
+        quantized state path (``q8_sum_error_bound``); exact states do not
+        appear."""
+        out: Dict[str, Any] = {k: q8_sum_error_bound(stacked[k]) for k in self._defaults
+                               if self._sync_precision.get(k, "exact") == "q8_block"}
+        sub = stacked.get(self._CHILD_KEY, {}) if isinstance(stacked, dict) else {}
+        for name, child in self._child_metrics().items():
+            if isinstance(child, list):
+                for i, c in enumerate(child):
+                    parts = sub.get(name, [{}] * len(child))
+                    out.update({f"{name}[{i}].{k}": v for k, v in c.sync_error_bounds(parts[i]).items()})
+            else:
+                out.update({f"{name}.{k}": v for k, v in child.sync_error_bounds(sub.get(name, {})).items()})
+        return out
 
     def merge_states(self, a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
         """Pairwise merge of two state dicts (pure): sum/min/max/cat, nested
@@ -736,6 +1025,10 @@ class Metric(nn.Module):
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            if self._is_synced:
+                raise MetricsTPUUserError(
+                    "The Metric has already been synced. HINT: call unsync() before modifying state."
+                )
             self._computed = None
             self._update_called = True
             self._inner_update(*args, **kwargs)
@@ -754,7 +1047,10 @@ class Metric(nn.Module):
                 )
             if self._computed is not None:
                 return self._computed
-            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            ):
+                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
         return wrapped_func
@@ -765,23 +1061,40 @@ class Metric(nn.Module):
         One ``update`` per call when states merge pairwise: the batch value is
         computed from the state delta and the delta merged into the global
         state. Otherwise the global state is snapshotted and the batch value
-        computed with a second update.
+        computed with a second update. Under ``dist_sync_on_step`` the batch's
+        state is synced across the group before its value is computed (the
+        accumulated state stays rank-local).
         """
+        if self._is_synced:
+            raise MetricsTPUUserError("The Metric shouldn't be synced when performing ``forward``.")
         if self._states_mergeable:
             delta = self.update_state(self.init_state(), *args, **kwargs)
             self._load_state(self.merge_states(self._pack_state(), delta))
             self._mark_updated()
-            self._forward_cache = self.compute_from(delta) if self.compute_on_step else None
+            if not self.compute_on_step:
+                self._forward_cache = None
+                return None
+            if self.dist_sync_on_step:
+                delta = self.sync_states(delta)
+            self._forward_cache = self.compute_from(delta)
             return self._forward_cache
         self.update(*args, **kwargs)
         if not self.compute_on_step:
             self._forward_cache = None
             return None
         cache = self._pack_state()
-        self._load_state(self.init_state())
-        self.update(*args, **kwargs)
-        self._forward_cache = self.compute()
-        self._load_state(cache)
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
+        try:
+            self._load_state(self.init_state())
+            self.update(*args, **kwargs)
+            self._forward_cache = self.compute()
+        finally:
+            self._load_state(cache)
+            self._should_unsync = True
+            self._to_sync = True
+            self._is_synced = False
+            self._cache = None
         self._mark_updated()
         return self._forward_cache
 
@@ -790,10 +1103,83 @@ class Metric(nn.Module):
         self._update_called = False
         self._forward_cache = None
         self._computed = None
+        self._is_synced = False
+        self._cache = None
         self._load_state(self.init_state())
+
+    # ---------------------------------------------------------------------- eager sync
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        distributed_available_fn: Optional[Callable] = None,
+    ) -> None:
+        """Replace the local state with the state merged across the group,
+        keeping the local one for :meth:`unsync`.
+
+        The JAX package's multi-host semantics: nested metrics' states pass
+        through unsynced (each syncs itself when its own ``compute`` runs),
+        a list state comes back as a one-element list of the gathered rows
+        (fx=None flattened as ``cat``), a tensor under fx=None stacked
+        ``(world, ...)``; every state exact, one fused bundle. Nothing
+        happens unless ``should_sync`` and the group has more than one rank
+        (``distributed_available_fn``, when given, decides instead), or
+        inside the pure API. ``dist_sync_fn`` is accepted and not called, as
+        in the JAX package's eager path."""
+        if self._is_synced and should_sync:
+            raise MetricsTPUUserError("The Metric has already been synced.")
+        group = self._group()
+        available = distributed_available_fn() if distributed_available_fn is not None else distributed_available(group)
+        if not should_sync or not available or getattr(_PURE, "depth", 0):
+            return
+        state = self._pack_state()
+        entries = [(self, k, v) for k, v in state.items() if k != self._CHILD_KEY]
+        synced = dict(zip((k for _, k, _ in entries), _sync_entries(entries, group, eager=True)))
+        if self._CHILD_KEY in state:
+            synced[self._CHILD_KEY] = state[self._CHILD_KEY]
+        self._cache = state
+        self._load_state(synced)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the rank-local state after :meth:`sync`."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsTPUUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsTPUUserError("The internal cache should exist to unsync the Metric.")
+        self._load_state(self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    @contextlib.contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available_fn: Optional[Callable] = None,
+    ):
+        """Context manager: the synced state inside, the local state restored
+        on exit."""
+        self.sync(dist_sync_fn=dist_sync_fn, should_sync=should_sync,
+                  distributed_available_fn=distributed_available_fn)
+        try:
+            yield self
+        finally:
+            self.unsync(should_unsync=self._is_synced and should_unsync)
 
     def clone(self) -> "Metric":
         return deepcopy(self)
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(deepcopy(self.__getstate__(), memo))
+        new.sync_axis = self.sync_axis  # a process group is shared, never copied
+        return new
 
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         """Buffers as ``nn.Module`` saves them, plus the persistent list
@@ -862,6 +1248,7 @@ class Metric(nn.Module):
         state = self.__dict__.copy()
         state.pop("update", None)
         state.pop("compute", None)
+        state["sync_axis"] = None  # a process group does not cross processes
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
@@ -960,6 +1347,12 @@ class CompositionalMetric(Metric):
                 setattr(self, name, operand)
             else:
                 self.register_buffer(name, _operand(operand, device), persistent=False)
+
+    def sync(self, *args: Any, **kwargs: Any) -> None:
+        """No state of its own: each operand syncs in its own ``compute``."""
+
+    def unsync(self, *args: Any, **kwargs: Any) -> None:
+        pass
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         if isinstance(self.metric_a, Metric):

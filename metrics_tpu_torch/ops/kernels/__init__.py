@@ -1,7 +1,7 @@
 """Streaming-update kernel library: hand-written CUDA kernels for Hopper, each
 with a plain PyTorch version beside it, behind a dispatcher that picks by the
 tensor's device (port of ``metrics_tpu/ops/kernels``)."""
-from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, combine, reduce_identity, supported_dtype
+from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, combine, reduce_identity, stack_reduce, supported_dtype
 from metrics_tpu_torch.ops.kernels.dispatch import (
     fold_rows_masked,
     histogram_accumulate,
@@ -31,5 +31,6 @@ __all__ = [
     "reduce_identity",
     "segment_reduce_masked",
     "segment_reduce_ref",
+    "stack_reduce",
     "supported_dtype",
 ]

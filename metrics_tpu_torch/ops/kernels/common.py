@@ -58,6 +58,16 @@ def combine(a: torch.Tensor, b: torch.Tensor, fx: str) -> torch.Tensor:
     return torch.maximum(a, b)
 
 
+def stack_reduce(stacked: torch.Tensor, fx: str) -> torch.Tensor:
+    """Fold a leading stack axis with ``fx``, dtype-preserving: a sequential
+    pairwise :func:`combine` rather than ``torch.sum``, so small ints and
+    bool never promote (a merge returns the state's own dtype)."""
+    out = stacked[0]
+    for i in range(1, stacked.shape[0]):
+        out = combine(out, stacked[i], fx)
+    return out
+
+
 def supported_dtype(dtype: torch.dtype) -> bool:
     """Dtypes the CUDA fold kernels take: f32/bf16 floats and the 32-bit
     ints (uint32 as its int32 bits, :func:`int32_bits`).

@@ -140,6 +140,18 @@ def _pager_row(value: Any) -> np.ndarray:
     return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
 
 
+def _payload_row(key: str, value: Any) -> Any:
+    """The inverse of :func:`_pager_row` for one pager payload entry: the
+    spilled rows of a bf16 buffer (``spill_bfloat16``, and the exact section
+    ``spill_bfloat16#ex`` of a compressed one) narrow back to bf16, as JAX's
+    payload holds them. Lossless: they are bf16 values widened."""
+    from metrics_tpu_torch.engine.quantize import ArenaRowCodec
+
+    if key.split("#")[0] == "spill_bfloat16" and not key.endswith((ArenaRowCodec.CODES, ArenaRowCodec.SCALES)):
+        return np.asarray(value, np.float32).astype(_bf16_numpy_dtype(key))
+    return value
+
+
 def engine_state_from_numpy(
     engine: Any,
     arena: Dict[str, Any],
@@ -185,11 +197,13 @@ def engine_state_from_numpy(
 def engine_state_to_numpy(engine: Any) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, Any]]]:
     """The inverse of :func:`engine_state_from_numpy`: the port engine's arena
     in the JAX engine's form (``(1, R, n)`` buffers for the paged engine) and,
-    for the paged engine, its pager's ``snapshot_payload()`` (else None)."""
+    for the paged engine, its pager's ``snapshot_payload()`` (else None),
+    with a bf16 buffer's spilled rows as bf16, as JAX's payload holds them."""
     paged = bool(getattr(engine, "stream_shard", False))
     engine.flush()
     with engine._device_section():
         arena = {k: state_to_numpy(v, f"arena[{k!r}]") for k, v in engine._state.items()}
     if paged:
-        return {k: v[None] for k, v in arena.items()}, engine.pager.snapshot_payload()
+        payload = {k: _payload_row(k, v) for k, v in engine.pager.snapshot_payload().items()}
+        return {k: v[None] for k, v in arena.items()}, payload
     return arena, None

@@ -1136,3 +1136,82 @@ def test_captured_regression_engine_matches_the_cpu_port(cuda, kind):
                     assert torch.all((g - w).abs() <= (2 * rows + 8) * 2.0 ** -24 * w.abs()), (member, name)
     with pytest.raises(MetricsTPUUserError, match="reads n_obs on the host"):
         captured.result() if kind == "streaming" else captured.results()
+
+
+@pytest.mark.requires_cuda
+def test_nccl_world_1_bundle_drives_every_kind_on_card(cuda, tmp_path):
+    """NCCL at world 1 on the first card: one fused bundle with every kind
+    (the f32 sum rider with float and integer leaves, the reduce buckets of
+    the widened dtypes, the byte gather, a q8 leaf) gives the world-1
+    results, with the collectives the plan names; a collection's
+    ``compute_synced`` equals its unsynced value."""
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.parallel import collectives as col
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rng = np.random.RandomState(0)
+        f32 = torch.from_numpy(rng.randn(5, 3).astype(np.float32)).to(cuda)
+        i32 = torch.tensor([2**31 - 1, -(2**31), -7], dtype=torch.int32, device=cuda)
+        flags = torch.tensor([True, False, True], device=cuda)
+        leaves = [("sum", f32), ("sum", i32), ("sum", f32.half()), ("mean", f32.bfloat16()),
+                  ("min", i32.to(torch.int16)), ("max", torch.tensor([3, 2**32 - 1], dtype=torch.uint32, device=cuda)),
+                  ("max", flags), ("sum", f32.double()), ("sum", i32.long()), ("sum", flags),
+                  ("mean", i32.to(torch.int8)), ("cat", f32), (None, i32), (lambda a, b: a + b, f32),
+                  ("cat", flags), ("sum", torch.from_numpy(rng.randn(100).astype(np.float32)).to(cuda))]
+        precs = ["exact"] * (len(leaves) - 1) + ["q8_block"]
+        col.reset_collective_counts()
+        out = col.fused_axis_sync(leaves, precisions=precs)
+        counts = col.collective_counts()
+        plan = col.fused_sync_plan([(fx, v, p) for (fx, v), p in zip(leaves, precs)], 1)
+        assert counts["all_reduce"] + counts["all_gather"] == plan["collectives"] == 1 + 8 + 1
+        for (fx, v), got in zip(leaves[:-1], out[:-1]):
+            assert got.device == v.device
+            if fx is None:
+                want = v[None]
+            elif fx == "sum" and v.dtype == torch.bool:
+                want = v.to(torch.int32)
+            elif fx == "mean" and not v.dtype.is_floating_point:
+                want = v.to(torch.float32)
+            else:
+                want = v
+            bits = (lambda x: x.view(torch.int16) if x.dtype == torch.bfloat16 else x)
+            assert got.dtype == want.dtype and np.array_equal(bits(got).cpu().numpy(), bits(want).cpu().numpy()), \
+                (fx, v.dtype)
+        np.testing.assert_array_equal(out[-1].cpu().numpy(), col.q8_roundtrip(leaves[-1][1]))
+
+        coll = mp.MetricCollection({"acc": mp.Accuracy(device=cuda),
+                                    "auroc": mp.AUROC(num_classes=4, capacity=64, device=cuda)})
+        p = torch.from_numpy(rng.rand(40, 4).astype(np.float32)).to(cuda)
+        t = torch.from_numpy(rng.randint(0, 4, 40)).to(cuda)
+        state = coll.update_state(coll.init_state(), p, t)
+        want = coll.compute_from(state)
+        got = coll.compute_synced(state)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_list_lengths_refused_across_two_ranks_on_card(cuda):
+    """Two gloo ranks on the first card, their eager AUROC list states of
+    8 and 12 rows: ``compute()`` raises on both, naming the state, rather
+    than hang or gather garbage."""
+    import sys
+    from pathlib import Path
+
+    # by its directory: a ``tests`` package installed beside PyTorch can shadow
+    # this repository's, and the spawned ranks import the module by name
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+    from torch_sync_worker import RankPool
+
+    pool = RankPool(world=2, cuda=True)
+    try:
+        msgs = pool.run("list_refusal", device="cuda")
+    finally:
+        pool.close()
+    assert all(m is not None and "AUROC.preds (rows per rank: [8, 12])" in m for m in msgs), msgs

@@ -200,3 +200,87 @@ def test_bf16_leaf_without_ml_dtypes_raises_naming_the_leaf(monkeypatch):
     monkeypatch.setitem(sys.modules, "ml_dtypes", None)
     with pytest.raises(TypeError, match=r"state\.sum_squared_error.*ml_dtypes"):
         state_to_numpy({"sum_squared_error": _bf16(1.0), "total": torch.tensor(1, dtype=torch.int32)})
+
+
+def _bf16_sum(pkg, **kw):
+    """A metric with a genuinely bf16 ``sum`` state (and an int32 count) in
+    ``pkg``: the JAX package's ``astype`` keeps a metric's f32 defaults, so
+    its served arenas are bf16 only for a state registered as bf16."""
+    xp, bf16, i32 = (jnp, jnp.bfloat16, jnp.int32) if pkg is mt else (torch, torch.bfloat16, torch.int32)
+
+    class Bf16Sum(pkg.Metric):
+        def __init__(self):
+            super().__init__(**kw)
+            self.add_state("total", xp.zeros((), dtype=bf16), dist_reduce_fx="sum")
+            self.add_state("sq", xp.zeros((), dtype=bf16), dist_reduce_fx="sum")
+            self.add_state("n", xp.zeros((), dtype=i32), dist_reduce_fx="sum")
+
+        def update(self, x):
+            cast = (lambda v: v.astype(bf16)) if pkg is mt else (lambda v: v.to(bf16))
+            self.total = self.total + cast(x.sum())
+            self.sq = self.sq + cast((x * x).sum())
+            self.n = self.n + x.shape[0]
+
+        def compute(self):
+            return self.total
+
+    return Bf16Sum()
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["exact", "q8"])
+def test_bf16_paged_pager_payload_crosses_as_bf16_both_ways(q8):
+    """A bf16 ``sum`` state on the paged engine (5 streams, 2 resident
+    slots, so rows spill): the port's pager payload holds the spilled bf16
+    rows as bf16, the dtype JAX's ``snapshot_payload()`` gives for the same
+    arena; JAX → port → numpy and port → numpy → port keep every row's bits.
+    With ``compress_payloads`` (``total`` quantized) the exact section of the
+    bf16 buffer (``sq``) crosses as bf16, the q8 codes and scales as int8 and
+    f32."""
+    from jax.sharding import Mesh
+
+    from metrics_tpu.engine import EngineConfig as JaxConfig
+    from metrics_tpu.engine import MultiStreamEngine as JaxMulti
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+    from metrics_tpu_torch.utils.state_bridge import engine_state_from_numpy, engine_state_to_numpy
+
+    streams = 5
+    prec = {"sync_precision": {"total": "q8_block"}} if q8 else {}
+
+    def port():
+        return MultiStreamEngine(_bf16_sum(mp, device="cpu", **prec), streams,
+                                 EngineConfig(buckets=(8,), kernel_backend="megastep", coalesce=1,
+                                              compress_payloads=q8),
+                                 stream_shard=True, resident_streams=2)
+
+    rng = np.random.RandomState(7)
+    traffic = [(int(rng.randint(streams)), rng.rand(int(rng.randint(1, 6))).astype(np.float32) * 4)
+               for _ in range(14)]
+    jeng = JaxMulti(_bf16_sum(mt, **prec), streams,
+                    JaxConfig(buckets=(8,), mesh=Mesh(np.asarray(jax.devices()[:1]), ("dp",)), axis="dp",
+                              mesh_sync="deferred", kernel_backend="xla", coalesce=1, compress_payloads=q8),
+                    stream_shard=True, resident_streams=2)
+    peng = port()
+    with jeng, peng:
+        for sid, x in traffic:
+            jeng.submit(sid, jnp.asarray(x, jnp.bfloat16))
+            jeng.flush()
+            peng.submit(sid, torch.from_numpy(x).bfloat16())
+    jpay = jeng._pager.snapshot_payload()
+    arena, pay = engine_state_to_numpy(peng)
+    assert "spill_coords" in pay and sorted(pay) == sorted(jpay)
+    assert {k: v.dtype.name for k, v in pay.items()} == {k: np.asarray(v).dtype.name for k, v in jpay.items()}
+    assert any(v.dtype.name == "bfloat16" for v in pay.values())
+    # port -> numpy -> port: every spilled row's bits come back
+    twin = port()
+    engine_state_from_numpy(twin, arena, peng.arena_layout.leaf_slices(), pay)
+    _, again = engine_state_to_numpy(twin)
+    for k, v in pay.items():
+        assert again[k].dtype == v.dtype and np.array_equal(again[k].view(np.uint8), v.view(np.uint8)), k
+    # JAX -> port -> numpy: JAX's payload comes back as it was
+    seated = port()
+    jarena = {k: np.asarray(v) for k, v in jeng._state.items()}
+    engine_state_from_numpy(seated, jarena, jeng.arena_layout.leaf_slices(), jpay)
+    _, back = engine_state_to_numpy(seated)
+    for k, v in jpay.items():
+        v = np.asarray(v)
+        assert back[k].dtype == v.dtype and np.array_equal(back[k].view(np.uint8), v.view(np.uint8)), k
