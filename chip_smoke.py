@@ -148,6 +148,35 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    run: one card takes one NCCL rank. The phase line holds the collectives
    per sync, the payload bytes exact and with q8, host ms per sync (median
    of 20) at world 1 and 2, and the K2/K3 launches.
+15. The compiled forward (``Metric.forward``, ``MetricCollection.forward``:
+   one CUDA graph per input signature, ``engine/aot.py``'s
+   ``CapturedForward``), each owner against an eager twin (the same metric
+   with the compiled path off) over the same batches: (a) the flagship
+   collection through ``coll(preds, target)`` over phase 4's rows as 64
+   forwards of 1024 rows: the first runs eagerly, the second captures one
+   fused graph, which serves 63 of the 64; every batch value bit-equal to
+   the twin's, the final states bit-equal to phase 4's, ``compute()`` equal
+   to phase 4's values, K2 and K3 launches credited per replay; (b)
+   ``BinnedAveragePrecision`` alone over the same batches (the single
+   metric's step, K3); (c) phase 13's eight members plus ``R2Score`` as a
+   collection over phase 13's rows: the fused step fails (R2Score's compute
+   reads ``n_obs`` on the host), each member takes its own graph, R2Score
+   stays eager-only, the entry kinds equal to the JAX package's; (d) the
+   deferred checks: a ``ConfusionMatrix`` batch with ``target ==
+   num_classes`` and a Tweedie (power 1.5) batch with a negative target on
+   the captured path: ``forward`` returns, every ``compute()`` raises the
+   JAX package's message until ``reset()``; (e) a metric whose update reads
+   the device on the host is refused in the warm-up, before any capture, and
+   one that reads only while a capture runs gets past the warm-up and breaks
+   its capture: each ends eager-only, its state equal to the twin's; a graph
+   that draws random numbers, captured before, still follows
+   ``manual_seed`` and draws apart from eager draws; (a)'s graph still
+   replays right, and the ``compute()`` result kept from (a) (the confusion
+   matrix's state tensor itself) keeps its values. The phase line holds captures, replays, eager-only
+   signatures and capture seconds, host ms per forward (median over the
+   replays, the device drained after each call) against the twin's, the
+   device launches and µs of one forward captured and eager (profiler), the
+   memory the capture kept, and the K2/K3 launches.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -161,10 +190,10 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 14 and read after it;
+and set to 0 again before each of phases 10 to 15 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
-K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phase 14: K2
-and K3), and K2 must launch once per batch and per step
+K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
+and 15: K2 and K3), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -3239,6 +3268,265 @@ def flat_tree_abs(x):
         return max(flat_tree_abs(v) for v in x)
     return float(torch.as_tensor(x).double().abs().max())
 
+# --------------------------------------------------- phase 15: the compiled forward
+
+FWD_BATCH = 1024  # a training loop's per-step call: 64 forwards over the 65 536 rows
+FWD_SUFFIX = " (detected by a compiled forward step; raised deferred)"
+# each signature's entry kind after the run, as the JAX package's forward leaves
+# them (pinned on the CPU against JAX by tests/test_torch_forward.py)
+FWD_REGRESSION_KINDS = {"collection": ["eager_only"], **{k: ["compiled"] for k in (
+    "mse", "rmse", "mae", "msle", "mape", "smape", "explained_variance", "tweedie")}, "r2": ["eager_only"]}
+
+
+def fwd_kinds(owner):
+    """Each signature's entry of ``owner``'s compiled forward: compiled, eager_only or pending."""
+    from metrics_tpu_torch.metric import forward_entry_kinds
+
+    return forward_entry_kinds(owner)
+
+
+def fwd_entry(owner):
+    """``owner``'s one built forward step (a ``CapturedForward``)."""
+    from metrics_tpu_torch.metric import compiled_forward_steps
+
+    entries = compiled_forward_steps(owner)
+    check(len(entries) == 1, f"expected one built forward step, got {len(entries)}")
+    return entries[0]
+
+
+def same_value_trees(got, want, what):
+    """Bit-equal value trees (dicts, lists of per-class tensors, tensors)."""
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{what}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_value_trees(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{what}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_value_trees(g, w, f"{what}[{i}]")
+    else:
+        check(got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want), f"{what} differs")
+
+
+def eager_twin(owner):
+    """``owner`` with the compiled forward off: every call the eager
+    ``compute_from(update_state(init_state(), ...))`` and merge."""
+    from metrics_tpu_torch.metric import keep_forward_eager
+
+    return keep_forward_eager(owner)
+
+
+def forward_run(owner, batches):
+    """``owner(p, t)`` per batch: the values, host ms per call (the device
+    drained after each), the launches of all calls and of the first, and the
+    device memory the second call (the capture) kept."""
+    before = counts()
+    values, host_ms, mem = [], [], []
+    for i, (p, t) in enumerate(batches):
+        t0 = time.perf_counter()
+        values.append(owner(p, t))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        mem.append(torch.cuda.memory_allocated())
+        if i == 0:
+            first = delta(before)
+    # (the capture empties PyTorch's cache of free blocks: reserved memory says nothing here)
+    return values, host_ms, {"launches": delta(before), "first_call_launches": first,
+                             "capture_allocated_bytes": mem[1] - mem[0]}
+
+
+def forward_profile(owner, p, t):
+    """Device launches and µs of one more forward of ``owner`` (profiler)."""
+    trace = device_trace(lambda: owner(p, t), runs=10)
+    return {"device_launches": sum(c for _, c in trace.values()), "device_us": sum(us for us, _ in trace.values())}
+
+
+def forward_members_phase(owner, twin, batches, what, state_of, want_state):
+    """One owner's forwards against its eager twin's: values bit-equal, final
+    states bit-equal to the twin's and to ``want_state``; host ms per call
+    (the median over the replays), launches and the capture's memory."""
+    vals, host_ms, run = forward_run(owner, batches)
+    twin_vals, twin_ms, _ = forward_run(twin, batches)
+    for i, (g, w) in enumerate(zip(vals, twin_vals)):
+        same_value_trees(g, w, f"15{what} batch {i} vs the eager twin")
+    got = state_of(owner)
+    same_value_trees(got, state_of(twin), f"15{what} state vs the eager twin")
+    if want_state is not None:
+        compare_states(got, want_state, f"15{what} vs phase 4")
+    return {"host_ms_median": float(np.median(host_ms[2:])), "host_ms_eager_call": host_ms[0],
+            "host_ms_capture_call": host_ms[1], "eager_twin_host_ms_median": float(np.median(twin_ms[2:])), **run}
+
+
+def forward_phase(dev, preds, target, gpu_state, gpu_values):
+    """Phase 15: ``Metric.forward`` and ``MetricCollection.forward`` as one
+    CUDA graph per input signature (``engine/aot.py``'s ``CapturedForward``),
+    against eager twins. Returns the phase's numbers."""
+    from metrics_tpu_torch import BinnedAveragePrecision, ConfusionMatrix, Metric, R2Score, TweedieDevianceScore
+    from metrics_tpu_torch.engine.aot import FORWARD_CACHE
+
+    out = {}
+    batches = [(preds[lo:lo + FWD_BATCH], target[lo:lo + FWD_BATCH]) for lo in range(0, N_ROWS, FWD_BATCH)]
+    n = len(batches)
+    cache0 = FORWARD_CACHE.stats()
+
+    # (a) the flagship collection, fused into one graph
+    state_of = lambda c: {k: {s: getattr(m, s) for s in m._defaults} for k, m in c.items(keep_base=True)}
+    coll = make_collection(dev)
+    a = forward_members_phase(coll, eager_twin(make_collection(dev)), batches, "(a) flagship", state_of, gpu_state)
+    entry = fwd_entry(coll)
+    check(fwd_kinds(coll) == ["compiled"] and entry.captures == 1 and entry.replays == n - 1,
+          f"15(a): {fwd_kinds(coll)}, {entry.captures} captures, {entry.replays} replays")
+    kept = coll.compute()  # the confusion matrix's is its state tensor: (e) forwards again and reads it
+    same_value_trees(flat_values(kept), gpu_values, "15(a) compute() vs phase 4")
+    per_forward = a.pop("first_call_launches")
+    for k in ("histogram", "binned_counts"):
+        # the eager call and the warm-up launch for real; each replay credits the captured launches
+        check(per_forward[k] > 0 and a["launches"][k] == (n + 1) * per_forward[k],
+              f"15(a) {k}: {a['launches'][k]} launches, {per_forward[k]} per forward")
+    a.update({"forwards": n, "eager": 1, "captures": entry.captures, "replays": entry.replays,
+              "eager_only": 0, "capture_seconds": entry.capture_seconds,
+              "per_forward_launches": {k: v for k, v in per_forward.items() if v}})
+    a["profile_captured"] = forward_profile(coll, *batches[0])
+    a["profile_eager"] = forward_profile(eager_twin(make_collection(dev)), *batches[0])
+    out["a_flagship"] = a
+
+    # (b) BinnedAveragePrecision alone: the single metric's step
+    make_ap = lambda: BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev)
+    ap = make_ap()
+    b = forward_members_phase(ap, eager_twin(make_ap()), batches, "(b) binned AP",
+                                    lambda m: {"binned_ap": {s: getattr(m, s) for s in m._defaults}},
+                                    {"binned_ap": gpu_state["binned_ap"]})
+    entry = fwd_entry(ap)
+    check(fwd_kinds(ap) == ["compiled"] and entry.captures == 1 and entry.replays == n - 1,
+          f"15(b): {fwd_kinds(ap)}, {entry.captures} captures, {entry.replays} replays")
+    b.pop("first_call_launches")
+    check(b["launches"]["binned_counts"] == n + 1, f"15(b) K3: {b['launches']['binned_counts']} launches")
+    b.update({"forwards": n, "captures": entry.captures, "replays": entry.replays, "eager_only": 0,
+              "capture_seconds": entry.capture_seconds})
+    b["profile_captured"] = forward_profile(ap, *batches[0])
+    b["profile_eager"] = forward_profile(eager_twin(make_ap()), *batches[0])
+    out["b_binned_ap"] = b
+
+    # (c) phase 13's regression members and R2Score as a collection: the fused
+    # step fails (R2Score's compute reads n_obs on the host), the members take their own
+    def make_reg():
+        c = make_regression_collection(dev)
+        c["r2"] = R2Score(device=dev)
+        return c
+
+    rp, rt, _, _ = regression_rows(dev)
+    reg_batches = [(rp[lo:lo + FWD_BATCH], rt[lo:lo + FWD_BATCH]) for lo in range(0, N_ROWS, FWD_BATCH)]
+    reg = make_reg()
+    eager_only0 = FORWARD_CACHE.eager_only
+    c = forward_members_phase(reg, eager_twin(make_reg()), reg_batches, "(c) regression", state_of, None)
+    c.pop("first_call_launches")
+    kinds = {"collection": fwd_kinds(reg), **{k: fwd_kinds(m) for k, m in reg.items(keep_base=True)}}
+    check(kinds == FWD_REGRESSION_KINDS, f"15(c) entry kinds {kinds}")
+    members = [fwd_entry(m) for k, m in reg.items(keep_base=True) if k != "r2"]
+    check(all(e.captures == 1 and e.replays == n - 1 for e in members), "15(c): a member's captures or replays")
+    c.update({"forwards": n, "kinds": kinds, "captures": sum(e.captures for e in members),
+              "replays": sum(e.replays for e in members), "eager_only": FORWARD_CACHE.eager_only - eager_only0,
+              "capture_seconds": sum(e.capture_seconds for e in members)})
+    check(c["eager_only"] == 2, f"15(c): {c['eager_only']} eager-only signatures, not 2")
+    out["c_regression"] = c
+
+    # (d) deferred checks on the card: forward returns, compute() raises JAX's message until reset()
+    d = {}
+    for name, make, good, bad, msg in (
+            ("confmat", lambda: ConfusionMatrix(num_classes=NUM_CLASSES, device=dev), batches[0],
+             (batches[0][0], torch.full_like(batches[0][1], NUM_CLASSES)),
+             "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."),
+            ("tweedie", lambda: TweedieDevianceScore(power=SERVED_POWER, device=dev), reg_batches[0],
+             (reg_batches[0][0], -reg_batches[0][1]),
+             "Tweedie deviance inputs violate the positivity domain for the chosen `power`.")):
+        m = make()
+        for _ in range(3):
+            m(*good)
+        check(fwd_kinds(m) == ["compiled"], f"15(d) {name}: {fwd_kinds(m)}")
+        m(*bad)  # the captured step: no raise here
+        raised = []
+        for _ in range(3):
+            try:
+                m.compute()
+                raised.append(None)
+            except ValueError as e:
+                raised.append(str(e))
+        check(raised == [msg + FWD_SUFFIX] * 3, f"15(d) {name}: {raised}")
+        m.reset()
+        m(*good)
+        m.compute()
+        d[name] = raised[0]
+    out["d_deferred"] = d
+
+    # (e) steps that cannot be captured. A host read is found in the warm-up,
+    # before any capture; one made only while a capture runs gets past the
+    # warm-up and breaks the capture, which must leave the state, the card and
+    # its random generator (shared with a graph of the user's) as they were
+    def host_read_metric(only_while_capturing):
+        class HostRead(Metric):
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+            def update(self, x, y):
+                read = (x - y.unsqueeze(1)).sum()
+                if not only_while_capturing or torch.cuda.is_current_stream_capturing():
+                    read.item()
+                self.total = self.total + read
+
+            def compute(self):
+                return self.total
+
+        return HostRead(device=dev), eager_twin(HostRead(device=dev))
+
+    drawn = torch.empty(4096, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        drawn.uniform_()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    users = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(users):
+        drawn.uniform_()
+    e = {}
+    for name, only_while_capturing in (("refused_in_warm_up", False), ("capture_failed", True)):
+        hr, hr_twin = host_read_metric(only_while_capturing)
+        eager_only0, captures0 = FORWARD_CACHE.eager_only, FORWARD_CACHE.misses
+        refusals0 = FORWARD_CACHE.host_sync_refusals
+        for p, t in batches[:4]:
+            hr(p, t)
+            hr_twin(p, t)
+        refused = FORWARD_CACHE.host_sync_refusals - refusals0
+        check(fwd_kinds(hr) == ["eager_only"] and FORWARD_CACHE.eager_only == eager_only0 + 1
+              and FORWARD_CACHE.misses == captures0 and refused == int(not only_while_capturing),
+              f"15(e) {name}: {fwd_kinds(hr)}, {refused} warm-up refusals")
+        check(torch.equal(hr.total, hr_twin.total), f"15(e) {name}: the failed try moved the state")
+        e[name] = fwd_kinds(hr)
+    torch.cuda.manual_seed(7)
+    users.replay()
+    first = drawn.clone()
+    eager_draw = torch.rand(4096, device=dev)
+    torch.cuda.manual_seed(7)
+    users.replay()
+    check(torch.equal(drawn, first), "15(e): manual_seed no longer reaches the user's random graph")
+    check(not torch.equal(eager_draw, first), "15(e): eager draws repeat the user's graph's")
+    replays = fwd_entry(coll).replays
+    got = coll(*batches[5])
+    want = eager_twin(make_collection(dev))(*batches[5])
+    same_value_trees(got, want, "15(e) the flagship's graph after the failed capture")
+    check(fwd_entry(coll).replays == replays + 1, "15(e): the flagship's forward did not replay")
+    same_value_trees(flat_values(kept), gpu_values, "15(e) a compute() result kept across a forward")
+    ap2, ap2_twin = make_ap(), eager_twin(make_ap())
+    for p, t in batches[:3]:
+        same_value_trees(ap2(p, t), ap2_twin(p, t), "15(e) a capture after the failed one")
+    check(fwd_kinds(ap2) == ["compiled"], f"15(e): a later capture: {fwd_kinds(ap2)}")
+    out["e_failed_capture"] = {**e, "state_equal": True, "user_random_graph_follows_seed": True,
+                               "kept_compute_unchanged": True, "later_capture": fwd_kinds(ap2)}
+
+    stats = FORWARD_CACHE.stats()
+    out["forward_cache"] = {k: stats[k] - cache0[k] if isinstance(stats[k], (int, float)) else stats[k]
+                            for k in stats}
+    return out
 
 
 def nvidia_smi_line():
@@ -3359,6 +3647,18 @@ def main():
         check(sync_launches[k] > 0, f"kernel {k} was not launched by the sync phase")
     launches = {k: launches[k] + sync_launches[k] for k in launches}
     print(json.dumps({"sync_phase": sync, "launches": sync_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 15, its counts from 0: K2 and K3 (inside the flagship's captured forward) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    forward = forward_phase(dev, preds, target, gpu_state, gpu_values)
+    forward_launches = counts()
+    for k in ("histogram", "binned_counts"):
+        check(forward_launches[k] > 0, f"kernel {k} was not launched by the forward phase")
+    launches = {k: launches[k] + forward_launches[k] for k in launches}
+    print(json.dumps({"forward_phase": forward, "launches": forward_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

@@ -47,6 +47,11 @@ class BaseAggregator(Metric):
         self.nan_strategy = nan_strategy
         self.add_state("value", default=default_value, dist_reduce_fx=fn)
 
+    def _forward_jit_safe(self) -> bool:
+        # 'error'/'warn' must see the values of EVERY batch (raise or warn on
+        # nan); a compiled forward would degrade them to 'ignore'
+        return self.nan_strategy not in ("error", "warn") and super()._forward_jit_safe()
+
     def _cast_and_nan_check_input(self, x: Union[float, Tensor]) -> Tensor:
         """The input as an f32 tensor on the metric's device, NaN strategy
         applied. A Python number becomes a device fill (no host-to-device

@@ -1,8 +1,8 @@
 """MetricCollection: an ordered dict of metrics sharing one call signature.
 
-Port of ``metrics_tpu/collections.py`` without the fused forward and the
-compiled step cache. The collection is an ``nn.ModuleDict``; the pure API
-carries every member's state as one dict ``{member: state}``:
+Port of ``metrics_tpu/collections.py``. The collection is an
+``nn.ModuleDict``; the pure API carries every member's state as one dict
+``{member: state}``:
 
     state = coll.init_state()
     state = coll.update_state(state, preds, target)
@@ -14,14 +14,33 @@ The serving hooks (``update_state_segmented``, ``arena_layout``, the
 ``sync_precision`` policy) fan out to the members as the JAX package's do;
 ``sync_states`` syncs every member, nested metrics included, in one fused
 bundle of collectives.
+
+``forward`` fuses every member into one compiled step per input signature
+(``_forward_fused``, the JAX package's protocol: the first call runs the
+members' loop, the second builds the step): one CUDA graph on the card for
+every member's ``update -> merge -> compute(delta)``. A membership change
+drops the fused entries; a collection whose step cannot be built stays on the
+loop, where each member takes its own compiled forward.
 """
+import weakref
 from copy import deepcopy
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from torch import nn
 
-from metrics_tpu_torch.metric import Metric, _sync_trees, sync_precision_tag_of
+from metrics_tpu_torch.metric import (
+    _FORWARD_JIT_CACHE,
+    _MISS,
+    Metric,
+    _graph_keepalive,
+    _jit_cache_lookup,
+    _mark_eager_only,
+    _merge_errcode,
+    _sync_trees,
+    sync_precision_tag_of,
+)
 from metrics_tpu_torch.parallel.mesh import current_metric_axis
+from metrics_tpu_torch.utils.checks import traced_rows
 
 
 class MetricCollection(nn.ModuleDict):
@@ -91,8 +110,119 @@ class MetricCollection(nn.ModuleDict):
     # ------------------------------------------------------------------- eager facade
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Call every member; returns a dict of per-batch values."""
+        """Call every member; returns a dict of per-batch values.
+
+        When every member can take the compiled path, the whole collection
+        runs as ONE step (one CUDA graph on the card); otherwise the members
+        run one by one, each through its own compiled forward where it can.
+        """
+        fast = self._forward_fused(args, kwargs)
+        if fast is not _MISS:
+            return fast
         return {self._set_name(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
+
+    def _forward_fused(self, args: Any, kwargs: Any) -> Any:
+        """The fused compiled forward (``Metric._forward_fast``'s protocol
+        over every member at once). Returns the renamed value dict or
+        ``_MISS``."""
+        members = self.items(keep_base=True)
+        if not members:
+            return _MISS
+        # a full_state_update member needs the snapshot path (Metric.forward gates on it first)
+        if any(m._is_synced or not m._forward_eligible() for _, m in members):
+            return _MISS
+        devices = {m.device for _, m in members}
+        if len(devices) != 1:
+            return _MISS  # one step runs on one device
+        parsed = Metric._forward_signature(args, kwargs)
+        if parsed is None:
+            return _MISS
+        inner_sig, array_idx, leaves = parsed
+        # membership identity, each member's compute_on_step and the device
+        # (a member moved on its own) key the step
+        sig = (inner_sig, tuple((k, id(m), bool(m.compute_on_step)) for k, m in members), str(devices.pop()))
+        entry, cache = _jit_cache_lookup(self, sig, lambda: self._build_fused_step(inner_sig, array_idx, leaves))
+        if entry is None:
+            return _MISS
+        try:
+            merged, values, codes = entry({k: m._pack_state() for k, m in members},
+                                          [leaves[i] for i in array_idx])
+        except Exception:
+            _mark_eager_only(cache, sig)
+            return _MISS
+        out: Dict[str, Any] = {}
+        for k, m in members:
+            m._load_state(merged[k])
+            m._mark_updated()
+            val = values[k] if m.compute_on_step else None
+            m._forward_cache = val
+            m._deferred_errcode = _merge_errcode(m._deferred_errcode, codes[k])
+            out[self._set_name(k)] = val
+        return out
+
+    def _build_fused_step(self, inner_sig: Any, array_idx: Tuple[int, ...], leaves: List[Any]) -> Any:
+        from metrics_tpu_torch.engine.aot import forward_entry
+
+        members = self.items(keep_base=True)
+        compute_on_step = {k: bool(m.compute_on_step) for k, m in members}
+        device = members[0][1].device
+        # weak binding: the step must not pin the collection (nor, through it, its members)
+        wself = weakref.ref(self)
+
+        def step(states: Dict[str, Any], aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: Any = None):
+            coll = wself()
+            assert coll is not None  # the caller holds a strong reference for the call
+            merged: Dict[str, Any] = {}
+            values: Dict[str, Any] = {}
+            codes: Dict[str, Any] = {}
+            with traced_rows():
+                for k, m in coll.items(keep_base=True):
+                    merged[k], values[k], codes[k] = m._forward_body(states[k], a, m._filter_kwargs(**kw),
+                                                                     compute_on_step[k])
+            return merged, (values, codes)
+
+        return forward_entry(step, leaves, array_idx, inner_sig[0], device, _graph_keepalive(self))
+
+    # ------------------------------------------------------------ membership
+
+    def _invalidate_fused(self) -> None:
+        """Membership changed: drop every fused step (and its signature slots)."""
+        _FORWARD_JIT_CACHE.drop(self)
+
+    def add_module(self, name: str, module: Optional[nn.Module]) -> None:
+        # ``coll[k] = m``, ``add_metrics`` and ``register_module`` all land here
+        self._invalidate_fused()
+        super().add_module(name, module)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if isinstance(value, nn.Module) or name in self.__dict__.get("_modules", {}):
+            self._invalidate_fused()
+        super().__setattr__(name, value)
+
+    def __delattr__(self, name: str) -> None:
+        if name in self._modules:
+            self._invalidate_fused()
+        super().__delattr__(name)
+
+    def __delitem__(self, key: str) -> None:
+        self._invalidate_fused()
+        super().__delitem__(key)
+
+    def popitem(self) -> Tuple[str, Metric]:
+        """Remove and return the last ``(name, metric)`` pair."""
+        if not len(self):
+            raise KeyError("popitem(): the collection is empty")
+        key = list(self._modules)[-1]
+        return key, self.pop(key)
+
+    def clear(self) -> None:
+        self._invalidate_fused()
+        super().clear()
+
+    def _apply(self, fn: Callable, recurse: bool = True) -> "MetricCollection":
+        """``.to()``, ``.half()``... move the members: the fused steps read their old tensors."""
+        self._invalidate_fused()
+        return super()._apply(fn, recurse)
 
     def update(self, *args: Any, **kwargs: Any) -> None:  # type: ignore[override]
         for _, m in self.items(keep_base=True):

@@ -4,17 +4,23 @@ The Poisson branch uses ``xlogy``, so ``target == 0`` contributes 0, as in
 the JAX package. The domain checks read the inputs on the host, so they run
 eagerly and are skipped on traced inputs (a ``torch.func.vmap`` row of the
 engines' masked steps, or a graph being captured), as the JAX package skips
-them on tracers. The JAX package's compiled forward emits a deferred
-in-graph check instead; that ports with the compiled forward (ROADMAP.md).
+them on tracers. Inside a compiled forward step (``deferred_value_checks``)
+a traced update emits one conservative domain predicate per power as a
+deferred code instead, raised at the next ``compute()``, as in the JAX
+package.
 """
 from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, defer_value_check, register_deferred_message
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, tensor_device
 
 Tensor = torch.Tensor
+
+_CODE_DOMAIN = register_deferred_message(
+    "Tweedie deviance inputs violate the positivity domain for the chosen `power`."
+)
 
 
 def _any(*conds: Tensor) -> bool:
@@ -29,6 +35,15 @@ def _tweedie_deviance_score_update(preds: Tensor, targets: Tensor, power: float 
         raise ValueError(f"Deviance Score is not defined for power={power}.")
 
     eager = not _is_traced(preds) and not _is_traced(targets)
+    if not eager and power != 0:
+        # traced under a compiled forward step: one conservative predicate
+        # (the eager branches below carry the precise per-power messages)
+        if power == 1 or 1 < power < 2:
+            defer_value_check(lambda: torch.any(preds <= 0) | torch.any(targets < 0), _CODE_DOMAIN)
+        elif power < 0:
+            defer_value_check(lambda: torch.any(preds <= 0), _CODE_DOMAIN)
+        else:
+            defer_value_check(lambda: torch.any(preds <= 0) | torch.any(targets <= 0), _CODE_DOMAIN)
     if power == 0:
         deviance_score = (targets - preds) ** 2
     elif power == 1:

@@ -47,13 +47,27 @@ q8 leaves; :meth:`Metric.merge_stacked_states` folds a leading stack axis
 of per-rank states without communicating. The pure API (``update_state``,
 ``compute_from``) never communicates.
 
+``forward`` takes the compiled forward first, with the JAX package's
+per-signature protocol (``_forward_fast``): the first call of an input
+signature runs eagerly and validates eagerly, the second builds the step
+``update -> merge -> compute(delta)``, later calls reuse it; a step that
+cannot be built or run leaves its signature eager for good. On a CUDA device
+the step is one CUDA graph (``engine/aot.py``'s :class:`CapturedForward`)
+whose value checks emit deferred codes (``utils/checks.py``), raised at the
+next ``compute()``/``sync()``; on the CPU the same body runs eagerly under
+the same deferred checks. As in the JAX package, the metric rebinds its
+state to the step's output (clones of the graph's buffers on the card), so
+a state tensor or a ``compute()`` result kept across a forward keeps its
+values.
+
 Left out so far (see ROADMAP.md): the grouped strategy and its hooks (the
-ragged engine is not ported) and the compiled forward.
+ragged engine is not ported).
 """
 import contextlib
 import functools
 import inspect
 import threading
+import weakref
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -73,7 +87,13 @@ from metrics_tpu_torch.parallel.collectives import (
 )
 from metrics_tpu_torch.parallel.mesh import current_metric_axis
 from metrics_tpu_torch.ops.kernels.common import int32_bits
-from metrics_tpu_torch.utils.checks import traced_rows
+from metrics_tpu_torch.utils.checks import (
+    _is_batched,
+    _tracing,
+    deferred_message,
+    deferred_value_checks,
+    traced_rows,
+)
 from metrics_tpu_torch.utils.data import apply_to_collection, dim_zero_cat, is_batch_leaf
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, resolve_device
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -209,6 +229,129 @@ def _sync_trees(pairs: List[Tuple["Metric", Dict[str, Any]]], group: Any) -> Lis
     return [metric._sync_tree_build(state, synced) for metric, state in pairs]
 
 
+class _InstanceCache:
+    """``owner -> {signature: entry}`` for the compiled forward, keyed by
+    ``id(owner)``. A ``weakref.WeakKeyDictionary`` would compare its keys
+    with ``==``, and a metric's ``==`` builds a :class:`CompositionalMetric`
+    (a truthy module): every lookup would build one, and two live metrics
+    whose hashes collide would share an entry. Here a lookup calls neither
+    ``__eq__`` nor ``__hash__`` and never pins the owner: a
+    ``weakref.finalize`` drops its entries when it is collected, before its
+    id can be reused. A clone or an unpickled copy is another object, so it
+    starts with no entries."""
+
+    def __init__(self) -> None:
+        self._entries: Dict[int, Dict[Any, Any]] = {}
+
+    def get(self, owner: Any, default: Any = None) -> Any:
+        return self._entries.get(id(owner), default)
+
+    def open(self, owner: Any) -> Dict[Any, Any]:
+        """The owner's entries, made empty on first use (``TypeError`` for
+        an owner that takes no weak reference)."""
+        key = id(owner)
+        cache = self._entries.get(key)
+        if cache is None:
+            weakref.finalize(owner, self._entries.pop, key, None)
+            cache = self._entries[key] = {}
+        return cache
+
+    def drop(self, owner: Any) -> None:
+        """Forget every entry of ``owner``: its signatures start over."""
+        cache = self._entries.get(id(owner))
+        if cache is not None:
+            cache.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+# forward()'s compiled-step cache: instance -> {signature: entry | _EAGER_ONLY | _PENDING}
+_FORWARD_JIT_CACHE = _InstanceCache()
+_EAGER_ONLY = object()  # sentinel: this signature cannot be built or run - stay eager for good
+_PENDING = object()  # sentinel: first call seen eagerly; build on the next one
+_MISS = object()  # sentinel: fast path not taken this call
+
+
+def _jit_cache_lookup(owner: Any, sig: Any, builder: Callable):
+    """The per-signature protocol shared by ``Metric._forward_fast`` and
+    ``MetricCollection._forward_fused``: the 1st call registers _PENDING (the
+    caller runs eagerly, validating), the 2nd call invokes ``builder``, later
+    calls reuse its entry.
+
+    Returns ``(entry, cache)``; entry is None when the caller must stay eager
+    this call (pending just registered, eager-only, or cache full).
+    """
+    try:
+        cache = _FORWARD_JIT_CACHE.open(owner)
+    except TypeError:  # owner takes no weak reference
+        return None, None
+    entry = cache.get(sig)
+    if entry is _EAGER_ONLY:
+        return None, cache
+    if entry is None:
+        if len(cache) < Metric._FORWARD_JIT_MAX_SIGNATURES:
+            cache[sig] = _PENDING
+        return None, cache
+    if entry is _PENDING:
+        entry = builder()
+        cache[sig] = entry
+    return entry, cache
+
+
+def _mark_eager_only(cache: Dict[Any, Any], sig: Any) -> None:
+    """A step that could not be built or run: its signature stays eager, counted."""
+    from metrics_tpu_torch.engine.aot import FORWARD_CACHE
+
+    cache[sig] = _EAGER_ONLY
+    FORWARD_CACHE.note_eager_only()
+
+
+def forward_entry_kinds(owner: Any) -> List[str]:
+    """Each input signature's entry in the compiled-forward cache of
+    ``owner`` (a metric or a collection), in first-call order:
+    ``"compiled"``, ``"eager_only"`` or ``"pending"``."""
+    cache = _FORWARD_JIT_CACHE.get(owner) or {}
+    return ["eager_only" if v is _EAGER_ONLY else "pending" if v is _PENDING else "compiled"
+            for v in cache.values()]
+
+
+def compiled_forward_steps(owner: Any) -> List[Any]:
+    """The built steps in the compiled-forward cache of ``owner`` (on the card
+    :class:`~metrics_tpu_torch.engine.aot.CapturedForward`, with its
+    ``captures``/``replays`` counts)."""
+    cache = _FORWARD_JIT_CACHE.get(owner) or {}
+    return [v for v in cache.values() if v is not _EAGER_ONLY and v is not _PENDING]
+
+
+def keep_forward_eager(owner: Any) -> Any:
+    """Take ``owner``'s forward (a metric, or every member of a collection,
+    which then also never fuses) off the compiled path for good: the eager
+    twin a compiled forward is held against. Returns ``owner``."""
+    for m in (owner.values() if hasattr(owner, "items") else [owner]):
+        m._fwd_path_ok = False
+    return owner
+
+
+def _merge_errcode(prev: Any, code: Tensor) -> Tensor:
+    """The running deferred code: the larger of ``prev`` (None, an int kept by
+    a raise, or a tensor) and ``code``, on the device."""
+    if prev is None:
+        return code
+    return code.clamp(min=prev) if isinstance(prev, int) else torch.maximum(prev, code)
+
+
+def _graph_keepalive(module: nn.Module) -> Tuple[Tensor, ...]:
+    """Every tensor a captured forward may read without owning it: each
+    metric's buffers, tensor attributes and state defaults."""
+    out: List[Tensor] = []
+    for mod in module.modules():
+        out.extend(t for t in mod._buffers.values() if t is not None)
+        out.extend(v for v in vars(mod).values() if isinstance(v, Tensor))
+        out.extend(v for v in getattr(mod, "_defaults", {}).values() if isinstance(v, Tensor))
+    return tuple(out)
+
+
 def _squeeze_if_scalar(x: Any) -> Any:
     """0-d-ify single-element tensors, mirroring the JAX package."""
 
@@ -305,6 +448,7 @@ class Metric(nn.Module):
         self._update_called = False
         self._computed: Any = None
         self._forward_cache: Any = None
+        self._deferred_errcode: Any = None  # value-check code of the compiled forward steps
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
 
@@ -1047,6 +1191,7 @@ class Metric(nn.Module):
                 )
             if self._computed is not None:
                 return self._computed
+            self._raise_if_invalid()
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
             ):
@@ -1068,6 +1213,13 @@ class Metric(nn.Module):
         if self._is_synced:
             raise MetricsTPUUserError("The Metric shouldn't be synced when performing ``forward``.")
         if self._states_mergeable:
+            fast = self._forward_fast(args, kwargs)
+            if fast is not _MISS:
+                merged, value = fast
+                self._load_state(merged)
+                self._mark_updated()
+                self._forward_cache = value if self.compute_on_step else None
+                return self._forward_cache
             delta = self.update_state(self.init_state(), *args, **kwargs)
             self._load_state(self.merge_states(self._pack_state(), delta))
             self._mark_updated()
@@ -1098,6 +1250,156 @@ class Metric(nn.Module):
         self._mark_updated()
         return self._forward_cache
 
+    # ---------------------------------------------------------- compiled forward
+
+    _FORWARD_JIT_MAX_SIGNATURES = 64
+
+    def _raise_if_invalid(self) -> None:
+        """Raise the validation error a compiled forward step recorded.
+
+        The step cannot raise mid-graph: its value checks emit error codes
+        on the device. This is the deferred raise point, called from
+        ``compute()`` and ``sync()``. It is sticky: the merged state holds
+        the invalid batch, so every ``compute()``/``sync()`` until
+        ``reset()`` raises. Inside a graph capture it reads nothing."""
+        code_arr = self._deferred_errcode
+        if code_arr is None:
+            return
+        if isinstance(code_arr, Tensor) and code_arr.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        code = int(code_arr)
+        if code:
+            self._deferred_errcode = code
+            raise ValueError(deferred_message(code) + " (detected by a compiled forward step; raised deferred)")
+        self._deferred_errcode = None
+
+    def _forward_jit_safe(self) -> bool:
+        """Override to keep a metric off the compiled forward when its eager
+        semantics depend on concrete VALUES beyond input validation (the
+        aggregators' ``nan_strategy='error'`` must raise on every batch)."""
+        for child in self._child_metrics().values():
+            children = child if isinstance(child, list) else [child]
+            if not all(c._forward_jit_safe() for c in children):
+                return False
+        return True
+
+    def _has_list_state(self) -> bool:
+        if any(isinstance(v, list) for v in self._defaults.values()):
+            return True
+        for child in self._child_metrics().values():
+            children = child if isinstance(child, list) else [child]
+            if any(c._has_list_state() for c in children):
+                return True
+        return False
+
+    def _forward_eligible(self) -> bool:
+        """Whether this metric's forward may take a compiled step: states that
+        merge pairwise, no per-step sync, at least one state, and the static
+        path check. ``_forward_fast`` and the collection's fused step share it."""
+        return (self._states_mergeable and not self.dist_sync_on_step and self.dist_sync_fn is None
+                and bool(self._defaults) and self._forward_path_ok())
+
+    def _forward_body(self, state: Dict[str, Any], a: Tuple[Any, ...], kw: Dict[str, Any],
+                      compute_on_step: bool) -> Tuple[Dict[str, Any], Any, Tensor]:
+        """One forward as a compiled step runs it, under ``traced_rows()``:
+        the batch's update with its value checks deferred, the merge into
+        ``state`` and the batch value. Returns ``(merged, value, code)``.
+        ``_build_forward_step`` and the collection's fused step share it."""
+        with deferred_value_checks(self.device) as checks:
+            delta = self.update_state(self.init_state(), *a, **kw)
+        merged = self.merge_states(state, delta)
+        value = self.compute_from(delta) if compute_on_step else None
+        return merged, value, checks.combined()
+
+    def _forward_path_ok(self) -> bool:
+        """Whether the compiled forward may run this metric: static per
+        instance configuration, computed once, not per batch."""
+        path_ok = self.__dict__.get("_fwd_path_ok")
+        if path_ok is None:
+            path_ok = self._fwd_path_ok = self._forward_jit_safe() and not self._has_list_state()
+        return path_ok
+
+    @staticmethod
+    def _forward_signature(args: Any, kwargs: Any):
+        """Hashable call signature, or None if the call cannot take the
+        compiled path.
+
+        Tensor and numpy leaves are keyed by (shape, dtype) and copied into
+        the step's buffers; a Python float is passed as a 0-d f32 argument,
+        so one step covers every value; bool, int and None are keyed by VALUE
+        and baked in. A string (text metrics), a ``torch.func`` batched
+        tensor, or a call inside a trace (:func:`traced_rows`, a graph being
+        captured) opts out, as a JAX tracer does.
+        """
+        if _tracing():
+            return None
+        leaves, treedef = pytree.tree_flatten((args, kwargs))
+        sig: List[Any] = []
+        array_idx: List[int] = []
+        for i, leaf in enumerate(leaves):
+            if isinstance(leaf, str) or _is_batched(leaf):
+                return None
+            if isinstance(leaf, (Tensor, np.ndarray)):
+                sig.append((tuple(leaf.shape), str(leaf.dtype).replace("torch.", "")))
+                array_idx.append(i)
+            elif isinstance(leaf, float) and not isinstance(leaf, bool):
+                sig.append(float)
+                array_idx.append(i)
+            elif isinstance(leaf, (bool, int, type(None))):
+                sig.append((type(leaf), leaf))
+            else:
+                return None
+        return (treedef, tuple(sig)), tuple(array_idx), leaves
+
+    def _forward_fast(self, args: Any, kwargs: Any):
+        """The compiled forward: one step (one CUDA graph on the card)
+        instead of an eager update, merge and compute.
+
+        Per input signature: the 1st call runs the eager path (so eager value
+        validation fires at least once per shape/dtype pattern), the 2nd
+        builds ``update -> merge -> compute(delta)`` and runs it, later calls
+        reuse it. A step that cannot be built or run (a host read in the
+        update or compute, an illegal op under capture) leaves its signature
+        eager for good; the metric's state is untouched by the failed try.
+        Returns ``(merged_state, batch_value)`` or ``_MISS``.
+        """
+        if not self._forward_eligible():
+            return _MISS
+        parsed = self._forward_signature(args, kwargs)
+        if parsed is None:
+            return _MISS
+        sig, array_idx, leaves = parsed
+        sig = (sig, bool(self.compute_on_step))  # compute_on_step is baked into the step
+        entry, cache = _jit_cache_lookup(self, sig, lambda: self._build_forward_step(sig, array_idx, leaves))
+        if entry is None:
+            return _MISS
+        try:
+            merged, value, errcode = entry(self._pack_state(), [leaves[i] for i in array_idx])
+        except Exception:
+            # an update that cannot run traced, or a capture that failed: the
+            # state was not written; the eager path re-raises a user error
+            _mark_eager_only(cache, sig)
+            return _MISS
+        # kept on the device, read at the next compute()/sync()
+        self._deferred_errcode = _merge_errcode(self._deferred_errcode, errcode)
+        return merged, value
+
+    def _build_forward_step(self, sig: Any, array_idx: Tuple[int, ...], leaves: List[Any]) -> Any:
+        from metrics_tpu_torch.engine.aot import forward_entry
+
+        compute_on_step = self.compute_on_step
+        # weak binding: the step must not pin the metric its cache entry hangs on
+        wself = weakref.ref(self)
+
+        def step(state: Dict[str, Any], aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: Any = None):
+            m = wself()
+            assert m is not None  # the caller holds a strong reference for the call
+            with traced_rows():
+                merged, value, code = m._forward_body(state, a, kw, compute_on_step)
+            return merged, (value, code)
+
+        return forward_entry(step, leaves, array_idx, sig[0][0], self.device, _graph_keepalive(self))
+
     def reset(self) -> None:
         """Reset state to defaults."""
         self._update_called = False
@@ -1105,6 +1407,7 @@ class Metric(nn.Module):
         self._computed = None
         self._is_synced = False
         self._cache = None
+        self._deferred_errcode = None
         self._load_state(self.init_state())
 
     # ---------------------------------------------------------------------- eager sync
@@ -1129,6 +1432,7 @@ class Metric(nn.Module):
         in the JAX package's eager path."""
         if self._is_synced and should_sync:
             raise MetricsTPUUserError("The Metric has already been synced.")
+        self._raise_if_invalid()
         group = self._group()
         available = distributed_available_fn() if distributed_available_fn is not None else distributed_available(group)
         if not should_sync or not available or getattr(_PURE, "depth", 0):
@@ -1214,7 +1518,9 @@ class Metric(nn.Module):
     def _apply(self, fn: Callable[[Tensor], Tensor], recurse: bool = True) -> "Metric":
         """``nn.Module._apply`` (``.to()``, ``.cuda()``, ``.half()``...) over
         the states, the defaults ``reset`` restores, list states and
-        ``self.device`` alike; nested metrics recurse."""
+        ``self.device`` alike; nested metrics recurse. The compiled forward's
+        entries are dropped: their graphs read the old tensors."""
+        _FORWARD_JIT_CACHE.drop(self)
         super()._apply(fn, recurse)
         self._defaults = {k: fn(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
         for k, v in self._defaults.items():
@@ -1249,6 +1555,7 @@ class Metric(nn.Module):
         state.pop("update", None)
         state.pop("compute", None)
         state["sync_axis"] = None  # a process group does not cross processes
+        state["_deferred_errcode"] = None  # a device tensor; the validation status is session-local
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:

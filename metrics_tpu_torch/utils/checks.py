@@ -8,15 +8,18 @@ Shape- and dtype-driven checks always run. Value-dependent checks
 (``target.max() > 1`` and the like) need the values on the host; they run
 eagerly exactly as the JAX package runs them eagerly, and are skipped when an
 input is a ``torch.func.vmap`` batched tensor, or inside :func:`traced_rows`
-(the scan masked update's row loop, the engines' result computes) — the port's counterpart of the JAX
-package skipping them on tracers, and necessary, since a data-dependent
-``if`` on a batched tensor raises and a host read inside CUDA-graph capture
-fails. The JAX package's deferred in-graph error
-codes serve its compiled ``jit`` forward, which the port does not have.
+(the scan masked update's row loop, the engines' result computes, the
+compiled forward) — the port's counterpart of the JAX package skipping them
+on tracers, and necessary, since a data-dependent ``if`` on a batched tensor
+raises and a host read inside CUDA-graph capture fails. Inside
+:class:`deferred_value_checks` (the compiled forward's update, captured into a
+CUDA graph on the card) the skipped checks EMIT int32 error codes instead:
+device reductions with no host read, which the metric raises, deferred, at
+its next ``compute()``/``sync()`` (``Metric._raise_if_invalid``).
 """
 import contextlib
 import threading
-from typing import Any, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +63,14 @@ def _is_traced(x: Any) -> bool:
     return isinstance(x, torch.Tensor) and x.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
+def _tracing() -> bool:
+    """True inside :func:`traced_rows`, or while this thread's current CUDA
+    stream captures a graph: the port's "inside a trace"."""
+    if getattr(_rows, "depth", 0):
+        return True
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 class _ValueStats(NamedTuple):
     """Min/max of preds+target, fetched from the device in ONE transfer."""
 
@@ -79,6 +90,94 @@ def _compute_value_stats(preds: Tensor, target: Tensor) -> Optional[_ValueStats]
     return _ValueStats(*vals)
 
 
+# --------------------------------------------------------- deferred (in-graph) checks
+#
+# The port of the JAX package's deferred checks. A compiled forward step
+# (``Metric._build_forward_step``) opens a ``deferred_value_checks`` context
+# around its update: the check sites below then EMIT int32 error codes as
+# device tensors instead of being skipped. The step returns max(codes); the
+# facade keeps it on the device and raises the code's message at the next
+# compute()/sync(). Codes are allocated in the JAX package's order, so the
+# larger of two codes names the same message in both packages.
+
+_DEFERRED_MESSAGES: Dict[int, str] = {}
+_deferred = threading.local()  # .stack: this thread's open code collectors
+
+
+def register_deferred_message(message: str) -> int:
+    """Allocate a stable error code for a deferred-check message."""
+    code = len(_DEFERRED_MESSAGES) + 1
+    _DEFERRED_MESSAGES[code] = message
+    return code
+
+
+def deferred_message(code: int) -> str:
+    return _DEFERRED_MESSAGES.get(code, f"invalid input detected (code {code})")
+
+
+class deferred_value_checks:
+    """Context manager: collect error codes from the value-check sites that
+    run inside it, on this thread."""
+
+    def __init__(self, device: Optional[torch.device] = None) -> None:
+        self.codes: List[Tensor] = []
+        self.device = device
+
+    def __enter__(self) -> "deferred_value_checks":
+        stack = getattr(_deferred, "stack", None)
+        if stack is None:
+            stack = _deferred.stack = []
+        stack.append(self.codes)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _deferred.stack.pop()
+
+    def combined(self) -> Tensor:
+        """The collected codes folded into one 0-d int32 tensor (0 = every
+        input valid), on the inputs' device."""
+        if not self.codes:
+            return torch.zeros((), dtype=torch.int32, device=self.device)
+        out = self.codes[0]
+        for c in self.codes[1:]:
+            out = torch.maximum(out, c)
+        return out
+
+
+def defer_value_check(bad: Callable[[], Tensor], code: int) -> None:
+    """Emit ``code`` where the 0-d bool tensor ``bad()`` holds (no host
+    read); a no-op outside :class:`deferred_value_checks`. ``bad`` runs only
+    inside the context, so the engines' traced updates launch no reduction
+    for it."""
+    stack = getattr(_deferred, "stack", None)
+    if stack:
+        stack[-1].append(bad().to(torch.int32) * code)
+
+
+_CODE_TARGET_NEG = register_deferred_message("The `target` has to be a non-negative tensor.")
+_CODE_PREDS_NEG = register_deferred_message("If `preds` are integers, they have to be non-negative.")
+_CODE_TARGET_GT1_MC_FALSE = register_deferred_message(
+    "If you set `multiclass=False`, then `target` should not exceed 1."
+)
+_CODE_PREDS_GT1_MC_FALSE = register_deferred_message(
+    "If you set `multiclass=False` and `preds` are integers, then `preds` should not exceed 1."
+)
+_CODE_TARGET_NOT_BINARY = register_deferred_message(
+    "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
+)
+_CODE_TARGET_GE_IMPLIED = register_deferred_message(
+    "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
+)
+_CODE_TARGET_GE_NUM_CLASSES = register_deferred_message(
+    "The highest label in `target` should be smaller than `num_classes`."
+)
+# the retrieval checks' codes; their sites port with retrieval
+_CODE_TARGET_NOT_BINARY_RETRIEVAL = register_deferred_message("`target` must contain `binary` values")
+_CODE_EMPTY_QUERY_RETRIEVAL = register_deferred_message(
+    "`compute` method was provided with a query with no positive target."
+)
+
+
 def _is_floating(x: Tensor) -> bool:
     return x.is_floating_point()
 
@@ -86,14 +185,22 @@ def _is_floating(x: Tensor) -> bool:
 def _basic_input_validation(
     preds: Tensor, target: Tensor, threshold: float, multiclass: Optional[bool], stats: Optional[_ValueStats] = None
 ) -> None:
-    """Value-dependent sanity checks — eager only (skipped under vmap)."""
+    """Value-dependent sanity checks: eager, or deferred codes on traced inputs."""
     if _is_floating(target):
         raise ValueError("The `target` has to be an integer tensor.")
     if stats is None:
         stats = _compute_value_stats(preds, target)
-    if stats is None:
-        return
     preds_float = _is_floating(preds)
+    if stats is None:
+        # traced: emit deferred codes instead (no-op outside the context)
+        defer_value_check(lambda: target.min() < 0, _CODE_TARGET_NEG)
+        if not preds_float:
+            defer_value_check(lambda: preds.min() < 0, _CODE_PREDS_NEG)
+        if multiclass is False:
+            defer_value_check(lambda: target.max() > 1, _CODE_TARGET_GT1_MC_FALSE)
+            if not preds_float:
+                defer_value_check(lambda: preds.max() > 1, _CODE_PREDS_GT1_MC_FALSE)
+        return
     if stats.target_min < 0:
         raise ValueError("The `target` has to be a non-negative tensor.")
     if not preds_float and stats.preds_min < 0:
@@ -125,6 +232,8 @@ def _check_shape_and_type_consistency(
             raise ValueError(
                 "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
             )
+        if preds_float and stats is None:
+            defer_value_check(lambda: target.max() > 1, _CODE_TARGET_NOT_BINARY)
         if preds.ndim == 1 and preds_float:
             case = DataType.BINARY
         elif preds.ndim == 1 and not preds_float:
@@ -192,6 +301,8 @@ def _check_num_classes_mc(
             stats = _compute_value_stats(preds, target)
         if stats is not None and num_classes <= int(stats.target_max):
             raise ValueError("The highest label in `target` should be smaller than `num_classes`.")
+        if stats is None:
+            defer_value_check(lambda: target.max() >= num_classes, _CODE_TARGET_GE_NUM_CLASSES)
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("The size of C dimension of `preds` does not match `num_classes`.")
 
@@ -250,6 +361,8 @@ def _check_classification_inputs(
             raise ValueError(
                 "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
             )
+        if stats is None:
+            defer_value_check(lambda: target.max() >= implied_classes, _CODE_TARGET_GE_IMPLIED)
 
     if num_classes:
         if case == DataType.BINARY:

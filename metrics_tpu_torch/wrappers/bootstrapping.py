@@ -10,6 +10,12 @@ row, so a batch of one row draws nothing: the engines' per-row updates (under
 ``torch.func.vmap``, inside a captured step) take no random op, and every
 replica sees each valid row once, as the JAX package's served BootStrapper
 does.
+
+Both strategies stay off the compiled forward (``_forward_jit_safe``): their
+draws come from the host, and a captured step would replay the one draw it
+was captured with. The JAX package keeps poisson eager too, but compiles
+multinomial, whose key it traces from ``draw_count``; the port's draws differ
+from the JAX package's anyway, so no value changes.
 """
 from copy import deepcopy
 from typing import Any, Dict, Optional, Union
@@ -99,6 +105,11 @@ class BootStrapper(Metric):
         else:
             self._generator.manual_seed(seed)
         self.add_state("draw_count", torch.tensor(0, dtype=torch.uint32), dist_reduce_fx="sum")
+
+    def _forward_jit_safe(self) -> bool:
+        # host draws (poisson from numpy, multinomial from a CPU generator):
+        # a captured step would bake one draw in and replay it every batch
+        return False
 
     @staticmethod
     def _batch_size(args: Any, kwargs: Any) -> int:

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from metrics_tpu_torch.metric import forward_entry_kinds, keep_forward_eager
 from metrics_tpu_torch.ops.binned_update import binned_counts_torch
 from metrics_tpu_torch.ops.kernels import fold_rows_masked
 
@@ -1215,3 +1216,267 @@ def test_list_lengths_refused_across_two_ranks_on_card(cuda):
     finally:
         pool.close()
     assert all(m is not None and "AUROC.preds (rows per rank: [8, 12])" in m for m in msgs), msgs
+
+
+# ------------------------------------------------------------ compiled forward
+
+# the entry kinds after three forwards of one signature, pinned on the CPU
+# against the JAX package by tests/test_torch_forward.py (same constants)
+FWD_FLAGSHIP_KINDS = {"collection": ["compiled"], "acc": ["pending"], "f1": ["pending"], "binned_ap": ["pending"],
+                      "confmat": ["pending"]}
+FWD_DASHBOARD_KINDS = {"collection": ["compiled"], **{k: ["pending"] for k in (
+    "precision", "recall", "specificity", "hamming", "jaccard", "kappa", "mcc", "hinge")}}
+FWD_REGRESSION_KINDS = {"collection": ["eager_only"], **{k: ["compiled"] for k in (
+    "mse", "rmse", "mae", "msle", "mape", "smape", "explained_variance", "tweedie")}, "r2": ["eager_only"]}
+
+
+def _fwd_collection(kind, device, c=5):
+    import metrics_tpu_torch as mp
+
+    if kind == "flagship":
+        return mp.MetricCollection({
+            "acc": mp.Accuracy(device=device), "f1": mp.F1Score(num_classes=c, average="macro", device=device),
+            "binned_ap": mp.BinnedAveragePrecision(num_classes=c, thresholds=10, device=device),
+            "confmat": mp.ConfusionMatrix(num_classes=c, device=device)})
+    if kind == "dashboard":
+        return mp.MetricCollection({
+            "precision": mp.Precision(average="macro", num_classes=c, device=device),
+            "recall": mp.Recall(average="macro", num_classes=c, device=device),
+            "specificity": mp.Specificity(average="macro", num_classes=c, device=device),
+            "hamming": mp.HammingDistance(device=device), "jaccard": mp.JaccardIndex(num_classes=c, device=device),
+            "kappa": mp.CohenKappa(num_classes=c, device=device),
+            "mcc": mp.MatthewsCorrCoef(num_classes=c, device=device), "hinge": mp.HingeLoss(device=device)})
+    return mp.MetricCollection({
+        "mse": mp.MeanSquaredError(device=device), "rmse": mp.MeanSquaredError(squared=False, device=device),
+        "mae": mp.MeanAbsoluteError(device=device), "msle": mp.MeanSquaredLogError(device=device),
+        "mape": mp.MeanAbsolutePercentageError(device=device),
+        "smape": mp.SymmetricMeanAbsolutePercentageError(device=device),
+        "explained_variance": mp.ExplainedVariance(device=device),
+        "tweedie": mp.TweedieDevianceScore(power=1.5, device=device), "r2": mp.R2Score(device=device)})
+
+
+def _fwd_batches(kind, device, n=4, rows=256, c=5):
+    rng = np.random.RandomState(21)
+    out = []
+    for _ in range(n):
+        if kind == "regression":
+            t = rng.gamma(2.0, 1.0, rows).astype(np.float32)
+            p = (t * np.exp(rng.normal(0.0, 0.3, rows))).astype(np.float32)
+            out.append((torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)))
+        else:
+            p = rng.rand(rows, c).astype(np.float32)
+            p /= p.sum(1, keepdims=True)
+            out.append((torch.from_numpy(p).to(device), torch.from_numpy(rng.randint(0, c, rows)).to(device)))
+    return out
+
+
+def _fwd_tree_equal(a, b):
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_fwd_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_fwd_tree_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,want", [("flagship", FWD_FLAGSHIP_KINDS), ("dashboard", FWD_DASHBOARD_KINDS),
+                                       ("regression", FWD_REGRESSION_KINDS)])
+def test_captured_forward_is_bit_equal_to_the_eager_twin(cuda, kind, want):
+    """Per-batch values and states of the captured forward (one graph for the
+    collection, or each member's own) bit-equal to the eager members' loop,
+    and the entry kinds equal to the JAX package's."""
+    coll, twin = _fwd_collection(kind, cuda), keep_forward_eager(_fwd_collection(kind, cuda))
+    for i, (p, t) in enumerate(_fwd_batches(kind, cuda)):
+        assert _fwd_tree_equal(coll(p, t), twin(p, t)), f"{kind}: batch {i}"
+        if i == 2:
+            kinds = {"collection": forward_entry_kinds(coll),
+                     **{k: forward_entry_kinds(m) for k, m in coll.items(keep_base=True)}}
+            assert kinds == want
+    for k, m in coll.items(keep_base=True):
+        assert _fwd_tree_equal(m._pack_state(), twin[k]._pack_state()), k
+        assert all(v.is_cuda for v in m._pack_state().values())
+
+
+@pytest.mark.requires_cuda
+def test_forward_value_held_across_a_second_forward(cuda):
+    """A batch value, a state tensor and a ``compute()`` result that is a
+    state tensor itself (ConfusionMatrix, SumMetric), all kept across a
+    captured forward, keep their values: the metric rebinds its state to
+    clones of the graph's outputs."""
+    import metrics_tpu_torch as mp
+
+    m = mp.MeanSquaredError(device=cuda)
+    x = torch.rand(64, device=cuda)
+    for _ in range(3):
+        m(x, x * 2)
+    held = m(x, x * 3)
+    want = held.clone()
+    total = m.sum_squared_error
+    before = total.clone()
+    m(x, x * 5)
+    assert torch.equal(held, want)
+    assert total is not m.sum_squared_error and torch.equal(total, before)
+    assert not torch.equal(m.sum_squared_error, before)
+
+    p, t = _fwd_batches("flagship", cuda)[0]
+    for cm, batch in ((mp.ConfusionMatrix(num_classes=5, device=cuda), (p, t)), (mp.SumMetric(nan_strategy="ignore", device=cuda), (x,))):
+        for _ in range(3):
+            cm(*batch)
+        assert forward_entry_kinds(cm) == ["compiled"]
+        kept = cm.compute()
+        kept_values = kept.clone()
+        cm(*batch)
+        assert torch.equal(kept, kept_values), type(cm).__name__
+        assert not torch.equal(cm.compute(), kept_values)
+
+
+@pytest.mark.requires_cuda
+def test_forward_after_to_cpu_and_astype_replays_nothing_stale(cuda):
+    """After ``.to("cpu")`` the forward runs on the CPU (no graph replays);
+    back on the card in float64 it captures anew: every value and state
+    equal to an eager twin moved the same way."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine.aot import FORWARD_CACHE
+
+    x = torch.rand(64, device=cuda)
+    m, twin = mp.MeanSquaredError(device=cuda), mp.MeanSquaredError(device=cuda)
+    keep_forward_eager(twin)
+    for i in range(3):
+        assert torch.equal(m(x, x * i), twin(x, x * i))
+    m.to("cpu")
+    twin.to("cpu")
+    hits = FORWARD_CACHE.hits
+    for _ in range(3):
+        assert torch.equal(m(x.cpu(), x.cpu() * 3), twin(x.cpu(), x.cpu() * 3))
+    assert FORWARD_CACHE.hits == hits and torch.equal(m.sum_squared_error, twin.sum_squared_error)
+    m.to(cuda).astype(torch.float64)
+    twin.to(cuda).astype(torch.float64)
+    for _ in range(3):
+        assert torch.equal(m(x, x * 4), twin(x, x * 4))
+    assert m.sum_squared_error.dtype == torch.float64 and forward_entry_kinds(m) == ["compiled"]
+    assert FORWARD_CACHE.hits == hits + 2 and torch.equal(m.sum_squared_error, twin.sum_squared_error)
+
+
+@pytest.mark.requires_cuda
+def test_failed_capture_leaves_state_and_device_sound(cuda):
+    """An update that reads the device on the host is found in the warm-up,
+    before any capture: the signature ends eager-only, the state equals the
+    eager twin's, and the card still runs another metric's captured
+    forward."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine.aot import FORWARD_CACHE
+
+    class HostRead(mp.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + float(x.sum().item())
+
+        def compute(self):
+            return self.total
+
+    x = torch.rand(64, device=cuda)
+    m, twin = HostRead(device=cuda), HostRead(device=cuda)
+    eager_only, refusals = FORWARD_CACHE.eager_only, FORWARD_CACHE.host_sync_refusals
+    for i in range(4):
+        m(x * i)
+        twin.update(x * i)
+    assert forward_entry_kinds(m) == ["eager_only"] and FORWARD_CACHE.eager_only == eager_only + 1
+    assert FORWARD_CACHE.host_sync_refusals == refusals + 1
+    assert torch.equal(m.total, twin.total)
+    torch.rand(4, device=cuda)
+    mse, ref = mp.MeanSquaredError(device=cuda), mp.MeanSquaredError(device=cuda)
+    keep_forward_eager(ref)
+    for i in range(3):
+        assert torch.equal(mse(x, x * i), ref(x, x * i))
+    assert forward_entry_kinds(mse) == ["compiled"] and torch.equal(mse.sum_squared_error, ref.sum_squared_error)
+
+
+@pytest.mark.requires_cuda
+def test_a_capture_failing_past_the_warm_up_leaves_the_users_random_graph_alone(cuda):
+    """An update that reads the host only while a capture runs gets past the
+    warm-up and breaks the capture: the signature ends eager-only with the
+    state sound, and the device's random generator is the one it was. A
+    graph the user captured before, which draws random numbers, still
+    follows ``manual_seed`` and draws apart from the eager draws after it."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine.aot import FORWARD_CACHE
+    class CaptureOnlyRead(mp.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+        def update(self, x):
+            if torch.cuda.is_current_stream_capturing():
+                x.sum().item()
+            self.total = self.total + x.sum()
+
+        def compute(self):
+            return self.total
+
+    drawn = torch.empty(4096, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        drawn.uniform_()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    users = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(users):
+        drawn.uniform_()
+
+    x = torch.rand(64, device=cuda)
+    m, twin = CaptureOnlyRead(device=cuda), keep_forward_eager(CaptureOnlyRead(device=cuda))
+    refusals = FORWARD_CACHE.host_sync_refusals
+    for i in range(4):
+        m(x * i)
+        twin(x * i)
+    assert forward_entry_kinds(m) == ["eager_only"] and torch.equal(m.total, twin.total)
+    assert FORWARD_CACHE.host_sync_refusals == refusals  # the capture itself failed
+
+    torch.cuda.manual_seed(7)
+    users.replay()
+    first = drawn.clone()
+    eager = torch.rand(4096, device=cuda)
+    torch.cuda.manual_seed(7)
+    users.replay()
+    assert torch.equal(drawn, first), "manual_seed no longer reaches the user's graph"
+    assert not torch.equal(eager, first), "the eager draws repeat the user's graph's"
+
+
+@pytest.mark.requires_cuda
+def test_forward_launches_are_credited_per_replay(cuda):
+    """K2 and K3 run inside the flagship's graph: each replay credits the
+    launches its capture took back."""
+    from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    coll = _fwd_collection("flagship", cuda)
+    batches = _fwd_batches("flagship", cuda, n=6)
+    coll(*batches[0])  # eager
+    coll(*batches[1])  # warm-up, capture, first replay
+    k2, k3 = histogram_cuda.launches, binned_counts_cuda.launches
+    for p, t in batches[2:]:
+        coll(p, t)
+    per_k2, per_k3 = (histogram_cuda.launches - k2) // 4, (binned_counts_cuda.launches - k3) // 4
+    assert per_k2 > 0 and per_k3 > 0
+    assert histogram_cuda.launches - k2 == 4 * per_k2 and binned_counts_cuda.launches - k3 == 4 * per_k3
+
+
+@pytest.mark.requires_cuda
+def test_deferred_check_raises_after_a_captured_forward(cuda):
+    import metrics_tpu_torch as mp
+
+    p, t = _fwd_batches("flagship", cuda)[0]
+    m = mp.ConfusionMatrix(num_classes=5, device=cuda)
+    for _ in range(3):
+        m(p, t)
+    assert forward_entry_kinds(m) == ["compiled"]
+    m(p, torch.full_like(t, 5))
+    for _ in range(2):
+        with pytest.raises(ValueError, match="raised deferred"):
+            m.compute()
+    m.reset()
+    m(p, t)
+    assert int(m.compute().sum()) == p.shape[0]
