@@ -177,6 +177,25 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    replays, the device drained after each call) against the twin's, the
    device launches and µs of one forward captured and eager (profiler), the
    memory the capture kept, and the K2/K3 launches.
+16. Snapshots and the restore matrix (``engine/snapshot.py``), through the
+   captured engines: (a) phase 7's megastep engine and traffic with
+   ``snapshot_every=16``, killed after batch 80, a fresh engine sharing its
+   ``AotCache`` restored (the cursor 80, every state buffer at its address)
+   and replayed: states bit-equal to phase 4's (counts), values within 1e-6,
+   no capture; (b) phase 9's q8-staged tenancy (``coalesce=1``) snapshotted
+   halfway with rows spilled and 8 spilled streams staged as int8 codes,
+   served to the end, the snapshot restored into 128 slots, into 256 and
+   merged into an unsharded engine, each replaying the second half: every
+   staged row as it was before staging, integer states bit-equal to the
+   uninterrupted run's, the q8-policy counts within the codec's bound
+   (``snapshot_paged``), count-derived values of every 7th stream equal;
+   (c) ``corrupt_snapshot`` on (a)'s LATEST: the restore falls back one
+   generation (cursor 64) and the replay is bit-equal; (d) host ms and bytes
+   on disk of one ``snapshot()`` and one ``restore()`` for (a) (into a fresh
+   and into the live captured engine, which keeps its buffers and captures
+   nothing) and (b) (each target), and phase 7's host ms per captured step
+   with the cadence against without, warm, in turns. Snapshots are written
+   under the gitignored ``build/phase16/``, removed after the phase.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -190,10 +209,10 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 15 and read after it;
+and set to 0 again before each of phases 10 to 16 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
-and 15: K2 and K3), and K2 must launch once per batch and per step
+and 15: K2 and K3; phase 16: K2–K7), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -216,6 +235,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3529,6 +3549,217 @@ def forward_phase(dev, preds, target, gpu_state, gpu_values):
     return out
 
 
+# --------------------------------------------- phase 16: snapshots and the restore matrix
+
+SNAP_EVERY = 16  # 16(a)'s cadence, in batches
+SNAP_KILL = 80  # 16(a): the engine dies after this batch
+SNAP_STAGED = 8  # 16(b): spilled streams staged as int8 codes when the snapshot is taken
+SNAP_DIR = Path(__file__).resolve().parent / "build" / "phase16"  # gitignored; removed after the phase
+
+
+def snap_dir(name):
+    path = SNAP_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def state_ptrs(eng):
+    return {k: v.data_ptr() for k, v in eng._state.items()}
+
+
+def snapshot_streaming(dev, preds, target, gpu_state, gpu_values):
+    """16(a), (c) and the megastep half of (d): phase 7's engine and traffic
+    with ``snapshot_every=16``, killed after batch 80, restored into a fresh
+    engine sharing the AotCache and replayed; ``corrupt_snapshot`` on LATEST
+    and the fallback restore; host ms and bytes of one snapshot and one
+    restore; host ms per captured step with the cadence against without."""
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, StreamingEngine
+    from metrics_tpu_torch.engine.faults import corrupt_snapshot
+    from metrics_tpu_torch.engine.snapshot import latest_snapshot
+
+    aot = AotCache()
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+
+    def engine(snapdir=None, every=0):
+        return StreamingEngine(make_collection(dev), EngineConfig(
+            buckets=(256, BUCKET), kernel_backend="megastep", snapshot_every=every, snapshot_dir=snapdir),
+            aot_cache=aot)
+
+    def submit(e, b):
+        e.submit(preds[b[0]:b[1]], target[b[0]:b[1]])
+
+    d = snap_dir("a")
+    killed = engine(d, SNAP_EVERY)
+    run_engine(killed, True, batches[:SNAP_KILL], submit)
+    check(killed.stats.snapshots == SNAP_KILL // SNAP_EVERY and killed.stats.snapshot_failures == 0,
+          f"16(a): {killed.stats.snapshots} periodic snapshots, {killed.stats.snapshot_failures} failed")
+    misses = aot.misses
+    del killed  # the kill: the engine and its buffers are gone
+    resumed = engine(d)
+    ptrs = state_ptrs(resumed)
+    t0 = time.perf_counter()
+    meta = resumed.restore()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(meta["batches_done"] == SNAP_KILL and meta["generations_skipped"] == 0, f"16(a): restored {meta}")
+    check(state_ptrs(resumed) == ptrs, "16(a): restore rebound a state buffer")
+    run_engine(resumed, True, batches[SNAP_KILL:], submit)
+    check(aot.misses == misses and resumed.stats.warmup_steps == 0,
+          f"16(a): the resumed engine captured ({aot.misses - misses} misses)")
+    # the flagship's states are counts: bit-exact however the dispatcher coalesced
+    compare_states(resumed.state(), gpu_state, "16(a) resumed vs uninterrupted (one-shot)")
+    values = flat_values(resumed.result())
+    for k in gpu_values:
+        check(max_abs_err(values[k], gpu_values[k]) <= 1e-6, f"16(a): value {k}")
+    # (c) the newest generation rots: restore falls back one generation, replay is exact
+    corrupt_snapshot(latest_snapshot(d), np.random.RandomState(SEED + 16))
+    fallback = engine(d)
+    meta_c = fallback.restore()
+    check(meta_c["generations_skipped"] == 1 and meta_c["batches_done"] == SNAP_KILL - SNAP_EVERY
+          and fallback.stats.snapshot_fallbacks == 1, f"16(c): {meta_c}")
+    run_engine(fallback, True, batches[meta_c["batches_done"]:], submit)
+    check(fallback.stats.warmup_steps == 0, "16(c): the fallback engine captured")
+    compare_states(fallback.state(), gpu_state, "16(c) fallback vs uninterrupted")
+    # (d) one snapshot and one restore of the whole flagship arena, into the live captured engine
+    t0 = time.perf_counter()
+    path = resumed.snapshot()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    live_ptrs, misses = state_ptrs(resumed), aot.misses
+    t0 = time.perf_counter()
+    resumed.restore(path)
+    live_restore_ms = (time.perf_counter() - t0) * 1e3
+    check(state_ptrs(resumed) == live_ptrs and aot.misses == misses, "16(a): a live restore rebound or captured")
+    compare_states(resumed.state(), gpu_state, "16(a) live restore")
+    # the cadence's cost: host ms per captured step, warm (no capture), in turns
+    cadence = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):
+        every = SNAP_EVERY if name == "with" else 0
+        eng = engine(snap_dir(f"d_{name}_{len(cadence[name])}") if every else None, every)
+        seconds = run_engine(eng, True, batches, submit)
+        check(eng.stats.warmup_steps == 0 and eng.stats.snapshot_failures == 0, f"16(d): {name} captured or failed")
+        compare_states(eng.state(), gpu_state, f"16(d) {name} cadence")
+        cadence[name].append({"ms_per_step": seconds / eng.steps * 1e3, "steps": eng.steps,
+                              "snapshots": eng.stats.snapshots})
+    return {"batches": len(batches), "killed_at": SNAP_KILL, "every": SNAP_EVERY,
+            "resumed_steps": resumed.steps - meta["step"], "restore_ms": restore_ms, "live_restore_ms": live_restore_ms,
+            "snapshot_ms": snapshot_ms, "snapshot_bytes": os.path.getsize(path),
+            "fallback_cursor": meta_c["batches_done"], "captures": aot.misses, "cadence": cadence}
+
+
+def stacked_host(eng):
+    """Every stream's logical state as host numpy, ``(S, ...)`` per leaf."""
+    return {k: {s: v.detach().cpu().numpy() for s, v in member.items()} for k, member in eng.state().items()}
+
+
+def snapshot_paged(dev, preds, target):
+    """16(b) and the paged half of (d): phase 9's q8-staged tenancy (10 000
+    streams, 128 slots, ``compress_payloads=True``, ``coalesce=1``)
+    snapshotted halfway with rows spilled and SNAP_STAGED spilled streams
+    staged as int8 codes, then served to the end (the uninterrupted run); the
+    snapshot restored into the same residency, into 256 slots and merged
+    into an unsharded engine, each replaying the second half. Every integer
+    state equals the uninterrupted run's bit for bit; the q8-policy float
+    states (binned AP's counts) within the codec's bound: each encode moves an
+    element by at most its block's absmax / 254, a stream's absmax is at most
+    its row count n_s, and after the snapshot the two runs encode a stream's
+    row at most 2 b_s + 4 times between them (b_s: its batches in the second
+    half; one eviction per fault-in, plus the snapshot's and the re-homing's
+    encodes)."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
+    traffic = list(zip(sids, batches))
+    half = len(traffic) // 2
+
+    def engine(resident, snapdir=None):
+        cfg = EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=True, coalesce=1,
+                           snapshot_dir=snapdir)
+        coll = make_collection(dev, ap_precision="q8_block")
+        if resident is None:
+            return MultiStreamEngine(coll, PAGED_STREAMS, cfg)
+        return MultiStreamEngine(coll, PAGED_STREAMS, cfg, stream_shard=True, resident_streams=resident)
+
+    def submit(e, b):
+        e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]])
+
+    src = engine(RESIDENT, snap_dir("b"))
+    src.start()
+    for b in traffic[:half]:
+        submit(src, b)
+    src.flush()
+    stage = sorted(src.pager.spilled_streams(0))[:SNAP_STAGED]
+    want_staged = {sid: src.stream_state(sid) for sid in stage}  # read through the host decode, nothing seated
+    with src._device_section():
+        src._page_round(stage)  # seat them as a round would: int8 codes staged for K7, q8 columns zero
+    flags = int(src._q8_stage["flags"].sum())
+    check(flags == SNAP_STAGED, f"16(b): {flags} staged slots, want {SNAP_STAGED}")
+    t0 = time.perf_counter()
+    path = src.snapshot()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    check(int(src._q8_stage["flags"].sum()) == 0, "16(b): the snapshot left staged slots unseated")
+    staged_rows = src.stats.q8_staged_rows
+    spilled_at_snapshot = src.pager.spilled_count()
+    for b in traffic[half:]:
+        submit(src, b)
+    src.stop()
+    want = stacked_host(src)
+    want_values = src.results()
+    rows = {sid: len(r) for sid, r in stream_rows(sids, batches).items()}
+    tail = {}
+    for sid in sids[half:]:
+        tail[int(sid)] = tail.get(int(sid), 0) + 1
+    bound = np.zeros(PAGED_STREAMS)
+    for sid, n in rows.items():
+        bound[sid] = (2 * tail.get(sid, 0) + 4) * n / 254.0
+    out = {"streams": PAGED_STREAMS, "snapshot_at": half, "snapshot_ms": snapshot_ms,
+           "snapshot_bytes": os.path.getsize(path), "spilled_at_snapshot": spilled_at_snapshot,
+           "staged_at_snapshot": flags, "q8_staged_rows": staged_rows, "targets": {}}
+    for name, resident in (("same_residency", RESIDENT), ("resident_256", 256), ("merged_unsharded", None)):
+        eng = engine(resident)
+        t0 = time.perf_counter()
+        meta = eng.restore(path)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(meta["batches_done"] == half, f"16(b) {name}: cursor {meta['batches_done']}")
+        for sid in stage:  # the staged rows survived the snapshot, bit for bit
+            got = eng.stream_state(sid)
+            for k, member in want_staged[sid].items():
+                for s, w in member.items():
+                    check(torch.equal(got[k][s], w), f"16(b) {name}: staged stream {sid} {k}.{s} lost")
+        seconds = run_engine(eng, True, traffic[half:], submit)
+        steps = eng.steps - meta["step"]  # the restored cursor counts the first half's steps
+        got = stacked_host(eng)
+        worst = 0.0
+        for k, member in want.items():
+            for s, w in member.items():
+                g = got[k][s]
+                check(g.dtype == w.dtype and g.shape == w.shape, f"16(b) {name}: {k}.{s} dtype/shape")
+                if w.dtype.kind != "f":
+                    check(np.array_equal(g, w), f"16(b) {name}: integer state {k}.{s} differs")
+                    continue
+                err = np.abs(g.astype(np.float64) - w).reshape(PAGED_STREAMS, -1).max(axis=1)
+                worst = max(worst, float(err.max()))
+                over = np.nonzero(err > bound + 1e-3)[0]
+                check(over.size == 0, f"16(b) {name}: {k}.{s} of {over.size} streams past the q8 bound")
+        values = eng.results()
+        for sid in range(0, PAGED_STREAMS, 7):  # the count-derived values, exactly
+            for k in ("acc", "f1", "confmat"):
+                check(torch.equal(values[sid][k], want_values[sid][k]), f"16(b) {name}: stream {sid} {k}")
+        out["targets"][name] = {"restore_ms": restore_ms, "replay_s": seconds, "steps": steps,
+                                "ms_per_step": seconds / steps * 1e3, "q8_max_abs_err": worst,
+                                "page_ins": eng.stats.page_ins}
+    return out
+
+
+def snapshot_phase(dev, preds, target, gpu_state, gpu_values):
+    """Phase 16: kill/resume through the captured engines (module docstring)."""
+    try:
+        return {"streaming": snapshot_streaming(dev, preds, target, gpu_state, gpu_values),
+                "paged": snapshot_paged(dev, preds, target)}
+    finally:
+        shutil.rmtree(SNAP_DIR, ignore_errors=True)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3659,6 +3890,19 @@ def main():
         check(forward_launches[k] > 0, f"kernel {k} was not launched by the forward phase")
     launches = {k: launches[k] + forward_launches[k] for k in launches}
     print(json.dumps({"forward_phase": forward, "launches": forward_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 16, its counts from 0: K2, K3, K5 (megastep engine), K6, K7 (paged q8) and K4 (merged) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    snapshots = snapshot_phase(dev, preds, target, gpu_state, gpu_values)
+    snapshot_launches = counts()
+    for k in ("histogram", "binned_counts", "segment_reduce", "megastep_fold", "megastep_segment",
+              "megastep_segment_q8"):
+        check(snapshot_launches[k] > 0, f"kernel {k} was not launched by the snapshot phase")
+    launches = {k: launches[k] + snapshot_launches[k] for k in launches}
+    print(json.dumps({"snapshot_phase": snapshots, "launches": snapshot_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

@@ -17,13 +17,13 @@ tree`` bit-exactly; buffer keys are dtype names (``"float32"``, ``"int32"``,
 as ``jnp.dtype(...).name`` spells them).
 """
 import hashlib
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.kernels.common import int32_bits
-from metrics_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+from metrics_tpu_torch.utils.tree import spell_treedef, tree_flatten, tree_unflatten
 
 __all__ = ["ArenaLayout", "dtype_key", "gather_rows", "scatter_rows"]
 
@@ -69,10 +69,15 @@ class ArenaLayout:
     metadata, safe to share across engines over equivalently-shaped states.
     """
 
-    def __init__(self, treedef: Any, specs: List[_LeafSpec], totals: Dict[str, int]):
+    def __init__(self, treedef: Any, specs: List[_LeafSpec], totals: Dict[str, int],
+                 spelled: Optional[str] = None, unspellable: Optional[TypeError] = None):
         self._treedef = treedef
         self._specs = specs
         self._totals = totals  # dtype key -> flat element count
+        # repr of the JAX package's treedef of the state (the JAX-form
+        # fingerprint hashes it), or why the state has none
+        self._spelled = spelled
+        self._unspellable = unspellable
 
     @classmethod
     def for_state(cls, abstract_state: Any) -> "ArenaLayout":
@@ -92,7 +97,10 @@ class ArenaLayout:
             size = int(np.prod(shape, dtype=np.int64))
             specs.append(_LeafSpec(key, totals.get(key, 0), size, shape, dtype))
             totals[key] = totals.get(key, 0) + size
-        return cls(treedef, specs, totals)
+        try:
+            return cls(treedef, specs, totals, spelled=spell_treedef(abstract_state)[1])
+        except TypeError as e:
+            return cls(treedef, specs, totals, unspellable=e)
 
     # ------------------------------------------------------------------ queries
 
@@ -128,13 +136,34 @@ class ArenaLayout:
             rows[spec.key][spec.offset : spec.offset + spec.size] = int(op)
         return rows
 
+    def matches(self, arena: Dict[str, Any], world: Optional[int] = None, panes: Optional[int] = None) -> bool:
+        """Shape compatibility of the BUFFERS (restoring a snapshot): one
+        buffer per dtype key, each ``lead + (n,)``, where ``lead`` is
+        ``(world,)`` for a shard-stacked arena, ``(panes,)`` for a pane ring,
+        both for the deferred windowed form. Necessary but not sufficient:
+        permuted same-dtype leaves give identical buffers, which
+        :meth:`fingerprint` tells apart."""
+        if set(arena) != set(self._totals):
+            return False
+        lead: Tuple[int, ...] = ()
+        if world is not None:
+            lead += (int(world),)
+        if panes is not None:
+            lead += (int(panes),)
+        return all(tuple(getattr(arena[k], "shape", ())) == lead + (n,) for k, n in self._totals.items())
+
     def fingerprint(self) -> str:
-        """Digest of the full packing plan: the port's own treedef plus every
-        leaf's (segment, offset, size, shape, dtype). Two layouts unpack a
-        buffer identically iff their fingerprints match. The JAX package
-        hashes its JAX treedef instead, so fingerprints do not cross packages;
-        compare :meth:`leaf_slices` for that."""
-        h = hashlib.sha256(repr(self._treedef).encode())
+        """Digest of the full packing plan in the JAX package's form: the
+        ``repr`` of JAX's treedef of the state (spelled by
+        :func:`~metrics_tpu_torch.utils.tree.spell_treedef`) plus every
+        leaf's ``key:offset:size:shape:dtype``. Two layouts unpack a buffer
+        identically iff their fingerprints match, and a layout's fingerprint
+        equals the JAX package's for the same state, so a snapshot's
+        ``arena_fp`` is checked across the packages. Raises, naming it, for
+        a state node the JAX form cannot spell."""
+        if self._spelled is None:
+            raise TypeError(f"this layout has no fingerprint in the JAX package's form: {self._unspellable}")
+        h = hashlib.sha256(self._spelled.encode())
         for s in self._specs:
             h.update(f"{s.key}:{s.offset}:{s.size}:{s.shape}:{dtype_key(s.dtype)}".encode())
         return h.hexdigest()[:16]

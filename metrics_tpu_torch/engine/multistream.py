@@ -34,8 +34,20 @@ buffer, its q8 staging a fixed set of buffers). ``results()`` computes every
 stream's value in ONE batched computation for any S (``torch.func.vmap`` of
 the metric's ``compute_from`` over the stream axis; the paged form first
 assembles every stream's row on the device) and copies the values to the
-host once. Snapshots, windows and multi-GPU stream sharding over
-``torch.distributed`` are not ported yet (ROADMAP §A).
+host once.
+
+Snapshots (``engine/pipeline.py``): the paged form's snapshot is its arena
+(as the JAX package's ``(world, resident, n)`` buffers, encoded through the
+row codec under ``compress_payloads``) plus the pager's payload (slot table
+and spilled rows), so rows living in host RAM survive a kill; staged q8 rows
+are seated first. ``restore`` follows the JAX package's stream-shard restore
+matrix: a paged snapshot of the same world and residency restores verbatim;
+of another world or residency (a JAX engine at world 2 or 4, or another
+``resident_streams``) every stream's row is reassembled and re-homed into the
+spill store, faulting in on first touch; into an unsharded engine the rows
+merge into the ``(S, ...)`` state; anything else is refused with JAX's
+message. Windows and multi-GPU stream sharding over ``torch.distributed`` are
+not ported yet (ROADMAP §A).
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -43,7 +55,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.engine.aot import AotCache
-from metrics_tpu_torch.engine.arena import gather_rows, scatter_rows
+from metrics_tpu_torch.engine.arena import ArenaLayout, gather_rows, scatter_rows
 from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
@@ -51,11 +63,25 @@ from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.state_bridge import _pager_row, _payload_row, _tensor_from_numpy, state_to_numpy
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["MultiStreamEngine"]
 
 _SHARD = 0  # the one shard of the world-1 pager
+
+
+def _spill_part(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The spilled-row matrices of a pager payload, by buffer key (the slot
+    table and the coordinates left out)."""
+    return {k[len("spill_"):]: v for k, v in payload.items() if k.startswith("spill_") and k != "spill_coords"}
+
+
+def _with_spill(payload: Dict[str, Any], spill: Dict[str, Any]) -> Dict[str, Any]:
+    """``payload`` with its spilled-row matrices replaced by ``spill``."""
+    out = {k: v for k, v in payload.items() if not (k.startswith("spill_") and k != "spill_coords")}
+    out.update({f"spill_{k}": v for k, v in spill.items()})
+    return out
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -131,7 +157,7 @@ class MultiStreamEngine(StreamingEngine):
             self._pager = StreamPager(1, self._resident)
             # one stream's packed init row per dtype, host numpy: the fault-in
             # source for never-touched (and reset) streams
-            self._init_row = {k: _host(v) for k, v in self._layout.pack(self._metric.init_state()).items()}
+            self._init_row = self._host_init_row(self._metric)
             # decode capability exists whenever the policy quantizes anything;
             # ENCODING spilled rows is gated on compress_payloads
             self._row_codec = ArenaRowCodec.for_metric(self._metric)
@@ -538,6 +564,210 @@ class MultiStreamEngine(StreamingEngine):
             self._pager.reset()
             self._q8_clear()
         super()._reset_locked()
+
+    # ------------------------------------------------------------- snapshot/restore
+
+    def _snapshot_state(self) -> Any:
+        if not self._stream_shard:
+            return super()._snapshot_state()
+        # the paged form's payload: the resident arena AND the pager's spilled
+        # rows and slot table, so rows living in host RAM survive a kill.
+        # Staged q8 rows are seated first: their quantized columns are still
+        # zero in the arena until a step decodes them
+        self._q8_flush()
+        arena: Dict[str, Any] = {k: v[None] for k, v in state_to_numpy(self._state).items()}  # (world=1, R, n)
+        if self._compress and self._row_codec is not None:
+            arena = self._row_codec.encode_buffers(arena)
+        # spilled rows are already in their at-rest form (encoded on the way
+        # to host RAM); a bf16 buffer's narrow back from the pager's f32
+        pager = {k: _payload_row(k, v) for k, v in self._pager.snapshot_payload().items()}
+        return {"arena": arena, "pager": pager}
+
+    def _snapshot_meta_extra(self) -> Dict[str, Any]:
+        if not self._stream_shard:
+            return {}
+        return {"stream_shard": 1, "num_streams": self._num_streams, "resident": self._resident, "world": 1}
+
+    def _decoded_pager_payload(self, payload: Dict[str, Any], codec: Optional[ArenaRowCodec]) -> Dict[str, Any]:
+        """A pager payload with its spilled rows decoded when they are stored
+        compressed (the slot table and coordinates pass through)."""
+        spill = _spill_part(payload)
+        if codec is None or not spill or not codec.is_encoded(spill):
+            return payload
+        return _with_spill(payload, codec.decode_buffers(spill))
+
+    def _normalized_pager_payload(self, payload: Dict[str, Any], snap_codec: Optional[ArenaRowCodec]) -> Dict[str, Any]:
+        """A restored pager payload in THIS engine's spill-store form: a
+        compressed snapshot into a verbatim-storing engine decodes, a
+        verbatim one into a compressing engine encodes (a mixed store would
+        break the per-key stacking of ``snapshot_payload``)."""
+        spill = _spill_part(payload)
+        if not spill:
+            return payload
+        is_encoded = snap_codec is not None and snap_codec.is_encoded(spill)
+        want_encoded = self._compress and self._row_codec is not None
+        if is_encoded == want_encoded:
+            return payload
+        if is_encoded:
+            return self._decoded_pager_payload(payload, snap_codec)
+        return _with_spill(payload, self._row_codec.encode_buffers({k: np.asarray(v) for k, v in spill.items()}))
+
+    @staticmethod
+    def _rows_from_parts(arena: Dict[str, Any], pager_payload: Dict[str, Any], init_row: Dict[str, np.ndarray],
+                         num_streams: int, world: int) -> Dict[str, np.ndarray]:
+        """``(S, n)`` per-dtype row matrices (host numpy) from a snapshot's
+        ``(world, R, n)`` arena and pager payload: init rows, then the
+        resident slots, then the spilled rows; stream ``sid`` lives on shard
+        ``sid % world`` as local stream ``sid // world``."""
+        out = {k: np.tile(np.asarray(init_row[k])[None], (num_streams, 1)) for k in arena}
+        slots = np.asarray(pager_payload["slots"])
+        w_idx, j_idx = np.nonzero(slots >= 0)
+        if w_idx.size:
+            g = slots[w_idx, j_idx].astype(np.int64) * world + w_idx
+            keep = g < num_streams
+            for k in out:
+                out[k][g[keep]] = np.asarray(arena[k])[w_idx[keep], j_idx[keep]]
+        coords = np.asarray(pager_payload.get("spill_coords", np.zeros((0, 2), np.int64))).reshape(-1, 2)
+        if coords.size:
+            g = coords[:, 1].astype(np.int64) * world + coords[:, 0].astype(np.int64)
+            keep = g < num_streams
+            for k in out:
+                out[k][g[keep]] = np.asarray(pager_payload[f"spill_{k}"])[keep]
+        return out
+
+    def _seeded_pager_payload(self, rows: Dict[str, np.ndarray], init_row: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """A pager payload for THIS engine (world 1, ``resident`` slots): an
+        empty slot table and every non-init stream row in the spill store,
+        so each faults in on its first touch. A row holding NaN compares
+        unequal and spills: conservative, never lossy."""
+        payload: Dict[str, Any] = {"slots": np.full((1, self._resident), -1, np.int64)}
+        keys = sorted(rows)
+        diff = np.zeros((self._num_streams,), bool)
+        for k in keys:
+            diff |= ~np.all(np.asarray(rows[k]) == np.asarray(init_row[k])[None], axis=1)
+        sids = np.nonzero(diff)[0].astype(np.int64)
+        if sids.size:
+            payload["spill_coords"] = np.stack([np.zeros_like(sids), sids], axis=1)
+            for k in keys:
+                payload[f"spill_{k}"] = np.asarray(rows[k])[sids]
+        return payload
+
+    @staticmethod
+    def _host_init_row(metric: Any) -> Dict[str, np.ndarray]:
+        """One stream's packed init row per dtype, host numpy."""
+        return {k: _host(v) for k, v in ArenaLayout.for_state(metric.abstract_state()).pack(metric.init_state()).items()}
+
+    @staticmethod
+    def sshard_piece_logical(metric: Any, state: Any, meta: Dict[str, Any]) -> Any:
+        """One stream-shard snapshot piece -> its LOGICAL state tree:
+        ``(S, ...)``, or ``(panes, S, ...)`` for a pane-stacked ring. Resident
+        slots, spilled rows and init rows reassemble as the merged restore
+        does; a compressed piece decodes through the metric's own row codec
+        (the caller checks ``meta["codec_fp"]``)."""
+        arena = state.get("arena") if isinstance(state, dict) else None
+        pager_payload = state.get("pager") if isinstance(state, dict) else None
+        if arena is None or pager_payload is None:
+            raise MetricsTPUUserError("stream-shard snapshot payload is missing arena/pager parts")
+        world = int(meta.get("world", 1))
+        s_snap = int(meta.get("num_streams", 0))
+        pane_rows = (int(meta.get("panes", 0) or 0) if str(meta.get("window", "") or "") else 1) or 1
+        if str(meta.get("codec", "") or ""):
+            codec = ArenaRowCodec.for_metric(metric)
+            if codec is not None and codec.is_encoded(arena):
+                arena = codec.decode_buffers({k: np.asarray(v) for k, v in arena.items()})
+            spill = _spill_part(pager_payload)
+            if spill and codec is not None and codec.is_encoded(spill):
+                pager_payload = _with_spill(pager_payload, codec.decode_buffers(spill))
+        layout = ArenaLayout.for_state(metric.abstract_state())
+        init_row = MultiStreamEngine._host_init_row(metric)
+        if pane_rows == 1:
+            rows = MultiStreamEngine._rows_from_parts(arena, pager_payload, init_row, s_snap, world)
+            return layout.unpack_stacked({k: _tensor_from_numpy(v) for k, v in rows.items()})
+        # a pane-extended ring: every (pane, stream) row through the ext-id
+        # bijection the JAX engine routes by, a pure function of (world, panes)
+        num_rows = -(-s_snap // world) * pane_rows * world
+        rows = MultiStreamEngine._rows_from_parts(arena, pager_payload, init_row, num_rows, world)
+        sids = np.arange(s_snap, dtype=np.int64)
+        ext = ((sids // world) * pane_rows + np.arange(pane_rows, dtype=np.int64)[:, None]) * world + (sids % world)[None, :]
+        return layout.unpack_stacked({k: _tensor_from_numpy(np.asarray(v)[ext]) for k, v in rows.items()}, lead=2)
+
+    def _restore_commit(self, state: Any, meta: Dict[str, Any]) -> None:
+        """The stream-shard restore matrix (the JAX package's, at world 1):
+
+        * paged snapshot -> paged engine of the same world and residency
+          (same S): verbatim, arena rows into their slots and the pager's
+          slot table and spill store as written, so replay is bit-exact;
+        * paged snapshot -> paged engine of another world or residency: every
+          stream's row is reassembled on the host and SEEDS this engine's
+          spill store; the slots start empty and rows fault in on first
+          touch, bit-exactly;
+        * paged snapshot -> unsharded engine (same S): resident, spilled and
+          init rows merge into the ``(S, ...)`` state.
+
+        A plain snapshot into a paged engine, another stream count, a
+        differing codec policy or layout are refused; nothing is written
+        before every check passed."""
+        snap_shard = bool(int(meta.get("stream_shard", 0) or 0))
+        if not snap_shard and not self._stream_shard:
+            super()._restore_commit(state, meta)
+            return
+        self._check_window_provenance(meta)
+        if not snap_shard:
+            raise MetricsTPUUserError(
+                "snapshot was not written by a stream-sharded engine; the stream-shard restore matrix covers "
+                "{sharded+paged -> same-world, -> single-device merged} exactly — restore it into a non-sharded "
+                "MultiStreamEngine"
+            )
+        s_snap = int(meta.get("num_streams", 0))
+        world_snap = int(meta.get("world", 1))
+        r_snap = int(meta.get("resident", 0))
+        if s_snap != self._num_streams:
+            raise MetricsTPUUserError(f"snapshot serves {s_snap} streams, this engine {self._num_streams}")
+        arena = state.get("arena") if isinstance(state, dict) else None
+        pager_payload = state.get("pager") if isinstance(state, dict) else None
+        if arena is None or pager_payload is None:
+            raise MetricsTPUUserError("stream-shard snapshot payload is missing arena/pager parts")
+        # the buffer-form codec is not self-describing (positions come from
+        # layout and policy): the snapshot's policy fingerprint must match
+        snap_codec: Optional[ArenaRowCodec] = None
+        if str(meta.get("codec", "") or ""):
+            if str(meta.get("codec_fp", "") or "") != self._precision_tag:
+                raise MetricsTPUUserError(
+                    "compressed stream-shard snapshot was written under sync_precision policy "
+                    f"{meta.get('codec_fp')!r}, this engine's metric declares {self._precision_tag!r}; restore it "
+                    "with the matching policy"
+                )
+            snap_codec = self._row_codec or ArenaRowCodec.for_metric(self._metric)
+            if snap_codec is not None and snap_codec.is_encoded(arena):
+                arena = snap_codec.decode_buffers({k: np.asarray(v) for k, v in arena.items()})
+        row_layout = ArenaLayout.for_state(self._metric.abstract_state())
+        sizes = row_layout.buffer_sizes()
+        if set(arena) != set(sizes) or any(
+                tuple(np.shape(arena[k])) != (world_snap, r_snap, n) for k, n in sizes.items()):
+            raise MetricsTPUUserError(
+                "stream-shard snapshot arena does not match this metric's per-stream layout; was the metric "
+                "reconfigured since the snapshot?"
+            )
+        if not self._stream_shard:
+            self._finish_restore(self._put_state(self.sshard_piece_logical(self._metric, state, meta)), meta)
+            return
+        init_row = self._host_init_row(self._metric)
+        if world_snap == 1 and r_snap == self._resident:
+            carried = {k: _tensor_from_numpy(np.asarray(arena[k])[0]).to(self._device, buf.dtype)
+                       for k, buf in self._state.items()}
+            payload = self._normalized_pager_payload(pager_payload, snap_codec)
+        else:
+            # another topology: slot tables are topology-local, the rows are
+            # not; every non-init row seeds the spill store
+            rows = self._rows_from_parts(arena, self._decoded_pager_payload(pager_payload, snap_codec), init_row,
+                                         self._num_streams, world_snap)
+            payload = self._normalized_pager_payload(self._seeded_pager_payload(rows, init_row), None)
+            carried = self._put_state(self._metric.init_state())
+        payload = {k: _pager_row(v) for k, v in payload.items()}  # the pager's host form: bf16 rows as f32
+        with self._device_section():
+            self._finish_restore(carried, meta)
+            self._pager.load_payload(payload)
+            self._q8_clear()
 
     @property
     def pager(self) -> Optional[StreamPager]:

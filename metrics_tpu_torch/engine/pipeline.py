@@ -24,9 +24,23 @@ back to the eager step or to the CPU. On the CPU the step runs eagerly on the
 dispatcher thread. Readers flush first: ``with engine:`` or ``flush()`` before
 reading.
 
-Snapshots, fault injection and recovery, tracing, admission control, windows,
-meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A): their
-``EngineConfig`` fields raise
+Recovery: ``snapshot_every > 0`` writes crash-safe periodic snapshots
+(``engine/snapshot.py``) on batch boundaries, which coalesced groups never
+cross; ``snapshot()`` writes one now; ``restore()`` resumes exactly, writing
+the snapshot into the engine's buffers in place (captured steps keep
+addressing them), so replaying the stream from the returned ``batches_done``
+reproduces the uninterrupted result. Snapshots carry the packed arena (or
+the logical tree, codec-wrapped under ``compress_payloads``) and the metric's
+host-derived compute attributes, in the JAX package's pickle format: either
+package restores the other's. ``restore()`` falls back past corrupt
+generations and retries a transient read with seeded, jittered backoff; a
+failed PERIODIC snapshot is counted and never sticky. A seeded
+``fault_injector`` (``engine/faults.py``) fires at the three snapshot sites.
+
+Screening and quarantine, step retries, the watchdog, kernel demotion,
+tracing, admission control, windows, meshes and XLA's
+``compilation_cache_dir`` are not ported (ROADMAP §A): their ``EngineConfig``
+fields, and an injector plan naming any other fault site, raise
 :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
 """
 import queue
@@ -51,23 +65,33 @@ from metrics_tpu_torch.engine.bucketing import (
     padded_shape,
     torch_dtype,
 )
-from metrics_tpu_torch.engine.faults import BackpressureTimeout, EngineDispatchError
+from metrics_tpu_torch.engine.faults import (
+    BackpressureTimeout,
+    EngineDispatchError,
+    FaultInjector,
+    corrupt_snapshot,
+    is_transient,
+)
 from metrics_tpu_torch.engine.megastep import MegastepPlan
+from metrics_tpu_torch.engine.quantize import CODEC_ID, decode_state_tree, encode_state_tree
+from metrics_tpu_torch.engine.snapshot import load_snapshot, save_snapshot
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError, NotPortedError
+from metrics_tpu_torch.utils.state_bridge import _tensor_from_numpy, state_to_numpy
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = (
-    "snapshot_every", "snapshot_dir", "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "snapshot_keep",
-    "fault_injector", "screen", "quarantine_capacity", "max_retries", "backoff_base_ms", "backoff_max_ms",
-    "step_timeout_s", "transactional", "degrade_kernel", "trace", "admission", "ladder", "elastic_min_world",
-    "window", "drift",
+    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "screen",
+    "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel", "trace", "admission", "ladder",
+    "elastic_min_world", "window", "drift",
 )
+#: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
+_PORTED_FAULT_SITES = ("snapshot_write", "snapshot_corrupt", "snapshot_read")
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
 
@@ -119,7 +143,25 @@ class EngineConfig:
             through the q8 codec (``engine/quantize.py``) for the states the
             metric's ``sync_precision`` policy marks ``"q8_block"``; under
             ``"megastep"`` such rows page back in as int8 codes that K7
-            decodes on touch.
+            decodes on touch. Snapshots then store the logical tree with
+            those states codec-wrapped (the paged engine: its arena rows
+            through the row codec).
+        snapshot_every: BATCHES between crash-safe snapshots (0 = off). They
+            land on batch boundaries only, and a coalesced group never
+            crosses one, so the cadence stays exact under coalescing.
+        snapshot_dir: where snapshots live (required when snapshot_every > 0,
+            and by ``snapshot()``).
+        snapshot_keep: complete snapshots retained: the generation ring
+            ``restore()`` falls back through when the newest is corrupt.
+        fault_injector: optional seeded
+            :class:`~metrics_tpu_torch.engine.faults.FaultInjector`, consulted
+            at the snapshot sites (``snapshot_write``, ``snapshot_corrupt``,
+            ``snapshot_read``); a plan naming another site raises
+            :class:`NotPortedError`.
+        max_retries: bounded retry budget for a TRANSIENT snapshot read
+            inside ``restore()``.
+        backoff_base_ms / backoff_max_ms: jittered exponential backoff
+            between retries (the jitter is seeded from the injector's seed).
 
     Any other field of the JAX package's ``EngineConfig`` raises
     :class:`NotPortedError`.
@@ -136,6 +178,13 @@ class EngineConfig:
         kernel_backend: Optional[str] = None,
         pad_value: Any = 0,
         compress_payloads: bool = False,
+        snapshot_every: int = 0,
+        snapshot_dir: Optional[str] = None,
+        snapshot_keep: int = 2,
+        fault_injector: Optional[FaultInjector] = None,
+        max_retries: int = 2,
+        backoff_base_ms: float = 1.0,
+        backoff_max_ms: float = 50.0,
         **fields: Any,
     ) -> None:
         unported = sorted(k for k in fields if k in _NOT_PORTED_FIELDS)
@@ -143,6 +192,13 @@ class EngineConfig:
             raise NotPortedError(f"EngineConfig fields {unported} are not ported yet (see ROADMAP.md §A)")
         if fields:
             raise TypeError(f"EngineConfig got unexpected fields {sorted(fields)}")
+        if fault_injector is not None:
+            sites = sorted(site for site in fault_injector.plan if site not in _PORTED_FAULT_SITES)
+            if sites:
+                raise NotPortedError(
+                    f"fault injector plan names sites {sites}, which the port's engines do not consult yet "
+                    f"(they consult {list(_PORTED_FAULT_SITES)}; see ROADMAP.md §A)"
+                )
         self.buckets = tuple(int(b) for b in buckets)
         self.max_queue = int(max_queue)
         self.in_flight = int(in_flight)
@@ -152,20 +208,35 @@ class EngineConfig:
         self.kernel_backend = kernel_backend
         self.pad_value = pad_value
         self.compress_payloads = bool(compress_payloads)
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_keep = int(snapshot_keep)
+        self.fault_injector = fault_injector
+        self.max_retries = int(max_retries)
+        self.backoff_base_ms = float(backoff_base_ms)
+        self.backoff_max_ms = float(backoff_max_ms)
 
     def __repr__(self) -> str:
         return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
                 f"coalesce={self.coalesce}, coalesce_window_ms={self.coalesce_window_ms}, use_arena={self.use_arena}, "
                 f"kernel_backend={self.kernel_backend!r}, pad_value={self.pad_value!r}, "
-                f"compress_payloads={self.compress_payloads})")
+                f"compress_payloads={self.compress_payloads}, snapshot_every={self.snapshot_every}, "
+                f"snapshot_dir={self.snapshot_dir!r}, snapshot_keep={self.snapshot_keep}, "
+                f"fault_injector={self.fault_injector!r}, max_retries={self.max_retries}, "
+                f"backoff_base_ms={self.backoff_base_ms}, backoff_max_ms={self.backoff_max_ms})")
 
 
 class EngineStats:
     """Counters of one engine: steps, coalesced megasteps, valid and padded
-    rows, capture warm-ups, kernel fallback verdicts, and the pager's page
-    traffic (paged multi-stream engine)."""
+    rows, capture warm-ups, kernel fallback verdicts, the pager's page
+    traffic (paged multi-stream engine), and recovery: snapshots written and
+    failed, restores and their generation fallbacks, injected faults by site
+    and retries."""
 
     def __init__(self) -> None:
+        # fault and retry counts are bumped from the dispatcher and from
+        # callers' threads (snapshot(), restore())
+        self._counter_lock = threading.Lock()
         self.steps = 0
         self.batches_submitted = 0
         self.batches_coalesced = 0  # submitted batches folded into a shared step
@@ -183,6 +254,26 @@ class EngineStats:
         self.page_outs = 0
         self.q8_staged_rows = 0  # page-ins seated as int8 codes for K7 to decode
         self.kernel_fallbacks: Dict[str, int] = {}
+        self.snapshots = 0
+        self.snapshot_failures = 0  # periodic snapshots that failed (contained, never sticky)
+        self.snapshot_fallbacks = 0  # restores that walked past a corrupt generation
+        self.resumes = 0
+        self.retries = 0
+        self.faults_injected: Dict[str, int] = {}
+
+    def record_fault(self, site: str) -> None:
+        """One injected fault fired at ``site``."""
+        with self._counter_lock:
+            self.faults_injected[site] = self.faults_injected.get(site, 0) + 1
+
+    def faults_by_site(self) -> Dict[str, int]:
+        with self._counter_lock:
+            return dict(self.faults_injected)
+
+    def record_retry(self) -> None:
+        """One bounded-retry attempt."""
+        with self._counter_lock:
+            self.retries += 1
 
     def record_step(self, bucket: int, valid: int, coalesced: int = 1) -> None:
         self.steps += 1
@@ -258,9 +349,19 @@ class StreamingEngine:
         if reason is not None:
             raise MetricsTPUUserError(f"metric cannot be served by the streaming engine: {reason}")
         self._device = _metric_device(metric)
+        if self._cfg.max_retries < 0:
+            raise MetricsTPUUserError(f"max_retries must be >= 0, got {self._cfg.max_retries}")
+        if self._cfg.snapshot_every > 0 and not self._cfg.snapshot_dir:
+            raise MetricsTPUUserError("snapshot_every > 0 requires snapshot_dir")
         self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value)
         self._stats = EngineStats()
         self._compress = self._cfg.compress_payloads
+        # the sync-precision policy tag, pinned at construction: it is part of
+        # every step key and the codec fingerprint of compressed snapshots
+        self._precision_tag = metric.sync_precision_tag()
+        inj = self._cfg.fault_injector
+        # the retry jitter's stream, seeded so chaos runs replay exactly
+        self._retry_rng = np.random.RandomState(((inj.seed if inj is not None else 0) ^ 0x5EED) & 0x7FFFFFFF)
         self._step = 0
         self._layout: Optional[ArenaLayout] = (
             ArenaLayout.for_state(self._kind_abstract_state_tree()) if self._cfg.use_arena else None
@@ -413,7 +514,7 @@ class StreamingEngine:
             f"{self._update_kind()}+k.{self._kernel_tag()}", self._metric_fp,
             arg_tree=(self._carried_sig, abstract, tuple(kinds), StateSpec((bucket,), torch.bool)),
             layout=self._layout, backend=self._kernel_tag(), device=self._device,
-            precision=self._metric.sync_precision_tag(),
+            precision=self._precision_tag,
         )
         if not self._capture:
             entry, ring = self._aot.get_or_capture(key, lambda: EAGER), None
@@ -603,6 +704,15 @@ class StreamingEngine:
                     self._latch_host_attrs(merged)
                 self._execute_payload(merged, sum(n for _, n in nonempty), len(nonempty))
             self._batches_done += len(group)
+            if self._cfg.snapshot_every > 0 and self._batches_done % self._cfg.snapshot_every == 0:
+                self._sync()  # the copy to the host reads the state after every in-flight step folded
+                try:
+                    self._save_snapshot()
+                except Exception:  # noqa: BLE001 - counted, never sticky
+                    # a failed PERIODIC snapshot must not take serving down:
+                    # the state is intact and the previous generation still
+                    # backs restore()
+                    self._stats.snapshot_failures += 1
 
     def _join_queue(self) -> None:
         """``queue.join()`` that survives a dispatcher that is gone: a live
@@ -652,8 +762,11 @@ class StreamingEngine:
         ``(group, pending_incompatible_item, saw_stop)``. Bounded by
         ``coalesce`` batches and by the top bucket's row count (a fuller
         megabatch would just re-chunk); waits up to ``coalesce_window_ms`` for
-        more traffic once the queue runs dry."""
+        more traffic once the queue runs dry. A group never crosses the next
+        snapshot boundary (the cadence stays batch-exact)."""
         limit = max(1, self._cfg.coalesce)
+        if self._cfg.snapshot_every > 0:
+            limit = min(limit, self._cfg.snapshot_every - (self._batches_done % self._cfg.snapshot_every))
         group = [first]
         if limit <= 1:
             return group, None, False
@@ -842,6 +955,249 @@ class StreamingEngine:
         self._write_state(self._put_state(self._init_state_tree()))
         self._step = 0
         self._batches_done = 0
+
+    # ---------------------------------------------------------------------- recovery
+
+    def snapshot(self) -> str:
+        """Flush and write one crash-safe snapshot now; a failure raises."""
+        if not self._cfg.snapshot_dir:
+            raise MetricsTPUUserError("snapshot() requires config.snapshot_dir")
+        self.flush()
+        return self._save_snapshot()
+
+    def _save_snapshot(self) -> str:
+        with self._device_section():
+            return self._save_snapshot_locked()
+
+    def _save_snapshot_locked(self) -> str:
+        # a write-site fault fires BEFORE any bytes land: LATEST still names
+        # the previous complete generation
+        self._fault("snapshot_write")
+        host_state, meta = self._snapshot_doc()
+        path = save_snapshot(self._cfg.snapshot_dir, host_state, meta, keep=self._cfg.snapshot_keep,
+                             host_attrs=self._metric.host_compute_attrs())
+        self._stats.snapshots += 1
+        inj = self._cfg.fault_injector
+        if inj is not None and inj.fire("snapshot_corrupt"):
+            # bit rot: the save SUCCEEDED (LATEST names it), then the payload
+            # rots on disk, the case restore()'s generation fallback is for
+            self._stats.record_fault("snapshot_corrupt")
+            corrupt_snapshot(path, inj.snapshot_rng())
+        return path
+
+    def _snapshot_doc(self) -> Tuple[Any, Dict[str, Any]]:
+        """``(host_state, meta)``: the engine's durable form and its
+        provenance, with the JAX package's meta keys (a single-device,
+        single-host engine: ``mesh_sync="single"``, world 1)."""
+        host_state = self._snapshot_state()
+        meta: Dict[str, Any] = {
+            "step": self._step,
+            "batches_done": self._batches_done,
+            "rows_in": self._stats.rows_in,
+            "rows_padded": self._stats.rows_padded,
+            # a compressed snapshot stores the LOGICAL tree with codec-wrapped
+            # leaves, never the raw arena
+            "packed": int(self._layout is not None and not self._compress),
+            "arena_fp": self._layout.fingerprint() if self._layout is not None else "",
+            "mesh_sync": "single",
+            "world": 1,
+            "num_hosts": 1,
+            "process_id": 0,
+        }
+        if self._compress:
+            meta["codec"] = CODEC_ID
+            meta["codec_fp"] = self._precision_tag
+        meta.update(self._snapshot_meta_extra())
+        return host_state, meta
+
+    def _snapshot_state(self) -> Any:
+        """The host-side state a snapshot carries: the carried form itself
+        (the packed arena, or the logical tree without one), or under
+        ``compress_payloads`` the logical tree with the metric's
+        quantized-policy leaves codec-wrapped (``engine/quantize.py``)."""
+        if not self._compress:
+            return state_to_numpy(self._state)
+        return encode_state_tree(self._metric, state_to_numpy(self._unpack(self._state)))
+
+    def _snapshot_meta_extra(self) -> Dict[str, Any]:
+        """Provenance a subclass adds to every snapshot (the paged engine: its
+        stream and residency topology)."""
+        return {}
+
+    def restore(self, directory_or_path: Optional[str] = None) -> Dict[str, Any]:
+        """Resume from the newest complete snapshot (the engine must be idle).
+
+        Returns the snapshot's meta; ``batches_done`` is the replay cursor:
+        re-submit the stream from that batch on and the result is exactly the
+        uninterrupted one. Host-derived compute attributes are restored too,
+        so ``result()`` works at once. The state is written into the
+        engine's buffers in place.
+
+        Also the recovery path after a sticky dispatcher failure: the backlog
+        is drained unfolded and the error cleared once the state is committed
+        (a failed restore leaves the engine, error included, as it was). A
+        corrupt newest payload falls back to the newest valid generation
+        (counted in ``stats.snapshot_fallbacks``; the returned cursor is the
+        older one), and a transient read failure is retried with backoff."""
+        target = directory_or_path or self._cfg.snapshot_dir
+        if not target:
+            raise MetricsTPUUserError("restore() requires a snapshot path or config.snapshot_dir")
+        self._join_queue()  # drain; a sticky-failed (or dead) dispatcher discards
+
+        def load_once() -> Tuple[Any, Dict[str, Any]]:
+            self._fault("snapshot_read")
+            return load_snapshot(target, fallback=True)
+
+        state, meta = self._retry_transient(load_once)
+        self._restore_commit(state, meta)
+        return meta
+
+    def _check_window_provenance(self, meta: Dict[str, Any]) -> None:
+        """The port's engines are cumulative: a snapshot with window
+        provenance (a pane ring) is refused, with the JAX package's message."""
+        snap_win = str(meta.get("window", "") or "")
+        if snap_win:
+            raise MetricsTPUUserError(
+                f"snapshot window policy {snap_win!r} does not match this engine's 'cumulative': pane rings are "
+                "only replayable under the policy that built them — restore into an engine constructed with the "
+                "same WindowPolicy"
+            )
+
+    def _fits_template(self, tree: Any) -> bool:
+        """Does a logical state tree have this engine's structure and shapes?"""
+        want_leaves, want_def = tree_flatten(self._kind_abstract_state_tree())
+        leaves, treedef = tree_flatten(tree)
+        return treedef == want_def and all(
+            tuple(getattr(leaf, "shape", ())) == tuple(w.shape) for leaf, w in zip(leaves, want_leaves))
+
+    def _restore_commit(self, state: Any, meta: Dict[str, Any]) -> None:
+        """Validate a loaded snapshot against this engine and commit it (the
+        restore matrix of a single-device engine): a single-device or
+        step-sync snapshot seats verbatim; a deferred-sync mesh snapshot's
+        shard-stacked locals merge on the host (``merge_stacked_states``).
+        Everything is checked before anything is written."""
+        self._check_window_provenance(meta)
+        if str(meta.get("codec", "") or ""):
+            # codec-wrapped leaves are self-describing: decode first
+            state = decode_state_tree(state)
+        snap_hosts = int(meta.get("num_hosts", 1) or 1)
+        snap_pid = int(meta.get("process_id", 0) or 0)
+        if snap_hosts != 1 or snap_pid != 0:
+            raise MetricsTPUUserError(
+                f"snapshot host topology (num_hosts={snap_hosts}, process_id={snap_pid}) does not match this "
+                "engine's (num_hosts=1, process_id=0): a fleet host piece restores only into the SAME host of a "
+                "same-size fleet — merge a whole fleet snapshot into a single-process engine with "
+                "engine.fleet.restore_fleet_into(), or adopt a single-process snapshot into a fleet with "
+                "FleetEngine.adopt_single()"
+            )
+        packed = bool(int(meta.get("packed", 0)))
+        snap_deferred = str(meta.get("mesh_sync", "") or "") == "deferred"
+        snap_world = int(meta.get("world", 1))
+        state = tree_map(lambda x: _tensor_from_numpy(x) if isinstance(x, np.ndarray) else x, state)
+        if packed:
+            if self._layout is None:
+                raise MetricsTPUUserError(
+                    "snapshot holds a packed arena but this engine runs with use_arena=False; "
+                    "enable the arena (or re-snapshot unpacked) to restore it"
+                )
+            # buffer shapes cannot tell permuted same-dtype leaves apart; the
+            # layout fingerprint (the JAX package's form) can
+            saved_fp = str(meta.get("arena_fp", "") or "")
+            shape_ok = isinstance(state, dict) and self._layout.matches(
+                state, world=snap_world if snap_deferred else None)
+            if not shape_ok or (saved_fp and saved_fp != self._layout.fingerprint()):
+                raise MetricsTPUUserError(
+                    f"snapshot arena does not match this metric's layout ({self._layout!r}); was the metric "
+                    "reconfigured since the snapshot?"
+                )
+        if snap_deferred:
+            # a deferred mesh snapshot holds each shard's LOCAL state: merge
+            # them into the global state (exact for mergeable reductions;
+            # refused when cat buffers grew with the shard count)
+            stacked = self._layout.unpack_stacked(state) if packed else state
+            logical = self._metric.merge_stacked_states(stacked)
+            if not self._fits_template(logical):
+                raise MetricsTPUUserError(
+                    f"deferred snapshot (world={snap_world}) merges to state shapes this engine cannot carry "
+                    "(cat-state buffers scale with the shard count); restore it into a deferred engine with the "
+                    "same mesh size"
+                )
+            carried = self._put_state(logical)
+        elif packed:
+            carried = {k: v.to(self._device) for k, v in state.items()}
+        else:
+            if not self._fits_template(state):
+                raise MetricsTPUUserError(
+                    "snapshot state does not match this metric's state structure and shapes; was the metric "
+                    "reconfigured since the snapshot?"
+                )
+            carried = self._put_state(state)
+        self._finish_restore(carried, meta)
+
+    def _finish_restore(self, carried: Any, meta: Dict[str, Any]) -> None:
+        """Commit a validated carried state and the replay cursor, in one
+        critical section: the state is written into the engine's buffers in
+        place (captured steps address them), after every in-flight step."""
+        with self._device_section():
+            attrs = meta.get("host_attrs")
+            if attrs:
+                self._metric.restore_host_compute_attrs(attrs)
+                # host attrs are trace constants in every step key: re-derive
+                # the fingerprint at the next lookup, forget memoized entries
+                self._metric_fp = None
+                self._program_memo.clear()
+            # a pre-traffic snapshot restores attrs still None: the first
+            # batch must latch them, as on a fresh engine
+            self._needs_attr_latch = any(v is None for v in self._metric.host_compute_attrs().values())
+            self._sync()
+            self._write_state(carried)
+            self._error = None
+            self._step = int(meta.get("step", 0))
+            self._batches_done = int(meta.get("batches_done", self._step))
+            self._stats.rows_in = int(meta.get("rows_in", self._stats.rows_in))
+            self._stats.rows_padded = int(meta.get("rows_padded", self._stats.rows_padded))
+            self._stats.resumes += 1
+            if int(meta.get("generations_skipped", 0) or 0) > 0:
+                self._stats.snapshot_fallbacks += 1
+
+    # ----------------------------------------------------------------- fault plumbing
+
+    def _fault(self, site: str) -> None:
+        """Consult the injector at a fault site; a fired fault is counted and
+        raised."""
+        inj = self._cfg.fault_injector
+        if inj is None:
+            return
+        try:
+            inj.check(site)
+        except Exception:
+            self._stats.record_fault(site)
+            raise
+
+    def _backoff(self, attempt: int) -> None:
+        """Jittered exponential backoff before retry ``attempt`` (1-based),
+        the jitter from a seeded stream."""
+        base = max(0.0, self._cfg.backoff_base_ms) / 1e3
+        cap = max(base, self._cfg.backoff_max_ms / 1e3)
+        delay = min(cap, base * (2 ** (attempt - 1)))
+        delay *= 0.5 + 0.5 * float(self._retry_rng.rand())
+        if delay > 0:
+            time.sleep(delay)
+
+    def _retry_transient(self, fn: Any) -> Any:
+        """Run ``fn`` up to ``1 + max_retries`` times, retrying (counted,
+        backed off) the failures :func:`is_transient` accepts and re-raising
+        every other."""
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except Exception as e:
+                if not is_transient(e) or attempt >= self._cfg.max_retries:
+                    raise
+                attempt += 1
+                self._stats.record_retry()
+                self._backoff(attempt)
 
     @property
     def steps(self) -> int:

@@ -10,7 +10,8 @@ round trip costs at most ``block_absmax / 254`` per element.
   logical state tree, nested metrics' ``"_children"`` included. A quantized
   leaf becomes a self-describing dict (marker, codes, scales, shape, dtype),
   so decoding needs no metric; the JAX package's dicts decode here and the
-  other way round. Snapshots, which would store it, are not ported yet.
+  other way round. A compressed engine snapshot stores it
+  (``engine/snapshot.py``).
 * **Buffer form** (:class:`ArenaRowCodec`): the per-dtype arena vectors the
   pager spills. The quantized leaves' element positions within each dtype
   buffer split into a coded section (``<dtype>#q8c`` codes + ``<dtype>#q8s``

@@ -1480,3 +1480,114 @@ def test_deferred_check_raises_after_a_captured_forward(cuda):
     m.reset()
     m(p, t)
     assert int(m.compute().sum()) == p.shape[0]
+
+
+# ------------------------------------------------------------------ snapshots and restore
+
+
+def _snapshot_engine(kind, device, snapdir, cache=None, every=0, in_flight=2):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    q8 = kind == "paged_q8"
+    cfg = EngineConfig(buckets=(16, 64), kernel_backend="megastep", compress_payloads=q8, coalesce=1,
+                       snapshot_dir=snapdir, snapshot_every=every, in_flight=in_flight)
+    coll = _engine_collection(device, q8)
+    if kind == "streaming":
+        return StreamingEngine(coll, cfg, aot_cache=cache)
+    return MultiStreamEngine(coll, 12, cfg, stream_shard=True, resident_streams=3, aot_cache=cache)
+
+
+def _ptrs(eng):
+    return {k: v.data_ptr() for k, v in eng._state.items()}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["streaming", "paged"])
+def test_restore_into_a_live_captured_engine_keeps_buffers_and_captures_nothing(cuda, tmp_path, kind):
+    """A snapshot restored into the live captured engine it came from is
+    written into the engine's buffers in place: every ``data_ptr()`` stays,
+    no step is captured again, and the next replayed steps fold on top of the
+    restored state (the replay of the second half is bit-equal to the
+    uninterrupted run; ``coalesce=1``, counts)."""
+    traffic = _engine_traffic(21)
+    half = len(traffic) // 2
+    eng = _snapshot_engine(kind, cuda, str(tmp_path))
+    _drive(eng, traffic[:half], True, cuda)
+    path = eng.snapshot()
+    want = _drive(eng, traffic[half:], True, cuda)
+    ptrs, misses = _ptrs(eng), eng.aot_cache.misses
+    meta = eng.restore(path)
+    assert meta["batches_done"] == half and _ptrs(eng) == ptrs
+    got = _drive(eng, traffic[half:], True, cuda)
+    assert _ptrs(eng) == ptrs and eng.aot_cache.misses == misses and eng.stats.resumes == 1
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_restore_that_changes_a_host_attribute_captures_a_new_step(cuda, tmp_path):
+    """Accuracy's latched input mode is a trace constant of every captured
+    step: restoring a multiclass snapshot into an engine latched binary
+    re-keys the step, so the next batch captures a new graph under the new
+    key instead of replaying the binary one; the value is the multiclass
+    one."""
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, StreamingEngine
+
+    multi = StreamingEngine(Accuracy(device=cuda), EngineConfig(buckets=(16,), snapshot_dir=str(tmp_path)))
+    p = torch.tensor([[0.1, 0.7, 0.2], [0.6, 0.3, 0.1]], device=cuda)
+    with multi:
+        multi.submit(p, torch.tensor([1, 2], device=cuda))  # one of two right
+        path = multi.snapshot()
+    cache = AotCache()
+    live = StreamingEngine(Accuracy(device=cuda), EngineConfig(buckets=(16,)), aot_cache=cache)
+    with live:
+        live.submit(torch.tensor([0.9, 0.2], device=cuda), torch.tensor([1, 0], device=cuda))
+    misses = cache.misses
+    live.restore(path)
+    assert live._metric.mode == "multi-class"
+    with live:
+        live.submit(p, torch.tensor([1, 0], device=cuda))  # two of two right
+    assert cache.misses == misses + 1 and live.stats.warmup_steps == 2
+    assert float(live.result()) == pytest.approx(3 / 4)
+
+
+@pytest.mark.requires_cuda
+def test_periodic_snapshot_with_steps_in_flight_equals_the_flushed_state(cuda, tmp_path):
+    """The dispatcher's periodic snapshot copies the state after every
+    in-flight step folded: with four steps in flight, the snapshot at the
+    last batch equals ``state()`` after ``flush()``, bit for bit."""
+    from metrics_tpu_torch.engine import load_snapshot
+
+    traffic = _engine_traffic(22, n_batches=24)
+    eng = _snapshot_engine("streaming", cuda, str(tmp_path), every=8, in_flight=4)
+    state = _drive(eng, traffic, True, cuda)
+    assert eng.stats.snapshots == 3 and eng.stats.snapshot_failures == 0
+    snap, meta = load_snapshot(str(tmp_path))
+    assert meta["batches_done"] == 24
+    logical = eng.arena_layout.unpack({k: torch.from_numpy(v).to(cuda) for k, v in snap.items()})
+    for g, w in zip(_flat(logical), _flat(state)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_paged_q8_snapshot_with_staged_rows_loses_none(cuda, tmp_path):
+    """Rows staged as int8 codes (their q8 columns still zero in the arena
+    until K7 decodes them) are seated before the snapshot copies the arena:
+    restored, each staged stream's state is the one it had before staging."""
+    traffic = _engine_traffic(23, n_batches=40)
+    eng = _snapshot_engine("paged_q8", cuda, str(tmp_path))
+    _drive(eng, traffic, True, cuda)
+    spilled = sorted(eng.pager.spilled_streams(0))[:3]
+    assert spilled
+    want = {sid: eng.stream_state(sid) for sid in spilled}
+    with eng._device_section():
+        eng._page_round(spilled)
+    assert int(eng._q8_stage["flags"].sum()) == len(spilled)
+    path = eng.snapshot()
+    assert int(eng._q8_stage["flags"].sum()) == 0
+    restored = _snapshot_engine("paged_q8", cuda, str(tmp_path))
+    restored.restore(path)
+    for sid in spilled:
+        for g, w in zip(_flat(restored.stream_state(sid)), _flat(want[sid])):
+            assert torch.equal(g, w)
