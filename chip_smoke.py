@@ -101,7 +101,7 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    int32 and the uint32 draw counter), with its uncaptured twin, a warm twin
    that captures nothing and a profile of a 1024-row bucket, and through
    phase 9a's captured paged ``MultiStreamEngine`` (an uncaptured twin on its
-   first 460 batches; its sums over streams and 23 streams against numpy);
+   first 230 batches; its sums over streams and 23 streams against numpy);
    ``MultioutputWrapper(remove_nans=False)`` through the megastep engine on
    two-head rows; every integer state, children included, bit-equal to the
    twins and to numpy (each occurrence of a shared operand counts every row
@@ -196,6 +196,33 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    nothing) and (b) (each target), and phase 7's host ms per captured step
    with the cadence against without, warm, in turns. Snapshots are written
    under the gitignored ``build/phase16/``, removed after the phase.
+17. The chaos sweep (``engine/faults.py`` wired through the engines), at
+   full width: (a) phase 7's megastep engine and traffic, plus a 2-row NaN
+   batch at cursor 2, with ``coalesce=8``, NaN quarantine and
+   ``snapshot_every=16`` under the JAX package's chaos plan
+   (``metrics_tpu/engine/chaos_smoke.py:127-225``: ``coalesce`` at rate 1,
+   ``ingest``, ``compile``, ``step``, ``watchdog``, ``snapshot_write`` and
+   ``snapshot_corrupt`` on the last good save, with ``kernel`` moved from
+   occurrence 0 to 8 so that K5 launches before the demotion): states
+   bit-equal to phase 4's, one ``megastep -> auto`` demotion (K5 before it,
+   K1 after it), the recovery counters as JAX's smoke checks them, one
+   quarantine record at cursor 2 with 2 rows, every state buffer at its
+   address; then killed and restored past the corrupt LATEST with a
+   transient ``snapshot_read`` (cursor 96) and replayed, bit-equal; (b)
+   phase 9's q8 tenancy (``coalesce=1``) under ``page_out``, ``page_in``,
+   ``quant_encode``, ``quant_decode`` and a ``kernel`` fault at the first
+   step past the middle whose slots hold staged rows: every stream bit-equal
+   to its fault-free twin, K6 and K7 before the demotion and K4 after it;
+   (c) a device sleep of 0.15 s on the idle engine's stream ahead of one
+   batch, the watchdog at 0.1 s: one expiry, one rollback, one retry,
+   bit-equal to the twin; (d) a fatal ``dispatcher_kill`` on the first
+   group: ``submit(timeout=0.5)`` raises ``EngineDispatchError``,
+   ``reset()`` re-arms, phase 7's traffic gives phase 4's states; (e) host
+   ms a warm captured step for phase 7's traffic plain, transactional (an
+   empty-plan injector), drained (the watchdog site armed, no deadline) and
+   with ``step_timeout_s=1.0``, in turns, and the device µs of one shadow
+   copy of the flagship arena and of the paged 128-slot arena. Snapshots
+   under the gitignored ``build/phase17/``, removed after the phase.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -209,10 +236,10 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 16 and read after it;
+and set to 0 again before each of phases 10 to 17 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
-and 15: K2 and K3; phase 16: K2–K7), and K2 must launch once per batch and per step
+and 15: K2 and K3; phase 16: K2–K7; phase 17: K1–K7), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -1251,13 +1278,18 @@ def paged_phase(dev, preds, target, preds_np, target_np, q8, stage=True, capture
 
 
 def engine_states_equal(a, b, streams, what):
-    """Two multi-stream engines' states, stream by stream, bit for bit (one
-    flush each: the per-stream reads find nothing pending)."""
-    for sid in streams:
-        x, y = a.stream_state(sid), b.stream_state(sid)
-        for k in x:
-            for s in x[k]:
-                check(torch.equal(x[k][s], y[k][s]), f"{what}: stream {sid} {k}.{s}")
+    """Two multi-stream engines' states, stream by stream, bit for bit: every
+    listed stream's rows out of one reassembly of all streams per engine
+    (``state()``), not one flushed read per stream."""
+    x, y = stacked_host(a), stacked_host(b)
+    idx = np.asarray(list(streams), np.int64)
+    for k in x:
+        for s in x[k]:
+            g, w = x[k][s][idx], y[k][s][idx]
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                rows = np.nonzero((g != w).reshape(len(idx), -1).any(axis=1))[0]
+                check(False, f"{what}: {k}.{s} ({g.dtype} / {w.dtype}) differs, first at stream "
+                             f"{idx[rows[0]] if rows.size else None}")
 
 
 def check_cache(eng, what, signatures=1):
@@ -1785,7 +1817,7 @@ def hist_calibration_timing(dev, preds, target):
 # ------------------------------------------------------------- phase 11: the curves
 
 F32_EPS = 2.0**-24
-CURVE_PREFIX_BATCHES = 6  # the uncaptured twin's batches: its eager scan takes ~1 s of host per 1024-row step
+CURVE_PREFIX_BATCHES = 2  # the uncaptured twin's batches: its eager scan takes ~1 s of host per 1024-row step
 CAPACITY_KEYS = ("preds_buf", "target_buf", "valid_buf", "count", "overflow")
 SCAN_REASON = "state 'preds_buf' has dist_reduce_fx='cat'"  # the JAX package's segmented refusal
 SCAN_FALLBACKS = {"dtype.bool:strategy": 1, "dtype.float32:strategy": 1, "dtype.int32:strategy": 1}
@@ -2119,7 +2151,7 @@ def curves_phase(dev, preds, target, preds_np, target_np):
 
 BOOTSTRAPS = 10
 TRACKER_EPOCHS = 3
-PAGED_TWIN_BATCHES = 460  # the uncaptured paged twin's prefix (a quarter of the 1840 batches)
+PAGED_TWIN_BATCHES = 230  # the uncaptured paged twin's prefix (an eighth of the 1840 batches)
 REFUSAL = "full_state_update metrics read the accumulated state in update"
 
 
@@ -3760,6 +3792,305 @@ def snapshot_phase(dev, preds, target, gpu_state, gpu_values):
         shutil.rmtree(SNAP_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------- phase 17: the chaos sweep
+
+CHAOS_DIR = Path(__file__).resolve().parent / "build" / "phase17"  # gitignored; removed after the phase
+CHAOS_EVERY = 16  # 17(a)'s snapshot cadence, in batches
+CHAOS_KERNEL_AT = 8  # 17(a): the kernel site's occurrence that fires (JAX's plan: 0, before any K5 could launch)
+HANG_TIMEOUT_S = 0.1  # 17(c): the watchdog
+HANG_S = 0.15  # 17(c): the hang enqueued ahead of the step, 1.5 x the watchdog
+
+
+def chaos_dir(name):
+    path = CHAOS_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def watch_steps(eng):
+    """Record, at each step attempt of ``eng``, the kernel launch counts,
+    the demotions so far and the q8 rows staged so far (host counters:
+    nothing syncs)."""
+    seen = []
+    do_step = eng._do_step
+
+    def watched(*a, **kw):
+        seen.append(dict(counts(), demotions=eng.stats.kernel_demotions, staged=eng.stats.q8_staged_rows))
+        return do_step(*a, **kw)
+
+    eng._do_step = watched
+    return seen
+
+
+def recovery(st):
+    return {k: getattr(st, k) for k in ("retries", "rollbacks", "kernel_demotions", "coalesce_degraded",
+                                        "coalesce_shrinks", "watchdog_timeouts", "quarantined_batches",
+                                        "quarantined_rows", "snapshots", "snapshot_failures", "snapshot_fallbacks")}
+
+
+def demotion_split(seen, final):
+    """Launches of each kernel before the demotion (the counts at the first
+    attempt after it) and after it."""
+    at = next(i for i, r in enumerate(seen) if r["demotions"])
+    before = {k: seen[at][k] for k in final}
+    return at, before, {k: final[k] - before[k] for k in final}
+
+
+def chaos_megastep(dev, preds, target, gpu_state):
+    """17(a): phase 7's engine and traffic, plus a 2-row NaN batch at cursor
+    2, under JAX's chaos plan (``chaos_smoke.py:127-225``), then killed and
+    restored past the corrupt LATEST with a transient ``snapshot_read``."""
+    from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, ScreenPolicy, StreamingEngine
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    traffic = [(preds[a:b], target[a:b]) for a, b in batches]
+    poison = torch.full((2, NUM_CLASSES), 0.1, device=dev)
+    poison[0, 3] = float("nan")
+    traffic.insert(2, (poison, torch.tensor([1, 0], device=dev)))
+    good_saves = len(traffic) // CHAOS_EVERY - 1  # the first periodic save fails
+    inj = FaultInjector(seed=7, plan={
+        "coalesce": FaultSpec(rate=1.0), "ingest": FaultSpec(schedule=(1,)), "compile": FaultSpec(schedule=(1,)),
+        "step": FaultSpec(schedule=(3,)), "kernel": FaultSpec(schedule=(CHAOS_KERNEL_AT,)),
+        "watchdog": FaultSpec(schedule=(6,)), "snapshot_write": FaultSpec(schedule=(0,)),
+        "snapshot_corrupt": FaultSpec(schedule=(good_saves - 1,)),  # the last good save rots
+    })
+    d = chaos_dir("a")
+    screen = ScreenPolicy(non_finite="quarantine")
+    eng = StreamingEngine(make_collection(dev), EngineConfig(
+        buckets=(256, BUCKET), kernel_backend="megastep", coalesce=8, screen=screen, snapshot_every=CHAOS_EVERY,
+        snapshot_dir=d, snapshot_keep=4, fault_injector=inj))
+    ptrs = state_ptrs(eng)
+    seen = watch_steps(eng)
+    before = counts()
+    seconds = run_engine(eng, True, traffic, lambda e, b: e.submit(*b))
+    launches = delta(before)
+    st = eng.stats
+    check(state_ptrs(eng) == ptrs, "17(a): a state buffer moved")
+    compare_states(eng.state(), gpu_state, "17(a) chaos vs phase 4 (the poisoned rows excluded)")
+    at, pre, post = demotion_split([{**r, **{k: r[k] - before[k] for k in before}} for r in seen], launches)
+    check(st.kernel_demotions == 1 and eng._kernel_tag() == "auto", f"17(a): {st.kernel_demotions} demotions")
+    check(pre["megastep_fold"] > 0 and post["megastep_fold"] == 0 and pre["fold_rows"] == 0
+          and post["fold_rows"] > 0, f"17(a): K5 {pre['megastep_fold']}/{post['megastep_fold']} and K1 "
+          f"{pre['fold_rows']}/{post['fold_rows']} launches before/after the demotion")
+    check(st.rollbacks >= 3 and st.retries >= 3 and st.watchdog_timeouts == 1 and st.coalesce_degraded >= 3
+          and st.snapshot_failures == 1, f"17(a): recovery counters {recovery(st)}")
+    ledger = [(r.cursor, r.rows, r.stream_id) for r in eng.quarantine()]
+    check(ledger == [(2, 2, None)] and "non-finite" in eng.quarantine()[0].reason, f"17(a): ledger {ledger}")
+    check(st.quarantined_batches == 1 and st.quarantined_rows == 2, "17(a): quarantine counts")
+    out = {"batches": len(traffic), "steps": eng.steps, "seconds": seconds, "demoted_at_attempt": at,
+           "recovery": recovery(st), "faults": st.faults_by_site(), "injector": inj.summary(),
+           "launches_before_demotion": pre, "launches_after_demotion": post, "captures": eng.aot_cache.misses}
+    del eng  # the kill
+    read = FaultInjector(seed=11, plan={"snapshot_read": FaultSpec(schedule=(0,))})
+    resumed = StreamingEngine(make_collection(dev), EngineConfig(
+        buckets=(256, BUCKET), kernel_backend="megastep", coalesce=1, screen=screen, snapshot_dir=d,
+        fault_injector=read))
+    meta = resumed.restore()
+    cursor = meta["batches_done"]
+    want_cursor = (len(traffic) // CHAOS_EVERY - 1) * CHAOS_EVERY  # the generation before the rotten LATEST
+    check(meta["generations_skipped"] == 1 and cursor == want_cursor and resumed.stats.retries == 1
+          and resumed.stats.snapshot_fallbacks == 1, f"17(a) restore: {meta}, {recovery(resumed.stats)}")
+    run_engine(resumed, True, traffic[cursor:], lambda e, b: e.submit(*b))
+    compare_states(resumed.state(), gpu_state, "17(a) resumed past the corrupt LATEST vs phase 4")
+    out["resumed"] = {"cursor": cursor, "replayed_batches": len(traffic) - cursor,
+                      "recovery": recovery(resumed.stats)}
+    return out
+
+
+def chaos_paged(dev, preds, target):
+    """17(b): phase 9's q8 tenancy (``coalesce=1``) under the paging and
+    codec sites and a ``kernel`` fault at a mid-stream step that decodes
+    staged rows: every stream bit-equal to its fault-free twin."""
+    from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, MultiStreamEngine
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
+    traffic = list(zip(sids, batches))
+
+    def engine(inj=None):
+        return MultiStreamEngine(make_collection(dev, ap_precision="q8_block"), PAGED_STREAMS, EngineConfig(
+            buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=True, coalesce=1,
+            fault_injector=inj), stream_shard=True, resident_streams=RESIDENT)
+
+    def submit(e, b):
+        e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]])
+
+    twin = engine()
+    twin_seen = watch_steps(twin)
+    twin_s = run_engine(twin, True, traffic, submit)
+    # the first step past the middle whose page round staged rows (attempt i sees round i's)
+    at = next(i for i in range(len(twin_seen) // 2, len(twin_seen))
+              if twin_seen[i]["staged"] > twin_seen[i - 1]["staged"])
+    inj = FaultInjector(seed=19, plan={
+        "page_out": FaultSpec(schedule=(0,)), "page_in": FaultSpec(schedule=(1,)),
+        "quant_encode": FaultSpec(schedule=(0,)), "quant_decode": FaultSpec(schedule=(0,)),
+        "kernel": FaultSpec(schedule=(at,))})
+    eng = engine(inj)
+    ptrs = state_ptrs(eng)
+    seen = watch_steps(eng)
+    before = counts()
+    seconds = run_engine(eng, True, traffic, submit)
+    launches = delta(before)
+    st = eng.stats
+    check(state_ptrs(eng) == ptrs, "17(b): a state buffer moved")
+    check(inj.fired == {"page_out": 1, "page_in": 1, "quant_encode": 1, "quant_decode": 1, "kernel": 1},
+          f"17(b): fired {inj.fired}")
+    check(st.kernel_demotions == 1 and st.retries == 4 and st.rollbacks == 1, f"17(b): {recovery(st)}")
+    demoted, pre, post = demotion_split([{**r, **{k: r[k] - before[k] for k in before}} for r in seen], launches)
+    # the failed attempt (the step's first) and its demoted retry saw the staged rows
+    check(demoted == at + 1 and seen[at]["staged"] > seen[at - 1]["staged"],
+          f"17(b): demoted at attempt {demoted} for the kernel fault at {at}, or no rows were staged there")
+    check(pre["megastep_segment"] > 0 and pre["megastep_segment_q8"] > 0 and pre["segment_reduce"] == 0
+          and post["megastep_segment"] == 0 and post["megastep_segment_q8"] == 0 and post["segment_reduce"] > 0,
+          f"17(b): K6/K7/K4 launches before {pre} and after {post} the demotion")
+    want, got = stacked_host(twin), stacked_host(eng)  # every stream, reassembled once per engine
+    for k, member in want.items():
+        for name, w in member.items():
+            check(got[k][name].dtype == w.dtype and np.array_equal(got[k][name], w),
+                  f"17(b) chaos vs fault-free twin: {k}.{name}")
+    return {"batches": len(traffic), "steps": eng.steps, "seconds": seconds, "twin_seconds": twin_s,
+            "kernel_at": at, "recovery": recovery(st), "injector": inj.summary(),
+            "q8_staged_rows": st.q8_staged_rows, "twin_q8_staged_rows": twin.stats.q8_staged_rows,
+            "page_ins": st.page_ins, "page_outs": st.page_outs,
+            "launches_before_demotion": pre, "launches_after_demotion": post}
+
+
+def chaos_hang(dev, preds, target, aot):
+    """17(c): a real hang. A warm engine with the watchdog at HANG_TIMEOUT_S
+    serves a prefix of phase 7's traffic and drains; a device sleep of
+    HANG_S is enqueued on its own stream; one more batch: one expiry, one
+    rollback, one retry, the state bit-equal to the fault-free twin's."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)[:24]
+    # cycles of the device sleep per ms, on this card now
+    cycles = 10_000_000
+    per_ms = cycles / gpu_ms(lambda: torch.cuda._sleep(cycles), runs=3)
+
+    def engine(timeout):
+        return StreamingEngine(make_collection(dev), EngineConfig(
+            buckets=(256, BUCKET), kernel_backend="megastep", step_timeout_s=timeout), aot_cache=aot)
+
+    def submit(e, b):
+        e.submit(preds[b[0]:b[1]], target[b[0]:b[1]])
+
+    twin = engine(0.0)
+    run_engine(twin, True, batches, submit)
+    eng = engine(HANG_TIMEOUT_S)
+    eng.start()
+    for b in batches[:-1]:
+        submit(eng, b)
+    eng.flush()
+    check(eng.stats.watchdog_timeouts == 0, "17(c): the watchdog expired before the hang")
+    ptrs = state_ptrs(eng)
+    with torch.cuda.stream(eng._stream):
+        torch.cuda._sleep(int(HANG_S * 1e3 * per_ms))
+    t0 = time.perf_counter()
+    submit(eng, batches[-1])
+    eng.flush()
+    wall = time.perf_counter() - t0
+    eng.stop()
+    st = eng.stats
+    check(st.watchdog_timeouts == 1 and st.rollbacks == 1 and st.retries == 1,
+          f"17(c): {st.watchdog_timeouts} expiries, {st.rollbacks} rollbacks, {st.retries} retries")
+    check(state_ptrs(eng) == ptrs, "17(c): a state buffer moved")
+    check(eng.stats.warmup_steps == 0, "17(c): the warm engine captured")
+    compare_states(eng.state(), twin.state(), "17(c) hang vs fault-free twin")
+    return {"timeout_s": HANG_TIMEOUT_S, "hang_s": HANG_S, "sleep_cycles_per_ms": per_ms,
+            "last_batch_wall_s": wall, "recovery": recovery(st)}
+
+
+def chaos_dead(dev, preds, target, gpu_state, aot):
+    """17(d): a fatal ``dispatcher_kill`` on the first group; ``submit(timeout=0.5)``
+    raises the sticky error; ``reset()``, then phase 7's traffic gives phase 4's states."""
+    from metrics_tpu_torch.engine import (
+        BackpressureTimeout,
+        EngineConfig,
+        EngineDispatchError,
+        FaultInjector,
+        FaultSpec,
+        StreamingEngine,
+    )
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    inj = FaultInjector(seed=17, plan={"dispatcher_kill": FaultSpec(schedule=(0,), transient=False, fatal=True)})
+    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep",
+                                                             max_queue=2, fault_injector=inj), aot_cache=aot)
+    eng.start()
+    eng.submit(preds[:100], target[:100])
+    t0 = time.perf_counter()
+    sticky = None
+    while sticky is None and time.perf_counter() - t0 < 10.0:
+        try:
+            eng.submit(preds[:100], target[:100], timeout=0.5)
+        except EngineDispatchError as e:
+            sticky = e
+        except BackpressureTimeout:
+            continue
+    raised_s = time.perf_counter() - t0
+    check(sticky is not None and "dispatcher_kill" in str(sticky) and raised_s < 5.0,
+          f"17(d): submit(timeout=0.5) gave {sticky!r} after {raised_s:.2f} s")
+    eng.reset()
+    run_engine(eng, True, batches, lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
+    compare_states(eng.state(), gpu_state, "17(d) after reset vs phase 4")
+    return {"raised_after_s": raised_s, "error": type(sticky.__cause__).__name__, "steps_after_reset": eng.steps}
+
+
+def chaos_cost(dev, preds, target, gpu_state, aot):
+    """17(e): host ms a captured (warm) step for phase 7's traffic without
+    the fault layer, transactional (an empty-plan injector), drained (a plan
+    naming the watchdog site at an occurrence never reached: every step is
+    synchronized, no deadline) and with the watchdog armed
+    (``step_timeout_s=1.0``: every step's event polled), in turns; and the
+    device µs of one shadow copy of the flagship arena and of the paged
+    tenancy's."""
+    from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, MultiStreamEngine, StreamingEngine
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    configs = {"plain": {}, "transactional": {"fault_injector": FaultInjector(0, {})},
+               "drained": {"fault_injector": FaultInjector(0, {"watchdog": FaultSpec(schedule=(1 << 30,))})},
+               "watchdog": {"step_timeout_s": 1.0}}
+    runs = {k: [] for k in configs}
+    warm = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"),
+                           aot_cache=aot)
+    run_engine(warm, True, batches, lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))  # the captures
+    for name in ("plain", "transactional", "drained", "watchdog", "watchdog", "drained", "transactional", "plain"):
+        eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep",
+                                                                 **configs[name]), aot_cache=aot)
+        seconds = run_engine(eng, True, batches, lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
+        check(eng.stats.warmup_steps == 0, f"17(e) {name}: the warm engine captured")
+        check(eng._transactional == (name != "plain"), f"17(e) {name}: transactional={eng._transactional}")
+        compare_states(eng.state(), gpu_state, f"17(e) {name}")
+        runs[name].append({"ms_per_step": seconds / eng.steps * 1e3, "steps": eng.steps})
+    flagship = eng._state
+    paged = MultiStreamEngine(make_collection(dev), PAGED_STREAMS, EngineConfig(
+        buckets=PAGED_BUCKETS, kernel_backend="megastep"), stream_shard=True, resident_streams=RESIDENT)._state
+    shadow = {}
+    for name, state in (("flagship", flagship), ("paged_128", paged)):
+        copy = {k: torch.empty_like(v) for k, v in state.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in state.values())
+        ms = gpu_ms(lambda: [copy[k].copy_(v) for k, v in state.items()])
+        bound, by = bound_ms(2 * nbytes, 0)  # each byte read once and written once
+        shadow[name] = {"bytes": nbytes, "us": ms * 1e3, "bound_us": bound * 1e3, "bound_by": by}
+    return {"runs": runs, "shadow_copy": shadow}
+
+
+def chaos_phase(dev, preds, target, gpu_state):
+    """Phase 17: the chaos sweep through the captured engines (module docstring)."""
+    from metrics_tpu_torch.engine import AotCache
+
+    aot = AotCache()
+    try:
+        return {"megastep": chaos_megastep(dev, preds, target, gpu_state),
+                "paged": chaos_paged(dev, preds, target),
+                "cost": chaos_cost(dev, preds, target, gpu_state, aot),
+                "hang": chaos_hang(dev, preds, target, aot),
+                "dead": chaos_dead(dev, preds, target, gpu_state, aot)}
+    finally:
+        shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3903,6 +4234,19 @@ def main():
         check(snapshot_launches[k] > 0, f"kernel {k} was not launched by the snapshot phase")
     launches = {k: launches[k] + snapshot_launches[k] for k in launches}
     print(json.dumps({"snapshot_phase": snapshots, "launches": snapshot_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 17, its counts from 0: K5 then K1 (the demoted megastep engine), K6, K7 then K4 (the
+    # demoted paged engine), K2 and K3 must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    chaos = chaos_phase(dev, preds, target, gpu_state)
+    chaos_launches = counts()
+    for k in kernels:
+        check(chaos_launches[k] > 0, f"kernel {k} was not launched by the chaos phase")
+    launches = {k: launches[k] + chaos_launches[k] for k in launches}
+    print(json.dumps({"chaos_phase": chaos, "launches": chaos_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

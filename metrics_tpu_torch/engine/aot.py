@@ -47,6 +47,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.ops.binned_update import binned_counts_cuda
+from metrics_tpu_torch.ops.kernels.dispatch import kernel_fault_scope
 from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
 from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
 from metrics_tpu_torch.ops.kernels.megastep_cuda import (
@@ -234,7 +235,9 @@ class CapturedStep:
         try:
             # thread-local: producers on other threads keep copying and
             # allocating while this thread captures
-            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            # the kernel fault hook ran in the warm-up: once per capture
+            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"), \
+                    kernel_fault_scope(None):
                 out = fn(self.state, self.aux, a, kw, self.inputs.mask)
         except BaseException:
             _recover_failed_capture(stream, pool)

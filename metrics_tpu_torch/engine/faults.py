@@ -9,12 +9,13 @@ engine's recovery paths stand on:
   site draws from its own ``np.random.RandomState``, seeded through
   ``hashlib`` exactly as the JAX package seeds it), so for the same seed and
   plan the two packages fire at the same occurrences. The port's engines
-  consult it at the three snapshot sites (``snapshot_write``,
-  ``snapshot_corrupt``, ``snapshot_read``) and refuse a plan naming any other
-  (``EngineConfig``).
+  consult it where the JAX package's do (``engine/pipeline.py``,
+  ``engine/multistream.py``) and refuse a plan naming a site of a layer the
+  port does not have yet (``EngineConfig``).
 * :class:`ScreenPolicy` — pre-dispatch input screening with a
   QUARANTINE/dead-letter action (the ``nan_strategy`` vocabulary of
-  ``aggregation.py`` plus ``"quarantine"``). The engines do not screen yet.
+  ``aggregation.py`` plus ``"quarantine"``), which the engines apply on the
+  host before anything is uploaded (``EngineConfig.screen``).
 * The typed error model: :class:`InjectedFault`, :class:`EngineDispatchError`
   (the sticky dispatcher failure, carrying the failing batch's cursor, bucket
   and stream ids), :class:`SnapshotCorruptError` (a truncated or bit-flipped
@@ -55,7 +56,8 @@ __all__ = [
 
 # Every injection boundary of the JAX package's engine, kept whole so a plan
 # (and the per-site seeding) means the same in both packages; the port's
-# engines consult the three snapshot sites and refuse a plan naming another.
+# engines refuse a plan naming a site of a layer they do not have yet
+# (admission, shard loss, merges, reshards, windows, the fleet).
 FAULT_SITES = (
     "admission",        # admission-control check on the submit path
     "ingest",           # dispatcher picked up a group, nothing folded yet
@@ -303,12 +305,10 @@ def wait_with_timeout(fn: Callable[[], Any], timeout_s: float) -> Any:
     device op keeps its buffers) — the waiter thread is abandoned as a
     daemon and the caller rolls back to its pre-step shadow instead.
 
-    Cost model: one short-lived thread per invocation. The engine only
-    routes through here when ``step_timeout_s`` is armed — a mode that
-    already syncs every step (the containment trade), so the thread setup
-    is marginal against the sync itself. Abandoned threads are bounded:
-    each chunk leaks at most ``max_retries + 1`` waiters before the failure
-    goes sticky and the dispatcher stops stepping."""
+    Cost model: one short-lived thread per invocation, abandoned on expiry.
+    The port's engines do not route their watchdog through here: they poll
+    the step's CUDA event until the deadline (``StreamingEngine._watch``),
+    the same contract without a thread."""
     done = threading.Event()
     box: Dict[str, Any] = {}
 

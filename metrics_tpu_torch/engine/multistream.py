@@ -48,6 +48,14 @@ spill store, faulting in on first touch; into an unsharded engine the rows
 merge into the ``(S, ...)`` state; anything else is refused with JAX's
 message. Windows and multi-GPU stream sharding over ``torch.distributed`` are
 not ported yet (ROADMAP §A).
+
+The fault layer (``engine/pipeline.py``) reaches the pager and the codec
+where the JAX package's does: a spill consults ``page_out`` (and
+``quant_encode``), a fault-in ``page_in`` (and ``quant_decode`` per staged
+seat), each inside the bounded retry before any byte moves, and every
+decode or encode of spilled or snapshot rows its codec site. Demoted
+(``megastep -> auto``), a q8-staging engine's next step seats its staged
+slots with the codec's arithmetic before K4, and staging stops.
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -58,7 +66,7 @@ from metrics_tpu_torch.engine.aot import AotCache
 from metrics_tpu_torch.engine.arena import ArenaLayout, gather_rows, scatter_rows
 from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
-from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
+from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine, _add_committed
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
@@ -241,6 +249,14 @@ class MultiStreamEngine(StreamingEngine):
         if self._megastep_plan is not None:
             return self._megastep_plan.apply_segmented(state, a[1:], kw, mask, a[0], self._resident,
                                                        q8_stage=aux, q8_cols=self._q8_cols_dev)
+        if aux:
+            # the demoted body of a q8-staging engine: seat the staged slots
+            # with the codec's own arithmetic first (int8 -> f32, one f32
+            # multiply, one cast), as K7's seed does, then the per-leaf K4
+            state = dict(state)
+            for k, (flags, codes, scales) in aux.items():
+                on = (flags.reshape(-1, 1) != 0) & (self._q8_cols_dev[k].reshape(1, -1) != 0)
+                state[k] = torch.where(on, (codes.to(torch.float32) * scales).to(state[k].dtype), state[k])
         tree = self._layout.unpack_stacked(state)
         return self._layout.pack_stacked(self._traced_update(tree, (a, kw), mask))
 
@@ -286,8 +302,16 @@ class MultiStreamEngine(StreamingEngine):
         return tuple(args[1:]), kwargs
 
     def _group_context(self, group: List[Any]) -> Dict[str, Any]:
+        # the sticky error names every stream whose traffic rode the group
         sids = sorted({it[0] for it in group if isinstance(it, tuple) and len(it) == 3})
         return {"stream_ids": sids} if sids else {}
+
+    def _screen_payload(self, item: Any) -> Any:
+        # the policy sees what the metric's update sees: no stream id
+        return (item[1], item[2])
+
+    def _item_context(self, item: Any) -> Dict[str, Any]:
+        return {"stream_id": item[0]}
 
     def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
         if not self._stream_shard:
@@ -308,45 +332,63 @@ class MultiStreamEngine(StreamingEngine):
         leaves, _ = tree_flatten((tuple(args), kwargs))
         locs = sids.astype(np.int64)  # world 1: a stream's local index is its id
         per_top = self._policy.buckets[-1]
-        cursor = 0
-        while cursor < n:
-            end, distinct = cursor, set()
-            while end < n and end - cursor < per_top:
-                loc = int(locs[end])
-                if loc not in distinct and len(distinct) >= self._resident:
-                    break
-                distinct.add(loc)
-                end += 1
-            valid = end - cursor
-            bucket = self._policy.bucket_for(valid)
-            round_locs = locs[cursor:end]
-            kinds = classify_leaves(leaves, n, bucket)
-            self._page_round([int(x) for x in round_locs])
-            uniq = np.unique(round_locs)
-            slots = np.asarray([self._pager.slot_of(_SHARD, int(u)) for u in uniq], np.int32)
-            slot_ids = np.zeros((bucket,), np.int32)  # pad rows address slot 0, masked
-            slot_ids[:valid] = slots[np.searchsorted(uniq, round_locs)]
-            # the slot ids lead the args as one whole (bucket,) leaf
-            step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(args), kwargs))
-            try:
-                self._run_padded_step(step_leaves, [WHOLE] + kinds, step_def, cursor, end, bucket,
-                                      coalesced if cursor == 0 else 1)
-            except BaseException:
-                # a failed step never ran the kernel's decode: seat the staged
-                # slots through the host decode before anything reads them
-                self._q8_flush()
-                raise
-            self._q8_clear()  # the step decoded every staged slot
-            self._stats.routed_steps += 1
-            self._pager.touch(_SHARD, [int(x) for x in round_locs])
-            cursor = end
+        cursor, committed = 0, 0
+        try:
+            while cursor < n:
+                end, distinct = cursor, set()
+                while end < n and end - cursor < per_top:
+                    loc = int(locs[end])
+                    if loc not in distinct and len(distinct) >= self._resident:
+                        break
+                    distinct.add(loc)
+                    end += 1
+                valid = end - cursor
+                bucket = self._policy.bucket_for(valid)
+                round_locs = locs[cursor:end]
+                kinds = classify_leaves(leaves, n, bucket)
+                self._page_round([int(x) for x in round_locs])
+                uniq = np.unique(round_locs)
+                slots = np.asarray([self._pager.slot_of(_SHARD, int(u)) for u in uniq], np.int32)
+                slot_ids = np.zeros((bucket,), np.int32)  # pad rows address slot 0, masked
+                slot_ids[:valid] = slots[np.searchsorted(uniq, round_locs)]
+                # the slot ids lead the args as one whole (bucket,) leaf
+                step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(args), kwargs))
+                try:
+                    self._run_padded_step(step_leaves, [WHOLE] + kinds, step_def, cursor, end, bucket,
+                                          coalesced if cursor == 0 else 1)
+                except BaseException:
+                    # a failed step never ran the kernel's decode: seat the staged
+                    # slots through the host decode before anything reads them
+                    self._q8_flush()
+                    raise
+                self._q8_clear()  # the step decoded every staged slot
+                if self._q8_keys and self._megastep_plan is None:
+                    # demoted, and this step seated the last staged slots:
+                    # later page-ins decode on the host, and the steps lose
+                    # their staging argument (a new signature)
+                    self._q8_enabled = False
+                    self._q8_reset_stage()
+                    self._carried_sig = None
+                    self._program_memo.clear()
+                committed += 1
+                self._stats.routed_steps += 1
+                self._pager.touch(_SHARD, [int(x) for x in round_locs])
+                cursor = end
+        except Exception as e:
+            _add_committed(e, committed)
+            raise
 
     def _page_round(self, streams: List[int]) -> None:
         """Make every stream in ``streams`` resident: plan with the pager,
         spill the evicted rows to host RAM (encoded under
-        ``compress_payloads``), write the faulted-in rows (spilled, staged or
-        init) into their slots, then commit the bookkeeping. The arena
-        buffers are updated in place."""
+        ``compress_payloads``; the ``page_out`` and ``quant_encode`` sites),
+        write the faulted-in rows (spilled, staged or init) into their slots
+        (``page_in``, ``quant_decode``), then commit the bookkeeping. Each
+        phase retries a transient fault through the engine's bounded retry,
+        its sites consulted before any byte moves; the arena is written in
+        place only after the rows to seat are known, and the staged flags,
+        ``page_outs``/``page_ins`` and the pager's tables only after the rows
+        landed."""
         ops, hits, faults = self._pager.plan_residency(_SHARD, streams)
         self._stats.page_hits += hits
         self._stats.page_faults += faults
@@ -355,26 +397,40 @@ class MultiStreamEngine(StreamingEngine):
         spilled: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
         if evicts:
             js = torch.tensor([op.slot for op in evicts], device=self._device)
-            rows = {k: _host(gather_rows(v, js)) for k, v in self._state.items()}  # one gather per dtype
-            if self._compress and self._row_codec is not None:
-                rows = self._row_codec.encode_buffers(rows)  # quantize BEFORE host RAM holds them
+
+            def spill_once() -> Dict[str, np.ndarray]:
+                self._fault("page_out")
+                rows = {k: _host(gather_rows(v, js)) for k, v in self._state.items()}  # one gather per dtype
+                if self._compress and self._row_codec is not None:
+                    # quantize BEFORE host RAM holds them; pure in ``rows``
+                    self._fault("quant_encode")
+                    rows = self._row_codec.encode_buffers(rows)
+                return rows
+
+            rows = self._retry_transient(spill_once)
             for i, op in enumerate(evicts):
                 spilled[(op.shard, op.stream)] = {k: rows[k][i].copy() for k in rows}
             self._stats.page_outs += len(evicts)
         if loads:
-            src_rows: List[Dict[str, np.ndarray]] = []
-            staged: List[Any] = []
-            for op in loads:
-                raw = self._pager.spilled_row(_SHARD, op.stream) if self._q8_keys else None
-                if raw is not None and self._row_codec.is_encoded(raw):
-                    # q8-resident seat: the staged dtypes' quantized columns
-                    # stay zero here; K7 decodes them on the next step
-                    seed, st = self._row_codec.stage_buffers(raw, self._q8_keys)
-                    src_rows.append(seed)
-                    staged.append(st)
-                else:
-                    src_rows.append(self._decoded_spill_row(op.stream) or self._init_row)
-                    staged.append(None)
+            def load_once() -> Tuple[List[Dict[str, np.ndarray]], List[Any]]:
+                self._fault("page_in")
+                src_rows: List[Dict[str, np.ndarray]] = []
+                staged: List[Any] = []
+                for op in loads:
+                    raw = self._pager.spilled_row(_SHARD, op.stream) if self._q8_keys else None
+                    if raw is not None and self._row_codec.is_encoded(raw):
+                        # q8-resident seat: the staged dtypes' quantized columns
+                        # stay zero here; K7 decodes them on the next step
+                        self._fault("quant_decode")
+                        seed, st = self._row_codec.stage_buffers(raw, self._q8_keys)
+                        src_rows.append(seed)
+                        staged.append(st)
+                    else:
+                        src_rows.append(self._decoded_spill_row(op.stream) or self._init_row)
+                        staged.append(None)
+                return src_rows, staged
+
+            src_rows, staged = self._retry_transient(load_once)
             js = torch.tensor([op.slot for op in loads], device=self._device)
             for k, buf in self._state.items():
                 scatter_rows(buf, js, torch.from_numpy(np.stack([r[k] for r in src_rows])).to(self._device))
@@ -448,10 +504,12 @@ class MultiStreamEngine(StreamingEngine):
     # --------------------------------------------------------------------- readers
 
     def _decoded_spill_row(self, stream: int) -> Optional[Dict[str, np.ndarray]]:
-        """One stream's spilled row from host RAM, decoded when stored compressed."""
+        """One stream's spilled row from host RAM, decoded when stored
+        compressed (the ``quant_decode`` site; pure in the stored row, so a
+        transient retries clean)."""
         row = self._pager.spilled_row(_SHARD, stream)
         if row is not None and self._row_codec is not None and self._row_codec.is_encoded(row):
-            row = self._row_codec.decode_buffers(row)
+            row = self._codec_call("quant_decode", self._row_codec.decode_buffers, row)
         return row
 
     def _fetch_row(self, sid: int) -> Dict[str, torch.Tensor]:
@@ -483,7 +541,7 @@ class MultiStreamEngine(StreamingEngine):
             sids = torch.from_numpy(np.asarray([g[0] for g in group], np.int64)).to(dev)
             stacked = {key: np.stack([g[1][key] for g in group]) for key in group[0][1]}
             if decode:
-                stacked = self._row_codec.decode_buffers(stacked)
+                stacked = self._codec_call("quant_decode", self._row_codec.decode_buffers, stacked)
             for k in self._state:
                 scatter_rows(out[k], sids, torch.from_numpy(stacked[k]).to(dev))
         resident = self._pager.resident_streams(_SHARD)
@@ -577,7 +635,7 @@ class MultiStreamEngine(StreamingEngine):
         self._q8_flush()
         arena: Dict[str, Any] = {k: v[None] for k, v in state_to_numpy(self._state).items()}  # (world=1, R, n)
         if self._compress and self._row_codec is not None:
-            arena = self._row_codec.encode_buffers(arena)
+            arena = self._codec_call("quant_encode", self._row_codec.encode_buffers, arena)
         # spilled rows are already in their at-rest form (encoded on the way
         # to host RAM); a bf16 buffer's narrow back from the pager's f32
         pager = {k: _payload_row(k, v) for k, v in self._pager.snapshot_payload().items()}
@@ -594,7 +652,7 @@ class MultiStreamEngine(StreamingEngine):
         spill = _spill_part(payload)
         if codec is None or not spill or not codec.is_encoded(spill):
             return payload
-        return _with_spill(payload, codec.decode_buffers(spill))
+        return _with_spill(payload, self._codec_call("quant_decode", codec.decode_buffers, spill))
 
     def _normalized_pager_payload(self, payload: Dict[str, Any], snap_codec: Optional[ArenaRowCodec]) -> Dict[str, Any]:
         """A restored pager payload in THIS engine's spill-store form: a
@@ -610,7 +668,8 @@ class MultiStreamEngine(StreamingEngine):
             return payload
         if is_encoded:
             return self._decoded_pager_payload(payload, snap_codec)
-        return _with_spill(payload, self._row_codec.encode_buffers({k: np.asarray(v) for k, v in spill.items()}))
+        return _with_spill(payload, self._codec_call("quant_encode", self._row_codec.encode_buffers,
+                                                     {k: np.asarray(v) for k, v in spill.items()}))
 
     @staticmethod
     def _rows_from_parts(arena: Dict[str, Any], pager_payload: Dict[str, Any], init_row: Dict[str, np.ndarray],
@@ -739,7 +798,8 @@ class MultiStreamEngine(StreamingEngine):
                 )
             snap_codec = self._row_codec or ArenaRowCodec.for_metric(self._metric)
             if snap_codec is not None and snap_codec.is_encoded(arena):
-                arena = snap_codec.decode_buffers({k: np.asarray(v) for k, v in arena.items()})
+                arena = self._codec_call("quant_decode", snap_codec.decode_buffers,
+                                         {k: np.asarray(v) for k, v in arena.items()})
         row_layout = ArenaLayout.for_state(self._metric.abstract_state())
         sizes = row_layout.buffer_sizes()
         if set(arena) != set(sizes) or any(
@@ -749,7 +809,8 @@ class MultiStreamEngine(StreamingEngine):
                 "reconfigured since the snapshot?"
             )
         if not self._stream_shard:
-            self._finish_restore(self._put_state(self.sshard_piece_logical(self._metric, state, meta)), meta)
+            decoded = {"arena": arena, "pager": self._decoded_pager_payload(pager_payload, snap_codec)}
+            self._finish_restore(self._put_state(self.sshard_piece_logical(self._metric, decoded, meta)), meta)
             return
         init_row = self._host_init_row(self._metric)
         if world_snap == 1 and r_snap == self._resident:

@@ -34,13 +34,33 @@ the logical tree, codec-wrapped under ``compress_payloads``) and the metric's
 host-derived compute attributes, in the JAX package's pickle format: either
 package restores the other's. ``restore()`` falls back past corrupt
 generations and retries a transient read with seeded, jittered backoff; a
-failed PERIODIC snapshot is counted and never sticky. A seeded
-``fault_injector`` (``engine/faults.py``) fires at the three snapshot sites.
+failed PERIODIC snapshot is counted and never sticky.
 
-Screening and quarantine, step retries, the watchdog, kernel demotion,
-tracing, admission control, windows, meshes and XLA's
+The fault layer (``engine/faults.py``), wired where the JAX package wires
+it and in the same order, so one seeded ``fault_injector`` plan fires at the
+same occurrences in both packages: ``screen`` dead-letters (or rejects)
+batches on the host before anything is uploaded, into a bounded ledger
+(``quarantine()``); a group's ``ingest`` fault retries the whole group, a
+``coalesce`` fault degrades it to singletons, a fatal ``dispatcher_kill``
+ends the dispatcher (``submit(timeout=)`` then raises the sticky error,
+``reset()`` drains and re-arms). Steps are TRANSACTIONAL: a captured step
+replays into the state's own buffers, so the state cannot be rebound to a
+pre-step copy as the JAX package rebinds it; instead a shadow allocated once
+per engine takes ``shadow.copy_(state)`` before each step on the engine's
+stream, and a failed step rolls back with ``state.copy_(shadow)`` on the same
+stream, after whatever the failed or hung replay enqueued. A failed step
+(``compile``, ``kernel``, ``step``, ``watchdog``, in that order within one
+step) then retries with backoff, or demotes the engine ``megastep -> auto``
+on an injected ``kernel`` fault (the per-leaf kernels K1/K4 replace
+K5/K6/K7; a real CUDA error stays sticky), or goes sticky with its cursor,
+step and bucket. ``step_timeout_s > 0`` arms the watchdog: each step's CUDA
+event is polled until the deadline, and an expiry rolls back and retries. A
+megabatch that failed before any chunk committed re-runs its batches one by
+one (shrink-on-retry).
+
+Tracing, admission control, windows, meshes and XLA's
 ``compilation_cache_dir`` are not ported (ROADMAP §A): their ``EngineConfig``
-fields, and an injector plan naming any other fault site, raise
+fields, and an injector plan naming one of their fault sites, raise
 :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
 """
 import queue
@@ -69,6 +89,10 @@ from metrics_tpu_torch.engine.faults import (
     BackpressureTimeout,
     EngineDispatchError,
     FaultInjector,
+    InjectedFault,
+    QuarantineRecord,
+    ScreenPolicy,
+    StepTimeoutError,
     corrupt_snapshot,
     is_transient,
 )
@@ -86,12 +110,14 @@ __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = (
-    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "screen",
-    "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel", "trace", "admission", "ladder",
-    "elastic_min_world", "window", "drift",
+    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "trace", "admission",
+    "ladder", "elastic_min_world", "window", "drift",
 )
 #: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
-_PORTED_FAULT_SITES = ("snapshot_write", "snapshot_corrupt", "snapshot_read")
+_PORTED_FAULT_SITES = (
+    "ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
+    "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill",
+)
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
 
@@ -155,13 +181,37 @@ class EngineConfig:
             ``restore()`` falls back through when the newest is corrupt.
         fault_injector: optional seeded
             :class:`~metrics_tpu_torch.engine.faults.FaultInjector`, consulted
-            at the snapshot sites (``snapshot_write``, ``snapshot_corrupt``,
-            ``snapshot_read``); a plan naming another site raises
-            :class:`NotPortedError`.
-        max_retries: bounded retry budget for a TRANSIENT snapshot read
-            inside ``restore()``.
+            at every site the engines wire (``ingest``, ``coalesce``,
+            ``compile``, ``step``, ``kernel``, ``watchdog``, ``page_out``,
+            ``page_in``, ``quant_encode``, ``quant_decode``, the snapshot
+            sites and ``dispatcher_kill``); a plan naming a site of a layer
+            the port does not have yet raises :class:`NotPortedError`.
+        screen: optional :class:`~metrics_tpu_torch.engine.faults.ScreenPolicy`:
+            each batch is screened on the host before anything is uploaded;
+            ``"quarantine"`` dead-letters it (the replay cursor still
+            advances past it), ``"error"`` makes it the sticky error.
+        quarantine_capacity: dead-letter ledger size (newest records kept,
+            payload included); lifetime counts live in ``stats``.
+        max_retries: bounded retry budget for TRANSIENT failures per step,
+            group and boundary (injected transients, watchdog expiries,
+            ``RESOURCE_EXHAUSTED``-family errors); deterministic errors never
+            retry.
         backoff_base_ms / backoff_max_ms: jittered exponential backoff
             between retries (the jitter is seeded from the injector's seed).
+        step_timeout_s: per-step watchdog (0 = off). When armed every step
+            is drained before its commit (the in-flight bound no longer
+            applies), and a step whose CUDA event has not completed by the
+            deadline rolls back and retries.
+        transactional: keep a shadow of the pre-step state, so a failed step
+            rolls back in place instead of going sticky with a torn state.
+            None turns it on wherever the JAX package's rule for donated
+            state does, since every captured step writes the state in place
+            as a donating step consumes it: on the card when a
+            ``fault_injector`` is given or the watchdog is armed, and always
+            on the CPU (where the shadow costs one host copy a step).
+        degrade_kernel: demote the engine ``megastep -> auto`` when an
+            injected ``kernel`` fault fires (the kernel tag is part of every
+            step key, so the demoted steps capture anew).
 
     Any other field of the JAX package's ``EngineConfig`` raises
     :class:`NotPortedError`.
@@ -185,6 +235,11 @@ class EngineConfig:
         max_retries: int = 2,
         backoff_base_ms: float = 1.0,
         backoff_max_ms: float = 50.0,
+        screen: Optional[ScreenPolicy] = None,
+        quarantine_capacity: int = 64,
+        step_timeout_s: float = 0.0,
+        transactional: Optional[bool] = None,
+        degrade_kernel: bool = True,
         **fields: Any,
     ) -> None:
         unported = sorted(k for k in fields if k in _NOT_PORTED_FIELDS)
@@ -192,7 +247,7 @@ class EngineConfig:
             raise NotPortedError(f"EngineConfig fields {unported} are not ported yet (see ROADMAP.md §A)")
         if fields:
             raise TypeError(f"EngineConfig got unexpected fields {sorted(fields)}")
-        if fault_injector is not None:
+        if isinstance(fault_injector, FaultInjector):  # anything else is refused by the engine
             sites = sorted(site for site in fault_injector.plan if site not in _PORTED_FAULT_SITES)
             if sites:
                 raise NotPortedError(
@@ -215,6 +270,11 @@ class EngineConfig:
         self.max_retries = int(max_retries)
         self.backoff_base_ms = float(backoff_base_ms)
         self.backoff_max_ms = float(backoff_max_ms)
+        self.screen = screen
+        self.quarantine_capacity = int(quarantine_capacity)
+        self.step_timeout_s = float(step_timeout_s)
+        self.transactional = transactional
+        self.degrade_kernel = bool(degrade_kernel)
 
     def __repr__(self) -> str:
         return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
@@ -223,15 +283,20 @@ class EngineConfig:
                 f"compress_payloads={self.compress_payloads}, snapshot_every={self.snapshot_every}, "
                 f"snapshot_dir={self.snapshot_dir!r}, snapshot_keep={self.snapshot_keep}, "
                 f"fault_injector={self.fault_injector!r}, max_retries={self.max_retries}, "
-                f"backoff_base_ms={self.backoff_base_ms}, backoff_max_ms={self.backoff_max_ms})")
+                f"backoff_base_ms={self.backoff_base_ms}, backoff_max_ms={self.backoff_max_ms}, "
+                f"screen={self.screen!r}, quarantine_capacity={self.quarantine_capacity}, "
+                f"step_timeout_s={self.step_timeout_s}, transactional={self.transactional}, "
+                f"degrade_kernel={self.degrade_kernel})")
 
 
 class EngineStats:
     """Counters of one engine: steps, coalesced megasteps, valid and padded
     rows, capture warm-ups, kernel fallback verdicts, the pager's page
     traffic (paged multi-stream engine), and recovery: snapshots written and
-    failed, restores and their generation fallbacks, injected faults by site
-    and retries."""
+    failed, restores and their generation fallbacks, injected faults by site,
+    retries, pre-step rollbacks, ``megastep -> auto`` kernel demotions,
+    coalesce degradations and shrinks, watchdog expiries and quarantined
+    batches and rows (the JAX package's names)."""
 
     def __init__(self) -> None:
         # fault and retry counts are bumped from the dispatcher and from
@@ -259,6 +324,13 @@ class EngineStats:
         self.snapshot_fallbacks = 0  # restores that walked past a corrupt generation
         self.resumes = 0
         self.retries = 0
+        self.rollbacks = 0
+        self.kernel_demotions = 0
+        self.coalesce_degraded = 0  # groups served as singletons after a coalesce fault
+        self.coalesce_shrinks = 0  # failed megabatches re-run batch by batch
+        self.watchdog_timeouts = 0
+        self.quarantined_batches = 0
+        self.quarantined_rows = 0
         self.faults_injected: Dict[str, int] = {}
 
     def record_fault(self, site: str) -> None:
@@ -293,6 +365,16 @@ class EngineStats:
 
 
 _STOP = object()  # the dispatcher's stop sentinel
+_WATCH_POLL_S = 5e-5  # the watchdog's poll of a step's CUDA event
+
+
+def _add_committed(exc: BaseException, committed: int) -> None:
+    """Add to the chunks an escaping error saw committed (summed, since one
+    execution may run inside another)."""
+    try:
+        exc._committed_chunks = getattr(exc, "_committed_chunks", 0) + committed
+    except Exception:  # noqa: BLE001 - exceptions with __slots__
+        pass
 
 
 def _attach_ctx(exc: BaseException, **kv: Any) -> None:
@@ -309,6 +391,11 @@ def _attach_ctx(exc: BaseException, **kv: Any) -> None:
     for k, v in kv.items():
         if v is not None and (not isinstance(v, (list, tuple)) or len(v)):
             ctx.setdefault(k, v)
+
+
+def _ingest_transient(exc: BaseException) -> bool:
+    """The group-level retry policy: only a transient injected ``ingest`` fault."""
+    return isinstance(exc, InjectedFault) and exc.site == "ingest" and exc.transient
 
 
 def _same_batch_leaf(a: Any, b: Any) -> bool:
@@ -351,6 +438,13 @@ class StreamingEngine:
         self._device = _metric_device(metric)
         if self._cfg.max_retries < 0:
             raise MetricsTPUUserError(f"max_retries must be >= 0, got {self._cfg.max_retries}")
+        if self._cfg.step_timeout_s < 0:
+            raise MetricsTPUUserError(f"step_timeout_s must be >= 0, got {self._cfg.step_timeout_s}")
+        if self._cfg.screen is not None and not isinstance(self._cfg.screen, ScreenPolicy):
+            raise MetricsTPUUserError(f"config.screen must be a ScreenPolicy, got {type(self._cfg.screen).__name__}")
+        inj = self._cfg.fault_injector
+        if inj is not None and not isinstance(inj, FaultInjector):
+            raise MetricsTPUUserError(f"config.fault_injector must be a FaultInjector, got {type(inj).__name__}")
         if self._cfg.snapshot_every > 0 and not self._cfg.snapshot_dir:
             raise MetricsTPUUserError("snapshot_every > 0 requires snapshot_dir")
         self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value)
@@ -359,7 +453,6 @@ class StreamingEngine:
         # the sync-precision policy tag, pinned at construction: it is part of
         # every step key and the codec fingerprint of compressed snapshots
         self._precision_tag = metric.sync_precision_tag()
-        inj = self._cfg.fault_injector
         # the retry jitter's stream, seeded so chaos runs replay exactly
         self._retry_rng = np.random.RandomState(((inj.seed if inj is not None else 0) ^ 0x5EED) & 0x7FFFFFFF)
         self._step = 0
@@ -404,6 +497,22 @@ class StreamingEngine:
         # payload signature -> (cache entry, pinned ring): the steady-state
         # lookup skips the structural key
         self._program_memo: Dict[Tuple, Tuple[Any, Optional[PinnedRing]]] = {}
+        # transactional steps: None follows the JAX package's rule for donated
+        # state, since a captured step writes the state in place as a donating
+        # step consumes it: on the card with an injector or an armed
+        # watchdog (whose expiry recovery needs the shadow), always on the
+        # CPU, where JAX's shadow is a free reference and the port's one host
+        # copy a step
+        self._transactional = (
+            bool(self._cfg.transactional) if self._cfg.transactional is not None
+            else (not cuda) or inj is not None or self._cfg.step_timeout_s > 0
+        )
+        #: the pre-step copy a failed step rolls back from, allocated at the first step
+        self._shadow: Any = None
+        # dead-letter ledger of screened-out batches: newest records kept
+        self._quarantine: Deque[QuarantineRecord] = deque(maxlen=max(1, int(self._cfg.quarantine_capacity)))
+        # the watchdog arms when configured, or when the plan can fire its site
+        self._watchdog_enabled = self._cfg.step_timeout_s > 0 or (inj is not None and inj.has_site("watchdog"))
 
     # -------------------------------------------------------------- capability checks
 
@@ -548,27 +657,122 @@ class StreamingEngine:
 
     def _run_padded_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
                          bucket: int, coalesced: int) -> None:
-        """One padded step: rows ``[start, stop)`` of the ROWS leaves padded to
-        ``bucket``, the other leaves as they are. On the card it replays the
-        step's captured graph (capturing it on a miss); elsewhere it runs
-        eagerly. Failures carry the step and bucket."""
-        try:
-            if self._capture:
-                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
-                with self._aot.exclusive(self._stream):
-                    prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                    prog.replay(self._state, self._step_aux())
-            else:
-                if self._stream is None:
-                    self._program(leaves, kinds, treedef, start, stop, bucket)
-                a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
-                self._write_state(self._step_state(self._state, self._step_aux(), a, kw, mask))
-        except Exception as e:
-            _attach_ctx(e, step=self._step, bucket=bucket)
-            raise
+        """One padded step, transactionally: rows ``[start, stop)`` of the ROWS
+        leaves padded to ``bucket``, the other leaves as they are. The shadow
+        takes the pre-step state; a failed attempt rolls back onto it and
+        :meth:`_recover_step` retries it, demotes the kernels or lets it go
+        sticky with the step and bucket attached."""
+        attempt = 0
+        while True:
+            shadow = self._step_shadow()
+            try:
+                self._do_step(leaves, kinds, treedef, start, stop, bucket)
+                break
+            except Exception as e:
+                if not self._recover_step(e, shadow, attempt):
+                    _attach_ctx(e, step=self._step, bucket=bucket)
+                    raise
+                attempt += 1
         self._step += 1
         self._stats.record_step(bucket, stop - start, coalesced)
-        self._bound_inflight()
+        if not self._watchdog_enabled:  # a watched step was drained before its commit
+            self._bound_inflight()
+
+    def _do_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
+                 bucket: int) -> None:
+        """One attempt of a step. Its fault sites fire in the JAX package's
+        order: ``compile``, ``kernel`` (while on the megastep kernels), the
+        step itself, then ``step`` (the device work is enqueued and, on the
+        card, has written the state in place: the rollback's case) and
+        ``watchdog``. On the card it replays the step's captured graph
+        (capturing it on a miss); elsewhere it runs eagerly and the new state
+        is written only at the commit."""
+        self._fault("compile")
+        if self._kernel_tag() == "megastep":
+            # a runtime failure of the whole-arena kernels: meaningless once
+            # the engine is on the per-leaf ones
+            self._fault("kernel")
+        new = None
+        if self._capture:
+            prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
+            with self._aot.exclusive(self._stream):
+                prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
+                prog.replay(self._state, self._step_aux())
+        else:
+            if self._stream is None:
+                self._program(leaves, kinds, treedef, start, stop, bucket)
+            a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
+            new = self._step_state(self._state, self._step_aux(), a, kw, mask)
+        self._fault("step")
+        if self._watchdog_enabled:
+            self._fault("watchdog")
+            self._watch()
+        if new is not None:
+            self._write_state(new)
+
+    def _watch(self) -> None:
+        """The watchdog's wait: poll the step's CUDA event until it completes
+        or ``step_timeout_s`` passes (no waiter thread; the hung work keeps
+        running on the engine stream, and the rollback is ordered after it).
+        Without a timeout it drains the step. On the CPU the step has run."""
+        if self._stream is None:
+            return
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        timeout = self._cfg.step_timeout_s
+        if timeout > 0:
+            deadline = time.monotonic() + timeout
+            while not ev.query():
+                if time.monotonic() >= deadline:
+                    raise StepTimeoutError(f"device step did not complete within the {timeout:.3f}s watchdog")
+                time.sleep(_WATCH_POLL_S)
+        else:
+            ev.synchronize()
+        self._inflight.clear()
+
+    def _step_shadow(self) -> Any:
+        """The pre-step state a failed step rolls back onto, or None when the
+        engine is not transactional (a failure then goes sticky). The shadow
+        is allocated once and refreshed in place before every step, on the
+        engine's stream."""
+        if not self._transactional:
+            return None
+        if self._shadow is None:
+            self._shadow = tree_map(torch.empty_like, self._state)
+        for dst, src in zip(tree_leaves(self._shadow), tree_leaves(self._state)):
+            dst.copy_(src)
+        return self._shadow
+
+    def _recover_step(self, e: Exception, shadow: Any, attempt: int) -> bool:
+        """Roll a failed step back and classify it: True retries it (after
+        backoff) or, for an injected ``kernel`` fault, demotes the engine to
+        the per-leaf kernels and retries at once; False lets it go sticky."""
+        if shadow is None:
+            return False
+        try:
+            # in place, on the engine stream: after whatever the failed or hung
+            # attempt enqueued, so no late write lands on the rolled-back state
+            for dst, src in zip(tree_leaves(self._state), tree_leaves(shadow)):
+                dst.copy_(src)
+        except RuntimeError:  # a broken device: the original error goes sticky
+            return False
+        self._stats.rollbacks += 1
+        if isinstance(e, StepTimeoutError):
+            self._stats.watchdog_timeouts += 1
+        if (isinstance(e, InjectedFault) and e.site == "kernel" and self._cfg.degrade_kernel
+                and self._kernel_tag() == "megastep"):
+            # megastep -> auto, one way: the per-leaf kernels (K1; K4 on the
+            # paged engine) replace K5/K6/K7. The arena and its layout stay;
+            # the tag changes in every step key, so the demoted steps capture anew
+            self._megastep_plan = None
+            self._program_memo.clear()
+            self._stats.kernel_demotions += 1
+            return True
+        if not is_transient(e) or attempt >= self._cfg.max_retries:
+            return False
+        self._stats.record_retry()
+        self._backoff(attempt + 1)
+        return True
 
     def _bound_inflight(self) -> None:
         """At most ``in_flight`` steps run ahead of the host: past that, wait
@@ -583,11 +787,20 @@ class StreamingEngine:
 
     def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
         """Run one merged (args, kwargs) batch of ``n`` rows through its
-        bucketed chunks; the first chunk's step counts the coalesced batches."""
+        bucketed chunks; the first chunk's step counts the coalesced batches.
+        An escaping error carries ``_committed_chunks`` (summed over nested
+        calls), which tells the caller whether re-running the batches one by
+        one would fold a row twice."""
         leaves, treedef = tree_flatten(merged)
-        for i, (start, stop, bucket) in enumerate(self._policy.chunks(n)):
-            kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
-            self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1)
+        committed = 0
+        try:
+            for i, (start, stop, bucket) in enumerate(self._policy.chunks(n)):
+                kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
+                self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1)
+                committed += 1
+        except Exception as e:
+            _add_committed(e, committed)
+            raise
 
     def _latch_payload(self, merged: Any) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
         """The (args, kwargs) a host-attr latch row is cut from (the
@@ -673,7 +886,7 @@ class StreamingEngine:
             if first is _STOP:
                 self._queue.task_done()
                 return
-            group, saw_stop = [first], False
+            group, saw_stop, fatal = [first], False, False
             if self._error is None:
                 group, pending, saw_stop = self._coalesce_group(first)
             try:
@@ -682,9 +895,21 @@ class StreamingEngine:
             except Exception as e:  # noqa: BLE001 - surfaced via _raise_if_failed
                 _attach_ctx(e, cursor=self._batches_done, **self._group_context(group))
                 self._error = e
+                fatal = isinstance(e, InjectedFault) and e.fatal
             finally:
                 for _ in group:
                     self._queue.task_done()
+            if fatal:
+                # the dispatcher dies outright, without draining: producers
+                # learn of it from submit(timeout=)'s sticky raise, and
+                # reset()/restore()/flush() drain the backlog themselves.
+                # What this loop already dequeued (the coalescer's look-ahead,
+                # a consumed stop) is done here, or every later join hangs
+                if pending is not None:
+                    self._queue.task_done()
+                if saw_stop:
+                    self._queue.task_done()
+                return
             if saw_stop:
                 self._queue.task_done()
                 return
@@ -696,23 +921,107 @@ class StreamingEngine:
 
     def _process_group(self, group: List[Any]) -> None:
         with self._state_lock:
-            sized = [(it, self._item_rows(it)) for it in group]
-            nonempty = [(it, n) for it, n in sized if n > 0]
-            merged = self._merge_sized(nonempty)
-            if merged is not None:
-                if self._needs_attr_latch:
-                    self._latch_host_attrs(merged)
+            # only an INGEST fault retries at this level: it fires before
+            # anything folds, so the whole group re-runs from untouched state
+            self._retry_transient(lambda: self._process_group_locked(group), transient=_ingest_transient)
+
+    def _process_group_locked(self, group: List[Any]) -> None:
+        # a FATAL fault here models the dispatcher dying outright
+        self._fault("dispatcher_kill")
+        self._fault("ingest")  # the host ingestion boundary: nothing folded yet
+        sized = [(it, self._item_rows(it)) for it in group]
+        kept = self._screen_group(sized)
+        nonempty = [(it, n) for it, n in kept if n > 0]
+        merged = self._merge_sized(nonempty)
+        if merged is not None:
+            if self._needs_attr_latch:
+                self._latch_host_attrs(merged)
+            try:
                 self._execute_payload(merged, sum(n for _, n in nonempty), len(nonempty))
-            self._batches_done += len(group)
-            if self._cfg.snapshot_every > 0 and self._batches_done % self._cfg.snapshot_every == 0:
-                self._sync()  # the copy to the host reads the state after every in-flight step folded
+            except Exception as e:
+                # shrink-on-retry: a failed megabatch that committed no chunk
+                # re-runs its batches one by one, so good traffic lands and the
+                # sticky error names the poisoned batch's cursor. It needs the
+                # shadow (the failed step rolled back onto it); after a partial
+                # commit, splitting would fold the committed rows twice
+                if len(nonempty) <= 1 or getattr(e, "_committed_chunks", 1) != 0 or not self._transactional:
+                    raise
+                self._stats.coalesce_shrinks += 1
+                cursors = {id(it): self._batches_done + j for j, (it, _) in enumerate(sized)}
+                for it, n_it in nonempty:
+                    try:
+                        self._execute_payload(self._merge_sized([(it, n_it)]), n_it, 1)
+                    except Exception as se:
+                        _attach_ctx(se, cursor=cursors.get(id(it)), **self._item_context(it))
+                        raise
+        self._batches_done += len(group)
+        if self._cfg.snapshot_every > 0 and self._batches_done % self._cfg.snapshot_every == 0:
+            self._sync()  # the copy to the host reads the state after every in-flight step folded
+            try:
+                self._save_snapshot()
+            except Exception:  # noqa: BLE001 - counted, never sticky
+                # a failed PERIODIC snapshot must not take serving down:
+                # the state is intact and the previous generation still
+                # backs restore()
+                self._stats.snapshot_failures += 1
+
+    # ------------------------------------------------------------------- quarantine
+
+    def quarantine(self) -> List[QuarantineRecord]:
+        """The dead-letter ledger: the batches the screen policy rejected,
+        newest ``quarantine_capacity`` kept with their payloads (lifetime
+        counts: ``stats.quarantined_batches``/``quarantined_rows``)."""
+        with self._state_lock:
+            return list(self._quarantine)
+
+    def clear_quarantine(self) -> None:
+        with self._state_lock:
+            self._quarantine.clear()
+
+    def _screen_payload(self, item: Any) -> Any:
+        """The (args, kwargs) of a queue item that the screen policy sees
+        (the multi-stream engine strips its stream id)."""
+        return item
+
+    def _item_context(self, item: Any) -> Dict[str, Any]:
+        """Per-item failure and quarantine context (the multi-stream engine
+        adds the stream id)."""
+        return {}
+
+    def _record_quarantine(self, item: Any, rows: int, cursor: int, reason: str) -> None:
+        self._quarantine.append(QuarantineRecord(cursor=cursor, rows=int(rows), reason=reason,
+                                                 stream_id=self._item_context(item).get("stream_id"), payload=item))
+        self._stats.quarantined_batches += 1
+        self._stats.quarantined_rows += int(rows)
+
+    def _screen_group(self, sized: List[Tuple[Any, int]]) -> List[Tuple[Any, int]]:
+        """Screen each batch on the host before anything is uploaded.
+        Quarantined batches leave the group, but the replay cursor still
+        counts them (``_batches_done`` advances by the whole group), so a
+        kill/resume replay screens them the same way. An ``"error"`` verdict
+        becomes the sticky error, with the batch's cursor."""
+        policy = self._cfg.screen
+        if policy is None:
+            return sized
+        kept: List[Tuple[Any, int]] = []
+        for j, (it, n) in enumerate(sized):
+            verdict = None
+            if n > 0:
                 try:
-                    self._save_snapshot()
-                except Exception:  # noqa: BLE001 - counted, never sticky
-                    # a failed PERIODIC snapshot must not take serving down:
-                    # the state is intact and the previous generation still
-                    # backs restore()
-                    self._stats.snapshot_failures += 1
+                    verdict = policy.screen(self._screen_payload(it), n)
+                except Exception:  # noqa: BLE001 - what a probe cannot inspect, it does not reject
+                    verdict = None
+            if verdict is None:
+                kept.append((it, n))
+                continue
+            action, reason = verdict
+            cursor = self._batches_done + j
+            if action == "error":
+                err = MetricsTPUUserError(f"batch rejected by screen policy: {reason}")
+                _attach_ctx(err, cursor=cursor, **self._item_context(it))
+                raise err
+            self._record_quarantine(it, n, cursor, reason)
+        return kept
 
     def _join_queue(self) -> None:
         """``queue.join()`` that survives a dispatcher that is gone: a live
@@ -769,6 +1078,13 @@ class StreamingEngine:
             limit = min(limit, self._cfg.snapshot_every - (self._batches_done % self._cfg.snapshot_every))
         group = [first]
         if limit <= 1:
+            return group, None, False
+        inj = self._cfg.fault_injector
+        if inj is not None and inj.fire("coalesce"):
+            # degradation, never an error (an escape would kill the
+            # dispatcher): the group is served as singletons
+            self._stats.record_fault("coalesce")
+            self._stats.coalesce_degraded += 1
             return group, None, False
         rows = self._item_rows_safe(first)
         if rows is None:  # malformed: run alone so the error surfaces cleanly
@@ -1017,7 +1333,8 @@ class StreamingEngine:
         quantized-policy leaves codec-wrapped (``engine/quantize.py``)."""
         if not self._compress:
             return state_to_numpy(self._state)
-        return encode_state_tree(self._metric, state_to_numpy(self._unpack(self._state)))
+        return self._codec_call("quant_encode", encode_state_tree, self._metric,
+                                state_to_numpy(self._unpack(self._state)))
 
     def _snapshot_meta_extra(self) -> Dict[str, Any]:
         """Provenance a subclass adds to every snapshot (the paged engine: its
@@ -1079,7 +1396,7 @@ class StreamingEngine:
         self._check_window_provenance(meta)
         if str(meta.get("codec", "") or ""):
             # codec-wrapped leaves are self-describing: decode first
-            state = decode_state_tree(state)
+            state = self._codec_call("quant_decode", decode_state_tree, state)
         snap_hosts = int(meta.get("num_hosts", 1) or 1)
         snap_pid = int(meta.get("process_id", 0) or 0)
         if snap_hosts != 1 or snap_pid != 0:
@@ -1174,6 +1491,16 @@ class StreamingEngine:
             self._stats.record_fault(site)
             raise
 
+    def _codec_call(self, site: str, fn: Any, *args: Any) -> Any:
+        """``fn(*args)``, a codec call pure in its arguments (so a retry never
+        applies scales twice), behind the fault ``site`` and the bounded
+        retry."""
+        def once() -> Any:
+            self._fault(site)
+            return fn(*args)
+
+        return self._retry_transient(once)
+
     def _backoff(self, attempt: int) -> None:
         """Jittered exponential backoff before retry ``attempt`` (1-based),
         the jitter from a seeded stream."""
@@ -1184,16 +1511,17 @@ class StreamingEngine:
         if delay > 0:
             time.sleep(delay)
 
-    def _retry_transient(self, fn: Any) -> Any:
+    def _retry_transient(self, fn: Any, transient: Any = is_transient) -> Any:
         """Run ``fn`` up to ``1 + max_retries`` times, retrying (counted,
-        backed off) the failures :func:`is_transient` accepts and re-raising
-        every other."""
+        backed off) the failures ``transient`` accepts and re-raising every
+        other: the one retry policy of every boundary but the step (whose
+        :meth:`_recover_step` adds rollback and demotion)."""
         attempt = 0
         while True:
             try:
                 return fn()
             except Exception as e:
-                if not is_transient(e) or attempt >= self._cfg.max_retries:
+                if not transient(e) or attempt >= self._cfg.max_retries:
                     raise
                 attempt += 1
                 self._stats.record_retry()

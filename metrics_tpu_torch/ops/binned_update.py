@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from metrics_tpu_torch.ops.kernels import build
+from metrics_tpu_torch.ops.kernels.dispatch import _maybe_kernel_fault
 
 __all__ = ["binned_counts", "binned_counts_cuda", "binned_counts_torch", "binned_counts_op"]
 
@@ -138,6 +139,7 @@ def binned_counts(preds: torch.Tensor, target_bool: torch.Tensor, thresholds: to
     tensor, the plain version on a CPU tensor (under vmap too)."""
     if preds.ndim != 2:
         raise ValueError(f"binned_counts expects (N, C) preds, got shape {tuple(preds.shape)}")
+    _maybe_kernel_fault("binned_counts")
     thresholds = thresholds.to(device=preds.device, dtype=torch.float32).contiguous()
     return binned_counts_op(
         preds.to(torch.float32).contiguous(), target_bool.to(torch.bool).contiguous(), thresholds

@@ -5,6 +5,7 @@ from metrics_tpu_torch.ops.kernels.common import REDUCE_OPS, combine, reduce_ide
 from metrics_tpu_torch.ops.kernels.dispatch import (
     fold_rows_masked,
     histogram_accumulate,
+    kernel_fault_scope,
     megastep_fold,
     megastep_segment,
     segment_reduce_masked,
@@ -24,6 +25,7 @@ __all__ = [
     "fold_rows_ref",
     "histogram_accumulate",
     "histogram_ref",
+    "kernel_fault_scope",
     "megastep_fold",
     "megastep_fold_ref",
     "megastep_segment",

@@ -24,12 +24,19 @@ kernel needs VMEM block sizing: the segment kernels take every S and F, so the
 ``block_rows``/``VMEM_BLOCK_BYTES``/``num_segments * f * itemsize`` gates are
 gone too.
 
+:func:`kernel_fault_scope` installs a thread-local hook that each entry
+calls with its kernel's name, on every device, before it dispatches; a raise
+propagates (the JAX package's ``pallas_interpret`` policy: its silent
+fallback under ``pallas`` has no counterpart here).
+
 A uint32 state (``BootStrapper``'s draw counter) folds as its int32 bits
 (``common.int32_bits``), with the sign bit flipped in its min/max columns:
 torch has no uint32 arithmetic kernels, and neither do the CUDA kernels.
 """
+import contextlib
 import math
-from typing import NamedTuple, Optional
+import threading
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,6 +58,41 @@ from metrics_tpu_torch.ops.kernels.xla_ref import (
 )
 
 
+_tls = threading.local()
+
+
+def _maybe_kernel_fault(kernel: str) -> None:
+    """Call this thread's kernel fault hook, if one is installed, with the
+    kernel's name (``fold_rows``, ``segment_reduce``, ``megastep_fold``,
+    ``megastep_segment``, ``histogram``, ``binned_counts``)."""
+    hook = getattr(_tls, "fault_hook", None)
+    if hook is not None:
+        hook(kernel)
+
+
+@contextlib.contextmanager
+def kernel_fault_scope(hook: Optional[Callable[[str], None]]) -> Iterator[None]:
+    """Install a thread-local kernel fault hook: ``hook(kernel_name)`` runs
+    before every entry of the dispatch functions (and of
+    ``ops/binned_update.py``'s ``binned_counts``) in this scope, on every
+    device, and may raise to simulate a kernel failure.
+
+    A raise propagates to the caller. This is the JAX package's
+    ``pallas_interpret`` policy; its silent fallback to the reference lowering
+    under ``pallas`` has no counterpart in the port, where nothing falls back
+    from a kernel. Under a CUDA graph capture the hook runs once, while the
+    step is captured (the warm-up that precedes it calls it; the recorded
+    pass does not), as JAX's runs once at trace time: a replay never calls
+    it. Distinct from the engine's ``kernel`` fault site, which demotes a
+    whole engine ``megastep -> auto``."""
+    prev = getattr(_tls, "fault_hook", None)
+    _tls.fault_hook = hook
+    try:
+        yield
+    finally:
+        _tls.fault_hook = prev
+
+
 def fold_rows_masked(state: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor, fx: str) -> torch.Tensor:
     """Fused masked row-delta reduction.
 
@@ -64,6 +106,7 @@ def fold_rows_masked(state: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor
     if state.dtype == torch.uint32:
         flip = None if fx == "sum" else SIGN_BIT
         return uint32_from_bits(fold_rows_masked(int32_bits(state, flip), int32_bits(rows, flip), mask, fx), flip)
+    _maybe_kernel_fault("fold_rows")
     if state.device.type != "cuda":
         return fold_rows_ref(state, rows, mask, fx)
     n = int(rows.shape[0])
@@ -99,6 +142,7 @@ def segment_reduce_masked(
         out = segment_reduce_masked(int32_bits(state, flip), int32_bits(rows, flip), mask, segment_ids,
                                     num_segments, fx)
         return uint32_from_bits(out, flip)
+    _maybe_kernel_fault("segment_reduce")
     if state.device.type != "cuda":
         return segment_reduce_ref(state, rows, mask, segment_ids, num_segments, fx)
     n = int(rows.shape[0])
@@ -171,6 +215,7 @@ def megastep_fold(state_buf: torch.Tensor, rows: torch.Tensor, mask: torch.Tenso
         row = OpRow(ops, uniform)
         flip = _order_flip(row)
         return uint32_from_bits(megastep_fold(int32_bits(state_buf, flip), int32_bits(rows, flip), mask, row), flip)
+    _maybe_kernel_fault("megastep_fold")
     if state_buf.device.type != "cuda":
         return megastep_fold_ref(state_buf.reshape(1, f), rows, mask, ops).reshape(state_buf.shape)
     out = megastep_fold_cuda(state_buf.reshape(f).contiguous(), rows.contiguous(),
@@ -209,6 +254,7 @@ def megastep_segment(
         out = megastep_segment(int32_bits(state_buf, flip), int32_bits(rows, flip), mask, segment_ids,
                                num_segments, row)
         return uint32_from_bits(out, flip)
+    _maybe_kernel_fault("megastep_segment")
     q8c = None
     if q8 is not None:
         flags, codes, scales, qcol = q8
@@ -253,6 +299,7 @@ def histogram_accumulate(
     batch one launch.
     """
     length = int(length)
+    _maybe_kernel_fault("histogram")
     # both paths go through the custom op, whose CPU implementation is the
     # plain version: that is what lets the plain path run under vmap too
     idx = indices.reshape(1, -1)

@@ -1591,3 +1591,165 @@ def test_paged_q8_snapshot_with_staged_rows_loses_none(cuda, tmp_path):
     for sid in spilled:
         for g, w in zip(_flat(restored.stream_state(sid)), _flat(want[sid])):
             assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------------ the fault layer
+
+
+def _chaos_engine(kind, device, inj=None, cache=None, **cfg):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    q8 = kind == "paged_q8"
+    config = EngineConfig(buckets=(16, 64), kernel_backend="megastep", compress_payloads=q8, coalesce=1,
+                          fault_injector=inj, **cfg)
+    coll = _engine_collection(device, q8)
+    if kind == "streaming":
+        return StreamingEngine(coll, config, aot_cache=cache)
+    return MultiStreamEngine(coll, 12, config, stream_shard=True, resident_streams=3, aot_cache=cache)
+
+
+def _watch_attempts(eng):
+    """Per step attempt: K1/K4/K5/K6/K7 launches so far, demotions so far, q8 rows staged so far."""
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+    from metrics_tpu_torch.ops.kernels.megastep_cuda import (
+        megastep_fold_cuda,
+        megastep_segment_cuda,
+        megastep_segment_q8_cuda,
+    )
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+
+    kernels = {"K1": fold_rows_cuda, "K4": segment_reduce_cuda, "K5": megastep_fold_cuda,
+               "K6": megastep_segment_cuda, "K7": megastep_segment_q8_cuda}
+    seen = []
+    do_step = eng._do_step
+
+    def watched(*a, **kw):
+        seen.append(dict({k: f.launches for k, f in kernels.items()}, demotions=eng.stats.kernel_demotions,
+                         staged=eng.stats.q8_staged_rows))
+        return do_step(*a, **kw)
+
+    eng._do_step = watched
+    return seen, lambda: {k: f.launches for k, f in kernels.items()}
+
+
+@pytest.mark.requires_cuda
+def test_rollback_after_an_injected_step_fault_keeps_buffers_and_adds_no_capture(cuda):
+    """A ``step`` fault fires after the captured replay has written the state
+    in place: the rollback copies the shadow back on the engine stream, every
+    ``data_ptr()`` stays, the retry replays the same graph (the engine
+    captures what its fault-free twin captures), and the state ends
+    bit-equal to the twin's."""
+    from metrics_tpu_torch.engine import AotCache, FaultInjector, FaultSpec
+
+    traffic = _engine_traffic(31)
+    twin = _chaos_engine("streaming", cuda, cache=AotCache())
+    want = _drive(twin, traffic, True, cuda)
+    inj = FaultInjector(seed=5, plan={"step": FaultSpec(schedule=(1, 4, 9))})
+    eng = _chaos_engine("streaming", cuda, inj, cache=AotCache())
+    ptrs = _ptrs(eng)
+    got = _drive(eng, traffic, True, cuda)
+    st = eng.stats
+    assert (st.rollbacks, st.retries) == (3, 3) and eng._transactional
+    assert _ptrs(eng) == ptrs and eng.aot_cache.misses == twin.aot_cache.misses
+    assert st.warmup_steps == twin.stats.warmup_steps
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_demoted_engine_captures_one_new_step_per_signature(cuda):
+    """An injected ``kernel`` fault demotes the megastep engine to the
+    per-leaf kernels: K5 stops and K1 runs, the state keeps its buffers,
+    each bucket the demoted engine then steps captures once more (the tag
+    is in the key), and the state is bit-equal to the undemoted twin's."""
+    from metrics_tpu_torch.engine import FaultInjector, FaultSpec
+
+    traffic = _engine_traffic(32, n_batches=30)
+    twin = _chaos_engine("streaming", cuda)
+    want = _drive(twin, traffic, True, cuda)
+    inj = FaultInjector(seed=6, plan={"kernel": FaultSpec(schedule=(12,))})
+    eng = _chaos_engine("streaming", cuda, inj)
+    seen, launches = _watch_attempts(eng)
+    ptrs = _ptrs(eng)
+    start = launches()
+    got = _drive(eng, traffic, True, cuda)
+    end = launches()
+    at = next(i for i, r in enumerate(seen) if r["demotions"])
+    assert at == 13 and eng.stats.kernel_demotions == 1 and eng._kernel_tag() == "auto"
+    assert seen[at]["K5"] > start["K5"] and end["K5"] == seen[at]["K5"]  # K5 before, none after
+    assert seen[at]["K1"] == start["K1"] and end["K1"] > seen[at]["K1"]  # K1 after only
+    buckets_after = {eng._policy.bucket_for(len(t)) for _, _, t in traffic[12:]}
+    buckets_before = {eng._policy.bucket_for(len(t)) for _, _, t in traffic[:12]}
+    assert eng.aot_cache.misses == len(buckets_before) + len(buckets_after)
+    assert _ptrs(eng) == ptrs
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_paged_q8_demotion_with_rows_staged_loses_none_on_card(cuda):
+    """A ``kernel`` fault at a step whose slots hold q8-staged rows: the
+    demoted body seats them with the codec's arithmetic, then K4 folds;
+    staging stops after it. Every stream is bit-equal to the undemoted twin
+    (K7 decoding on touch), K6 and K7 launch before the demotion and K4
+    after it."""
+    from metrics_tpu_torch.engine import FaultInjector, FaultSpec
+
+    traffic = _engine_traffic(33, n_batches=60)
+    twin = _chaos_engine("paged_q8", cuda)
+    twin_seen, _ = _watch_attempts(twin)
+    want = _drive(twin, traffic, True, cuda)
+    at = next(i for i in range(10, len(twin_seen)) if twin_seen[i]["staged"] > twin_seen[i - 1]["staged"])
+    inj = FaultInjector(seed=7, plan={"kernel": FaultSpec(schedule=(at,))})
+    eng = _chaos_engine("paged_q8", cuda, inj)
+    seen, launches = _watch_attempts(eng)
+    ptrs = _ptrs(eng)
+    start = launches()
+    got = _drive(eng, traffic, True, cuda)
+    end = launches()
+    assert seen[at]["staged"] > seen[at - 1]["staged"] and seen[at + 1]["demotions"] == 1
+    assert seen[at + 1]["K6"] > start["K6"] and seen[at + 1]["K7"] > start["K7"]
+    assert (end["K6"], end["K7"]) == (seen[at + 1]["K6"], seen[at + 1]["K7"])
+    assert seen[at + 1]["K4"] == start["K4"] and end["K4"] > seen[at + 1]["K4"]
+    assert not eng._q8_enabled and eng.stats.q8_staged_rows == seen[at + 1]["staged"]
+    assert _ptrs(eng) == ptrs
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_a_real_hang_expires_the_watchdog_once_and_recovers(cuda):
+    """A device sleep of 1.5x ``step_timeout_s`` enqueued on the idle engine's
+    stream ahead of one batch: the step's event misses the deadline once, the
+    rollback and the retry queue behind the hang, and the state ends
+    bit-equal to the fault-free twin's, every buffer where it was."""
+    from metrics_tpu_torch.engine import AotCache
+
+    traffic = _engine_traffic(34, n_batches=12)
+    cache = AotCache()
+    twin = _chaos_engine("streaming", cuda, cache=cache)
+    want = _drive(twin, traffic, True, cuda)
+    eng = _chaos_engine("streaming", cuda, cache=cache, step_timeout_s=0.1)
+    assert eng._transactional and eng._watchdog_enabled
+    eng.start()
+    for _, p, t in traffic[:-1]:
+        eng.submit(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+    eng.flush()
+    ptrs = _ptrs(eng)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(0.15e3 * 10_000_000 / start.elapsed_time(end))  # ~0.15 s
+    with torch.cuda.stream(eng._stream):
+        torch.cuda._sleep(cycles)
+    _, p, t = traffic[-1]
+    eng.submit(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+    eng.flush()
+    eng.stop()
+    st = eng.stats
+    assert (st.watchdog_timeouts, st.rollbacks, st.retries) == (1, 1, 1)
+    assert st.warmup_steps == 0 and _ptrs(eng) == ptrs
+    for g, w in zip(_flat(eng.state()), _flat(want)):
+        assert torch.equal(g, w)

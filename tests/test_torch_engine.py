@@ -216,8 +216,8 @@ def test_typed_refusals():
     for backend in ("xla", "pallas_interpret", "megastep_interpret"):
         with pytest.raises(KernelBackendError, match="device"):
             StreamingEngine(_port(), EngineConfig(kernel_backend=backend))
-    with pytest.raises(NotPortedError, match="step_timeout_s"):
-        EngineConfig(step_timeout_s=2.0)
+    with pytest.raises(NotPortedError, match="trace"):
+        EngineConfig(trace=object())
     with pytest.raises(NotPortedError, match="mesh"):
         EngineConfig(mesh=object(), mesh_sync="deferred")
     with pytest.raises(TypeError):

@@ -8,8 +8,9 @@ drives, on the CPU.
 * the engine's snapshot sites: a periodic write fault is contained and
   counted, an explicit ``snapshot()`` raises, a transient read is retried
   inside ``restore()`` (counted), an injected corruption falls back one
-  generation with exact replay, and a plan naming a site the port does not
-  consult raises ``NotPortedError``;
+  generation with exact replay, and a plan naming a site of a layer the
+  port does not have yet raises ``NotPortedError`` (the other sites are
+  ``tests/test_torch_chaos.py``'s);
 * ``utils/checkpoint.py`` crosses both ways with JAX's pickle checkpoint.
 
 The JAX package writes orbax checkpoints when orbax is installed, which the
@@ -35,7 +36,8 @@ from metrics_tpu_torch.engine.snapshot import latest_snapshot, load_snapshot, sa
 from metrics_tpu_torch.utils.checkpoint import load_metric_state, save_metric_state
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedError
 
-PORTED_SITES = ("snapshot_write", "snapshot_corrupt", "snapshot_read")
+PORTED_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
+                "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill")
 
 
 def _plan(mod, site):
@@ -282,9 +284,20 @@ def test_recovery_config_checks():
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(max_retries=-1))
     with pytest.raises(MetricsTPUUserError, match="snapshot_dir"):
         StreamingEngine(mp.Accuracy(device="cpu")).snapshot()
-    for field in ("screen", "quarantine_capacity", "transactional", "degrade_kernel"):
+    for field in ("trace", "telemetry_capacity", "admission", "ladder", "window", "drift", "elastic_min_world"):
         with pytest.raises(NotPortedError, match=field):
             EngineConfig(**{field: None})
+    # the fault layer's own fields are accepted, with the JAX package's defaults and checks
+    cfg = EngineConfig()
+    want = mt.engine.EngineConfig()
+    for field in ("screen", "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel"):
+        assert getattr(cfg, field) == getattr(want, field), field
+    with pytest.raises(MetricsTPUUserError, match="step_timeout_s"):
+        StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(step_timeout_s=-1.0))
+    with pytest.raises(MetricsTPUUserError, match="ScreenPolicy"):
+        StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(screen="nan"))
+    with pytest.raises(MetricsTPUUserError, match="FaultInjector"):
+        StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(fault_injector=object()))
 
 
 # ------------------------------------------------------------------ utils/checkpoint.py
