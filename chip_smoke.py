@@ -223,6 +223,37 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    with ``step_timeout_s=1.0``, in turns, and the device µs of one shadow
    copy of the flagship arena and of the paged 128-slot arena. Snapshots
    under the gitignored ``build/phase17/``, removed after the phase.
+18. Observability and overload (``engine/trace.py``, ``engine/stats.py``,
+   ``engine/admission.py``): (a) phase 7's engine and traffic with a
+   ``TraceRecorder`` on the card (its histogram folds launch K2 on a stream of
+   their own): the exported Chrome trace passes ``tools/trace_export.py``'s
+   ``validate_chrome_trace`` and ``validate_links`` (each submit absorbed
+   once, at least one real megabatch), ``metrics_text()`` passes
+   ``parse_openmetrics`` with the step histogram's bucket sum, its count and
+   the engine's steps equal, the telemetry document renders through
+   ``tools/engine_report.py --json``, states bit-equal to phase 4's; host ms
+   a warm captured step with the recorder off and on, in turns, and the
+   scrape's K2 launches; (b) the chaos plans of phase 17 (its 14 ported
+   sites: 17(a)'s on phase 7's engine with the restore past the corrupt
+   LATEST, 17(b)'s on the first 320 batches of phase 9's q8 tenancy with the
+   ``kernel`` fault at step 260, 17(d)'s kill read back by ``flush()``) run
+   twice, each into a fresh recorder and capture cache: identical
+   ``canonical_sequence()``, bit-identical states, every firing a ``fault``
+   event; (c) phase 9's paged tenancy (exact, ``coalesce=1``, a flush after
+   each submit so the ladder ticks once a batch) on the port's
+   ``zipf_stream_ids`` with the hot set rotated by S // 2 at the middle
+   batch, an ``AdmissionPolicy`` whose shed class is every 16th stream, a
+   ``DegradationLadder`` on ``widen_coalesce``, ``defer_cold_reads`` and
+   ``shed`` (up after 8 overloaded ticks, down after 4) with an
+   ``OverloadDetector`` armed on the spill rate only: the ladder reaches
+   ``shed`` after the shift, a shed-class submit raises ``AdmissionRejected``
+   with ``shed`` set, a cold stream's repeated ``result()`` is served from
+   the cache, a 24-batch recovery tail over resident streams walks the
+   ladder down and the class admits again; every one of the 10 000 streams
+   bit-equal to numpy over exactly the admitted batches; ``page_in`` and
+   ``page_out`` spans present. Then K2 at the recorder fold's shape is held
+   against its plain version and ``torch.bincount`` and timed (outside the
+   phase's counts).
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -236,10 +267,10 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 17 and read after it;
+and set to 0 again before each of phases 10 to 18 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
-and 15: K2 and K3; phase 16: K2–K7; phase 17: K1–K7), and K2 must launch once per batch and per step
+and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -249,7 +280,8 @@ have one entry per shape above (K2 also at phase 10's calibration shape:
 65 536 int64 indices into 15 bins, ``(65 536, 3)`` f32 weights, with
 ``index_add_`` into a zeroed ``(15, 3)`` output as its library call, and at
 phase 11's AUROC support shape: 65 536 int64 labels into 10 bins, with
-``torch.bincount`` as its library call), K4, K6 and K7 one per ``traffic`` (random ids
+``torch.bincount`` as its library call, and at the recorder fold's shape of
+phase 18, its launches the scrape's), K4, K6 and K7 one per ``traffic`` (random ids
 and one stream), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
@@ -273,6 +305,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from metrics_tpu_torch.engine.traffic import zipf_stream_ids  # noqa: E402  (the seeded Zipf ids of every phase)
 
 SEED = 0
 N_ROWS = 65536
@@ -1142,16 +1176,6 @@ def masked_path(dev, preds, target, rng, make=make_collection):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return state, values, buckets, time.perf_counter() - t0
-
-
-def zipf_stream_ids(num_streams, n, alpha, seed):
-    """``n`` stream ids in ``[0, num_streams)`` from a bounded Zipf(alpha): rank
-    ``r`` has probability ~ ``1/(r+1)**alpha`` and maps to an id through a
-    seeded permutation (the draw of ``metrics_tpu/engine/traffic.py``)."""
-    rng = np.random.RandomState(seed)
-    w = 1.0 / np.power(np.arange(1, num_streams + 1, dtype=np.float64), float(alpha))
-    perm = np.random.RandomState(seed ^ 0x5A1F).permutation(num_streams)
-    return perm[rng.choice(num_streams, size=int(n), p=w / w.sum())].astype(np.int32)
 
 
 def ragged_batches(seed, lo, hi):
@@ -3837,24 +3861,49 @@ def demotion_split(seen, final):
     return at, before, {k: final[k] - before[k] for k in final}
 
 
+def chaos_traffic(dev, preds, target):
+    """Phase 7's traffic with 17(a)'s 2-row NaN batch at cursor 2."""
+    traffic = [(preds[a:b], target[a:b]) for a, b in ragged_batches(SEED + 2, 16, BUCKET)]
+    poison = torch.full((2, NUM_CLASSES), 0.1, device=dev)
+    poison[0, 3] = float("nan")
+    traffic.insert(2, (poison, torch.tensor([1, 0], device=dev)))
+    return traffic
+
+
+def chaos_plan(n_batches):
+    """17(a)'s plan for ``n_batches`` at the CHAOS_EVERY cadence: JAX's chaos
+    plan (``chaos_smoke.py:127-225``) with ``kernel`` at CHAOS_KERNEL_AT and
+    ``snapshot_corrupt`` on the last good save (the first periodic save fails)."""
+    from metrics_tpu_torch.engine import FaultInjector, FaultSpec
+
+    good_saves = n_batches // CHAOS_EVERY - 1
+    return FaultInjector(seed=7, plan={
+        "coalesce": FaultSpec(rate=1.0), "ingest": FaultSpec(schedule=(1,)), "compile": FaultSpec(schedule=(1,)),
+        "step": FaultSpec(schedule=(3,)), "kernel": FaultSpec(schedule=(CHAOS_KERNEL_AT,)),
+        "watchdog": FaultSpec(schedule=(6,)), "snapshot_write": FaultSpec(schedule=(0,)),
+        "snapshot_corrupt": FaultSpec(schedule=(good_saves - 1,)),
+    })
+
+
+def paging_plan(kernel_at):
+    """17(b)'s plan: the pager's and the codec's sites, and ``kernel`` at the
+    paged engine's step ``kernel_at``."""
+    from metrics_tpu_torch.engine import FaultInjector, FaultSpec
+
+    return FaultInjector(seed=19, plan={
+        "page_out": FaultSpec(schedule=(0,)), "page_in": FaultSpec(schedule=(1,)),
+        "quant_encode": FaultSpec(schedule=(0,)), "quant_decode": FaultSpec(schedule=(0,)),
+        "kernel": FaultSpec(schedule=(kernel_at,))})
+
+
 def chaos_megastep(dev, preds, target, gpu_state):
     """17(a): phase 7's engine and traffic, plus a 2-row NaN batch at cursor
     2, under JAX's chaos plan (``chaos_smoke.py:127-225``), then killed and
     restored past the corrupt LATEST with a transient ``snapshot_read``."""
     from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, ScreenPolicy, StreamingEngine
 
-    batches = ragged_batches(SEED + 2, 16, BUCKET)
-    traffic = [(preds[a:b], target[a:b]) for a, b in batches]
-    poison = torch.full((2, NUM_CLASSES), 0.1, device=dev)
-    poison[0, 3] = float("nan")
-    traffic.insert(2, (poison, torch.tensor([1, 0], device=dev)))
-    good_saves = len(traffic) // CHAOS_EVERY - 1  # the first periodic save fails
-    inj = FaultInjector(seed=7, plan={
-        "coalesce": FaultSpec(rate=1.0), "ingest": FaultSpec(schedule=(1,)), "compile": FaultSpec(schedule=(1,)),
-        "step": FaultSpec(schedule=(3,)), "kernel": FaultSpec(schedule=(CHAOS_KERNEL_AT,)),
-        "watchdog": FaultSpec(schedule=(6,)), "snapshot_write": FaultSpec(schedule=(0,)),
-        "snapshot_corrupt": FaultSpec(schedule=(good_saves - 1,)),  # the last good save rots
-    })
+    traffic = chaos_traffic(dev, preds, target)
+    inj = chaos_plan(len(traffic))
     d = chaos_dir("a")
     screen = ScreenPolicy(non_finite="quarantine")
     eng = StreamingEngine(make_collection(dev), EngineConfig(
@@ -3902,7 +3951,7 @@ def chaos_paged(dev, preds, target):
     """17(b): phase 9's q8 tenancy (``coalesce=1``) under the paging and
     codec sites and a ``kernel`` fault at a mid-stream step that decodes
     staged rows: every stream bit-equal to its fault-free twin."""
-    from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, MultiStreamEngine
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
 
     batches = ragged_batches(SEED + 4, 8, 64)
     sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
@@ -3922,10 +3971,7 @@ def chaos_paged(dev, preds, target):
     # the first step past the middle whose page round staged rows (attempt i sees round i's)
     at = next(i for i in range(len(twin_seen) // 2, len(twin_seen))
               if twin_seen[i]["staged"] > twin_seen[i - 1]["staged"])
-    inj = FaultInjector(seed=19, plan={
-        "page_out": FaultSpec(schedule=(0,)), "page_in": FaultSpec(schedule=(1,)),
-        "quant_encode": FaultSpec(schedule=(0,)), "quant_decode": FaultSpec(schedule=(0,)),
-        "kernel": FaultSpec(schedule=(at,))})
+    inj = paging_plan(at)
     eng = engine(inj)
     ptrs = state_ptrs(eng)
     seen = watch_steps(eng)
@@ -4091,6 +4137,352 @@ def chaos_phase(dev, preds, target, gpu_state):
         shutil.rmtree(CHAOS_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------- phase 18: observability and overload
+
+OBS_DIR = Path(__file__).resolve().parent / "build" / "phase18"  # gitignored; removed after the phase
+OBS_PAGED_PREFIX = 320  # 18(b): the q8 tenancy's batches (the first spill at 197, the first staged seat at 237)
+OBS_KERNEL_AT = 260  # 18(b): the paged engine's kernel site occurrence that fires, with rows staged
+OBS_SHED_EVERY = 16  # 18(c): streams 15, 31, ... (625 of 10 000) are the shed class
+OBS_SHED_CLASS = 2
+OBS_SPILL_RATE = 0.5  # 18(c): one spill in a one-batch group trips the detector
+OBS_UP_AFTER, OBS_DOWN_AFTER = 8, 4  # 18(c): the ladder's count hysteresis
+OBS_TAIL = 24  # 18(c): the recovery tail's batches, over resident streams
+
+
+def obs_dir(name):
+    path = OBS_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def trace_tools():
+    """The repository's stdlib-only validators (``tools/trace_export.py``)."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import trace_export
+
+    return trace_export
+
+
+def obs_traced(dev, preds, target, gpu_state, aot):
+    """18(a): phase 7's engine and traffic with a recorder on the card: the
+    Chrome trace, OpenMetrics text and telemetry document through the
+    repository's tools, states against phase 4's; host ms a warm captured
+    step with the recorder off and on, in turns."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine, TraceRecorder
+
+    trace_export = trace_tools()
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+
+    def submit(e, b):
+        e.submit(preds[b[0]:b[1]], target[b[0]:b[1]])
+
+    def engine(rec):
+        return StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep",
+                                                                 trace=rec), aot_cache=aot)
+
+    rec = TraceRecorder(capacity=1 << 15, device=dev)  # on the card its folds launch K2
+    eng = engine(rec)
+    seconds = run_engine(eng, True, batches, submit)
+    compare_states(eng.state(), gpu_state, "18(a) traced vs phase 4")
+    eng.result()
+    k2 = kernel_wrappers()["histogram"]
+    before = k2.launches
+    text = eng.metrics_text()
+    tele = Path(obs_dir("a")) / "telemetry.json"
+    eng.export_telemetry(str(tele))
+    fold_launches = k2.launches - before
+    doc = json.loads(json.dumps(rec.to_chrome_trace()))
+    errors = trace_export.validate_chrome_trace(doc) + trace_export.validate_links(doc)
+    check(not errors, f"18(a): the Chrome trace fails the validators: {errors[:3]}")
+    submits, groups = rec.spans("submit"), rec.spans("coalesce")
+    megabatches = sum(len(g["args"]["links"]) > 1 for g in groups)
+    check(len(submits) == len(batches) and megabatches >= 1 and rec.dropped == 0,
+          f"18(a): {len(submits)} submit spans for {len(batches)} batches, {megabatches} megabatches")
+    fams = trace_export.parse_openmetrics(text)
+    step = {s["name"].rsplit("_", 1)[-1]: s for s in fams["metrics_tpu_engine_step_latency_us"]["samples"]
+            if not s["labels"] or s["labels"].get("le") == "+Inf"}
+    folded = next(h for h in rec.histograms() if h.name == "step_latency_us").snapshot()
+    check(sum(folded["counts"]) == step["count"]["value"] == step["bucket"]["value"] == eng.stats.steps,
+          f"18(a): step histogram {sum(folded['counts'])} / {step['count']['value']} for {eng.stats.steps} steps")
+    check(fold_launches >= 3, f"18(a): the scrape's folds launched K2 {fold_launches} times")
+    report = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "tools" / "engine_report.py"),
+                             str(tele), "--json"], capture_output=True, text=True, timeout=120)
+    check(report.returncode == 0, f"18(a): engine_report failed: {report.stderr[-400:]}")
+    rendered = json.loads(report.stdout)
+    check(rendered["summary"]["steps"] == eng.stats.steps and rendered["trace"]["spans"] == len(rec.spans()),
+          "18(a): engine_report's document disagrees with the engine")
+    runs = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        warm = engine(TraceRecorder(device=dev) if mode == "on" else None)
+        s = run_engine(warm, True, batches, submit)
+        check(warm.stats.warmup_steps == 0, f"18(a) {mode}: the warm engine captured")
+        compare_states(warm.state(), gpu_state, f"18(a) recorder {mode}")
+        runs[mode].append({"ms_per_step": s / warm.steps * 1e3, "steps": warm.steps})
+    by_name = rec.summary()["by_name"]
+    return {"batches": len(batches), "steps": eng.steps, "seconds": seconds, "megabatches": megabatches,
+            "spans": len(rec.spans()), "events": len(rec.events()), "fold_k2_launches": fold_launches,
+            "fold_indices": 1 << max(0, (eng.stats.steps - 1).bit_length()),
+            "span_us_total": {k: v["dur_us_total"] for k, v in by_name.items()},
+            "queue_wait_p99_us": next(h for h in rec.histograms() if h.name == "queue_wait_us").quantile(0.99),
+            "host_ms_per_warm_step": runs}
+
+
+def obs_chaos_run(dev, preds, target, d):
+    """One 18(b) run into a fresh recorder and capture cache: 17(a)'s plan on
+    phase 7's engine and the restore past the corrupt LATEST, 17(b)'s sites
+    on the first OBS_PAGED_PREFIX batches of phase 9's q8 tenancy, and 17(d)'s
+    fatal kill read back by ``flush()`` (so no producer timing enters)."""
+    from metrics_tpu_torch.engine import (
+        AotCache,
+        EngineConfig,
+        EngineDispatchError,
+        FaultInjector,
+        FaultSpec,
+        MultiStreamEngine,
+        ScreenPolicy,
+        StreamingEngine,
+        TraceRecorder,
+    )
+
+    rec, aot = TraceRecorder(capacity=1 << 16, device=dev), AotCache()
+    traffic = chaos_traffic(dev, preds, target)
+    chaos = chaos_plan(len(traffic))
+    screen = ScreenPolicy(non_finite="quarantine")
+
+    def single(inj, **kw):
+        return StreamingEngine(make_collection(dev), EngineConfig(
+            buckets=(256, BUCKET), kernel_backend="megastep", screen=screen, snapshot_dir=d, fault_injector=inj,
+            trace=rec, **kw), aot_cache=aot)
+
+    run_engine(single(chaos, coalesce=8, snapshot_every=CHAOS_EVERY, snapshot_keep=4), True, traffic,
+               lambda e, b: e.submit(*b))
+    read = FaultInjector(seed=11, plan={"snapshot_read": FaultSpec(schedule=(0,))})
+    resumed = single(read, coalesce=1)
+    cursor = resumed.restore()["batches_done"]
+    run_engine(resumed, True, traffic[cursor:], lambda e, b: e.submit(*b))
+    pbatches = ragged_batches(SEED + 4, 8, 64)[:OBS_PAGED_PREFIX]
+    psids = zipf_stream_ids(PAGED_STREAMS, len(pbatches), ALPHA, SEED + 4)
+    paging = paging_plan(OBS_KERNEL_AT)
+    paged = MultiStreamEngine(make_collection(dev, ap_precision="q8_block"), PAGED_STREAMS, EngineConfig(
+        buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=True, coalesce=1, fault_injector=paging,
+        trace=rec), aot_cache=aot, stream_shard=True, resident_streams=RESIDENT)
+    run_engine(paged, True, list(zip(psids, pbatches)),
+               lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]]))
+    kill = FaultInjector(seed=17, plan={"dispatcher_kill": FaultSpec(schedule=(0,), transient=False, fatal=True)})
+    dead = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep",
+                                                              coalesce=1, fault_injector=kill, trace=rec),
+                           aot_cache=aot)
+    dead.start()
+    dead.submit(preds[:100], target[:100])
+    try:
+        dead.flush()
+        check(False, "18(b): the killed dispatcher's flush returned")
+    except EngineDispatchError as e:
+        check("dispatcher_kill" in str(e), f"18(b): {e}")
+    dead.reset()
+    dead.submit(preds[:100], target[:100])
+    dead.flush()
+    dead.stop()
+    fired = {}
+    for inj in (chaos, read, paging, kill):
+        for site, n in inj.fired.items():
+            fired[site] = fired.get(site, 0) + n
+    states = {"resumed": {k: {s: v.detach().cpu().numpy() for s, v in m.items()} for k, m in resumed.state().items()},
+              "paged": stacked_host(paged),
+              "dead": {k: {s: v.detach().cpu().numpy() for s, v in m.items()} for k, m in dead.state().items()}}
+    return rec, states, fired, {"paged_demotions": paged.stats.kernel_demotions, "cursor": cursor}
+
+
+def obs_chaos(dev, preds, target):
+    """18(b): the chaos plans of phase 17 (its 14 ported sites) twice into
+    fresh recorders on the card: identical canonical sequences, bit-identical
+    results, every firing a ``fault`` event."""
+    runs = [obs_chaos_run(dev, preds, target, obs_dir(f"b{i}")) for i in range(2)]
+    (rec0, states0, fired0, info0), (rec1, states1, fired1, _) = runs
+    check(rec0.dropped == rec1.dropped == 0, "18(b): the recorder dropped records")
+    check(rec0.canonical_sequence() == rec1.canonical_sequence(), "18(b): the canonical sequences differ")
+    check(fired0 == fired1 and len(fired0) == 14, f"18(b): fired {fired0} / {fired1}")
+    check(rec0.fault_sites() == fired0, f"18(b): fault events {rec0.fault_sites()} for firings {fired0}")
+    check(info0["paged_demotions"] == 1, f"18(b): {info0}")
+    for part, member in states0.items():
+        for k, leaves in member.items():
+            for name, v in leaves.items():
+                w = states1[part][k][name]
+                check(v.dtype == w.dtype and np.array_equal(v, w), f"18(b): {part} {k}.{name} differs between runs")
+    seq = rec0.canonical_sequence()
+    return {"fired": fired0, "records": {track: len(r) for track, r in seq.items()},
+            "events": {name: len(rec0.events(name)) for name in ("fault", "retry", "rollback", "kernel_demotion",
+                                                                  "quarantine")},
+            **info0}
+
+
+def obs_overload(dev, preds, target, preds_np, target_np):
+    """18(c): phase 9's paged tenancy on the port's hot-spot-shift traffic
+    (``shift_at`` the middle batch, the head rotated by S // 2), one batch a
+    group (a flush after each submit), under an AdmissionPolicy with one
+    shed class and a DegradationLadder on widen_coalesce, defer_cold_reads
+    and shed whose detector reads the spill rate only; a recovery tail over
+    resident streams; every stream against numpy over the admitted batches."""
+    from metrics_tpu_torch.engine import (
+        AdmissionPolicy,
+        AdmissionRejected,
+        DegradationLadder,
+        EngineConfig,
+        MultiStreamEngine,
+        OverloadDetector,
+        TraceRecorder,
+    )
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    n = len(batches)
+    sids = zipf_stream_ids(PAGED_STREAMS, n, ALPHA, SEED + 4, shift_at=n // 2, shift_rotation=PAGED_STREAMS // 2)
+    shed_streams = set(range(OBS_SHED_EVERY - 1, PAGED_STREAMS, OBS_SHED_EVERY))
+    admission = AdmissionPolicy(rows_per_s=1e9, burst_rows=1e9,  # the rate never binds: shedding is under test
+                                priorities={s: OBS_SHED_CLASS for s in shed_streams}, default_priority=1)
+    ladder = DegradationLadder(
+        detector=OverloadDetector(queue_p99_us=None, spill_rate=OBS_SPILL_RATE, queue_depth_frac=None),
+        rungs=("widen_coalesce", "defer_cold_reads", "shed"), up_after=OBS_UP_AFTER, down_after=OBS_DOWN_AFTER)
+    rec = TraceRecorder(capacity=1 << 17, device=dev)
+    eng = MultiStreamEngine(make_collection(dev), PAGED_STREAMS, EngineConfig(
+        buckets=PAGED_BUCKETS, kernel_backend="megastep", coalesce=1, admission=admission, ladder=ladder,
+        trace=rec), stream_shard=True, resident_streams=RESIDENT)
+    fed, shed, engaged = [], [], {}
+    top = len(ladder.rungs)
+
+    def feed(sid, a, b):
+        try:
+            eng.submit(sid, preds[a:b], target[a:b])
+        except AdmissionRejected as e:
+            check(e.shed and e.priority == OBS_SHED_CLASS and e.retry_after_s == float("inf"), f"18(c): {e}")
+            shed.append(sid)
+            return False
+        eng.flush()
+        fed.append((sid, a, b))
+        return True
+
+    t0 = time.perf_counter()
+    with eng:
+        for i, (sid, (a, b)) in enumerate(zip(sids, batches)):
+            feed(int(sid), a, b)
+            if engaged or eng.stats.ladder_level < top:
+                continue
+            # the shed rung engaged: a shed-class probe is refused, a cold
+            # stream's repeated read is served from the cache, and a recovery
+            # tail over resident streams (no spill) walks the ladder down
+            engaged["at_batch"] = i
+            probe = min(shed_streams)
+            check(not feed(probe, 0, 8), "18(c): a shed-class submit was admitted under the shed rung")
+            cold = next(s for s, _, _ in fed if s not in shed_streams and eng.pager.slot_of(0, s) is None)
+            v1, v2 = eng.result(cold), eng.result(cold)
+            check(eng.stats.deferred_reads == 1 and all(v1[k] is v2[k] for k in v1),
+                  f"18(c): {eng.stats.deferred_reads} deferred reads for stream {cold}")
+            engaged["cold_stream"] = cold
+            resident = [s for s in eng.pager.resident_streams(0) if s not in shed_streams][:8]
+            outs = eng.stats.page_outs
+            for j, (ta, tb) in enumerate(batches[:OBS_TAIL]):
+                feed(resident[j % len(resident)], ta, tb)
+                if eng.stats.ladder_level == 0 and "tail_to_level_0" not in engaged:
+                    engaged["tail_to_level_0"] = j + 1
+            check(eng.stats.ladder_level == 0 and eng.stats.page_outs == outs,
+                  f"18(c): the ladder is at {eng.stats.ladder_level} after the recovery tail "
+                  f"({eng.stats.page_outs - outs} spills in it)")
+            check(feed(probe, 0, 8), "18(c): the shed class is still refused after the walk down")
+        main_s = time.perf_counter() - t0
+        check(engaged and engaged["at_batch"] >= n // 2, f"18(c): the ladder reached shed at {engaged} "
+              f"(the shift is at batch {n // 2})")
+        level_at_end = eng.stats.ladder_level
+        text = eng.metrics_text()
+    transitions = [(e["args"]["action"], e["args"]["level"]) for e in rec.events("ladder")]
+    check(len(transitions) == eng.stats.ladder_transitions and len(rec.events("admission_rejected")) == len(shed),
+          "18(c): the ladder and admission events disagree with the counters")
+    check(rec.spans("page_in") and rec.spans("page_out") and rec.spans("route"), "18(c): no paging spans")
+    fams = trace_tools().parse_openmetrics(text)
+    for fam in ("admission_admitted", "admission_shed", "ladder_level", "ladder_transitions", "deferred_reads"):
+        check(f"metrics_tpu_engine_{fam}" in fams, f"18(c): family {fam} missing from metrics_text()")
+    check(eng.telemetry()["admission"]["shed_by_priority"] == {str(OBS_SHED_CLASS): len(shed)},
+          "18(c): the telemetry's admission block")
+    host = stacked_host(eng)
+    rows = {}
+    for sid, a, b in fed:
+        rows.setdefault(sid, []).append(np.arange(a, b))
+    touched = np.asarray(sorted(rows), np.int64)
+    for k, member in host.items():
+        for name, v in member.items():
+            rest = np.ones(PAGED_STREAMS, bool)
+            rest[touched] = False
+            check(not np.any(v[rest]), f"18(c): an untouched stream's {k}.{name} is not zero")
+    for sid, idx in rows.items():
+        want = oracle_states(preds_np[np.concatenate(idx)], target_np[np.concatenate(idx)])
+        for k, member in want.items():
+            for name, w in member.items():
+                check(np.array_equal(host[k][name][sid].astype(np.float64), np.asarray(w, np.float64)),
+                      f"18(c): stream {sid} {k}.{name} differs from numpy")
+    return {"batches": n, "shift_at": n // 2, "admitted": len(fed), "shed_drops": len(shed),
+            "shed_engaged": engaged, "level_at_end": level_at_end,
+            "transitions": eng.stats.ladder_transitions, "escalations": sum(a == "escalate" for a, _ in transitions),
+            "deferred_reads": eng.stats.deferred_reads, "steps": eng.steps, "page_outs": eng.stats.page_outs,
+            "page_ins": eng.stats.page_ins, "streams_checked": PAGED_STREAMS, "streams_touched": len(rows),
+            "main_seconds": main_s, "ms_per_batch": main_s / n * 1e3,
+            "page_in_spans": len(rec.spans("page_in")), "page_out_spans": len(rec.spans("page_out"))}
+
+
+def obs_fold_entry(dev, n_idx):
+    """The ``kernels`` entry of K2 at the recorder fold's shape: ``n_idx``
+    int32 bucket indices into 15 bins (18(a)'s step histogram, padded to a
+    power of two with the out-of-range 15, which drops), held against the
+    plain version and ``torch.bincount`` (with one bin more for the pad) and
+    timed. Before it, a card histogram against a CPU one over 4096 seeded
+    observations, each folded inline once."""
+    from metrics_tpu_torch.engine import DEFAULT_LATENCY_BUCKETS_US, FixedBucketHistogram
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda, histogram_plain
+
+    vals = np.random.RandomState(SEED + 18).gamma(2.0, 400.0, size=FixedBucketHistogram.FOLD_PENDING_AT)
+    card, cpu = (FixedBucketHistogram("h_us", device=d) for d in (dev, "cpu"))
+    for v in vals:
+        card.observe(v)
+        cpu.observe(v)
+    check(np.array_equal(card.bucket_counts(), cpu.bucket_counts()) and card.count == vals.size,
+          "recorder fold: the card's counts differ from the CPU's")
+    edges = np.asarray(DEFAULT_LATENCY_BUCKETS_US)
+    length = edges.size + 1
+    idx_np = np.full(n_idx, length, np.int32)
+    idx_np[: min(n_idx, vals.size)] = np.searchsorted(edges, vals[:n_idx], side="left")
+    idx = torch.from_numpy(idx_np).to(dev)
+    i2 = idx[None]
+    kernel = lambda: histogram_cuda(i2, length, None, None)  # noqa: E731
+    plain = lambda: histogram_plain(i2, length, None, None)  # noqa: E731
+    library = lambda: torch.bincount(idx, minlength=length + 1)  # noqa: E731
+    got, want, lib = kernel()[0], plain()[0], library()[:length].to(torch.int32)
+    check(torch.equal(got, want) and torch.equal(got, lib), "recorder fold: K2 differs from its plain version")
+    entry = {
+        "name": "histogram", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/hist.cu",
+        "replaces": "metrics_tpu/ops/kernels/pallas_hist.py:55",
+        "shape": f"idx ({n_idx},) int32 into {length} bins (the flight recorder's histogram fold)",
+        "max_abs_err": max_abs_err(got, want), "max_abs_err_bf16": None,
+        "ms": gpu_ms(kernel), "plain_ms": gpu_ms(plain), "library_ms": gpu_ms(library),
+        "device_us": device_us(kernel),
+    }
+    # the indices read once, the counts written once; one add per index
+    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * n_idx + 4 * length, n_idx)
+    return entry
+
+
+def obs_phase(dev, preds, target, preds_np, target_np, gpu_state):
+    """Phase 18: the flight recorder, the stats ring and OpenMetrics, and the
+    admission control and degradation ladder that read them (module docstring)."""
+    from metrics_tpu_torch.engine import AotCache
+
+    try:
+        return {"traced": obs_traced(dev, preds, target, gpu_state, AotCache()),
+                "chaos": obs_chaos(dev, preds, target),
+                "overload": obs_overload(dev, preds, target, preds_np, target_np)}
+    finally:
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4249,6 +4641,20 @@ def main():
     print(json.dumps({"chaos_phase": chaos, "launches": chaos_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 18, its counts from 0: K5 then K1 (18(b)'s demoted megastep engine), K6, K7 then K4 (its demoted
+    # paged engine), K2 (the steps and the recorder's folds) and K3 must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    obs = obs_phase(dev, preds, target, preds_np, target_np, gpu_state)
+    obs_launches = counts()
+    for k in kernels:
+        check(obs_launches[k] > 0, f"kernel {k} was not launched by the observability phase")
+    launches = {k: launches[k] + obs_launches[k] for k in launches}
+    print(json.dumps({"obs_phase": obs, "launches": obs_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+    fold_entry = obs_fold_entry(dev, obs["traced"]["fold_indices"])
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -4279,6 +4685,9 @@ def main():
         e["launches"] = launches[e["name"]]
         e["card"] = card
         entries.append(e)
+    fold_entry["launches"] = obs["traced"]["fold_k2_launches"]  # the scrape's folds in 18(a)
+    fold_entry["card"] = card
+    entries.append(fold_entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,7 +6,18 @@ a dispatcher thread that coalesces queued batches, as CUDA graphs captured
 once per step signature (:class:`AotCache`) on the card; crash-safe
 snapshots and the restore matrix (``engine/snapshot.py``), in a format the
 JAX package reads and writes, with the fault layer they stand on
-(``engine/faults.py``)."""
+(``engine/faults.py``); the telemetry ring (``engine/stats.py``), the flight
+recorder and its OpenMetrics view (``engine/trace.py``), admission control
+and the degradation ladder (``engine/admission.py``), and the seeded Zipf
+traffic the serving checks share (``engine/traffic.py``)."""
+from metrics_tpu_torch.engine.admission import (
+    LADDER_RUNGS,
+    AdmissionPolicy,
+    AdmissionRejected,
+    DegradationLadder,
+    OverloadDetector,
+    TokenBucket,
+)
 from metrics_tpu_torch.engine.aot import AotCache, metric_fingerprint
 from metrics_tpu_torch.engine.arena import ArenaLayout
 from metrics_tpu_torch.engine.bucketing import BucketPolicy
@@ -25,7 +36,7 @@ from metrics_tpu_torch.engine.faults import (
 from metrics_tpu_torch.engine.megastep import MegastepPlan, flat_reductions
 from metrics_tpu_torch.engine.multistream import MultiStreamEngine
 from metrics_tpu_torch.engine.paging import PageOp, StreamPager
-from metrics_tpu_torch.engine.pipeline import EngineConfig, EngineStats, StreamingEngine
+from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
 from metrics_tpu_torch.engine.quantize import (
     ArenaRowCodec,
     decode_state_tree,
@@ -34,22 +45,38 @@ from metrics_tpu_torch.engine.quantize import (
     q8_encode_array,
 )
 from metrics_tpu_torch.engine.snapshot import generations, latest_snapshot, load_snapshot, save_snapshot
+from metrics_tpu_torch.engine.stats import EngineStats
+from metrics_tpu_torch.engine.trace import (
+    DEFAULT_LATENCY_BUCKETS_US,
+    FixedBucketHistogram,
+    TraceRecorder,
+    device_trace_session,
+    render_openmetrics,
+)
+from metrics_tpu_torch.engine.traffic import zipf_stream_ids, zipf_traffic
 
 __all__ = [
+    "AdmissionPolicy",
+    "AdmissionRejected",
     "AotCache",
     "ArenaLayout",
     "ArenaRowCodec",
     "BackpressureTimeout",
     "BoundaryMergeError",
     "BucketPolicy",
+    "DEFAULT_LATENCY_BUCKETS_US",
+    "DegradationLadder",
     "EngineConfig",
     "EngineDispatchError",
     "EngineStats",
     "FaultInjector",
     "FaultSpec",
+    "FixedBucketHistogram",
     "InjectedFault",
+    "LADDER_RUNGS",
     "MegastepPlan",
     "MultiStreamEngine",
+    "OverloadDetector",
     "PageOp",
     "QuarantineRecord",
     "ScreenPolicy",
@@ -57,7 +84,10 @@ __all__ = [
     "StepTimeoutError",
     "StreamPager",
     "StreamingEngine",
+    "TokenBucket",
+    "TraceRecorder",
     "decode_state_tree",
+    "device_trace_session",
     "encode_state_tree",
     "flat_reductions",
     "generations",
@@ -66,5 +96,8 @@ __all__ = [
     "metric_fingerprint",
     "q8_decode_array",
     "q8_encode_array",
+    "render_openmetrics",
     "save_snapshot",
+    "zipf_stream_ids",
+    "zipf_traffic",
 ]

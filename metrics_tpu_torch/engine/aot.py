@@ -33,6 +33,7 @@ one cache share one memory pool and K3's zeroed scratch of the capture
 stream. ``compilation_cache_dir`` (XLA's on-disk cache) has no counterpart
 for a CUDA graph.
 """
+import gc
 import hashlib
 import threading
 import time
@@ -225,21 +226,29 @@ class CapturedStep:
         host with the device, which would break the capture, raises
         :class:`HostSyncError` and nothing is captured. A capture that fails
         all the same raises, after undoing what it left in PyTorch's
-        allocator and random generator; nothing falls back to the eager step
+        allocator and random generator and putting the calling thread back
+        on its own current stream; nothing falls back to the eager step
         (the compiled forward's caller marks the signature eager-only)."""
         a, kw = self.inputs.payload
         with torch.cuda.stream(stream), _host_syncs_refused(refuse_host_sync):
             fn(self.state, self.aux, a, kw, self.inputs.mask)
         before = [c.launches for c in LAUNCH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
+        # the caller's device and current stream: a capture whose end raises
+        # leaves its thread on the capture stream (torch.cuda.graph exits its
+        # stream context only after a successful end)
+        prev_device, prev_stream = torch.cuda.current_device(), torch.cuda.current_stream(stream.device)
         try:
             # thread-local: producers on other threads keep copying and
             # allocating while this thread captures
             # the kernel fault hook ran in the warm-up: once per capture
-            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"), \
+            with _gc_paused(), \
+                    torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"), \
                     kernel_fault_scope(None):
                 out = fn(self.state, self.aux, a, kw, self.inputs.mask)
         except BaseException:
+            torch.cuda.set_stream(prev_stream)
+            torch.cuda.set_device(prev_device)
             _recover_failed_capture(stream, pool)
             raise
         finally:
@@ -306,12 +315,48 @@ def _host_syncs_refused(on: bool) -> Iterator[None]:
         raise HostSyncError(f"the step synchronizes with the host ({len(syncs)} times); it cannot be captured")
 
 
+_GC_PAUSE_LOCK = threading.Lock()
+_gc_pause = {"depth": 0, "was_enabled": False}
+
+
+@contextmanager
+def _gc_paused() -> Iterator[None]:
+    """No automatic Python garbage collection while a capture runs, on any
+    thread. A collection runs on whichever thread allocates, so one inside a
+    capture body may free cyclic garbage that owns a CUDA graph (a dead
+    engine's captured steps, a dead metric's compiled forward): the graph's
+    destruction is a call a capturing thread may not make, and it
+    invalidates the capture. Nested and concurrent captures share one pause;
+    the collector's earlier state comes back when the last one ends."""
+    with _GC_PAUSE_LOCK:
+        if _gc_pause["depth"] == 0:
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["depth"] += 1
+    try:
+        yield
+    finally:
+        with _GC_PAUSE_LOCK:
+            _gc_pause["depth"] -= 1
+            if _gc_pause["depth"] == 0 and _gc_pause["was_enabled"]:
+                gc.enable()
+
+
 def _recover_failed_capture(stream: torch.cuda.Stream, pool: Any) -> None:
     """Undo what a capture that failed inside (an illegal op invalidates it,
     and ending it raises before PyTorch's own clean-up) leaves behind: the
-    allocator still recording into ``pool``, and the device's default
-    random generator still marked as capturing, where every later random op
-    raises. A one-op capture on ``stream`` clears that mark as every
+    allocator still recording into ``pool``, the capture's reference on
+    ``pool``, and the device's default random generator still marked as
+    capturing, where every later random op raises.
+
+    The capture's begin took one reference on the pool, which a graph gives
+    back when it is reset or dies, but only a graph whose capture ENDED: so
+    the reference is released here, once the allocator stopped recording
+    (``CUDAGraph.reset`` makes the same ``releasePool`` call). The pool's
+    memory is then freed by ``torch.cuda.empty_cache()`` once its last
+    graph is gone. When the allocator was not recording, the capture's own
+    end stopped it or its begin never ran, and no reference is released. A
+    one-op capture on ``stream`` then clears the generator's mark as every
     capture's end does, on the same generator state, which a user's own
     graphs that draw random numbers share."""
     index = stream.device.index if stream.device.index is not None else torch.cuda.current_device()
@@ -319,8 +364,10 @@ def _recover_failed_capture(stream: torch.cuda.Stream, pool: Any) -> None:
         torch._C._cuda_endAllocateToPool(index, pool)
     except RuntimeError:  # not recording
         pass
+    else:
+        torch._C._cuda_releasePool(index, pool)
     closing = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(closing, stream=stream, capture_error_mode="thread_local"):
+    with _gc_paused(), torch.cuda.graph(closing, stream=stream, capture_error_mode="thread_local"):
         torch.zeros((1,), device=stream.device)
 
 
@@ -331,7 +378,7 @@ def _anchored_pool(stream: torch.cuda.Stream) -> Tuple[Any, torch.cuda.CUDAGraph
     compiled forward's graphs die with their metrics."""
     pool = torch.cuda.graph_pool_handle()
     anchor = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(anchor, pool=pool, stream=stream, capture_error_mode="thread_local"):
+    with _gc_paused(), torch.cuda.graph(anchor, pool=pool, stream=stream, capture_error_mode="thread_local"):
         torch.zeros((1,), device=stream.device)
     return pool, anchor
 
@@ -362,6 +409,11 @@ class AotCache:
         """Snapshot of every entry's structural key."""
         with self._lock:
             return tuple(self._programs)
+
+    def contains(self, key: Tuple) -> bool:
+        """Is there an entry for ``key`` (without counting a lookup)?"""
+        with self._lock:
+            return key in self._programs
 
     def count_hit(self) -> None:
         """Count a hit served from an engine-local memo."""
@@ -421,7 +473,9 @@ class AotCache:
             except HostSyncError:
                 raise  # nothing was captured: the pool is sound
             except BaseException:
-                # later captures take a fresh pool: PyTorch may still count this one as recording
+                # later captures take a fresh pool; this one (its anchor dropped
+                # here, the failed capture's reference released by
+                # _recover_failed_capture) is freed once its graphs are gone
                 del self._pools[device]
                 raise
             finally:

@@ -49,6 +49,15 @@ merge into the ``(S, ...)`` state; anything else is refused with JAX's
 message. Windows and multi-GPU stream sharding over ``torch.distributed`` are
 not ported yet (ROADMAP §A).
 
+Observability and overload (``engine/pipeline.py``): every span of a batch's
+journey carries its ``stream_id`` (the megabatch span all its
+``stream_ids``); the paged form adds ``route``, ``page_out`` and ``page_in``
+spans and their ``route_us``, ``page_out_us`` and ``page_in_us`` histograms.
+Admission is per stream (its own token bucket and priority class). Under the
+ladder's ``defer_cold_reads`` rung, ``result()`` of a COLD stream (not
+resident; any stream of the unsharded form) serves the last value computed
+for it, counted as a deferred read; the rung's release clears the cache.
+
 The fault layer (``engine/pipeline.py``) reaches the pager and the codec
 where the JAX package's does: a spill consults ``page_out`` (and
 ``quant_encode``), a fault-in ``page_in`` (and ``quant_decode`` per staged
@@ -57,6 +66,7 @@ decode or encode of spilled or snapshot rows its codec site. Demoted
 (``megastep -> auto``), a q8-staging engine's next step seats its staged
 slots with the codec's arithmetic before K4, and staging stops.
 """
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,6 +78,7 @@ from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine, _add_committed
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
+from metrics_tpu_torch.engine.trace import ENGINE_TRACE
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -162,6 +173,9 @@ class MultiStreamEngine(StreamingEngine):
         super().__init__(metric, config=config, aot_cache=aot_cache)
         self._row_codec: Optional[ArenaRowCodec] = None
         if self._stream_shard:
+            # the JAX package's stream-sharded engine at world 1: no
+            # steady-state collective, boundary reads per row
+            self._stats.mesh_sync = "stream_shard"
             self._pager = StreamPager(1, self._resident)
             # one stream's packed init row per dtype, host numpy: the fault-in
             # source for never-touched (and reset) streams
@@ -277,7 +291,14 @@ class MultiStreamEngine(StreamingEngine):
         """Enqueue one (ragged) batch for ``stream_id``; blocks and times out
         as ``StreamingEngine.submit`` does."""
         sid = self._check_stream(stream_id)
-        self._submit_item((sid, args, kwargs), timeout)
+        item = (sid, args, kwargs)
+        if self._admission is not None:
+            # per-STREAM admission: the stream's own token bucket and class
+            self._raise_if_failed()
+            self.start()
+            self._admitted_submit(sid, item, (args, kwargs), timeout)
+        else:
+            self._submit_item(item, timeout)
 
     # ------------------------------------------------------------ dispatcher hooks
 
@@ -313,28 +334,33 @@ class MultiStreamEngine(StreamingEngine):
     def _item_context(self, item: Any) -> Dict[str, Any]:
         return {"stream_id": item[0]}
 
-    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
+    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int,
+                         queue_wait_us: float = 0.0) -> None:
         if not self._stream_shard:
-            super()._execute_payload(merged, n, coalesced)
+            super()._execute_payload(merged, n, coalesced, queue_wait_us)
             return
         args, kwargs = merged
-        self._execute_routed(args[0], tuple(args[1:]), kwargs, n, coalesced)
+        self._execute_routed(args[0], tuple(args[1:]), kwargs, n, coalesced, queue_wait_us)
 
     # ------------------------------------------------------------ the paged form
 
     def _execute_routed(self, sids: np.ndarray, args: Tuple[Any, ...], kwargs: Dict[str, Any], n: int,
-                        coalesced: int) -> None:
+                        coalesced: int, queue_wait_us: float = 0.0) -> None:
         """Run a batch through the pager in ROUNDS (the JAX package's routed
         execution at world 1): each round takes up to the top bucket's rows
         and at most ``resident`` distinct streams (so the pager can always
         seat it), pages those streams resident, and runs ONE padded step
-        whose segment ids are the pager's slot indices."""
+        whose segment ids are the pager's slot indices. With a recorder, the
+        group's routing is one ``route`` span (its rows and rounds)."""
+        t_route0 = time.perf_counter()
         leaves, _ = tree_flatten((tuple(args), kwargs))
         locs = sids.astype(np.int64)  # world 1: a stream's local index is its id
         per_top = self._policy.buckets[-1]
+        route_us = (time.perf_counter() - t_route0) * 1e6
         cursor, committed = 0, 0
         try:
             while cursor < n:
+                t0 = time.perf_counter()
                 end, distinct = cursor, set()
                 while end < n and end - cursor < per_top:
                     loc = int(locs[end])
@@ -355,7 +381,8 @@ class MultiStreamEngine(StreamingEngine):
                 step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(args), kwargs))
                 try:
                     self._run_padded_step(step_leaves, [WHOLE] + kinds, step_def, cursor, end, bucket,
-                                          coalesced if cursor == 0 else 1)
+                                          coalesced if cursor == 0 else 1, queue_wait_us if cursor == 0 else 0.0,
+                                          t0)
                 except BaseException:
                     # a failed step never ran the kernel's decode: seat the staged
                     # slots through the host decode before anything reads them
@@ -377,6 +404,11 @@ class MultiStreamEngine(StreamingEngine):
         except Exception as e:
             _add_committed(e, committed)
             raise
+        tr = self._trace
+        if tr is not None:
+            tr.complete("route", trace=self._group_tid or ENGINE_TRACE, dur_us=route_us, rows=int(n),
+                        rounds=committed)
+            tr.observe("route_us", route_us)
 
     def _page_round(self, streams: List[int]) -> None:
         """Make every stream in ``streams`` resident: plan with the pager,
@@ -394,26 +426,37 @@ class MultiStreamEngine(StreamingEngine):
         self._stats.page_faults += faults
         evicts = [op for op in ops if op.kind == "evict"]
         loads = [op for op in ops if op.kind == "load"]
+        tr = self._trace
+        gid = self._group_tid or ENGINE_TRACE
         spilled: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
         if evicts:
             js = torch.tensor([op.slot for op in evicts], device=self._device)
 
-            def spill_once() -> Dict[str, np.ndarray]:
+            def spill_once() -> Tuple[Dict[str, np.ndarray], float]:
                 self._fault("page_out")
+                t0 = time.perf_counter()
                 rows = {k: _host(gather_rows(v, js)) for k, v in self._state.items()}  # one gather per dtype
                 if self._compress and self._row_codec is not None:
                     # quantize BEFORE host RAM holds them; pure in ``rows``
                     self._fault("quant_encode")
                     rows = self._row_codec.encode_buffers(rows)
-                return rows
+                return rows, t0
 
-            rows = self._retry_transient(spill_once)
+            rows, t0 = self._retry_transient(spill_once)
+            dur = (time.perf_counter() - t0) * 1e6
             for i, op in enumerate(evicts):
                 spilled[(op.shard, op.stream)] = {k: rows[k][i].copy() for k in rows}
             self._stats.page_outs += len(evicts)
+            if tr is not None:
+                tr.complete("page_out", trace=gid, dur_us=dur, rows=len(evicts))
+                tr.observe("page_out_us", dur)
         if loads:
+            t_load = time.perf_counter()
+
             def load_once() -> Tuple[List[Dict[str, np.ndarray]], List[Any]]:
+                nonlocal t_load
                 self._fault("page_in")
+                t_load = time.perf_counter()
                 src_rows: List[Dict[str, np.ndarray]] = []
                 staged: List[Any] = []
                 for op in loads:
@@ -443,8 +486,20 @@ class MultiStreamEngine(StreamingEngine):
                         codes[op.slot] = torch.from_numpy(st[k][0]).to(self._device)
                         scales[op.slot] = torch.from_numpy(st[k][1]).to(self._device)
             self._stats.page_ins += len(loads)
+            if tr is not None:
+                dur = (time.perf_counter() - t_load) * 1e6
+                tr.complete("page_in", trace=gid, dur_us=dur, rows=len(loads))
+                tr.observe("page_in_us", dur)
         if ops:
             self._pager.commit(ops, spilled)
+        self._refresh_gauges()
+
+    def _refresh_gauges(self) -> None:
+        """The paging gauges of the telemetry: occupied slots, spilled
+        streams and the spill store's bytes in host RAM."""
+        self._stats.resident_streams = self._pager.resident_count()
+        self._stats.spilled_streams = self._pager.spilled_count()
+        self._stats.spilled_bytes = self._pager.spill_nbytes()
 
     # -------------------------------------------------------- q8-resident staging
 
@@ -567,13 +622,36 @@ class MultiStreamEngine(StreamingEngine):
 
     def result(self, stream_id: int) -> Any:  # type: ignore[override]
         """``stream_id``'s value (after a flush): the paged form reads ONLY
-        that stream's row. Computed traced, as :meth:`StreamingEngine.result`."""
+        that stream's row. Computed traced, as :meth:`StreamingEngine.result`.
+        While the ladder's ``defer_cold_reads`` rung is engaged, a cold
+        stream with a cached value gets that value, with no flush and no
+        device work."""
         sid = self._check_stream(stream_id)
+        tr = self._trace
+        if self._defer_cold_reads:
+            # cold = not resident (the pager's own notion); the unsharded form
+            # defers any repeat read. The staleness window closes when the
+            # rung is released (the cache is cleared)
+            with self._state_lock:
+                cached = self._result_cache.get(sid)
+                cold = self._pager.slot_of(_SHARD, sid) is None if self._stream_shard else True
+            if cached is not None and cold:
+                self._stats.record_deferred_read()
+                if tr is not None:
+                    tr.event("deferred_read", trace=ENGINE_TRACE, stream_id=sid)
+                return cached
+        handle = tr.begin("result", trace=ENGINE_TRACE, stream_id=sid) if tr is not None else None
         self.flush()
         with self._device_section(), traced_rows():
             value = self._metric.compute_from(self._stream_tree(sid))
             self._stats.result_device_calls += 1
-            return value
+            if self._ladder is not None:
+                # the defer rung's source: only ladder-armed engines keep it
+                self._result_cache[sid] = value
+        if handle is not None:
+            self._value_in_hand()
+            tr.observe("result_latency_us", tr.end(handle))
+        return value
 
     def results(self) -> Dict[int, Any]:
         """Every stream's value, on the host, from ONE batched computation for
@@ -610,8 +688,10 @@ class MultiStreamEngine(StreamingEngine):
         sid = self._check_stream(stream_id)
         self.flush()
         with self._device_section():
+            self._result_cache.pop(sid, None)
             if self._stream_shard:
                 self._pager.drop(_SHARD, sid)
+                self._refresh_gauges()
                 return
             init = tree_leaves(self._metric.init_state())
             for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
@@ -622,6 +702,8 @@ class MultiStreamEngine(StreamingEngine):
             self._pager.reset()
             self._q8_clear()
         super()._reset_locked()
+        if self._pager is not None:
+            self._refresh_gauges()
 
     # ------------------------------------------------------------- snapshot/restore
 
@@ -829,6 +911,7 @@ class MultiStreamEngine(StreamingEngine):
             self._finish_restore(carried, meta)
             self._pager.load_payload(payload)
             self._q8_clear()
+            self._refresh_gauges()
 
     @property
     def pager(self) -> Optional[StreamPager]:

@@ -58,21 +58,44 @@ event is polled until the deadline, and an expiry rolls back and retries. A
 megabatch that failed before any chunk committed re-runs its batches one by
 one (shrink-on-retry).
 
-Tracing, admission control, windows, meshes and XLA's
-``compilation_cache_dir`` are not ported (ROADMAP §A): their ``EngineConfig``
-fields, and an injector plan naming one of their fault sites, raise
-:class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
+Observability (``engine/stats.py``, ``engine/trace.py``): ``stats`` keeps a
+ring of the last ``telemetry_capacity`` steps and lifetime counters;
+``trace`` attaches a :class:`~metrics_tpu_torch.engine.trace.TraceRecorder`
+that stamps every stage of a batch's journey as a span (submit, queue wait,
+the coalesced megabatch linking its submits, pad, capture lookup, device
+step, syncs, snapshot write/restore) and every fault firing, retry,
+rollback, demotion and quarantine as an event, with the JAX package's names
+and deterministic args, so one seeded chaos plan gives both packages the
+same ``canonical_sequence()``. ``telemetry()``, ``export_telemetry()``,
+``export_trace()`` and ``metrics_text()`` export them. Without a recorder
+each site costs one ``is not None`` test.
+
+Overload (``engine/admission.py``): an ``admission`` policy admits or
+refuses each submit before it queues (a refused batch never takes a replay
+cursor; a submit whose enqueue then fails is refunded), and a ``ladder``
+ticks once per dispatcher group (and on a producer's shed rejection),
+engaging or releasing one rung at a time: ``widen_coalesce`` moves
+``coalesce_window_ms``, ``quantize_sync`` is a recorded no-op without a
+mesh, ``defer_cold_reads`` serves a cold stream's cached ``result()``,
+``shed`` rejects the lowest priority class.
+
+Windows, meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP
+§A): their ``EngineConfig`` fields, and an injector plan naming one of their
+fault sites, raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
 """
+import copy
 import queue
 import threading
 import time
+import weakref
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.engine.admission import AdmissionPolicy, AdmissionRejected, DegradationLadder
 from metrics_tpu_torch.engine.aot import EAGER, AotCache, CapturedStep, metric_fingerprint
 from metrics_tpu_torch.engine.arena import ArenaLayout
 from metrics_tpu_torch.engine.bucketing import (
@@ -99,6 +122,8 @@ from metrics_tpu_torch.engine.faults import (
 from metrics_tpu_torch.engine.megastep import MegastepPlan
 from metrics_tpu_torch.engine.quantize import CODEC_ID, decode_state_tree, encode_state_tree
 from metrics_tpu_torch.engine.snapshot import load_snapshot, save_snapshot
+from metrics_tpu_torch.engine.stats import EngineStats, _percentile
+from metrics_tpu_torch.engine.trace import ENGINE_TRACE, TraceRecorder, render_openmetrics
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
@@ -110,13 +135,12 @@ __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = (
-    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "telemetry_capacity", "trace", "admission",
-    "ladder", "elastic_min_world", "window", "drift",
+    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "elastic_min_world", "window", "drift",
 )
 #: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
 _PORTED_FAULT_SITES = (
     "ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
-    "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill",
+    "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
 )
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
@@ -184,8 +208,9 @@ class EngineConfig:
             at every site the engines wire (``ingest``, ``coalesce``,
             ``compile``, ``step``, ``kernel``, ``watchdog``, ``page_out``,
             ``page_in``, ``quant_encode``, ``quant_decode``, the snapshot
-            sites and ``dispatcher_kill``); a plan naming a site of a layer
-            the port does not have yet raises :class:`NotPortedError`.
+            sites, ``dispatcher_kill`` and ``admission``); a plan naming a
+            site of a layer the port does not have yet raises
+            :class:`NotPortedError`.
         screen: optional :class:`~metrics_tpu_torch.engine.faults.ScreenPolicy`:
             each batch is screened on the host before anything is uploaded;
             ``"quarantine"`` dead-letters it (the replay cursor still
@@ -212,6 +237,30 @@ class EngineConfig:
         degrade_kernel: demote the engine ``megastep -> auto`` when an
             injected ``kernel`` fault fires (the kernel tag is part of every
             step key, so the demoted steps capture anew).
+        telemetry_capacity: size of the per-step telemetry ring
+            (``engine/stats.py``).
+        trace: optional :class:`~metrics_tpu_torch.engine.trace.TraceRecorder`,
+            the flight recorder: every submitted batch gets a trace id, the
+            dispatcher stamps each stage as a span (a megabatch span LINKS
+            the submit spans it absorbed), every fault firing becomes an
+            event, and ``export_trace(path)``/``metrics_text()`` expose the
+            Perfetto and OpenMetrics views. None costs one ``is not None``
+            test per site.
+        admission: optional :class:`~metrics_tpu_torch.engine.admission.AdmissionPolicy`:
+            per-stream token buckets with priority classes on the submit
+            path; a refused submit raises
+            :class:`~metrics_tpu_torch.engine.admission.AdmissionRejected`
+            (with ``retry_after_s``) before the batch queues, so it never
+            takes a replay cursor.
+        ladder: optional :class:`~metrics_tpu_torch.engine.admission.DegradationLadder`:
+            once per dispatcher group the engine feeds its overload detector
+            (p99 queue residency from the recorder's ``queue_wait_us``
+            histogram when one is attached, the stats ring otherwise; the
+            pager's spill rate; queue fill) and applies or releases rungs on
+            its transitions: widen ``coalesce_window_ms``, ``quantize_sync``
+            (a recorded no-op: the port has no mesh), defer cold-stream
+            ``result()`` reads, shed the lowest priority class (needs
+            ``admission``). Every transition is a ``ladder`` trace event.
 
     Any other field of the JAX package's ``EngineConfig`` raises
     :class:`NotPortedError`.
@@ -240,6 +289,10 @@ class EngineConfig:
         step_timeout_s: float = 0.0,
         transactional: Optional[bool] = None,
         degrade_kernel: bool = True,
+        telemetry_capacity: int = 1024,
+        trace: Optional[TraceRecorder] = None,
+        admission: Optional[AdmissionPolicy] = None,
+        ladder: Optional[DegradationLadder] = None,
         **fields: Any,
     ) -> None:
         unported = sorted(k for k in fields if k in _NOT_PORTED_FIELDS)
@@ -275,6 +328,10 @@ class EngineConfig:
         self.step_timeout_s = float(step_timeout_s)
         self.transactional = transactional
         self.degrade_kernel = bool(degrade_kernel)
+        self.telemetry_capacity = int(telemetry_capacity)
+        self.trace = trace
+        self.admission = admission
+        self.ladder = ladder
 
     def __repr__(self) -> str:
         return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
@@ -286,82 +343,8 @@ class EngineConfig:
                 f"backoff_base_ms={self.backoff_base_ms}, backoff_max_ms={self.backoff_max_ms}, "
                 f"screen={self.screen!r}, quarantine_capacity={self.quarantine_capacity}, "
                 f"step_timeout_s={self.step_timeout_s}, transactional={self.transactional}, "
-                f"degrade_kernel={self.degrade_kernel})")
-
-
-class EngineStats:
-    """Counters of one engine: steps, coalesced megasteps, valid and padded
-    rows, capture warm-ups, kernel fallback verdicts, the pager's page
-    traffic (paged multi-stream engine), and recovery: snapshots written and
-    failed, restores and their generation fallbacks, injected faults by site,
-    retries, pre-step rollbacks, ``megastep -> auto`` kernel demotions,
-    coalesce degradations and shrinks, watchdog expiries and quarantined
-    batches and rows (the JAX package's names)."""
-
-    def __init__(self) -> None:
-        # fault and retry counts are bumped from the dispatcher and from
-        # callers' threads (snapshot(), restore())
-        self._counter_lock = threading.Lock()
-        self.steps = 0
-        self.batches_submitted = 0
-        self.batches_coalesced = 0  # submitted batches folded into a shared step
-        self.megasteps = 0  # steps that carried > 1 submitted batch
-        self.warmup_steps = 0  # steps run once on a copy of the state before a capture
-        self.rows_in = 0
-        self.rows_padded = 0
-        self.routed_steps = 0
-        # device computations of MultiStreamEngine.result()/results(): one per
-        # results() call, whatever the number of streams
-        self.result_device_calls = 0
-        self.page_hits = 0
-        self.page_faults = 0
-        self.page_ins = 0
-        self.page_outs = 0
-        self.q8_staged_rows = 0  # page-ins seated as int8 codes for K7 to decode
-        self.kernel_fallbacks: Dict[str, int] = {}
-        self.snapshots = 0
-        self.snapshot_failures = 0  # periodic snapshots that failed (contained, never sticky)
-        self.snapshot_fallbacks = 0  # restores that walked past a corrupt generation
-        self.resumes = 0
-        self.retries = 0
-        self.rollbacks = 0
-        self.kernel_demotions = 0
-        self.coalesce_degraded = 0  # groups served as singletons after a coalesce fault
-        self.coalesce_shrinks = 0  # failed megabatches re-run batch by batch
-        self.watchdog_timeouts = 0
-        self.quarantined_batches = 0
-        self.quarantined_rows = 0
-        self.faults_injected: Dict[str, int] = {}
-
-    def record_fault(self, site: str) -> None:
-        """One injected fault fired at ``site``."""
-        with self._counter_lock:
-            self.faults_injected[site] = self.faults_injected.get(site, 0) + 1
-
-    def faults_by_site(self) -> Dict[str, int]:
-        with self._counter_lock:
-            return dict(self.faults_injected)
-
-    def record_retry(self) -> None:
-        """One bounded-retry attempt."""
-        with self._counter_lock:
-            self.retries += 1
-
-    def record_step(self, bucket: int, valid: int, coalesced: int = 1) -> None:
-        self.steps += 1
-        self.rows_in += int(valid)
-        self.rows_padded += int(bucket)
-        if coalesced > 1:
-            self.megasteps += 1
-            self.batches_coalesced += int(coalesced)
-
-    def record_kernel_fallback(self, reason: str) -> None:
-        self.kernel_fallbacks[reason] = self.kernel_fallbacks.get(reason, 0) + 1
-
-    def kernel_fallbacks_by_reason(self) -> Dict[str, int]:
-        """Per-reason counts: ``engine:<reason>`` when the engine cannot take
-        the megastep path at all, ``dtype.<key>:<why>`` per degraded dtype."""
-        return dict(self.kernel_fallbacks)
+                f"degrade_kernel={self.degrade_kernel}, telemetry_capacity={self.telemetry_capacity}, "
+                f"trace={self.trace!r}, admission={self.admission!r}, ladder={self.ladder!r})")
 
 
 _STOP = object()  # the dispatcher's stop sentinel
@@ -427,11 +410,21 @@ class StreamingEngine:
     metric's device (``cuda`` by default). ``aot_cache`` (an :class:`AotCache`)
     may be shared by several engines: equally configured engines share its
     captured steps.
+
+    :data:`_LADDER_P99_EVERY` throttles the degradation ladder's p99
+    queue-residency refresh (a histogram fold or a ring sort) to one read per
+    that many ticks.
     """
+
+    _LADDER_P99_EVERY = 8
 
     def __init__(self, metric: Any, config: Optional[EngineConfig] = None, aot_cache: Optional[AotCache] = None):
         self._metric = metric
-        self._cfg = config if config is not None else EngineConfig()
+        # a PRIVATE copy of the config: the ladder's widen rung moves
+        # coalesce_window_ms, which must not reach another engine built from
+        # the same config (shallow: the injector, recorder and policy objects
+        # are meant to be shared)
+        self._cfg = copy.copy(config) if config is not None else EngineConfig()
         reason = self._update_path_unsupported_reason(metric)
         if reason is not None:
             raise MetricsTPUUserError(f"metric cannot be served by the streaming engine: {reason}")
@@ -445,10 +438,49 @@ class StreamingEngine:
         inj = self._cfg.fault_injector
         if inj is not None and not isinstance(inj, FaultInjector):
             raise MetricsTPUUserError(f"config.fault_injector must be a FaultInjector, got {type(inj).__name__}")
+        if self._cfg.trace is not None and not isinstance(self._cfg.trace, TraceRecorder):
+            raise MetricsTPUUserError(f"config.trace must be a TraceRecorder, got {type(self._cfg.trace).__name__}")
+        if self._cfg.admission is not None and not isinstance(self._cfg.admission, AdmissionPolicy):
+            raise MetricsTPUUserError(
+                f"config.admission must be an AdmissionPolicy, got {type(self._cfg.admission).__name__}")
+        if self._cfg.ladder is not None and not isinstance(self._cfg.ladder, DegradationLadder):
+            raise MetricsTPUUserError(
+                f"config.ladder must be a DegradationLadder, got {type(self._cfg.ladder).__name__}")
         if self._cfg.snapshot_every > 0 and not self._cfg.snapshot_dir:
             raise MetricsTPUUserError("snapshot_every > 0 requires snapshot_dir")
         self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value)
-        self._stats = EngineStats()
+        self._stats = EngineStats(self._cfg.telemetry_capacity)
+        # None (the default) keeps every site at one `is not None` test
+        self._admission = self._cfg.admission
+        self._ladder = self._cfg.ladder
+        if self._ladder is not None:
+            # a ladder is STATEFUL per engine (its level, streaks and the rung
+            # effects it drives): two engines advancing one ladder would leave
+            # rungs stuck. An AdmissionPolicy may be shared (one admission domain)
+            owner = getattr(self._ladder, "_owner", None)
+            if owner is not None and owner() is not None and owner() is not self:
+                raise MetricsTPUUserError(
+                    "this DegradationLadder is already driving another engine; a ladder is stateful per engine "
+                    "— construct one per engine (share the AdmissionPolicy for a shared admission domain)"
+                )
+            self._ladder._owner = weakref.ref(self)
+        # serializes ladder state and rung application: ticks come from the
+        # dispatcher (per group) AND from producers on shed rejections
+        self._ladder_lock = threading.Lock()
+        self._ladder_marks = (0, 0)  # (steps, page_outs) at the last tick
+        self._ladder_ticks = 0
+        self._ladder_p99: Optional[float] = None  # the throttled signal
+        self._ladder_saved_window = self._cfg.coalesce_window_ms
+        self._defer_cold_reads = False
+        self._result_cache: Dict[Any, Any] = {}
+        # the flight recorder: None means every site is one None test
+        self._trace: Optional[TraceRecorder] = self._cfg.trace
+        # submit-time [trace id, submit stamp] of queued items, by object
+        # identity: registered BEFORE the enqueue (the dispatcher may take the
+        # item at once) and popped when its group is picked up or dropped
+        self._trace_ids: Dict[int, List[Any]] = {}
+        self._group_tid: Optional[str] = None  # the dispatcher's current group
+        self._last_aot_outcome = "hit"  # set by every _program call
         self._compress = self._cfg.compress_payloads
         # the sync-precision policy tag, pinned at construction: it is part of
         # every step key and the codec fingerprint of compressed snapshots
@@ -485,7 +517,6 @@ class StreamingEngine:
         self._worker: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._state_lock = threading.RLock()
-        self._submit_lock = threading.Lock()
         self._inflight: Deque[torch.cuda.Event] = deque()
         self._batches_done = 0
         # metrics that DERIVE compute attrs from data (Accuracy's input-mode
@@ -614,6 +645,7 @@ class StreamingEngine:
         hit = self._program_memo.get(memo_key)
         if hit is not None:
             self._aot.count_hit()
+            self._last_aot_outcome = "hit"
             return hit
         if self._metric_fp is None:
             self._metric_fp = metric_fingerprint(self._metric)
@@ -625,6 +657,9 @@ class StreamingEngine:
             layout=self._layout, backend=self._kernel_tag(), device=self._device,
             precision=self._precision_tag,
         )
+        # this engine's own outcome (under a shared cache, another engine's
+        # capture between the test and the lookup can only mislabel a duel)
+        self._last_aot_outcome = "hit" if self._aot.contains(key) else "miss"
         if not self._capture:
             entry, ring = self._aot.get_or_capture(key, lambda: EAGER), None
         else:
@@ -656,59 +691,100 @@ class StreamingEngine:
         return a, kw, mask
 
     def _run_padded_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
-                         bucket: int, coalesced: int) -> None:
+                         bucket: int, coalesced: int, queue_wait_us: float = 0.0,
+                         t0: Optional[float] = None) -> None:
         """One padded step, transactionally: rows ``[start, stop)`` of the ROWS
         leaves padded to ``bucket``, the other leaves as they are. The shadow
         takes the pre-step state; a failed attempt rolls back onto it and
         :meth:`_recover_step` retries it, demotes the kernels or lets it go
-        sticky with the step and bucket attached."""
+        sticky with the step and bucket attached. ``t0`` is when the host
+        began building this chunk (the paged form: its round, paging
+        included): the ``pad`` span and the telemetry record start there."""
+        t_pad = time.perf_counter()
+        if t0 is None:
+            t0 = t_pad
+        tr = self._trace
+        if tr is not None:
+            tr.complete("pad", trace=self._group_tid or ENGINE_TRACE, dur_us=(t_pad - t0) * 1e6, bucket=bucket,
+                        rows=stop - start)
         attempt = 0
         while True:
             shadow = self._step_shadow()
             try:
-                self._do_step(leaves, kinds, treedef, start, stop, bucket)
-                break
+                self._do_step(leaves, kinds, treedef, start, stop, bucket, coalesced, queue_wait_us, t0, t_pad)
+                return
             except Exception as e:
                 if not self._recover_step(e, shadow, attempt):
                     _attach_ctx(e, step=self._step, bucket=bucket)
                     raise
                 attempt += 1
-        self._step += 1
-        self._stats.record_step(bucket, stop - start, coalesced)
-        if not self._watchdog_enabled:  # a watched step was drained before its commit
-            self._bound_inflight()
 
     def _do_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
-                 bucket: int) -> None:
-        """One attempt of a step. Its fault sites fire in the JAX package's
-        order: ``compile``, ``kernel`` (while on the megastep kernels), the
-        step itself, then ``step`` (the device work is enqueued and, on the
-        card, has written the state in place: the rollback's case) and
-        ``watchdog``. On the card it replays the step's captured graph
-        (capturing it on a miss); elsewhere it runs eagerly and the new state
-        is written only at the commit."""
+                 bucket: int, coalesced: int, queue_wait_us: float, t0: float, t_pad: float) -> None:
+        """One attempt of a step, and its commit. Its fault sites fire in the
+        JAX package's order: ``compile``, ``kernel`` (while on the megastep
+        kernels), the step itself, then ``step`` (the device work is enqueued
+        and, on the card, has written the state in place: the rollback's
+        case) and ``watchdog``. On the card it replays the step's captured
+        graph (capturing it on a miss); elsewhere it runs eagerly and the new
+        state is written only at the commit. With a recorder attached the
+        capture lookup is an ``aot`` span (``cache`` hit or miss) and the
+        device work a ``device_step`` span, enqueued under the profiler label
+        ``device_step:<step>``."""
+        tr = self._trace
+        gid = self._group_tid or ENGINE_TRACE
+        valid = stop - start
         self._fault("compile")
         if self._kernel_tag() == "megastep":
             # a runtime failure of the whole-arena kernels: meaningless once
             # the engine is on the per-leaf ones
             self._fault("kernel")
+        prog = ring = None
+        if self._capture or self._stream is None:
+            if tr is None:
+                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
+            else:
+                aot_handle = tr.begin("aot", trace=gid, bucket=bucket)
+                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
+                tr.end(aot_handle, cache=self._last_aot_outcome)
+        depth = self._queue.qsize()
+        step_handle = None
+        label: Any = nullcontext()
+        if tr is not None:
+            step_handle = tr.begin("device_step", trace=gid, step=self._step, bucket=bucket, valid=valid)
+            label = torch.profiler.record_function(f"device_step:{self._step}")
         new = None
-        if self._capture:
-            prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
-            with self._aot.exclusive(self._stream):
-                prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                prog.replay(self._state, self._step_aux())
-        else:
-            if self._stream is None:
-                self._program(leaves, kinds, treedef, start, stop, bucket)
-            a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
-            new = self._step_state(self._state, self._step_aux(), a, kw, mask)
+        with label:
+            if self._capture:
+                with self._aot.exclusive(self._stream):
+                    prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
+                    prog.replay(self._state, self._step_aux())
+            else:
+                a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
+                new = self._step_state(self._state, self._step_aux(), a, kw, mask)
         self._fault("step")
+        sync_us: Optional[float] = None
         if self._watchdog_enabled:
             self._fault("watchdog")
+            t_sync = time.perf_counter()
             self._watch()
+            sync_us = (time.perf_counter() - t_sync) * 1e6
+            if tr is not None:
+                tr.complete("watchdog_sync", trace=gid, dur_us=sync_us)
         if new is not None:
             self._write_state(new)
+        self._step += 1
+        if not self._watchdog_enabled:  # a watched step was drained before its commit
+            sync_us = self._bound_inflight()
+            if sync_us is not None and tr is not None:
+                tr.complete("inflight_sync", trace=gid, dur_us=sync_us)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        if step_handle is not None:
+            tr.end(step_handle)
+            tr.observe("step_latency_us", wall_us)
+        pad_us = (t_pad - t0) * 1e6
+        self._stats.record_step(bucket=bucket, valid=valid, queue_depth=depth, ingest_us=pad_us, sync_us=sync_us,
+                                pad_us=pad_us, queue_wait_us=queue_wait_us, wall_us=wall_us, coalesced=coalesced)
 
     def _watch(self) -> None:
         """The watchdog's wait: poll the step's CUDA event until it completes
@@ -757,6 +833,9 @@ class StreamingEngine:
         except RuntimeError:  # a broken device: the original error goes sticky
             return False
         self._stats.rollbacks += 1
+        tr = self._trace
+        if tr is not None:
+            tr.event("rollback", trace=self._group_tid or ENGINE_TRACE, cause=type(e).__name__)
         if isinstance(e, StepTimeoutError):
             self._stats.watchdog_timeouts += 1
         if (isinstance(e, InjectedFault) and e.site == "kernel" and self._cfg.degrade_kernel
@@ -767,36 +846,53 @@ class StreamingEngine:
             self._megastep_plan = None
             self._program_memo.clear()
             self._stats.kernel_demotions += 1
+            if tr is not None:
+                tr.event("kernel_demotion", trace=self._group_tid or ENGINE_TRACE, backend="auto")
             return True
         if not is_transient(e) or attempt >= self._cfg.max_retries:
             return False
         self._stats.record_retry()
+        if tr is not None:
+            tr.event("retry", trace=self._group_tid or ENGINE_TRACE, attempt=attempt + 1)
         self._backoff(attempt + 1)
         return True
 
-    def _bound_inflight(self) -> None:
+    def _bound_inflight(self) -> Optional[float]:
         """At most ``in_flight`` steps run ahead of the host: past that, wait
-        for the oldest."""
-        if self._stream is None:
-            return
-        ev = torch.cuda.Event()
-        ev.record(self._stream)
+        for the oldest; returns the µs the dispatcher waited, or None when it
+        did not have to. The count is the JAX package's (one token a step,
+        cleared by the watchdog, ``reset`` and ``restore``), so its
+        ``inflight_sync`` spans fall on the same steps; on the CPU a step
+        has run when it returns, and its token is None."""
+        ev = None
+        if self._stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
         self._inflight.append(ev)
-        if len(self._inflight) > max(1, self._cfg.in_flight):
-            self._inflight.popleft().synchronize()
+        if len(self._inflight) <= max(1, self._cfg.in_flight):
+            return None
+        oldest = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if oldest is not None:
+            oldest.synchronize()
+        return (time.perf_counter() - t0) * 1e6
 
-    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int) -> None:
+    def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int,
+                         queue_wait_us: float = 0.0) -> None:
         """Run one merged (args, kwargs) batch of ``n`` rows through its
-        bucketed chunks; the first chunk's step counts the coalesced batches.
-        An escaping error carries ``_committed_chunks`` (summed over nested
-        calls), which tells the caller whether re-running the batches one by
-        one would fold a row twice."""
+        bucketed chunks; the first chunk's step counts the coalesced batches
+        and the group's queue wait. An escaping error carries
+        ``_committed_chunks`` (summed over nested calls), which tells the
+        caller whether re-running the batches one by one would fold a row
+        twice."""
         leaves, treedef = tree_flatten(merged)
         committed = 0
         try:
             for i, (start, stop, bucket) in enumerate(self._policy.chunks(n)):
+                t0 = time.perf_counter()
                 kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
-                self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1)
+                self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1,
+                                      queue_wait_us if i == 0 else 0.0, t0)
                 committed += 1
         except Exception as e:
             _add_committed(e, committed)
@@ -880,18 +976,26 @@ class StreamingEngine:
         pending: Optional[Any] = None
         while True:
             if pending is not None:
-                first, pending = pending, None
+                first, wait_us, pending = pending, 0.0, None
             else:
+                t0 = time.perf_counter()
                 first = self._queue.get()
+                wait_us = (time.perf_counter() - t0) * 1e6
             if first is _STOP:
                 self._queue.task_done()
                 return
             group, saw_stop, fatal = [first], False, False
             if self._error is None:
-                group, pending, saw_stop = self._coalesce_group(first)
+                group, pending, saw_stop, drain_wait_us = self._coalesce_group(first)
+                wait_us += drain_wait_us  # the coalesce window's blocking is queue wait too
+            tids = self._pop_trace_ids(group)  # even when draining: no leaks
             try:
                 if self._error is None:  # after a failure: drain without work
-                    self._process_group(group)
+                    self._process_group(group, wait_us, tids)
+                    if self._ladder is not None:
+                        # once per processed group, BEFORE task_done: a flush()
+                        # that joined the queue sees the settled ladder level
+                        self._ladder_tick()
             except Exception as e:  # noqa: BLE001 - surfaced via _raise_if_failed
                 _attach_ctx(e, cursor=self._batches_done, **self._group_context(group))
                 self._error = e
@@ -906,6 +1010,7 @@ class StreamingEngine:
                 # What this loop already dequeued (the coalescer's look-ahead,
                 # a consumed stop) is done here, or every later join hangs
                 if pending is not None:
+                    self._pop_trace_ids([pending])  # a dropped item: free its id
                     self._queue.task_done()
                 if saw_stop:
                     self._queue.task_done()
@@ -919,13 +1024,51 @@ class StreamingEngine:
         stream ids)."""
         return {}
 
-    def _process_group(self, group: List[Any]) -> None:
+    def _pop_trace_ids(self, group: List[Any]) -> Optional[List[Tuple[str, float]]]:
+        """Release the submit trace ids of a picked-up (or dropped) group —
+        the links its megabatch span carries — each with the batch's QUEUE
+        RESIDENCY in µs (pickup minus submit stamp). None without a
+        recorder."""
+        if self._trace is None:
+            return None
+        now = time.perf_counter()
+        out: List[Tuple[str, float]] = []
+        for it in group:
+            entry = self._trace_ids.pop(id(it), None)
+            if entry is not None:
+                out.append((entry[0], (now - entry[1]) * 1e6))
+        return out
+
+    def _process_group(self, group: List[Any], queue_wait_us: float = 0.0,
+                       tids: Optional[List[Tuple[str, float]]] = None) -> None:
         with self._state_lock:
             # only an INGEST fault retries at this level: it fires before
             # anything folds, so the whole group re-runs from untouched state
-            self._retry_transient(lambda: self._process_group_locked(group), transient=_ingest_transient)
+            tr = self._trace
+            if tr is None:
+                self._retry_transient(lambda: self._process_group_locked(group, queue_wait_us),
+                                      transient=_ingest_transient)
+                return
+            # the megabatch ("coalesce") span: its trace id derives from the
+            # first absorbed submit, and its links are all of them
+            links = [t for t, _ in tids or ()]
+            waits = [w for _, w in tids or ()]
+            gid = TraceRecorder.group_trace(links)
+            self._group_tid = gid
+            # the group's queue_wait is its LONGEST member residency (members
+            # wait concurrently); the histogram sees every member
+            tr.complete("queue_wait", trace=gid, dur_us=max(waits, default=0.0))
+            for w in waits:
+                tr.observe("queue_wait_us", w)
+            handle = tr.begin("coalesce", trace=gid, links=links, batches=len(group), **self._group_context(group))
+            try:
+                self._retry_transient(lambda: self._process_group_locked(group, queue_wait_us),
+                                      transient=_ingest_transient)
+            finally:
+                self._group_tid = None
+                tr.end(handle)
 
-    def _process_group_locked(self, group: List[Any]) -> None:
+    def _process_group_locked(self, group: List[Any], queue_wait_us: float = 0.0) -> None:
         # a FATAL fault here models the dispatcher dying outright
         self._fault("dispatcher_kill")
         self._fault("ingest")  # the host ingestion boundary: nothing folded yet
@@ -937,7 +1080,7 @@ class StreamingEngine:
             if self._needs_attr_latch:
                 self._latch_host_attrs(merged)
             try:
-                self._execute_payload(merged, sum(n for _, n in nonempty), len(nonempty))
+                self._execute_payload(merged, sum(n for _, n in nonempty), len(nonempty), queue_wait_us)
             except Exception as e:
                 # shrink-on-retry: a failed megabatch that committed no chunk
                 # re-runs its batches one by one, so good traffic lands and the
@@ -950,7 +1093,7 @@ class StreamingEngine:
                 cursors = {id(it): self._batches_done + j for j, (it, _) in enumerate(sized)}
                 for it, n_it in nonempty:
                     try:
-                        self._execute_payload(self._merge_sized([(it, n_it)]), n_it, 1)
+                        self._execute_payload(self._merge_sized([(it, n_it)]), n_it, 1, 0.0)
                     except Exception as se:
                         _attach_ctx(se, cursor=cursors.get(id(it)), **self._item_context(it))
                         raise
@@ -993,6 +1136,11 @@ class StreamingEngine:
                                                  stream_id=self._item_context(item).get("stream_id"), payload=item))
         self._stats.quarantined_batches += 1
         self._stats.quarantined_rows += int(rows)
+        if self._trace is not None:
+            sid = self._item_context(item).get("stream_id")
+            extra = {"stream_id": sid} if sid is not None else {}
+            self._trace.event("quarantine", trace=self._group_tid or ENGINE_TRACE, cursor=int(cursor),
+                              rows=int(rows), reason=reason, **extra)
 
     def _screen_group(self, sized: List[Tuple[Any, int]]) -> List[Tuple[Any, int]]:
         """Screen each batch on the host before anything is uploaded.
@@ -1035,9 +1183,11 @@ class StreamingEngine:
                 self._queue.all_tasks_done.wait(timeout=0.1)
         while True:
             try:
-                self._queue.get_nowait()
+                item = self._queue.get_nowait()
             except queue.Empty:
                 break
+            # a drained item is a dropped batch: free its submit trace id
+            self._trace_ids.pop(id(item), None)
             self._queue.task_done()
         with self._queue.all_tasks_done:
             if self._queue.unfinished_tasks:
@@ -1045,10 +1195,10 @@ class StreamingEngine:
                 self._queue.all_tasks_done.notify_all()
 
     def _sync(self) -> None:
-        """Wait for every step enqueued on the engine stream."""
+        """Wait for every step enqueued on the engine stream (the in-flight
+        tokens stay: they count steps, as the JAX package's do)."""
         if self._stream is not None:
             self._stream.synchronize()
-        self._inflight.clear()
 
     # ------------------------------------------------------------------- coalescing
 
@@ -1066,53 +1216,65 @@ class StreamingEngine:
         except Exception:  # noqa: BLE001
             return None
 
-    def _coalesce_group(self, first: Any) -> Tuple[List[Any], Optional[Any], bool]:
+    def _coalesce_group(self, first: Any) -> Tuple[List[Any], Optional[Any], bool, float]:
         """Drain further compatible queued batches behind ``first``. Returns
-        ``(group, pending_incompatible_item, saw_stop)``. Bounded by
-        ``coalesce`` batches and by the top bucket's row count (a fuller
-        megabatch would just re-chunk); waits up to ``coalesce_window_ms`` for
-        more traffic once the queue runs dry. A group never crosses the next
-        snapshot boundary (the cadence stays batch-exact)."""
+        ``(group, pending_incompatible_item, saw_stop, drain_wait_us)``, the
+        last the time spent BLOCKED waiting for more traffic inside the
+        window. Bounded by ``coalesce`` batches and by the top bucket's row
+        count (a fuller megabatch would just re-chunk); waits up to
+        ``coalesce_window_ms`` for more traffic once the queue runs dry. A
+        group never crosses the next snapshot boundary (the cadence stays
+        batch-exact)."""
         limit = max(1, self._cfg.coalesce)
         if self._cfg.snapshot_every > 0:
             limit = min(limit, self._cfg.snapshot_every - (self._batches_done % self._cfg.snapshot_every))
         group = [first]
         if limit <= 1:
-            return group, None, False
+            return group, None, False, 0.0
         inj = self._cfg.fault_injector
         if inj is not None and inj.fire("coalesce"):
             # degradation, never an error (an escape would kill the
             # dispatcher): the group is served as singletons
             self._stats.record_fault("coalesce")
             self._stats.coalesce_degraded += 1
-            return group, None, False
+            if self._trace is not None:
+                self._trace.event("fault", site="coalesce")
+            return group, None, False, 0.0
         rows = self._item_rows_safe(first)
         if rows is None:  # malformed: run alone so the error surfaces cleanly
-            return group, None, False
+            return group, None, False, 0.0
         top = self._policy.buckets[-1]
         deadline = time.perf_counter() + self._cfg.coalesce_window_ms / 1e3
+        waited = 0.0
         ref = first if rows else None
         while len(group) < limit and rows < top:
             try:
                 timeout = deadline - time.perf_counter()
-                item = self._queue.get(timeout=timeout) if timeout > 0 else self._queue.get_nowait()
+                if timeout > 0:
+                    t0 = time.perf_counter()
+                    try:
+                        item = self._queue.get(timeout=timeout)
+                    finally:
+                        waited += time.perf_counter() - t0
+                else:
+                    item = self._queue.get_nowait()
             except queue.Empty:
                 break
             if item is _STOP:
-                return group, None, True
+                return group, None, True, waited * 1e6
             n = self._item_rows_safe(item)
             if n is None:
-                return group, item, False
+                return group, item, False, waited * 1e6
             if n == 0:
                 group.append(item)  # cursor-only; nothing to concatenate
                 continue
             if ref is not None and not self._coalescible(ref, item):
-                return group, item, False
+                return group, item, False, waited * 1e6
             if ref is None:
                 ref = item
             group.append(item)
             rows += n
-        return group, None, False
+        return group, None, False, waited * 1e6
 
     def _coalescible(self, ref: Any, item: Any) -> bool:
         """Can ``item`` concatenate behind ``ref`` into one megabatch? Same
@@ -1185,20 +1347,115 @@ class StreamingEngine:
                     self._stream.wait_event(ev)
 
     def _submit_item(self, item: Any, timeout: Optional[float]) -> None:
+        """Enqueue one queue item, tracing the submit when a recorder is on:
+        the span's duration is the enqueue wait (backpressure made visible),
+        and the trace id registered here is what the dispatcher's megabatch
+        span links back to."""
         self._raise_if_failed()
         self.start()
         self._order_inputs(item)
-        self._enqueue(item, timeout)
-        with self._submit_lock:
-            self._stats.batches_submitted += 1
+        tr = self._trace
+        if tr is None:
+            self._enqueue(item, timeout)
+        else:
+            tid = tr.new_trace()
+            # the stamp starts the batch's queue residency clock
+            self._trace_ids[id(item)] = [tid, time.perf_counter()]
+            ctx = {k: v for k, v in self._item_context(item).items() if v is not None}
+            handle = tr.begin("submit", trace=tid, **ctx)
+            try:
+                self._enqueue(item, timeout)
+            except BaseException:
+                # a refused submit is no batch: a later item reusing the object
+                # identity must not inherit the id
+                self._trace_ids.pop(id(item), None)
+                raise
+            tr.end(handle)
+        self._stats.record_submitted()
 
     def submit(self, *args: Any, timeout: Optional[float] = None, **kwargs: Any) -> None:
         """Enqueue one (ragged) batch: tensors or numpy arrays. Blocks while
         the queue is full; ``timeout`` (seconds) bounds the wait, after which
         the sticky dispatcher error is raised if there is one, else
         :class:`BackpressureTimeout`. A batch of zero rows only advances the
-        cursor."""
-        self._submit_item((args, kwargs), timeout)
+        cursor.
+
+        With ``config.admission`` set, the batch must clear the admission
+        policy FIRST: a refusal raises :class:`AdmissionRejected` (with
+        ``retry_after_s``) before anything queues, so a rejected batch never
+        takes a replay cursor."""
+        item = (args, kwargs)
+        if self._admission is not None:
+            self._raise_if_failed()
+            self.start()
+            self._admitted_submit(None, item, item, timeout)
+        else:
+            self._submit_item(item, timeout)
+
+    def _admitted_submit(self, stream_id: Optional[int], item: Any, payload: Any, timeout: Optional[float]) -> None:
+        """The armed submit path: admit, enqueue, and only then count the
+        batch admitted — a REFUSED enqueue (:class:`BackpressureTimeout`, a
+        sticky dispatcher raise) refunds the consumed tokens, so a producer
+        that times out under pressure is not charged twice on its retry."""
+        prio, rows = self._admit(stream_id, payload)
+        try:
+            self._submit_item(item, timeout)
+        except BaseException:
+            self._admission.refund(stream_id, rows, prio)
+            raise
+        self._stats.record_admission("admitted", prio)
+
+    def _admit(self, stream_id: Optional[int], payload: Any) -> Tuple[int, int]:
+        """Run one submit through the admission policy; returns ``(priority,
+        rows)``. The ``admission`` fault site models a transient control-plane
+        failure, retried here on the producer's thread without jitter (the
+        seeded jitter stream belongs to the dispatcher); a rejection is
+        counted by outcome and priority and raised to the producer."""
+        pol = self._admission
+        try:
+            rows = int(infer_batch_size(tree_leaves(payload)) or 0)
+        except Exception:  # noqa: BLE001 - a malformed batch surfaces through the step
+            rows = 0
+        inj = self._cfg.fault_injector
+        tr = self._trace
+
+        def admit_once() -> int:
+            if inj is not None:
+                try:
+                    inj.check("admission")
+                except BaseException:
+                    self._stats.record_fault("admission")
+                    if tr is not None:
+                        tr.event("fault", trace=ENGINE_TRACE, site="admission")
+                    raise
+            return pol.admit(stream_id, rows)
+
+        attempt = 0
+        while True:
+            try:
+                return admit_once(), rows
+            except AdmissionRejected as e:
+                self._stats.record_admission("shed" if e.shed else "rejected", e.priority)
+                if tr is not None:
+                    tr.event("admission_rejected", trace=ENGINE_TRACE, priority=e.priority, shed=e.shed,
+                             stream_id=stream_id)
+                if e.shed and self._ladder is not None:
+                    # liveness: when only the shed class still sends, no group
+                    # forms and the dispatcher never ticks; a shed rejection
+                    # ticks instead, so a recovered engine de-escalates
+                    self._ladder_tick()
+                raise
+            except BaseException as e:  # noqa: BLE001 - classified by policy
+                if not is_transient(e) or attempt >= self._cfg.max_retries:
+                    raise
+                attempt += 1
+                self._stats.record_retry()
+                if tr is not None:
+                    tr.event("retry", trace=ENGINE_TRACE, attempt=attempt)
+                delay = min(max(0.0, self._cfg.backoff_max_ms),
+                            max(0.0, self._cfg.backoff_base_ms) * (2 ** (attempt - 1))) / 1e3
+                if delay > 0:
+                    time.sleep(delay)
 
     def _enqueue(self, item: Any, timeout: Optional[float]) -> None:
         if timeout is None:
@@ -1247,9 +1504,21 @@ class StreamingEngine:
         The compute runs as the JAX package's compiled compute program does:
         traced (``traced_rows``), so no value check reads the state on the
         host, and a compute that must read it (``R2Score``) raises."""
+        tr = self._trace
+        handle = tr.begin("result", trace=ENGINE_TRACE) if tr is not None else None
         self.flush()
         with self._device_section(), traced_rows():
-            return self._metric.compute_from(self._unpack(self._state))
+            value = self._metric.compute_from(self._unpack(self._state))
+        if handle is not None:
+            self._value_in_hand()
+            tr.observe("result_latency_us", tr.end(handle))
+        return value
+
+    def _value_in_hand(self) -> None:
+        """Wait for the caller's stream: a traced read's latency is the
+        value's, not its enqueue's."""
+        if self._stream is not None:
+            torch.cuda.current_stream(self._device).synchronize()
 
     def state(self) -> Any:
         """A copy of the accumulated LOGICAL state tree (arenas unpacked)."""
@@ -1268,6 +1537,8 @@ class StreamingEngine:
             self._reset_locked()
 
     def _reset_locked(self) -> None:
+        self._inflight.clear()
+        self._result_cache.clear()
         self._write_state(self._put_state(self._init_state_tree()))
         self._step = 0
         self._batches_done = 0
@@ -1288,16 +1559,22 @@ class StreamingEngine:
     def _save_snapshot_locked(self) -> str:
         # a write-site fault fires BEFORE any bytes land: LATEST still names
         # the previous complete generation
+        tr = self._trace
+        snap_handle = tr.begin("snapshot_write", trace=ENGINE_TRACE, step=self._step) if tr is not None else None
         self._fault("snapshot_write")
         host_state, meta = self._snapshot_doc()
         path = save_snapshot(self._cfg.snapshot_dir, host_state, meta, keep=self._cfg.snapshot_keep,
                              host_attrs=self._metric.host_compute_attrs())
         self._stats.snapshots += 1
+        if snap_handle is not None:
+            tr.end(snap_handle)
         inj = self._cfg.fault_injector
         if inj is not None and inj.fire("snapshot_corrupt"):
             # bit rot: the save SUCCEEDED (LATEST names it), then the payload
             # rots on disk, the case restore()'s generation fallback is for
             self._stats.record_fault("snapshot_corrupt")
+            if tr is not None:
+                tr.event("fault", site="snapshot_corrupt")
             corrupt_snapshot(path, inj.snapshot_rng())
         return path
 
@@ -1360,6 +1637,8 @@ class StreamingEngine:
         if not target:
             raise MetricsTPUUserError("restore() requires a snapshot path or config.snapshot_dir")
         self._join_queue()  # drain; a sticky-failed (or dead) dispatcher discards
+        tr = self._trace
+        restore_handle = tr.begin("snapshot_restore", trace=ENGINE_TRACE) if tr is not None else None
 
         def load_once() -> Tuple[Any, Dict[str, Any]]:
             self._fault("snapshot_read")
@@ -1367,6 +1646,9 @@ class StreamingEngine:
 
         state, meta = self._retry_transient(load_once)
         self._restore_commit(state, meta)
+        if restore_handle is not None:
+            tr.end(restore_handle, generations_skipped=int(meta.get("generations_skipped", 0) or 0),
+                   cursor=self._batches_done)
         return meta
 
     def _check_window_provenance(self, meta: Dict[str, Any]) -> None:
@@ -1468,6 +1750,8 @@ class StreamingEngine:
             self._needs_attr_latch = any(v is None for v in self._metric.host_compute_attrs().values())
             self._sync()
             self._write_state(carried)
+            self._inflight.clear()
+            self._result_cache.clear()
             self._error = None
             self._step = int(meta.get("step", 0))
             self._batches_done = int(meta.get("batches_done", self._step))
@@ -1487,8 +1771,11 @@ class StreamingEngine:
             return
         try:
             inj.check(site)
-        except Exception:
+        except Exception as e:
             self._stats.record_fault(site)
+            if self._trace is not None:
+                self._trace.event("fault", trace=self._group_tid or ENGINE_TRACE, site=site,
+                                  occurrence=getattr(e, "occurrence", None))
             raise
 
     def _codec_call(self, site: str, fn: Any, *args: Any) -> Any:
@@ -1525,7 +1812,184 @@ class StreamingEngine:
                     raise
                 attempt += 1
                 self._stats.record_retry()
+                if self._trace is not None:
+                    self._trace.event("retry", trace=self._group_tid or ENGINE_TRACE, attempt=attempt)
                 self._backoff(attempt)
+
+    # ------------------------------------------------------- degradation ladder
+
+    def _ladder_signals(self) -> Dict[str, float]:
+        """The overload detector's feed for one tick: p99 queue residency from
+        the recorder's ``queue_wait_us`` histogram when one is attached, from
+        the stats ring's last 128 records otherwise (refreshed once per
+        :data:`_LADDER_P99_EVERY` ticks, memoized between); the spill rate
+        (the pager's page-outs per step over the tick window); queue fill."""
+        s = self._stats
+        self._ladder_ticks += 1
+        if self._ladder_p99 is None or self._ladder_ticks % self._LADDER_P99_EVERY == 1:
+            p99: Optional[float] = None
+            tr = self._trace
+            if tr is not None:
+                for h in tr.histograms():
+                    if h.name == "queue_wait_us":
+                        p99 = h.quantile(0.99)
+                        break
+            if p99 is None:
+                waits = sorted(float(r.get("queue_wait_us", 0.0)) for r in s.recent()[-128:])
+                p99 = _percentile(waits, 0.99) if waits else 0.0
+            self._ladder_p99 = float(p99) if p99 == p99 else 0.0  # NaN-safe
+        last_steps, last_outs = self._ladder_marks
+        dsteps = s.steps - last_steps
+        spill_rate = (s.page_outs - last_outs) / dsteps if dsteps > 0 else 0.0
+        self._ladder_marks = (s.steps, s.page_outs)
+        return {
+            "queue_p99_us": self._ladder_p99,
+            "spill_rate": float(spill_rate),
+            "queue_depth_frac": self._queue.qsize() / max(1, self._cfg.max_queue),
+        }
+
+    def _ladder_tick(self) -> None:
+        """One ladder evaluation: once per processed group on the dispatcher
+        thread, plus on producer-side SHED rejections, so the whole tick
+        serializes under the ladder lock. A transition engages or releases
+        exactly one rung under the state lock and is a ``ladder`` trace
+        event. A failure becomes the sticky error, never a dead dispatcher."""
+        try:
+            with self._ladder_lock:
+                move = self._ladder.tick(self._ladder_signals())
+                if move is None:
+                    return
+                frm, to = move
+                with self._state_lock:
+                    if to > frm:
+                        self._engage_rung(self._ladder.rung(to))
+                    else:
+                        self._release_rung(self._ladder.rung(frm))
+                self._stats.ladder_transitions += 1
+                self._stats.ladder_level = to
+            if self._trace is not None:
+                self._trace.event("ladder", trace=ENGINE_TRACE, action="escalate" if to > frm else "deescalate",
+                                  level=to, rung=self._ladder.rung(max(frm, to)))
+        except Exception as e:  # noqa: BLE001 - surface, don't kill silently
+            _attach_ctx(e, cursor=self._batches_done)
+            self._error = e
+
+    def _engage_rung(self, rung: str) -> None:
+        """Apply one rung (state lock held). Rungs are idempotent and
+        reversible; one that does not apply to this engine (``shed`` without
+        an admission policy, ``quantize_sync`` without a mesh, which the port
+        does not have) is a recorded no-op: the transition still counts and
+        is traced, so the ladder's walk is the same on every engine kind."""
+        if rung == "widen_coalesce":
+            self._ladder_saved_window = self._cfg.coalesce_window_ms
+            self._cfg.coalesce_window_ms = max(self._cfg.coalesce_window_ms, self._ladder.widen_window_ms)
+        elif rung == "defer_cold_reads":
+            self._defer_cold_reads = True
+        elif rung == "shed":
+            if self._admission is not None:
+                self._admission.shed_lowest(True)
+
+    def _release_rung(self, rung: str) -> None:
+        if rung == "widen_coalesce":
+            self._cfg.coalesce_window_ms = self._ladder_saved_window
+        elif rung == "defer_cold_reads":
+            self._defer_cold_reads = False
+            self._result_cache.clear()
+        elif rung == "shed":
+            if self._admission is not None:
+                self._admission.shed_lowest(False)
+
+    # ------------------------------------------------------------------ telemetry
+
+    def telemetry(self) -> Dict[str, Any]:
+        """The telemetry document's summary (``EngineStats.summary`` with the
+        capture cache's counters as ``compile_cache``), plus the recorder's
+        ``trace`` block when one is attached."""
+        doc = self._stats.summary(self._aot.stats())
+        if self._trace is not None:
+            doc["trace"] = self._trace.summary()
+        return doc
+
+    def export_telemetry(self, path: str) -> None:
+        """Write the telemetry document (summary, the ring's recent steps and
+        the recorder's block) as JSON: ``tools/engine_report.py`` reads it."""
+        extra = {"trace": self._trace.summary()} if self._trace is not None else None
+        self._stats.export(path, self._aot.stats(), extra=extra)
+
+    def export_trace(self, path: str) -> str:
+        """Write the flight recorder's Chrome/Perfetto trace-event JSON to
+        ``path`` (load it at https://ui.perfetto.dev). Requires
+        ``EngineConfig(trace=TraceRecorder(...))``."""
+        if self._trace is None:
+            raise MetricsTPUUserError(
+                "export_trace() requires a flight recorder: construct the engine with "
+                "EngineConfig(trace=TraceRecorder(...))"
+            )
+        return self._trace.export(path)
+
+    def metrics_text(self) -> str:
+        """An OpenMetrics/Prometheus text snapshot of this engine, in the JAX
+        package's families: lifetime counters (steps, rows, faults by site,
+        recovery actions, quarantine, snapshots, the capture cache), the
+        admission and ladder families when they ran, the paging families of
+        a paged engine, and — with a recorder — the fixed-bucket latency
+        histograms, folded through ``histogram_accumulate``."""
+        s = self._stats
+        counters = {
+            "steps": s.steps,
+            "batches_submitted": s.batches_submitted,
+            "batches_coalesced": s.batches_coalesced,
+            "megasteps": s.megasteps,
+            "rows_in": s.rows_in,
+            "rows_padded": s.rows_padded,
+            "snapshots": s.snapshots,
+            "resumes": s.resumes,
+            "merges": s.merges,
+            "retries": s.retries,
+            "rollbacks": s.rollbacks,
+            "kernel_demotions": s.kernel_demotions,
+            "coalesce_degraded": s.coalesce_degraded,
+            "coalesce_shrinks": s.coalesce_shrinks,
+            "watchdog_timeouts": s.watchdog_timeouts,
+            "quarantined_batches": s.quarantined_batches,
+            "quarantined_rows": s.quarantined_rows,
+            "snapshot_failures": s.snapshot_failures,
+            "snapshot_fallbacks": s.snapshot_fallbacks,
+        }
+        aot = self._aot.stats()
+        counters["compile_cache_hits"] = aot["hits"]
+        counters["compile_cache_misses"] = aot["misses"]
+        labeled: Dict[str, Any] = {}
+        faults = s.faults_by_site()
+        if faults:
+            labeled["faults_injected"] = ("site", faults)
+        fallbacks = s.kernel_fallbacks_by_reason()
+        if fallbacks:
+            labeled["kernel_fallbacks"] = ("reason", fallbacks)
+        gauges = {"compiled_programs": aot["programs"]}
+        admission = s.admission_summary()
+        if admission is not None:
+            for fam, key in (("admission_admitted", "admitted_by_priority"),
+                             ("admission_rejected", "rejected_by_priority"),
+                             ("admission_shed", "shed_by_priority")):
+                if admission[key]:
+                    labeled[fam] = ("priority", admission[key])
+            counters["ladder_transitions"] = admission["ladder_transitions"]
+            counters["deferred_reads"] = admission["deferred_reads"]
+            gauges["ladder_level"] = admission["ladder_level"]
+        if s.paging_summary() is not None:
+            counters.update(routed_steps=s.routed_steps, page_hits=s.page_hits, page_faults=s.page_faults,
+                            page_ins=s.page_ins, page_outs=s.page_outs)
+            gauges["resident_streams"] = s.resident_streams
+            gauges["spilled_streams"] = s.spilled_streams
+            gauges["spilled_bytes"] = s.spilled_bytes
+        hists = self._trace.histograms() if self._trace is not None else ()
+        return render_openmetrics(counters, hists, labeled_counters=labeled or None, gauges=gauges)
+
+    @property
+    def trace(self) -> Optional[TraceRecorder]:
+        """The flight recorder this engine reports to (None: off)."""
+        return self._trace
 
     @property
     def steps(self) -> int:

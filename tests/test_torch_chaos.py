@@ -3,7 +3,8 @@ package's, on the CPU.
 
 * **The canonical plans**: JAX's ``chaos_injectors()`` (``metrics_tpu/engine/
   chaos_smoke.py``) minus the plans naming a site the port still refuses
-  (admission, shard loss, merges, reshards, windows, the fleet). The same
+  (shard loss, merges, reshards, windows, the fleet; the ``elastic`` plan's
+  ``admission`` site is ported, its shard loss and reshards are not). The same
   seeded plan drives a JAX engine and a port engine over the same numpy
   traffic; ``inj.summary()``, the recovery counters, the quarantine ledger,
   the restored cursor and the results must agree: integer states bit-equal

@@ -1753,3 +1753,264 @@ def test_a_real_hang_expires_the_watchdog_once_and_recovers(cuda):
     assert st.warmup_steps == 0 and _ptrs(eng) == ptrs
     for g, w in zip(_flat(eng.state()), _flat(want)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------ the capture pool, the flight recorder's fold
+
+
+class _CaptureOnlyRead:
+    """A metric whose update reads the device on the host only while a
+    capture runs: it gets past the warm-up and breaks its capture."""
+
+    @staticmethod
+    def make(device):
+        import metrics_tpu_torch as mp
+
+        class CaptureOnlyRead(mp.Metric):
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+            def update(self, x):
+                if torch.cuda.is_current_stream_capturing():
+                    x.sum().item()
+                self.total = self.total + x.sum()
+
+            def compute(self):
+                return self.total
+
+        return CaptureOnlyRead(device=device)
+
+
+@pytest.mark.requires_cuda
+def test_failed_captures_leave_memory_reserved_flat(cuda):
+    """Each capture broken past its warm-up drops its pool; the capture's
+    reference on the pool is released, so once ``empty_cache()`` runs the
+    pool's memory is gone: twenty failures reserve no more than one (a
+    leaked pool holds at least one 2 MiB segment)."""
+    import gc
+
+    x = torch.rand(64, device=cuda)
+
+    def fail_once():
+        m = _CaptureOnlyRead.make(cuda)
+        for i in range(3):  # eager, then the broken capture, then eager-only
+            m(x * i)
+        assert forward_entry_kinds(m) == ["eager_only"]
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(cuda)
+
+    fail_once()
+    base = reserved()
+    for _ in range(20):
+        fail_once()
+    assert reserved() - base < 2 * 2**20
+
+
+@pytest.mark.requires_cuda
+def test_a_failed_capture_leaves_the_callers_current_stream(cuda):
+    """``torch.cuda.graph`` leaves its stream context only after a capture
+    ends well: a broken capture put its thread back on the caller's stream,
+    or the thread's later work would run on the capture stream (which the
+    next capture, drawn from the same pool, may be)."""
+    x = torch.rand(64, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        m = _CaptureOnlyRead.make(cuda)
+        for i in range(3):
+            m(x * i)
+            assert torch.cuda.current_stream(cuda) == side
+        assert forward_entry_kinds(m) == ["eager_only"]
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+
+
+@pytest.mark.requires_cuda
+def test_a_collection_inside_a_capture_destroys_no_graph(cuda):
+    """While its step is captured, an update drops the last reference to a
+    captured CUDA graph into a fresh reference cycle and then allocates
+    enough to trigger Python's collector: were the collector to run inside
+    the capture, the graph's destruction would invalidate it. The capture
+    succeeds (the signature is compiled), and the collector runs again
+    after it."""
+    import gc
+
+    import metrics_tpu_torch as mp
+
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    keeper = [torch.cuda.CUDAGraph()]
+    with torch.cuda.stream(side):
+        y = torch.zeros(4, device=cuda)
+        with torch.cuda.graph(keeper[0], stream=side):
+            y.add_(1)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+
+    class DropsAGraph(mp.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+        def update(self, x):
+            if torch.cuda.is_current_stream_capturing() and keeper:
+                cycle = {"graph": keeper.pop()}
+                cycle["self"] = cycle
+                del cycle
+                _ = [[] for _ in range(5000)]  # past gen0's threshold many times over
+            self.total = self.total + x.sum()
+
+        def compute(self):
+            return self.total
+
+    x = torch.rand(64, device=cuda)
+    m = DropsAGraph(device=cuda)
+    for i in range(4):
+        m(x * i)
+    assert forward_entry_kinds(m) == ["compiled"] and not keeper
+    assert gc.isenabled()
+    torch.testing.assert_close(m.total, (x * 6).sum())
+
+
+@pytest.mark.requires_cuda
+def test_recorder_fold_on_the_card_equals_the_plain_fold(cuda):
+    """K2 folds a card histogram (once inline at FOLD_PENDING_AT, once at the
+    read), on a stream that is not the caller's, with the thread's kernel
+    fault hook out of scope; the counts equal the CPU histogram's."""
+    from metrics_tpu_torch.engine import FixedBucketHistogram, TraceRecorder
+    from metrics_tpu_torch.ops.kernels import kernel_fault_scope
+    from metrics_tpu_torch.ops.kernels.hist_cuda import histogram_cuda
+
+    vals = np.random.RandomState(3).gamma(2.0, 400.0, size=5000)
+    card, cpu = FixedBucketHistogram("h_us", device=cuda), FixedBucketHistogram("h_us", device="cpu")
+    before = histogram_cuda.launches
+
+    def refuse(kernel):
+        raise AssertionError(f"a fold consulted the kernel fault hook ({kernel})")
+
+    with kernel_fault_scope(refuse):
+        for v in vals:
+            card.observe(v)
+            cpu.observe(v)
+        got = card.bucket_counts()
+    assert np.array_equal(got, cpu.bucket_counts()) and card.count == 5000
+    assert histogram_cuda.launches - before == 2
+    # a pool apart from the default priority's, which every engine and capture stream comes from
+    stream = card._fold_stream.get(card.device)
+    assert stream.priority < torch.cuda.Stream(cuda).priority
+    rec = TraceRecorder(device=cuda)
+    rec.observe("page_in_us", 12.0)
+    assert {h.device for h in rec.histograms()} == {card.device}
+
+
+@pytest.mark.requires_cuda
+def test_a_scrape_thread_folds_while_the_dispatcher_captures(cuda):
+    """A scrape thread observes and folds without pause while engines with
+    fresh capture caches capture their steps on their dispatcher threads
+    (``capture_error_mode="thread_local"``): no fold and no capture fails,
+    at least one fold runs during a capture, and the states equal an
+    untraced twin's."""
+    import threading
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, FixedBucketHistogram, StreamingEngine, TraceRecorder
+
+    capturing, overlapped, errors = threading.Event(), [0], []
+    fold, capture = FixedBucketHistogram._fold, AotCache.capture
+
+    def counted_fold(self, *a, **kw):
+        overlapped[0] += capturing.is_set()
+        return fold(self, *a, **kw)
+
+    def flagged_capture(self, *a, **kw):
+        capturing.set()
+        try:
+            return capture(self, *a, **kw)
+        finally:
+            capturing.clear()
+
+    rec = TraceRecorder(device=cuda)
+    stop = threading.Event()
+
+    def scrape():
+        try:
+            while not stop.is_set():
+                rec.observe("scrape_probe_us", 1.0)
+                for h in rec.histograms():
+                    h.flush()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    rng = np.random.RandomState(5)
+    sizes = rng.randint(1, 500, size=40)
+    batches = [(torch.from_numpy(rng.rand(n, 4).astype(np.float32)).to(cuda),
+                torch.from_numpy(rng.randint(0, 4, n)).to(cuda)) for n in sizes]
+    buckets = (8, 32, 128, 512)
+    captures = len({min(b for b in buckets if b >= n) for n in sizes})  # one step per bucket used
+
+    def coll():
+        return mp.MetricCollection([mp.Accuracy(device=cuda), mp.ConfusionMatrix(num_classes=4, device=cuda)])
+
+    FixedBucketHistogram._fold, AotCache.capture = counted_fold, flagged_capture
+    scraper = threading.Thread(target=scrape)
+    scraper.start()
+    try:
+        engines = []
+        for _ in range(3):
+            eng = StreamingEngine(coll(), EngineConfig(buckets=buckets, coalesce=1, trace=rec),
+                                  aot_cache=AotCache())
+            with eng:
+                for b in batches:
+                    eng.submit(*b)
+            engines.append(eng)
+    finally:
+        stop.set()
+        scraper.join()
+        FixedBucketHistogram._fold, AotCache.capture = fold, capture
+    assert not errors, errors
+    assert overlapped[0] >= 1
+    twin = StreamingEngine(coll(), EngineConfig(buckets=buckets, coalesce=1))
+    twin._capture = False
+    with twin:
+        for b in batches:
+            twin.submit(*b)
+    want = twin.state()
+    for eng in engines:
+        assert eng.stats.warmup_steps == captures
+        got = eng.state()
+        for k in want:
+            for s in want[k]:
+                assert torch.equal(got[k][s], want[k][s]), (k, s)
+
+
+@pytest.mark.requires_cuda
+def test_device_trace_session_holds_kernels_and_step_labels(cuda, tmp_path):
+    """``device_trace_session`` writes a ``torch.profiler`` Chrome trace that
+    holds CUDA kernel events and a ``device_step:<step>`` label for every
+    ``device_step`` span the recorder took inside it."""
+    import json
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine, TraceRecorder, device_trace_session
+
+    rec = TraceRecorder(device=cuda)
+    eng = StreamingEngine(mp.ConfusionMatrix(num_classes=4, device=cuda), EngineConfig(buckets=(64,), trace=rec))
+    p = torch.randint(0, 4, (50,), device=cuda)
+    with eng:
+        eng.submit(p, p)  # the capture, outside the session
+    before = len(rec.spans("device_step"))
+    with device_trace_session(str(tmp_path / "device")) as session:
+        with eng:
+            for _ in range(4):
+                eng.submit(p, p)
+                eng.flush()
+    doc = json.load(open(session.path))
+    events = doc["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    names = {e.get("name") for e in events}
+    steps = [s["args"]["step"] for s in rec.spans("device_step")[before:]]
+    assert steps == [1, 2, 3, 4]
+    assert {f"device_step:{s}" for s in steps} <= names

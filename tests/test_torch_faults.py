@@ -37,7 +37,7 @@ from metrics_tpu_torch.utils.checkpoint import load_metric_state, save_metric_st
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedError
 
 PORTED_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
-                "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill")
+                "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission")
 
 
 def _plan(mod, site):
@@ -284,13 +284,15 @@ def test_recovery_config_checks():
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(max_retries=-1))
     with pytest.raises(MetricsTPUUserError, match="snapshot_dir"):
         StreamingEngine(mp.Accuracy(device="cpu")).snapshot()
-    for field in ("trace", "telemetry_capacity", "admission", "ladder", "window", "drift", "elastic_min_world"):
+    for field in ("window", "drift", "elastic_min_world"):
         with pytest.raises(NotPortedError, match=field):
             EngineConfig(**{field: None})
-    # the fault layer's own fields are accepted, with the JAX package's defaults and checks
+    # the fault layer's own fields, and the observability and overload ones,
+    # are accepted, with the JAX package's defaults and checks
     cfg = EngineConfig()
     want = mt.engine.EngineConfig()
-    for field in ("screen", "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel"):
+    for field in ("screen", "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel",
+                  "telemetry_capacity", "trace", "admission", "ladder"):
         assert getattr(cfg, field) == getattr(want, field), field
     with pytest.raises(MetricsTPUUserError, match="step_timeout_s"):
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(step_timeout_s=-1.0))
