@@ -254,6 +254,36 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    ``page_out`` spans present. Then K2 at the recorder fold's shape is held
    against its plain version and ``torch.bincount`` and timed (outside the
    phase's counts).
+19. Windows and drift (``engine/windows.py``, ``engine/tracker.py``), every
+   engine on the card against engines on the card: phase 7's cumulative
+   megastep engine first captures its two steps into a shared cache, which
+   every engine of (a), (b), (e) and the timing then replays, capturing
+   nothing: a ring's step is that graph, handed the current pane's row.
+   (a) phase 7's traffic under ``tumbling(16 batches, 3 panes)``: at each
+   pane's close the ring's row of that pane bit-equal to a fresh engine's
+   state over the pane's batches (the ring wraps, so rows are cleared and
+   reused), the open pane's ``result()`` to a fresh engine's; (b) the same
+   under ``sliding(3 panes)``: ``result()`` in the middle of every pane
+   bit-equal to a fresh engine over the live panes' batches; (c) zero
+   captures across (a)'s 7 rotations; (d) phase 9's q8 tenancy (10 000
+   streams, 128 slots, ``coalesce=1``) on its first 800 batches under
+   ``sliding(2 panes of 300 batches)``: each (stream, pane) its own pager
+   row, pane rows spilled and paged back in as int8 codes (K7), 200 sampled
+   streams' two pane rows against numpy over each pane's rows (integer
+   states exact), 20 streams seen only before the window all-zero; (e)
+   (b)'s engine with ``snapshot_every=24`` killed after batch 90, a fresh
+   engine restoring cursor 72 (half a pane into the ring) and replaying:
+   ring and value bit-equal to (b)'s, no capture; (f) the JAX package's
+   seeded label-drift traffic (``zipf_traffic(4, 72, drift_at=36)``)
+   through a tumbling megastep engine with a ``DriftDetector``: at least one
+   raise, two card runs and one CPU run with the same histories and alarms,
+   one evaluation per rotation; (g) a mean and a sum of phase 7's class-0
+   scores (rounded to 1/64) under ``ewma(alpha=0.5, 8 batches)`` against the
+   hand-decayed float64 accumulation within (folds + decays) * 2^-24
+   relative, one decay per rotation. Then host ms per warm captured step of
+   phase 7's traffic, a cumulative engine and its sliding twin in turns.
+   Snapshots under the gitignored ``build/phase19/``, removed after the
+   phase.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -267,10 +297,11 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 18 and read after it;
+and set to 0 again before each of phases 10 to 19 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
-and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7), and K2 must launch once per batch and per step
+and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
+K3, K5, K6 and K7), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -4483,6 +4514,315 @@ def obs_phase(dev, preds, target, preds_np, target_np, gpu_state):
         shutil.rmtree(OBS_DIR, ignore_errors=True)
 
 
+WIN_DIR = Path(__file__).resolve().parent / "build" / "phase19"  # gitignored; removed after the phase
+WIN_PANE = 16  # 19(a), (b), (e): batches per pane of phase 7's traffic
+WIN_TUMBLING = 3  # 19(a): the tumbling ring's panes (it wraps: every pane row is cleared and reused)
+WIN_SLIDE = 3  # 19(b), (e): the sliding ring's panes
+WIN_SNAP_EVERY = 24  # 19(e): the snapshot cadence ...
+WIN_KILL = 90  # ... and the batch after which the engine dies: its newest snapshot, 72, is half a pane in
+WIN_PAGED_BATCHES = 800  # 19(d): the prefix of phase 9's traffic the windowed tenancy takes
+WIN_PAGED_PANE = 300  # 19(d): batches per pane (two rotations: the live window is [300, 800))
+WIN_PAGED_SAMPLE = 200  # 19(d): streams held against numpy, as phase 9a samples them
+WIN_EWMA_PANE = 8  # 19(g): batches per EWMA rotation
+WIN_DRIFT = dict(num_streams=4, n_batches=72, seed=7, max_rows=8, label_acc=0.92, drift_at=36, drift_ramp=6,
+                 drift_flip=0.8)  # 19(f): the JAX package's windows smoke's label-drift traffic
+
+
+def window_dir(name):
+    path = WIN_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def windowed_engine(dev, window, aot, make=make_collection, **cfg):
+    """Phase 7's megastep engine under ``window`` (None: cumulative, with no
+    ``window`` field at all, as a tree without windows builds it)."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    if window is not None:
+        cfg["window"] = window
+    return StreamingEngine(make(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep", **cfg),
+                           aot_cache=aot)
+
+
+def fresh_run(dev, preds, target, batches, aot):
+    """A cumulative megastep engine over ``batches`` alone, sharing ``aot``:
+    the window's oracle on the card, replaying the same captured graphs."""
+    eng = windowed_engine(dev, None, aot)
+    with eng:
+        for a, b in batches:
+            eng.submit(preds[a:b], target[a:b])
+    check(eng.stats.warmup_steps == 0, "19: a fresh engine captured")
+    return eng
+
+
+def warm_cache(dev, preds, target, aot):
+    """Capture the cumulative megastep engine's two steps (one batch per
+    bucket) into ``aot``: every engine of 19(a), (b), (e) and the timing,
+    windowed or not, replays these two graphs and captures nothing."""
+    fresh = windowed_engine(dev, None, aot)
+    with fresh:
+        for a, b in ((0, 100), (100, 1100)):
+            fresh.submit(preds[a:b], target[a:b])
+            fresh.flush()
+    check(aot.misses == 2, f"19: {aot.misses} captures for the two buckets")
+
+
+def pane_row(eng, pane):
+    """Pane ``pane``'s logical state out of a ring's ``state()``."""
+    return {k: {s: v[pane] for s, v in member.items()} for k, member in eng.state().items()}
+
+
+def bit_equal_values(got, want, what):
+    """Two value trees bit for bit (19's windows against fresh engines)."""
+    g, w = flat_values(got), flat_values(want)
+    for k in w:
+        check(g[k].shape == w[k].shape and torch.equal(g[k], w[k]), f"{what}: value {k} differs")
+
+
+def window_tumbling(dev, preds, target, aot):
+    """19(a) and (c): phase 7's engine and traffic under ``tumbling(16 batches,
+    3 panes)``; at each pane's close the ring's row of that pane equals a fresh
+    engine's state over the pane's batches, and the open pane's ``result()``
+    at the end a fresh engine's; the windowed engine replays the cumulative
+    engine's two graphs and captures nothing across its rotations."""
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    eng = windowed_engine(dev, WindowPolicy.tumbling(pane_batches=WIN_PANE, n_panes=WIN_TUMBLING), aot)
+    checked = 0
+    t0 = time.perf_counter()
+    with eng:
+        for i, (a, b) in enumerate(batches):
+            eng.submit(preds[a:b], target[a:b])
+            if (i + 1) % WIN_PANE == 0:
+                pane = i // WIN_PANE
+                eng.flush()
+                check(eng.rotations == pane + 1 and eng.pane_cursor == (pane + 1) % WIN_TUMBLING,
+                      f"19(a): ring at rotation {eng.rotations}, cursor {eng.pane_cursor} after pane {pane}")
+                fresh = fresh_run(dev, preds, target, batches[pane * WIN_PANE:(pane + 1) * WIN_PANE], aot)
+                compare_states(pane_row(eng, pane % WIN_TUMBLING), fresh.state(), f"19(a) pane {pane}")
+                checked += 1
+        open_start = (len(batches) // WIN_PANE) * WIN_PANE
+        bit_equal_values(eng.result(), fresh_run(dev, preds, target, batches[open_start:], aot).result(),
+                    "19(a) open pane")
+    seconds = time.perf_counter() - t0
+    check(checked >= 3 and eng.rotations >= 3, f"19(a): {checked} panes checked, {eng.rotations} rotations")
+    check(eng.stats.warmup_steps == 0 and aot.misses == 2,
+          f"19(c): {eng.stats.warmup_steps} captures across {eng.rotations} rotations")
+    check(eng.stats.kernel_fallbacks_by_reason() == {}, "19(a): the windowed megastep engine fell back")
+    return {"panes_checked": checked, "rotations": eng.rotations, "captures": eng.stats.warmup_steps,
+            "cache_misses": aot.misses, "steps": eng.steps, "seconds": seconds}
+
+
+def window_sliding(dev, preds, target, aot):
+    """19(b): the same under ``sliding(3 panes of 16 batches)``: ``result()``
+    read in the middle of every pane equals a recompute, a fresh engine over
+    the live panes' batches, bit for bit."""
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    eng = windowed_engine(dev, WindowPolicy.sliding(n_panes=WIN_SLIDE, pane_batches=WIN_PANE), aot)
+    reads = 0
+    with eng:
+        for i, (a, b) in enumerate(batches):
+            eng.submit(preds[a:b], target[a:b])
+            if i % WIN_PANE == WIN_PANE // 2:
+                start = max(0, (i // WIN_PANE - (WIN_SLIDE - 1)) * WIN_PANE)
+                bit_equal_values(eng.result(), fresh_run(dev, preds, target, batches[start:i + 1], aot).result(),
+                            f"19(b) batch {i}")
+                reads += 1
+    check(reads >= 4 and eng.rotations == len(batches) // WIN_PANE, f"19(b): {reads} reads")
+    check(eng.stats.warmup_steps == 0, "19(b): the sliding engine captured")
+    return eng, {"reads": reads, "rotations": eng.rotations, "steps": eng.steps}
+
+
+def window_resume(dev, preds, target, aot, sliding):
+    """19(e): 19(b)'s engine with ``snapshot_every=24`` killed after batch 90;
+    a fresh engine sharing the cache restores the newest generation (cursor
+    72, half a pane into the ring), replays the rest and ends with 19(b)'s
+    ring and value, bit for bit, capturing nothing."""
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    window = WindowPolicy.sliding(n_panes=WIN_SLIDE, pane_batches=WIN_PANE)
+    d = window_dir("resume")
+    killed = windowed_engine(dev, window, aot, snapshot_every=WIN_SNAP_EVERY, snapshot_dir=d)
+    with killed:
+        for a, b in batches[:WIN_KILL]:
+            killed.submit(preds[a:b], target[a:b])
+    del killed
+    misses = aot.misses
+    resumed = windowed_engine(dev, window, aot, snapshot_dir=d)
+    t0 = time.perf_counter()
+    meta = resumed.restore()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    cursor = int(meta["batches_done"])
+    check(cursor == (WIN_KILL // WIN_SNAP_EVERY) * WIN_SNAP_EVERY and cursor % WIN_PANE != 0,
+          f"19(e): restored at cursor {cursor}, not mid-pane")
+    check(meta["window"] == window.fingerprint() and int(meta["pane_fill"]) == cursor % WIN_PANE,
+          f"19(e): meta {meta.get('window')} fill {meta.get('pane_fill')}")
+    with resumed:
+        for a, b in batches[cursor:]:
+            resumed.submit(preds[a:b], target[a:b])
+    check((resumed.rotations, resumed.pane_cursor) == (sliding.rotations, sliding.pane_cursor), "19(e): ring marks")
+    compare_states(resumed.state(), sliding.state(), "19(e) ring")
+    bit_equal_values(resumed.result(), sliding.result(), "19(e) value")
+    check(aot.misses == misses, "19(e): the resumed engine captured")
+    return {"cursor": cursor, "pane_fill": int(meta["pane_fill"]), "restore_ms": restore_ms}
+
+
+def window_paged(dev, preds, target, preds_np, target_np):
+    """19(d): phase 9's q8 tenancy (10 000 streams, 128 slots,
+    ``compress_payloads=True``, ``coalesce=1``) on its first 800 batches under
+    ``sliding(2 panes of 300 batches)``: each (stream, pane) is its own pager
+    row, so pane rows spill and page back in as int8 codes K7 decodes; every
+    sampled stream's two pane rows against numpy over that pane's rows
+    (integer states exact), streams seen only before the window all-zero."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, WindowPolicy
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)[:WIN_PAGED_BATCHES]
+    batches = batches[:WIN_PAGED_BATCHES]
+    eng = MultiStreamEngine(make_collection(dev, ap_precision="q8_block"), PAGED_STREAMS,
+                            EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=True,
+                                         coalesce=1, window=WindowPolicy.sliding(n_panes=2, pane_batches=WIN_PAGED_PANE)),
+                            stream_shard=True, resident_streams=RESIDENT)
+    before = counts()
+    seconds = run_engine(eng, True, list(zip(sids, batches)),
+                         lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]]))
+    launched = delta(before)
+    st = eng.stats
+    check(eng.rotations == WIN_PAGED_BATCHES // WIN_PAGED_PANE, f"19(d): {eng.rotations} rotations")
+    check(st.page_outs > 0 and st.q8_staged_rows > 0, f"19(d): spills {st.page_outs}, staged {st.q8_staged_rows}")
+    check(launched["megastep_segment"] > 0 and launched["megastep_segment_q8"] > 0, f"19(d): launches {launched}")
+    # the ring after two rotations: pane 0 holds [600, 800) (open), pane 1 holds [300, 600)
+    panes = {0: (600, WIN_PAGED_BATCHES), 1: (WIN_PAGED_PANE, 600)}
+    rows = {p: stream_rows(sids[lo:hi], batches[lo:hi]) for p, (lo, hi) in panes.items()}
+    live = sorted(set(rows[0]) | set(rows[1]), key=lambda s: -sum(len(rows[p].get(s, ())) for p in rows))
+    early = [s for s in stream_rows(sids[:WIN_PAGED_PANE], batches[:WIN_PAGED_PANE]) if s not in live][:20]
+    sample = live[:WIN_PAGED_SAMPLE // 2] + live[-WIN_PAGED_SAMPLE // 2:] + early
+    empty = np.zeros(0, np.int64)
+    for sid in sample:
+        ring = eng.stream_state(sid)
+        for p in panes:
+            idx = rows[p].get(sid, empty)
+            want = {k: v for k, v in oracle_states(preds_np[idx], target_np[idx]).items() if k != "binned_ap"}
+            compare_states({k: {s: v[p] for s, v in m.items()} for k, m in ring.items()}, want,
+                           f"19(d) stream {sid} pane {p}")
+    return {"batches": WIN_PAGED_BATCHES, "rotations": eng.rotations, "page_outs": st.page_outs,
+            "page_ins": st.page_ins, "q8_staged_rows": st.q8_staged_rows, "streams_checked": len(sample),
+            "early_streams_zero": len(early), "s_per_step": seconds / eng.steps, "launches": launched}
+
+
+def drift_run(dev, aot=None):
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.engine import DriftDetector, EngineConfig, StreamingEngine, WindowPolicy
+    from metrics_tpu_torch.engine.traffic import zipf_traffic
+
+    det = DriftDetector(threshold=0.2, up_after=2, down_after=2, baseline="first")
+    eng = StreamingEngine(Accuracy(device=dev), EngineConfig(buckets=(32,), coalesce=1, kernel_backend="megastep",
+                                                             window=WindowPolicy.tumbling(pane_batches=6), drift=det),
+                          aot_cache=aot)
+    with eng:
+        for _, p, t in zipf_traffic(**WIN_DRIFT):
+            eng.submit(torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev))
+    return det, eng
+
+
+def window_drift(dev, aot):
+    """19(f): the JAX package's seeded label-drift traffic through a tumbling
+    megastep engine with a ``DriftDetector`` (6-batch panes): at least one
+    raise; two runs on the card and one on the CPU give the same pane
+    histories and alarm lists; one evaluation per rotation."""
+    det_a, eng_a = drift_run(dev, aot)
+    det_b, _ = drift_run(dev, aot)
+    det_c, _ = drift_run(torch.device("cpu"))
+    alarms = [a.describe() for a in det_a.alarms()]
+    check(len(det_a.alarms("raise")) >= 1, f"19(f): no alarm (history {det_a.history()})")
+    for other, what in ((det_b, "a second run"), (det_c, "the CPU run")):
+        check(other.history() == det_a.history() and [a.describe() for a in other.alarms()] == alarms,
+              f"19(f): {what} diverged")
+    check(eng_a.stats.drift_evals == eng_a.rotations and eng_a.stats.drift_alarms >= 1,
+          f"19(f): drift accounting {eng_a.stats.windows_summary()}")
+    return {"alarms": alarms, "history": det_a.history(), "rotations": eng_a.rotations}
+
+
+def window_ewma(dev, preds, target, aot):
+    """19(g): a mean and a sum of phase 7's class-0 scores (rounded to 1/64)
+    under ``ewma(alpha=0.5, 8 batches)`` against the hand-decayed float64
+    accumulation. A batch's sum is exact in f32; each state rounds once per
+    fold and per decay, so the sum holds within (folds + decays) * 2^-24
+    relative, the mean within twice that plus one rounding; one decay per
+    rotation."""
+    from metrics_tpu_torch import MeanMetric, MetricCollection, SumMetric
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    x = torch.round(preds[:, 0] * 64) / 64
+    xn = x.cpu().double().numpy()
+    eng = windowed_engine(dev, WindowPolicy.ewma(alpha=0.5, pane_batches=WIN_EWMA_PANE), aot,
+                          make=lambda d: MetricCollection({"mean": MeanMetric(device=d), "sum": SumMetric(device=d)}))
+    s = w = 0.0
+    with eng:
+        for i, (a, b) in enumerate(batches):
+            eng.submit(x[a:b])
+            s += float(xn[a:b].sum())
+            w += b - a
+            if (i + 1) % WIN_EWMA_PANE == 0:
+                s, w = s * 0.5, w * 0.5
+        got = {k: float(v) for k, v in eng.result().items()}
+    want = {"mean": s / w, "sum": s}
+    ops = len(batches) + len(batches) // WIN_EWMA_PANE
+    tol = {"sum": ops * 2.0 ** -24, "mean": (2 * ops + 1) * 2.0 ** -24}
+    for k in want:
+        check(abs(got[k] - want[k]) <= tol[k] * abs(want[k]), f"19(g): {k} {got[k]} != {want[k]}")
+    check(eng.stats.ewma_decays == eng.rotations == len(batches) // WIN_EWMA_PANE, "19(g): decays")
+    return {"value": got, "oracle": want, "rel_err": {k: abs(got[k] - want[k]) / abs(want[k]) for k in want},
+            "rel_bound": tol, "decays": eng.stats.ewma_decays}
+
+
+def window_cost(dev, preds, target, aot, kinds=("cumulative", "windowed", "windowed", "cumulative")):
+    """Host ms per warm captured step of phase 7's traffic: a cumulative
+    megastep engine and its sliding twin, warm (sharing 19's cache), in the
+    turns ``kinds`` gives. With only ``"cumulative"`` turns it runs on a tree
+    without windows too (a parent commit's, this file copied over)."""
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    out = {"cumulative": [], "windowed": []}
+    for kind in kinds:
+        window = None
+        if kind == "windowed":
+            from metrics_tpu_torch.engine import WindowPolicy
+
+            window = WindowPolicy.sliding(n_panes=WIN_SLIDE, pane_batches=WIN_PANE)
+        eng = windowed_engine(dev, window, aot)
+        seconds = run_engine(eng, True, batches, lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]]))
+        check(eng.stats.warmup_steps == 0, f"19 timing: the warm {kind} engine captured")
+        out[kind].append({"ms_per_step": seconds / eng.steps * 1e3, "steps": eng.steps,
+                          "ms_per_batch": seconds / len(batches) * 1e3})
+    return out
+
+
+def window_phase(dev, preds, target, preds_np, target_np):
+    """Phase 19: windows and drift (module docstring)."""
+    from metrics_tpu_torch.engine import AotCache
+
+    aot = AotCache()
+    try:
+        warm_cache(dev, preds, target, aot)
+        out = {"tumbling": window_tumbling(dev, preds, target, aot)}
+        sliding, out["sliding"] = window_sliding(dev, preds, target, aot)
+        out["resume"] = window_resume(dev, preds, target, aot, sliding)
+        out["paged"] = window_paged(dev, preds, target, preds_np, target_np)
+        out["drift"] = window_drift(dev, AotCache())
+        out["ewma"] = window_ewma(dev, preds, target, AotCache())
+        out["cost"] = window_cost(dev, preds, target, aot)
+        return out
+    finally:
+        shutil.rmtree(WIN_DIR, ignore_errors=True)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4654,6 +4994,19 @@ def main():
     print(json.dumps({"obs_phase": obs, "launches": obs_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
     fold_entry = obs_fold_entry(dev, obs["traced"]["fold_indices"])
+
+    # phase 19, its counts from 0: K5 (the windowed megastep engines), K6 and K7 (the windowed q8 tenancy), K2 and
+    # K3 (the flagship's members) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    windows = window_phase(dev, preds, target, preds_np, target_np)
+    window_launches = counts()
+    for k in ("histogram", "binned_counts", "megastep_fold", "megastep_segment", "megastep_segment_q8"):
+        check(window_launches[k] > 0, f"kernel {k} was not launched by the windows phase")
+    launches = {k: launches[k] + window_launches[k] for k in launches}
+    print(json.dumps({"window_phase": windows, "launches": window_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")

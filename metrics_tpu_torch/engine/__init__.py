@@ -8,7 +8,9 @@ snapshots and the restore matrix (``engine/snapshot.py``), in a format the
 JAX package reads and writes, with the fault layer they stand on
 (``engine/faults.py``); the telemetry ring (``engine/stats.py``), the flight
 recorder and its OpenMetrics view (``engine/trace.py``), admission control
-and the degradation ladder (``engine/admission.py``), and the seeded Zipf
+and the degradation ladder (``engine/admission.py``), windowed serving
+(tumbling, sliding and EWMA pane rings, ``engine/windows.py``) with drift
+alarms over the closed panes (``engine/tracker.py``), and the seeded Zipf
 traffic the serving checks share (``engine/traffic.py``)."""
 from metrics_tpu_torch.engine.admission import (
     LADDER_RUNGS,
@@ -53,7 +55,9 @@ from metrics_tpu_torch.engine.trace import (
     device_trace_session,
     render_openmetrics,
 )
+from metrics_tpu_torch.engine.tracker import DriftAlarm, DriftAlarmError, DriftDetector
 from metrics_tpu_torch.engine.traffic import zipf_stream_ids, zipf_traffic
+from metrics_tpu_torch.engine.windows import WINDOW_KINDS, WindowPolicy
 
 __all__ = [
     "AdmissionPolicy",
@@ -66,6 +70,9 @@ __all__ = [
     "BucketPolicy",
     "DEFAULT_LATENCY_BUCKETS_US",
     "DegradationLadder",
+    "DriftAlarm",
+    "DriftAlarmError",
+    "DriftDetector",
     "EngineConfig",
     "EngineDispatchError",
     "EngineStats",
@@ -86,6 +93,8 @@ __all__ = [
     "StreamingEngine",
     "TokenBucket",
     "TraceRecorder",
+    "WINDOW_KINDS",
+    "WindowPolicy",
     "decode_state_tree",
     "device_trace_session",
     "encode_state_tree",

@@ -136,6 +136,18 @@ class ArenaLayout:
             rows[spec.key][spec.offset : spec.offset + spec.size] = int(op)
         return rows
 
+    def abstract_paned(self, panes: int) -> Dict[str, Any]:
+        """``StateSpec`` dict of the PANE-RING arena: one ``(panes, n)`` buffer
+        per dtype, row ``p`` pane ``p``'s packed state for this layout (a
+        tumbling or sliding engine's carried form). Each row is a contiguous
+        view, the form a captured step reads and writes."""
+        from metrics_tpu_torch.metric import StateSpec
+
+        return {k: StateSpec((int(panes), n), self._specs_dtype(k)) for k, n in self._totals.items()}
+
+    def _specs_dtype(self, key: str) -> torch.dtype:
+        return next(s.dtype for s in self._specs if s.key == key)
+
     def matches(self, arena: Dict[str, Any], world: Optional[int] = None, panes: Optional[int] = None) -> bool:
         """Shape compatibility of the BUFFERS (restoring a snapshot): one
         buffer per dtype key, each ``lead + (n,)``, where ``lead`` is
@@ -192,7 +204,8 @@ class ArenaLayout:
     def pack_stacked(self, state: Any, lead: int = 1) -> Dict[str, torch.Tensor]:
         """Stacked state tree (``lead`` leading stack axes on every leaf) ->
         per-dtype ``leading + (n,)`` buffers: the per-row packing applied
-        row-wise (the multi-stream engines' slot-stacked form)."""
+        row-wise (the paged engine's slot-stacked form, a pane ring's
+        ``(panes, n)`` form; ``lead=2`` a snapshot's ``(world, panes, n)``)."""
         parts: Dict[str, List[torch.Tensor]] = {k: [] for k in self._totals}
         for leaf, spec in zip(self._leaves(state), self._specs):
             arr = torch.as_tensor(leaf).to(spec.dtype)

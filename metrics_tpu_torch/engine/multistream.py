@@ -46,8 +46,19 @@ of another world or residency (a JAX engine at world 2 or 4, or another
 ``resident_streams``) every stream's row is reassembled and re-homed into the
 spill store, faulting in on first touch; into an unsharded engine the rows
 merge into the ``(S, ...)`` state; anything else is refused with JAX's
-message. Windows and multi-GPU stream sharding over ``torch.distributed`` are
-not ported yet (ROADMAP §A).
+message. Multi-GPU stream sharding over ``torch.distributed`` is not ported
+yet (ROADMAP §A).
+
+Windows (``engine/windows.py``): on the unsharded form the pane axis stacks
+OUTSIDE the stream axis (``(panes, S, ...)`` logical state; a step writes the
+current pane's ``(S, ...)`` row), and a drift detector records one series per
+stream at each rotation. On the paged form the pane extends the pager's
+stream coordinate (``row = stream * panes + pane``): each (stream, pane) pair
+is its own pager row, so cold panes spill like cold streams, a step touches
+only the current pane's rows, and a rotation expires the incoming pane's
+rows in the pager's tables with no device work. A sliding ``result(sid)``
+stacks the stream's pane rows and folds them. EWMA and drift are refused
+there, with the JAX package's messages.
 
 Observability and overload (``engine/pipeline.py``): every span of a batch's
 journey carries its ``stream_id`` (the megabatch span all its
@@ -79,6 +90,7 @@ from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine, _add_committed
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.engine.trace import ENGINE_TRACE
+from metrics_tpu_torch.engine.windows import WindowPolicy
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -159,10 +171,21 @@ class MultiStreamEngine(StreamingEngine):
                     "stream_shard=True requires use_arena=True: the paged per-stream arena rows are the unit "
                     "the pager spills and faults"
                 )
-            r = int(resident_streams) if resident_streams is not None else num_streams
+            # the pane EXTENDS the stream coordinate: each (stream, pane) pair
+            # is its own pager row
+            win = config.window if config is not None and isinstance(config.window, WindowPolicy) else None
+            if win is not None and win.kind == "ewma":
+                raise MetricsTPUUserError(
+                    "ewma windows are not supported under stream_shard=True: the decay would have to scale "
+                    "resident arena rows AND every host-spilled row in place — serve ewma on an unsharded engine, "
+                    "or use a tumbling/sliding ring"
+                )
+            self._pane_rows = win.panes if (win is not None and win.stacked) else 1
+            rows = num_streams * self._pane_rows
+            r = int(resident_streams) if resident_streams is not None else rows
             if r <= 0:
                 raise MetricsTPUUserError(f"resident_streams must be positive, got {resident_streams!r}")
-            self._resident = min(r, num_streams)
+            self._resident = min(r, rows)
         else:
             if resident_streams is not None:
                 raise MetricsTPUUserError(
@@ -170,6 +193,7 @@ class MultiStreamEngine(StreamingEngine):
                     "every stream resident)"
                 )
             self._resident = 0
+            self._pane_rows = 1
         super().__init__(metric, config=config, aot_cache=aot_cache)
         self._row_codec: Optional[ArenaRowCodec] = None
         if self._stream_shard:
@@ -354,7 +378,9 @@ class MultiStreamEngine(StreamingEngine):
         group's routing is one ``route`` span (its rows and rounds)."""
         t_route0 = time.perf_counter()
         leaves, _ = tree_flatten((tuple(args), kwargs))
-        locs = sids.astype(np.int64)  # world 1: a stream's local index is its id
+        # the pager rows of the CURRENT pane, for the whole group at once: the
+        # cursor is constant across the call (rotations fall between groups)
+        locs = self._route_locs(sids)
         per_top = self._policy.buckets[-1]
         route_us = (time.perf_counter() - t_route0) * 1e6
         cursor, committed = 0, 0
@@ -409,6 +435,65 @@ class MultiStreamEngine(StreamingEngine):
             tr.complete("route", trace=self._group_tid or ENGINE_TRACE, dur_us=route_us, rows=int(n),
                         rounds=committed)
             tr.observe("route_us", route_us)
+
+    def _home_row(self, sid: int, pane: Optional[int] = None) -> int:
+        """Stream id (+ pane under a ring window) -> its pager row coordinate
+        (world 1). The pane EXTENDS the stream index (``sid * panes + pane``):
+        each (stream, pane) pair owns its own row, so cold panes page like
+        cold streams. ``pane`` defaults to the current one."""
+        if self._pane_rows == 1:
+            return sid
+        return sid * self._pane_rows + (self._pane_cursor if pane is None else int(pane))
+
+    def _route_locs(self, sids: np.ndarray) -> np.ndarray:
+        """Vectorized :meth:`_home_row` for the current pane (a step only ever
+        touches the pane being written)."""
+        locs = np.asarray(sids, np.int64)
+        return locs * self._pane_rows + self._pane_cursor if self._pane_rows > 1 else locs
+
+    def _row_universe(self) -> int:
+        """Pager rows a paged engine can address: one per (stream, pane)."""
+        return self._num_streams * self._pane_rows
+
+    def _pane_index(self, panes: Any) -> np.ndarray:
+        """The ``(len(panes), S)`` pager rows of every stream in each listed
+        pane, pane-major like the logical ``(panes, S, ...)`` state."""
+        sids = np.arange(self._num_streams, dtype=np.int64)
+        return sids[None, :] * self._pane_rows + np.asarray(list(panes), np.int64)[:, None]
+
+    # ------------------------------------------------------------- pane rotation
+
+    def _plan_rotation(self, incoming: int) -> Any:
+        """The paged rotation's plan: every pager row of the INCOMING pane,
+        resident or spilled (``StreamPager.pane_expiry_plan``). Those rows
+        expire (a tumbling pane restarts, a sliding ring drops its oldest
+        pane) and their next touch faults in the init row: no device work.
+        Pure, behind the ``pane_rotate`` site and the bounded retry."""
+        if not self._stream_shard:
+            return super()._plan_rotation(incoming)
+
+        def plan() -> Any:
+            self._fault("pane_rotate")
+            return self._pager.pane_expiry_plan(incoming, self._pane_rows)
+
+        return self._retry_transient(plan)
+
+    def _commit_rotation(self, planned: Any, incoming: int) -> None:
+        if not self._stream_shard:
+            super()._commit_rotation(planned, incoming)
+            return
+        for shard, row in planned:
+            self._pager.drop(shard, row)
+        self._refresh_gauges()
+
+    def _drift_values_locked(self) -> List[Tuple[Optional[int], Any]]:
+        """Every stream's closing-pane value, one series per stream: ONE
+        batched (vmapped) computation over the stream axis of the closing
+        pane's row (the whole state under EWMA), copied to the host at once."""
+        tree = self._unpack_row(self._pane_row(self._pane_cursor)) if self._win_stacked else self._unpack(self._state)
+        with traced_rows():
+            values = torch.func.vmap(self._metric.compute_from)(tree)
+            return list(enumerate(_values_to_host(values, self._num_streams)))
 
     def _page_round(self, streams: List[int]) -> None:
         """Make every stream in ``streams`` resident: plan with the pager,
@@ -567,21 +652,24 @@ class MultiStreamEngine(StreamingEngine):
             row = self._codec_call("quant_decode", self._row_codec.decode_buffers, row)
         return row
 
-    def _fetch_row(self, sid: int) -> Dict[str, torch.Tensor]:
-        """ONE stream's packed arena row on the device: its slot when resident,
-        the host-spilled copy when paged out (no eviction), else the init row."""
-        slot = self._pager.slot_of(_SHARD, sid)
+    def _fetch_row(self, sid: int, pane: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """ONE (stream, pane) packed arena row on the device: its slot when
+        resident, the host-spilled copy when paged out (no eviction), else the
+        init row. ``pane`` defaults to the current one."""
+        loc = self._home_row(sid, pane)
+        slot = self._pager.slot_of(_SHARD, loc)
         if slot is not None:
             return {k: v[slot] for k, v in self._state.items()}
-        row = self._decoded_spill_row(sid) or self._init_row
+        row = self._decoded_spill_row(loc) or self._init_row
         return {k: torch.from_numpy(np.asarray(v)).to(self._device, self._state[k].dtype) for k, v in row.items()}
 
     def _all_rows(self) -> Dict[str, torch.Tensor]:
-        """Every stream's packed row, ``(S, n)`` per dtype on the device: the
-        init row tiled, the spilled rows (decoded when stored compressed)
-        written in one upload per dtype, then the resident slots in one device
-        gather per dtype (a resident stream has no spill entry)."""
-        dev, s = self._device, self._num_streams
+        """Every pager row, ``(S, n)`` per dtype on the device (``(S * panes,
+        n)`` under a ring window, row ``sid * panes + pane``): the init row
+        tiled, the spilled rows (decoded when stored compressed) written in
+        one upload per dtype, then the resident slots in one device gather per
+        dtype (a resident row has no spill entry)."""
+        dev, s = self._device, self._row_universe()
         out = {k: torch.from_numpy(self._init_row[k]).to(dev, buf.dtype).expand(s, -1).clone()
                for k, buf in self._state.items()}
         encoded: List[Tuple[int, Dict[str, np.ndarray]]] = []
@@ -607,18 +695,58 @@ class MultiStreamEngine(StreamingEngine):
                 scatter_rows(out[k], sids, gather_rows(buf, slots))
         return out
 
-    def _stream_tree(self, sid: int) -> Any:
-        """One stream's logical state tree (views of the live state)."""
+    def _stream_ring(self, sid: int) -> Any:
+        """One stream's logical state tree (views of the live state when
+        unsharded): ``(panes, ...)``-stacked under a ring window."""
         if self._stream_shard:
-            return self._layout.unpack(self._fetch_row(sid))
-        return tree_map(lambda x: x[sid], self._unpack(self._state))
+            if self._pane_rows == 1:
+                return self._layout.unpack(self._fetch_row(sid))
+            rows = [self._fetch_row(sid, pane=p) for p in range(self._pane_rows)]
+            return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+        pick = (lambda x: x[:, sid]) if self._win_stacked else (lambda x: x[sid])
+        return tree_map(pick, self._unpack(self._state))
+
+    def _stream_tree(self, sid: int) -> Any:
+        """One stream's RESULT view: its state, or under a window the open
+        pane of a tumbling ring or the fold of a sliding ring's panes."""
+        if self._stream_shard:
+            if self._pane_rows == 1 or self._window.kind == "tumbling":
+                return self._layout.unpack(self._fetch_row(sid))
+            return self._metric.merge_stacked_states(self._stream_ring(sid))
+        tree = self._unpack(self._state)
+        if not self._win_stacked:
+            return tree_map(lambda x: x[sid], tree)
+        if self._window.kind == "tumbling":
+            return tree_map(lambda x: x[self._pane_cursor, sid], tree)
+        return self._metric.merge_stacked_states(tree_map(lambda x: x[:, sid], tree))
+
+    def _paged_rows(self, panes: Any) -> Dict[str, torch.Tensor]:
+        """The paged form's ``(len(panes), S, n)`` row matrices of the listed
+        panes, out of one reassembly of every pager row."""
+        rows = self._all_rows()
+        idx = torch.from_numpy(self._pane_index(panes)).to(self._device)
+        return {k: gather_rows(v, idx) for k, v in rows.items()}
+
+    def _stacked_ring(self) -> Any:
+        """The logical state of every stream, ``(S, ...)``, or ``(panes, S,
+        ...)`` under a ring window, the pane axis outermost (views of the live
+        state when unsharded; the paged form assembles it afresh)."""
+        if not self._stream_shard:
+            return self._unpack(self._state)
+        if self._pane_rows == 1:
+            return self._layout.unpack_stacked(self._all_rows())
+        return self._layout.unpack_stacked(self._paged_rows(range(self._pane_rows)), lead=2)
 
     def _stacked_tree(self) -> Any:
-        """The ``(S, ...)``-stacked logical state of every stream (views of the
-        live state when unsharded; the paged form assembles it afresh)."""
-        if self._stream_shard:
+        """The ``(S, ...)``-stacked RESULT view of every stream: the state, or
+        under a window its open pane or the fold of its panes."""
+        if not self._stream_shard:
+            return self._window_tree(self._unpack(self._state))
+        if self._pane_rows == 1:
             return self._layout.unpack_stacked(self._all_rows())
-        return self._unpack(self._state)
+        if self._window.kind == "tumbling":
+            return self._layout.unpack_stacked({k: v[0] for k, v in self._paged_rows([self._pane_cursor]).items()})
+        return self._metric.merge_stacked_states(self._stacked_ring())
 
     def result(self, stream_id: int) -> Any:  # type: ignore[override]
         """``stream_id``'s value (after a flush): the paged form reads ONLY
@@ -643,7 +771,7 @@ class MultiStreamEngine(StreamingEngine):
         handle = tr.begin("result", trace=ENGINE_TRACE, stream_id=sid) if tr is not None else None
         self.flush()
         with self._device_section(), traced_rows():
-            value = self._metric.compute_from(self._stream_tree(sid))
+            value = self._owned(self._metric.compute_from(self._stream_tree(sid)))
             self._stats.result_device_calls += 1
             if self._ladder is not None:
                 # the defer rung's source: only ladder-armed engines keep it
@@ -666,36 +794,45 @@ class MultiStreamEngine(StreamingEngine):
         return dict(enumerate(per_stream))
 
     def stream_state(self, stream_id: int) -> Any:
-        """A copy of one stream's LOGICAL state tree (after a flush)."""
+        """A copy of one stream's LOGICAL state tree (after a flush):
+        ``(panes, ...)``-stacked under a ring window."""
         sid = self._check_stream(stream_id)
         self.flush()
         with self._device_section():
-            return tree_map(torch.clone, self._stream_tree(sid))
+            return tree_map(torch.clone, self._stream_ring(sid))
 
     def state(self) -> Any:
-        """The (S, ...)-stacked LOGICAL state of all streams (the paged form
-        reassembles it from resident, spilled and init rows)."""
+        """The (S, ...)-stacked LOGICAL state of all streams, ``(panes, S,
+        ...)`` under a ring window (the paged form reassembles it from
+        resident, spilled and init rows)."""
         if not self._stream_shard:
             return super().state()
         self.flush()
         with self._device_section():
-            return self._stacked_tree()
+            return self._stacked_ring()
 
     def reset_stream(self, stream_id: int) -> None:
-        """Zero ONE stream's accumulation (after a flush); the paged form
-        simply forgets the stream (slot freed, spill entry dropped) and its
-        next access faults in the init row."""
+        """Zero ONE stream's accumulation (after a flush), in every live pane
+        of a ring: "forget this tenant" leaves no history pane serving a stale
+        window. The paged form simply forgets the stream's rows (slots freed,
+        spill entries dropped) and its next access faults in the init row."""
         sid = self._check_stream(stream_id)
         self.flush()
         with self._device_section():
             self._result_cache.pop(sid, None)
             if self._stream_shard:
-                self._pager.drop(_SHARD, sid)
+                for p in range(self._pane_rows):
+                    self._pager.drop(_SHARD, self._home_row(sid, p))
                 self._refresh_gauges()
                 return
             init = tree_leaves(self._metric.init_state())
             for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
-                leaf[sid] = fresh.to(leaf.device)  # in place: the leaves view the arena
+                # in place: the leaves view the arena (the stream axis sits
+                # under the pane axis of a ring)
+                if self._win_stacked:
+                    leaf[:, sid] = fresh.to(leaf.device)
+                else:
+                    leaf[sid] = fresh.to(leaf.device)
 
     def _reset_locked(self) -> None:
         if self._pager is not None:
@@ -783,7 +920,7 @@ class MultiStreamEngine(StreamingEngine):
         unequal and spills: conservative, never lossy."""
         payload: Dict[str, Any] = {"slots": np.full((1, self._resident), -1, np.int64)}
         keys = sorted(rows)
-        diff = np.zeros((self._num_streams,), bool)
+        diff = np.zeros((self._row_universe(),), bool)
         for k in keys:
             diff |= ~np.all(np.asarray(rows[k]) == np.asarray(init_row[k])[None], axis=1)
         sids = np.nonzero(diff)[0].astype(np.int64)
@@ -852,7 +989,20 @@ class MultiStreamEngine(StreamingEngine):
         if not snap_shard and not self._stream_shard:
             super()._restore_commit(state, meta)
             return
+        # pager rows MEAN (stream, pane) only under the policy that wrote them
         self._check_window_provenance(meta)
+        if snap_shard and str(meta.get("window", "") or ""):
+            # a windowed paged snapshot restores into a paged engine of the
+            # same world (any residency: the pane-extended row id is a function
+            # of the world and the panes); a world change or a merge into an
+            # unsharded engine would re-interleave mid-ring coordinates
+            w_snap = int(meta.get("world", 1))
+            if not self._stream_shard or w_snap != 1:
+                raise MetricsTPUUserError(
+                    "a WINDOWED stream-shard snapshot restores into a same-world stream-sharded topology only "
+                    f"(snapshot world {w_snap}): pane-extended pager rows have no exact cross-world re-homing — "
+                    "restore into a same-world engine (any resident_streams), or snapshot from an unwindowed one"
+                )
         if not snap_shard:
             raise MetricsTPUUserError(
                 "snapshot was not written by a stream-sharded engine; the stream-shard restore matrix covers "
@@ -903,7 +1053,7 @@ class MultiStreamEngine(StreamingEngine):
             # another topology: slot tables are topology-local, the rows are
             # not; every non-init row seeds the spill store
             rows = self._rows_from_parts(arena, self._decoded_pager_payload(pager_payload, snap_codec), init_row,
-                                         self._num_streams, world_snap)
+                                         self._row_universe(), world_snap)
             payload = self._normalized_pager_payload(self._seeded_pager_payload(rows, init_row), None)
             carried = self._put_state(self._metric.init_state())
         payload = {k: _pager_row(v) for k, v in payload.items()}  # the pager's host form: bf16 rows as f32

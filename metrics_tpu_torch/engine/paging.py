@@ -119,6 +119,17 @@ class StreamPager:
         pane-expiry plan)."""
         return tuple(sorted(self._spill[shard]))
 
+    def pane_expiry_plan(self, incoming: int, panes: int) -> List[Tuple[int, int]]:
+        """The ``(shard, row)`` coordinates a pane rotation expires: every
+        row, resident or spilled, of the INCOMING pane under the pane-extended
+        coordinate ``row = stream * panes + pane``. Pure (the caller drops
+        them at its commit); sorted, so a retried plan is the same list."""
+        drops = []
+        for shard in range(self.world):
+            drops.extend((shard, r) for r in self.resident_streams(shard) if r % panes == incoming)
+            drops.extend((shard, r) for r in self.spilled_streams(shard) if r % panes == incoming)
+        return sorted(set(drops))
+
     # ----------------------------------------------------------------- planning
 
     def plan_residency(self, shard: int, streams: List[int]) -> Tuple[List[PageOp], int, int]:

@@ -79,9 +79,24 @@ engaging or releasing one rung at a time: ``widen_coalesce`` moves
 mesh, ``defer_cold_reads`` serves a cold stream's cached ``result()``,
 ``shed`` rejects the lowest priority class.
 
-Windows, meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP
-§A): their ``EngineConfig`` fields, and an injector plan naming one of their
-fault sites, raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
+Windows (``engine/windows.py``, ``engine/tracker.py``): ``window`` serves a
+tumbling or sliding pane ring, or an EWMA accumulator, instead of cumulative
+state. A ring's carried buffers gain a leading pane axis, ``(panes, n)`` per
+dtype, and a step works on ONE pane row: the row is a contiguous view, which
+the captured step loads into its graph's buffers and writes back, so the
+graph is the cumulative engine's and a rotation changes which row is passed,
+capturing nothing. Rotations land at batch boundaries (``pane_batches``, a
+function of the replay cursor) or on the policy's clock (``pane_seconds``),
+split plan/commit: the plan (behind the ``pane_rotate`` fault site and the
+bounded retry) prepares the incoming row's init fill or the decayed
+buffers without touching the state, the commit writes them in place, so a
+retried rotation clears or decays exactly once. A ``drift`` detector reads
+the closing pane's result at each rotation (``drift_eval``, a pure read) and
+records it once. Snapshots carry the ring's provenance and restore mid-ring.
+
+Meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A):
+their ``EngineConfig`` fields, and an injector plan naming one of their fault
+sites, raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
 """
 import copy
 import queue
@@ -124,6 +139,8 @@ from metrics_tpu_torch.engine.quantize import CODEC_ID, decode_state_tree, encod
 from metrics_tpu_torch.engine.snapshot import load_snapshot, save_snapshot
 from metrics_tpu_torch.engine.stats import EngineStats, _percentile
 from metrics_tpu_torch.engine.trace import ENGINE_TRACE, TraceRecorder, render_openmetrics
+from metrics_tpu_torch.engine.tracker import DriftDetector
+from metrics_tpu_torch.engine.windows import WindowPolicy
 from metrics_tpu_torch.metric import StateSpec
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
@@ -135,12 +152,13 @@ __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = (
-    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "elastic_min_world", "window", "drift",
+    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "elastic_min_world",
 )
 #: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
 _PORTED_FAULT_SITES = (
     "ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
     "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
+    "pane_rotate", "drift_eval",
 )
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
@@ -208,7 +226,8 @@ class EngineConfig:
             at every site the engines wire (``ingest``, ``coalesce``,
             ``compile``, ``step``, ``kernel``, ``watchdog``, ``page_out``,
             ``page_in``, ``quant_encode``, ``quant_decode``, the snapshot
-            sites, ``dispatcher_kill`` and ``admission``); a plan naming a
+            sites, ``dispatcher_kill``, ``admission``, ``pane_rotate`` and
+            ``drift_eval``); a plan naming a
             site of a layer the port does not have yet raises
             :class:`NotPortedError`.
         screen: optional :class:`~metrics_tpu_torch.engine.faults.ScreenPolicy`:
@@ -262,6 +281,22 @@ class EngineConfig:
             ``result()`` reads, shed the lowest priority class (needs
             ``admission``). Every transition is a ``ladder`` trace event.
 
+        window: optional :class:`~metrics_tpu_torch.engine.windows.WindowPolicy`:
+            ``tumbling``/``sliding`` carry a ring of panes (a step writes the
+            current pane's row; ``result()`` reads the open pane or folds the
+            live ones), ``ewma`` scales the (float, sum-reducible: refused
+            otherwise) states by ``1 - alpha`` at each rotation. Rotation
+            cadence is ``pane_batches`` (replay-cursor exact) or
+            ``pane_seconds`` of the policy's injectable clock; a coalesced
+            group never crosses a batch-cadence boundary. The cumulative
+            policy is the default behaviour (no pane axis).
+        drift: optional :class:`~metrics_tpu_torch.engine.tracker.DriftDetector`:
+            at every rotation the dispatcher records the CLOSING pane's
+            result into it (the ``drift_eval`` fault site; a pure read, so a
+            transient retries and the detector records once); transitions
+            are ``drift_alarm`` trace events and the ``drift_alarms``
+            OpenMetrics counter. Needs a rotating ``window``.
+
     Any other field of the JAX package's ``EngineConfig`` raises
     :class:`NotPortedError`.
     """
@@ -293,6 +328,8 @@ class EngineConfig:
         trace: Optional[TraceRecorder] = None,
         admission: Optional[AdmissionPolicy] = None,
         ladder: Optional[DegradationLadder] = None,
+        window: Optional[WindowPolicy] = None,
+        drift: Optional[DriftDetector] = None,
         **fields: Any,
     ) -> None:
         unported = sorted(k for k in fields if k in _NOT_PORTED_FIELDS)
@@ -332,6 +369,8 @@ class EngineConfig:
         self.trace = trace
         self.admission = admission
         self.ladder = ladder
+        self.window = window
+        self.drift = drift
 
     def __repr__(self) -> str:
         return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
@@ -344,7 +383,8 @@ class EngineConfig:
                 f"screen={self.screen!r}, quarantine_capacity={self.quarantine_capacity}, "
                 f"step_timeout_s={self.step_timeout_s}, transactional={self.transactional}, "
                 f"degrade_kernel={self.degrade_kernel}, telemetry_capacity={self.telemetry_capacity}, "
-                f"trace={self.trace!r}, admission={self.admission!r}, ladder={self.ladder!r})")
+                f"trace={self.trace!r}, admission={self.admission!r}, ladder={self.ladder!r}, "
+                f"window={self.window!r}, drift={self.drift!r})")
 
 
 _STOP = object()  # the dispatcher's stop sentinel
@@ -450,6 +490,7 @@ class StreamingEngine:
             raise MetricsTPUUserError("snapshot_every > 0 requires snapshot_dir")
         self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value)
         self._stats = EngineStats(self._cfg.telemetry_capacity)
+        self._init_window(metric)
         # None (the default) keeps every site at one `is not None` test
         self._admission = self._cfg.admission
         self._ladder = self._cfg.ladder
@@ -545,6 +586,61 @@ class StreamingEngine:
         # the watchdog arms when configured, or when the plan can fire its site
         self._watchdog_enabled = self._cfg.step_timeout_s > 0 or (inj is not None and inj.has_site("watchdog"))
 
+    def _init_window(self, metric: Any) -> None:
+        """Validate ``window`` and ``drift`` as the JAX package does and set up
+        the ring's marks. The cumulative policy normalizes to None: it IS the
+        default, and a cumulative engine's state, step keys and telemetry stay
+        what they were."""
+        win = self._cfg.window
+        if win is not None and not isinstance(win, WindowPolicy):
+            raise MetricsTPUUserError(f"config.window must be a WindowPolicy, got {type(win).__name__}")
+        self._window: Optional[WindowPolicy] = win if (win is not None and win.kind != "cumulative") else None
+        if self._window is not None:
+            reason = self._window.unsupported_reason(metric)
+            if reason is not None:
+                raise MetricsTPUUserError(
+                    f"metric cannot serve under WindowPolicy {self._window.fingerprint()!r}: {reason}")
+        # the pane axis stacks on the carried state only off the paged path:
+        # there the pane extends the pager's stream coordinate instead
+        stream_shard = getattr(self, "_stream_shard", False)
+        self._win_stacked = self._window is not None and self._window.stacked and not stream_shard
+        self._panes = self._window.panes if self._window is not None else 1
+        self._pane_cursor = 0
+        self._rotations = 0
+        self._last_rotate_batches = 0
+        # the replay cursor at which the OPEN pane started: the pane fill a
+        # snapshot records, and the guard that keeps an empty pane (a time
+        # cadence catching up over a traffic gap) out of the drift detector
+        self._pane_open_cursor = 0
+        self._win_clock = self._window.time_source() if self._window is not None else time.monotonic
+        self._last_rotate_time = self._win_clock() if self._window is not None else 0.0
+        self._drift: Optional[DriftDetector] = self._cfg.drift
+        if self._drift is not None:
+            if not isinstance(self._drift, DriftDetector):
+                raise MetricsTPUUserError(f"config.drift must be a DriftDetector, got {type(self._drift).__name__}")
+            if self._window is None:
+                raise MetricsTPUUserError(
+                    "config.drift needs a rotating config.window: drift alarms evaluate per CLOSED PANE — without "
+                    "rotations there is nothing to record (use DriftDetector standalone otherwise)"
+                )
+            if stream_shard:
+                raise MetricsTPUUserError(
+                    "automatic drift evaluation is not supported under stream_shard=True (a per-rotation "
+                    "all-streams read would fault every cold pane back in); record per-stream pane results into "
+                    "a standalone DriftDetector instead"
+                )
+            if self._drift.raise_on_alarm:
+                raise MetricsTPUUserError(
+                    "config.drift must not set raise_on_alarm: the detector records on the DISPATCHER thread, "
+                    "where a raised alarm would become the sticky dispatcher error and take serving down — alarms "
+                    "surface as drift_alarm trace events and counters; poll detector.alarms() (raise_on_alarm is "
+                    "for standalone use)"
+                )
+        if self._window is not None:
+            self._stats.window_policy = self._window.fingerprint()
+            self._stats.live_panes = 1
+        self._ring_init: Any = None  # one pane's init row, made at the first rotation
+
     # -------------------------------------------------------------- capability checks
 
     def _update_path_unsupported_reason(self, metric: Any) -> Optional[str]:
@@ -564,23 +660,74 @@ class StreamingEngine:
         return self._metric.abstract_state()
 
     def _init_state_tree(self) -> Any:
-        return self._kind_init_state_tree()
+        """The fresh logical state: the engine kind's tree, pane-stacked (every
+        leaf gains a leading ``panes`` axis of identical init rows) under a
+        ring window."""
+        tree = self._kind_init_state_tree()
+        if not self._win_stacked:
+            return tree
+        return tree_map(lambda x: torch.stack([torch.as_tensor(x)] * self._panes), tree)
+
+    def _carried_abstract_tree(self) -> Any:
+        """The logical CARRIED tree's shapes: the engine kind's, pane-stacked
+        under a ring window."""
+        tree = self._kind_abstract_state_tree()
+        if not self._win_stacked:
+            return tree
+        return tree_map(lambda s: StateSpec((self._panes,) + tuple(s.shape), s.dtype), tree)
 
     def _pack(self, tree: Any) -> Any:
-        return tree if self._layout is None else self._layout.pack(tree)
+        """Logical carried tree -> the carried form (a ring's ``(panes, n)``
+        buffers under a ring window)."""
+        if self._layout is None:
+            return tree
+        return self._layout.pack_stacked(tree) if self._win_stacked else self._layout.pack(tree)
 
     def _unpack(self, carried: Any) -> Any:
-        return carried if self._layout is None else self._layout.unpack(carried)
+        if self._layout is None:
+            return carried
+        return self._layout.unpack_stacked(carried) if self._win_stacked else self._layout.unpack(carried)
+
+    def _pack_row(self, tree: Any) -> Any:
+        """ONE pane's logical tree -> its carried row (what a step returns)."""
+        return tree if self._layout is None else self._layout.pack(tree)
+
+    def _unpack_row(self, row: Any) -> Any:
+        return row if self._layout is None else self._layout.unpack(row)
+
+    def _pane_row(self, pane: int) -> Any:
+        """Views of pane ``pane``'s row of the carried ring: each a contiguous
+        slice of its ``(panes, n)`` buffer (of each ``(panes, ...)`` leaf
+        without an arena)."""
+        return tree_map(lambda x: x[pane], self._state)
+
+    def _step_target(self) -> Any:
+        """What a step reads and writes: the carried state, or under a ring
+        window the CURRENT pane's row. The captured step loads it into the
+        graph's buffers and copies the new state back into it, so the graph
+        is the cumulative engine's and a rotation only changes the row."""
+        return self._pane_row(self._pane_cursor) if self._win_stacked else self._state
+
+    def _window_tree(self, tree: Any) -> Any:
+        """A pane-stacked logical tree -> the window's RESULT view: a sliding
+        ring folds its live panes through ``merge_stacked_states`` (sum, min,
+        max elementwise; ``cat`` capacity buffers concatenated across panes),
+        a tumbling ring reads the open pane; other engines pass through."""
+        if not self._win_stacked:
+            return tree
+        if self._window.kind == "sliding":
+            return self._metric.merge_stacked_states(tree)
+        return tree_map(lambda x: x[self._pane_cursor], tree)
 
     def _put_state(self, tree: Any) -> Any:
         """The carried form of a logical state tree, on the engine's device."""
         return self._pack(tree_map(lambda x: torch.as_tensor(x).to(self._device), tree))
 
-    def _write_state(self, carried: Any) -> None:
-        """Copy a carried state into the engine's buffers, in place: the
-        buffers are never rebound, so captured steps and the pager's
-        page-ins keep addressing them."""
-        for dst, src in zip(tree_leaves(self._state), tree_leaves(carried)):
+    def _write_state(self, carried: Any, into: Any = None) -> None:
+        """Copy a carried state into the engine's buffers (or into ``into``, a
+        pane row of them), in place: the buffers are never rebound, so
+        captured steps and the pager's page-ins keep addressing them."""
+        for dst, src in zip(tree_leaves(self._state if into is None else into), tree_leaves(carried)):
             if dst is not src:
                 dst.copy_(src)
 
@@ -619,7 +766,7 @@ class StreamingEngine:
         state and writes none of its inputs (it is what a graph captures)."""
         if self._megastep_plan is not None:
             return self._megastep_plan.apply_masked(state, a, kw, mask)
-        return self._pack(self._traced_update(self._unpack(state), (a, kw), mask))
+        return self._pack_row(self._traced_update(self._unpack_row(state), (a, kw), mask))
 
     def _kernel_tag(self) -> str:
         return "megastep" if self._megastep_plan is not None else "auto"
@@ -649,8 +796,9 @@ class StreamingEngine:
             return hit
         if self._metric_fp is None:
             self._metric_fp = metric_fingerprint(self._metric)
+        target = self._step_target()
         if self._carried_sig is None:
-            self._carried_sig = AotCache.signature_of((self._state, self._step_aux()))
+            self._carried_sig = AotCache.signature_of((target, self._step_aux()))
         key = self._aot.program_key(
             f"{self._update_kind()}+k.{self._kernel_tag()}", self._metric_fp,
             arg_tree=(self._carried_sig, abstract, tuple(kinds), StateSpec((bucket,), torch.bool)),
@@ -669,9 +817,9 @@ class StreamingEngine:
 
             def build() -> CapturedStep:
                 inputs = StepBuffers(leaves, kinds, treedef, bucket, self._device)
-                prog = CapturedStep(self._state, self._step_aux(), inputs, self._graph_keepalive())
+                prog = CapturedStep(target, self._step_aux(), inputs, self._graph_keepalive())
                 inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                prog.load(self._state, self._step_aux())  # the warm-up runs on this copy, never the live state
+                prog.load(target, self._step_aux())  # the warm-up runs on this copy, never the live state
                 self._aot.capture(prog, self._step_state, self._device)
                 self._stats.warmup_steps += 1
                 return prog
@@ -754,14 +902,15 @@ class StreamingEngine:
             step_handle = tr.begin("device_step", trace=gid, step=self._step, bucket=bucket, valid=valid)
             label = torch.profiler.record_function(f"device_step:{self._step}")
         new = None
+        target = self._step_target()  # a ring's current pane row: the rows of the other panes stay as they are
         with label:
             if self._capture:
                 with self._aot.exclusive(self._stream):
                     prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                    prog.replay(self._state, self._step_aux())
+                    prog.replay(target, self._step_aux())
             else:
                 a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
-                new = self._step_state(self._state, self._step_aux(), a, kw, mask)
+                new = self._step_state(target, self._step_aux(), a, kw, mask)
         self._fault("step")
         sync_us: Optional[float] = None
         if self._watchdog_enabled:
@@ -772,7 +921,7 @@ class StreamingEngine:
             if tr is not None:
                 tr.complete("watchdog_sync", trace=gid, dur_us=sync_us)
         if new is not None:
-            self._write_state(new)
+            self._write_state(new, into=target)
         self._step += 1
         if not self._watchdog_enabled:  # a watched step was drained before its commit
             sync_us = self._bound_inflight()
@@ -810,12 +959,14 @@ class StreamingEngine:
         """The pre-step state a failed step rolls back onto, or None when the
         engine is not transactional (a failure then goes sticky). The shadow
         is allocated once and refreshed in place before every step, on the
-        engine's stream."""
+        engine's stream; it covers what the step writes (a ring's current
+        pane row)."""
         if not self._transactional:
             return None
+        target = self._step_target()
         if self._shadow is None:
-            self._shadow = tree_map(torch.empty_like, self._state)
-        for dst, src in zip(tree_leaves(self._shadow), tree_leaves(self._state)):
+            self._shadow = tree_map(torch.empty_like, target)
+        for dst, src in zip(tree_leaves(self._shadow), tree_leaves(target)):
             dst.copy_(src)
         return self._shadow
 
@@ -828,7 +979,7 @@ class StreamingEngine:
         try:
             # in place, on the engine stream: after whatever the failed or hung
             # attempt enqueued, so no late write lands on the rolled-back state
-            for dst, src in zip(tree_leaves(self._state), tree_leaves(shadow)):
+            for dst, src in zip(tree_leaves(self._step_target()), tree_leaves(shadow)):
                 dst.copy_(src)
         except RuntimeError:  # a broken device: the original error goes sticky
             return False
@@ -1071,6 +1222,11 @@ class StreamingEngine:
     def _process_group_locked(self, group: List[Any], queue_wait_us: float = 0.0) -> None:
         # a FATAL fault here models the dispatcher dying outright
         self._fault("dispatcher_kill")
+        if self._window is not None and self._window.pane_seconds > 0:
+            # TIME-cadence panes rotate BEFORE the group folds: a batch that
+            # arrives after the pane's deadline belongs to the NEW pane (a
+            # batch-cadence boundary rotates after its group, below)
+            self._maybe_rotate_locked()
         self._fault("ingest")  # the host ingestion boundary: nothing folded yet
         sized = [(it, self._item_rows(it)) for it in group]
         kept = self._screen_group(sized)
@@ -1098,6 +1254,10 @@ class StreamingEngine:
                         _attach_ctx(se, cursor=cursors.get(id(it)), **self._item_context(it))
                         raise
         self._batches_done += len(group)
+        if self._window is not None and self._window.pane_batches > 0:
+            # before the snapshot cadence: a boundary snapshot carries the
+            # rotated ring, so a restored engine never rotates it again
+            self._maybe_rotate_locked()
         if self._cfg.snapshot_every > 0 and self._batches_done % self._cfg.snapshot_every == 0:
             self._sync()  # the copy to the host reads the state after every in-flight step folded
             try:
@@ -1107,6 +1267,123 @@ class StreamingEngine:
                 # the state is intact and the previous generation still
                 # backs restore()
                 self._stats.snapshot_failures += 1
+
+    # -------------------------------------------------------------- pane rotation
+
+    def _maybe_rotate_locked(self) -> None:
+        """Rotate the ring when the cadence is due at this batch boundary
+        (dispatcher thread, state lock held). Batch cadence is a function of
+        the replay cursor, so kill/resume rotates at the same boundaries;
+        time cadence reads the policy's clock and advances by
+        ``pane_seconds`` per rotation, so a stalled dispatcher catches up
+        pane by pane."""
+        w = self._window
+        if w is None:
+            return
+        due = w.rotations_due(self._batches_done, self._last_rotate_batches, self._win_clock(),
+                              self._last_rotate_time)
+        for _ in range(due):
+            self._rotate_once_locked()
+
+    def rotate_pane(self) -> None:
+        """Rotate the ring NOW, at a batch boundary the caller chooses: every
+        batch submitted before the call folds into the closing pane first
+        (a flush), then the rotation runs as the cadence's does."""
+        if self._window is None:
+            raise MetricsTPUUserError(
+                "rotate_pane() needs a rotating config.window (tumbling/sliding/ewma); this engine serves "
+                "cumulative state"
+            )
+        self.flush()
+        with self._device_section():
+            self._rotate_once_locked()
+
+    def _rotate_once_locked(self) -> None:
+        """One rotation, split plan/commit so that a retried one never clears
+        or decays twice. Plan: read the closing pane's result for the drift
+        detector (a pure read: a ``drift_eval`` transient reads again) and
+        prepare the rotation without touching the state (a ``pane_rotate``
+        transient prepares again). Commit: write it in place, move the
+        cursor and the marks, record once."""
+        drift_values: Optional[List[Tuple[Optional[int], Any]]] = None
+        # an EMPTY pane (a time cadence catching up over a traffic gap) is no
+        # drift observation: its init-state result would raise false alarms
+        # and, under the first/mean baselines, poison the reference
+        if self._drift is not None and self._batches_done > self._pane_open_cursor:
+            def eval_once() -> List[Tuple[Optional[int], Any]]:
+                self._fault("drift_eval")
+                return self._drift_values_locked()
+
+            drift_values = self._retry_transient(eval_once)
+        incoming = (self._pane_cursor + 1) % self._panes if self._window.stacked else 0
+        ewma = self._window.kind == "ewma"
+        planned = self._plan_rotation(incoming)
+        # ---- commit: nothing below is consulted by a fault site
+        self._commit_rotation(planned, incoming)
+        self._result_cache.clear()
+        self._pane_cursor = incoming
+        self._rotations += 1
+        self._pane_open_cursor = self._batches_done
+        if self._window.pane_batches > 0:
+            self._last_rotate_batches += self._window.pane_batches
+        else:
+            self._last_rotate_time += self._window.pane_seconds
+        self._stats.record_rotation(cursor=self._pane_cursor, live=min(self._rotations + 1, self._panes), ewma=ewma)
+        if self._trace is not None:
+            self._trace.event("pane_rotate", trace=ENGINE_TRACE, rotation=self._rotations, cursor=self._pane_cursor,
+                              kind=self._window.kind)
+        if drift_values is not None:
+            self._record_drift(drift_values)
+
+    def _plan_rotation(self, incoming: int) -> Any:
+        """The fallible half of a rotation, behind the ``pane_rotate`` site and
+        the bounded retry, pure in the state: a ring's plan is the init row
+        the incoming pane takes, an EWMA's the decayed buffers, made anew
+        (each element times the decay rounded to its dtype, as the JAX
+        package multiplies). The paged engine plans the rows it expires."""
+        def rotate_once() -> Any:
+            self._fault("pane_rotate")
+            if self._win_stacked:
+                return self._ring_init_row()
+            return tree_map(lambda x: x * torch.tensor(self._window.decay, dtype=x.dtype, device=x.device), self._state)
+
+        return self._retry_transient(rotate_once)
+
+    def _ring_init_row(self) -> Any:
+        """One pane's carried init row on the engine's device, made once and
+        only ever read."""
+        if self._ring_init is None:
+            self._ring_init = self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(self._device),
+                                                      self._kind_init_state_tree()))
+        return self._ring_init
+
+    def _commit_rotation(self, planned: Any, incoming: int) -> None:
+        """The infallible half: write the plan into the state, in place (the
+        incoming pane's row, or every decayed buffer)."""
+        self._write_state(planned, into=self._pane_row(incoming) if self._win_stacked else None)
+
+    def _drift_values_locked(self) -> List[Tuple[Optional[int], Any]]:
+        """The CLOSING pane's result, ``(series key, value)`` pairs: one
+        anonymous series here, one per stream on the multi-stream engine. A
+        pure read, computed traced as ``result()`` is, owning its memory: the
+        commit that follows writes the state in place."""
+        tree = self._unpack_row(self._pane_row(self._pane_cursor)) if self._win_stacked else self._unpack(self._state)
+        with traced_rows():
+            return [(None, self._owned(self._metric.compute_from(tree)))]
+
+    def _record_drift(self, values: List[Tuple[Optional[int], Any]]) -> None:
+        """Record each series exactly once (after the plan's retries) and
+        surface the transitions as ``drift_alarm`` trace events and counters."""
+        pane = self._rotations - 1  # the pane that just closed, 0-based
+        for key, value in values:
+            transitions = self._drift.record(value, key=key, pane=pane)
+            self._stats.drift_evals += 1
+            for a in transitions:
+                if a.kind == "raise":
+                    self._stats.drift_alarms += 1
+                if self._trace is not None:
+                    self._trace.event("drift_alarm", trace=ENGINE_TRACE, kind=a.kind, series=a.name, pane=pane,
+                                      **({"stream_id": a.key} if a.key is not None else {}))
 
     # ------------------------------------------------------------------- quarantine
 
@@ -1223,11 +1500,15 @@ class StreamingEngine:
         window. Bounded by ``coalesce`` batches and by the top bucket's row
         count (a fuller megabatch would just re-chunk); waits up to
         ``coalesce_window_ms`` for more traffic once the queue runs dry. A
-        group never crosses the next snapshot boundary (the cadence stays
-        batch-exact)."""
+        group never crosses the next snapshot boundary nor a batch-cadence
+        pane boundary (both cadences stay batch-exact)."""
         limit = max(1, self._cfg.coalesce)
         if self._cfg.snapshot_every > 0:
             limit = min(limit, self._cfg.snapshot_every - (self._batches_done % self._cfg.snapshot_every))
+        if self._window is not None and self._window.pane_batches > 0:
+            # nor a pane boundary: rows past it belong to the NEXT pane (time
+            # cadence rotates between groups by construction)
+            limit = min(limit, self._window.pane_batches - (self._batches_done - self._last_rotate_batches))
         group = [first]
         if limit <= 1:
             return group, None, False, 0.0
@@ -1503,16 +1784,28 @@ class StreamingEngine:
 
         The compute runs as the JAX package's compiled compute program does:
         traced (``traced_rows``), so no value check reads the state on the
-        host, and a compute that must read it (``R2Score``) raises."""
+        host, and a compute that must read it (``R2Score``) raises. Under a
+        window it is the window's value: the open pane of a tumbling ring,
+        the fold of a sliding ring's live panes, the decayed accumulation."""
         tr = self._trace
         handle = tr.begin("result", trace=ENGINE_TRACE) if tr is not None else None
         self.flush()
         with self._device_section(), traced_rows():
-            value = self._metric.compute_from(self._unpack(self._state))
+            value = self._owned(self._metric.compute_from(self._window_tree(self._unpack(self._state))))
         if handle is not None:
             self._value_in_hand()
             tr.observe("result_latency_us", tr.end(handle))
         return value
+
+    def _owned(self, value: Any) -> Any:
+        """``value`` with every tensor that shares memory with the carried
+        state cloned: a compute may return a state leaf itself (the confusion
+        matrix does), and the engine's later steps write the state in place,
+        so a value handed out must not be a view of it (the JAX package's
+        values are immutable)."""
+        live = {t.untyped_storage().data_ptr() for t in tree_leaves(self._state)}
+        return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                        and x.untyped_storage().data_ptr() in live else x, value)
 
     def _value_in_hand(self) -> None:
         """Wait for the caller's stream: a traced read's latency is the
@@ -1521,7 +1814,8 @@ class StreamingEngine:
             torch.cuda.current_stream(self._device).synchronize()
 
     def state(self) -> Any:
-        """A copy of the accumulated LOGICAL state tree (arenas unpacked)."""
+        """A copy of the accumulated LOGICAL state tree (arenas unpacked;
+        pane-stacked, ``(panes, ...)``, under a ring window)."""
         self.flush()
         with self._device_section():
             return tree_map(torch.clone, self._unpack(self._state))
@@ -1542,6 +1836,14 @@ class StreamingEngine:
         self._write_state(self._put_state(self._init_state_tree()))
         self._step = 0
         self._batches_done = 0
+        if self._window is not None:
+            self._pane_cursor = 0
+            self._rotations = 0
+            self._last_rotate_batches = 0
+            self._pane_open_cursor = 0
+            self._last_rotate_time = self._win_clock()
+            self._stats.pane_cursor = 0
+            self._stats.live_panes = 1
 
     # ---------------------------------------------------------------------- recovery
 
@@ -1600,6 +1902,16 @@ class StreamingEngine:
         if self._compress:
             meta["codec"] = CODEC_ID
             meta["codec_fp"] = self._precision_tag
+        if self._window is not None:
+            # the ring's provenance: the policy fingerprint is the cross-policy
+            # refusal key; the cursor and marks let a restore resume mid-ring
+            # without rotating the boundary again (pane_fill: the batches
+            # folded into the open pane)
+            meta["window"] = self._window.fingerprint()
+            meta["panes"] = self._panes
+            meta["pane_cursor"] = self._pane_cursor
+            meta["rotations"] = self._rotations
+            meta["pane_fill"] = self._batches_done - self._pane_open_cursor
         meta.update(self._snapshot_meta_extra())
         return host_state, meta
 
@@ -1652,19 +1964,23 @@ class StreamingEngine:
         return meta
 
     def _check_window_provenance(self, meta: Dict[str, Any]) -> None:
-        """The port's engines are cumulative: a snapshot with window
-        provenance (a pane ring) is refused, with the JAX package's message."""
+        """The cross-policy refusal: a pane ring is replayable only under the
+        policy that built it (its boundaries, depth and decay are what the
+        buffers MEAN). A snapshot without window provenance is cumulative,
+        so the refusal is symmetric. The JAX package's message."""
         snap_win = str(meta.get("window", "") or "")
-        if snap_win:
+        eng_win = self._window.fingerprint() if self._window is not None else ""
+        if snap_win != eng_win:
             raise MetricsTPUUserError(
-                f"snapshot window policy {snap_win!r} does not match this engine's 'cumulative': pane rings are "
-                "only replayable under the policy that built them — restore into an engine constructed with the "
-                "same WindowPolicy"
+                f"snapshot window policy {snap_win or 'cumulative'!r} does not match this engine's "
+                f"{eng_win or 'cumulative'!r}: pane rings are only replayable under the policy that built them — "
+                "restore into an engine constructed with the same WindowPolicy"
             )
 
     def _fits_template(self, tree: Any) -> bool:
-        """Does a logical state tree have this engine's structure and shapes?"""
-        want_leaves, want_def = tree_flatten(self._kind_abstract_state_tree())
+        """Does a logical carried tree have this engine's structure and shapes
+        (pane-stacked under a ring window)?"""
+        want_leaves, want_def = tree_flatten(self._carried_abstract_tree())
         leaves, treedef = tree_flatten(tree)
         return treedef == want_def and all(
             tuple(getattr(leaf, "shape", ())) == tuple(w.shape) for leaf, w in zip(leaves, want_leaves))
@@ -1703,7 +2019,7 @@ class StreamingEngine:
             # layout fingerprint (the JAX package's form) can
             saved_fp = str(meta.get("arena_fp", "") or "")
             shape_ok = isinstance(state, dict) and self._layout.matches(
-                state, world=snap_world if snap_deferred else None)
+                state, world=snap_world if snap_deferred else None, panes=self._panes if self._win_stacked else None)
             if not shape_ok or (saved_fp and saved_fp != self._layout.fingerprint()):
                 raise MetricsTPUUserError(
                     f"snapshot arena does not match this metric's layout ({self._layout!r}); was the metric "
@@ -1713,7 +2029,7 @@ class StreamingEngine:
             # a deferred mesh snapshot holds each shard's LOCAL state: merge
             # them into the global state (exact for mergeable reductions;
             # refused when cat buffers grew with the shard count)
-            stacked = self._layout.unpack_stacked(state) if packed else state
+            stacked = self._layout.unpack_stacked(state, lead=2 if self._win_stacked else 1) if packed else state
             logical = self._metric.merge_stacked_states(stacked)
             if not self._fits_template(logical):
                 raise MetricsTPUUserError(
@@ -1755,6 +2071,18 @@ class StreamingEngine:
             self._error = None
             self._step = int(meta.get("step", 0))
             self._batches_done = int(meta.get("batches_done", self._step))
+            if self._window is not None:
+                # resume mid-ring: the cursor and the rotation count restore
+                # as written; the batch mark derives from the pane fill, so the
+                # next rotation lands on the ORIGINAL boundary; the clock of a
+                # time cadence starts afresh (wall time does not replay)
+                self._pane_cursor = int(meta.get("pane_cursor", 0))
+                self._rotations = int(meta.get("rotations", 0))
+                self._pane_open_cursor = self._batches_done - int(meta.get("pane_fill", 0))
+                self._last_rotate_batches = self._pane_open_cursor
+                self._last_rotate_time = self._win_clock()
+                self._stats.pane_cursor = self._pane_cursor
+                self._stats.live_panes = min(self._rotations + 1, self._panes)
             self._stats.rows_in = int(meta.get("rows_in", self._stats.rows_in))
             self._stats.rows_padded = int(meta.get("rows_padded", self._stats.rows_padded))
             self._stats.resumes += 1
@@ -1932,7 +2260,8 @@ class StreamingEngine:
         package's families: lifetime counters (steps, rows, faults by site,
         recovery actions, quarantine, snapshots, the capture cache), the
         admission and ladder families when they ran, the paging families of
-        a paged engine, and — with a recorder — the fixed-bucket latency
+        a paged engine, the rotation, decay and drift families of a windowed
+        one, and — with a recorder — the fixed-bucket latency
         histograms, folded through ``histogram_accumulate``."""
         s = self._stats
         counters = {
@@ -1983,8 +2312,37 @@ class StreamingEngine:
             gauges["resident_streams"] = s.resident_streams
             gauges["spilled_streams"] = s.spilled_streams
             gauges["spilled_bytes"] = s.spilled_bytes
+        if s.windows_summary() is not None:
+            # rotation, decay and drift families join only for windowed
+            # engines: a cumulative engine's exposition stays as it was
+            counters["pane_rotations"] = s.pane_rotations
+            counters["ewma_decays"] = s.ewma_decays
+            counters["drift_evals"] = s.drift_evals
+            counters["drift_alarms"] = s.drift_alarms
+            gauges["live_panes"] = s.live_panes
+            gauges["pane_cursor"] = s.pane_cursor
         hists = self._trace.histograms() if self._trace is not None else ()
         return render_openmetrics(counters, hists, labeled_counters=labeled or None, gauges=gauges)
+
+    @property
+    def window(self) -> Optional[WindowPolicy]:
+        """The active (rotating) window policy; None for cumulative serving."""
+        return self._window
+
+    @property
+    def pane_cursor(self) -> int:
+        """The ring's current pane (always 0 for ewma and cumulative)."""
+        return self._pane_cursor
+
+    @property
+    def rotations(self) -> int:
+        """Pane rotations since construction, reset or the restored base."""
+        return self._rotations
+
+    @property
+    def drift(self) -> Optional[DriftDetector]:
+        """The wired drift detector (None when drift tracking is off)."""
+        return self._drift
 
     @property
     def trace(self) -> Optional[TraceRecorder]:

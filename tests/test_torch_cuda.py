@@ -2014,3 +2014,123 @@ def test_device_trace_session_holds_kernels_and_step_labels(cuda, tmp_path):
     steps = [s["args"]["step"] for s in rec.spans("device_step")[before:]]
     assert steps == [1, 2, 3, 4]
     assert {f"device_step:{s}" for s in steps} <= names
+
+
+def _windowed_engine(device, window, inj=None, capture=True, cache=None, kind="streaming", **cfg):
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    config = EngineConfig(buckets=(16, 64), kernel_backend="megastep", coalesce=1, window=window,
+                          fault_injector=inj, **cfg)
+    coll = _engine_collection(device)
+    if kind == "streaming":
+        eng = StreamingEngine(coll, config, aot_cache=cache)
+    else:
+        eng = MultiStreamEngine(coll, 12, config, stream_shard=True, resident_streams=3, aot_cache=cache)
+    eng._capture = capture
+    return eng
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["streaming", "paged"])
+def test_rotations_capture_nothing_on_card(cuda, kind):
+    """A ring's captured step is the cumulative engine's graph, handed the
+    current pane's row: after the first batches (every bucket captured),
+    three and more rotations capture nothing, every buffer keeps its
+    address, and the ring ends bit-equal to the uncaptured twin's."""
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    traffic = _engine_traffic(41, n_batches=40)
+    big = [b for b in traffic if len(b[2]) > 16]
+    small = [b for b in traffic if len(b[2]) <= 16]
+    warm = [big[0], small[0]]  # one batch of each bucket first
+    window = WindowPolicy.sliding(n_panes=3, pane_batches=4)
+    eng = _windowed_engine(cuda, window, kind=kind)
+    twin = _windowed_engine(cuda, window, capture=False, kind=kind)
+    _drive(eng, warm, True, cuda)
+    misses, ptrs, rot = eng.aot_cache.misses, _ptrs(eng), eng.rotations
+    got = _drive(eng, traffic, True, cuda)
+    want = _drive(twin, warm + traffic, True, cuda)
+    assert eng.rotations - rot >= 3 and eng.aot_cache.misses == misses == 2
+    assert _ptrs(eng) == ptrs
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    if kind == "streaming":
+        for g, w in zip(_flat(eng.result()), _flat(twin.result())):
+            assert torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+
+
+@pytest.mark.requires_cuda
+def test_a_replayed_graph_writes_the_new_pane_and_leaves_the_others(cuda):
+    """Tumbling, three panes, a rotation after every batch: each batch's
+    replay changes ONLY the current pane's row of the ring, and that row
+    equals a fresh captured engine's state over that one batch."""
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine, WindowPolicy
+
+    traffic = _engine_traffic(42, n_batches=9)
+    eng = _windowed_engine(cuda, WindowPolicy.tumbling(pane_batches=1, n_panes=3))
+    eng.start()
+    for i, (_, p, t) in enumerate(traffic):
+        before = {k: v.clone() for k, v in eng._state.items()}
+        pane = eng.pane_cursor
+        eng.submit(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+        eng.flush()
+        assert eng.pane_cursor == (pane + 1) % 3
+        for k, v in eng._state.items():
+            for q in range(3):
+                if q not in (pane, eng.pane_cursor):
+                    assert torch.equal(v[q], before[k][q]), (i, k, q)
+        fresh = StreamingEngine(_engine_collection(cuda), EngineConfig(buckets=(16, 64), kernel_backend="megastep"))
+        with fresh:
+            fresh.submit(torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+        for k, v in fresh._state.items():
+            assert torch.equal(eng._state[k][pane], v), (i, k)
+    eng.stop()
+
+
+@pytest.mark.requires_cuda
+def test_a_retried_pane_rotate_decays_once_on_card(cuda):
+    """EWMA with transient ``pane_rotate`` faults: the plan decays into new
+    buffers and the commit writes them, so a retried rotation decays exactly
+    once: the value is bit-equal to the fault-free twin's."""
+    from metrics_tpu_torch import MeanMetric
+    from metrics_tpu_torch.engine import EngineConfig, FaultInjector, FaultSpec, StreamingEngine, WindowPolicy
+
+    rng = np.random.RandomState(43)
+    values = [torch.from_numpy((rng.randint(0, 65, size=int(rng.randint(1, 30))) / 64.0).astype(np.float32)).to(cuda)
+              for _ in range(24)]
+    out = []
+    for inj in (FaultInjector(seed=8, plan={"pane_rotate": FaultSpec(schedule=(0, 2, 5))}), None):
+        eng = StreamingEngine(MeanMetric(device=cuda), EngineConfig(
+            buckets=(16, 64), coalesce=1, kernel_backend="megastep", fault_injector=inj,
+            window=WindowPolicy.ewma(alpha=0.5, pane_batches=3)))
+        with eng:
+            for v in values:
+                eng.submit(v)
+            out.append((eng.result(), eng.stats.ewma_decays, eng.rotations, eng.stats.retries))
+    (got, decays, rotations, retries), (want, twin_decays, _, _) = out
+    assert torch.equal(got, want) and decays == twin_decays == rotations == 8 and retries == 3
+
+
+@pytest.mark.requires_cuda
+def test_a_demoted_windowed_engine_keeps_its_pane_rows_on_card(cuda):
+    """An injected ``kernel`` fault demotes a ring's megastep engine to the
+    per-leaf kernels mid-ring: K5 before, K1 after, the demoted step writes
+    the same pane rows, and the ring is bit-equal to the undemoted twin's."""
+    from metrics_tpu_torch.engine import FaultInjector, FaultSpec, WindowPolicy
+
+    traffic = _engine_traffic(44, n_batches=30)
+    window = WindowPolicy.sliding(n_panes=3, pane_batches=4)
+    twin = _windowed_engine(cuda, window)
+    want = _drive(twin, traffic, True, cuda)
+    eng = _windowed_engine(cuda, window, inj=FaultInjector(seed=9, plan={"kernel": FaultSpec(schedule=(13,))}))
+    seen, launches = _watch_attempts(eng)
+    start = launches()
+    got = _drive(eng, traffic, True, cuda)
+    end = launches()
+    at = next(i for i, r in enumerate(seen) if r["demotions"])
+    assert eng.stats.kernel_demotions == 1 and eng._kernel_tag() == "auto"
+    assert seen[at]["K5"] > start["K5"] and end["K5"] == seen[at]["K5"]
+    assert end["K1"] > seen[at]["K1"] == start["K1"]
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    assert eng.rotations == twin.rotations == 7

@@ -216,8 +216,8 @@ def test_typed_refusals():
     for backend in ("xla", "pallas_interpret", "megastep_interpret"):
         with pytest.raises(KernelBackendError, match="device"):
             StreamingEngine(_port(), EngineConfig(kernel_backend=backend))
-    with pytest.raises(NotPortedError, match="window"):
-        EngineConfig(window=object())
+    with pytest.raises(MetricsTPUUserError, match="WindowPolicy"):
+        StreamingEngine(_port(), EngineConfig(window=object()))
     with pytest.raises(MetricsTPUUserError, match="TraceRecorder"):
         StreamingEngine(_port(), EngineConfig(trace=object()))
     with pytest.raises(NotPortedError, match="mesh"):

@@ -37,7 +37,8 @@ from metrics_tpu_torch.utils.checkpoint import load_metric_state, save_metric_st
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedError
 
 PORTED_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
-                "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission")
+                "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
+                "pane_rotate", "drift_eval")
 
 
 def _plan(mod, site):
@@ -284,7 +285,7 @@ def test_recovery_config_checks():
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(max_retries=-1))
     with pytest.raises(MetricsTPUUserError, match="snapshot_dir"):
         StreamingEngine(mp.Accuracy(device="cpu")).snapshot()
-    for field in ("window", "drift", "elastic_min_world"):
+    for field in ("compilation_cache_dir", "donate", "elastic_min_world"):
         with pytest.raises(NotPortedError, match=field):
             EngineConfig(**{field: None})
     # the fault layer's own fields, and the observability and overload ones,
