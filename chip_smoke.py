@@ -284,6 +284,29 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    phase 7's traffic, a cumulative engine and its sliding twin in turns.
    Snapshots under the gitignored ``build/phase19/``, removed after the
    phase.
+20. Retrieval and ragged serving (``retrieval/``, ``engine/ragged.py``) at
+   the scale of ``metrics_tpu/engine/ragged_bench.py``: (a) its Zipf
+   traffic (``zipf_traffic(512, 240, alpha=1.05, seed=23)``, capacity the
+   power of two at or above the hottest group) through
+   ``RaggedEngine(RetrievalMAP())`` with buckets (8, 24) and captured steps,
+   and through a CPU twin (plain versions): states bit-equal, every
+   group's ``results()`` value within 1e-6 of the CPU functional and the
+   twin, the device ``aggregate()`` within 1e-6 relative of its oracle and
+   of the eager metric on the card and on the CPU, four K1 launches an
+   aggregate; ``reset()`` and a replay that captures nothing; ingest rows/s,
+   host ms a warm captured step, aggregate and oracle ms; (b) the same with
+   ``RetrievalNormalizedDCG(k=10)`` on graded targets; (c) the device
+   aggregate against the oracle at G = 512, 10^4 and 10^5 groups of two
+   rows, capacity 16; (d) 10^6 groups, 200 000 Zipf(1.2) rows clipped to
+   capacity 16 at the source (seed 37), ``group_shard`` with 8192 resident
+   and buckets (256, 1024): the sweep's K4 blocks are one per 1024 touched
+   groups, its value the eager segment path's; (e) tumbling and sliding
+   rings, unsharded and ``group_shard``, against the oracle and the eager
+   window; a kill after batch 120 and a resume bit-equal to the straight
+   run; a non-ragged snapshot and a capacity mismatch refused. Then K1 at
+   ``()`` <- ``(G,)`` for G in {512, 10^5, 10^6} and K4 at ``(10^6, 3)`` <-
+   1024 rows are timed against their plain versions and ``torch.sum``/
+   ``index_add``. Snapshots under the gitignored ``build/phase20/``.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -297,11 +320,11 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 19 and read after it;
+and set to 0 again before each of phases 10 to 20 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
-K3, K5, K6 and K7), and K2 must launch once per batch and per step
+K3, K5, K6 and K7; phase 20: K1 and K4), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -312,8 +335,9 @@ have one entry per shape above (K2 also at phase 10's calibration shape:
 ``index_add_`` into a zeroed ``(15, 3)`` output as its library call, and at
 phase 11's AUROC support shape: 65 536 int64 labels into 10 bins, with
 ``torch.bincount`` as its library call, and at the recorder fold's shape of
-phase 18, its launches the scrape's), K4, K6 and K7 one per ``traffic`` (random ids
-and one stream), each with ``device_us``, the device time of each CUDA kernel
+phase 18, its launches the scrape's, and at phase 20's ragged aggregate folds,
+its launches phase 20's), K4, K6 and K7 one per ``traffic`` (random ids
+and one stream; K4 also at phase 20's paged sweep block), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
 int32 cases, ``max_abs_err_bf16`` over the bf16 cases (null where there are
@@ -4823,6 +4847,406 @@ def window_phase(dev, preds, target, preds_np, target_np):
         shutil.rmtree(WIN_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 20: ragged serving
+
+RAG_DIR = Path(__file__).resolve().parent / "build" / "phase20"  # gitignored; removed after the phase
+# 20(a), (b): metrics_tpu/engine/ragged_bench.py's Zipf serving: 512 query groups, 240 batches, buckets (8, 24)
+RAG_GROUPS = 512
+RAG_BATCHES = 240
+RAG_BUCKETS = (8, 24)
+RAG_NDCG_K = 10
+# 20(c): the bench's aggregate series: G groups, 2 rows a group, capacity 16
+RAG_SERIES = (512, 10_000, 100_000)
+RAG_SERIES_ROWS = 2
+RAG_SERIES_CAPACITY = 16
+# 20(d): the bench's million-group paging, with buckets (256, 1024), not its (8, 24): 200 000 rows at 24 a round
+# would take ~8 300 routed steps
+RAG_PAGED_GROUPS = 1_000_000
+RAG_PAGED_ROWS = 200_000
+RAG_PAGED_ALPHA = 1.2
+RAG_PAGED_RESIDENT = 8_192
+RAG_PAGED_CAPACITY = 16
+RAG_PAGED_BUCKETS = (256, 1024)
+RAG_PAGED_CHUNK = 8_192  # rows a submit, as the bench
+RAG_PANE = 40  # 20(e): batches per pane
+RAG_WINDOW_BATCHES = 100  # 20(e): batches the windowed engines take (2.5 panes)
+RAG_RESIDENT = 64  # 20(e): resident groups of the windowed group_shard engines
+RAG_KILL = 120  # 20(e): the batch after which the engine is snapshotted and killed
+RAG_TIMED = 5  # device aggregates per median
+
+
+def rag_dir(name):
+    d = RAG_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return str(d)
+
+
+def ragged_traffic():
+    """The bench's Zipf traffic, its capacity (the power of two at or above
+    the hottest group's rows) and the groups it touches."""
+    from metrics_tpu_torch.engine import zipf_traffic
+
+    traffic = zipf_traffic(RAG_GROUPS, RAG_BATCHES, alpha=1.05, seed=23)
+    rows = np.zeros(RAG_GROUPS, np.int64)
+    for gid, p, _ in traffic:
+        rows[gid] += p.shape[0]
+    return traffic, 1 << int(np.ceil(np.log2(max(2, int(rows.max()))))), int((rows > 0).sum())
+
+
+def binary_target(p, t):
+    return t.astype(np.float32)
+
+
+def graded_target(p, t):
+    """20(b)'s graded relevance, 0-2: the binary label plus one for a high score."""
+    return (t + (p > 0.75)).astype(np.float32)
+
+
+def rag_serve(eng, traffic, target_of):
+    """Submit ``traffic`` one scalar-keyed batch at a time and flush: host s."""
+    t0 = time.perf_counter()
+    for gid, p, t in traffic:
+        eng.submit(gid, p, target_of(p, t))
+    eng.flush()
+    return time.perf_counter() - t0
+
+
+def rag_rows(traffic, target_of):
+    """The traffic's rows in submission order: preds, target, group ids."""
+    return (np.concatenate([p for _, p, _ in traffic]), np.concatenate([target_of(p, t) for _, p, t in traffic]),
+            np.concatenate([np.full(p.shape[0], gid, np.int64) for gid, p, _ in traffic]))
+
+
+def rag_eager(dev, make, rows):
+    m = make(dev)
+    target = rows[1] if m.allow_non_binary_target else rows[1].astype(np.int64)  # the engine's rows carry f32
+    m.update(torch.from_numpy(rows[0]), torch.from_numpy(target), indexes=torch.from_numpy(rows[2]))
+    return float(m.compute())
+
+
+def rag_timed(fn, runs=RAG_TIMED):
+    """Median host ms of ``fn`` (a read that ends with its value on the host)."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def rel_close(got, want, what, tol=1e-6):
+    err = abs(got - want) / max(1.0, abs(want))
+    check(err <= tol, f"{what}: {got} vs {want} (relative {err:.3g} > {tol})")
+    return err
+
+
+def ragged_zipf(dev, traffic, capacity, make, per_group, target_of, what):
+    """20(a)/(b): the Zipf traffic through the captured engine and its CPU
+    twin (plain versions): states bit-equal, per-group values against the
+    CPU functional and the twin, the device aggregate against its oracle and
+    the eager metric on the card and on the CPU; then a reset and a replay
+    that captures nothing."""
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, RaggedEngine
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+
+    cpu = torch.device("cpu")
+    aot = AotCache()
+    eng = RaggedEngine(make(dev), num_groups=RAG_GROUPS, config=EngineConfig(buckets=RAG_BUCKETS),
+                       capacity=capacity, aot_cache=aot)
+    twin = RaggedEngine(make(cpu), num_groups=RAG_GROUPS, config=EngineConfig(buckets=RAG_BUCKETS), capacity=capacity)
+    with eng, twin:
+        ingest_s = rag_serve(eng, traffic, target_of)
+        steps = eng.steps
+        rag_serve(twin, traffic, target_of)
+        state = {k: v.cpu() for k, v in eng.state().items()}
+        twin_state = twin.state()
+        for k in twin_state:
+            check(torch.equal(state[k], twin_state[k]), f"{what}: state {k} differs from the CPU twin")
+        per = [float(v) for v in eng.results().values()]
+        per_cpu = [float(v) for v in twin.results().values()]
+        value = float(eng.aggregate())
+        k1 = fold_rows_cuda.launches
+        agg_ms = rag_timed(lambda: float(eng.aggregate()))
+        k1_per = (fold_rows_cuda.launches - k1) / RAG_TIMED
+        t0 = time.perf_counter()
+        oracle = float(eng.aggregate(oracle=True))
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        cpu_value = float(twin.aggregate())
+        misses = aot.misses
+        eng.reset()
+        warm_s = rag_serve(eng, traffic, target_of)
+        warm_steps = eng.steps
+        check(aot.misses == misses, f"{what}: the replay after reset() captured {aot.misses - misses} steps")
+        summary = eng.stats.ragged_summary()
+    rows = rag_rows(traffic, target_of)
+    eager_card, eager_cpu = rag_eager(dev, make, rows), rag_eager(cpu, make, rows)
+    want = [per_group(rows, g) for g in range(RAG_GROUPS)]
+    err_groups = max(abs(a - b) for a, b in zip(per, want))
+    check(err_groups <= 1e-6, f"{what}: per-group results() {err_groups} from the CPU functional")
+    check(max(abs(a - b) for a, b in zip(per, per_cpu)) <= 1e-6, f"{what}: per-group results() vs the CPU twin")
+    errs = {"oracle": rel_close(value, oracle, f"{what}: device aggregate vs its oracle"),
+            "eager_card": rel_close(value, eager_card, f"{what}: device aggregate vs the eager metric on the card"),
+            "eager_cpu": rel_close(value, eager_cpu, f"{what}: device aggregate vs the eager metric on the CPU"),
+            "cpu_engine": rel_close(value, cpu_value, f"{what}: device aggregate vs the CPU twin's")}
+    check(k1_per == 4, f"{what}: {k1_per} K1 launches per aggregate, not 4")
+    rows_n = int(rows[0].shape[0])
+    return {"value": value, "rel_err": errs, "per_group_max_abs_err": err_groups, "rows": rows_n,
+            "capacity": capacity, "steps": steps, "warm_steps": warm_steps, "ingest_rows_per_s": rows_n / ingest_s,
+            "host_ms_per_step": ingest_s / steps * 1e3, "host_ms_per_warm_step": warm_s / warm_steps * 1e3,
+            "aggregate_ms": agg_ms, "oracle_ms": oracle_ms, "k1_per_aggregate": k1_per,
+            "captures": aot.misses, "ragged": summary}, state, value
+
+
+def ragged_series(dev):
+    """20(c): the device aggregate against the oracle at G groups of two rows."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import AotCache, RaggedEngine
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+
+    rng = np.random.default_rng(31)
+    out = {}
+    for g in RAG_SERIES:
+        n = g * RAG_SERIES_ROWS
+        gids = (np.arange(n, dtype=np.int64) % g).astype(np.int32)
+        preds = rng.random(n).astype(np.float32)
+        target = (rng.random(n) < 0.4).astype(np.float32)
+        eng = RaggedEngine(mp.RetrievalMAP(device=dev), num_groups=g, capacity=RAG_SERIES_CAPACITY,
+                           aot_cache=AotCache())
+        with eng:
+            for lo in range(0, n, 32_768):
+                eng.submit(gids[lo:lo + 32_768], preds[lo:lo + 32_768], target[lo:lo + 32_768])
+            eng.flush()
+            value = float(eng.aggregate())
+            k1 = fold_rows_cuda.launches
+            device_ms = rag_timed(lambda: float(eng.aggregate()))
+            k1_per = (fold_rows_cuda.launches - k1) / RAG_TIMED
+            t0 = time.perf_counter()
+            oracle = float(eng.aggregate(oracle=True))
+            oracle_ms = (time.perf_counter() - t0) * 1e3
+        check(k1_per == 4, f"20(c) G={g}: {k1_per} K1 launches per aggregate, not 4")
+        out[str(g)] = {"device_ms": device_ms, "oracle_ms": oracle_ms, "k1_per_aggregate": k1_per,
+                       "rel_err": rel_close(value, oracle, f"20(c) G={g}: device aggregate vs its oracle")}
+    return out
+
+
+def paged_ragged_rows():
+    """20(d)'s rows: Zipf(1.2) group ids over a million groups, each group
+    clipped to capacity at the source (the bench's draw, seed 37)."""
+    rng = np.random.default_rng(37)
+    raw = rng.zipf(RAG_PAGED_ALPHA, RAG_PAGED_ROWS).astype(np.int64) - 1
+    raw = raw[raw < RAG_PAGED_GROUPS]
+    order = np.argsort(raw, kind="stable")
+    sorted_g = raw[order]
+    start = np.r_[True, sorted_g[1:] != sorted_g[:-1]]
+    idx = np.arange(sorted_g.size)
+    keep = np.zeros(raw.size, bool)
+    keep[order] = (idx - np.maximum.accumulate(np.where(start, idx, 0))) < RAG_PAGED_CAPACITY
+    gids = raw[keep].astype(np.int32)
+    preds = rng.random(gids.size).astype(np.float32)
+    target = (rng.random(gids.size) < 0.4).astype(np.float32)
+    return preds, target, gids
+
+
+def ragged_paging(dev):
+    """20(d): a million groups through ``group_shard`` with 8192 resident:
+    the sweep's blocks are one per 1024 touched groups, its value the eager
+    segment path's over the same rows."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, RaggedEngine
+    from metrics_tpu_torch.engine.ragged import _AGG_BLOCK_ROWS
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+
+    preds, target, gids = paged_ragged_rows()
+    n, touched = int(gids.size), int(np.unique(gids).size)
+    eng = RaggedEngine(mp.RetrievalMAP(device=dev), num_groups=RAG_PAGED_GROUPS, capacity=RAG_PAGED_CAPACITY,
+                       config=EngineConfig(buckets=RAG_PAGED_BUCKETS), group_shard=True,
+                       resident_groups=RAG_PAGED_RESIDENT, aot_cache=AotCache())
+    with eng:
+        t0 = time.perf_counter()
+        for lo in range(0, n, RAG_PAGED_CHUNK):
+            eng.submit(gids[lo:lo + RAG_PAGED_CHUNK], preds[lo:lo + RAG_PAGED_CHUNK], target[lo:lo + RAG_PAGED_CHUNK])
+        eng.flush()
+        ingest_s = time.perf_counter() - t0
+        check(eng.aggregate_path()[0] == "device", "20(d): the paged aggregate did not take the device sweep")
+        blocks0 = eng.stats.ragged_summary()["agg_blocks"]
+        k1, k4 = fold_rows_cuda.launches, segment_reduce_cuda.launches
+        t0 = time.perf_counter()
+        value = float(eng.aggregate())
+        first_ms = (time.perf_counter() - t0) * 1e3
+        blocks = eng.stats.ragged_summary()["agg_blocks"] - blocks0
+        k1_first, k4_first = fold_rows_cuda.launches - k1, segment_reduce_cuda.launches - k4
+        sweep_ms = rag_timed(lambda: float(eng.aggregate()), runs=3)
+        st = eng.stats
+        paging = {"routed_steps": st.routed_steps, "page_outs": st.page_outs, "page_ins": st.page_ins,
+                  "spilled_groups": st.spilled_streams}
+    per_sweep = -(-touched // _AGG_BLOCK_ROWS)
+    check(blocks == per_sweep, f"20(d): the sweep ran {blocks} blocks for {touched} touched groups, not {per_sweep}")
+    check(k4_first == blocks and k1_first == blocks + 3, f"20(d): {k4_first} K4 and {k1_first} K1 launches a sweep")
+    eager = rag_eager(dev, lambda d: mp.RetrievalMAP(device=d), (preds, target, gids.astype(np.int64)))
+    return {"rows": n, "touched_groups": touched, "blocks": blocks, "k4_per_sweep": k4_first,
+            "k1_per_sweep": k1_first, "ingest_s": ingest_s, "ingest_rows_per_s": n / ingest_s,
+            "first_sweep_ms": first_ms, "sweep_ms": sweep_ms, "value": value,
+            "rel_err": rel_close(value, eager, "20(d): the paged aggregate vs the eager segment path"),
+            "paging": paging}
+
+
+def ragged_windows(dev, traffic, capacity, straight_state, straight_value):
+    """20(e): tumbling and sliding rings, unsharded and ``group_shard``,
+    against the oracle and the eager metric over the window's batches; a
+    kill/resume mid-plan against the straight-through run; the refusals of
+    a non-ragged snapshot and of a capacity mismatch."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import EngineConfig, RaggedEngine, StreamingEngine, WindowPolicy
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    def make(d):
+        return mp.RetrievalMAP(device=d)
+
+    out = {}
+    head = traffic[:RAG_WINDOW_BATCHES]
+    # the live window after 100 batches: the open pane [80, 100), or the two panes [40, 100)
+    for kind, policy, live in (("tumbling", WindowPolicy.tumbling(pane_batches=RAG_PANE), head[2 * RAG_PANE:]),
+                               ("sliding", WindowPolicy.sliding(n_panes=2, pane_batches=RAG_PANE), head[RAG_PANE:])):
+        want = rag_eager(dev, make, rag_rows(live, binary_target))
+        for shard in (False, True):
+            kw = {"group_shard": True, "resident_groups": RAG_RESIDENT} if shard else {}
+            eng = RaggedEngine(make(dev), num_groups=RAG_GROUPS, capacity=capacity,
+                               config=EngineConfig(buckets=RAG_BUCKETS, window=policy), **kw)
+            with eng:
+                rag_serve(eng, head, binary_target)
+                path = eng.aggregate_path()[0]
+                value, oracle = float(eng.aggregate()), float(eng.aggregate(oracle=True))
+                rotations = eng.rotations
+            check(path == ("oracle" if (shard and kind == "sliding") else "device"), f"20(e) {kind}: path {path}")
+            name = f"{kind}{'_group_shard' if shard else ''}"
+            out[name] = {"path": path, "rotations": rotations, "value": value,
+                         "rel_err": {"oracle": rel_close(value, oracle, f"20(e) {name} vs its oracle"),
+                                     "eager": rel_close(value, want, f"20(e) {name} vs the eager window")}}
+    snapdir = rag_dir("resume")
+    cfg = EngineConfig(buckets=RAG_BUCKETS, snapshot_dir=snapdir)
+    first = RaggedEngine(make(dev), num_groups=RAG_GROUPS, capacity=capacity, config=cfg)
+    with first:
+        rag_serve(first, traffic[:RAG_KILL], binary_target)
+        first.snapshot()
+    resumed = RaggedEngine(make(dev), num_groups=RAG_GROUPS, capacity=capacity, config=cfg)
+    with resumed:
+        meta = resumed.restore()
+        rag_serve(resumed, traffic[RAG_KILL:], binary_target)
+        state = {k: v.cpu() for k, v in resumed.state().items()}
+        value = float(resumed.aggregate())
+    for k in straight_state:
+        check(torch.equal(state[k], straight_state[k]), f"20(e) resume: state {k} differs from straight through")
+    check(value == straight_value, f"20(e) resume: {value} != straight-through {straight_value}")
+    out["resume"] = {"cursor": int(meta.get("cursor", RAG_KILL)), "ragged_seq": int(meta["ragged_seq"]),
+                     "value": value}
+    refusals = {}
+    plain_dir = rag_dir("plain")
+    plain = StreamingEngine(mp.MeanMetric(device=dev), EngineConfig(buckets=(8,), snapshot_dir=plain_dir))
+    with plain:
+        plain.submit(np.ones(4, np.float32))
+        plain.flush()
+        plain.snapshot()
+    for name, snap, cap in (("non_ragged", plain_dir, capacity), ("capacity", snapdir, 2 * capacity)):
+        eng = RaggedEngine(make(dev), num_groups=RAG_GROUPS, capacity=cap,
+                           config=EngineConfig(buckets=RAG_BUCKETS, snapshot_dir=snap))
+        with eng:
+            try:
+                eng.restore()
+                refusals[name] = None
+            except MetricsTPUUserError as e:
+                refusals[name] = str(e)[:80]
+    check(refusals["non_ragged"] and "not written by a ragged" in refusals["non_ragged"], "20(e): non-ragged restore")
+    check(refusals["capacity"] and f"capacity={capacity}" in refusals["capacity"], "20(e): capacity mismatch")
+    out["refusals"] = refusals
+    return out
+
+
+def ragged_phase(dev):
+    """Phase 20: retrieval and ragged serving (module docstring)."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional import retrieval_average_precision, retrieval_normalized_dcg
+
+    def group_value(fn):
+        def one(rows, g):
+            sel = rows[2] == g
+            if not sel.any():
+                return 0.0
+            return float(fn(torch.from_numpy(rows[0][sel]), torch.from_numpy(rows[1][sel])))
+        return one
+
+    traffic, capacity, touched = ragged_traffic()
+    out = {"groups_touched": touched}
+    try:
+        out["zipf_map"], state, value = ragged_zipf(
+            dev, traffic, capacity, lambda d: mp.RetrievalMAP(device=d),
+            group_value(lambda p, t: retrieval_average_precision(p, t.long())), binary_target, "20(a)")
+        out["zipf_ndcg"], _, _ = ragged_zipf(
+            dev, traffic, capacity, lambda d: mp.RetrievalNormalizedDCG(k=RAG_NDCG_K, device=d),
+            group_value(lambda p, t: retrieval_normalized_dcg(p, t, k=RAG_NDCG_K)), graded_target, "20(b)")
+        out["series"] = ragged_series(dev)
+        out["paging"] = ragged_paging(dev)
+        out["windows"] = ragged_windows(dev, traffic, capacity, state, value)
+        return out
+    finally:
+        shutil.rmtree(RAG_DIR, ignore_errors=True)
+
+
+def ragged_kernel_entries(dev, rng):
+    """20(f): K1 at the aggregate's ``()`` <- ``(G,)`` folds for G in {512,
+    10^5, 10^6} and K4 at the paged sweep's ``(10^6, 3)`` <- 1024 rows, each
+    against its plain version and its library call (``torch.sum`` of the
+    masked vector, ``Tensor.index_add`` of the masked rows), on 0/1 data so
+    all three agree exactly."""
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda, segment_reduce_plain
+
+    entries = []
+    for g in (512, 100_000, RAG_PAGED_GROUPS):
+        rows = torch.from_numpy(rng.randint(0, 2, (g, 1)).astype(np.float32)).to(dev)
+        m = torch.from_numpy((rng.rand(g) > 0.3).astype(np.int32)).to(dev)
+        state = torch.zeros((1,), dtype=torch.float32, device=dev)
+        masked = rows[:, 0] * m.float()
+        got = fold_rows_cuda(state, rows, m, "sum")
+        err = max_abs_err(got, fold_rows_plain(state, rows, m, "sum"))
+        check(err == 0.0, f"K1 ({g},): kernel disagrees with its plain version")
+        check(max_abs_err(got[0], torch.sum(masked)) == 0.0, f"K1 ({g},): kernel disagrees with torch.sum")
+        live = int(m.sum())
+        entry = {"name": "fold_rows", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/fold.cu",
+                 "replaces": "metrics_tpu/ops/kernels/pallas_fold.py:48", "max_abs_err": err,
+                 "max_abs_err_bf16": None, "shape": f"state (), rows ({g},) f32, sum (the ragged aggregate's fold)",
+                 "ms": gpu_ms(lambda: fold_rows_cuda(state, rows, m, "sum")),
+                 "plain_ms": gpu_ms(lambda: fold_rows_plain(state, rows, m, "sum")),
+                 "library_ms": gpu_ms(lambda: torch.sum(masked)),
+                 "device_us": device_us(lambda: fold_rows_cuda(state, rows, m, "sum"))}
+        entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live + 4 * g + 2 * 4, live)
+        entries.append(entry)
+    g, n, f = RAG_PAGED_GROUPS, 1024, 3
+    acc = torch.from_numpy(rng.randint(0, 2, (g, f)).astype(np.float32)).to(dev)
+    cols = torch.from_numpy(rng.randint(0, 2, (n, f)).astype(np.float32)).to(dev)
+    m = torch.from_numpy((rng.rand(n) > 0.2).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.choice(g, n, replace=False).astype(np.int32)).to(dev)  # one row per touched group
+    masked_cols, ids64 = cols * m[:, None].float(), ids.long()
+    got = segment_reduce_cuda(acc, cols, m, ids, "sum")
+    err = max_abs_err(got, segment_reduce_plain(acc, cols, m, ids, g, "sum"))
+    check(err == 0.0, "K4 (10^6, 3): kernel disagrees with its plain version")
+    check(max_abs_err(got, acc.index_add(0, ids64, masked_cols)) == 0.0, "K4 (10^6, 3): kernel disagrees with index_add")
+    live = int(m.sum())
+    entry = {"name": "segment_reduce", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/segment.cu",
+             "replaces": "metrics_tpu/ops/kernels/pallas_segment.py:57", "max_abs_err": err, "max_abs_err_bf16": None,
+             "shape": f"state ({g}, {f}), rows ({n}, {f}) f32, sum (the paged aggregate sweep's block)",
+             "traffic": "one row per touched group",
+             "ms": gpu_ms(lambda: segment_reduce_cuda(acc, cols, m, ids, "sum")),
+             "plain_ms": gpu_ms(lambda: segment_reduce_plain(acc, cols, m, ids, g, "sum")),
+             "library_ms": gpu_ms(lambda: acc.index_add(0, ids64, masked_cols)),
+             "device_us": device_us(lambda: segment_reduce_cuda(acc, cols, m, ids, "sum"))}
+    # unmasked rows, the mask and the ids read once; the state read and written once
+    entry["bound_ms"], entry["bound_by"] = bound_ms(4 * live * f + 8 * n + 2 * 4 * g * f, live * f)
+    entries.append(entry)
+    return entries
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5008,6 +5432,19 @@ def main():
     print(json.dumps({"window_phase": windows, "launches": window_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 20, its counts from 0: K1 (every device aggregate's folds) and K4 (the paged sweeps) must launch
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ragged = ragged_phase(dev)
+    ragged_launches = counts()
+    for k in ("fold_rows", "segment_reduce"):
+        check(ragged_launches[k] > 0, f"kernel {k} was not launched by the ragged phase")
+    launches = {k: launches[k] + ragged_launches[k] for k in launches}
+    print(json.dumps({"ragged_phase": ragged, "launches": ragged_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+    ragged_entries = ragged_kernel_entries(dev, np.random.RandomState(SEED + 20))
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -5041,6 +5478,10 @@ def main():
     fold_entry["launches"] = obs["traced"]["fold_k2_launches"]  # the scrape's folds in 18(a)
     fold_entry["card"] = card
     entries.append(fold_entry)
+    for e in ragged_entries:  # phase 20's launches of the kernel, at every G
+        e["launches"] = ragged_launches[e["name"]]
+        e["card"] = card
+        entries.append(e)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

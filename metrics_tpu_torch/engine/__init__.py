@@ -10,8 +10,9 @@ JAX package reads and writes, with the fault layer they stand on
 recorder and its OpenMetrics view (``engine/trace.py``), admission control
 and the degradation ladder (``engine/admission.py``), windowed serving
 (tumbling, sliding and EWMA pane rings, ``engine/windows.py``) with drift
-alarms over the closed panes (``engine/tracker.py``), and the seeded Zipf
-traffic the serving checks share (``engine/traffic.py``)."""
+alarms over the closed panes (``engine/tracker.py``), ragged serving of
+group-keyed metrics (:class:`RaggedEngine`, ``engine/ragged.py``), and the
+seeded Zipf traffic the serving checks share (``engine/traffic.py``)."""
 from metrics_tpu_torch.engine.admission import (
     LADDER_RUNGS,
     AdmissionPolicy,
@@ -39,6 +40,7 @@ from metrics_tpu_torch.engine.megastep import MegastepPlan, flat_reductions
 from metrics_tpu_torch.engine.multistream import MultiStreamEngine
 from metrics_tpu_torch.engine.paging import PageOp, StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine
+from metrics_tpu_torch.engine.ragged import GroupedStateMetric, RaggedEngine
 from metrics_tpu_torch.engine.quantize import (
     ArenaRowCodec,
     decode_state_tree,
@@ -79,6 +81,7 @@ __all__ = [
     "FaultInjector",
     "FaultSpec",
     "FixedBucketHistogram",
+    "GroupedStateMetric",
     "InjectedFault",
     "LADDER_RUNGS",
     "MegastepPlan",
@@ -86,6 +89,7 @@ __all__ = [
     "OverloadDetector",
     "PageOp",
     "QuarantineRecord",
+    "RaggedEngine",
     "ScreenPolicy",
     "SnapshotCorruptError",
     "StepTimeoutError",

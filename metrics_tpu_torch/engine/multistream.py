@@ -335,10 +335,13 @@ class MultiStreamEngine(StreamingEngine):
         return super()._coalescible(ref[1:], item[1:])
 
     def _merge_sized(self, nonempty: List[Tuple[Any, int]]) -> Optional[Tuple[Tuple[Any, ...], Dict[str, Any]]]:
-        """The megabatch with its per-row stream-id column leading the args."""
+        """The megabatch with its per-row stream-id column leading the args.
+        An item's id is a scalar stream id, broadcast over its rows, or
+        already a per-row id array of its length (the ragged engine's group
+        keys)."""
         if not nonempty:
             return None
-        ids = np.concatenate([np.full((n,), sid, np.int32) for (sid, _, _), n in nonempty])
+        ids = np.concatenate([np.broadcast_to(np.asarray(sid, np.int32), (n,)) for (sid, _, _), n in nonempty])
         args, kwargs = self._concat_sized([((a, kw), n) for (_, a, kw), n in nonempty])
         return (ids,) + tuple(args), kwargs
 
@@ -347,8 +350,10 @@ class MultiStreamEngine(StreamingEngine):
         return tuple(args[1:]), kwargs
 
     def _group_context(self, group: List[Any]) -> Dict[str, Any]:
-        # the sticky error names every stream whose traffic rode the group
-        sids = sorted({it[0] for it in group if isinstance(it, tuple) and len(it) == 3})
+        # the sticky error names every stream whose traffic rode the group (an
+        # item's ids may be a per-row array)
+        sids = sorted({int(x) for it in group if isinstance(it, tuple) and len(it) == 3
+                       for x in np.atleast_1d(np.asarray(it[0])).ravel()})
         return {"stream_ids": sids} if sids else {}
 
     def _screen_payload(self, item: Any) -> Any:

@@ -2261,7 +2261,8 @@ class StreamingEngine:
         recovery actions, quarantine, snapshots, the capture cache), the
         admission and ladder families when they ran, the paging families of
         a paged engine, the rotation, decay and drift families of a windowed
-        one, and — with a recorder — the fixed-bucket latency
+        one, the ragged families of a ragged engine, and — with a recorder —
+        the fixed-bucket latency
         histograms, folded through ``histogram_accumulate``."""
         s = self._stats
         counters = {
@@ -2321,6 +2322,15 @@ class StreamingEngine:
             counters["drift_alarms"] = s.drift_alarms
             gauges["live_panes"] = s.live_panes
             gauges["pane_cursor"] = s.pane_cursor
+        ragged = s.ragged_summary()
+        if ragged is not None:
+            # group-keyed ingestion and the aggregate's reads join only for
+            # ragged engines: every stream engine's exposition stays as it was
+            for key in ("batches", "rows", "groups_touched", "overflows", "agg_device_reads", "agg_oracle_reads",
+                        "agg_blocks"):
+                counters[f"ragged_{key}"] = ragged[key]
+            gauges["ragged_groups"] = ragged["groups"]
+            gauges["ragged_capacity"] = ragged["capacity"]
         hists = self._trace.histograms() if self._trace is not None else ()
         return render_openmetrics(counters, hists, labeled_counters=labeled or None, gauges=gauges)
 

@@ -60,8 +60,11 @@ state to the step's output (clones of the graph's buffers on the card), so
 a state tensor or a ``compute()`` result kept across a forward keeps its
 values.
 
-Left out so far (see ROADMAP.md): the grouped strategy and its hooks (the
-ragged engine is not ported).
+A metric whose state is a per-GROUP bag of rows that sorts only at compute
+time (retrieval's per-query ranking) declares a :class:`GroupedUpdateSpec`:
+its masked strategy is ``"grouped"``, the streaming and multi-stream engines
+refuse it with a pointer to the ragged engine
+(``metrics_tpu_torch.engine.ragged.RaggedEngine``), which serves it.
 """
 import contextlib
 import functools
@@ -69,6 +72,7 @@ import inspect
 import threading
 import weakref
 from copy import deepcopy
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -104,6 +108,59 @@ Tensor = torch.Tensor
 _MERGEABLE_FX = ("sum", "min", "max", "cat")
 #: dtypes whose "sum" states may ride a quantized (q8_block) payload
 _FLOAT_SUM_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+@dataclass(frozen=True)
+class GroupedField:
+    """One per-row payload field of a group-keyed (ragged) metric: ``shape``
+    is the per-row trailing shape (``()`` for scalars), ``dtype`` the buffered
+    torch dtype. The ragged engine stores each field as a
+    ``(capacity,) + shape`` buffer per group, rows valid up to the group's
+    count."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: Any
+
+
+@dataclass(frozen=True)
+class GroupedUpdateSpec:
+    """The declaration a metric makes to serve through the ragged engine.
+
+    ``fields`` lists the per-row payloads in the order
+    :meth:`Metric.grouped_encode` emits them; ``capacity`` is the per-group
+    row budget (rows past it overflow loudly, never truncate silently). A
+    metric returning one from :meth:`Metric.grouped_update_spec` also
+    implements ``grouped_encode`` (validate like ``update``, flatten to
+    ``(group_ids, field_0, ...)`` rows), ``grouped_group_value`` (the
+    per-group read over ``(capacity, ...)`` buffers and a count) and
+    ``grouped_finalize`` (rebuild the eager state from per-group rows: the
+    aggregate's oracle).
+    """
+
+    fields: Tuple[GroupedField, ...]
+    capacity: int
+
+    def field_names(self) -> Tuple[str, ...]:
+        return tuple(f.name for f in self.fields)
+
+
+@dataclass(frozen=True)
+class GroupedAggregateSpec:
+    """The declaration that a grouped metric's AGGREGATE can run on the
+    device instead of the host eager replay.
+
+    * ``"fold"``: the aggregate is a masked mean of independent per-group
+      scores. The metric implements ``grouped_batch_scores(counts, fields,
+      capacity)`` (batched over the ``(G, capacity, ...)`` buffers, returning
+      per-group ``{"value", "keep", "flag"}``) and
+      ``grouped_aggregate_finish(value, kept, flagged)`` (host side); the
+      engine folds the scores with the masked row kernel (K1).
+    * ``"corpus"``: a corpus-level pass that is no per-group mean
+      (detection's PR curve); not ported.
+    """
+
+    kind: str  # "fold" | "corpus"
 
 
 class StateSpec:
@@ -946,6 +1003,8 @@ class Metric(nn.Module):
             return "delta"
         if self._scan_masked_reason() is None:
             return "scan"
+        if self.grouped_update_spec() is not None:
+            return "grouped"
         return None
 
     def _delta_masked_reason(self) -> Optional[str]:
@@ -982,9 +1041,69 @@ class Metric(nn.Module):
     def masked_update_unsupported_reason(self) -> Optional[str]:
         """None when :meth:`update_state_masked` applies (any strategy), else
         the reason."""
-        if self.masked_update_strategy() is not None:
+        strategy = self.masked_update_strategy()
+        if strategy == "grouped":
+            return self.grouped_refusal_reason()
+        if strategy is not None:
             return None
         return self._scan_masked_reason() or self._delta_masked_reason()
+
+    # ------------------------------------------------- grouped (ragged) serving hooks
+
+    def grouped_update_spec(self) -> Optional[GroupedUpdateSpec]:
+        """The metric's group-keyed state declaration, or None (the default).
+        Metrics whose state is a per-GROUP bag of rows that only sorts at
+        compute time return a :class:`GroupedUpdateSpec`; the ragged engine
+        then serves them with per-group capacity buffers, the group keys
+        riding the multi-stream machinery as stream ids."""
+        return None
+
+    def grouped_refusal_reason(self) -> str:
+        """The typed refusal a NON-ragged engine raises for a group-keyed
+        metric: the metric, its offending (list or unmergeable) states, and
+        the ragged path."""
+        offending = sorted(
+            k for k, v in self._defaults.items() if isinstance(v, list) or self._reductions[k] not in _MERGEABLE_FX
+        )
+        states = ", ".join(repr(k) for k in offending) or "its group-keyed states"
+        return (
+            f"{type(self).__name__} accumulates group-keyed rows ({states}) that "
+            "sort/match only at compute time; serve it through the ragged path — "
+            "metrics_tpu_torch.engine.ragged.RaggedEngine(metric, num_groups=...) — "
+            "see docs/serving.md § Ragged serving"
+        )
+
+    def grouped_encode(self, *args: Any, **kwargs: Any) -> Tuple[Any, ...]:
+        """Flatten one eager ``update(...)`` call into ragged-ingest arrays
+        ``(group_ids, field_0, ...)``, validated exactly like ``update``."""
+        raise MetricsTPUUserError(
+            f"{type(self).__name__} declares no grouped_update_spec(); "
+            "grouped_encode is only meaningful for group-keyed metrics"
+        )
+
+    def grouped_group_value(self, fields: Dict[str, Tensor], count: Tensor, capacity: int) -> Any:
+        """The per-group read over ``(capacity, ...)`` buffers (rows valid
+        below ``count``): what the ragged engine's ``result(group_id)``
+        returns."""
+        raise MetricsTPUUserError(
+            f"{type(self).__name__} declares no grouped_update_spec(); "
+            "grouped_group_value is only meaningful for group-keyed metrics"
+        )
+
+    def grouped_finalize(self, counts: np.ndarray, fields: Dict[str, np.ndarray],
+                         group_ids: np.ndarray) -> Dict[str, Any]:
+        """Rebuild this metric's EAGER state from per-group rows (``counts``
+        ``(G,)``, each field ``(G, capacity, ...)``): the ragged aggregate's
+        oracle feeds it through :meth:`compute_from`."""
+        raise MetricsTPUUserError(
+            f"{type(self).__name__} declares no grouped_update_spec(); "
+            "grouped_finalize is only meaningful for group-keyed metrics"
+        )
+
+    def grouped_aggregate_spec(self) -> Optional[GroupedAggregateSpec]:
+        """The metric's device-aggregate declaration, or None (the engine
+        stays on the host oracle)."""
+        return None
 
     def update_state_masked(self, state: Dict[str, Any], *args: Any, mask: Any, **kwargs: Any) -> Dict[str, Any]:
         """Pure mask-aware update: rows of the leading batch axis where
@@ -998,14 +1117,18 @@ class Metric(nn.Module):
         of ``args``/``kwargs`` whose leading dimension equals ``mask.shape[0]``
         is batch-carried; everything else broadcasts.
         """
-        if self.masked_update_strategy() is None:
+        strategy = self.masked_update_strategy()
+        if strategy == "grouped":
+            raise MetricsTPUUserError(
+                f"{type(self).__name__} has no mask-aware update: {self.grouped_refusal_reason()}.")
+        if strategy is None:
             raise MetricsTPUUserError(
                 f"{type(self).__name__} has no mask-aware update: "
                 f"{self.masked_update_unsupported_reason()}. "
                 "Override `update_state_masked` or stream it eagerly (unbucketed)."
             )
         mask = as_input(mask, self.device).to(torch.bool)
-        if self.masked_update_strategy() == "scan":
+        if strategy == "scan":
             return self._masked_update_scan(state, args, kwargs, mask)
         stacked = self._stacked_row_deltas(args, kwargs, mask.shape[0])
         return self._masked_reduce_into(state, stacked, mask)
@@ -1079,7 +1202,10 @@ class Metric(nn.Module):
     def segmented_update_unsupported_reason(self) -> Optional[str]:
         """None when :meth:`update_state_segmented` applies: the generic
         row-delta path must hold (a custom fused masked form has no segmented
-        counterpart)."""
+        counterpart). Group-keyed metrics refuse here too, pointing at the
+        ragged engine (their per-row keys are not the engine's stream ids)."""
+        if self.grouped_update_spec() is not None:
+            return self.grouped_refusal_reason()
         if type(self).update_state_masked is not Metric.update_state_masked:
             return "custom update_state_masked override has no segmented form"
         return self._delta_masked_reason()

@@ -1,8 +1,10 @@
-"""Input-format & validation layer for classification inputs.
+"""Input-format & validation layer for classification and retrieval inputs.
 
-Port of the classification part of ``metrics_tpu/utils/checks.py``: the same
-6-way case taxonomy and the same canonical output contract, binary
-``(N, C)``/``(N, C, X)`` int32 tensors plus the inferred DataType.
+Port of the classification and retrieval parts of
+``metrics_tpu/utils/checks.py``: the same 6-way case taxonomy and the same
+canonical output contract, binary ``(N, C)``/``(N, C, X)`` int32 tensors plus
+the inferred DataType; retrieval's flattened ``(indexes, preds, target)``
+rows with ``ignore_index`` filtered eagerly.
 
 Shape- and dtype-driven checks always run. Value-dependent checks
 (``target.max() > 1`` and the like) need the values on the host; they run
@@ -171,7 +173,7 @@ _CODE_TARGET_GE_IMPLIED = register_deferred_message(
 _CODE_TARGET_GE_NUM_CLASSES = register_deferred_message(
     "The highest label in `target` should be smaller than `num_classes`."
 )
-# the retrieval checks' codes; their sites port with retrieval
+# the retrieval checks' codes
 _CODE_TARGET_NOT_BINARY_RETRIEVAL = register_deferred_message("`target` must contain `binary` values")
 _CODE_EMPTY_QUERY_RETRIEVAL = register_deferred_message(
     "`compute` method was provided with a query with no positive target."
@@ -454,3 +456,52 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Flatten and validate retrieval ``(preds, target)``: preds float,
+    target bool/int (or float when ``allow_non_binary_target``), binary
+    unless allowed. Returns f32 preds and int32 targets (f32 when non-binary
+    targets are allowed)."""
+    if tuple(preds.shape) != tuple(target.shape):
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.ndim == 0 or preds.numel() == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    integral = not (target.is_floating_point() or target.is_complex())  # bool counts as integral
+    if not (integral or (allow_non_binary_target and target.is_floating_point())):
+        raise ValueError("`target` must be a tensor of booleans or integers")
+    if not _is_floating(preds):
+        raise ValueError("`preds` must be a tensor of floats")
+    if not allow_non_binary_target and target.numel():
+        if _is_traced(target):
+            defer_value_check(lambda: target.max() > 1, _CODE_TARGET_NOT_BINARY_RETRIEVAL)
+        elif int(target.max()) > 1:
+            raise ValueError("`target` must contain `binary` values")
+    preds = preds.reshape(-1).to(torch.float32)
+    target = target.reshape(-1).to(torch.float32 if allow_non_binary_target else torch.int32)
+    return preds, target
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Validate ``(indexes, preds, target)`` triplets: one shape, integer
+    indexes (int32 out, as the JAX package ravels them), then
+    :func:`_check_retrieval_functional_inputs`. ``ignore_index`` drops the
+    rows whose target equals it (an eager boolean mask)."""
+    if tuple(indexes.shape) != tuple(preds.shape) or tuple(preds.shape) != tuple(target.shape):
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if indexes.dtype == torch.bool or indexes.is_floating_point() or indexes.is_complex():
+        raise ValueError("`indexes` must be a tensor of long integers")
+    preds, target = _check_retrieval_functional_inputs(preds, target, allow_non_binary_target)
+    indexes = indexes.reshape(-1).to(torch.int32)
+    if ignore_index is not None:
+        keep = target != ignore_index
+        indexes, preds, target = indexes[keep], preds[keep], target[keep]
+    return indexes, preds, target

@@ -113,6 +113,16 @@ def apply_to_collection(data: Any, dtype: Union[type, tuple], function: Callable
     return data
 
 
+def get_group_indexes(indexes: Tensor) -> List[Tensor]:
+    """Positions grouped by query id, in order of each id's first appearance:
+    one int32 tensor of positions per id, on ``indexes``' device. Host-side
+    (the retrieval compute groups on the device through a sort instead)."""
+    groups: dict = {}
+    for i, v in enumerate(indexes.reshape(-1).tolist()):
+        groups.setdefault(v, []).append(i)
+    return [torch.tensor(v, dtype=torch.int32, device=indexes.device) for v in groups.values()]
+
+
 def _bincount(x: Tensor, minlength: int) -> Tensor:
     """Static-length bincount through the kernel dispatcher: the CUDA histogram
     kernel on a CUDA tensor, the plain version on a CPU one. ``jnp.bincount``

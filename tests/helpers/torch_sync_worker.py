@@ -377,7 +377,52 @@ def case_list_refusal(ctx: Ctx, device: str) -> Any:
     return None
 
 
+RETRIEVAL_DOCS = 10  # documents per query; each rank owns two queries
+
+
+def retrieval_rows(rank: int, interleaved: bool = False):
+    """Rank ``rank``'s retrieval shard: ``(preds, target, indexes)`` of two
+    queries of :data:`RETRIEVAL_DOCS` documents, each with a positive and a
+    negative; its query ids are ``{2 rank, 2 rank + 1}``, or with
+    ``interleaved`` ``{rank, rank + 2}`` (ids spread over the ranks)."""
+    rng = np.random.RandomState(100 + rank)
+    preds = np.round(rng.rand(2 * RETRIEVAL_DOCS), 1).astype(np.float32)
+    target = rng.randint(0, 2, 2 * RETRIEVAL_DOCS)
+    target[[0, RETRIEVAL_DOCS]] = 1
+    target[[1, RETRIEVAL_DOCS + 1]] = 0
+    ids = (rank, rank + 2) if interleaved else (2 * rank, 2 * rank + 1)
+    return preds, target, np.repeat(np.asarray(ids), RETRIEVAL_DOCS)
+
+
+def retrieval_suite(pkg: Any, **kw: Any) -> Dict[str, Any]:
+    """The retrieval metrics of the gather case, by name."""
+    return {"map": pkg.RetrievalMAP(**kw), "mrr": pkg.RetrievalMRR(**kw),
+            "ndcg": pkg.RetrievalNormalizedDCG(**kw), "precision_at_3": pkg.RetrievalPrecision(k=3, **kw)}
+
+
+def case_retrieval(ctx: Ctx, group: str, interleaved: bool) -> Any:
+    """Each rank updates the retrieval suite on its shard; returns its
+    ``sync_states`` (the gathered cat lists) and the eager ``compute()``
+    under ``sync_context``, both over ``group``."""
+    if not ctx.member(group):
+        return None
+    import torch
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.parallel import metric_axis
+
+    p, t, i = retrieval_rows(ctx.pos(group), interleaved)
+    out = {}
+    with metric_axis(ctx.groups[group]):
+        for name, metric in retrieval_suite(mp, device="cpu").items():
+            metric.update(torch.from_numpy(p), torch.from_numpy(t), indexes=torch.from_numpy(i))
+            out[name] = {"synced": to_np(metric.sync_states(metric._pack_state())),
+                         "compute": to_np(metric.compute())}
+    return out
+
+
 CASES: Dict[str, Callable[..., Any]] = {
+    "retrieval": case_retrieval,
     "list_refusal": case_list_refusal,
     "fused": case_fused,
     "suite": case_suite,

@@ -2134,3 +2134,109 @@ def test_a_demoted_windowed_engine_keeps_its_pane_rows_on_card(cuda):
     for g, w in zip(_flat(got), _flat(want)):
         assert torch.equal(g, w)
     assert eng.rotations == twin.rotations == 7
+
+
+# ------------------------------------------------------------- ragged serving
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [10, 1000, 70000])
+def test_retrieval_sort_order_of_ties_signed_zeros_and_nan_matches_the_cpu(cuda, n):
+    """The two stable sorts of the retrieval segment path (the small in-place
+    sort and, past 4096 documents, the radix sort) order ties, +-0 and NaN
+    on the card exactly as on the CPU."""
+    from metrics_tpu_torch.functional.retrieval._segment import _group_order
+
+    rng = np.random.RandomState(n)
+    base = np.asarray([0.0, -0.0, 0.5, np.nan, -np.nan, 1.0, -1.0, np.inf], np.float32)
+    score = torch.from_numpy(rng.choice(base, (3, n)))
+    idx = torch.from_numpy(rng.randint(0, 4, (3, n)).astype(np.int64))
+    got = _group_order(idx.to(cuda), score.to(cuda)).cpu()
+    assert torch.equal(got, _group_order(idx, score))
+    key = torch.from_numpy(np.where(rng.rand(3, n) < 0.3, np.iinfo(np.int32).max, rng.permutation(3 * n).reshape(3, n))
+                           .astype(np.int32))
+    assert torch.equal(torch.argsort(key.to(cuda), dim=1, stable=True).cpu(), torch.argsort(key, dim=1, stable=True))
+
+
+@pytest.mark.requires_cuda
+def test_retrieval_segment_mean_on_card_matches_the_cpu(cuda):
+    import metrics_tpu_torch as mp
+
+    rng = np.random.RandomState(3)
+    idx = rng.randint(0, 50, 3000)
+    preds = np.round(rng.rand(3000), 1).astype(np.float32)
+    target = rng.randint(0, 3, 3000)
+    for name in ("RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG", "RetrievalRPrecision"):
+        vals = []
+        for dev in (cuda, torch.device("cpu")):
+            m = getattr(mp, name)(device=dev)
+            t = target if name.endswith("DCG") else (target > 0).astype(np.int64)
+            m.update(torch.from_numpy(preds), torch.from_numpy(t), indexes=torch.from_numpy(idx))
+            vals.append(float(m.compute()))
+        assert abs(vals[0] - vals[1]) <= 1e-6, (name, vals)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("group_shard", [False, True])
+def test_captured_ragged_ingest_with_masked_and_over_capacity_rows(cuda, group_shard):
+    """Pad rows and rows past capacity go to the scratch cell inside the
+    captured step: no device assert, and the state is bit-equal to the plain
+    step on the CPU; the device aggregate folds through K1 (and K4 paged)."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import AotCache, EngineConfig, RaggedEngine
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+
+    rng = np.random.RandomState(5)
+    batches = [(np.round(rng.rand(n), 1).astype(np.float32), rng.randint(0, 2, n), rng.randint(0, 6, n))
+               for n in (3, 9, 17, 5, 30, 2)]
+    kw = {"group_shard": True, "resident_groups": 3} if group_shard else {}
+    states, values = [], []
+    for dev in (cuda, torch.device("cpu")):
+        cache = AotCache()
+        eng = RaggedEngine(mp.RetrievalMAP(device=dev), num_groups=6, config=EngineConfig(buckets=(8, 32)),
+                           capacity=8, aot_cache=cache, **kw)
+        with eng:
+            for p, t, g in batches:
+                eng.submit_update(p, t, g)
+            eng.flush()
+            if dev.type == "cuda":
+                assert eng._capture and cache.misses >= 1
+            states.append({k: v.cpu() for k, v in eng.state().items()})
+            values.append([float(v) for v in eng.results().values()])
+    for k in states[1]:
+        assert torch.equal(states[0][k], states[1][k]), k
+    assert int(states[0]["count"].max()) > 8  # a group overflowed: counted, not written
+    np.testing.assert_allclose(values[0], values[1], atol=1e-6, equal_nan=True)
+    ok = RaggedEngine(mp.RetrievalMAP(device=cuda), num_groups=6, config=EngineConfig(buckets=(8, 32)), capacity=64,
+                      **kw)
+    with ok:
+        for p, t, g in batches:
+            ok.submit_update(p, t, g)
+        k1, k4 = fold_rows_cuda.launches, segment_reduce_cuda.launches
+        dev_value = float(ok.aggregate())
+        assert fold_rows_cuda.launches - k1 == 4 and (
+            segment_reduce_cuda.launches - k4 == (1 if group_shard else 0))
+        orc = float(ok.aggregate(oracle=True))
+    assert abs(dev_value - orc) <= 1e-6 * max(1.0, abs(orc))
+
+
+@pytest.mark.requires_cuda
+def test_k1_and_k4_at_the_ragged_aggregate_shapes_match_plain(cuda):
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda, fold_rows_plain
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+    from metrics_tpu_torch.ops.kernels.xla_ref import segment_reduce_ref
+
+    rng = np.random.RandomState(6)
+    g = 1_000_000
+    value = torch.from_numpy(rng.randint(0, 64, g).astype(np.float32) / 64).to(cuda)
+    mask = torch.from_numpy((rng.rand(g) > 0.3).astype(np.int32)).to(cuda)
+    state = torch.zeros((1,), dtype=torch.float32, device=cuda)
+    got = fold_rows_cuda(state, value.reshape(g, 1), mask, "sum")
+    want = fold_rows_plain(state, value.reshape(g, 1), mask, "sum")
+    assert abs(float(got) - float(want)) <= 2.0 ** -24 * float(value.sum()) * 4
+    acc = torch.from_numpy(rng.rand(g, 3).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.choice(g, 1024, replace=False).astype(np.int32)).to(cuda)
+    cols = torch.from_numpy(rng.rand(1024, 3).astype(np.float32)).to(cuda)
+    m = torch.from_numpy((rng.rand(1024) > 0.2).astype(np.int32)).to(cuda)
+    assert torch.equal(segment_reduce_cuda(acc, cols, m, ids, "sum"), segment_reduce_ref(acc, cols, m, ids, g, "sum"))

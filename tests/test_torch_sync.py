@@ -556,6 +556,11 @@ def _auc(n, seed):
     return x, np.random.RandomState(seed + 1).rand(n).astype(np.float32)
 
 
+def _retrieval(n, seed):
+    rng = np.random.RandomState(seed)
+    return np.round(rng.rand(n), 1).astype(np.float32), rng.randint(0, 2, n), rng.randint(0, 4, n)
+
+
 #: every ported metric: name -> (builder over a package, data)
 _ALL = {
     "Accuracy": (lambda m, kw: m.Accuracy(**kw), _cls),
@@ -600,6 +605,14 @@ _ALL = {
     "PrecisionRecallCurve-capacity": (lambda m, kw: m.PrecisionRecallCurve(num_classes=_C, capacity=32, **kw), _cls),
     "R2Score": (lambda m, kw: m.R2Score(**kw), _reg),
     "Recall": (lambda m, kw: m.Recall(num_classes=_C, average="macro", **kw), _cls),
+    "RetrievalFallOut": (lambda m, kw: m.RetrievalFallOut(**kw), _retrieval),
+    "RetrievalHitRate": (lambda m, kw: m.RetrievalHitRate(**kw), _retrieval),
+    "RetrievalMAP": (lambda m, kw: m.RetrievalMAP(**kw), _retrieval),
+    "RetrievalMRR": (lambda m, kw: m.RetrievalMRR(**kw), _retrieval),
+    "RetrievalNormalizedDCG": (lambda m, kw: m.RetrievalNormalizedDCG(**kw), _retrieval),
+    "RetrievalPrecision": (lambda m, kw: m.RetrievalPrecision(k=2, **kw), _retrieval),
+    "RetrievalRecall": (lambda m, kw: m.RetrievalRecall(**kw), _retrieval),
+    "RetrievalRPrecision": (lambda m, kw: m.RetrievalRPrecision(**kw), _retrieval),
     "ROC": (lambda m, kw: m.ROC(**kw), _binary),
     "ROC-capacity": (lambda m, kw: m.ROC(num_classes=_C, capacity=32, **kw), _cls),
     "SpearmanCorrCoef": (lambda m, kw: m.SpearmanCorrCoef(**kw), _reg),
@@ -613,7 +626,8 @@ _ALL = {
 
 def test_every_exported_metric_is_in_the_merge_table():
     exported = {n for n in mp.__all__ if isinstance(getattr(mp, n), type) and issubclass(getattr(mp, n), mp.Metric)}
-    aliases = {"Metric", "BaseAggregator", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef", "SpearmanCorrcoef"}
+    aliases = {"Metric", "BaseAggregator", "RetrievalMetric", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef",
+               "SpearmanCorrcoef"}
     assert exported - aliases <= {k.split("-")[0] for k in _ALL}
 
 
