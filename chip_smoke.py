@@ -307,6 +307,28 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    ``()`` <- ``(G,)`` for G in {512, 10^5, 10^6} and K4 at ``(10^6, 3)`` <-
    1024 rows are timed against their plain versions and ``torch.sum``/
    ``index_add``. Snapshots under the gitignored ``build/phase20/``.
+21. The text domain (``text/``, ``functional/text/``) on a seeded MT corpus
+   at a WMT newstest set's size: 2 000 pairs of 5-60 words from a Zipf(1.1)
+   vocabulary of 5 000 words, about 15 % of the hypothesis words edited.
+   (a) one ``MetricCollection`` on the card (WER, CER, MER, WIL, WIP, BLEU
+   n=4, SacreBLEU ``13a``, chrF++, ROUGE 1/2/L/Lsum, stemmed only where
+   nltk imports) in 64-pair updates, SQuAD on 2 000 QA pairs drawn from the
+   corpus and TER on its first 200 pairs, against CPU twins over the first
+   500 pairs (TER: its 200): every state bit-equal, values within 1e-6;
+   host ms per update of each metric. (b) the edit-distance library built
+   by the port from ``metrics_tpu_torch/native/levenshtein.cpp`` with g++
+   into ``build/kernels/``: its batch and beam distances over the 2 000
+   pairs equal to the plain Python DPs; pairs/s of each. (c) BERTScore
+   through ``bert_score`` with a BERT-base-width encoder written here in
+   plain torch (the published ``bert-base-uncased`` config: vocab 30 522,
+   hidden 768, 12 layers, 12 heads, FFN 3 072, GELU, post-LN, eps 1e-12),
+   its seeded numpy weights in the Flax layout carried in through
+   ``bert_state_dict_from_flax``, at ``max_length=128``, ``batch_size=64``,
+   with and without idf: tokenize, encoder and matching ms and encoder
+   batches; the first 8 pairs against the same weights on the CPU within
+   1e-4 (TF32 off); the card's embeddings of the whole corpus matched on
+   the card and on the CPU within 1e-5. The text path launches none of
+   K1-K7 (JAX's runs no Pallas kernel there): its counts must stay 0.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -320,11 +342,11 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 20 and read after it;
+and set to 0 again before each of phases 10 to 21 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
-K3, K5, K6 and K7; phase 20: K1 and K4), and K2 must launch once per batch and per step
+K3, K5, K6 and K7; phase 20: K1 and K4; in phase 21 each must stay 0), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -347,6 +369,7 @@ only; K7's codes and scales of the flagged slots only). The last line is
 """
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -5247,6 +5270,444 @@ def ragged_kernel_entries(dev, rng):
     return entries
 
 
+# --------------------------------------------------------------------------- phase 21: text
+
+TEXT_PAIRS = 2000  # a WMT newstest set's size
+TEXT_VOCAB = 5000
+TEXT_ZIPF = 1.1
+TEXT_EDIT = 0.15  # share of words substituted, dropped or followed by an inserted word
+TEXT_WORDS = (5, 60)
+TEXT_BATCH = 64
+TEXT_CPU_PAIRS = 500  # 21(a): the prefix the CPU twin takes
+TEXT_TER_PAIRS = 200
+TEXT_BEAM = 25  # TER's beam width
+BERT_MAX_LENGTH = 128
+BERT_BATCH = 64
+BERT_CPU_PAIRS = 8
+# the published bert-base-uncased config
+BERT_BASE = {"vocab": 30522, "hidden": 768, "layers": 12, "heads": 12, "ffn": 3072, "positions": 512,
+             "token_types": 2, "eps": 1e-12}
+
+
+def text_corpus(seed=SEED + 21):
+    """2 000 seeded MT pairs: references of 5-60 words drawn from a Zipf(1.1)
+    vocabulary of 5 000 words (some carrying punctuation, digits or an
+    apostrophe, so the tokenizers differ), hypotheses with about 15 % of the
+    words edited."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = []
+    while len(vocab) < TEXT_VOCAB:
+        w = "".join(letters[rng.randint(0, 26, int(rng.randint(2, 10)))])
+        r = rng.rand()
+        w = w + "," if r < 0.06 else w + "." if r < 0.1 else w + "'s" if r < 0.12 else \
+            str(rng.randint(0, 1000)) if r < 0.14 else w.capitalize() if r < 0.2 else w
+        if w not in vocab:
+            vocab.append(w)
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1) ** TEXT_ZIPF
+    p /= p.sum()
+    hyps, refs = [], []
+    for _ in range(TEXT_PAIRS):
+        ref = [vocab[i] for i in rng.choice(TEXT_VOCAB, int(rng.randint(TEXT_WORDS[0], TEXT_WORDS[1] + 1)), p=p)]
+        hyp = []
+        for w in ref:
+            if rng.rand() >= TEXT_EDIT:
+                hyp.append(w)
+                continue
+            op = rng.randint(3)
+            if op == 0:
+                hyp.append(vocab[rng.choice(TEXT_VOCAB, p=p)])
+            elif op == 2:
+                hyp += [w, vocab[rng.choice(TEXT_VOCAB, p=p)]]
+        hyps.append(" ".join(hyp))
+        refs.append(" ".join(ref))
+    return hyps, refs
+
+
+def squad_corpus(hyps, refs, seed=SEED + 22):
+    """2 000 SQuAD pairs from the corpus: 1-3 answers, each a 1-5 word span
+    of the reference, and a prediction that is the first answer (40 %), a
+    span of the hypothesis, or a shifted span."""
+    rng = np.random.RandomState(seed)
+    preds, targets = [], []
+    for i, (h, r) in enumerate(zip(hyps, refs)):
+        words, hw = r.split(), h.split() or ["x"]
+        answers = []
+        for _ in range(int(rng.randint(1, 4))):
+            a = int(rng.randint(0, len(words)))
+            answers.append(" ".join(words[a:a + int(rng.randint(1, 6))]))
+        u = rng.rand()
+        if u < 0.4:
+            pred = answers[0]
+        else:
+            a = int(rng.randint(0, len(hw)))
+            pred = " ".join(hw[a:a + int(rng.randint(1, 6))])
+        preds.append({"prediction_text": pred, "id": f"q{i}"})
+        targets.append({"answers": {"text": answers, "answer_start": [0] * len(answers)}, "id": f"q{i}"})
+    return preds, targets
+
+
+def text_collection(device):
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.utils.imports import _NLTK_AVAILABLE
+
+    return mp.MetricCollection({
+        "wer": mp.WordErrorRate(device=device), "cer": mp.CharErrorRate(device=device),
+        "mer": mp.MatchErrorRate(device=device), "wil": mp.WordInfoLost(device=device),
+        "wip": mp.WordInfoPreserved(device=device), "bleu": mp.BLEUScore(n_gram=4, device=device),
+        "sacre_bleu": mp.SacreBLEUScore(tokenize="13a", device=device),
+        "chrf": mp.CHRFScore(n_word_order=2, device=device),
+        "rouge": mp.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"),
+                               use_stemmer=_NLTK_AVAILABLE, device=device),
+    })
+
+
+def text_batches(lo, hi, batch=TEXT_BATCH):
+    return [(i, min(i + batch, hi)) for i in range(lo, hi, batch)]
+
+
+def text_update(members, a, b, spans, host_s):
+    """Each member updated over ``spans`` of ``(a, b)``; host seconds per member added to ``host_s``."""
+    for lo, hi in spans:
+        for name, m in members.items():
+            t0 = time.perf_counter()
+            m.update(a[lo:hi], b[lo:hi])
+            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
+
+
+def text_state(members):
+    return {k: {s: ([t.detach().cpu() for t in v] if isinstance(v, list) else v.detach().cpu())
+                for s, v in m._pack_state().items()} for k, m in members.items()}
+
+
+def same_text_states(got, want, what):
+    """Every leaf bit-equal, of one dtype, list states element by element."""
+    for name, st in want.items():
+        for k, w in st.items():
+            g = got[name][k]
+            pairs = list(zip(g, w)) if isinstance(w, list) else [(g, w)]
+            check(not isinstance(w, list) or len(g) == len(w), f"{what}: {name}.{k} list length")
+            for a, b in pairs:
+                check(a.dtype == b.dtype and torch.equal(a, b), f"{what}: {name}.{k} differs")
+
+
+def text_values_close(got, want, what, tol=1e-6):
+    def flat(v):
+        if isinstance(v, dict):
+            return torch.cat([flat(v[k]).reshape(-1) for k in sorted(v)])
+        if isinstance(v, (tuple, list)):
+            return torch.cat([flat(x).reshape(-1) for x in v])
+        return v.detach().double().cpu().reshape(-1)
+
+    e = max_abs_err(flat(got), flat(want))
+    check(e <= tol, f"{what}: values differ by {e}")
+    return e
+
+
+def text_corpus_phase(dev, hyps, refs):
+    """21(a): the collection, SQuAD and TER on the card against CPU twins."""
+    import metrics_tpu_torch as mp
+
+    t_start = time.perf_counter()
+    coll, twin = text_collection(dev), text_collection(torch.device("cpu"))
+    members = dict(coll.items(keep_base=True))
+    twin_members = dict(twin.items(keep_base=True))
+    squad_p, squad_t = squad_corpus(hyps, refs)
+    squad, squad_twin = mp.SQuAD(device=dev), mp.SQuAD(device="cpu")
+    ter, ter_twin = mp.TranslationEditRate(device=dev), mp.TranslationEditRate(device="cpu")
+    host_s, twin_s = {}, {}
+    # the first 500 pairs on both; the card's states then, held against the twin's
+    head = text_batches(0, TEXT_CPU_PAIRS)
+    text_update(members, hyps, refs, head, host_s)
+    text_update({"squad": squad}, squad_p, squad_t, head, host_s)
+    text_update(twin_members, hyps, refs, head, twin_s)
+    text_update({"squad": squad_twin}, squad_p, squad_t, head, twin_s)
+    card_state = text_state({**members, "squad": squad})
+    cpu_state = text_state({**twin_members, "squad": squad_twin})
+    same_text_states(card_state, cpu_state, "21(a) card vs CPU at 500 pairs")
+    for k, m in members.items():
+        check(all(t.device.type == "cuda" for t in state_leaves(m._pack_state())), f"21(a): {k} state off the card")
+    err_500 = text_values_close({**coll.compute(), "squad": squad.compute()},
+                                {**twin.compute(), "squad": squad_twin.compute()}, "21(a) values at 500 pairs")
+    # the rest of the corpus on the card
+    tail = text_batches(TEXT_CPU_PAIRS, TEXT_PAIRS)
+    text_update(members, hyps, refs, tail, host_s)
+    text_update({"squad": squad}, squad_p, squad_t, tail, host_s)
+    values = text_flat({**coll.compute(), "squad": squad.compute()})
+    # TER on the first 200 pairs, card and CPU
+    ter_spans = text_batches(0, TEXT_TER_PAIRS)
+    text_update({"ter": ter}, hyps, refs, ter_spans, host_s)
+    text_update({"ter": ter_twin}, hyps, refs, ter_spans, twin_s)
+    same_text_states(text_state({"ter": ter}), text_state({"ter": ter_twin}), "21(a) TER card vs CPU")
+    values["ter"] = ter.compute()
+    check(float(values["ter"]) == float(ter_twin.compute()), "21(a): TER value card vs CPU")
+    for k, v in values.items():
+        check(torch.isfinite(v).all() and v.device.type == "cuda", f"21(a): {k} not finite on the card")
+    n_updates = {k: len(text_batches(0, TEXT_PAIRS)) for k in host_s}
+    n_updates["ter"] = len(ter_spans)
+    return {
+        "pairs": TEXT_PAIRS, "words": int(sum(len(r.split()) for r in refs)),
+        "hyp_words": int(sum(len(h.split()) for h in hyps)), "batch": TEXT_BATCH,
+        "host_ms_per_update": {k: s / n_updates[k] * 1e3 for k, s in sorted(host_s.items())},
+        "cpu_twin_host_ms_per_update": {k: s / (len(ter_spans) if k == "ter" else len(head)) * 1e3
+                                        for k, s in sorted(twin_s.items())},
+        "values": {k: (float(v) if v.numel() == 1 else [float(x) for x in v]) for k, v in sorted(values.items())},
+        "max_err_vs_cpu_at_500": err_500, "states_bit_equal_at_500": True,
+        "seconds": time.perf_counter() - t_start,
+    }
+
+
+def text_flat(values, prefix=""):
+    """A collection's value tree as ``{"rouge.rouge1_fmeasure": tensor, ...}``."""
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, dict):
+            out.update(text_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def state_leaves(state):
+    """The tensors of a state dict (list states' elements included)."""
+    out = []
+    for v in state.values():
+        out += list(v) if isinstance(v, list) else [v]
+    return out
+
+
+def native_phase(hyps, refs):
+    """21(b): the edit-distance library against its plain Python DPs."""
+    from metrics_tpu_torch.functional.text import helper
+    from metrics_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    helper.native_library()
+    load_s = time.perf_counter() - t0
+    path = helper.native_library_path()
+    check(path.parent == build.BUILD_DIR and "metrics_tpu/native" not in path.as_posix(),
+          f"21(b): the library {path} is not the port's build")
+    a, b = [h.split() for h in hyps], [r.split() for r in refs]
+    t0 = time.perf_counter()
+    native = helper._edit_distance_batch(a, b)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [helper._edit_distance_py(x, y) for x, y in zip(a, b)]
+    plain_s = time.perf_counter() - t0
+    check(native.tolist() == plain, "21(b): batch distances differ from the plain DP")
+    ids = [helper._tokens_to_ids([x], [y]) for x, y in zip(a, b)]
+    t0 = time.perf_counter()
+    beam = [helper._edit_distance_ids(x, y, beam=TEXT_BEAM) for x, _, y, _ in ids]
+    beam_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    beam_plain = [helper._edit_distance_beam_py(list(x), list(y), TEXT_BEAM) for x, _, y, _ in ids]
+    beam_plain_s = time.perf_counter() - t0
+    check(beam == beam_plain, "21(b): beam distances differ from the plain beam DP")
+    return {
+        "library": str(path.relative_to(build.BUILD_DIR.parents[1])), "build_s": build.last_host_build_seconds,
+        "first_use_s": load_s, "pairs": len(a), "edits": int(native.sum()),
+        "native_pairs_per_s": len(a) / native_s, "plain_pairs_per_s": len(a) / plain_s,
+        "native_beam_pairs_per_s": len(a) / beam_s, "plain_beam_pairs_per_s": len(a) / beam_plain_s,
+    }
+
+
+class BertBase(torch.nn.Module):
+    """BERT-base at its published width as a caller writes it in plain torch:
+    post-LN, GELU, HF ``BertModel``'s parameter names, ``(ids, mask)`` in and
+    the last hidden state out."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        nn = torch.nn
+        h, f = cfg["hidden"], cfg["ffn"]
+        self.cfg = cfg
+
+        def ln():
+            return nn.LayerNorm(h, eps=cfg["eps"])
+
+        self.embeddings = nn.ModuleDict({
+            "word_embeddings": nn.Embedding(cfg["vocab"], h), "position_embeddings": nn.Embedding(cfg["positions"], h),
+            "token_type_embeddings": nn.Embedding(cfg["token_types"], h), "LayerNorm": ln()})
+        self.encoder = nn.ModuleDict({"layer": nn.ModuleList([nn.ModuleDict({
+            "attention": nn.ModuleDict({
+                "self": nn.ModuleDict({"query": nn.Linear(h, h), "key": nn.Linear(h, h), "value": nn.Linear(h, h)}),
+                "output": nn.ModuleDict({"dense": nn.Linear(h, h), "LayerNorm": ln()})}),
+            "intermediate": nn.ModuleDict({"dense": nn.Linear(h, f)}),
+            "output": nn.ModuleDict({"dense": nn.Linear(f, h), "LayerNorm": ln()}),
+        }) for _ in range(cfg["layers"])])})
+        self.pooler = nn.ModuleDict({"dense": nn.Linear(h, h)})
+
+    def forward(self, ids, mask):
+        e, heads = self.embeddings, self.cfg["heads"]
+        n, length = ids.shape
+        x = e["word_embeddings"](ids.long()) + e["position_embeddings"].weight[:length] \
+            + e["token_type_embeddings"].weight[0]
+        x = e["LayerNorm"](x)
+        bias = (1.0 - mask[:, None, None, :].to(x.dtype)) * torch.finfo(x.dtype).min
+        for layer in self.encoder["layer"]:
+            att = layer["attention"]["self"]
+            q, k, v = (att[name](x).view(n, length, heads, -1).transpose(1, 2) for name in ("query", "key", "value"))
+            probs = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1]) + bias, dim=-1)
+            ctx = (probs @ v).transpose(1, 2).reshape(n, length, -1)
+            out = layer["attention"]["output"]
+            x = out["LayerNorm"](out["dense"](ctx) + x)
+            inter = torch.nn.functional.gelu(layer["intermediate"]["dense"](x))
+            out = layer["output"]
+            x = out["LayerNorm"](out["dense"](inter) + x)
+        return x
+
+
+def bert_flax_params(cfg, seed=SEED + 23):
+    """Seeded numpy weights in the Flax BERT layout (kernels (in, out),
+    ``embedding``, LayerNorm ``scale``): the tree the JAX package scores with."""
+    rng = np.random.default_rng(seed)
+    h, f = cfg["hidden"], cfg["ffn"]
+
+    def normal(*shape, std=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * std).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": normal(i, o), "bias": normal(o)}
+
+    def norm():
+        return {"scale": 1.0 + normal(h), "bias": normal(h)}
+
+    layers = {str(i): {
+        "attention": {"self": {"query": dense(h, h), "key": dense(h, h), "value": dense(h, h)},
+                      "output": {"dense": dense(h, h), "LayerNorm": norm()}},
+        "intermediate": {"dense": dense(h, f)},
+        "output": {"dense": dense(f, h), "LayerNorm": norm()},
+    } for i in range(cfg["layers"])}
+    return {
+        "embeddings": {"word_embeddings": {"embedding": normal(cfg["vocab"], h)},
+                       "position_embeddings": {"embedding": normal(cfg["positions"], h)},
+                       "token_type_embeddings": {"embedding": normal(cfg["token_types"], h)},
+                       "LayerNorm": norm()},
+        "encoder": {"layer": layers},
+        "pooler": {"dense": dense(h, h)},
+    }
+
+
+class TimedEncoder:
+    """The caller's encoder with its batches counted and timed (synchronised),
+    keeping each batch's ids, mask and output when ``keep``."""
+
+    def __init__(self, model, dev, keep=False):
+        self.model, self.dev, self.keep = model, dev, keep
+        self.calls, self.seconds, self.kept = 0, 0.0, []
+
+    def __call__(self, ids, mask):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        t0 = time.perf_counter()
+        out = self.model(ids, mask)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        if self.keep:
+            self.kept.append((ids.cpu().numpy(), mask.cpu().numpy(), out))
+        return out
+
+
+def bert_phase(dev, hyps, refs):
+    """21(c): BERTScore at BERT-base width through ``bert_score``."""
+    from metrics_tpu_torch.functional import bert_score
+    from metrics_tpu_torch.functional.text import bert as fbert
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "21(c): TF32 matmuls must be off")
+    t0 = time.perf_counter()
+    params = bert_flax_params(BERT_BASE)
+    state = fbert.bert_state_dict_from_flax(params)
+    encoder = BertBase(BERT_BASE).eval()
+    encoder.load_state_dict(state, strict=True)
+    cpu_encoder = encoder
+    card_encoder = BertBase(BERT_BASE).eval().to(dev)
+    card_encoder.load_state_dict(state, strict=True)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in encoder.parameters())
+
+    runs = {}
+    for idf in (False, True):
+        timed = TimedEncoder(card_encoder, dev, keep=not idf)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = bert_score(hyps, refs, model=timed, idf=idf, max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH,
+                         device=dev)
+        total_s = time.perf_counter() - t0
+        for k in ("precision", "recall", "f1"):
+            check(len(out[k]) == len(hyps) and np.isfinite(out[k]).all(), f"21(c): {k} not finite (idf={idf})")
+        runs[idf] = (out, timed, total_s)
+    uniq = list(dict.fromkeys(list(hyps) + list(refs)))
+    t0 = time.perf_counter()
+    fbert._simple_whitespace_tokenizer(uniq, BERT_MAX_LENGTH)
+    tokenize_s = time.perf_counter() - t0
+
+    # the matching of the card's embeddings, on the card and on the CPU
+    out, timed, _ = runs[False]
+    tok_p = fbert._simple_whitespace_tokenizer(hyps, BERT_MAX_LENGTH)
+    tok_t = fbert._simple_whitespace_tokenizer(refs, BERT_MAX_LENGTH)
+    rows, pos = {}, 0  # each encoded row's position among the encoder's outputs
+    for ids, mask, _ in timed.kept:
+        for i in range(ids.shape[0]):
+            rows.setdefault((ids[i].tobytes(), mask[i].tobytes()), pos)
+            pos += 1
+    inverse = np.asarray([rows[(i.tobytes(), m.tobytes())] for tok in (tok_p, tok_t)
+                          for i, m in zip(tok["input_ids"], tok["attention_mask"])], np.int64)
+    embs = [e for _, _, e in timed.kept]
+    card_args = (embs, torch.from_numpy(inverse).to(dev), torch.from_numpy(tok_p["attention_mask"]).to(dev),
+                 torch.from_numpy(tok_t["attention_mask"]).to(dev), None, None)
+    match_ms = gpu_ms(lambda: fbert._score_embeddings(*card_args), runs=5)
+    card_prf = fbert._score_embeddings(*card_args).cpu()
+    cpu_args = ([e.cpu() for e in embs], *(a.cpu() if isinstance(a, torch.Tensor) else a for a in card_args[1:]))
+    t0 = time.perf_counter()
+    cpu_prf = fbert._score_embeddings(*cpu_args)
+    cpu_match_s = time.perf_counter() - t0
+    match_err = max_abs_err(card_prf, cpu_prf)
+    check(match_err <= 1e-5, f"21(c): matching card vs CPU err {match_err}")
+    functional_err = max_abs_err(card_prf, torch.tensor([out["precision"], out["recall"], out["f1"]]))
+    check(functional_err == 0.0, f"21(c): bert_score differs from its own matching by {functional_err}")
+    embs = cpu_args = card_args = None
+    timed.kept = []
+
+    # the first 8 pairs on the CPU, the same encoder and weights
+    t0 = time.perf_counter()
+    cpu_out = bert_score(hyps[:BERT_CPU_PAIRS], refs[:BERT_CPU_PAIRS], model=cpu_encoder,
+                         max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_err = max(abs(a - b) for k in ("precision", "recall", "f1")
+                  for a, b in zip(out[k][:BERT_CPU_PAIRS], cpu_out[k]))
+    check(cpu_err <= 1e-4, f"21(c): the first {BERT_CPU_PAIRS} pairs card vs CPU err {cpu_err}")
+
+    summary = {}
+    for idf, (o, t, total_s) in runs.items():
+        summary["idf" if idf else "plain"] = {
+            "encoder_batches": t.calls, "encoder_ms": t.seconds * 1e3, "total_ms": total_s * 1e3,
+            "mean_f1": float(np.mean(o["f1"])), "mean_precision": float(np.mean(o["precision"])),
+            "mean_recall": float(np.mean(o["recall"])),
+        }
+    return {
+        "config": {**BERT_BASE, "max_length": BERT_MAX_LENGTH, "batch_size": BERT_BATCH, "params": n_params,
+                   "tf32": bool(torch.backends.cuda.matmul.allow_tf32)},
+        "runs": summary, "tokenize_ms": tokenize_s * 1e3, "matching_ms": match_ms,
+        "cpu_matching_ms": cpu_match_s * 1e3, "matching_err_card_vs_cpu": match_err,
+        "first_pairs_err_card_vs_cpu": cpu_err, "cpu_first_pairs_ms": cpu_s * 1e3, "setup_s": setup_s,
+        "encoded_rows": pos, "distinct_rows": len(rows),
+    }
+
+
+def text_phase(dev):
+    """Phase 21: the text domain on the card (module docstring)."""
+    t0 = time.perf_counter()
+    hyps, refs = text_corpus()
+    corpus_s = time.perf_counter() - t0
+    out = {"corpus_build_s": corpus_s}
+    out["native"] = native_phase(hyps, refs)
+    out["corpus"] = text_corpus_phase(dev, hyps, refs)
+    out["bert"] = bert_phase(dev, hyps, refs)
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5444,6 +5905,16 @@ def main():
     print(json.dumps({"ragged_phase": ragged, "launches": ragged_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
     ragged_entries = ragged_kernel_entries(dev, np.random.RandomState(SEED + 20))
+
+    # phase 21, its counts from 0: the text path runs no kernel of K1-K7 (JAX's runs no Pallas kernel there)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    text = text_phase(dev)
+    text_launches = counts()
+    check(not any(text_launches.values()), f"the text phase launched {text_launches}")
+    print(json.dumps({"text_phase": text, "launches": text_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")

@@ -9,6 +9,12 @@ name that carries a hash of the source and of the shared headers
 reused. The first call to :func:`library` builds every kernel
 at once, one ``nvcc`` process per source, all started together.
 
+The host library of the text metrics (``metrics_tpu_torch/native/*.cpp``,
+the edit distance) is built apart, by :func:`build_host_library` with the
+host's C++ compiler, so that the CPU tests build and load the same native
+code the card machine does; it goes to the same directory under the same
+naming rule.
+
 Nothing here runs at import: the CPU tests import every module of the package,
 and the machine they run on has no ``nvcc``.
 """
@@ -55,6 +61,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: wall seconds the last :func:`build_all` that compiled anything spent
 #: compiling (0.0 until one has)
 last_build_seconds = 0.0
+HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+#: wall seconds the last :func:`build_host_library` that compiled spent
+#: compiling (0.0 until one has)
+last_host_build_seconds = 0.0
 
 
 def nvcc_path() -> str:
@@ -120,6 +130,38 @@ def library(name: str) -> ctypes.CDLL:
                     fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
                 _libs[lib_name] = lib
         return _libs[name]
+
+
+def host_library_path(source: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Where :func:`build_host_library` puts the library of ``source``: a
+    name that carries a hash of the source and of the flags."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(HOST_CXX_FLAGS).encode())
+    return build_dir / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def build_host_library(source: Path, build_dir: Path = BUILD_DIR, cxx: str = "g++") -> Path:
+    """Compile the C++ file ``source`` with the host compiler ``cxx`` into a
+    shared library in ``build_dir``, unless the library of this source is
+    there already; return its path. Raises ``RuntimeError`` with the
+    compiler's output if the build fails: nothing falls back."""
+    global last_host_build_seconds
+    path = host_library_path(source, build_dir)
+    if path.is_file():
+        return path
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [cxx, *HOST_CXX_FLAGS, str(source), "-o", str(tmp)]
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    except OSError as e:
+        raise RuntimeError(f"host library build failed: {' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host library build failed: {' '.join(cmd)}\n{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    last_host_build_seconds = time.perf_counter() - start
+    return path
 
 
 def check(err: int, what: str) -> None:

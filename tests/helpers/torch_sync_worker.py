@@ -421,7 +421,54 @@ def case_retrieval(ctx: Ctx, group: str, interleaved: bool) -> Any:
     return out
 
 
+#: the text metrics of the gather case, by name: their constructor keywords
+TEXT_SUITE = {
+    "WordErrorRate": {},
+    "BLEUScore": {"n_gram": 4},
+    "CHRFScore": {"return_sentence_level_score": True},
+    "ROUGEScore": {},
+    "TranslationEditRate": {"return_sentence_level_score": True},
+    "SQuAD": {},
+}
+TEXT_WORDS = ("the", "cat", "sat", "on", "mat", "a", "dog", "ran", "in", "park", "hello", "world", "it's", "3.5")
+
+
+def text_rows(cls: str, rank: int):
+    """Rank ``rank``'s update arguments for text metric ``cls``: five seeded
+    reference sentences and their hypotheses (words dropped), as SQuAD
+    dicts with ids unique to the rank, or BLEU's reference lists."""
+    rng = np.random.RandomState(200 + rank)
+    refs = [" ".join(TEXT_WORDS[i] for i in rng.randint(0, len(TEXT_WORDS), int(rng.randint(1, 10))))
+            for _ in range(5)]
+    hyps = [" ".join(w for w in r.split() if rng.rand() > 0.25) for r in refs]
+    if cls == "SQuAD":
+        return ([{"prediction_text": h, "id": f"r{rank}q{i}"} for i, h in enumerate(hyps)],
+                [{"answers": {"text": [r]}, "id": f"r{rank}q{i}"} for i, r in enumerate(refs)])
+    if cls == "BLEUScore":
+        return hyps, [[r] for r in refs]
+    return hyps, refs
+
+
+def case_text(ctx: Ctx, group: str) -> Any:
+    """Each rank updates :data:`TEXT_SUITE` on its shard; returns each
+    metric's ``sync_states`` and its eager ``compute()`` over ``group``."""
+    if not ctx.member(group):
+        return None
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.parallel import metric_axis
+
+    out = {}
+    with metric_axis(ctx.groups[group]):
+        for name, kw in TEXT_SUITE.items():
+            metric = getattr(mp, name)(device="cpu", **kw)
+            metric.update(*text_rows(name, ctx.pos(group)))
+            out[name] = {"synced": to_np(metric.sync_states(metric._pack_state())),
+                         "compute": to_np(metric.compute())}
+    return out
+
+
 CASES: Dict[str, Callable[..., Any]] = {
+    "text": case_text,
     "retrieval": case_retrieval,
     "list_refusal": case_list_refusal,
     "fused": case_fused,

@@ -2240,3 +2240,80 @@ def test_k1_and_k4_at_the_ragged_aggregate_shapes_match_plain(cuda):
     cols = torch.from_numpy(rng.rand(1024, 3).astype(np.float32)).to(cuda)
     m = torch.from_numpy((rng.rand(1024) > 0.2).astype(np.int32)).to(cuda)
     assert torch.equal(segment_reduce_cuda(acc, cols, m, ids, "sum"), segment_reduce_ref(acc, cols, m, ids, g, "sum"))
+
+
+TEXT_HYPS = ["the cat sat on the mat", "hello there world", "", "a dog ran in the park today", "it's 3.5 km"]
+TEXT_REFS = ["a cat sat on the mat", "hello there word", "x y", "the dog ran in a park", "it is 3.5 km"]
+
+
+@pytest.mark.requires_cuda
+def test_edit_distance_library_loads_from_build_kernels(cuda):
+    """The port builds its own copy of the edit-distance library with the
+    host compiler into ``build/kernels/``, never the JAX package's."""
+    from metrics_tpu_torch.functional.text import helper
+    from metrics_tpu_torch.ops.kernels import build
+
+    path = helper.native_library_path()
+    assert path.parent == build.BUILD_DIR and path == build.host_library_path(helper.SOURCE)
+    assert "metrics_tpu/native" not in path.as_posix()
+    pairs = [(h.split(), r.split()) for h, r in zip(TEXT_HYPS, TEXT_REFS)]
+    got = helper._edit_distance_batch([a for a, _ in pairs], [b for _, b in pairs])
+    assert got.tolist() == [helper._edit_distance_py(a, b) for a, b in pairs]
+
+
+@pytest.mark.requires_cuda
+def test_text_collection_states_sit_on_the_card_and_equal_the_cpu(cuda):
+    import metrics_tpu_torch as mp
+
+    def coll(dev):
+        return mp.MetricCollection({
+            "wer": mp.WordErrorRate(device=dev), "cer": mp.CharErrorRate(device=dev),
+            "bleu": mp.BLEUScore(device=dev), "chrf": mp.CHRFScore(return_sentence_level_score=True, device=dev),
+            "ter": mp.TranslationEditRate(device=dev), "rouge": mp.ROUGEScore(device=dev),
+        })
+
+    card, cpu = coll(cuda), coll(torch.device("cpu"))
+    for c in (card, cpu):
+        c.update(TEXT_HYPS[:2], TEXT_REFS[:2])
+        c.update(TEXT_HYPS[2:], TEXT_REFS[2:])
+    for k, m in card.items(keep_base=True):
+        want = cpu[k]._pack_state()
+        for s, v in m._pack_state().items():
+            leaves, wants = (v, want[s]) if isinstance(v, list) else ([v], [want[s]])
+            assert len(leaves) == len(wants)
+            for a, b in zip(leaves, wants):
+                assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b), f"{k}.{s}"
+    got, want = card.compute(), cpu.compute()
+    assert float(got["wer"]) == float(want["wer"])  # one division: exact on both
+    for k in ("bleu", "ter"):  # BLEU's log and exp round differently on the card
+        assert abs(float(got[k]) - float(want[k])) <= 1e-6, k
+    torch.testing.assert_close(got["chrf"][1].cpu(), want["chrf"][1], rtol=0, atol=1e-6)
+    for k, v in want["rouge"].items():
+        assert abs(float(got["rouge"][k]) - float(v)) <= 1e-6, k
+
+
+@pytest.mark.requires_cuda
+def test_bertscore_matching_on_card_equals_the_cpu(cuda):
+    from metrics_tpu_torch.functional import bert_score
+    from metrics_tpu_torch.functional.text.bert import _bert_score_from_embeddings
+
+    rng = np.random.RandomState(21)
+    pe, te = rng.randn(64, 40, 96).astype(np.float32), rng.randn(64, 33, 96).astype(np.float32)
+    pm, tm = (rng.rand(64, 40) > 0.3).astype(np.int32), (rng.rand(64, 33) > 0.3).astype(np.int32)
+    pm[0], tm[0] = 0, 0  # both sides empty: 0, not NaN
+    pw, tw = rng.rand(64, 40).astype(np.float32), rng.rand(64, 33).astype(np.float32)
+    for weights in ((None, None), (pw, tw)):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            t = [torch.from_numpy(x).to(dev) if x is not None else None for x in (pe, pm, te, tm, *weights)]
+            outs.append(torch.stack(_bert_score_from_embeddings(*t)).cpu())
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-5)
+        assert float(outs[0][2, 0]) == 0.0
+
+    def enc(ids, mask):
+        return torch.sin((ids[..., None].long() * torch.arange(1, 9, device=ids.device)) % 97 + 0.5)
+
+    got = bert_score(TEXT_HYPS, TEXT_REFS, user_forward_fn=enc, device=cuda, idf=True)
+    want = bert_score(TEXT_HYPS, TEXT_REFS, user_forward_fn=enc, device="cpu", idf=True)
+    for k in ("precision", "recall", "f1"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5)

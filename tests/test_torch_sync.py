@@ -561,6 +561,33 @@ def _retrieval(n, seed):
     return np.round(rng.rand(n), 1).astype(np.float32), rng.randint(0, 2, n), rng.randint(0, 4, n)
 
 
+_TEXT_WORDS = ("the", "cat", "sat", "on", "a", "mat", "dog", "ran")
+
+
+def _text(n, seed):
+    rng = np.random.RandomState(seed)
+    refs = [" ".join(_TEXT_WORDS[i] for i in rng.randint(0, 8, int(rng.randint(1, 9)))) for _ in range(n)]
+    return [" ".join(x for x in r.split() if rng.rand() > 0.3) for r in refs], refs
+
+
+def _text_lists(n, seed):
+    hyps, refs = _text(n, seed)
+    return hyps, [[r] for r in refs]
+
+
+def _squad(n, seed):
+    hyps, refs = _text(n, seed)
+    return ([{"prediction_text": h, "id": str(i)} for i, h in enumerate(hyps)],
+            [{"answers": {"text": [r]}, "id": str(i)} for i, r in enumerate(refs)])
+
+
+def _bert_encoder(m):
+    """A sin encoder in the package's own array library."""
+    if m is mp:
+        return lambda ids, mask: torch.sin(ids[..., None].float() * torch.arange(1, 5))
+    return lambda ids, mask: jnp.sin(ids[..., None].astype(jnp.float32) * jnp.arange(1, 5))
+
+
 #: every ported metric: name -> (builder over a package, data)
 _ALL = {
     "Accuracy": (lambda m, kw: m.Accuracy(**kw), _cls),
@@ -621,13 +648,26 @@ _ALL = {
     "SumMetric": (lambda m, kw: m.SumMetric(**kw), _values),
     "SymmetricMeanAbsolutePercentageError": (lambda m, kw: m.SymmetricMeanAbsolutePercentageError(**kw), _reg),
     "TweedieDevianceScore": (lambda m, kw: m.TweedieDevianceScore(power=1.5, **kw), _reg),
+    "BERTScore": (lambda m, kw: m.BERTScore(user_forward_fn=_bert_encoder(m), **kw), _text),
+    "BLEUScore": (lambda m, kw: m.BLEUScore(**kw), _text_lists),
+    "CharErrorRate": (lambda m, kw: m.CharErrorRate(**kw), _text),
+    "CHRFScore": (lambda m, kw: m.CHRFScore(**kw), _text),
+    "CHRFScore-sentences": (lambda m, kw: m.CHRFScore(return_sentence_level_score=True, **kw), _text),
+    "MatchErrorRate": (lambda m, kw: m.MatchErrorRate(**kw), _text),
+    "ROUGEScore": (lambda m, kw: m.ROUGEScore(**kw), _text),
+    "SacreBLEUScore": (lambda m, kw: m.SacreBLEUScore(**kw), _text_lists),
+    "SQuAD": (lambda m, kw: m.SQuAD(**kw), _squad),
+    "TranslationEditRate": (lambda m, kw: m.TranslationEditRate(**kw), _text),
+    "WordErrorRate": (lambda m, kw: m.WordErrorRate(**kw), _text),
+    "WordInfoLost": (lambda m, kw: m.WordInfoLost(**kw), _text),
+    "WordInfoPreserved": (lambda m, kw: m.WordInfoPreserved(**kw), _text),
 }
 
 
 def test_every_exported_metric_is_in_the_merge_table():
     exported = {n for n in mp.__all__ if isinstance(getattr(mp, n), type) and issubclass(getattr(mp, n), mp.Metric)}
     aliases = {"Metric", "BaseAggregator", "RetrievalMetric", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef",
-               "SpearmanCorrcoef"}
+               "SpearmanCorrcoef", "WER"}
     assert exported - aliases <= {k.split("-")[0] for k in _ALL}
 
 
@@ -644,7 +684,8 @@ def test_merge_stacked_states_equals_jax(name):
         with pytest.raises(MetricsTPUUserError, match="no stacked state merge"):
             pm.merge_stacked_states(pm.init_state())
         return
-    states = [pm.update_state(pm.init_state(), *map(torch.from_numpy, data(12, 30 + r))) for r in range(3)]
+    states = [pm.update_state(pm.init_state(), *(torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                                                 for x in data(12, 30 + r))) for r in range(3)]
     stacked = jax.tree.map(lambda *xs: np.stack(xs), *[_tree_np(w.to_np(s)) for s in states])
     got = _tree_np(w.to_np(pm.merge_stacked_states(jax.tree.map(torch.from_numpy, stacked))))
     want = jax.tree.map(np.asarray, jm.merge_stacked_states(jax.tree.map(jnp.asarray, stacked)))
