@@ -329,6 +329,37 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    1e-4 (TF32 off); the card's embeddings of the whole corpus matched on
    the card and on the CPU within 1e-5. The text path launches none of
    K1-K7 (JAX's runs no Pallas kernel there): its counts must stay 0.
+22. Audio and the signal-level image metrics (``audio/``, ``image/``,
+   ``functional/audio``, ``functional/image``). (a) Speech separation at
+   WSJ0-2mix's evaluation form: 512 seeded two-speaker mixtures of 4 s at
+   8 kHz, ``(512, 2, 32 000)`` f32 (formant-shaped noise under a 3-6 Hz
+   syllable envelope, a fifth silent; estimates with 10-20 % leakage of
+   the other speaker and white noise at 5-25 dB; speaker order swapped in
+   half), 32 updates of 16 into one ``MetricCollection`` on the card (SNR,
+   SI-SNR, SI-SDR, SDR with ``filter_length=512``, PIT over SI-SNR and over
+   that SDR, STOI, ESTOI): host and device ms per update of each; its CPU
+   twin over the first 64 mixtures (totals bit-equal and int32), per-signal
+   scores card vs CPU (SNR family 1e-3 dB, SDR 1e-2 dB, STOI 1e-4, PIT's
+   permutations identical), PIT finding the swapped half; three forwards
+   of the collection on the compiled path and three eager, and each
+   member's forward entry kind, which must be ``compiled`` but for SDR's
+   and PIT-over-SDR's ``eager_only`` (PyTorch's MAGMA LU cannot be
+   captured), and with them the collection's fused step; one update's
+   SDR solve on PyTorch's pick of LU backend and on cuSOLVER's. (b) Image
+   restoration at DIV2K's validation size: 50 of its 100 images, 3 x 1356
+   x 2040 (seeded smooth fields plus texture; a copy blurred with noise of
+   sigma 0.02-0.10), 5 updates of 10 into PSNR (range 1, inferred, per
+   image), SSIM and MS-SSIM; host and device ms and peak device memory of
+   each compute; the first 2 images against the CPU (1e-5 relative, SSIM
+   1e-4 and each within 5e-5 of float64; ``image_gradients`` bit-equal).
+   (c) STOI (also declared at 20 kHz, its decimation path), ESTOI and SSIM
+   (RGB and one channel) with cuDNN TF32 on and matmuls at "medium", then
+   both strict: bit-equal, the settings restored; the same two runs with
+   the pin taken out, how far each score moves (recorded). (d) ``PESQ``
+   and ``pesq`` raise
+   ``ModuleNotFoundError`` (no ``pesq`` package on the card's machine).
+   K1-K7 launch none (JAX's path has no Pallas kernel): their counts must
+   stay 0.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -342,11 +373,11 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 21 and read after it;
+and set to 0 again before each of phases 10 to 22 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
-K3, K5, K6 and K7; phase 20: K1 and K4; in phase 21 each must stay 0), and K2 must launch once per batch and per step
+K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21 and 22 each must stay 0), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -5708,6 +5739,403 @@ def text_phase(dev):
     return out
 
 
+# --------------------------------------------------------------------------- phase 22: audio and images
+
+SIG_MIXTURES = 512  # WSJ0-2mix's evaluation form: 2 speakers, 8 kHz, 4-second clips
+SIG_FS = 8000
+SIG_SECONDS = 4
+SIG_BATCH = 16  # 32 updates of 16 mixtures
+SIG_CPU_MIXTURES = 64  # 22(a): the prefix the CPU twin takes
+SIG_FILTER = 512
+SIG_PIN_MIXTURES = 16  # 22(c)
+SIG_EAGER_MEMBERS = ("sdr", "pit_sdr")  # 22(a): the members whose forward cannot be captured
+IMG_COUNT = 50  # DIV2K's validation set has 100 images: half of them
+IMG_SHAPE = (3, 1356, 2040)
+IMG_BATCH = 10
+IMG_CPU = 2  # 22(b), (c): the images the CPU twin and the precision pin take
+SIG_DB_TOL = 1e-3  # SNR, SI-SNR, SI-SDR per signal, card vs CPU (dB)
+SIG_SDR_TOL = 1e-2  # SDR, as JAX's own test holds it to the reference (dB)
+SIG_STOI_TOL = 1e-4
+# SSIM's mean over 2 DIV2K-sized images in f32: E[x^2] - mu^2 cancels, and each device's f32 result lies
+# ~2e-5 from the same arithmetic in float64, on either side (measured on an H100: card -1.6e-5, CPU +2.0e-5);
+# each is held to float64 within IMG_SSIM_F64_TOL, card vs CPU within their sum. PSNR and MS-SSIM within 1e-5.
+IMG_SSIM_F64_TOL = 5e-5
+IMG_SSIM_CPU_TOL = 1e-4
+
+
+def speech_mixtures(dev, seed=SEED + 22):
+    """``(preds, target, swapped)`` for phase 22(a): ``(SIG_MIXTURES, 2, n)``
+    f32 on ``dev``. Each source is white noise shaped by three formant bumps
+    (centres drawn around 500, 1500 and 2500 Hz) under a syllable-rate
+    envelope (3-6 Hz), with one 0.8-second stretch (a fifth) silent; each
+    estimate is its source plus 10-20 % of the other speaker plus white
+    noise at 5-25 dB. The estimates' speaker order is swapped where
+    ``swapped`` (half the mixtures)."""
+    n = SIG_FS * SIG_SECONDS
+    rng = np.random.default_rng(seed)
+    shape = (SIG_MIXTURES, 2)
+    noise = torch.from_numpy(rng.standard_normal(shape + (n,), dtype=np.float32)).to(dev)
+    centres = torch.from_numpy(np.array([500.0, 1500.0, 2500.0]) * rng.uniform(0.8, 1.2, shape + (3,))).to(dev)
+    f = torch.fft.rfftfreq(n, 1.0 / SIG_FS, device=dev, dtype=torch.float64)
+    gain = torch.exp(-0.5 * ((f[None, None, None] - centres[..., None]) / 150.0) ** 2).sum(2) + 0.02
+    x = torch.fft.irfft(torch.fft.rfft(noise.double(), dim=-1) * gain, n=n, dim=-1)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / SIG_FS
+    rate = torch.from_numpy(rng.uniform(3.0, 6.0, shape + (1,))).to(dev)
+    phase = torch.from_numpy(rng.uniform(0.0, np.pi, shape + (1,))).to(dev)
+    env = torch.abs(torch.sin(np.pi * rate * t + phase)) ** 1.5
+    start = torch.from_numpy(rng.integers(0, n - n // 5, shape + (1,))).to(dev)
+    env = torch.where((t * SIG_FS >= start) & (t * SIG_FS < start + n // 5), 0.0, env)
+    src = x * env
+    src = (src / src.abs().amax(-1, keepdim=True)).float()
+    leak = torch.from_numpy(rng.uniform(0.10, 0.20, shape + (1,)).astype(np.float32)).to(dev)
+    snr_db = torch.from_numpy(rng.uniform(5.0, 25.0, shape + (1,)).astype(np.float32)).to(dev)
+    white = torch.from_numpy(rng.standard_normal(shape + (n,), dtype=np.float32)).to(dev)
+    power = src.pow(2).mean(-1, keepdim=True)
+    est = src + leak * src.flip(1) + white * torch.sqrt(power / 10 ** (snr_db / 10))
+    swapped = torch.from_numpy(rng.permutation(SIG_MIXTURES) < SIG_MIXTURES // 2).to(dev)
+    est = torch.where(swapped[:, None, None], est.flip(1), est)
+    return est.contiguous(), src.contiguous(), swapped
+
+
+def signal_collection(device):
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional import scale_invariant_signal_noise_ratio, signal_distortion_ratio
+
+    return mp.MetricCollection({
+        "snr": mp.SignalNoiseRatio(device=device),
+        "si_snr": mp.ScaleInvariantSignalNoiseRatio(device=device),
+        "si_sdr": mp.ScaleInvariantSignalDistortionRatio(device=device),
+        "sdr": mp.SignalDistortionRatio(filter_length=SIG_FILTER, device=device),
+        "pit_si_snr": mp.PermutationInvariantTraining(scale_invariant_signal_noise_ratio, device=device),
+        "pit_sdr": mp.PermutationInvariantTraining(signal_distortion_ratio, filter_length=SIG_FILTER, device=device),
+        "stoi": mp.STOI(SIG_FS, device=device),
+        "estoi": mp.STOI(SIG_FS, extended=True, device=device),
+    })
+
+
+def signal_per_signal(p, t):
+    """Every per-signal score of 22(a)'s members on ``(p, t)``, by name."""
+    from metrics_tpu_torch import functional as F_
+
+    out = {"snr": F_.signal_noise_ratio(p, t), "si_snr": F_.scale_invariant_signal_noise_ratio(p, t),
+           "si_sdr": F_.scale_invariant_signal_distortion_ratio(p, t),
+           "sdr": F_.signal_distortion_ratio(p, t, filter_length=SIG_FILTER),
+           "stoi": F_.stoi(p, t, SIG_FS), "estoi": F_.stoi(p, t, SIG_FS, extended=True)}
+    out["pit_si_snr"], out["perm_si_snr"] = F_.pit(p, t, F_.scale_invariant_signal_noise_ratio)
+    out["pit_sdr"], out["perm_sdr"] = F_.pit(p, t, F_.signal_distortion_ratio, filter_length=SIG_FILTER)
+    return out
+
+
+SIG_TOLS = {"snr": SIG_DB_TOL, "si_snr": SIG_DB_TOL, "si_sdr": SIG_DB_TOL, "pit_si_snr": SIG_DB_TOL,
+            "sdr": SIG_SDR_TOL, "pit_sdr": SIG_SDR_TOL, "stoi": SIG_STOI_TOL, "estoi": SIG_STOI_TOL}
+
+
+def signal_speech(dev):
+    """22(a): the speech-separation collection over 512 mixtures, its CPU twin
+    over the first 64, per-signal scores, PIT's permutations, the forward."""
+    from metrics_tpu_torch.metric import forward_entry_kinds, keep_forward_eager
+
+    t0 = time.perf_counter()
+    preds, target, swapped = speech_mixtures(dev)
+    torch.cuda.synchronize()
+    out = {"data_s": time.perf_counter() - t0, "mixtures": SIG_MIXTURES, "speakers": 2, "fs": SIG_FS,
+           "samples": preds.shape[-1], "batch": SIG_BATCH, "filter_length": SIG_FILTER,
+           "bytes_per_tensor": preds.numel() * 4}
+    coll = signal_collection(dev)
+    members = dict(coll.items(keep_base=True))
+    host, device = {k: [] for k in members}, {k: [] for k in members}
+    t0 = time.perf_counter()
+    for lo in range(0, SIG_MIXTURES, SIG_BATCH):
+        p, t = preds[lo:lo + SIG_BATCH], target[lo:lo + SIG_BATCH]
+        for k, m in members.items():
+            # an empty queue before each update: its host ms is its own enqueueing, never back-pressure
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            m.update(p, t)
+            end.record()
+            host[k].append((time.perf_counter() - h0) * 1e3)
+            device[k].append((start, end))
+    torch.cuda.synchronize()
+    out["updates_s"] = time.perf_counter() - t0
+    out["update_ms"] = {k: {"host_ms": float(np.median(host[k])),
+                            "device_ms": float(np.median([s.elapsed_time(e) for s, e in device[k]]))}
+                        for k in members}
+    values = {k: float(v) for k, v in coll.compute().items()}
+    for k, m in members.items():
+        check(m.total.dtype == torch.int32 and int(m.total) == SIG_MIXTURES * (1 if k.startswith("pit") else 2),
+              f"22(a): {k}.total {m.total}")
+        check(math.isfinite(values[k]), f"22(a): {k} = {values[k]}")
+    out["values"] = values
+
+    # the CPU twin over the first 64 mixtures: totals bit-equal and int32, sums within the tolerances
+    cpu = torch.device("cpu")
+    head_p, head_t = preds[:SIG_CPU_MIXTURES].cpu(), target[:SIG_CPU_MIXTURES].cpu()
+    card_head, twin = signal_collection(dev), signal_collection(cpu)
+    t0 = time.perf_counter()
+    for lo in range(0, SIG_CPU_MIXTURES, SIG_BATCH):
+        card_head.update(preds[lo:lo + SIG_BATCH], target[lo:lo + SIG_BATCH])
+        twin.update(head_p[lo:lo + SIG_BATCH], head_t[lo:lo + SIG_BATCH])
+    out["cpu_twin_s"] = time.perf_counter() - t0
+    got, want = card_head.compute(), twin.compute()
+    for (k, m), (_, w) in zip(card_head.items(keep_base=True), twin.items(keep_base=True)):
+        check(m.total.dtype == w.total.dtype == torch.int32 and torch.equal(m.total.cpu(), w.total),
+              f"22(a): {k}.total card {m.total} vs CPU {w.total}")
+        check(abs(float(got[k]) - float(want[k])) <= SIG_TOLS[k], f"22(a): {k} card {got[k]} vs CPU {want[k]}")
+    # per signal, card vs CPU over the same 64 mixtures
+    card_sig = signal_per_signal(preds[:SIG_CPU_MIXTURES], target[:SIG_CPU_MIXTURES])
+    t0 = time.perf_counter()
+    cpu_sig = signal_per_signal(head_p, head_t)
+    out["cpu_per_signal_s"] = time.perf_counter() - t0
+    errs = {}
+    for k, tol in SIG_TOLS.items():
+        errs[k] = max_abs_err(card_sig[k], cpu_sig[k])
+        check(errs[k] <= tol, f"22(a): per-signal {k} card vs CPU err {errs[k]} > {tol}")
+    for k in ("perm_si_snr", "perm_sdr"):
+        check(torch.equal(card_sig[k].cpu(), cpu_sig[k]), f"22(a): PIT {k} card vs CPU")
+    out["per_signal_max_abs_err"] = errs
+    # PIT finds the swapped half, over all 512 mixtures
+    from metrics_tpu_torch.functional import pit, scale_invariant_signal_noise_ratio
+
+    found = pit(preds, target, scale_invariant_signal_noise_ratio)[1][:, 0] == 1
+    check(torch.equal(found, swapped) and int(swapped.sum()) == SIG_MIXTURES // 2, "22(a): PIT missed a swap")
+    out["pit_swaps_found"] = int(found.sum())
+
+    # one forward of the collection, the compiled path (captured from the 2nd call of a signature) and eager,
+    # three calls each: the 3rd is warm
+    p, t = preds[:SIG_BATCH], target[:SIG_BATCH]
+    fwd, eager = signal_collection(dev), keep_forward_eager(signal_collection(dev))
+    vals, host = {}, {"compiled": [], "eager": []}
+    for name, owner in (("compiled", fwd), ("eager", eager)):
+        for _ in range(3):
+            h0 = time.perf_counter()
+            vals[name] = owner(p, t)
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - h0) * 1e3)
+    for k, v in vals["eager"].items():
+        check(abs(float(vals["compiled"][k]) - float(v)) <= SIG_TOLS[k],
+              f"22(a): forward {k} compiled {vals['compiled'][k]} vs eager {v}")
+    kinds = {}
+    for k, m in signal_collection(dev).items(keep_base=True):
+        for _ in range(2):
+            m(p, t)
+        kinds[k] = forward_entry_kinds(m)
+    # SDR's (and PIT-over-SDR's) 512-wide LU runs on MAGMA's batched LU, which cannot be captured (ROADMAP.md
+    # section C): those members stay eager, and with them the collection's fused step; every other member captures
+    want = {k: ["eager_only" if k in SIG_EAGER_MEMBERS else "compiled"] for k in kinds}
+    check(kinds == want, f"22(a): forward entry kinds {kinds}, expected {want}")
+    check(forward_entry_kinds(fwd) == ["eager_only"], f"22(a): the collection's fused step {forward_entry_kinds(fwd)}")
+    out["forward"] = {"collection_kinds": forward_entry_kinds(fwd), "member_kinds": kinds,
+                      "compiled_host_ms": host["compiled"], "eager_host_ms": host["eager"]}
+    out["lu_ms"] = signal_lu_backends(p, t)
+    return out, preds, target
+
+
+def signal_lu_backends(p, t):
+    """Device ms of one update's SDR solve (``SIG_BATCH`` x 2 Toeplitz systems of
+    ``SIG_FILTER``) on PyTorch's own pick of LU backend and on cuSOLVER's
+    (the one that captures at this size), with the relative gap between their
+    solutions."""
+    from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize, _toeplitz
+
+    acf, xcorr = _compute_autocorr_crosscorr(_normalize(t), _normalize(p), SIG_FILTER)
+    a, b = _toeplitz(acf), xcorr[..., None]
+    out, sols = {}, {}
+    saved = torch.backends.cuda.preferred_linalg_library()
+    try:
+        for backend in ("default", "cusolver"):
+            torch.backends.cuda.preferred_linalg_library(backend)
+            out[backend] = gpu_ms(lambda: torch.linalg.solve_ex(a, b, check_errors=False)[0], runs=5)
+            sols[backend] = torch.linalg.solve_ex(a, b, check_errors=False)[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)
+    out["systems"], out["n"] = int(a.shape[0] * a.shape[1]), SIG_FILTER
+    out["rel_gap"] = float((sols["default"] - sols["cusolver"]).norm() / sols["default"].norm())
+    return out
+
+
+def div2k_images(dev, seed=SEED + 23):
+    """``(preds, target)`` for 22(b): ``(IMG_COUNT,) + IMG_SHAPE`` f32 in [0, 1]
+    on ``dev``: a smooth field (seeded coarse noise upsampled bicubically)
+    plus a sinusoidal texture, and a copy blurred (5x5 Gaussian, sigma 1)
+    with Gaussian noise of sigma 0.02-0.10 added."""
+    import torch.nn.functional as F_
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c, h, w = IMG_SHAPE
+    coarse = torch.rand((IMG_COUNT, c, h // 40, w // 40), generator=g, device=dev)
+    smooth = F_.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    freq = 0.05 + 0.3 * torch.rand((IMG_COUNT, 1, 1, 1), generator=g, device=dev)
+    texture = 0.1 * torch.sin(freq * xx + 0.7 * freq * yy)
+    target = (0.8 * smooth + 0.1 + texture).clamp_(0.0, 1.0)
+    del coarse, smooth, texture
+    k = torch.exp(-0.5 * torch.arange(-2.0, 3.0, device=dev) ** 2)
+    k = (k[:, None] * k[None, :]) / k.sum() ** 2
+    blur = F_.conv2d(F_.pad(target, (2, 2, 2, 2), mode="reflect"), k.expand(c, 1, 5, 5).contiguous(), groups=c)
+    sigma = 0.02 + 0.08 * torch.rand((IMG_COUNT, 1, 1, 1), generator=g, device=dev)
+    preds = blur.add_(sigma * torch.randn(blur.shape, generator=g, device=dev))
+    return preds, target
+
+
+def image_metrics(device):
+    import metrics_tpu_torch as mp
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # SSIM's and MS-SSIM's warning of their buffers
+        return {"psnr": mp.PSNR(data_range=1.0, device=device), "psnr_inferred": mp.PSNR(device=device),
+                "psnr_per_image": mp.PSNR(data_range=1.0, dim=(1, 2, 3), reduction="none", device=device),
+                "ssim": mp.SSIM(data_range=1.0, device=device),
+                "ms_ssim": mp.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device)}
+
+
+def signal_images(dev):
+    """22(b): PSNR three ways, SSIM and MS-SSIM over 50 DIV2K-sized images;
+    the first two against the CPU."""
+    from metrics_tpu_torch import functional as F_
+
+    t0 = time.perf_counter()
+    preds, target = div2k_images(dev)
+    torch.cuda.synchronize()
+    out = {"data_s": time.perf_counter() - t0, "images": IMG_COUNT, "shape": list(IMG_SHAPE), "batch": IMG_BATCH,
+           "reduced": "50 of DIV2K's 100 validation images", "bytes_per_tensor": preds.numel() * 4}
+    metrics = image_metrics(dev)
+    for lo in range(0, IMG_COUNT, IMG_BATCH):
+        for m in metrics.values():
+            m.update(preds[lo:lo + IMG_BATCH], target[lo:lo + IMG_BATCH])
+    torch.cuda.synchronize()
+    computes, values = {}, {}
+    for k, m in metrics.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        v = m.compute()
+        end.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        end.synchronize()
+        # elapsed between the events: the device's work and any stall of the caching allocator in it
+        computes[k] = {"host_ms": host_ms, "elapsed_ms": start.elapsed_time(end),
+                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                       "above_inputs_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+        values[k] = v
+        check(torch.isfinite(v).all(), f"22(b): {k} not finite")
+    # SSIM and MS-SSIM once more on the same 50 images, the allocator warm: device ms alone
+    for k, fn in (("ssim", F_.ssim), ("ms_ssim", F_.multiscale_structural_similarity_index_measure)):
+        computes[k]["warm_device_ms"] = gpu_ms(lambda: fn(preds, target, data_range=1.0), runs=1)
+    check(values["psnr_per_image"].shape == (IMG_COUNT,), "22(b): per-image PSNR shape")
+    check(20.0 < float(values["psnr"]) < 45.0 and 0.0 < float(values["ssim"]) < 1.0
+          and 0.0 < float(values["ms_ssim"]) < 1.0, f"22(b): implausible {values}")
+    out["compute"] = computes
+    out["values"] = {k: (v.tolist() if k == "psnr_per_image" else float(v)) for k, v in values.items()}
+    # the first two images on the card and on the CPU; SSIM and MS-SSIM also against float64 (the
+    # functions' own arithmetic in float64 on the card: the functionals would narrow a float64 input)
+    from metrics_tpu_torch.functional.image.ms_ssim import _multiscale_ssim_compute
+    from metrics_tpu_torch.functional.image.ssim import _ssim_compute
+
+    head_p, head_t = preds[:IMG_CPU], target[:IMG_CPU]
+    cpu_p, cpu_t = head_p.cpu(), head_t.cpu()
+    t0 = time.perf_counter()
+    errs, f64_errs = {}, {}
+    for name, fn in (("psnr", lambda p, t: F_.psnr(p, t, data_range=1.0)), ("psnr_inferred", F_.psnr),
+                     ("psnr_per_image", lambda p, t: F_.psnr(p, t, data_range=1.0, dim=(1, 2, 3), reduction="none")),
+                     ("ssim", lambda p, t: _ssim_compute(p, t, data_range=1.0)),
+                     ("ms_ssim", lambda p, t: _multiscale_ssim_compute(p, t, data_range=1.0))):
+        got, want = fn(head_p, head_t).cpu().double(), fn(cpu_p, cpu_t).double()
+        errs[name] = float(((got - want).abs() / want.abs()).max())
+        tol = IMG_SSIM_CPU_TOL if name == "ssim" else 1e-5
+        check(errs[name] <= tol, f"22(b): {name} card vs CPU relative err {errs[name]} > {tol}")
+        if name in ("ssim", "ms_ssim"):
+            ref = fn(head_p.double(), head_t.double()).cpu()
+            f64_errs[name] = {"card": float((got - ref).abs().max() / ref.abs()),
+                              "cpu": float((want - ref).abs().max() / ref.abs())}
+            check(max(f64_errs[name].values()) <= IMG_SSIM_F64_TOL, f"22(b): {name} f32 vs float64 {f64_errs[name]}")
+    for a, b in zip(F_.image_gradients(head_p), F_.image_gradients(cpu_p)):
+        check(torch.equal(a.cpu(), b), "22(b): image_gradients card vs CPU")
+    out["cpu_twin_s"] = time.perf_counter() - t0
+    out["cpu_max_rel_err"] = errs
+    out["f32_vs_f64_rel_err"] = f64_errs
+    return out, head_p.clone(), head_t.clone()
+
+
+def signal_pin(dev, preds, target, img_p, img_t):
+    """22(c): STOI (at 8 and at 20 kHz) and SSIM (over RGB and over one
+    channel) with the process's TF32 settings most permissive, then strict:
+    the scores must be bit-equal; the settings are restored. For the record,
+    the same pair of runs with the pin taken out (``full_f32`` a null
+    context in the two modules for the call): how far each score moves
+    where nothing pins it."""
+    from metrics_tpu_torch import functional as F_
+
+    p, t = preds[:SIG_PIN_MIXTURES], target[:SIG_PIN_MIXTURES]
+    names = ("stoi", "estoi", "stoi_decimated", "ssim", "ssim_gray")
+
+    def scores():
+        # STOI's rational-rate path and, declared at 20 kHz, its decimation path (a strided cuDNN conv1d);
+        # SSIM over RGB (PyTorch's own depthwise kernel) and over one channel (a cuDNN convolution)
+        return [F_.stoi(p, t, SIG_FS), F_.stoi(p, t, SIG_FS, extended=True), F_.stoi(p, t, 20000),
+                F_.ssim(img_p, img_t, data_range=1.0), F_.ssim(img_p[:, :1], img_t[:, :1], data_range=1.0)]
+
+    def permissive_then_strict():
+        runs = []
+        for permissive in (True, False):
+            torch.backends.cudnn.allow_tf32 = permissive
+            torch.set_float32_matmul_precision("medium" if permissive else "highest")
+            runs.append(scores())
+            check(torch.backends.cudnn.allow_tf32 == permissive
+                  and torch.get_float32_matmul_precision() == ("medium" if permissive else "highest"),
+                  "22(c): a metric left the caller's precision settings changed")
+        return runs
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    modules = [sys.modules[f"metrics_tpu_torch.functional.{m}"] for m in ("audio.stoi", "image.ssim")]
+    try:
+        pinned = permissive_then_strict()
+        with contextlib.ExitStack() as stack:
+            for mod in modules:
+                stack.callback(setattr, mod, "full_f32", mod.full_f32)
+                mod.full_f32 = contextlib.nullcontext
+            unpinned = permissive_then_strict()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    for name, a, b in zip(names, *pinned):
+        check(torch.equal(a, b), f"22(c): {name} depends on the TF32 settings")
+    return {"bit_equal": list(names),
+            "unpinned_max_abs_diff": {n: float((a - b).abs().max()) for n, a, b in zip(names, *unpinned)},
+            "restored": [torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()]}
+
+
+def signal_pesq(dev, preds, target):
+    """22(d): PESQ needs the native ``pesq`` package, which this machine lacks:
+    the class and the functional must raise ``ModuleNotFoundError``."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional import pesq
+
+    raised = []
+    for name, fn in (("PESQ", lambda: mp.PESQ(8000, "nb", device=dev)),
+                     ("pesq", lambda: pesq(preds[0, 0], target[0, 0], 8000, "nb"))):
+        try:
+            fn()
+        except ModuleNotFoundError as e:
+            raised.append(f"{name}: {e}")
+        else:
+            check(False, f"22(d): {name} ran without the pesq package")
+    return raised
+
+
+def signal_phase(dev):
+    """Phase 22: audio and the signal-level image metrics on the card (module docstring)."""
+    speech, preds, target = signal_speech(dev)
+    images, img_p, img_t = signal_images(dev)
+    pin = signal_pin(dev, preds, target, img_p, img_t)
+    pesq_raised = signal_pesq(dev, preds, target)
+    return {"speech": speech, "images": images, "precision_pin": pin, "pesq": pesq_raised}
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5914,6 +6342,17 @@ def main():
     text_launches = counts()
     check(not any(text_launches.values()), f"the text phase launched {text_launches}")
     print(json.dumps({"text_phase": text, "launches": text_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 22, its counts from 0: the audio and image path runs no kernel of K1-K7 (JAX's runs no Pallas kernel
+    # there)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    signal = signal_phase(dev)
+    signal_launches = counts()
+    check(not any(signal_launches.values()), f"the signal phase launched {signal_launches}")
+    print(json.dumps({"signal_phase": signal, "launches": signal_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

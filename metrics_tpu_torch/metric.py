@@ -902,12 +902,13 @@ class Metric(nn.Module):
                     out[self._CHILD_KEY][name] = [c.merge_stacked_states(cs) for c, cs in zip(child, sub)]
                 else:
                     out[self._CHILD_KEY][name] = child.merge_stacked_states(sub)
+        # every state checked before any is folded: a refused state after a mergeable one raises the same
+        if any(isinstance(self._defaults[k], list) or self._reductions[k] not in _MERGEABLE_FX for k in self._defaults):
+            raise MetricsTPUUserError(
+                f"{type(self).__name__} has no stacked state merge: {self.stacked_merge_unsupported_reason()}."
+            )
         for k in self._defaults:
             fx = self._reductions[k]
-            if isinstance(self._defaults[k], list) or fx not in _MERGEABLE_FX:
-                raise MetricsTPUUserError(
-                    f"{type(self).__name__} has no stacked state merge: {self.stacked_merge_unsupported_reason()}."
-                )
             v = as_input(stacked[k], self.device)
             if fx == "cat":
                 # a per-rank scalar cat state: the stack is the cat

@@ -467,7 +467,50 @@ def case_text(ctx: Ctx, group: str) -> Any:
     return out
 
 
+#: the signal metrics of the sync case, by name: (class, constructor keywords, rows of ``signal_rows``)
+SIGNAL_SUITE = {
+    "SignalNoiseRatio": ("SignalNoiseRatio", {}, "audio"),
+    "PSNR": ("PSNR", {}, "image"),
+    "PSNR_data_range": ("PSNR", {"data_range": 1.0}, "image"),
+    "SSIM": ("SSIM", {"kernel_size": (5, 5)}, "image"),
+}
+
+
+def signal_rows(kind: str, rank: int):
+    """Rank ``rank``'s ``(preds, target)``: ``(rank + 2, 2, 256)`` noisy
+    signals, or ``(2, 3, 24, 20)`` noisy images with a different range on
+    each rank (the min/max differ; a ``cat`` list gathers equal row counts)."""
+    rng = np.random.RandomState(300 + rank)
+    if kind == "audio":
+        t = rng.randn(rank + 2, 2, 256).astype(np.float32)
+        return (t + 0.3 * rng.randn(*t.shape)).astype(np.float32), t
+    t = (rng.rand(2, 3, 24, 20) * (1.0 + rank) - 0.25 * rank).astype(np.float32)
+    return (t + 0.05 * rng.randn(*t.shape)).astype(np.float32), t
+
+
+def case_signal(ctx: Ctx, group: str) -> Any:
+    """Each rank updates :data:`SIGNAL_SUITE` on its shard; returns each
+    metric's ``sync_states`` and its eager ``compute()`` over ``group``."""
+    if not ctx.member(group):
+        return None
+    import warnings
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.parallel import metric_axis
+
+    out = {}
+    with metric_axis(ctx.groups[group]), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # SSIM's warning of its buffers
+        for name, (cls, kw, kind) in SIGNAL_SUITE.items():
+            metric = getattr(mp, cls)(device="cpu", **kw)
+            metric.update(*signal_rows(kind, ctx.pos(group)))
+            out[name] = {"synced": to_np(metric.sync_states(metric._pack_state())),
+                         "compute": to_np(metric.compute())}
+    return out
+
+
 CASES: Dict[str, Callable[..., Any]] = {
+    "signal": case_signal,
     "text": case_text,
     "retrieval": case_retrieval,
     "list_refusal": case_list_refusal,

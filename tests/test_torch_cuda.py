@@ -2317,3 +2317,128 @@ def test_bertscore_matching_on_card_equals_the_cpu(cuda):
     want = bert_score(TEXT_HYPS, TEXT_REFS, user_forward_fn=enc, device="cpu", idf=True)
     for k in ("precision", "recall", "f1"):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5)
+
+
+# --------------------------------------------------------------------- audio and images
+
+def _speech_pairs(seed, batch, n, fs=8000):
+    """``(preds, target)`` ``(batch, 2, n)``: formant-shaped noise under a 4 Hz
+    envelope, a fifth silent, and each estimate the source plus the other
+    speaker's leakage and white noise."""
+    rng = np.random.RandomState(seed)
+    f = np.fft.rfftfreq(n, 1.0 / fs)
+    t = np.arange(n) / fs
+    out = np.empty((batch, 2, n), np.float32)
+    for b in range(batch):
+        for s in range(2):
+            shape = sum(np.exp(-0.5 * ((f - c * (0.8 + 0.4 * rng.rand())) / 150.0) ** 2) for c in (500.0, 1500.0, 2500.0))
+            x = np.fft.irfft(np.fft.rfft(rng.randn(n)) * (shape + 0.02), n)
+            env = np.abs(np.sin(np.pi * 4.0 * t + rng.rand() * np.pi)) ** 1.5
+            lo = int(rng.uniform(0.1, 0.6) * n)
+            env[lo:lo + n // 5] = 0.0
+            out[b, s] = x * env / (np.abs(x * env).max() + 1e-9)
+    preds = out + 0.15 * out[:, ::-1] + 0.05 * rng.randn(*out.shape).astype(np.float32)
+    return torch.from_numpy(preds.astype(np.float32)), torch.from_numpy(out)
+
+
+def _images(seed, n=2, h=96, w=128):
+    rng = np.random.RandomState(seed)
+    t = np.clip(0.5 + 0.3 * np.sin(np.linspace(0, 12, w))[None, None, None] * rng.rand(n, 3, h, 1)
+                + 0.05 * rng.randn(n, 3, h, w), 0, 1).astype(np.float32)
+    return torch.from_numpy((t + 0.05 * rng.randn(*t.shape)).astype(np.float32)), torch.from_numpy(t)
+
+
+def _precision_settings():
+    return (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.requires_cuda
+def test_stoi_and_ssim_on_card_ignore_the_process_tf32_settings(cuda):
+    """Scores bit-equal with cuDNN TF32 on and matmuls at "medium" as with
+    both strict: the port pins full f32 on its own convolutions and
+    contractions, and restores the caller's settings after each."""
+    from metrics_tpu_torch.functional import stoi, ssim, multiscale_structural_similarity_index_measure as ms_ssim
+
+    p, t = _speech_pairs(1, 4, 16000)
+    p, t = p.to(cuda), t.to(cuda)
+    ip, it = (x.to(cuda) for x in _images(2, 2, 192, 256))
+    saved = _precision_settings()
+    runs = []
+    try:
+        for permissive in (True, False):
+            torch.backends.cudnn.allow_tf32 = permissive
+            torch.set_float32_matmul_precision("medium" if permissive else "highest")
+            before = _precision_settings()
+            runs.append([stoi(p, t, 8000), stoi(p, t, 8000, extended=True), stoi(p[..., ::2], t[..., ::2], 20000),
+                         ssim(ip, it, data_range=1.0), ms_ssim(ip, it, data_range=1.0, kernel_size=(5, 5)),
+                         # one channel: a plain cuDNN convolution (RGB's depthwise one is PyTorch's own kernel)
+                         ssim(ip[:, :1], it[:, :1], data_range=1.0)])
+            assert _precision_settings() == before  # restored after every call
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    # and the card agrees with the CPU
+    torch.testing.assert_close(runs[1][0].cpu(), stoi(p.cpu(), t.cpu(), 8000), rtol=0, atol=1e-4)
+    torch.testing.assert_close(runs[1][3].cpu(), ssim(ip.cpu(), it.cpu(), data_range=1.0), rtol=1e-5, atol=0)
+    torch.testing.assert_close(runs[1][5].cpu(), ssim(ip[:, :1].cpu(), it[:, :1].cpu(), data_range=1.0),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_sdr_of_a_silent_target_is_nan_on_card_without_an_exception(cuda):
+    from metrics_tpu_torch.functional import signal_distortion_ratio
+
+    p, t = _speech_pairs(3, 2, 4000)
+    t = t.clone()
+    t[0, 0] = 0.0
+    got = signal_distortion_ratio(p.to(cuda), t.to(cuda), filter_length=512)
+    assert got.device.type == "cuda" and torch.isnan(got[0, 0]) and torch.isfinite(got[1:]).all()
+    want = signal_distortion_ratio(p, t, filter_length=512)
+    torch.testing.assert_close(got[1:].cpu(), want[1:], rtol=0, atol=1e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["SignalNoiseRatio", "ScaleInvariantSignalDistortionRatio", "SignalDistortionRatio",
+                                  "STOI", "PermutationInvariantTraining", "PSNR"])
+def test_signal_metric_forward_is_captured_on_card(cuda, name):
+    """A captured forward (the second call of a signature) takes ``compiled``
+    and gives its eager twin's batch values and states."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional import scale_invariant_signal_noise_ratio
+
+    args = {"SignalDistortionRatio": {"filter_length": 128}, "STOI": {"fs": 8000},
+            "PermutationInvariantTraining": {"metric_func": scale_invariant_signal_noise_ratio}}.get(name, {})
+    p, t = _speech_pairs(4, 6, 8000)
+    m, twin = getattr(mp, name)(device=cuda, **args), keep_forward_eager(getattr(mp, name)(device=cuda, **args))
+    for lo in (0, 2, 4):
+        a, b = p[lo:lo + 2].to(cuda), t[lo:lo + 2].to(cuda)
+        got, want = m(a, b), twin(a, b)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 if name != "SignalDistortionRatio" else 1e-2)
+    assert forward_entry_kinds(m) == ["compiled"], forward_entry_kinds(m)
+    for k, v in twin._pack_state().items():
+        got = m._pack_state()[k]
+        assert got.dtype == v.dtype
+        torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-4 if name != "SignalDistortionRatio" else 1e-2)
+
+
+@pytest.mark.requires_cuda
+def test_sdr_forward_at_filter_length_512_stays_eager_on_card(cuda):
+    """At SDR's default ``filter_length`` of 512 over 16 x 2 systems PyTorch
+    solves on MAGMA's batched LU, which cannot be captured: the forward's
+    signature goes ``eager_only`` and still gives its eager twin's batch
+    values and states."""
+    import metrics_tpu_torch as mp
+
+    p, t = _speech_pairs(5, 48, 8000)
+    m, twin = mp.SignalDistortionRatio(device=cuda), keep_forward_eager(mp.SignalDistortionRatio(device=cuda))
+    for lo in (0, 16, 32):
+        a, b = p[lo:lo + 16].to(cuda), t[lo:lo + 16].to(cuda)
+        torch.testing.assert_close(m(a, b), twin(a, b), rtol=0, atol=1e-2)
+    assert forward_entry_kinds(m) == ["eager_only"], forward_entry_kinds(m)
+    for k, v in twin._pack_state().items():
+        got = m._pack_state()[k]
+        assert got.dtype == v.dtype
+        torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-2)
