@@ -9,7 +9,7 @@ It needs a CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin
 and exits non-zero, printing no result, without them. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels K1–K7 from ``metrics_tpu_torch/ops/kernels/csrc``
+2. build the CUDA kernels K1–K8 from ``metrics_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 3. hold K1–K3 against their plain PyTorch versions on the card: at the shapes
    the main path gives them, on edge cases, and through their
@@ -342,10 +342,12 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    scores card vs CPU (SNR family 1e-3 dB, SDR 1e-2 dB, STOI 1e-4, PIT's
    permutations identical), PIT finding the swapped half; three forwards
    of the collection on the compiled path and three eager, and each
-   member's forward entry kind, which must be ``compiled`` but for SDR's
-   and PIT-over-SDR's ``eager_only`` (PyTorch's MAGMA LU cannot be
-   captured), and with them the collection's fused step; one update's
-   SDR solve on PyTorch's pick of LU backend and on cuSOLVER's. (b) Image
+   member's forward entry kind, every one ``compiled``, and the
+   collection's fused step ``compiled`` (SDR's solve is K8's Levinson
+   kernel, which a graph captures); K8's launches over the phase, and its
+   ``kernels`` entry at one update's 32 systems of 512: against its plain
+   version, with PyTorch's LU of the full matrices on its own pick of
+   backend (MAGMA's batched LU, ``library_ms``) and on cuSOLVER's. (b) Image
    restoration at DIV2K's validation size: 50 of its 100 images, 3 x 1356
    x 2040 (seeded smooth fields plus texture; a copy blurred with noise of
    sigma 0.02-0.10), 5 updates of 10 into PSNR (range 1, inferred, per
@@ -358,6 +360,30 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    the pin taken out, how far each score moves (recorded). (d) ``PESQ``
    and ``pesq`` raise
    ``ModuleNotFoundError`` (no ``pesq`` package on the card's machine).
+   K1-K7 launch none (JAX's path has no Pallas kernel): their counts must
+   stay 0.
+23. The embedded-model image metrics (``image/fid.py``, ``kid.py``,
+   ``inception.py``, ``lpip_similarity.py``, ``models/``,
+   ``engine/model_host.py``), the weights seeded and fan-in scaled through
+   the port's ``random_inception_params`` (no download). (a) 2 048 seeded
+   "real" and 2 048 "fake" uint8 images of 3 x 299 x 299 in updates of 64
+   (the one cut: FID's protocol takes 50 000 a side) through FID (2048 tap,
+   streaming float-float pairs), KID (``subsets=100``,
+   ``subset_size=1000``) and IS (1 008 logits, 10 splits, list and
+   streaming), each on its own full-width InceptionV3 in strict f32: images/s,
+   host and device ms per update, each compute's ms and peak memory; FID
+   against scipy's ``sqrtm`` in float64 (1e-5 relative), KID against float64
+   numpy on the same subsets (1e-4), list IS against float64 numpy on the
+   same permutation (1e-4), all from the card's features; streaming IS's
+   split counts equal to a CPU twin's; the first 8 images a side on the CPU
+   (taps within 1e-4 of their scale); the features bit-equal under TF32 on
+   and off, and how far they move with the pin taken out. (b) FID and KID
+   with ``model_host=True`` on one resident host (``shared_by`` 2): one
+   capture per bucket cold, none warm; f32 features bit-equal to the direct
+   forward at the same shape; bf16 within 5e-2, int8 within the q8 bound;
+   images/s hosted and direct. (c) LPIPS with VGG16 and AlexNet (seeded
+   backbones and heads) on 1 000 seeded 64 x 64 pairs in batches of 50 and
+   8 pairs at 256 x 256; the first 8 pairs against the CPU (1e-4); pairs/s.
    K1-K7 launch none (JAX's path has no Pallas kernel): their counts must
    stay 0.
 
@@ -373,11 +399,12 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 22 and read after it;
+and set to 0 again before each of phases 10 to 23 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
-K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21 and 22 each must stay 0), and K2 must launch once per batch and per step
+K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21, 22 and 23 each must stay 0; K8 is set to 0 at the
+start of 22(a) and read before its timing, and must be non-zero), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -389,7 +416,9 @@ have one entry per shape above (K2 also at phase 10's calibration shape:
 phase 11's AUROC support shape: 65 536 int64 labels into 10 bins, with
 ``torch.bincount`` as its library call, and at the recorder fold's shape of
 phase 18, its launches the scrape's, and at phase 20's ragged aggregate folds,
-its launches phase 20's), K4, K6 and K7 one per ``traffic`` (random ids
+its launches phase 20's; K8 one at 22(a)'s solve, its bound the larger of
+its bytes and its float64 operations over 34 TFLOP/s, its library call
+PyTorch's batched LU), K4, K6 and K7 one per ``traffic`` (random ids
 and one stream; K4 also at phase 20's paged sweep block), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
@@ -5748,7 +5777,7 @@ SIG_BATCH = 16  # 32 updates of 16 mixtures
 SIG_CPU_MIXTURES = 64  # 22(a): the prefix the CPU twin takes
 SIG_FILTER = 512
 SIG_PIN_MIXTURES = 16  # 22(c)
-SIG_EAGER_MEMBERS = ("sdr", "pit_sdr")  # 22(a): the members whose forward cannot be captured
+FP64_OPS_PER_S = 34e12  # K8's float64 recursion: the H100 SXM's FP64 rate outside the tensor cores (NVIDIA's data sheet)
 IMG_COUNT = 50  # DIV2K's validation set has 100 images: half of them
 IMG_SHAPE = (3, 1356, 2040)
 IMG_BATCH = 10
@@ -5832,9 +5861,13 @@ SIG_TOLS = {"snr": SIG_DB_TOL, "si_snr": SIG_DB_TOL, "si_sdr": SIG_DB_TOL, "pit_
 
 def signal_speech(dev):
     """22(a): the speech-separation collection over 512 mixtures, its CPU twin
-    over the first 64, per-signal scores, PIT's permutations, the forward."""
+    over the first 64, per-signal scores, PIT's permutations, the forward
+    (every member captured, SDR's solve by K8), then K8 against its plain
+    version and PyTorch's LU."""
     from metrics_tpu_torch.metric import forward_entry_kinds, keep_forward_eager
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda
 
+    toeplitz_solve_cuda.launches = 0
     t0 = time.perf_counter()
     preds, target, swapped = speech_mixtures(dev)
     torch.cuda.synchronize()
@@ -5921,38 +5954,67 @@ def signal_speech(dev):
         for _ in range(2):
             m(p, t)
         kinds[k] = forward_entry_kinds(m)
-    # SDR's (and PIT-over-SDR's) 512-wide LU runs on MAGMA's batched LU, which cannot be captured (ROADMAP.md
-    # section C): those members stay eager, and with them the collection's fused step; every other member captures
-    want = {k: ["eager_only" if k in SIG_EAGER_MEMBERS else "compiled"] for k in kinds}
+    # SDR's (and PIT-over-SDR's) 512-wide solve is K8, which a graph captures: every member and the
+    # collection's fused step take the compiled path
+    want = {k: ["compiled"] for k in kinds}
     check(kinds == want, f"22(a): forward entry kinds {kinds}, expected {want}")
-    check(forward_entry_kinds(fwd) == ["eager_only"], f"22(a): the collection's fused step {forward_entry_kinds(fwd)}")
+    check(forward_entry_kinds(fwd) == ["compiled"], f"22(a): the collection's fused step {forward_entry_kinds(fwd)}")
     out["forward"] = {"collection_kinds": forward_entry_kinds(fwd), "member_kinds": kinds,
-                      "compiled_host_ms": host["compiled"], "eager_host_ms": host["eager"]}
-    out["lu_ms"] = signal_lu_backends(p, t)
+                      "compiled_host_ms": host["compiled"], "eager_host_ms": host["eager"],
+                      "warm_compiled_over_eager": host["compiled"][-1] / host["eager"][-1]}
+    out["k8_launches"] = toeplitz_solve_cuda.launches
+    check(out["k8_launches"] > 0, "22(a): K8 was not launched by the speech path")
+    out["solve"] = signal_solve_timing(p, t, out["k8_launches"])
     return out, preds, target
 
 
-def signal_lu_backends(p, t):
-    """Device ms of one update's SDR solve (``SIG_BATCH`` x 2 Toeplitz systems of
-    ``SIG_FILTER``) on PyTorch's own pick of LU backend and on cuSOLVER's
-    (the one that captures at this size), with the relative gap between their
-    solutions."""
+def signal_solve_timing(p, t, launches):
+    """K8's ``kernels`` entry at one update's SDR solve (``SIG_BATCH`` x 2
+    Toeplitz systems of ``SIG_FILTER``): the kernel against its plain version,
+    both timed, beside PyTorch's own LU of the full matrices (its pick of
+    backend, MAGMA's batched LU at this size: ``library_ms``) and cuSOLVER's
+    LU (the one that captures), with the SDR each solve gives."""
     from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize, _toeplitz
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
 
     acf, xcorr = _compute_autocorr_crosscorr(_normalize(t), _normalize(p), SIG_FILTER)
+    acf, xcorr = acf.contiguous(), xcorr.contiguous()
     a, b = _toeplitz(acf), xcorr[..., None]
-    out, sols = {}, {}
+    got, plain = toeplitz_solve_cuda(acf, xcorr), toeplitz_solve_plain(acf, xcorr)
+
+    def sdr_of(sol):
+        coh = (xcorr.double() * sol.double()).sum(-1)
+        return 10 * torch.log10(coh / (1 - coh))
+
+    lu = {}
     saved = torch.backends.cuda.preferred_linalg_library()
     try:
         for backend in ("default", "cusolver"):
             torch.backends.cuda.preferred_linalg_library(backend)
-            out[backend] = gpu_ms(lambda: torch.linalg.solve_ex(a, b, check_errors=False)[0], runs=5)
-            sols[backend] = torch.linalg.solve_ex(a, b, check_errors=False)[0]
+            lu[backend] = (gpu_ms(lambda: torch.linalg.solve_ex(a, b, check_errors=False)[0], runs=5),
+                           torch.linalg.solve_ex(a, b, check_errors=False)[0][..., 0])
     finally:
         torch.backends.cuda.preferred_linalg_library(saved)
-    out["systems"], out["n"] = int(a.shape[0] * a.shape[1]), SIG_FILTER
-    out["rel_gap"] = float((sols["default"] - sols["cusolver"]).norm() / sols["default"].norm())
-    return out
+    systems, length = acf.numel() // SIG_FILTER, SIG_FILTER
+    entry = {"name": "toeplitz_solve", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/toeplitz.cu",
+             "replaces": "metrics_tpu/functional/audio/sdr.py:87 (jnp.linalg.solve through XLA; no Pallas kernel)",
+             "shape": f"({systems}, {length}) f32 systems, float64 inside", "launches": launches,
+             "max_abs_err": max_abs_err(got, plain),
+             "ms": gpu_ms(lambda: toeplitz_solve_cuda(acf, xcorr)),
+             "plain_ms": gpu_ms(lambda: toeplitz_solve_plain(acf, xcorr), runs=3),
+             "library_ms": lu["default"][0], "cusolver_lu_ms": lu["cusolver"][0],
+             "sdr_max_abs_diff_db": {"plain": max_abs_err(sdr_of(got), sdr_of(plain)),
+                                     "magma_lu": max_abs_err(sdr_of(got), sdr_of(lu["default"][1])),
+                                     "cusolver_lu": max_abs_err(sdr_of(got), sdr_of(lu["cusolver"][1]))}}
+    check(entry["max_abs_err"] <= 1e-4 * float(plain.abs().max()), f"22(a): K8 vs its plain version {entry['max_abs_err']}")
+    check(entry["sdr_max_abs_diff_db"]["magma_lu"] <= SIG_SDR_TOL, f"22(a): K8's SDR vs the LU's {entry}")
+    # r and b read once, x written once; the work a symmetric Toeplitz solve by Levinson needs,
+    # 4 L^2 flops a system (Golub & Van Loan, section 4.7), in FP64
+    entry["bound_ms"], entry["bound_by"] = bound_ms(3 * 4 * systems * length, 0)
+    ops_ms = systems * 4 * length * length / FP64_OPS_PER_S * 1e3
+    if ops_ms > entry["bound_ms"]:
+        entry["bound_ms"], entry["bound_by"] = ops_ms, "operations"
+    return entry
 
 
 def div2k_images(dev, seed=SEED + 23):
@@ -6134,6 +6196,330 @@ def signal_phase(dev):
     pin = signal_pin(dev, preds, target, img_p, img_t)
     pesq_raised = signal_pesq(dev, preds, target)
     return {"speech": speech, "images": images, "precision_pin": pin, "pesq": pesq_raised}
+
+
+# --------------------------------------------------------------------------- phase 23: embedded-model image metrics
+
+EMB_IMAGES = 2048  # a side; FID's usual protocol compares 50 000 a side: the one cut
+EMB_SIZE = 299
+EMB_BATCH = 64
+EMB_CPU_IMAGES = 8  # 23(a): the images a side the CPU twin takes
+EMB_KID = {"subsets": 100, "subset_size": 1000}  # KID's defaults
+EMB_IS_SPLITS = 10
+EMB_FEATURE_TOL = 1e-4  # card vs CPU features, relative to the largest (94 f32 convolutions in another order)
+EMB_FID_TOL = 1e-5  # FID against scipy's float64 sqrtm, relative
+EMB_KID_TOL = 1e-4  # KID's mean against float64 numpy on the same subsets, relative
+EMB_IS_TOL = 1e-4  # list-mode IS against float64 numpy on the same permutation, relative
+EMB_HOST_IMAGES = 256  # 23(b): a side, through FID and KID sharing one host, and again directly
+LPIPS_PAIRS = 1000  # 23(c): BAPPS 2AFC's patch size, 64 x 64
+LPIPS_SIZE = 64
+LPIPS_BATCH = 50
+LPIPS_LARGE = 8  # pairs at 256 x 256
+LPIPS_CPU = 8
+LPIPS_TOL = 1e-4  # card vs CPU per-pair distance, relative
+
+
+def emb_images(dev, lo, hi, fake, seed=SEED + 24):
+    """Images ``[lo, hi)`` of one side, ``(n, 3, 299, 299)`` uint8 on ``dev``,
+    each batch from its own seeded generator: "real" uniform noise over a
+    smooth per-image gradient, "fake" the same form darker, with lower
+    contrast, so the two distributions differ."""
+    out = []
+    for start in range(lo, hi, EMB_BATCH):
+        stop = min(start + EMB_BATCH, hi)
+        g = torch.Generator(device=dev).manual_seed(seed * 100_003 + 2 * start + int(fake))
+        n = stop - start
+        noise = torch.rand((n, 3, EMB_SIZE, EMB_SIZE), generator=g, device=dev)
+        ramp = torch.linspace(0.0, 1.0, EMB_SIZE, device=dev)
+        tilt = torch.rand((n, 3, 1, 1), generator=g, device=dev)
+        base = tilt * ramp[None, None, :, None] + (1 - tilt) * ramp[None, None, None, :]
+        img = 0.5 * noise + 0.5 * base if not fake else 0.3 * noise + 0.4 * base + 0.05
+        out.append((img.clamp(0, 1) * 255).to(torch.uint8))
+    return torch.cat(out)
+
+
+def emb_weights():
+    from metrics_tpu_torch.models.inception import random_inception_params
+
+    return random_inception_params(input_size=EMB_SIZE, seed=SEED + 24)
+
+
+def timed_updates(dev, metric, sides):
+    """Update ``metric`` over ``sides`` (``[(real_flag or None, lo, hi)]``) in
+    ``EMB_BATCH`` updates; host and device ms per update (medians)."""
+    host, device = [], []
+    t0 = time.perf_counter()
+    for real, lo, hi in sides:
+        for start in range(lo, hi, EMB_BATCH):
+            imgs = emb_images(dev, start, min(start + EMB_BATCH, hi), fake=real is False)
+            torch.cuda.synchronize()
+            start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start_ev.record()
+            metric.update(imgs) if real is None else metric.update(imgs, real=real)
+            end_ev.record()
+            host.append((time.perf_counter() - h0) * 1e3)
+            end_ev.synchronize()
+            device.append(start_ev.elapsed_time(end_ev))
+    seconds = time.perf_counter() - t0
+    images = sum(hi - lo for _, lo, hi in sides)
+    return {"images": images, "seconds": seconds, "images_per_s": images / seconds,
+            "host_ms_per_update": float(np.median(host)), "device_ms_per_update": float(np.median(device))}
+
+
+def timed_compute(dev, metric):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    h0 = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    return value, {"ms": (time.perf_counter() - h0) * 1e3,
+                   "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def kid_oracle(real, fake, seed, subsets, subset_size, degree=3, coef=1.0):
+    """KID's (mean, std) in float64 numpy on the subsets ``np.random.RandomState(seed)``
+    draws in JAX's order, from whole-set Gram matrices."""
+    gamma = 1.0 / real.shape[1]
+    k_rr = (real @ real.T * gamma + coef) ** degree
+    k_ff = (fake @ fake.T * gamma + coef) ** degree
+    k_rf = (real @ fake.T * gamma + coef) ** degree
+    rng = np.random.RandomState(seed)
+    m = subset_size
+    scores = []
+    for _ in range(subsets):
+        r = rng.permutation(real.shape[0])[:m]
+        f = rng.permutation(fake.shape[0])[:m]
+        xx, yy, xy = k_rr[np.ix_(r, r)], k_ff[np.ix_(f, f)], k_rf[np.ix_(r, f)]
+        scores.append((xx.sum() - np.trace(xx) + yy.sum() - np.trace(yy)) / (m * (m - 1)) - 2 * xy.sum() / m**2)
+    return float(np.mean(scores)), float(np.std(scores))
+
+
+def is_oracle(logits, seed, splits):
+    """List-mode IS in float64 numpy: the same permutation, ``array_split``, ddof 1."""
+    logits = logits[np.random.RandomState(seed).permutation(logits.shape[0])]
+    z = logits - logits.max(axis=1, keepdims=True)
+    log_p = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+    p = np.exp(log_p)
+    kl = [np.exp(np.mean(np.sum(pc * (lc - np.log(pc.mean(axis=0, keepdims=True))), axis=1)))
+          for pc, lc in zip(np.array_split(p, splits), np.array_split(log_p, splits))]
+    return float(np.mean(kl)), float(np.std(kl, ddof=1))
+
+
+def rel_err(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def embedded_inception(dev, params):
+    """23(a): FID, KID and IS at 299 x 299 over 2 048 images a side, against
+    float64 oracles on the card's features and a CPU twin on 8 a side."""
+    import scipy.linalg
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.models import inception as inc
+
+    out = {"images_per_side": EMB_IMAGES, "size": EMB_SIZE, "batch": EMB_BATCH, "kid": EMB_KID,
+           "is_splits": EMB_IS_SPLITS, "reduced": "2 048 images a side, not 50 000"}
+    sides = [(True, 0, EMB_IMAGES), (False, 0, EMB_IMAGES)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    fid = mp.FID(feature=2048, params=params, device=dev)
+    out["fid_update"] = timed_updates(dev, fid, sides)
+    out["fid_state_mb"] = sum(v.numel() * v.element_size() for v in fid._pack_state().values()) / 1e6
+    kid = mp.KID(feature=2048, params=params, seed=SEED + 25, device=dev, **EMB_KID)
+    out["kid_update"] = timed_updates(dev, kid, sides)
+    is_list = mp.IS(params=params, splits=EMB_IS_SPLITS, seed=SEED + 26, device=dev)
+    out["is_update"] = timed_updates(dev, is_list, [(None, 0, EMB_IMAGES)])
+    is_stream = mp.IS(params=params, splits=EMB_IS_SPLITS, seed=SEED + 26, streaming=True, device=dev)
+    out["is_streaming_update"] = timed_updates(dev, is_stream, [(None, 0, EMB_IMAGES)])
+    out["updates_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    values, computes = {}, {}
+    for name, m in (("fid", fid), ("kid", kid), ("is", is_list), ("is_streaming", is_stream)):
+        values[name], computes[name] = timed_compute(dev, m)
+    out["compute"] = computes
+    out["values"] = {k: ([float(x) for x in v] if isinstance(v, tuple) else float(v)) for k, v in values.items()}
+
+    # the oracles, in float64 on the host, from the card's own features (KID's and IS's lists)
+    real = torch.cat(kid.real_features).double().cpu().numpy()
+    fake = torch.cat(kid.fake_features).double().cpu().numpy()
+    t0 = time.perf_counter()
+    mu1, mu2 = real.mean(0), fake.mean(0)
+    s1, s2 = np.cov(real, rowvar=False), np.cov(fake, rowvar=False)
+    covmean = scipy.linalg.sqrtm(s1 @ s2)
+    fid_want = float(((mu1 - mu2) ** 2).sum() + np.trace(s1) + np.trace(s2) - 2 * np.trace(covmean).real)
+    kid_want = kid_oracle(real, fake, SEED + 25, **EMB_KID)
+    is_want = is_oracle(torch.cat(is_list.features).double().cpu().numpy(), SEED + 26, EMB_IS_SPLITS)
+    out["oracle_s"] = time.perf_counter() - t0
+    errs = {"fid": rel_err(values["fid"], fid_want), "kid_mean": rel_err(values["kid"][0], kid_want[0]),
+            "is_mean": rel_err(values["is"][0], is_want[0]), "is_std": rel_err(values["is"][1], is_want[1])}
+    out["oracle"] = {"fid": fid_want, "kid": kid_want, "is": is_want, "rel_err": errs}
+    check(math.isfinite(values["fid"]) and values["fid"] > 0, f"23(a): FID {values['fid']}")
+    check(errs["fid"] <= EMB_FID_TOL, f"23(a): FID vs scipy's sqrtm {errs['fid']}")
+    check(errs["kid_mean"] <= EMB_KID_TOL, f"23(a): KID vs float64 on the same subsets {errs['kid_mean']}")
+    check(abs(float(values["kid"][1]) - kid_want[1]) <= EMB_KID_TOL * abs(kid_want[0]) + 1e-7,
+          f"23(a): KID std {values['kid'][1]} vs {kid_want[1]}")
+    check(errs["is_mean"] <= EMB_IS_TOL and errs["is_std"] <= 10 * EMB_IS_TOL, f"23(a): IS vs float64 {errs}")
+
+    # streaming IS: its split counts equal a CPU twin's for the same seed and update sizes
+    twin = mp.IS(feature=lambda x: torch.zeros((x.shape[0], 1008)), feature_dim=1008, splits=EMB_IS_SPLITS,
+                 seed=SEED + 26, streaming=True, device="cpu")
+    for start in range(0, EMB_IMAGES, EMB_BATCH):
+        twin.update(torch.zeros((min(EMB_BATCH, EMB_IMAGES - start), 1)))
+    check(torch.equal(is_stream.split_n.cpu(), twin.split_n), f"23(a): streaming IS splits {is_stream.split_n}")
+    out["is_streaming_split_n"] = [int(v) for v in is_stream.split_n.tolist()]
+
+    # the CPU twin: the first 8 images a side, every tap on the card and on the CPU
+    cpu_errs = {}
+    t0 = time.perf_counter()
+    for fake_side in (False, True):
+        imgs = emb_images(dev, 0, EMB_CPU_IMAGES, fake=fake_side)
+        for tap in ("2048", "logits_unbiased"):
+            got = inc.InceptionFeatureExtractor(tap, params=params, device=dev)(imgs)
+            want = inc.InceptionFeatureExtractor(tap, params=params, device="cpu")(imgs.cpu())
+            e = max_abs_err(got, want) / float(want.abs().max())
+            cpu_errs[f"{tap}_{'fake' if fake_side else 'real'}"] = e
+            check(e <= EMB_FEATURE_TOL, f"23(a): {tap} card vs CPU {e}")
+    out["cpu_twin_s"] = time.perf_counter() - t0
+    out["cpu_rel_err"] = cpu_errs
+
+    # the move of the features with the pin taken out (full_f32 a null context, TF32 allowed)
+    imgs = emb_images(dev, 0, EMB_BATCH, fake=False)
+    ext = inc.InceptionFeatureExtractor("2048", params=params, device=dev)
+    pinned = ext(imgs)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        check(torch.equal(ext(imgs), pinned), "23(a): pinned features depend on the TF32 setting")
+        inc.full_f32 = contextlib.nullcontext
+        unpinned = ext(imgs)
+    finally:
+        inc.full_f32 = sys.modules["metrics_tpu_torch.utils.precision"].full_f32
+        torch.backends.cudnn.allow_tf32 = saved
+    out["unpinned_max_rel_diff"] = max_abs_err(unpinned, pinned) / float(pinned.abs().max())
+    return out
+
+
+def embedded_host(dev, params):
+    """23(b): FID and KID on one resident host; captures per bucket; f32 bit-equal
+    to the direct forward at the same shape; bf16 and int8 within JAX's bounds;
+    images/s direct and hosted."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine.model_host import ModelHostConfig, inception_host, reset_host_registry
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor
+    from metrics_tpu_torch.parallel.collectives import q8_sum_error_bound
+
+    out = {}
+    reset_host_registry()
+    try:
+        fid = mp.FID(feature=2048, params=params, model_host=True, device=dev)
+        kid = mp.KID(feature=2048, params=params, subsets=10, subset_size=100, model_host=True, device=dev)
+        host = fid.model_host
+        check(host is kid.model_host and host.counters()["shared_by"] == 2, "23(b): FID and KID do not share a host")
+        out["buckets"] = list(host.config.buckets)
+        # cold: one capture per bucket (5 images take the 8-bucket, 32 the 32-bucket)
+        imgs = emb_images(dev, 0, 32, fake=False)
+        direct = InceptionFeatureExtractor("2048", params=params, device=dev)
+        got32, got5 = host.infer(imgs), host.infer(imgs[:5])
+        check(host.aot.misses == 2, f"23(b): cold captures {host.aot.misses}")
+        padded = torch.zeros((8,) + tuple(imgs.shape[1:]), dtype=imgs.dtype, device=dev)
+        padded[:5] = imgs[:5]
+        check(torch.equal(got32, direct(imgs)) and torch.equal(got5, direct(padded)[:5]),
+              "23(b): f32 host features differ from the direct forward at the same shape")
+        out["padded_vs_unpadded_max_rel_diff"] = max_abs_err(got5, direct(imgs[:5])) / float(got5.abs().max())
+        # hosted run: FID and KID over the same images a side through the one model, and directly
+        sides = [(True, 0, EMB_HOST_IMAGES), (False, 0, EMB_HOST_IMAGES)]
+        hosted = {"fid": timed_updates(dev, fid, sides), "kid": timed_updates(dev, kid, sides)}
+        check(host.aot.misses == 2, f"23(b): the warm pass captured {host.aot.misses - 2}")
+        plain_fid = mp.FID(feature=2048, params=params, device=dev)
+        direct_run = timed_updates(dev, plain_fid, sides)
+        check(rel_err(fid.compute(), plain_fid.compute()) <= 1e-6, "23(b): hosted FID differs from the direct one")
+        out["hosted"] = hosted
+        out["direct_fid"] = direct_run
+        out["host_counters"] = host.counters()
+        out["host_items_per_s"] = host.stats.items_per_s()
+        # the reduced paths, on the 32 images
+        for precision in ("bf16", "int8"):
+            h = inception_host("2048", params, config=ModelHostConfig(precision=precision), device=dev)
+            g = h.infer(imgs)
+            if precision == "bf16":
+                ok = bool(torch.allclose(g, got32, rtol=5e-2, atol=5e-2)) and not torch.equal(g, got32)
+                err = max_abs_err(g, got32)
+            else:
+                # the codec's bound, plus the one f32 rounding of the decode's code * scale
+                bound = torch.from_numpy(q8_sum_error_bound(got32.cpu().numpy()[None]))
+                slack = torch.finfo(torch.float32).eps * got32.abs().cpu()
+                err = float(((g - got32).abs().cpu() - bound - slack).max())
+                ok = err <= 0.0
+            out[f"{precision}_err"] = err
+            check(ok, f"23(b): {precision} path outside its bound ({err})")
+    finally:
+        reset_host_registry()
+    return out
+
+
+def lpips_pairs_on(dev, n, size, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((n, 3, size, size), generator=g, device=dev) * 2 - 1
+    return a, (a + 0.2 * torch.randn(a.shape, generator=g, device=dev)).clamp(-1, 1)
+
+
+def embedded_lpips(dev):
+    """23(c): LPIPS with VGG16 and AlexNet on 1 000 seeded 64 x 64 pairs in
+    batches of 50, and 8 pairs at 256 x 256; the first 8 pairs against the CPU."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.image.lpip_similarity import _lpips_from_features
+
+    out = {}
+    for net_type in ("vgg", "alex"):
+        channels = (64, 128, 256, 512, 512) if net_type == "vgg" else (64, 192, 384, 256, 256)
+        g = np.random.RandomState(SEED + 27)
+        weights = [torch.from_numpy(g.uniform(0, 1, c).astype(np.float32)) for c in channels]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded backbone's warning
+            card = mp.LPIPS(net_type=net_type, weights=[w.to(dev) for w in weights], device=dev)
+            cpu = mp.LPIPS(net_type=net_type, weights=weights, device="cpu")
+        a, b = lpips_pairs_on(dev, LPIPS_PAIRS, LPIPS_SIZE, SEED + 28)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        host, device = [], []
+        t0 = time.perf_counter()
+        for lo in range(0, LPIPS_PAIRS, LPIPS_BATCH):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            s.record()
+            card.update(a[lo:lo + LPIPS_BATCH], b[lo:lo + LPIPS_BATCH])
+            e.record()
+            host.append((time.perf_counter() - h0) * 1e3)
+            e.synchronize()
+            device.append(s.elapsed_time(e))
+        seconds = time.perf_counter() - t0
+        value = float(card.compute())
+        check(math.isfinite(value) and value > 0, f"23(c): {net_type} LPIPS {value}")
+        la, lb = lpips_pairs_on(dev, LPIPS_LARGE, 256, SEED + 29)
+        large = _lpips_from_features(card.net(la), card.net(lb), card.weights)
+        check(bool(torch.isfinite(large).all()), f"23(c): {net_type} at 256 x 256")
+        got = _lpips_from_features(card.net(a[:LPIPS_CPU]), card.net(b[:LPIPS_CPU]), card.weights)
+        want = _lpips_from_features(cpu.net(a[:LPIPS_CPU].cpu()), cpu.net(b[:LPIPS_CPU].cpu()), cpu.weights)
+        err = float(((got.cpu() - want).abs() / want.abs()).max())
+        check(err <= LPIPS_TOL, f"23(c): {net_type} card vs CPU {err}")
+        out[net_type] = {"pairs": LPIPS_PAIRS, "size": LPIPS_SIZE, "batch": LPIPS_BATCH, "value": value,
+                         "pairs_per_s": LPIPS_PAIRS / seconds, "host_ms_per_update": float(np.median(host)),
+                         "device_ms_per_update": float(np.median(device)),
+                         "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                         "large_256": [float(v) for v in large.tolist()], "cpu_max_rel_err": err}
+    return out
+
+
+def embedded_phase(dev):
+    """Phase 23: the embedded-model image metrics on the card (module docstring)."""
+    torch.cuda.synchronize(dev)  # the context first: the memory counters need it
+    t0 = time.perf_counter()
+    params = emb_weights()
+    out = {"weights_s": time.perf_counter() - t0}
+    out["inception"] = embedded_inception(dev, params)
+    out["host"] = embedded_host(dev, params)
+    out["lpips"] = embedded_lpips(dev)
+    return out
 
 
 def nvidia_smi_line():
@@ -6355,6 +6741,16 @@ def main():
     print(json.dumps({"signal_phase": signal, "launches": signal_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 23, its counts from 0: the embedded models run no kernel of K1-K7 (JAX's run no Pallas kernel there)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    embedded = embedded_phase(dev)
+    embedded_launches = counts()
+    check(not any(embedded_launches.values()), f"the embedded-model phase launched {embedded_launches}")
+    print(json.dumps({"embedded_phase": embedded, "launches": embedded_launches,
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -6392,6 +6788,7 @@ def main():
         e["launches"] = ragged_launches[e["name"]]
         e["card"] = card
         entries.append(e)
+    entries.append(dict(signal["speech"]["solve"], card=card))  # K8: its launches are 22(a)'s
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -57,15 +57,16 @@ from metrics_tpu_torch.ops.kernels.megastep_cuda import (
     megastep_segment_q8_cuda,
 )
 from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda
 from metrics_tpu_torch.utils.device import as_input
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["AotCache", "CapturedForward", "CapturedStep", "EAGER", "EagerForward", "FORWARD_CACHE", "HostSyncError",
            "ForwardCache", "LAUNCH_COUNTERS", "forward_entry", "metric_fingerprint"]
 
-#: the kernel wrappers K1-K7, each with its ``.launches`` count
+#: the kernel wrappers K1-K8, each with its ``.launches`` count
 LAUNCH_COUNTERS = (fold_rows_cuda, histogram_cuda, binned_counts_cuda, segment_reduce_cuda, megastep_fold_cuda,
-                   megastep_segment_cuda, megastep_segment_q8_cuda)
+                   megastep_segment_cuda, megastep_segment_q8_cuda, toeplitz_solve_cuda)
 
 # config arrays larger than this are fingerprinted by shape/dtype and a head
 # and tail sample instead of their whole content

@@ -2229,20 +2229,40 @@ class StreamingEngine:
 
     # ------------------------------------------------------------------ telemetry
 
+    def _model_host_sections(self) -> Optional[List[Dict[str, Any]]]:
+        """Telemetry snapshots of the attached embedded-model hosts
+        (``engine.model_host = host`` or ``engine.model_hosts = [...]``, by
+        plain attribute, as in JAX), or None."""
+        hosts = getattr(self, "model_hosts", None)
+        if not hosts:
+            host = getattr(self, "model_host", None)
+            hosts = [host] if host is not None else []
+        return [h.telemetry() for h in hosts] or None
+
     def telemetry(self) -> Dict[str, Any]:
         """The telemetry document's summary (``EngineStats.summary`` with the
         capture cache's counters as ``compile_cache``), plus the recorder's
-        ``trace`` block when one is attached."""
+        ``trace`` block when one is attached and the attached model hosts'
+        ``model_host`` sections."""
         doc = self._stats.summary(self._aot.stats())
         if self._trace is not None:
             doc["trace"] = self._trace.summary()
+        hosts = self._model_host_sections()
+        if hosts:
+            doc["model_host"] = hosts
         return doc
 
     def export_telemetry(self, path: str) -> None:
-        """Write the telemetry document (summary, the ring's recent steps and
-        the recorder's block) as JSON: ``tools/engine_report.py`` reads it."""
-        extra = {"trace": self._trace.summary()} if self._trace is not None else None
-        self._stats.export(path, self._aot.stats(), extra=extra)
+        """Write the telemetry document (summary, the ring's recent steps, the
+        recorder's block and the model hosts' sections) as JSON:
+        ``tools/engine_report.py`` reads it."""
+        extra: Dict[str, Any] = {}
+        if self._trace is not None:
+            extra["trace"] = self._trace.summary()
+        hosts = self._model_host_sections()
+        if hosts:
+            extra["model_host"] = hosts
+        self._stats.export(path, self._aot.stats(), extra=extra or None)
 
     def export_trace(self, path: str) -> str:
         """Write the flight recorder's Chrome/Perfetto trace-event JSON to

@@ -4,25 +4,26 @@
 Medium Rare", Scheibler 2021), not the reference's ``fast_bss_eval`` call:
 both signals normalised, their rFFT auto- and cross-correlations at
 ``n_fft = 2^ceil(log2(n + L))``, ``load_diag`` added to the zero lag, the
-symmetric ``(L, L)`` Toeplitz matrix built by an index gather and solved
-directly, then ``coh = xcorr . sol`` and ``10 log10(coh / (1 - coh))``.
-``use_cg_iter`` is accepted and ignored, as in JAX.
+symmetric ``(L, L)`` Toeplitz system solved, then ``coh = xcorr . sol`` and
+``10 log10(coh / (1 - coh))``. ``use_cg_iter`` is accepted and ignored, as
+in JAX.
 
-The solve is ``torch.linalg.solve_ex`` without its error check: a silent
-target makes the Toeplitz matrix singular, and the result is then NaN, as
-JAX's solve gives, where ``torch.linalg.solve`` would raise. Nor does it
-read ``info`` on the host. The LU runs on the backend PyTorch picks for the
-shape. For more than one system of a ``filter_length`` above 128, or more
-than 16 systems of one above 16, that is MAGMA's batched LU, which cannot
-be captured into a CUDA graph: the compiled forward then leaves that
-signature eager. The solve and the coherence dot run under
-:func:`full_f32`: no TF32.
+JAX solves by LU. The port solves by the Levinson recursion, from the
+system's first column alone (:func:`~metrics_tpu_torch.ops.kernels.
+toeplitz_cuda.toeplitz_solve`: the K8 kernel on the card, its plain
+version on the CPU, float64 inside both). PyTorch's own batched LU at the
+default ``filter_length`` of 512 runs on MAGMA, which a CUDA graph cannot
+capture; the kernel can, so SDR's compiled forward is captured. Nothing
+reads the solve's status on the host: a silent target makes the system
+singular and the result NaN, as JAX's solve gives. The coherence dot runs
+under :func:`full_f32`: no TF32.
 """
 import math
 from typing import Any, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve
 from metrics_tpu_torch.utils.checks import _check_same_shape
 from metrics_tpu_torch.utils.device import DeviceLike, as_input, tensor_device
 from metrics_tpu_torch.utils.precision import full_f32
@@ -48,7 +49,8 @@ def _compute_autocorr_crosscorr(target: Tensor, preds: Tensor, corr_len: int) ->
 
 
 def _toeplitz(c: Tensor) -> Tensor:
-    """The symmetric Toeplitz matrix of first column ``c``, batched over leading dims."""
+    """The symmetric Toeplitz matrix of first column ``c``, batched over
+    leading dims (JAX's form of the system; the port's solve takes ``c``)."""
     ar = torch.arange(c.shape[-1], device=c.device)
     return c[..., torch.abs(ar[:, None] - ar[None, :])]
 
@@ -93,8 +95,8 @@ def signal_distortion_ratio(
     if load_diag is not None:
         acf = torch.cat([acf[..., :1] + load_diag, acf[..., 1:]], dim=-1)
 
+    sol = toeplitz_solve(acf.contiguous(), xcorr.contiguous())
     with full_f32():
-        sol = torch.linalg.solve_ex(_toeplitz(acf), xcorr[..., None], check_errors=False)[0][..., 0]
         coh = torch.einsum("...l,...l->...", xcorr, sol)
     ratio = coh / (1 - coh)
     return 10.0 * torch.log10(ratio)

@@ -35,8 +35,7 @@ _LOADED_MODEL_CACHE_MAX = 4
 _LOADED_MODEL_CACHE: "OrderedDict[Tuple[str, str], Any]" = OrderedDict()
 
 MESH_NOT_PORTED = (
-    "BERTScore's `mesh=` (a batch-sharded encoder) and `model_host=` (a resident model host) are not ported: "
-    "they wait for the serving layers (ROADMAP.md A.6)"
+    "BERTScore's `mesh=` (a batch-sharded encoder) is not ported: it waits for the port's mesh layer (ROADMAP.md A)"
 )
 
 
@@ -392,7 +391,7 @@ def bert_score(
     emb``, ``model``, ``model_name_or_path`` (a LOCAL HF torch checkpoint).
     Tokenization uses ``user_tokenizer`` (``tok(texts, max_length)``
     returning ``input_ids``/``attention_mask``) or a whitespace tokenizer.
-    ``mesh=`` is not ported (ROADMAP.md A.6).
+    ``mesh=`` is not ported (ROADMAP.md A).
     """
     if mesh is not None:
         raise NotPortedError(MESH_NOT_PORTED)

@@ -76,8 +76,9 @@ class BERTScore(Metric):
 
     The encoder is the caller's (``user_forward_fn``, ``model``, or a local
     HF torch checkpoint, see :func:`~metrics_tpu_torch.functional.bert_score`);
-    it runs on the metric's device. ``mesh=`` and ``model_host=`` are not
-    ported (ROADMAP.md A.6).
+    it runs on the metric's device, or on a resident ``ModelHost`` with
+    ``model_host=`` (``True``, a ``ModelHostConfig`` or a host). ``mesh=``
+    is not ported (ROADMAP.md A).
     """
 
     is_differentiable = False
@@ -107,7 +108,7 @@ class BERTScore(Metric):
         length_buckets: Optional[Sequence[int]] = None,
         **kwargs: Any,
     ) -> None:
-        if mesh is not None or (model_host is not None and model_host is not False):
+        if mesh is not None:
             raise NotPortedError(MESH_NOT_PORTED)
         super().__init__(**kwargs)
         self.model_name_or_path = model_name_or_path
@@ -126,6 +127,25 @@ class BERTScore(Metric):
         self.baseline = _load_baseline_row(path, num_layers) if path is not None else None
         # a missing encoder fails at construction
         self.forward_fn = _resolve_forward(user_forward_fn, model, model_name_or_path, self.device)
+
+        # model_host: serve the encoder from a resident ModelHost (bucketed,
+        # coalesced, one captured forward a bucket on the card; shared by
+        # metrics over the same encoder) -- engine/model_host.py
+        self.model_host = None
+        if model_host is not None and model_host is not False:
+            from metrics_tpu_torch.engine.model_host import ModelHost, ModelHostConfig, encoder_host
+
+            if isinstance(model_host, ModelHost):
+                host = model_host
+            else:
+                config = model_host if isinstance(model_host, ModelHostConfig) else ModelHostConfig()
+                host = encoder_host(forward_fn=self.forward_fn, config=config, device=self.device)
+            self.model_host = host
+
+            def _host_forward(ids: Tensor, mask: Tensor) -> Tensor:
+                return host.infer(ids, mask)
+
+            self.forward_fn = _host_forward
 
         self.add_state("preds_input_ids", [], dist_reduce_fx="cat")
         self.add_state("preds_attention_mask", [], dist_reduce_fx="cat")

@@ -509,7 +509,49 @@ def case_signal(ctx: Ctx, group: str) -> Any:
     return out
 
 
+IMAGE_MODEL_DIM = 6
+IMAGE_MODEL_PROJ = np.random.RandomState(700).randn(5, IMAGE_MODEL_DIM).astype(np.float32)
+IMAGE_MODEL_KID = {"subsets": 4, "subset_size": 7, "seed": 9}
+
+
+def image_model_rows(rank: int):
+    """Rank ``rank``'s ``(real, fake)`` ``(6, 5)`` rows (a common offset; a list state gathers equal row
+    counts), the input of a linear feature."""
+    rng = np.random.RandomState(710 + rank)
+    return ((rng.randn(6, 5) + 3.0).astype(np.float32), (rng.randn(6, 5) * 1.3 + 3.2).astype(np.float32))
+
+
+def case_image_models(ctx: Ctx, group: str) -> Any:
+    """Each rank updates a streaming FID, a list FID and a KID on a linear
+    feature of its shard; returns each synced ``compute()`` over ``group``
+    and the synced shape of FID's scatter state."""
+    if not ctx.member(group):
+        return None
+    import torch
+
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.parallel import metric_axis
+
+    def feat(x: Any) -> Any:
+        return torch.as_tensor(x) @ torch.from_numpy(IMAGE_MODEL_PROJ)
+
+    real, fake = image_model_rows(ctx.pos(group))
+    out = {}
+    with metric_axis(ctx.groups[group]):
+        metrics = {"fid": mp.FID(feature=feat, feature_dim=IMAGE_MODEL_DIM, device="cpu"),
+                   "fid_list": mp.FID(feature=feat, streaming=False, device="cpu"),
+                   "kid": mp.KID(feature=feat, device="cpu", **IMAGE_MODEL_KID)}
+        for name, metric in metrics.items():
+            metric.update(real, real=True)
+            metric.update(fake, real=False)
+            if name == "fid":
+                out["fid_state_shape"] = list(metric.sync_states(metric._pack_state())["real_m2_hi"].shape)
+            out[name] = to_np(metric.compute())
+    return out
+
+
 CASES: Dict[str, Callable[..., Any]] = {
+    "image_models": case_image_models,
     "signal": case_signal,
     "text": case_text,
     "retrieval": case_retrieval,

@@ -4,8 +4,9 @@ The same seeded numpy signals go to both packages: speech-like sources
 (formant-shaped noise under a syllable-rate envelope, about a fifth of each
 signal silent) and estimates made of the source, the other speaker's
 leakage and white noise. Covered: SNR, SI-SNR and SI-SDR with and without
-``zero_mean``; SDR at three filter lengths with and without ``load_diag``
-and of a silent target (NaN in both); PIT at 2, 3 and 4 speakers (4 takes
+``zero_mean``; SDR at three filter lengths with and without ``load_diag``,
+at its default 512 on speech and on pure tones, and of a silent target
+(NaN in both), its Levinson solve's plain version against a float64 LU; PIT at 2, 3 and 4 speakers (4 takes
 scipy's assignment outside a trace and the exhaustive search inside one)
 and ``pit_permutate``; STOI and ESTOI at 8, 10 and 16 kHz, the resampler
 alone and the 1e-5 sentinel; PESQ through a fake ``pesq`` module in both
@@ -21,6 +22,7 @@ import warnings
 
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 import jax
@@ -31,10 +33,13 @@ import metrics_tpu.functional as jf
 import metrics_tpu_torch as mp
 import metrics_tpu_torch.functional as pf
 from metrics_tpu_torch.metric import forward_entry_kinds
+from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve, toeplitz_solve_plain
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.state_bridge import state_from_numpy, state_to_numpy
 
 CPU = torch.device("cpu")
+p_sdr = importlib.import_module("metrics_tpu_torch.functional.audio.sdr")
+j_sdr = importlib.import_module("metrics_tpu.functional.audio.sdr")
 DB_TOL = 1e-4  # SNR, SI-SNR, SI-SDR, PIT over them (dB)
 SDR_TOL = 1e-3  # SDR (dB): f32 FFTs and LU of two libraries, at SDRs up to ~25 dB
 STOI_TOL = 1e-4
@@ -155,14 +160,32 @@ def test_sdr_matches_jax(filter_length, load_diag):
 
 def test_sdr_of_a_silent_target_is_nan_as_jax():
     """A silent target makes the Toeplitz system singular: JAX's solve gives
-    NaN, and so does the port's (``solve_ex`` unchecked), with no exception."""
-    p = sources(4, 1, 2, 600, 8000)[0]
+    NaN, and so does the port's Levinson recursion, with no exception. An
+    estimate equal to its target has the exact solution ``e_1``: the port's
+    float64 recursion returns it, so its coherence is the f32 zero lag ``r0``
+    and its SDR ``10 log10(r0 / (1 - r0))``, with ``1 - r0`` two f32 spacings
+    (~70 dB). JAX's f32 LU rounds its coherence to a neighbouring f32 value,
+    and one spacing of ``1 - r0`` is 3 dB, so that row is held to JAX in the
+    coherence: JAX's, recovered from its SDR, lies within two f32 spacings of
+    ``r0``. A noisy estimate is held to JAX within SDR_TOL."""
+    p = sources(4, 1, 3, 600, 8000)[0]
     t = np.zeros_like(p)
     t[1] = p[1]
+    t[2] = p[2]
+    p[2] = estimates(4, p[2][None], leak=(0.0, 0.0), snr_db=(10.0, 10.0))[0]
     want = np.asarray(jf.signal_distortion_ratio(p, t, filter_length=16))
     got = pf.signal_distortion_ratio(p, t, filter_length=16, device="cpu")
     assert np.isnan(want[0]) and torch.isnan(got[0])
-    close(got[1:], want[1:], SDR_TOL, "the sounding row")
+    close(got[2:], want[2:], SDR_TOL, "the noisy row")
+    tn = p_sdr._normalize(torch.from_numpy(t[1:2]))
+    acf, xcorr = p_sdr._compute_autocorr_crosscorr(tn, tn, corr_len=16)
+    e1 = torch.zeros(16, dtype=torch.float32)
+    e1[0] = 1.0
+    torch.testing.assert_close(toeplitz_solve(acf, xcorr)[0], e1, rtol=0, atol=0)
+    r0 = float(acf[0, 0])
+    assert float(got[1]) == pytest.approx(10 * np.log10(r0 / (1 - r0)), abs=1e-4) and float(got[1]) > 60.0
+    ratio = 10.0 ** (float(want[1]) / 10.0)
+    assert abs(ratio / (1.0 + ratio) - r0) <= 2 * float(np.spacing(np.float32(r0))), (want[1], got[1], r0)
     # half precision and integers widen to float32, as in JAX
     close(pf.signal_distortion_ratio(torch.from_numpy(p).half(), torch.from_numpy(p).half() + 0.01, filter_length=8),
           jf.signal_distortion_ratio(jnp.asarray(p, jnp.float16), jnp.asarray(p, jnp.float16) + 0.01, filter_length=8),
@@ -256,6 +279,91 @@ def test_resampler_matches_jax(fs):
     taps_j, taps_p = j_stoi._resample_plan(fs, 10_000), p_stoi._resample_plan(fs, 10_000)
     np.testing.assert_array_equal(taps_p[0], taps_j[0])
     assert taps_p[1:] == taps_j[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 3, 7), (4, 64)])
+def test_toeplitz_solve_plain_matches_a_float64_lu(shape, dtype):
+    """K8's plain version (the Levinson recursion in float64) against numpy's
+    float64 LU of the full matrix, on the autocorrelations of seeded noise
+    plus a loaded diagonal, batched over leading dims; the dispatcher takes
+    it for CPU tensors."""
+    rng = np.random.RandomState(sum(shape))
+    lead, length = shape[:-1], shape[-1]
+    sig = rng.randn(*lead, 4 * length + 8)
+    r = np.stack([np.correlate(s, s, "full")[s.size - 1:s.size - 1 + length] for s in sig.reshape(-1, sig.shape[-1])])
+    r = r.reshape(*lead, length) / r[..., :1].reshape(*lead, 1)
+    r[..., 0] += 0.1
+    b = rng.randn(*lead, length)
+    lag = np.abs(np.arange(length)[:, None] - np.arange(length)[None, :])
+    want = np.linalg.solve(r[..., lag], b[..., None])[..., 0]
+    rt, bt = torch.from_numpy(r).to(dtype), torch.from_numpy(b).to(dtype)
+    got = toeplitz_solve_plain(rt, bt)
+    assert got.dtype == dtype and got.shape == rt.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=tol, atol=tol)
+    torch.testing.assert_close(toeplitz_solve(rt, bt), got, rtol=0, atol=0)
+
+
+def test_sdr_at_filter_length_512_matches_jax():
+    """At SDR's default ``filter_length`` of 512 on 4-second 8 kHz speech
+    (phase 22's form): the Levinson solve against JAX's LU within SDR_TOL,
+    with and without ``load_diag``; every score finite."""
+    t = sources(90, 3, 2, 32000, 8000)
+    p = estimates(90, t)
+    for load_diag in (None, 1e-3):
+        want = np.asarray(jf.signal_distortion_ratio(p, t, load_diag=load_diag))
+        got = pf.signal_distortion_ratio(p, t, load_diag=load_diag, device="cpu")
+        assert np.isfinite(want).all() and torch.isfinite(got).all()
+        close(got, want, SDR_TOL, f"L=512 load_diag={load_diag}")
+
+
+def tone(f0, noise, n=32000, fs=8000):
+    t = np.sin(2 * np.pi * f0 * np.arange(n) / fs).astype(np.float32)[None]
+    return (t + noise * np.random.RandomState(1).randn(n).astype(np.float32)), t
+
+
+def float64_sdr(p, t, length=512):
+    """SDR of the port's own f32 system solved in float64 two ways, by
+    numpy's LU of the full matrix and by scipy's ``solve_toeplitz``
+    (Levinson), with the matrix's smallest eigenvalue."""
+    acf, xcorr = p_sdr._compute_autocorr_crosscorr(p_sdr._normalize(torch.from_numpy(t)),
+                                                   p_sdr._normalize(torch.from_numpy(p)), corr_len=length)
+    a, b = p_sdr._toeplitz(acf.double()).numpy(), xcorr.double().numpy()
+    lu = np.linalg.solve(a, b[..., None])[..., 0]
+    levinson = np.stack([scipy.linalg.solve_toeplitz(r, y) for r, y in zip(acf.double().numpy(), b)])
+
+    def db(sol):
+        coh = np.einsum("...l,...l->...", b, sol)
+        return 10 * np.log10(coh / (1 - coh))
+
+    return db(lu), db(levinson), np.linalg.eigvalsh(a)[..., 0]
+
+
+@pytest.mark.parametrize("noise", [0.3, 0.05])
+def test_sdr_of_a_pure_tone_target(noise):
+    """A pure-tone target makes the Toeplitz system near-singular (its
+    smallest eigenvalue is ~1e-6 of the unit zero lag at L = 512). At 1 kHz
+    the f32 system stays positive definite, and the port gives JAX's value
+    within SDR_TOL. At 440 Hz the f32 autocorrelation matrix is numerically
+    indefinite (smallest eigenvalue < 0): there JAX's f32 LU itself lies
+    more than 1e-2 dB from the float64 LU of the same system, while the
+    port stays within 5e-3 dB of it. Two independent float64 solves witness
+    that: numpy's LU and scipy's ``solve_toeplitz`` agree within 1e-5 dB.
+    Both packages give finite values, which no tolerance of 1e-3 dB can tie."""
+    p, t = tone(1000, noise)
+    *_, low = float64_sdr(p, t)
+    assert 0.0 < low[0] < 1e-5
+    close(pf.signal_distortion_ratio(p, t, device="cpu"), jf.signal_distortion_ratio(p, t), SDR_TOL, "1 kHz tone")
+    p, t = tone(440, noise)
+    lu, levinson, low = float64_sdr(p, t)
+    assert low[0] < 0.0
+    close(levinson, lu, 1e-5, "440 Hz tone, scipy's Levinson vs numpy's LU")
+    got, want = pf.signal_distortion_ratio(p, t, device="cpu").numpy(), np.asarray(jf.signal_distortion_ratio(p, t))
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    for witness, name in ((lu, "numpy's LU"), (levinson, "scipy's Levinson")):
+        close(got, witness, 5e-3, f"440 Hz tone, port vs {name}")
+        assert np.abs(want - witness).min() > 1e-2, (want, witness, name)
 
 
 def test_stoi_and_sdr_ignore_the_process_matmul_precision():

@@ -261,11 +261,26 @@ def test_the_encoder_runs_under_inference_mode_on_the_device():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"model_host": True}])
 def test_mesh_and_model_host_are_not_ported(kw):
-    with pytest.raises(NotPortedError, match="A.6"):
-        mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **kw)
+    """``mesh=`` is refused by the class and the functional. ``model_host=``
+    was ported with the model host: that case checks that the class takes it
+    and serves the encoder from a host, with the direct path's scores."""
     if "mesh" in kw:
-        with pytest.raises(NotPortedError, match="A.6"):
+        with pytest.raises(NotPortedError, match="ROADMAP.md A"):
+            mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **kw)
+        with pytest.raises(NotPortedError, match="ROADMAP.md A"):
             pf.bert_score(["a"], ["a"], user_forward_fn=sin_torch, device="cpu", **kw)
+        return
+    from metrics_tpu_torch.engine.model_host import reset_host_registry
+
+    try:
+        hosted, direct = mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **kw), \
+            mp.BERTScore(user_forward_fn=sin_torch, device="cpu")
+        assert hosted.model_host is not None and hosted.model_host.device == CPU
+        for m in (hosted, direct):
+            m.update(["a b c", "d e"], ["a c", "d e f"])
+        assert hosted.compute() == direct.compute()
+    finally:
+        reset_host_registry()
 
 
 # ------------------------------------------------------------------------ module

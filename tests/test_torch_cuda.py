@@ -2425,20 +2425,155 @@ def test_signal_metric_forward_is_captured_on_card(cuda, name):
 
 
 @pytest.mark.requires_cuda
-def test_sdr_forward_at_filter_length_512_stays_eager_on_card(cuda):
-    """At SDR's default ``filter_length`` of 512 over 16 x 2 systems PyTorch
-    solves on MAGMA's batched LU, which cannot be captured: the forward's
-    signature goes ``eager_only`` and still gives its eager twin's batch
-    values and states."""
+@pytest.mark.parametrize("pit", [False, True])
+def test_sdr_forward_at_filter_length_512_is_captured_on_card(cuda, pit):
+    """At SDR's default ``filter_length`` of 512 over 16 x 2 systems the
+    solve is K8's Levinson kernel, which a CUDA graph captures: SDR's
+    forward, and PIT's over SDR, take ``compiled``, launch K8 on every
+    replay, and give their eager twins' batch values and states."""
     import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional import signal_distortion_ratio
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda
+
+    def make():
+        if pit:
+            return mp.PermutationInvariantTraining(signal_distortion_ratio, filter_length=512, device=cuda)
+        return mp.SignalDistortionRatio(device=cuda)
 
     p, t = _speech_pairs(5, 48, 8000)
-    m, twin = mp.SignalDistortionRatio(device=cuda), keep_forward_eager(mp.SignalDistortionRatio(device=cuda))
+    m, twin = make(), keep_forward_eager(make())
     for lo in (0, 16, 32):
         a, b = p[lo:lo + 16].to(cuda), t[lo:lo + 16].to(cuda)
-        torch.testing.assert_close(m(a, b), twin(a, b), rtol=0, atol=1e-2)
-    assert forward_entry_kinds(m) == ["eager_only"], forward_entry_kinds(m)
+        if lo == 32:
+            toeplitz_solve_cuda.launches = 0
+        got = m(a, b)
+        if lo == 32:
+            assert toeplitz_solve_cuda.launches > 0
+        torch.testing.assert_close(got, twin(a, b), rtol=0, atol=1e-3)
+    assert forward_entry_kinds(m) == ["compiled"], forward_entry_kinds(m)
     for k, v in twin._pack_state().items():
         got = m._pack_state()[k]
         assert got.dtype == v.dtype
-        torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-2)
+        torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 3, 33), (32, 512), (2, 6144)])
+def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
+    """K8 against its plain version on float32 SPD autocorrelation systems
+    (loaded diagonal), a silent row giving NaN in both; it raises on inputs it
+    does not take: another dtype, or L over 6144."""
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    g = torch.Generator().manual_seed(sum(shape))
+    length = shape[-1]
+    sig = torch.randn(*shape[:-1], 2 * length + 8, generator=g, dtype=torch.float64)
+    spec = torch.fft.rfft(sig, n=4 * length + 16)
+    r = torch.fft.irfft(spec * spec.conj(), n=4 * length + 16)[..., :length]
+    r = r / r[..., :1]
+    r[..., 0] += 0.05
+    b = torch.randn(shape, generator=g, dtype=torch.float64)
+    r.view(-1, length)[0] = 0.0  # a silent target: its autocorrelation and cross-correlation are 0
+    b.view(-1, length)[0] = 0.0
+    r, b = r.float(), b.float()
+    got = toeplitz_solve_cuda(r.to(cuda), b.to(cuda)).cpu()
+    want = toeplitz_solve_plain(r, b)
+    assert torch.isnan(got.view(-1, length)[0]).all() and torch.isnan(want.view(-1, length)[0]).all()
+    torch.testing.assert_close(got.view(-1, length)[1:], want.view(-1, length)[1:], rtol=1e-5, atol=1e-5)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            toeplitz_solve_cuda(r.to(cuda, dtype), b.to(cuda, dtype))
+    with pytest.raises(ValueError):
+        toeplitz_solve_cuda(torch.ones(2, 6145, device=cuda), torch.ones(2, 6145, device=cuda))
+
+
+# ------------------------------------------------------------ embedded models (FID, KID, IS, LPIPS)
+
+
+@pytest.mark.requires_cuda
+def test_floatfloat_is_exact_on_card(cuda):
+    """2Prod and 2Sum exact on the card (each op its own kernel: no FMA
+    contraction), the pair ops at float64 rounding."""
+    from metrics_tpu_torch.ops import floatfloat as ff
+
+    rng = np.random.RandomState(0)
+    a, b = rng.randn(4096).astype(np.float32), rng.randn(4096).astype(np.float32) * 1e-3
+    p, e = ff.two_prod(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    np.testing.assert_array_equal(p.cpu().double().numpy() + e.cpu().double().numpy(),
+                                  a.astype(np.float64) * b.astype(np.float64))
+    s, e = ff.two_sum(torch.from_numpy(a * 1e6).to(cuda), torch.from_numpy(b).to(cuda))
+    np.testing.assert_array_equal(s.cpu().double().numpy() + e.cpu().double().numpy(),
+                                  (a * 1e6).astype(np.float64) + b.astype(np.float64))
+    x64, y64 = rng.randn(4096) * 1e4, rng.randn(4096)
+    x = tuple(torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (x64, x64 - np.float32(x64)))
+    y = tuple(torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (y64, y64 - np.float32(y64)))
+    xf = x[0].cpu().double().numpy() + x[1].cpu().double().numpy()
+    yf = y[0].cpu().double().numpy() + y[1].cpu().double().numpy()
+    for op, np_op in ((ff.ff_add, np.add), (ff.ff_sub, np.subtract), (ff.ff_mul, np.multiply)):
+        got = ff.ff_to_f64(op(x, y)).cpu().numpy()
+        np.testing.assert_allclose(got, np_op(xf, yf), rtol=1e-13, atol=1e-10)
+
+
+def _tf32_runs(fn):
+    """``fn()`` with cuDNN TF32 and "medium" matmuls allowed, then strict;
+    the settings restored."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    runs = []
+    try:
+        for permissive in (True, False):
+            torch.backends.cudnn.allow_tf32 = permissive
+            torch.set_float32_matmul_precision("medium" if permissive else "highest")
+            runs.append(fn())
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    return runs
+
+
+@pytest.mark.requires_cuda
+def test_inception_and_lpips_forwards_are_pinned_to_full_f32_on_card(cuda):
+    """The f32 Inception (every tap) and both LPIPS backbones give bit-equal
+    features whatever the process's TF32 settings: ``full_f32`` pins them."""
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor, random_inception_params
+    from metrics_tpu_torch.models.perceptual import LPIPSFeatureNet
+
+    params = random_inception_params(input_size=299, seed=1)
+    imgs = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (4, 3, 299, 299)).astype(np.uint8)).to(cuda)
+    for tap in ("64", "768", "2048", "logits_unbiased"):
+        ext = InceptionFeatureExtractor(tap, params=params, device=cuda)
+        a, b = _tf32_runs(lambda: ext(imgs))
+        assert torch.equal(a, b), tap
+    pairs = torch.rand(4, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(cuda) * 2 - 1
+    for net_type in ("vgg", "alex"):
+        net = LPIPSFeatureNet(net_type, seed=4, device=cuda)
+        a, b = _tf32_runs(lambda: net(pairs))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), net_type
+
+
+@pytest.mark.requires_cuda
+def test_inception_host_captures_one_forward_per_bucket_on_card(cuda):
+    """The f32 Inception host on the card: 5 and 11 images through buckets
+    (8, 16), one captured forward per bucket, each request's features
+    bit-equal to the direct extractor on the padded batch; a warm pass
+    captures nothing and replays."""
+    from metrics_tpu_torch.engine.model_host import ModelHostConfig, inception_host, reset_host_registry
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor, random_inception_params
+
+    params = random_inception_params(input_size=299, seed=5)
+    rng = np.random.RandomState(6)
+    host = inception_host("2048", params, config=ModelHostConfig(buckets=(8, 16), coalesce_window_ms=0.0),
+                          device=cuda)
+    ext = InceptionFeatureExtractor("2048", params=params, device=cuda)
+    try:
+        for n, bucket in ((5, 8), (11, 16)):
+            imgs = torch.from_numpy(rng.randint(0, 256, (n, 3, 299, 299)).astype(np.uint8)).to(cuda)
+            padded = torch.zeros((bucket, 3, 299, 299), dtype=torch.uint8, device=cuda)
+            padded[:n] = imgs
+            got = host.infer(imgs)
+            assert got.is_cuda and torch.equal(got, ext(padded)[:n])
+        assert host.aot.misses == 2
+        hits = host.aot.hits
+        host.infer(imgs)
+        assert host.aot.misses == 2 and host.aot.hits == hits + 1
+    finally:
+        reset_host_registry()

@@ -411,8 +411,8 @@ def test_exports_carry_the_jax_packages_names():
         assert hasattr(mt, name) and name in mp.__all__ and hasattr(mp, name), name
     for name in ("psnr", "ssim", "multiscale_structural_similarity_index_measure", "image_gradients"):
         assert hasattr(jf, name) and name in pf.__all__ and hasattr(pf, name), name
-    for name in ("FID", "KID", "IS", "LPIPS"):  # the next slice
-        assert not hasattr(mp, name)
+    for name in ("FID", "KID", "IS", "LPIPS"):  # ported with their models since
+        assert hasattr(mt, name) and name in mp.__all__ and hasattr(mp, name), name
 
 
 @pytest.mark.parametrize("mod", ["metrics_tpu_torch.image.psnr", "metrics_tpu_torch.image.ssim",

@@ -600,8 +600,39 @@ def _images(n, seed):
     return (t + 0.1 * rng.randn(*t.shape)).astype(np.float32), t
 
 
+_FEAT = np.random.RandomState(90).randn(5, 4).astype(np.float32)
+
+
+def _feature(m):
+    """A linear feature extractor in package ``m``'s array type."""
+    if m is mp:
+        return lambda x: torch.as_tensor(x) @ torch.from_numpy(_FEAT)
+    return lambda x: jnp.asarray(x) @ jnp.asarray(_FEAT)
+
+
+def _feature_rows(n, seed):
+    return (np.random.RandomState(seed).randn(n, 5).astype(np.float32) + 2.0, seed % 2 == 0)
+
+
+def _feature_rows_only(n, seed):
+    return _feature_rows(n, seed)[:1]
+
+
+def _lpips_pairs(n, seed):
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(-1, 1, (n, 3, 6, 6)).astype(np.float32)
+    return a, np.clip(a + 0.1 * rng.randn(*a.shape), -1, 1).astype(np.float32)
+
+
 #: every ported metric: name -> (builder over a package, data)
 _ALL = {
+    "FID": (lambda m, kw: m.FID(feature=_feature(m), feature_dim=4, **kw), _feature_rows),
+    "FID-list": (lambda m, kw: m.FID(feature=_feature(m), streaming=False, **kw), _feature_rows),
+    "KID": (lambda m, kw: m.KID(feature=_feature(m), **kw), _feature_rows),
+    "IS": (lambda m, kw: m.IS(feature=_feature(m), splits=2, seed=0, **kw), _feature_rows_only),
+    "IS-streaming": (lambda m, kw: m.IS(feature=_feature(m), feature_dim=4, splits=2, seed=0, streaming=True, **kw),
+                     _feature_rows_only),
+    "LPIPS": (lambda m, kw: m.LPIPS(net=lambda x: [torch.as_tensor(x)] if m is mp else [x], **kw), _lpips_pairs),
     "SignalNoiseRatio": (lambda m, kw: m.SignalNoiseRatio(**kw), _audio),
     "ScaleInvariantSignalNoiseRatio": (lambda m, kw: m.ScaleInvariantSignalNoiseRatio(**kw), _audio),
     "ScaleInvariantSignalDistortionRatio": (lambda m, kw: m.ScaleInvariantSignalDistortionRatio(**kw), _audio),
@@ -693,7 +724,8 @@ _ALL = {
 def test_every_exported_metric_is_in_the_merge_table():
     exported = {n for n in mp.__all__ if isinstance(getattr(mp, n), type) and issubclass(getattr(mp, n), mp.Metric)}
     aliases = {"Metric", "BaseAggregator", "RetrievalMetric", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef",
-               "SpearmanCorrcoef", "WER", "SNR", "SDR", "PIT", "SI_SDR", "SI_SNR"}
+               "SpearmanCorrcoef", "WER", "SNR", "SDR", "PIT", "SI_SDR", "SI_SNR", "FrechetInceptionDistance",
+               "KernelInceptionDistance", "InceptionScore"}
     # PESQ cannot be built without the native pesq package; its states (a float sum, an int32 count) are
     # SignalNoiseRatio's, and tests/test_torch_audio.py holds it to JAX under a fake package
     aliases.add("PESQ")
