@@ -9,7 +9,7 @@ It needs a CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin
 and exits non-zero, printing no result, without them. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels K1–K8 from ``metrics_tpu_torch/ops/kernels/csrc``
+2. build the CUDA kernels K1–K9 from ``metrics_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 3. hold K1–K3 against their plain PyTorch versions on the card: at the shapes
    the main path gives them, on edge cases, and through their
@@ -386,6 +386,29 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    8 pairs at 256 x 256; the first 8 pairs against the CPU (1e-4); pairs/s.
    K1-K7 launch none (JAX's path has no Pallas kernel): their counts must
    stay 0.
+24. Detection at COCO val2017's size (``detection/map.py``, K9
+   ``ops/kernels/csrc/match.cu``, the ragged engine's corpus aggregate):
+   5 000 seeded 640 x 480 images, 80 Zipf(1.0) classes, Poisson(7.3) ground
+   truths an image (~36 800) at COCO's 41 / 34 / 24 % small / medium / large
+   shares, 100 detections an image (``maxDets``): 75 % of the ground truths
+   copied with jittered corners, a tenth of those with another class, the
+   rest false positives; scores rounded to 1/1000, so ties occur. (a)
+   ``MAP(class_metrics=True)`` on the card in 100 updates of 50 images:
+   ``compute()`` ms whole and split (host packing, upload, device IoU + K9 +
+   pack between CUDA events, the copy, the host finish), the packed
+   ``(P, D, G)``, K9's launches (one), the peak device memory; the staged
+   split's values equal ``compute()``'s; K9's ``dm``/``mi`` at the full
+   packed shape equal its plain version on the card; the first 500 images
+   on the card equal ``device="cpu"``, key for key. (b) ``matching="host"``
+   on the first 100 images equals the device path on them. (c)
+   ``RaggedEngine(MAP(class_metrics=True), num_groups=64, capacity=256)``
+   over the first 64 images, each in two rounds: ``aggregate_path()`` is
+   ``"device"``, one K9 launch an aggregate, equal to ``aggregate(oracle=True)``
+   and to the eager metric key for key; aggregate and oracle ms, the
+   aggregate split (plan, device, copy, host finish). (d) K9's ``kernels``
+   entries at (a)'s packed shape and (c)'s corpus shape, each held
+   against its plain version there. K1-K8 launch none; K9 launches in no
+   earlier phase.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -399,12 +422,14 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 23 and read after it;
+and set to 0 again before each of phases 10 to 24 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
-K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21, 22 and 23 each must stay 0; K8 is set to 0 at the
-start of 22(a) and read before its timing, and must be non-zero), and K2 must launch once per batch and per step
+K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21, 22, 23 and 24 each must stay 0; K8 is set to 0 at the
+start of 22(a) and read before its timing, and must be non-zero, and again before phase 24, where it must stay
+0; K9 is set to 0 before phase 4, must still read 0 before phase 24, and must launch once in 24(a)'s
+``compute()`` and once in each of 24(c)'s device aggregates), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -418,7 +443,10 @@ phase 11's AUROC support shape: 65 536 int64 labels into 10 bins, with
 phase 18, its launches the scrape's, and at phase 20's ragged aggregate folds,
 its launches phase 20's; K8 one at 22(a)'s solve, its bound the larger of
 its bytes and its float64 operations over 34 TFLOP/s, its library call
-PyTorch's batched LU), K4, K6 and K7 one per ``traffic`` (random ids
+PyTorch's batched LU; K9 one at 24(a)'s packed shape and one at 24(c)'s
+corpus shape, their launches 24(a)'s compute and 24(c)'s first aggregate,
+each bound the larger of its bytes and
+the compares this data needs over 67 T/s, no library call), K4, K6 and K7 one per ``traffic`` (random ids
 and one stream; K4 also at phase 20's paged sweep block), each with ``device_us``, the device time of each CUDA kernel
 the call launches. In it
 ``max_abs_err`` is the largest kernel-vs-plain difference over the f32 and
@@ -6522,6 +6550,314 @@ def embedded_phase(dev):
     return out
 
 
+# --------------------------------------------------------------------------- phase 24: detection
+
+DET_IMAGES = 5000  # COCO val2017's image count
+DET_WH = (640, 480)  # COCO's most common image size
+DET_CLASSES = 80
+DET_CLASS_ZIPF = 1.0  # class frequency proportional to 1 / rank: a long tail, the head class ~20 %
+DET_GT_PER_IMAGE = 7.3  # val2017 holds 36 781 boxes over 5 000 images (Poisson mean)
+DET_AREA_SHARES = (0.41, 0.34, 0.25)  # COCO's small / medium / large shares (41 %, 34 %, 24 %), normalised
+DET_SIDES = ((2.0, 32.0), (32.0, 96.0), (96.0, 400.0))  # sqrt(area) range of each size class
+DET_PER_IMAGE = 100  # maxDets=100: the detections COCO's evaluation reads an image
+DET_RECALLED = 0.75  # share of ground-truth boxes a detection copies, jittered
+DET_FLIPPED = 0.10  # share of those copies given another class
+DET_JITTER = 0.08  # the copies' corner jitter, a fraction of the box's width or height (normal sigma)
+DET_BATCH = 50  # 24(a): 100 updates of 50 images
+DET_CPU_IMAGES = 500  # 24(a): the prefix the CPU twin takes
+DET_HOST_IMAGES = 100  # 24(b): the prefix the host matcher takes
+DET_RAGGED_IMAGES = 64  # 24(c)
+DET_RAGGED_CAPACITY = 256
+DET_TIMED = 5  # ragged aggregates per median
+
+
+def coco_corpus(seed=SEED + 24):
+    """``(preds, targets, shape)``: 5 000 seeded images of COCO val2017's
+    make-up (module docstring, phase 24), numpy per image as a data loader
+    gives them; ``shape`` counts boxes and the size classes' shares."""
+    rng = np.random.RandomState(seed)
+    w_img, h_img = DET_WH
+    p_cls = 1.0 / np.arange(1, DET_CLASSES + 1) ** DET_CLASS_ZIPF
+    p_cls /= p_cls.sum()
+    lo_side = np.log(np.asarray([s[0] for s in DET_SIDES]))
+    hi_side = np.log(np.asarray([s[1] for s in DET_SIDES]))
+
+    def boxes(n):
+        kind = rng.choice(3, n, p=DET_AREA_SHARES)
+        side = np.exp(rng.uniform(lo_side[kind], hi_side[kind]))
+        aspect = np.sqrt(np.exp(rng.uniform(-0.7, 0.7, n)))
+        w, h = np.minimum(side * aspect, w_img - 1), np.minimum(side / aspect, h_img - 1)
+        x, y = rng.uniform(0, w_img - w), rng.uniform(0, h_img - h)
+        return np.stack([x, y, x + w, y + h], axis=1).astype(np.float32)
+
+    preds, targets = [], []
+    for _ in range(DET_IMAGES):
+        n_gt = int(rng.poisson(DET_GT_PER_IMAGE))
+        gt = boxes(n_gt)
+        gl = rng.choice(DET_CLASSES, n_gt, p=p_cls)
+        src = np.flatnonzero(rng.rand(n_gt) < DET_RECALLED)[:DET_PER_IMAGE]
+        wh = np.concatenate([gt[src, 2:] - gt[src, :2]] * 2, axis=1)
+        tp = (gt[src] + rng.normal(0.0, DET_JITTER, (src.size, 4)) * wh).astype(np.float32)
+        tl = gl[src].copy()
+        flip = rng.rand(src.size) < DET_FLIPPED
+        tl[flip] = (tl[flip] + rng.randint(1, DET_CLASSES, int(flip.sum()))) % DET_CLASSES
+        n_fp = DET_PER_IMAGE - src.size
+        db = np.concatenate([tp, boxes(n_fp)])
+        dl = np.concatenate([tl, rng.choice(DET_CLASSES, n_fp, p=p_cls)])
+        sc = np.round(np.concatenate([rng.beta(5.0, 2.0, src.size), rng.beta(1.0, 5.0, n_fp)]), 3)  # ties
+        order = rng.permutation(DET_PER_IMAGE)  # a detector's output order
+        preds.append({"boxes": db[order], "scores": sc[order].astype(np.float32), "labels": dl[order]})
+        targets.append({"boxes": gt, "labels": gl})
+    areas = np.concatenate([(t["boxes"][:, 2] - t["boxes"][:, 0]) * (t["boxes"][:, 3] - t["boxes"][:, 1])
+                            for t in targets])
+    shape = {"images": DET_IMAGES, "classes": DET_CLASSES, "gt_boxes": int(areas.size),
+             "detections": DET_IMAGES * DET_PER_IMAGE,
+             "area_shares": [float(np.mean(areas < 32.0 ** 2)), float(np.mean((areas >= 32.0 ** 2) & (areas <= 96.0 ** 2))),
+                             float(np.mean(areas > 96.0 ** 2))]}
+    return preds, targets, shape
+
+
+def det_values(values):
+    """A ``MAP`` result on the host, key by key."""
+    return {k: v.detach().cpu() for k, v in values.items()}
+
+
+def same_det_values(got, want, what):
+    check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k in want:
+        check(torch.equal(got[k].cpu(), want[k].cpu()), f"{what}: {k} {got[k]} != {want[k]}")
+
+
+def det_metric(dev, preds, targets, **kw):
+    """``MAP(class_metrics=True)`` on ``dev`` fed ``preds``/``targets`` in
+    ``DET_BATCH``-image updates; also the host seconds the updates took."""
+    from metrics_tpu_torch.detection import MAP
+
+    m = MAP(class_metrics=True, device=dev, **kw)
+    t0 = time.perf_counter()
+    for i in range(0, len(preds), DET_BATCH):
+        m.update(preds[i:i + DET_BATCH], targets[i:i + DET_BATCH])
+    return m, time.perf_counter() - t0
+
+
+def det_card(dev, preds, targets):
+    """24(a): the corpus through ``MAP(class_metrics=True)`` on the card, its
+    ``compute()`` timed whole and split, K9 against its plain version at the
+    packed shape, the first ``DET_CPU_IMAGES`` images against the CPU."""
+    from metrics_tpu_torch.detection.map import _match_all_pairs, _pair_geometry
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    m, update_s = det_metric(dev, preds, targets)
+    check(all(isinstance(x, np.ndarray) for x in m.detection_boxes), "24(a): update moved a state to the device")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    before = greedy_match_cuda.launches
+    t0 = time.perf_counter()
+    values = m.compute()
+    torch.cuda.synchronize(dev)
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    launches = greedy_match_cuda.launches - before
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    check(launches == 1, f"24(a): compute launched K9 {launches} times")
+    values = det_values(values)
+    check(all(bool(torch.isfinite(v).all()) for v in values.values()), "24(a): a value is not finite")
+    check(values["map_per_class"].shape == (DET_CLASSES,), f"24(a): map_per_class {values['map_per_class'].shape}")
+
+    # the same compute, stage by stage: host packing, upload, device (IoU + K9 + pack), the copy, the host finish
+    classes = m._get_classes()
+    split = {}
+    t0 = time.perf_counter()
+    pairs = m._pack_pairs(classes, m.max_detection_thresholds[-1])
+    split["host_pack_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    args = m._upload_pairs(pairs)
+    torch.cuda.synchronize(dev)
+    split["upload_ms"] = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    packed = _match_all_pairs(*args)[: pairs.rows]
+    end.record()
+    end.synchronize()
+    split["device_ms"] = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    host = packed.cpu().numpy()
+    split["copy_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ev = m._unpack_evals(pairs, host)
+    staged = m._finish_compute(*m._accumulate(m._device_cells(ev, len(classes)), len(classes)), len(classes))
+    split["host_finish_ms"] = (time.perf_counter() - t0) * 1e3
+    same_det_values(det_values(staged), values, "24(a): the staged compute vs compute()")
+
+    # K9 at the full packed shape against its plain version, on the card
+    ious, gt_ign, _ = _pair_geometry(args[0], args[1], args[2], args[3], args[5])
+    index = torch.arange(ious.shape[0], dtype=torch.int32, device=dev)
+    k9_args = (ious, index, args[1], args[3], gt_ign, args[4])
+    dm, mi = greedy_match_cuda(*k9_args)
+    pdm, pmi = greedy_match_plain(*k9_args)
+    check(torch.equal(dm, pdm) and torch.equal(mi, pmi), "24(a): K9 differs from its plain version")
+
+    # the first DET_CPU_IMAGES images: the card against the CPU, key for key
+    card, _ = det_metric(dev, preds[:DET_CPU_IMAGES], targets[:DET_CPU_IMAGES])
+    cpu, _ = det_metric(torch.device("cpu"), preds[:DET_CPU_IMAGES], targets[:DET_CPU_IMAGES])
+    t0 = time.perf_counter()
+    cpu_values = det_values(cpu.compute())
+    cpu_s = time.perf_counter() - t0
+    same_det_values(det_values(card.compute()), cpu_values, "24(a): card vs CPU")
+    p, d, g = pairs.det_boxes.shape[0], pairs.det_boxes.shape[1], pairs.gt_boxes.shape[1]
+    out = {"images": len(preds), "updates": -(-len(preds) // DET_BATCH), "update_host_ms": update_s * 1e3,
+           "compute_ms": compute_ms, "split": split, "packed": {"P": p, "D": d, "G": g, "live_pairs": pairs.rows},
+           "k9_launches": launches, "peak_device_gb": peak_gb, "cpu_twin_images": DET_CPU_IMAGES,
+           "cpu_twin_compute_s": cpu_s, "map": float(values["map"]), "map_50": float(values["map_50"]),
+           "mar_100": float(values["mar_100"]), "map_small": float(values["map_small"]),
+           "map_large": float(values["map_large"])}
+    return out, k9_args
+
+
+def det_host(dev, preds, targets):
+    """24(b): ``matching="host"`` (per-image numpy, the oracle) against the
+    device path on the first ``DET_HOST_IMAGES`` images."""
+    card, _ = det_metric(dev, preds, targets)
+    host, _ = det_metric(dev, preds, targets, matching="host")
+    t0 = time.perf_counter()
+    want = det_values(host.compute())
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = det_values(card.compute())
+    device_s = time.perf_counter() - t0
+    same_det_values(got, want, "24(b): device path vs host matching")
+    return {"images": len(preds), "host_matching_s": host_s, "device_matching_s": device_s, "map": float(got["map"])}
+
+
+def det_ragged(dev, preds, targets):
+    """24(c): ``RaggedEngine(MAP(class_metrics=True))`` over the first
+    ``DET_RAGGED_IMAGES`` images, each in two rounds (the first half of its
+    detections and ground truths, then the rest): the corpus aggregate on
+    the device against the oracle and the eager metric, key for key."""
+    from metrics_tpu_torch.detection import MAP
+    from metrics_tpu_torch.engine import RaggedEngine
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    eng = RaggedEngine(MAP(class_metrics=True, device=dev), num_groups=len(preds), capacity=DET_RAGGED_CAPACITY)
+    with eng:
+        for half in (0, 1):
+            for i, (p, t) in enumerate(zip(preds, targets)):
+                nd, ng = len(p["labels"]), len(t["labels"])
+                ds = slice(0, nd // 2) if half == 0 else slice(nd // 2, nd)
+                gs = slice(0, ng // 2) if half == 0 else slice(ng // 2, ng)
+                eng.submit_update([{k: v[ds] for k, v in p.items()}], [{k: v[gs] for k, v in t.items()}], [i])
+        eng.flush()
+        path = eng.aggregate_path()
+        before = greedy_match_cuda.launches
+        got = det_values(eng.aggregate())
+        torch.cuda.synchronize(dev)
+        launches = greedy_match_cuda.launches - before
+        times = []
+        for _ in range(DET_TIMED):
+            t0 = time.perf_counter()
+            eng.aggregate()
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        oracle = det_values(eng.aggregate(oracle=True))
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        stats = eng.stats.ragged_summary()
+        split, k9_args = det_ragged_split(eng, dev)
+    check(path[0] == "device", f"24(c): the aggregate takes {path}")
+    check(launches == 1, f"24(c): the device aggregate launched K9 {launches} times")
+    check(stats["agg_device_reads"] == 1 + DET_TIMED and stats["agg_oracle_reads"] == 1, f"24(c): {stats}")
+    same_det_values(got, oracle, "24(c): device aggregate vs oracle")
+    eager, _ = det_metric(dev, preds, targets)
+    same_det_values(got, det_values(eager.compute()), "24(c): device aggregate vs the eager metric")
+    out = {"images": len(preds), "rounds": 2, "capacity": DET_RAGGED_CAPACITY, "path": path[0],
+           "k9_launches": launches, "aggregate_ms": float(np.median(times)), "aggregate_ms_runs": times,
+           "split": split, "oracle_ms": oracle_ms, "map": float(got["map"])}
+    return out, k9_args
+
+
+def det_ragged_split(eng, dev):
+    """24(c)'s device aggregate stage by stage, as ``_aggregate_corpus`` runs
+    it: the host plan off the counts and labels, ``grouped_corpus_device``
+    between CUDA events, the bundle's one copy, the host finish; and K9's
+    arguments at the aggregate's shape."""
+    from metrics_tpu_torch.engine.ragged import _bundle_to_host
+
+    user, split = eng.user_metric, {}
+    with eng._device_section():
+        t0 = time.perf_counter()
+        tree = eng._stacked_tree()
+        counts = tree["count"].cpu().numpy()
+        plan = user.grouped_corpus_plan(counts, {"label": tree["buf_label"].cpu().numpy()})
+        classes = torch.from_numpy(plan["classes_padded"]).to(dev)
+        cls_valid = torch.arange(classes.shape[0], device=dev) < plan["n_classes"]
+        fields = eng._metric.seq_ordered_fields(tree)
+        torch.cuda.synchronize(dev)
+        split["plan_ms"] = (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        bundle = user.grouped_corpus_device(tree["count"], fields, classes, cls_valid, eng.capacity)
+        end.record()
+        end.synchronize()
+        split["device_ms"] = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        host = _bundle_to_host(bundle)
+        split["copy_ms"] = (time.perf_counter() - t0) * 1e3
+        split["bundle_mb"] = sum(v.nbytes for v in host.values()) / 1e6
+        problems = user._corpus_problems(tree["count"], fields, classes, cls_valid, eng.capacity)
+    t0 = time.perf_counter()
+    user.grouped_corpus_finish(host, plan)
+    split["host_finish_ms"] = (time.perf_counter() - t0) * 1e3
+    split["classes_padded"] = int(classes.shape[0])
+    return split, problems.match_args
+
+
+def det_kernel_entry(k9_args, launches, what):
+    """24(d): a ``kernels`` entry of K9 at one of its main-path shapes, held
+    against its plain version there. Bound: every input read once and both
+    outputs written once over the HBM rate, against the compares this data
+    needs (each valid detection of a problem against each of its valid
+    ground truths, for every area range and threshold) over 67 T/s."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    ious, index, dvalid, gvalid, gt_ign, thr = k9_args
+    b, d, g = ious.shape
+    p, a, t = index.shape[0], gt_ign.shape[1], thr.shape[0]
+    dm, mi = greedy_match_cuda(*k9_args)
+    pdm, pmi = greedy_match_plain(*k9_args)
+    err = max(max_abs_err(dm, pdm), max_abs_err(mi, pmi))
+    nbytes = 4 * b * d * g + 4 * p + p * d + p * g + p * a * g + 4 * t + 5 * p * a * t * d
+    compares = a * t * int((dvalid.sum(dim=1, dtype=torch.int64) * gvalid.sum(dim=1, dtype=torch.int64)).sum())
+    entry = {"name": "greedy_match", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/match.cu",
+             "replaces": "metrics_tpu/detection/map.py:200 (_greedy_match_single, a lax.scan; no Pallas kernel)",
+             "shape": f"{what}: P={p} problems on {b} IoU blocks, D={d}, G={g}, A={a}, T={t}",
+             "launches": launches, "max_abs_err": err,
+             "ms": gpu_ms(lambda: greedy_match_cuda(*k9_args), runs=10),
+             "device_us": device_us(lambda: greedy_match_cuda(*k9_args), runs=5),
+             "plain_ms": gpu_ms(lambda: greedy_match_plain(*k9_args), runs=2), "library_ms": None,
+             "compares": compares, "bytes": nbytes}
+    check(err == 0, f"24(d): K9 vs its plain version at {what}: {err}")
+    entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, compares)
+    return entry
+
+
+def detection_phase(dev):
+    """Phase 24: detection at COCO val2017's size (module docstring). Returns
+    the phase's line and K9's ``kernels`` entries, one per main-path shape."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    preds, targets, shape = coco_corpus()
+    out = {"corpus": dict(shape, seconds=time.perf_counter() - t0)}
+    out["card"], k9_args = det_card(dev, preds, targets)
+    out["host"] = det_host(dev, preds[:DET_HOST_IMAGES], targets[:DET_HOST_IMAGES])
+    out["ragged"], k9_corpus_args = det_ragged(dev, preds[:DET_RAGGED_IMAGES], targets[:DET_RAGGED_IMAGES])
+    entries = [det_kernel_entry(k9_args, out["card"]["k9_launches"], "24(a) packed pairs"),
+               det_kernel_entry(k9_corpus_args, out["ragged"]["k9_launches"], "24(c) corpus aggregate")]
+    out["k9_launches_total"] = greedy_match_cuda.launches
+    return out, entries
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -6534,6 +6870,8 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
     from metrics_tpu_torch.ops.kernels import build
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
@@ -6564,6 +6902,7 @@ def main():
     kernels = kernel_wrappers()
     for fn in kernels.values():
         fn.launches = 0
+    greedy_match_cuda.launches = 0  # K9 runs in phase 24 alone
     gpu_state, gpu_values, one_shot_s = main_path(dev, preds, target)
     one_shot = counts()
     masked_state, masked_values, buckets, masked_s = masked_path(dev, preds_np, target_np, np.random.RandomState(SEED + 1))
@@ -6751,6 +7090,20 @@ def main():
     print(json.dumps({"embedded_phase": embedded, "launches": embedded_launches,
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 24, its counts from 0: detection runs K9 alone (JAX's matcher is a scan, no Pallas kernel), which
+    # launches in no earlier phase; K1-K8 must stay 0, K9 must launch in (a) and (c) (checked inside)
+    check(greedy_match_cuda.launches == 0, f"K9 launched {greedy_match_cuda.launches} times in phases 4-23")
+    for fn in kernels.values():
+        fn.launches = 0
+    toeplitz_solve_cuda.launches = 0
+    t0 = time.perf_counter()
+    detection, k9_entries = detection_phase(dev)
+    detection_launches = dict(counts(), toeplitz_solve=toeplitz_solve_cuda.launches)
+    check(not any(detection_launches.values()), f"the detection phase launched {detection_launches}")
+    k9_launches = sum(e["launches"] for e in k9_entries)
+    print(json.dumps({"detection_phase": detection, "launches": dict(detection_launches, greedy_match=k9_launches),
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -6789,6 +7142,8 @@ def main():
         e["card"] = card
         entries.append(e)
     entries.append(dict(signal["speech"]["solve"], card=card))  # K8: its launches are 22(a)'s
+    for e in k9_entries:  # K9: its launches are 24(a)'s compute and 24(c)'s first aggregate
+        entries.append(dict(e, card=card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -35,12 +35,18 @@ host RAM.
   ingest rank in an engine-owned ``_seq`` field, and every read orders a
   group's rows by it, so rows with equal sort keys tie-break in submission
   order whatever merge or pane interleaving produced the buffers.
+* **The corpus aggregate** (detection's ``MAP``, a ``"corpus"``
+  :class:`~metrics_tpu_torch.metric.GroupedAggregateSpec`): the metric plans
+  the device pass off the host counts and its scan fields; one
+  ``grouped_corpus_device`` over the stacked buffers in ingest order (the
+  greedy matcher K9 over every (class, image) problem in one launch), one
+  copy of its bundle to the host, and the metric's host finish. A plan that
+  declines (an empty corpus, a bundle past the metric's budget) and
+  ``group_shard`` (groups paged out) take the oracle.
 
 Not ported (ROADMAP.md): the mesh forms (the deferred boundary merge,
 ``group_shard`` across ranks, :meth:`GroupedStateMetric.sync_states` over a
-process group) and the ``"corpus"`` aggregate of detection, which raises
-:class:`NotPortedError`. The JAX package's aggregate jaxpr audit has no
-counterpart.
+process group). The JAX package's aggregate jaxpr audit has no counterpart.
 """
 import threading
 from typing import Any, Dict, List, Optional, Tuple
@@ -61,7 +67,29 @@ from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedErr
 # population (the last block pads with ok=False rows)
 _AGG_BLOCK_ROWS = 1024
 
+# what _aggregate_corpus returns when the metric's plan declines the device
+# pass (an empty corpus, a class universe past the device budget): the
+# aggregate reroutes to the host oracle
+_CORPUS_FALLBACK = object()
+
 __all__ = ["GroupedStateMetric", "RaggedEngine"]
+
+
+def _bundle_to_host(bundle: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A dict of device tensors as numpy arrays of the same dtypes and
+    shapes, through ONE device-to-host copy: each tensor's bytes are laid end
+    to end in one uint8 buffer and read back as views."""
+    parts, layout = [], []
+    for name, t in bundle.items():
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        parts.append(flat)
+        layout.append((name, torch.empty((0,), dtype=t.dtype).numpy().dtype, tuple(t.shape), flat.numel()))
+    host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8)
+    out, offset = {}, 0
+    for name, dtype, shape, nbytes in layout:
+        out[name] = host[offset:offset + nbytes].view(dtype).reshape(shape)
+        offset += nbytes
+    return out
 
 
 class GroupedStateMetric(Metric):
@@ -204,7 +232,7 @@ class GroupedStateMetric(Metric):
     def sync_states(self, state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
         """At world 1 the state is already global. A process group of more
         ranks needs the gather-then-compact merge over it, which is not
-        ported (ROADMAP.md A.6)."""
+        ported (ROADMAP.md A.1)."""
         if not distributed_available(self._group(group)):
             return state
         raise NotPortedError(
@@ -245,7 +273,7 @@ class RaggedEngine(MultiStreamEngine):
 
     Args:
         metric: a metric declaring ``grouped_update_spec()`` (the built-in
-            retrieval metrics).
+            retrieval metrics, detection's ``MAP``).
         num_groups: the group-key universe: keys are ``0 <= gid < num_groups``.
         config: engine config; composes with ``WindowPolicy``.
         aot_cache: optional shared capture cache.
@@ -440,10 +468,11 @@ class RaggedEngine(MultiStreamEngine):
             self._stats.record_ragged_aggregate("oracle")
             return self._aggregate_oracle_value()
         if self._user_metric.grouped_aggregate_spec().kind == "corpus":
-            raise NotPortedError(
-                "the ragged engine's corpus aggregate (detection's device match bundle) is not ported yet; it "
-                "comes with detection — aggregate(oracle=True) serves the host eager replay"
-            )
+            value = self._aggregate_corpus()
+            if value is _CORPUS_FALLBACK:
+                self._stats.record_ragged_aggregate("oracle")
+                return self._aggregate_oracle_value()
+            return value
         if self._stream_shard:
             return self._aggregate_fold_paged()
         return self._aggregate_fold()
@@ -513,6 +542,34 @@ class RaggedEngine(MultiStreamEngine):
         value = self._aggregate_finish(bundle)
         self._stats.record_ragged_aggregate("device")
         return value
+
+    # ---------------------------------------------------------- the corpus aggregate
+
+    def _aggregate_corpus(self) -> Any:
+        """Detection's corpus aggregate, eagerly: the host counts and the
+        metric's scan fields, the metric's plan (``_CORPUS_FALLBACK`` when it
+        declines), one ``grouped_corpus_device`` over the stacked buffers (the
+        window's fold included) in ingest order, ONE copy of its bundle to
+        the host, then the metric's host finish."""
+        user = self._user_metric
+        with self._device_section():
+            tree = self._stacked_tree()
+            counts = tree["count"].cpu().numpy()
+            scan = {name: tree["buf_" + name].cpu().numpy() for name in user.grouped_corpus_scan_fields()}
+            self._check_overflow(counts)
+            plan = user.grouped_corpus_plan(counts, scan)
+            if plan is None:
+                return _CORPUS_FALLBACK
+            classes = np.asarray(plan["classes_padded"], np.int32)
+            cls_valid = np.arange(classes.shape[0]) < int(plan["n_classes"])
+            dev = tree["count"].device
+            bundle = user.grouped_corpus_device(tree["count"], self._metric.seq_ordered_fields(tree),
+                                                torch.from_numpy(classes).to(dev), torch.from_numpy(cls_valid).to(dev),
+                                                self._capacity)
+            self._stats.result_device_calls += 1
+            fetched = _bundle_to_host(bundle)
+        self._stats.record_ragged_aggregate("device")
+        return user.grouped_corpus_finish(fetched, plan)
 
     # ------------------------------------------------------ the paged fold sweep
 

@@ -157,7 +157,12 @@ class GroupedAggregateSpec:
       ``grouped_aggregate_finish(value, kept, flagged)`` (host side); the
       engine folds the scores with the masked row kernel (K1).
     * ``"corpus"``: a corpus-level pass that is no per-group mean
-      (detection's PR curve); not ported.
+      (detection's PR curve). The metric implements
+      ``grouped_corpus_scan_fields()`` (the buffers its plan reads),
+      ``grouped_corpus_plan(counts, scan)`` (host; ``None`` declines and the
+      engine takes the oracle), ``grouped_corpus_device(counts, fields,
+      classes, cls_valid, capacity)`` (the device bundle over the stacked
+      buffers) and ``grouped_corpus_finish(bundle, plan)`` (host).
     """
 
     kind: str  # "fold" | "corpus"
@@ -468,6 +473,9 @@ class Metric(nn.Module):
     _host_derived_compute_attrs: Tuple[str, ...] = ()
     _MASKED_FX = ("sum", "min", "max")
     _BOOKKEEPING_ATTRS = ("_computed", "_update_called", "_forward_cache")
+    #: list states whose entries are numpy arrays staged on the host (MAP's):
+    #: ``.to()`` leaves them there and the state bridge seats them as numpy
+    _host_list_states: Tuple[str, ...] = ()
 
     def __init__(
         self,
@@ -1651,7 +1659,7 @@ class Metric(nn.Module):
         super()._apply(fn, recurse)
         self._defaults = {k: fn(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
         for k, v in self._defaults.items():
-            if isinstance(v, list):
+            if isinstance(v, list) and k not in self._host_list_states:
                 setattr(self, k, [fn(x) for x in getattr(self, k)])
         self.device = fn(torch.empty(0, device=self.device)).device
         return self

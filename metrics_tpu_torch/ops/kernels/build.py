@@ -30,7 +30,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fold", "hist", "binned", "segment", "toeplitz")
+SOURCES = ("fold", "hist", "binned", "segment", "toeplitz", "match")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -53,6 +53,7 @@ _SIGNATURES = {
     },
     "segment": {"segment_fold": (_P,) * 11 + (_I,) * 5 + (_P,), "segment_scratch_ints": (_I, _I, _I)},
     "toeplitz": {"toeplitz_solve": (_P, _P, _P, _L, _I, _P), "toeplitz_max_length": ()},
+    "match": {"greedy_match": (_P,) * 8 + (_L, _L, _I, _I, _I, _I, _P), "match_max_gts": ()},
 }
 # return types other than int (a CUDA error code)
 _RESTYPES = {"segment_scratch_ints": _L, "binned_scratch_ints": _L}

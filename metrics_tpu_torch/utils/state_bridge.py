@@ -58,8 +58,10 @@ def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _leaf_from_numpy(name: str, value: Any, default: Any, device: torch.device) -> Any:
+def _leaf_from_numpy(name: str, value: Any, default: Any, device: torch.device, host: bool = False) -> Any:
     if isinstance(default, list):
+        if host:  # a list the metric stages on the host (MAP's) stays numpy
+            return [np.array(v) for v in value]
         return [_tensor_from_numpy(v).to(device) for v in value]
     arr = np.asarray(value)
     # a scalar default may have grown by broadcasting (ExplainedVariance's sums over 2-D rows)
@@ -76,7 +78,8 @@ def _metric_state(metric: Metric, np_state: Dict[str, Any], device: torch.device
         [metric._CHILD_KEY] if has_children and metric._CHILD_KEY not in np_state else [])
     if missing:
         raise KeyError(f"{type(metric).__name__}: state has no {missing}")
-    state = {k: _leaf_from_numpy(k, np_state[k], d, device) for k, d in metric._defaults.items()}
+    state = {k: _leaf_from_numpy(k, np_state[k], d, device, k in metric._host_list_states)
+             for k, d in metric._defaults.items()}
     if has_children:
         state[metric._CHILD_KEY] = metric._map_children(lambda c, cs: _metric_state(c, cs, device),
                                                          np_state[metric._CHILD_KEY])

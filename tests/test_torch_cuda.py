@@ -2577,3 +2577,97 @@ def test_inception_host_captures_one_forward_per_bucket_on_card(cuda):
         assert host.aot.misses == 2 and host.aot.hits == hits + 1
     finally:
         reset_host_registry()
+
+
+# ------------------------------------------------------------------ K9, the greedy matcher
+
+
+def _match_inputs(rng, b, p, d, g, a, t, device):
+    """Quantized IoUs (ties, zeros of both signs, exact 1.0, NaN), problems
+    naming blocks in and out of range, sparse validity and ignore flags,
+    thresholds with 1.0, 0, a negative and NaN."""
+    grid = np.asarray([-0.0, 0.0, 0.25, 0.5, 0.5, 0.55, 0.75, 0.75, 0.9, 1.0, np.nan], np.float32)
+    return (torch.from_numpy(rng.choice(grid, (b, d, g))).to(device),
+            torch.from_numpy(rng.randint(-1, b + 1, p).astype(np.int32)).to(device),
+            torch.from_numpy(rng.rand(p, d) > 0.2).to(device),
+            torch.from_numpy(rng.rand(p, g) > 0.2).to(device),
+            torch.from_numpy(rng.rand(p, a, g) > 0.6).to(device),
+            torch.from_numpy(rng.choice(np.asarray([0.0, -0.5, 0.5, 0.55, 0.75, 1.0, np.nan], np.float32), t)).to(device))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 1, 1), (3, 7, 33, 5, 4, 10), (5, 64, 70, 40, 4, 10),
+                                   (2, 9, 12, 1024, 2, 3), (6, 300, 8, 64, 3, 7), (1, 3, 65, 31, 1, 1)])
+def test_match_kernel_matches_its_plain_version_on_card(cuda, shape):
+    """K9 at ragged sizes (D and G across the 32-lane boundaries, G at its
+    limit of 1024) with dense ties: ``dm`` and ``mi`` equal the plain loop."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    args = _match_inputs(np.random.RandomState(sum(shape)), *shape, cuda)
+    before = greedy_match_cuda.launches
+    dm, mi = greedy_match_cuda(*args)
+    assert greedy_match_cuda.launches == before + 1
+    pdm, pmi = greedy_match_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dm, pdm) and torch.equal(mi, pmi)
+    # uint8 flags take the same path as bool ones
+    u8 = [x.to(torch.uint8) for x in args[2:5]]
+    udm, umi = greedy_match_cuda(args[0], args[1], *u8, args[5])
+    assert torch.equal(udm, dm) and torch.equal(umi, mi)
+
+
+@pytest.mark.requires_cuda
+def test_match_kernel_refusals_on_card(cuda):
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    args = list(_match_inputs(np.random.RandomState(0), 2, 3, 4, 1025, 1, 2, cuda))
+    with pytest.raises(ValueError, match="1024"):
+        greedy_match_cuda(*args)
+    args = list(_match_inputs(np.random.RandomState(0), 2, 3, 4, 5, 1, 2, cuda))
+    for i, bad in ((0, args[0].double()), (1, args[1].long()), (2, args[2].int()), (5, args[5].half())):
+        with pytest.raises(TypeError):
+            greedy_match_cuda(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        greedy_match_cuda(*[x.cpu() for x in args])
+    with pytest.raises(ValueError, match="det_valid"):
+        greedy_match_cuda(args[0], args[1], args[2][:, :2], *args[3:])
+    # nothing to match: no launch, every detection unmatched
+    before = greedy_match_cuda.launches
+    dm, mi = greedy_match_cuda(args[0][:, :0], args[1], args[2][:, :0], *args[3:])
+    assert greedy_match_cuda.launches == before and dm.shape == (3, 1, 2, 0) and mi.shape == (3, 1, 2, 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("class_metrics", [False, True])
+def test_map_on_card_equals_map_on_cpu(cuda, class_metrics):
+    """``MAP`` matching on the card (IoU + K9 + one copy) against the same
+    metric with ``device="cpu"``, key for key; the states stay on the host."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    rng = np.random.RandomState(5)
+    preds, targets = [], []
+    for i in range(40):
+        n = 0 if i % 7 == 3 else rng.randint(1, 10)
+        xy = np.round(rng.uniform(0, 500, (n, 2))).astype(np.float32)
+        gt = np.concatenate([xy, xy + rng.choice(np.asarray([8, 32, 60, 96, 150], np.float32), (n, 2))], axis=1)
+        gl = rng.randint(0, 6, n)
+        fp = np.round(rng.uniform(0, 500, (15, 2))).astype(np.float32)
+        db = np.concatenate([gt + rng.choice(np.asarray([0, 1, -2, 4], np.float32), (n, 4)),
+                             np.concatenate([fp, fp + 30], axis=1)])
+        dl = np.concatenate([gl, rng.randint(0, 6, 15)])
+        preds.append({"boxes": torch.from_numpy(db).to(cuda), "labels": torch.from_numpy(dl).to(cuda),
+                      "scores": torch.from_numpy(np.round(rng.rand(len(db)), 2).astype(np.float32)).to(cuda)})
+        targets.append({"boxes": torch.from_numpy(gt).to(cuda), "labels": torch.from_numpy(gl).to(cuda)})
+    card, host = mp.MAP(class_metrics=class_metrics), mp.MAP(class_metrics=class_metrics, device="cpu")
+    for i in range(0, 40, 8):
+        card.update(preds[i:i + 8], targets[i:i + 8])
+        host.update(preds[i:i + 8], targets[i:i + 8])
+    assert all(isinstance(x, np.ndarray) for x in card.detection_boxes)
+    before = greedy_match_cuda.launches
+    got, want = card.compute(), host.compute()
+    assert greedy_match_cuda.launches == before + 1
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+    assert float(want["map"]) > 0.1

@@ -1,7 +1,7 @@
 """The port's ragged engine against the JAX package's, on the CPU.
 
 Mirrors ``tests/engine/test_ragged.py`` and ``tests/engine/test_ragged_aggregate.py``
-except their mesh and detection cases: the typed refusals on both sides,
+except their mesh cases: the typed refusals on both sides,
 submit validation, mixed-group and scalar-group submits against JAX's engine
 and the eager oracle, the device aggregate against its own oracle under every
 ``empty_target_action`` and with untouched groups, overflow through one typed
@@ -9,8 +9,11 @@ error on both paths, ``group_shard`` with a resident mix against the
 unsharded engine, windows (tumbling with ``group_shard``, the sliding fold),
 ``merge_stacked_states``, zero new captures on replay, the ragged
 ``summary()`` block and OpenMetrics families, kill/resume, snapshots crossing
-between the packages both ways, and the multi-stream merge of per-row id
-items.
+between the packages both ways, the multi-stream merge of per-row id
+items, and detection's corpus aggregate (``MAP`` on JAX's ``_det_image``
+traffic: device bundle, oracle, eager metric and JAX's engine key for key,
+tied and zero scores, a declining plan, ``group_shard``, a tumbling pane,
+the per-image occupancy read).
 
 The JAX engines run as JAX's own tests run them: no mesh, the default
 backend. Where JAX writes a snapshot, ``metrics_tpu.engine.snapshot._use_orbax``
@@ -20,7 +23,8 @@ Predictions are rounded to one decimal, so ties are everywhere.
 Tolerances: ``count``, the seq-ordered capacity buffers and ``_seq`` (and
 the raw buffers) bit-exact against JAX's engine; per-group values and
 aggregates within 1e-6 absolute of JAX's and of the eager metric; the
-device aggregate within 1e-6 relative of the port's own oracle.
+device aggregate within 1e-6 relative of the port's own oracle; detection's
+COCO values exactly equal everywhere.
 """
 import os
 import sys
@@ -47,8 +51,7 @@ from metrics_tpu_torch.engine import (
     WindowPolicy,
 )
 from metrics_tpu_torch.engine.ragged import _AGG_BLOCK_ROWS
-from metrics_tpu_torch.metric import GroupedAggregateSpec
-from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedError
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
 TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 sys.path.insert(0, TOOLS)
@@ -158,20 +161,6 @@ def test_grouped_wrapper_refuses_eager_update_and_bad_capacity():
         w.update(torch.zeros(3), torch.zeros(3), torch.zeros(3))
     assert w.segmented_update_unsupported_reason() is None and w.stacked_merge_unsupported_reason() is None
     assert sorted(w.init_state()) == sorted(JGrouped(mt.RetrievalMAP(), capacity=8).init_state())
-
-
-def test_corpus_aggregate_is_not_ported():
-    class CorpusMAP(mp.RetrievalMAP):
-        def grouped_aggregate_spec(self):
-            return GroupedAggregateSpec(kind="corpus")
-
-    eng = RaggedEngine(CorpusMAP(device="cpu"), num_groups=4, config=EngineConfig(buckets=(8,)), capacity=8)
-    with eng:
-        eng.submit_update(np.asarray([0.5, 0.4], np.float32), np.asarray([1, 0]), np.asarray([0, 1]))
-        assert eng.aggregate_path()[0] == "device"
-        with pytest.raises(NotPortedError, match="detection"):
-            eng.aggregate()
-        np.testing.assert_allclose(float(eng.aggregate(oracle=True)), 0.5, atol=ATOL)  # AP 1 and an empty query
 
 
 def test_submit_validation_matches_jax():
@@ -422,6 +411,173 @@ def test_paged_sweep_block_count_follows_touched_groups():
         blocks = eng.stats.ragged_summary()["agg_blocks"]
     assert blocks == 3  # ceil(2500 / 1024): one per block of touched groups, never one per group
     np.testing.assert_allclose(dev, orc, rtol=1e-6)
+
+
+# ------------------------------------------------------------ the corpus aggregate
+
+
+def det_image(rng, n_gt, n_classes=3, fp=1, scores=(0.3, 0.6, 0.6, 0.85, 0.95)):
+    """``tests/engine/test_ragged_aggregate.py``'s ``_det_image``: dets as
+    jittered gt copies (a quarter class-flipped) plus false positives,
+    scores from a small tie-heavy set."""
+    empty = ({"boxes": np.zeros((0, 4), np.float32), "scores": np.zeros(0, np.float32),
+              "labels": np.zeros(0, np.int32)},
+             {"boxes": np.zeros((0, 4), np.float32), "labels": np.zeros(0, np.int32)})
+    if n_gt == 0:
+        return empty
+    xy = rng.uniform(0, 150, (n_gt, 2)).astype(np.float32)
+    wh = rng.choice([8.0, 30.0, 90.0], (n_gt, 2)).astype(np.float32)
+    gtb = np.concatenate([xy, xy + wh], axis=1)
+    gtl = rng.randint(0, n_classes, n_gt).astype(np.int32)
+    db = gtb + rng.uniform(-3, 3, (n_gt, 4)).astype(np.float32)
+    dl = gtl.copy()
+    flip = rng.rand(n_gt) < 0.25
+    dl[flip] = (dl[flip] + 1) % n_classes
+    fxy = rng.uniform(0, 150, (fp, 2)).astype(np.float32)
+    fpb = np.concatenate([fxy, fxy + 20], axis=1)
+    boxes = np.concatenate([db, fpb], axis=0)
+    labels = np.concatenate([dl, rng.randint(0, n_classes, fp).astype(np.int32)])
+    return ({"boxes": boxes, "scores": rng.choice(scores, boxes.shape[0]).astype(np.float32), "labels": labels},
+            {"boxes": gtb, "labels": gtl})
+
+
+def det_rounds(seed, groups=6, rounds=2, empty=(2,), **kw):
+    """``rounds`` submissions per image id, image ``empty`` with no rows."""
+    rng = np.random.RandomState(seed)
+    return [[det_image(rng, 0 if i in empty else int(rng.randint(1, 5)), **kw) for i in range(groups)]
+            for _ in range(rounds)]
+
+
+def det_eager(pkg, rounds, **kw):
+    """The eager metric over each image's rows of every round, concatenated."""
+    m = pkg.MAP(**kw) if pkg is mt else pkg.MAP(device="cpu", **kw)
+    preds, tgts = [], []
+    for i in range(len(rounds[0])):
+        preds.append({k: np.concatenate([r[i][0][k] for r in rounds]) for k in ("boxes", "scores", "labels")})
+        tgts.append({k: np.concatenate([r[i][1][k] for r in rounds]) for k in ("boxes", "labels")})
+    m.update(preds, tgts)
+    return {k: np.asarray(v) for k, v in m.compute().items()}
+
+
+def det_serve(eng, rounds):
+    for r in rounds:
+        for i, (p, t) in enumerate(r):
+            eng.submit_update([p], [t], [i])
+    eng.flush()
+
+
+def assert_values_equal(got, want, what):
+    assert sorted(got) == sorted(want), what
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("class_metrics", [False, True])
+def test_corpus_aggregate_equals_oracle_eager_and_jax(class_metrics):
+    """The device corpus bundle (K9's plain matcher here) equals the oracle,
+    the eager metric and JAX's engine key for key: score ties, class flips,
+    an empty image, two rounds per image id."""
+    rounds = det_rounds(7)
+    want = det_eager(mp, rounds, class_metrics=class_metrics)
+    assert_values_equal(want, det_eager(mt, rounds, class_metrics=class_metrics), "eager vs JAX's eager")
+    eng = RaggedEngine(mp.MAP(class_metrics=class_metrics, device="cpu"), num_groups=6, capacity=32)
+    ref = JRagged(mt.MAP(class_metrics=class_metrics), num_groups=6, capacity=32, aot_cache=_JAX_AOT)
+    with eng, ref:
+        det_serve(eng, rounds)
+        det_serve(ref, rounds)
+        path = eng.aggregate_path()
+        dev = eng.aggregate()
+        orc = eng.aggregate(oracle=True)
+        jax_dev = {k: np.asarray(v) for k, v in ref.aggregate().items()}
+        stats = eng.stats.ragged_summary()
+    assert path == ("device", "corpus device bundle + host curve interpolation") == ref.aggregate_path()
+    assert all(isinstance(v, torch.Tensor) and v.dtype == torch.float32 for v in dev.values())
+    assert_values_equal(dev, want, "device vs eager")
+    assert_values_equal(orc, want, "oracle vs eager")
+    assert_values_equal(dev, jax_dev, "device vs JAX's engine")
+    assert stats["agg_device_reads"] == 1 and stats["agg_oracle_reads"] == 1
+    assert float(dev["map"]) > 0.05  # the matching engaged
+
+
+def test_corpus_sort_keeps_ingest_order_on_tied_and_zero_scores():
+    """Scores of 0 (negated to -0.0) and scores equal across rounds: the
+    per-image sort keeps ingest order, as the eager stable sort and XLA's do."""
+    rounds = det_rounds(12, groups=5, rounds=3, empty=(), scores=(0.0, 0.0, 0.5), fp=2)
+    want = det_eager(mp, rounds, class_metrics=True)
+    eng = RaggedEngine(mp.MAP(class_metrics=True, device="cpu"), num_groups=5, capacity=48)
+    ref = JRagged(mt.MAP(class_metrics=True), num_groups=5, capacity=48, aot_cache=_JAX_AOT)
+    with eng, ref:
+        det_serve(eng, rounds)
+        det_serve(ref, rounds)
+        assert_values_equal(eng.aggregate(), want, "device vs eager")
+        assert_values_equal(eng.aggregate(), {k: np.asarray(v) for k, v in ref.aggregate().items()}, "vs JAX")
+
+
+def test_corpus_plan_that_declines_reroutes_to_the_oracle():
+    """A plan that declines (here: the budget shrunk to nothing; an empty
+    corpus declines too) serves the oracle and records an oracle read, as
+    JAX's engine does."""
+
+    class TightMAP(mp.MAP):
+        def grouped_corpus_plan(self, counts, scan):
+            return None
+
+    rounds = det_rounds(5, groups=4)
+    eng = RaggedEngine(TightMAP(device="cpu"), num_groups=4, capacity=32)
+    with eng:
+        det_serve(eng, rounds)
+        assert eng.aggregate_path()[0] == "device"
+        got = eng.aggregate()
+        stats = eng.stats.ragged_summary()
+    assert_values_equal(got, det_eager(mp, rounds), "declined plan vs eager")
+    assert stats["agg_device_reads"] == 0 and stats["agg_oracle_reads"] == 1
+    empty, jempty = RaggedEngine(mp.MAP(device="cpu"), num_groups=3, capacity=8), JRagged(
+        mt.MAP(), num_groups=3, capacity=8, aot_cache=_JAX_AOT)
+    with empty, jempty:
+        assert_values_equal(empty.aggregate(), {k: np.asarray(v) for k, v in jempty.aggregate().items()}, "empty")
+        assert empty.stats.ragged_summary()["agg_oracle_reads"] == 1
+
+
+def test_corpus_under_group_shard_takes_the_oracle():
+    rounds = det_rounds(6, groups=4)
+    eng = RaggedEngine(mp.MAP(device="cpu"), num_groups=4, capacity=32, group_shard=True, resident_groups=2)
+    with eng:
+        det_serve(eng, rounds)
+        path = eng.aggregate_path()
+        got = eng.aggregate()
+    assert path[0] == "oracle" and "group_shard" in path[1]
+    assert_values_equal(got, det_eager(mp, rounds), "group_shard vs eager")
+
+
+def test_corpus_tumbling_window_reads_the_open_pane():
+    """A tumbling ring of two-round panes over three rounds: the aggregate is
+    the open pane's corpus, the last round, on the device path and the
+    oracle alike."""
+    rounds = det_rounds(9, groups=4, rounds=3)
+    cfg = EngineConfig(buckets=(16,), window=WindowPolicy.tumbling(pane_batches=6))
+    eng = RaggedEngine(mp.MAP(device="cpu"), num_groups=4, capacity=32, config=cfg)
+    with eng:
+        det_serve(eng, rounds)  # a batch per non-empty image and round (image 2 has no rows): 3 a round
+        assert eng.aggregate_path()[0] == "device" and eng.rotations == 1
+        got, orc = eng.aggregate(), eng.aggregate(oracle=True)
+    want = det_eager(mp, rounds[2:])
+    assert_values_equal(got, want, "windowed device vs eager")
+    assert_values_equal(orc, want, "windowed oracle vs eager")
+
+
+def test_result_image_id_reads_occupancy_as_jax():
+    rounds = det_rounds(4, groups=5)
+    eng = RaggedEngine(mp.MAP(device="cpu"), num_groups=5, capacity=32)
+    ref = JRagged(mt.MAP(), num_groups=5, capacity=32, aot_cache=_JAX_AOT)
+    with eng, ref:
+        det_serve(eng, rounds)
+        det_serve(ref, rounds)
+        every = eng.results()
+        for gid in range(5):
+            got, want = eng.result(gid), ref.result(gid)
+            assert {k: int(v) for k, v in got.items()} == {k: int(v) for k, v in want.items()}
+            assert {k: int(v) for k, v in every[gid].items()} == {k: int(v) for k, v in want.items()}
+    assert {k: int(v) for k, v in every[2].items()} == {"detections": 0, "groundtruths": 0}
 
 
 # -------------------------------------------------------------------- windows

@@ -561,6 +561,19 @@ def _retrieval(n, seed):
     return np.round(rng.rand(n), 1).astype(np.float32), rng.randint(0, 2, n), rng.randint(0, 4, n)
 
 
+def _detection(n, seed):
+    """``n`` images of ``MAP.update``'s per-image dicts: a few boxes, scores
+    and labels each."""
+    rng = np.random.RandomState(seed)
+    preds, target = [], []
+    for _ in range(n):
+        xy = rng.uniform(0, 50, (3, 2)).astype(np.float32)
+        boxes = np.concatenate([xy, xy + 10], axis=1)
+        preds.append({"boxes": boxes, "scores": rng.rand(3).astype(np.float32), "labels": rng.randint(0, 2, 3)})
+        target.append({"boxes": boxes[:2], "labels": rng.randint(0, 2, 2)})
+    return preds, target
+
+
 _TEXT_WORDS = ("the", "cat", "sat", "on", "a", "mat", "dog", "ran")
 
 
@@ -718,6 +731,7 @@ _ALL = {
     "WordErrorRate": (lambda m, kw: m.WordErrorRate(**kw), _text),
     "WordInfoLost": (lambda m, kw: m.WordInfoLost(**kw), _text),
     "WordInfoPreserved": (lambda m, kw: m.WordInfoPreserved(**kw), _text),
+    "MAP": (lambda m, kw: m.MAP(**kw), _detection),
 }
 
 
@@ -725,7 +739,7 @@ def test_every_exported_metric_is_in_the_merge_table():
     exported = {n for n in mp.__all__ if isinstance(getattr(mp, n), type) and issubclass(getattr(mp, n), mp.Metric)}
     aliases = {"Metric", "BaseAggregator", "RetrievalMetric", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef",
                "SpearmanCorrcoef", "WER", "SNR", "SDR", "PIT", "SI_SDR", "SI_SNR", "FrechetInceptionDistance",
-               "KernelInceptionDistance", "InceptionScore"}
+               "KernelInceptionDistance", "InceptionScore", "MeanAveragePrecision"}
     # PESQ cannot be built without the native pesq package; its states (a float sum, an int32 count) are
     # SignalNoiseRatio's, and tests/test_torch_audio.py holds it to JAX under a fake package
     aliases.add("PESQ")
