@@ -3913,13 +3913,13 @@ def snapshot_paged(dev, preds, target):
     stage = sorted(src.pager.spilled_streams(0))[:SNAP_STAGED]
     want_staged = {sid: src.stream_state(sid) for sid in stage}  # read through the host decode, nothing seated
     with src._device_section():
-        src._page_round(stage)  # seat them as a round would: int8 codes staged for K7, q8 columns zero
-    flags = int(src._q8_stage["flags"].sum())
+        src._page_round({0: stage})  # seat them as a round would: int8 codes staged for K7, q8 columns zero
+    flags = int(src._q8_stage[0]["flags"].sum())
     check(flags == SNAP_STAGED, f"16(b): {flags} staged slots, want {SNAP_STAGED}")
     t0 = time.perf_counter()
     path = src.snapshot()
     snapshot_ms = (time.perf_counter() - t0) * 1e3
-    check(int(src._q8_stage["flags"].sum()) == 0, "16(b): the snapshot left staged slots unseated")
+    check(int(src._q8_stage[0]["flags"].sum()) == 0, "16(b): the snapshot left staged slots unseated")
     staged_rows = src.stats.q8_staged_rows
     spilled_at_snapshot = src.pager.spilled_count()
     for b in traffic[half:]:
@@ -6858,6 +6858,396 @@ def detection_phase(dev):
     return out, entries
 
 
+# --------------------------------------------------------- phase 25: serving on a mesh
+MESH_WORLD = 4  # JAX's mesh engines run at W = 8 on a TPU host: the one cut
+MESH_BENCH_BATCHES = 192  # metrics_tpu/engine/mesh_bench.py's protocol
+MESH_BENCH_TRIALS = 3  # interleaved (step, deferred) pairs after one warm-up stream each (JAX: 5)
+MESH_PAGED_BATCHES = 320  # metrics_tpu/engine/stream_bench.py's protocol, over phase 9's traffic
+MESH_RESIDENT = RESIDENT // MESH_WORLD  # 32 slots a shard (JAX's 16 at W = 8): 128 in all
+MESH_SCAN_BATCHES = 40  # 25(e): the prefix of phase 7's traffic the scan members take
+MESH_SHARD_LOSS_AT = 40  # 25(d): the shard_loss occurrence that kills a shard
+MESH_DIR = Path(__file__).resolve().parent / "build" / "phase25"  # gitignored; removed after the phase
+
+
+def mesh_layout(dev):
+    """The phase's W = 4 mesh: cuda:0..3 when the machine has four cards
+    (the NCCL transport), else four shards on ``dev`` (one device)."""
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    devs = [torch.device("cuda", i) for i in range(MESH_WORLD)] if n >= MESH_WORLD else [dev] * MESH_WORLD
+    return MeshConfig(shape=(MESH_WORLD,), devices=devs).make_mesh()
+
+
+def mesh_engine(dev, mesh, mode, make=make_collection, **cfg):
+    from metrics_tpu_torch.engine import EngineConfig, StreamingEngine
+
+    cfg = dict(dict(buckets=(256, BUCKET), kernel_backend="megastep"), **cfg)
+    return StreamingEngine(make(dev), EngineConfig(mesh=mesh, mesh_sync=mode, **cfg))
+
+
+def submit_rows(preds, target):
+    return lambda e, b: e.submit(preds[b[0]:b[1]], target[b[0]:b[1]])
+
+
+def sync_devices(mesh):
+    for d in set(mesh.device_list()):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def mesh_flagship(dev, preds, target, gpu_state, mesh):
+    """25(a): phase 7's engine and traffic (125 ragged batches, buckets 256
+    and 1024, K5 on every shard) at W = 4 under step and deferred sync. The
+    states equal phase 7's world-1 engine (the one-shot state) bit for bit:
+    every float state of the flagship is a count. A step-sync step issues
+    ``fused_sync_plan``'s collectives, a deferred one none; the boundary
+    merge issues the plan's. Host ms a step, and the merge's ms."""
+    from metrics_tpu_torch.parallel.collectives import collective_counts, fused_sync_plan, reset_collective_counts
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    plan = fused_sync_plan(make_collection(dev).sync_leaf_info(), MESH_WORLD)["collectives"]
+    out = {"plan_collectives": plan}
+    for mode in ("step", "deferred"):
+        eng = mesh_engine(dev, mesh, mode)
+        reset_collective_counts()
+        before = counts()
+        seconds = run_engine(eng, True, batches, submit_rows(preds, target))
+        steady = sum(collective_counts().values())
+        d = delta(before)
+        per_shard = MESH_WORLD * eng.steps + eng.stats.warmup_steps
+        check(d["megastep_fold"] == 2 * per_shard and d["fold_rows"] == 0 and d["histogram"] == per_shard,
+              f"25(a) {mode}: {d} in {eng.steps} steps of {MESH_WORLD} shards")
+        check(steady == (plan * eng.steps if mode == "step" else 0),
+              f"25(a) {mode}: {steady} collectives in {eng.steps} steps (plan {plan} a step-sync step)")
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        state = eng.state()
+        sync_devices(mesh)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        merge = sum(collective_counts().values())
+        check(merge == (plan if mode == "deferred" else 0), f"25(a) {mode}: the read issued {merge} collectives")
+        compare_states(state, gpu_state, f"25(a) {mode} sync vs phase 7 (world 1)")
+        st = eng.stats.summary()["mesh_sync"]
+        check(st["transport"] == mesh.transport, f"25(a): transport {st['transport']}")
+        out[mode] = {"seconds": seconds, "steps": eng.steps, "warmup_steps": eng.stats.warmup_steps,
+                     "host_ms_per_step": seconds / eng.steps * 1e3, "collectives_per_step": steady / eng.steps,
+                     "launches": d, "merge_collectives": merge, "state_read_ms": read_ms,
+                     "merges": st["merges"], "merge_ms_total": st["merge_us_total"] / 1e3,
+                     "sync_payload_bytes": st.get("sync_payload_bytes")}
+    return out
+
+
+def mesh_bench(dev, mesh):
+    """25(b): ``mesh_bench.py``'s protocol at W = 4: 192 seeded batches of
+    64-256 rows, buckets (256,), ``Accuracy + MeanSquaredError``,
+    ``coalesce=1``, ``in_flight=1``; one warm-up stream per mode, then
+    interleaved (step, deferred) streams through ``reset()``, each ended by
+    flush and a host fetch of the value (the deferred merge inside the timed
+    region), with no capture after the warm-up in either mode (JAX's
+    zero-compile pin). Steps/s per mode and the step/deferred time ratio."""
+    from metrics_tpu_torch import Accuracy, MeanSquaredError, MetricCollection
+
+    rng = np.random.RandomState(20260803)
+    sizes = rng.randint(64, 257, size=MESH_BENCH_BATCHES)
+    batches = [(rng.rand(n).astype(np.float32), (rng.rand(n) > 0.5).astype(np.int32)) for n in sizes]
+    make = lambda d: MetricCollection([Accuracy(device=d), MeanSquaredError(device=d)])  # noqa: E731
+    engines = {mode: mesh_engine(dev, mesh, mode, make, buckets=(256,), kernel_backend=None, coalesce=1, in_flight=1,
+                                 max_queue=MESH_BENCH_BATCHES + 1) for mode in ("step", "deferred")}
+
+    def stream(eng):
+        t0 = time.perf_counter()
+        for b in batches:
+            eng.submit(*b)
+        value = {k: float(v) for k, v in eng.result().items()}
+        return time.perf_counter() - t0, value
+
+    times = {mode: [] for mode in engines}
+    values = {}
+    for eng in engines.values():
+        eng.start()
+        stream(eng)  # the warm-up: every capture
+    warm_misses = {m: e.aot_cache.misses for m, e in engines.items()}
+    for _ in range(MESH_BENCH_TRIALS):
+        for mode, eng in engines.items():
+            eng.reset()
+            t, values[mode] = stream(eng)
+            times[mode].append(t)
+    for eng in engines.values():
+        eng.stop()
+    p = np.concatenate([b[0] for b in batches])
+    t = np.concatenate([b[1] for b in batches])
+    want = {"Accuracy": float(np.mean((p >= 0.5) == t)), "MeanSquaredError": float(np.mean((p - t) ** 2))}
+    for mode, v in values.items():
+        for k, w in want.items():
+            check(abs(v[k] - w) <= 1e-6 * max(1.0, abs(w)), f"25(b) {mode}: {k} {v[k]} != {w}")
+    # mesh_bench.py's pin: no program is captured after the warm-up, in either mode
+    steady_misses = {m: e.aot_cache.misses - warm_misses[m] for m, e in engines.items()}
+    for mode, n in steady_misses.items():
+        check(n == 0, f"25(b) {mode}: {n} captures in the timed streams")
+    steps = {mode: len(batches) for mode in engines}
+    total = {mode: sum(ts) for mode, ts in times.items()}
+    return {"batches": len(batches), "trials": MESH_BENCH_TRIALS, "stream_s": times,
+            "steps_per_s": {m: steps[m] * len(times[m]) / total[m] for m in total},
+            "step_over_deferred_time": total["step"] / total["deferred"],
+            "warmup_misses": warm_misses, "steady_misses": steady_misses}
+
+
+def mesh_paged(dev, preds, target, mesh):
+    """25(c): ``stream_bench.py``'s tenancy over the first 320 batches of
+    phase 9's traffic (10 000 streams, Zipf 1.05, buckets 64 and 256): the
+    stream-sharded engine at W = 4 with 32 slots a shard against phase 9's
+    world-1 engine with 128, exact and q8-staged. Counts equal stream for
+    stream; the q8 policy's float counts within the codec's bound (each
+    encode moves an element by at most its block's absmax / 254 <= n_s /
+    254, and the two runs encode a stream's row at most 2 b_s + 2 times
+    between them, b_s its batches). Page-ins and page-outs per shard."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)[:MESH_PAGED_BATCHES]
+    traffic = list(zip(sids, batches[:MESH_PAGED_BATCHES]))
+    submit = lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]])  # noqa: E731
+    rows, hits = {}, {}
+    for sid, (lo, hi) in traffic:
+        rows[int(sid)] = rows.get(int(sid), 0) + hi - lo
+        hits[int(sid)] = hits.get(int(sid), 0) + 1
+    touched = sorted(rows)
+    out = {"streams": PAGED_STREAMS, "batches": len(traffic), "touched": len(touched)}
+    for q8 in (False, True):
+        engs = {}
+        for name, world in (("world_1", 1), ("mesh", MESH_WORLD)):
+            cfg = dict(buckets=PAGED_BUCKETS, kernel_backend="megastep", compress_payloads=q8, coalesce=1)
+            if world > 1:
+                cfg.update(mesh=mesh, mesh_sync="deferred")
+            engs[name] = MultiStreamEngine(make_collection(dev, ap_precision="q8_block" if q8 else None),
+                                           PAGED_STREAMS, EngineConfig(**cfg), stream_shard=True,
+                                           resident_streams=RESIDENT // world)
+        before = counts()
+        seconds = run_engine(engs["mesh"], True, traffic, submit)
+        d = delta(before)
+        w1_seconds = run_engine(engs["world_1"], True, traffic, submit)
+        mesh_eng = engs["mesh"]
+        key = "megastep_segment_q8" if q8 else "megastep_segment"
+        check(d[key] > 0 and d["segment_reduce"] == 0, f"25(c) q8={q8}: {d}")
+        x, y = stacked_host(mesh_eng), stacked_host(engs["world_1"])
+        idx = np.asarray(touched + [s for s in range(0, PAGED_STREAMS, 97) if s not in rows][:20], np.int64)
+        bound = np.asarray([(2 * hits.get(int(s), 0) + 2) * rows.get(int(s), 0) / 254.0 for s in idx])
+        worst = 0.0
+        for k in x:
+            for s in x[k]:
+                g, w = x[k][s][idx], y[k][s][idx]
+                check(g.dtype == w.dtype and g.shape == w.shape, f"25(c) q8={q8}: {k}.{s} dtype/shape")
+                if not (q8 and w.dtype.kind == "f"):
+                    check(np.array_equal(g, w), f"25(c) q8={q8}: {k}.{s} differs from the world-1 engine")
+                    continue
+                err = np.abs(g.astype(np.float64) - w).reshape(len(idx), -1).max(axis=1)
+                worst = max(worst, float(err.max()))
+                check(bool(np.all(err <= bound + 1e-3)), f"25(c) q8={q8}: {k}.{s} past the q8 bound")
+        st = mesh_eng.stats
+        check(st.page_outs > 0 and st.routed_steps > 0, f"25(c) q8={q8}: nothing spilled at W = {MESH_WORLD}")
+        if q8:
+            check(st.q8_staged_rows > 0, "25(c): no row was staged for K7 at W = 4")
+        out["q8" if q8 else "exact"] = {
+            "seconds": seconds, "steps": mesh_eng.steps, "host_ms_per_step": seconds / mesh_eng.steps * 1e3,
+            "world_1_seconds": w1_seconds, "world_1_steps": engs["world_1"].steps, "launches": d,
+            "pages_by_shard": mesh_eng.pages_by_shard(), "page_ins": st.page_ins, "page_outs": st.page_outs,
+            "world_1_page_ins": engs["world_1"].stats.page_ins, "world_1_page_outs": engs["world_1"].stats.page_outs,
+            "q8_staged_rows": st.q8_staged_rows, "q8_max_abs_err": worst}
+    # the unsharded form under deferred sync: phase 8's 64 streams, K4 on every shard
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+
+    ms_batches = ragged_batches(SEED + 3, 16, BUCKET)
+    ms_traffic = list(zip(zipf_stream_ids(MS_STREAMS, len(ms_batches), ALPHA, SEED + 3), ms_batches))
+    engs = {name: MultiStreamEngine(make_collection(dev), MS_STREAMS, EngineConfig(buckets=(256, BUCKET), **cfg))
+            for name, cfg in (("world_1", {}), ("mesh", dict(mesh=mesh, mesh_sync="deferred")))}
+    before = counts()
+    seconds = run_engine(engs["mesh"], True, ms_traffic, submit)
+    d = delta(before)
+    run_engine(engs["world_1"], True, ms_traffic, submit)
+    n_leaves = engs["world_1"].arena_layout.num_leaves
+    per_shard = MESH_WORLD * engs["mesh"].steps + engs["mesh"].stats.warmup_steps
+    check(d["segment_reduce"] == n_leaves * per_shard, f"25(c) unsharded: {d} in {engs['mesh'].steps} steps")
+    engine_states_equal(engs["mesh"], engs["world_1"], range(MS_STREAMS), "25(c) unsharded deferred vs world 1")
+    out["unsharded"] = {"streams": MS_STREAMS, "seconds": seconds, "steps": engs["mesh"].steps,
+                        "host_ms_per_step": seconds / engs["mesh"].steps * 1e3, "launches": d,
+                        "merge_ms": engs["mesh"].stats.merge_us_total / 1e3}
+    return out
+
+
+def elastic_injector(pe):
+    """JAX's canonical ``elastic`` plan (``chaos_smoke.chaos_injectors``, seed 37)."""
+    return pe.FaultInjector(37, {"admission": pe.FaultSpec(schedule=(1,)), "shard_loss": pe.FaultSpec(schedule=(2,)),
+                                 "reshard_snapshot": pe.FaultSpec(schedule=(0,)),
+                                 "reshard_restore": pe.FaultSpec(schedule=(0,))})
+
+
+def mesh_reshard(dev, preds, target, gpu_state, mesh):
+    """25(d): under (a)'s traffic on the deferred engine: ``reshard(world=2)``
+    at the half, then back to 4; JAX's ``elastic`` plan (an admission and a
+    transient shard-loss retry, both reshard sites firing once under a
+    manual reshard); a non-transient ``shard_loss`` with
+    ``elastic_min_world=2``, after which the engine serves on at world 2.
+    Each ends equal to the fault-free state (the one-shot). Then the
+    snapshot matrix of the 4-shard deferred engine: verbatim at 4, merged
+    into a world-1 engine."""
+    import metrics_tpu_torch.engine as pe
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    submit = submit_rows(preds, target)
+    half = len(batches) // 2
+    out = {}
+    # the live reshard, 4 -> 2 -> 4
+    eng = mesh_engine(dev, mesh, "deferred", snapshot_dir=str(mesh_dir("d")))
+    with eng:
+        for b in batches[:half]:
+            submit(eng, b)
+        eng.flush()
+        ms = []
+        for w in (2, MESH_WORLD):
+            t0 = time.perf_counter()
+            info = eng.reshard(world=w)
+            sync_devices(mesh)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(info["to_world"] == w, f"25(d): reshard gave {info}")
+        for b in batches[half:]:
+            submit(eng, b)
+    compare_states(eng.state(), gpu_state, "25(d) reshard 4 -> 2 -> 4 vs uninterrupted")
+    out["reshard"] = {"ms_4_to_2": ms[0], "ms_2_to_4": ms[1], "reshards": eng.stats.reshards}
+    # the snapshot matrix
+    path = eng.snapshot()
+    twin = mesh_engine(dev, mesh, "deferred")
+    meta = twin.restore(path)
+    check(meta["world"] == MESH_WORLD and meta["mesh_sync"] == "deferred", f"25(d): snapshot meta {meta}")
+    a, b = twin._stacked_carried(), eng._stacked_carried()
+    check(all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a), "25(d): the world-4 restore is not verbatim")
+    single = pe.StreamingEngine(make_collection(dev), pe.EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"))
+    single.restore(path)
+    compare_states(single.state(), gpu_state, "25(d): deferred W = 4 snapshot merged into a world-1 engine")
+    # JAX's elastic plan: every site fires once, the result is the fault-free one
+    inj = elastic_injector(pe)
+    eng = mesh_engine(dev, mesh, "deferred", coalesce=1, fault_injector=inj,
+                      admission=pe.AdmissionPolicy(rows_per_s=1e9, burst_rows=1e9))
+    with eng:
+        for i, b in enumerate(batches):
+            submit(eng, b)
+            if i < 4:
+                eng.flush()  # the plan's occurrences stay producer-timing-independent
+            if i == half:
+                eng.flush()
+                eng.reshard(world=2)
+    compare_states(eng.state(), gpu_state, "25(d) elastic plan vs fault-free")
+    check(all(inj.fired.get(k, 0) == 1 for k in ("admission", "shard_loss", "reshard_snapshot", "reshard_restore")),
+          f"25(d): elastic sites fired {dict(inj.fired)}")
+    out["elastic"] = {"fired": dict(inj.fired), "retries": eng.stats.retries, "rollbacks": eng.stats.rollbacks,
+                      "world": eng._world}
+    # a shard lost for good: the engine serves on at world 2
+    for mode in ("step", "deferred"):
+        inj = pe.FaultInjector(0, {"shard_loss": pe.FaultSpec(schedule=(MESH_SHARD_LOSS_AT,), transient=False)})
+        eng = mesh_engine(dev, mesh, mode, fault_injector=inj, elastic_min_world=2)
+        seconds = run_engine(eng, True, batches, submit)
+        compare_states(eng.state(), gpu_state, f"25(d) {mode}: shard loss vs fault-free")
+        check(eng._world == 2 and eng.stats.shard_losses == 1, f"25(d) {mode}: world {eng._world} after the loss")
+        walls = [r["wall_us"] for r in eng.stats.recent()]
+        out[f"shard_loss_{mode}"] = {"seconds": seconds, "steps": eng.steps, "world_after": eng._world,
+                                     "recovery_step_ms": max(walls) / 1e3,
+                                     "median_step_ms": float(np.median(walls)) / 1e3,
+                                     "reshard": eng.stats.reshard_summary()}
+    return out
+
+
+def mesh_scan(dev, preds, target, preds_np, target_np, mesh):
+    """25(e): ``AUROC(capacity=N)`` and ``AveragePrecision(capacity=N)`` served
+    under deferred sync at W = 4 over the first 40 batches of phase 7's
+    traffic, capacity per shard; the boundary merge gathers the shards'
+    buffers, and the values equal phase 11's eager capacity update over the
+    same rows. The 4-shard snapshot refuses to restore into a 2-shard engine
+    (the cat buffers scale with the world), and a live ``reshard(world=2)``
+    refuses and rolls back: the engine serves on at 4, its state unchanged."""
+    from metrics_tpu_torch import AUROC, AveragePrecision, MetricCollection
+    from metrics_tpu_torch.parallel.collectives import collective_counts, reset_collective_counts
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)[:MESH_SCAN_BATCHES]
+    rows = batches[-1][1]
+    make = lambda d: MetricCollection({  # noqa: E731
+        "auroc": AUROC(num_classes=NUM_CLASSES, capacity=rows, device=d),
+        "ap": AveragePrecision(num_classes=NUM_CLASSES, capacity=rows, device=d)})
+    eng = mesh_engine(dev, mesh, "deferred", make, snapshot_dir=str(mesh_dir("e")))
+    before = counts()
+    seconds = run_engine(eng, True, batches, submit_rows(preds, target))
+    d = delta(before)
+    reset_collective_counts()
+    values = eng.result()
+    gathers = collective_counts()["all_gather"]
+    check(gathers == 1, f"25(e): the merge issued {gathers} gathers")
+    eager = make(dev)
+    eager.update(preds[:rows], target[:rows])
+    want = eager.compute()
+    errs = {}
+    for k in want:
+        errs[k] = float((values[k].double().cpu() - want[k].double().cpu()).abs().max())
+        check(errs[k] <= 1e-6, f"25(e): {k} {float(values[k])} != eager {float(want[k])}")
+    state = eng.state()
+    check(state["auroc"]["preds_buf"].shape[0] == MESH_WORLD * rows, "25(e): the merged buffer is not W x capacity")
+    path = eng.snapshot()
+    other = mesh_engine(dev, mesh_of(mesh, 2), "deferred", make)
+    refused = None
+    try:
+        other.restore(path)
+    except MetricsTPUUserError as e:
+        refused = str(e)
+    check(refused is not None and "cat" in refused, "25(e): a 4-shard cat snapshot restored into 2 shards")
+    before_state = {k: v.clone() for k, v in eng._stacked_carried().items()}
+    try:
+        eng.reshard(world=2)
+        resharded = True
+    except MetricsTPUUserError:
+        resharded = False
+    check(not resharded and eng._world == MESH_WORLD, "25(e): reshard of cat states did not refuse")
+    after = eng._stacked_carried()
+    check(all(torch.equal(before_state[k], after[k]) for k in after), "25(e): the refused reshard moved the state")
+    again = eng.result()
+    check(all(torch.equal(again[k], values[k]) for k in values), "25(e): the engine no longer serves its value")
+    return {"batches": len(batches), "rows": rows, "seconds": seconds, "steps": eng.steps,
+            "host_ms_per_step": seconds / eng.steps * 1e3, "launches": d, "merge_ms": eng.stats.merge_us_total / 1e3,
+            "max_abs_err": errs, "refusal": refused}
+
+
+def mesh_of(mesh, world):
+    """A ``world``-shard mesh on the same layout."""
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    devs = mesh.device_list()
+    return MeshConfig(shape=(world,), devices=devs[:world] if mesh.transport == "nccl" else devs[:1] * world).make_mesh()
+
+
+def mesh_dir(name):
+    d = MESH_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def mesh_phase(dev, preds, target, preds_np, target_np, gpu_state):
+    """Phase 25: serving on a mesh at W = 4, (a)-(e); the line names the
+    layout and the transport."""
+    mesh = mesh_layout(dev)
+    out = {"world": MESH_WORLD, "layout": [str(d) for d in mesh.device_list()], "transport": mesh.transport}
+    try:
+        for name, fn in (("flagship", lambda: mesh_flagship(dev, preds, target, gpu_state, mesh)),
+                         ("bench", lambda: mesh_bench(dev, mesh)),
+                         ("paged", lambda: mesh_paged(dev, preds, target, mesh)),
+                         ("reshard", lambda: mesh_reshard(dev, preds, target, gpu_state, mesh)),
+                         ("scan", lambda: mesh_scan(dev, preds, target, preds_np, target_np, mesh))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -7102,6 +7492,23 @@ def main():
     check(not any(detection_launches.values()), f"the detection phase launched {detection_launches}")
     k9_launches = sum(e["launches"] for e in k9_entries)
     print(json.dumps({"detection_phase": detection, "launches": dict(detection_launches, greedy_match=k9_launches),
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 25, its counts from 0: K2 and K3 (every shard's flagship step), K5 (the megastep shard steps), K1 (the
+    # auto shard steps of 25(b)), K4 (the unsharded deferred streams), K6 and K7 (the stream-sharded tenancy) must
+    # launch; K8 and K9 must stay 0
+    for fn in kernels.values():
+        fn.launches = 0
+    toeplitz_solve_cuda.launches = greedy_match_cuda.launches = 0
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, preds, target, preds_np, target_np, gpu_state)
+    mesh_launches = counts()
+    for k in kernels:
+        check(mesh_launches[k] > 0, f"kernel {k} was not launched by the mesh phase")
+    check(toeplitz_solve_cuda.launches == 0 and greedy_match_cuda.launches == 0, "the mesh phase launched K8 or K9")
+    launches = {k: launches[k] + mesh_launches[k] for k in launches}
+    print(json.dumps({"mesh_phase": mesh, "launches": dict(mesh_launches, toeplitz_solve=0, greedy_match=0),
+                      "layout": mesh["layout"], "transport": mesh["transport"],
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

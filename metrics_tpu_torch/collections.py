@@ -39,7 +39,7 @@ from metrics_tpu_torch.metric import (
     _sync_trees,
     sync_precision_tag_of,
 )
-from metrics_tpu_torch.parallel.mesh import current_metric_axis
+from metrics_tpu_torch.parallel.mesh import MeshAxis, current_metric_axis
 from metrics_tpu_torch.utils.checks import traced_rows
 
 
@@ -361,8 +361,12 @@ class MetricCollection(nn.ModuleDict):
         the ambient group, else the default one. Unchanged without an
         initialised group."""
         members = self.items(keep_base=True)
-        synced = _sync_trees([(m, state[k]) for k, m in members],
-                             group if group is not None else current_metric_axis())
+        group = group if group is not None else current_metric_axis()
+        if isinstance(group, MeshAxis):
+            # the W shards' collection states in, the W synced states out
+            synced = _sync_trees([(m, [s[k] for s in state]) for k, m in members], group)
+            return [{k: per[j] for (k, _), per in zip(members, synced)} for j in range(group.world)]
+        synced = _sync_trees([(m, state[k]) for k, m in members], group)
         return {k: s for (k, _), s in zip(members, synced)}
 
     def compute_synced(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Any]:

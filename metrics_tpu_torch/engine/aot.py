@@ -507,12 +507,17 @@ class AotCache:
         backend: str = "auto",
         device: Any = None,
         precision: str = "exact",
+        mesh: Optional[str] = None,
+        sync: Optional[str] = None,
     ) -> Tuple:
         """Structural program identity: the kind of step, the metric's
         fingerprint, the signature of its arguments (carried state, extras,
         padded payload, mask), the arena layout, the resolved kernel backend,
-        the device and the sync-precision tag."""
-        return (
+        the device and the sync-precision tag; on a mesh also the mesh and
+        its sync mode (a shard's step differs between step and deferred sync
+        over identical arguments)."""
+        mesh_part = () if mesh is None else (str(mesh), str(sync))
+        return mesh_part + (
             kind,
             metric_fp,
             self.signature_of(arg_tree) if arg_tree is not None else None,

@@ -28,7 +28,7 @@ import torch
 from metrics_tpu_torch.utils.data import infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
-__all__ = ["BucketPolicy", "PinnedRing", "StepBuffers", "classify_leaves"]
+__all__ = ["BucketPolicy", "PinnedRing", "StepBuffers", "classify_leaves", "shard_blocks"]
 
 #: a leaf's role in a padded step: batch-carried rows (sliced and padded), an
 #: array copied as it is (a broadcast argument, the paged engine's slot ids),
@@ -67,6 +67,18 @@ def classify_leaves(leaves: List[Any], n: int, bucket: int, divisor: int = 1) ->
             )
         kinds.append(WHOLE if hasattr(leaf, "shape") else None)
     return kinds
+
+
+def shard_blocks(start: int, stop: int, bucket: int, world: int) -> List[Tuple[int, int]]:
+    """The row split of one padded bucket over ``world`` shards, as JAX's
+    ``P(axis)`` splits it: the bucket's ``bucket / world``-row blocks, block
+    ``k`` holding padded positions ``[k * per, (k + 1) * per)``. Rows
+    ``[start, stop)`` fill the bucket's first positions, so shard ``k``'s rows
+    are ``[start + min(k * per, valid), start + min((k + 1) * per, valid))``:
+    pad rows fall in the last shards, and a shard past the valid rows gets
+    none (its block is all pad, its mask all False)."""
+    per, valid = bucket // world, stop - start
+    return [(start + min(k * per, valid), start + min((k + 1) * per, valid)) for k in range(world)]
 
 
 def pad_leaves(leaves: List[Any], kinds: List[Optional[str]], start: int, stop: int, bucket: int,

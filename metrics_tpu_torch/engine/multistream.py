@@ -11,17 +11,24 @@ forms:
   inside each leaf's columns, so no op row describes it: under
   ``kernel_backend="megastep"`` this form records ``engine:stacked_layout``
   and keeps K4.
-* **Paged** (``stream_shard=True``): the JAX package's stream-sharded engine
-  on a one-device mesh (world = 1). The carried state is one ``(resident, n)``
-  slot-stacked buffer per dtype, where ``n`` is one stream's packed arena row;
-  an LRU pager (``engine/paging.py``) spills cold streams' rows to host RAM
-  and faults them back in on their next submit, so device memory is bounded
-  by the working set, not by S. Pager slot ids are the segment ids. Under
+* **Paged** (``stream_shard=True``): the JAX package's stream-sharded engine.
+  The carried state is one ``(resident, n)`` slot-stacked buffer per dtype
+  per shard, where ``n`` is one stream's packed arena row; an LRU pager
+  (``engine/paging.py``) spills cold streams' rows to host RAM and faults
+  them back in on their next submit, so device memory is bounded by the
+  working set, not by S. Pager slot ids are the segment ids. Under
   ``"megastep"`` the step is :meth:`MegastepPlan.apply_segmented`: one K6
   launch per eligible dtype, and with ``compress_payloads=True`` the dtypes
   the q8 codec compresses take K7 on every step, which decodes the slots
   paged in as int8 codes on touch ("q8-resident" rows: the host never
-  dequantizes them).
+  dequantizes them). Without a mesh it runs at world 1; on a mesh
+  (``mesh_sync="deferred"``) stream ``sid`` lives on shard ``sid % W`` as
+  local stream ``sid // W``, the host routes each round's rows to their
+  shards (each shard's block padded to ``bucket / W``) and every shard's
+  step folds only its own streams, with no collective.
+* **Deferred on a mesh** (the unsharded form with ``mesh_sync="deferred"``):
+  each shard carries its own ``(S, ...)`` state of the rows it was sent;
+  reads merge them at the boundary (``pipeline.py``).
 
 ``submit(stream_id, ...)`` enqueues ``(stream_id, args, kwargs)`` for the
 dispatcher thread of :class:`~metrics_tpu_torch.engine.pipeline.StreamingEngine`.
@@ -46,8 +53,8 @@ of another world or residency (a JAX engine at world 2 or 4, or another
 ``resident_streams``) every stream's row is reassembled and re-homed into the
 spill store, faulting in on first touch; into an unsharded engine the rows
 merge into the ``(S, ...)`` state; anything else is refused with JAX's
-message. Multi-GPU stream sharding over ``torch.distributed`` is not ported
-yet (ROADMAP §A).
+message. ``reshard()`` re-homes every stream under the new ``sid % W`` rule
+the same way. Windows stay at world 1 (no mesh), as ROADMAP §A says.
 
 Windows (``engine/windows.py``): on the unsharded form the pane axis stacks
 OUTSIDE the stream axis (``(panes, S, ...)`` logical state; a step writes the
@@ -85,13 +92,14 @@ import torch
 
 from metrics_tpu_torch.engine.aot import AotCache
 from metrics_tpu_torch.engine.arena import ArenaLayout, gather_rows, scatter_rows
-from metrics_tpu_torch.engine.bucketing import WHOLE, classify_leaves
+from metrics_tpu_torch.engine.bucketing import ROWS, WHOLE, classify_leaves
 from metrics_tpu_torch.engine.paging import StreamPager
 from metrics_tpu_torch.engine.pipeline import EngineConfig, StreamingEngine, _add_committed
 from metrics_tpu_torch.engine.quantize import ArenaRowCodec
 from metrics_tpu_torch.engine.trace import ENGINE_TRACE
 from metrics_tpu_torch.engine.windows import WindowPolicy
 from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.parallel.mesh import Mesh
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utils.state_bridge import _pager_row, _payload_row, _tensor_from_numpy, state_to_numpy
@@ -99,7 +107,7 @@ from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tr
 
 __all__ = ["MultiStreamEngine"]
 
-_SHARD = 0  # the one shard of the world-1 pager
+_SHARD = 0  # the pager shard of a pane ring (windows run at world 1)
 
 
 def _spill_part(payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -162,6 +170,12 @@ class MultiStreamEngine(StreamingEngine):
     ):
         if not isinstance(num_streams, int) or num_streams <= 0:
             raise MetricsTPUUserError(f"num_streams must be a positive int, got {num_streams!r}")
+        if config is not None and config.mesh is not None and config.mesh_sync != "deferred":
+            raise MetricsTPUUserError(
+                "MultiStreamEngine has no step-sync mesh form: the segmented scatter has no exact per-step "
+                "shard-and-merge; serve the mesh with EngineConfig(mesh_sync='deferred') (shard-local stream "
+                "states, boundary merge) or use one StreamingEngine per mesh"
+            )
         self._num_streams = num_streams
         self._stream_shard = bool(stream_shard)
         self._pager: Optional[StreamPager] = None
@@ -181,11 +195,13 @@ class MultiStreamEngine(StreamingEngine):
                     "or use a tumbling/sliding ring"
                 )
             self._pane_rows = win.panes if (win is not None and win.stacked) else 1
-            rows = num_streams * self._pane_rows
-            r = int(resident_streams) if resident_streams is not None else rows
+            # shard w owns the streams sid % world == w, ceil(S / world) of them
+            world = config.mesh.axis(config.axis).world if config is not None and isinstance(config.mesh, Mesh) else 1
+            self._local_streams = -(-num_streams // world) * self._pane_rows
+            r = int(resident_streams) if resident_streams is not None else self._local_streams
             if r <= 0:
                 raise MetricsTPUUserError(f"resident_streams must be positive, got {resident_streams!r}")
-            self._resident = min(r, rows)
+            self._resident = min(r, self._local_streams)
         else:
             if resident_streams is not None:
                 raise MetricsTPUUserError(
@@ -197,10 +213,11 @@ class MultiStreamEngine(StreamingEngine):
         super().__init__(metric, config=config, aot_cache=aot_cache)
         self._row_codec: Optional[ArenaRowCodec] = None
         if self._stream_shard:
-            # the JAX package's stream-sharded engine at world 1: no
-            # steady-state collective, boundary reads per row
+            # the JAX package's stream-sharded engine: no steady-state
+            # collective, boundary reads per row
             self._stats.mesh_sync = "stream_shard"
-            self._pager = StreamPager(1, self._resident)
+            self._pager = StreamPager(self._world, self._resident)
+            self._shard_pages = [[0, 0] for _ in range(self._world)]  # (page-ins, page-outs) per shard
             # one stream's packed init row per dtype, host numpy: the fault-in
             # source for never-touched (and reset) streams
             self._init_row = self._host_init_row(self._metric)
@@ -263,40 +280,69 @@ class MultiStreamEngine(StreamingEngine):
         return tree_map(lambda s: StateSpec((self._num_streams,) + s.shape, s.dtype), base)
 
     def _put_state(self, tree: Any) -> Any:
+        """The paged form's carried state: every slot the packed row of
+        ``tree``, ``(resident, n)`` per dtype; on a mesh each shard's slots,
+        ``(W, resident, n)`` on one device or one ``(resident, n)`` set per
+        device."""
         if not self._stream_shard:
             return super()._put_state(tree)
-        row = super()._put_state(tree)
-        return {k: v.reshape(1, -1).repeat(self._resident, 1) for k, v in row.items()}
+        row = self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(self._device), tree))
+        slots = {k: v.reshape(1, -1).repeat(self._resident, 1) for k, v in row.items()}
+        if self._mesh is None:
+            return slots
+        if self._nccl:
+            return [{k: v.to(dev) for k, v in slots.items()} for dev in self._shard_devices]
+        return {k: v.unsqueeze(0).repeat(self._world, 1, 1) for k, v in slots.items()}
+
+    def _shard_bufs(self, shard: int) -> Dict[str, torch.Tensor]:
+        """Shard ``shard``'s ``(resident, n)`` slot buffers (views of the
+        carried state)."""
+        return self._state if self._mesh is None else self._shard_view(shard)
+
+    def _sync_tag(self) -> str:
+        # the stream-sharded step carries another state than plain deferred ones
+        return "stream_shard" if self._stream_shard else super()._sync_tag()
+
+    def _payload_leaf_info(self) -> Optional[List[Any]]:
+        # the unsharded merge syncs the (S, ...)-stacked state: every leaf
+        # carries the stream axis
+        info = super()._payload_leaf_info()
+        if not info or self._stream_shard:
+            return info
+        return [(fx, StateSpec((self._num_streams,) + tuple(leaf.shape), leaf.dtype), prec)
+                for fx, leaf, prec in info]
 
     # -------------------------------------------------------------------- the step
 
-    def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor) -> Any:
+    def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor, shard: int = 0) -> Any:
         a, kw = payload
         ids, rest = a[0], a[1:]
         # paged mode addresses pager SLOTS, unsharded mode stream rows
         num = self._resident if self._stream_shard else self._num_streams
-        return self._metric.update_state_segmented(state_tree, *rest, mask=mask, segment_ids=ids,
-                                                   num_segments=num, **kw)
+        return self._shard_metric(shard).update_state_segmented(state_tree, *rest, mask=mask, segment_ids=ids,
+                                                                num_segments=num, **kw)
 
-    def _step_aux(self) -> Any:
-        return self._q8_payload()
+    def _step_aux(self, shard: int = 0) -> Any:
+        return self._q8_payload(shard)
 
-    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
+    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor,
+                    shard: int = 0) -> Any:
         if not self._stream_shard:
-            return super()._step_state(state, aux, a, kw, mask)
-        if self._megastep_plan is not None:
-            return self._megastep_plan.apply_segmented(state, a[1:], kw, mask, a[0], self._resident,
-                                                       q8_stage=aux, q8_cols=self._q8_cols_dev)
+            return super()._step_state(state, aux, a, kw, mask, shard=shard)
+        cols = self._q8_cols_dev.get(self._shard_devices[shard]) if self._q8_cols_dev else None
+        plan = self._shard_plan(shard)
+        if plan is not None:
+            return plan.apply_segmented(state, a[1:], kw, mask, a[0], self._resident, q8_stage=aux, q8_cols=cols)
         if aux:
             # the demoted body of a q8-staging engine: seat the staged slots
             # with the codec's own arithmetic first (int8 -> f32, one f32
             # multiply, one cast), as K7's seed does, then the per-leaf K4
             state = dict(state)
             for k, (flags, codes, scales) in aux.items():
-                on = (flags.reshape(-1, 1) != 0) & (self._q8_cols_dev[k].reshape(1, -1) != 0)
+                on = (flags.reshape(-1, 1) != 0) & (cols[k].reshape(1, -1) != 0)
                 state[k] = torch.where(on, (codes.to(torch.float32) * scales).to(state[k].dtype), state[k])
         tree = self._layout.unpack_stacked(state)
-        return self._layout.pack_stacked(self._traced_update(tree, (a, kw), mask))
+        return self._layout.pack_stacked(self._traced_update(tree, (a, kw), mask, shard))
 
     def _update_kind(self) -> str:
         return f"paged.{self._resident}" if self._stream_shard else f"segmented.{self._num_streams}"
@@ -375,50 +421,82 @@ class MultiStreamEngine(StreamingEngine):
 
     def _execute_routed(self, sids: np.ndarray, args: Tuple[Any, ...], kwargs: Dict[str, Any], n: int,
                         coalesced: int, queue_wait_us: float = 0.0) -> None:
-        """Run a batch through the pager in ROUNDS (the JAX package's routed
-        execution at world 1): each round takes up to the top bucket's rows
-        and at most ``resident`` distinct streams (so the pager can always
-        seat it), pages those streams resident, and runs ONE padded step
-        whose segment ids are the pager's slot indices. With a recorder, the
-        group's routing is one ``route`` span (its rows and rounds)."""
+        """Route a batch to the stream shards on the host (the JAX package's
+        routed execution): rows order by home shard (``sid % W``, stable, so
+        each stream keeps its arrival order), then run in ROUNDS, each taking
+        up to ``bucket / W`` rows a shard and at most ``resident`` distinct
+        streams a shard (so the pager can always seat it): the round's
+        streams page resident, and ONE padded step runs, shard ``w`` folding
+        its segment with its pager slot indices as segment ids. The bucket is
+        the smallest whose per-shard block covers the round's longest
+        segment. A non-transient ``shard_loss`` under ``elastic_min_world``
+        reshards the engine and re-routes what the group has not committed.
+        With a recorder, the group's routing is one ``route`` span (its rows
+        and rounds)."""
         t_route0 = time.perf_counter()
-        leaves, _ = tree_flatten((tuple(args), kwargs))
+        world = self._world
+        sids = np.asarray(sids, np.int64)
+        order = np.argsort(sids % world, kind="stable")
+        leaves, treedef = tree_flatten((tuple(args), kwargs))
+        kinds = classify_leaves(leaves, n, self._policy.buckets[-1], world)
+        perm = leaves if world == 1 else [leaf[order] if kind == ROWS else leaf for leaf, kind in zip(leaves, kinds)]
+        a_perm, kw_perm = tree_unflatten(treedef, perm)
+        sids_o = sids[order]
+        home_o = sids_o % world
         # the pager rows of the CURRENT pane, for the whole group at once: the
         # cursor is constant across the call (rotations fall between groups)
-        locs = self._route_locs(sids)
-        per_top = self._policy.buckets[-1]
+        locs = self._route_locs(sids_o)
+        starts = np.searchsorted(home_o, np.arange(world))
+        stops = np.searchsorted(home_o, np.arange(world), side="right")
+        per_top = self._policy.buckets[-1] // world
         route_us = (time.perf_counter() - t_route0) * 1e6
-        cursor, committed = 0, 0
+        cursors, committed = starts.copy(), 0
         try:
-            while cursor < n:
+            while bool(np.any(cursors < stops)):
                 t0 = time.perf_counter()
-                end, distinct = cursor, set()
-                while end < n and end - cursor < per_top:
-                    loc = int(locs[end])
-                    if loc not in distinct and len(distinct) >= self._resident:
-                        break
-                    distinct.add(loc)
-                    end += 1
-                valid = end - cursor
-                bucket = self._policy.bucket_for(valid)
-                round_locs = locs[cursor:end]
-                kinds = classify_leaves(leaves, n, bucket)
-                self._page_round([int(x) for x in round_locs])
-                uniq = np.unique(round_locs)
-                slots = np.asarray([self._pager.slot_of(_SHARD, int(u)) for u in uniq], np.int32)
-                slot_ids = np.zeros((bucket,), np.int32)  # pad rows address slot 0, masked
-                slot_ids[:valid] = slots[np.searchsorted(uniq, round_locs)]
-                # the slot ids lead the args as one whole (bucket,) leaf
-                step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(args), kwargs))
+                segs: List[Tuple[int, int]] = []
+                for w in range(world):
+                    s0, s1 = int(cursors[w]), int(stops[w])
+                    end, distinct = s0, set()
+                    while end < s1 and end - s0 < per_top:
+                        loc = int(locs[end])
+                        if loc not in distinct and len(distinct) >= self._resident:
+                            break
+                        distinct.add(loc)
+                        end += 1
+                    segs.append((s0, end))
+                bucket = self._policy.bucket_for(max(e - b for b, e in segs) * world)
+                per = bucket // world
+                step_kinds = [WHOLE] + classify_leaves(leaves, n, bucket, world)
+                self._page_round({w: [int(x) for x in locs[b:e]] for w, (b, e) in enumerate(segs)})
+                parts = []
+                for w, (b, e) in enumerate(segs):
+                    slot_ids = np.zeros((per,), np.int32)  # pad rows address slot 0, masked
+                    if e > b:
+                        uniq = np.unique(locs[b:e])
+                        slots = np.asarray([self._pager.slot_of(w, int(u)) for u in uniq], np.int32)
+                        slot_ids[:e - b] = slots[np.searchsorted(uniq, locs[b:e])]
+                    # the slot ids lead the args as one whole (per,) leaf
+                    step_leaves, step_def = tree_flatten(((slot_ids,) + tuple(a_perm), kw_perm))
+                    parts.append((step_leaves, step_kinds, step_def, b, e))
                 try:
-                    self._run_padded_step(step_leaves, [WHOLE] + kinds, step_def, cursor, end, bucket,
-                                          coalesced if cursor == 0 else 1, queue_wait_us if cursor == 0 else 0.0,
-                                          t0)
-                except BaseException:
+                    self._run_padded_step(*parts[0], bucket, coalesced if committed == 0 else 1,
+                                          queue_wait_us if committed == 0 else 0.0, t0, parts=parts)
+                except BaseException as e:
                     # a failed step never ran the kernel's decode: seat the staged
                     # slots through the host decode before anything reads them
                     self._q8_flush()
-                    raise
+                    if not self._lost_shard_resharded(e):
+                        raise
+                    # the routing tables were built for the lost topology:
+                    # re-route everything this group has not committed
+                    rem = np.concatenate([np.arange(int(cursors[w]), int(stops[w])) for w in range(world)])
+                    rest = tree_unflatten(treedef, [leaf[rem] if kind == ROWS else leaf
+                                                    for leaf, kind in zip(perm, kinds)])
+                    self._execute_routed(sids_o[rem], tuple(rest[0]), rest[1], int(rem.size),
+                                         coalesced if committed == 0 else 1,
+                                         queue_wait_us if committed == 0 else 0.0)
+                    return
                 self._q8_clear()  # the step decoded every staged slot
                 if self._q8_keys and self._megastep_plan is None:
                     # demoted, and this step seated the last staged slots:
@@ -430,8 +508,10 @@ class MultiStreamEngine(StreamingEngine):
                     self._program_memo.clear()
                 committed += 1
                 self._stats.routed_steps += 1
-                self._pager.touch(_SHARD, [int(x) for x in round_locs])
-                cursor = end
+                for w, (b, e) in enumerate(segs):
+                    cursors[w] = e
+                    if e > b:
+                        self._pager.touch(w, [int(x) for x in locs[b:e]])
         except Exception as e:
             _add_committed(e, committed)
             raise
@@ -441,19 +521,21 @@ class MultiStreamEngine(StreamingEngine):
                         rounds=committed)
             tr.observe("route_us", route_us)
 
-    def _home_row(self, sid: int, pane: Optional[int] = None) -> int:
-        """Stream id (+ pane under a ring window) -> its pager row coordinate
-        (world 1). The pane EXTENDS the stream index (``sid * panes + pane``):
-        each (stream, pane) pair owns its own row, so cold panes page like
-        cold streams. ``pane`` defaults to the current one."""
+    def _home_row(self, sid: int, pane: Optional[int] = None) -> Tuple[int, int]:
+        """Stream id (+ pane under a ring window) -> its home ``(shard, pager
+        row)``: shard ``sid % W``, local stream ``sid // W``. The pane EXTENDS
+        the local index (``loc * panes + pane``): each (stream, pane) pair
+        owns its own row, so cold panes page like cold streams. ``pane``
+        defaults to the current one."""
+        w, loc = sid % self._world, sid // self._world
         if self._pane_rows == 1:
-            return sid
-        return sid * self._pane_rows + (self._pane_cursor if pane is None else int(pane))
+            return w, loc
+        return w, loc * self._pane_rows + (self._pane_cursor if pane is None else int(pane))
 
     def _route_locs(self, sids: np.ndarray) -> np.ndarray:
-        """Vectorized :meth:`_home_row` for the current pane (a step only ever
-        touches the pane being written)."""
-        locs = np.asarray(sids, np.int64)
+        """Vectorized :meth:`_home_row` rows for the current pane (a step only
+        ever touches the pane being written)."""
+        locs = np.asarray(sids, np.int64) // self._world
         return locs * self._pane_rows + self._pane_cursor if self._pane_rows > 1 else locs
 
     def _row_universe(self) -> int:
@@ -500,42 +582,51 @@ class MultiStreamEngine(StreamingEngine):
             values = torch.func.vmap(self._metric.compute_from)(tree)
             return list(enumerate(_values_to_host(values, self._num_streams)))
 
-    def _page_round(self, streams: List[int]) -> None:
-        """Make every stream in ``streams`` resident: plan with the pager,
-        spill the evicted rows to host RAM (encoded under
-        ``compress_payloads``; the ``page_out`` and ``quant_encode`` sites),
-        write the faulted-in rows (spilled, staged or init) into their slots
-        (``page_in``, ``quant_decode``), then commit the bookkeeping. Each
-        phase retries a transient fault through the engine's bounded retry,
-        its sites consulted before any byte moves; the arena is written in
-        place only after the rows to seat are known, and the staged flags,
-        ``page_outs``/``page_ins`` and the pager's tables only after the rows
-        landed."""
-        ops, hits, faults = self._pager.plan_residency(_SHARD, streams)
-        self._stats.page_hits += hits
-        self._stats.page_faults += faults
+    def _page_round(self, needed: Dict[int, List[int]]) -> None:
+        """Make every stream in ``needed`` (shard -> pager rows) resident on
+        its shard: plan with the pager, spill the evicted rows to host RAM
+        (encoded under ``compress_payloads``; the ``page_out`` and
+        ``quant_encode`` sites), write the faulted-in rows (spilled, staged or
+        init) into their slots (``page_in``, ``quant_decode``), then commit
+        the bookkeeping. Each phase retries a transient fault through the
+        engine's bounded retry, its sites consulted before any byte moves;
+        the arena is written in place only after the rows to seat are known,
+        and the staged flags, ``page_outs``/``page_ins`` and the pager's
+        tables only after the rows landed."""
+        ops: List[Any] = []
+        for w in sorted(needed):
+            if needed[w]:
+                shard_ops, hits, faults = self._pager.plan_residency(w, needed[w])
+                ops.extend(shard_ops)
+                self._stats.page_hits += hits
+                self._stats.page_faults += faults
         evicts = [op for op in ops if op.kind == "evict"]
         loads = [op for op in ops if op.kind == "load"]
         tr = self._trace
         gid = self._group_tid or ENGINE_TRACE
         spilled: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
         if evicts:
-            js = torch.tensor([op.slot for op in evicts], device=self._device)
-
-            def spill_once() -> Tuple[Dict[str, np.ndarray], float]:
+            def spill_once() -> Tuple[List[Dict[str, np.ndarray]], float]:
                 self._fault("page_out")
                 t0 = time.perf_counter()
-                rows = {k: _host(gather_rows(v, js)) for k, v in self._state.items()}  # one gather per dtype
+                rows = []
+                for w, group in self._by_shard(evicts):
+                    bufs = self._shard_bufs(w)
+                    js = torch.tensor([op.slot for op in group], device=self._shard_devices[w])
+                    got = {k: _host(gather_rows(v, js)) for k, v in bufs.items()}  # one gather per dtype
+                    rows += [{k: got[k][i] for k in got} for i in range(len(group))]
                 if self._compress and self._row_codec is not None:
                     # quantize BEFORE host RAM holds them; pure in ``rows``
                     self._fault("quant_encode")
-                    rows = self._row_codec.encode_buffers(rows)
+                    enc = self._row_codec.encode_buffers({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+                    rows = [{k: v[i] for k, v in enc.items()} for i in range(len(rows))]
                 return rows, t0
 
             rows, t0 = self._retry_transient(spill_once)
             dur = (time.perf_counter() - t0) * 1e6
-            for i, op in enumerate(evicts):
-                spilled[(op.shard, op.stream)] = {k: rows[k][i].copy() for k in rows}
+            for op, row in zip([op for _, g in self._by_shard(evicts) for op in g], rows):
+                spilled[(op.shard, op.stream)] = {k: np.array(v) for k, v in row.items()}
+                self._shard_pages[op.shard][1] += 1
             self._stats.page_outs += len(evicts)
             if tr is not None:
                 tr.complete("page_out", trace=gid, dur_us=dur, rows=len(evicts))
@@ -550,7 +641,7 @@ class MultiStreamEngine(StreamingEngine):
                 src_rows: List[Dict[str, np.ndarray]] = []
                 staged: List[Any] = []
                 for op in loads:
-                    raw = self._pager.spilled_row(_SHARD, op.stream) if self._q8_keys else None
+                    raw = self._pager.spilled_row(op.shard, op.stream) if self._q8_keys else None
                     if raw is not None and self._row_codec.is_encoded(raw):
                         # q8-resident seat: the staged dtypes' quantized columns
                         # stay zero here; K7 decodes them on the next step
@@ -559,23 +650,31 @@ class MultiStreamEngine(StreamingEngine):
                         src_rows.append(seed)
                         staged.append(st)
                     else:
-                        src_rows.append(self._decoded_spill_row(op.stream) or self._init_row)
+                        src_rows.append(self._decoded_spill_row(op.shard, op.stream) or self._init_row)
                         staged.append(None)
                 return src_rows, staged
 
             src_rows, staged = self._retry_transient(load_once)
-            js = torch.tensor([op.slot for op in loads], device=self._device)
-            for k, buf in self._state.items():
-                scatter_rows(buf, js, torch.from_numpy(np.stack([r[k] for r in src_rows])).to(self._device))
-            for op, st in zip(loads, staged):
-                if st is not None:
+            by_op = {id(op): (row, st) for op, row, st in zip(loads, src_rows, staged)}
+            for w, group in self._by_shard(loads):
+                dev = self._shard_devices[w]
+                js = torch.tensor([op.slot for op in group], device=dev)
+                for k, buf in self._shard_bufs(w).items():
+                    scatter_rows(buf, js, torch.from_numpy(np.stack([by_op[id(op)][0][k] for op in group])).to(dev))
+                for op in group:
+                    st = by_op[id(op)][1]
+                    if st is None:
+                        continue
                     self._stats.q8_staged_rows += 1
-                    self._q8_stage["flags"][op.slot] = 1
+                    stage = self._q8_stage[w]
+                    stage["flags"][op.slot] = 1
                     for k in self._q8_keys:
-                        codes, scales = self._q8_stage[k]
-                        codes[op.slot] = torch.from_numpy(st[k][0]).to(self._device)
-                        scales[op.slot] = torch.from_numpy(st[k][1]).to(self._device)
+                        codes, scales = stage[k]
+                        codes[op.slot] = torch.from_numpy(st[k][0]).to(dev)
+                        scales[op.slot] = torch.from_numpy(st[k][1]).to(dev)
             self._stats.page_ins += len(loads)
+            for op in loads:
+                self._shard_pages[op.shard][0] += 1
             if tr is not None:
                 dur = (time.perf_counter() - t_load) * 1e6
                 tr.complete("page_in", trace=gid, dur_us=dur, rows=len(loads))
@@ -583,6 +682,18 @@ class MultiStreamEngine(StreamingEngine):
         if ops:
             self._pager.commit(ops, spilled)
         self._refresh_gauges()
+
+    def pages_by_shard(self) -> List[Dict[str, int]]:
+        """Page-ins and page-outs of each shard of the current topology."""
+        return [{"page_ins": i, "page_outs": o} for i, o in self._shard_pages]
+
+    @staticmethod
+    def _by_shard(ops: List[Any]) -> List[Tuple[int, List[Any]]]:
+        """Page ops grouped by shard, in shard order (each group in plan order)."""
+        groups: Dict[int, List[Any]] = {}
+        for op in ops:
+            groups.setdefault(op.shard, []).append(op)
+        return sorted(groups.items())
 
     def _refresh_gauges(self) -> None:
         """The paging gauges of the telemetry: occupied slots, spilled
@@ -595,40 +706,43 @@ class MultiStreamEngine(StreamingEngine):
 
     def _q8_reset_stage(self) -> None:
         """Judge the staged dtype set (megastep-eligible dtypes the codec
-        compresses) and allocate the device staging buffers: flags
-        ``(resident,)`` int32 plus per dtype codes ``(resident, n)`` int8 and
-        scales ``(resident, n)`` f32."""
+        compresses) and allocate each shard's staging buffers on its device:
+        flags ``(resident,)`` int32 plus per dtype codes ``(resident, n)``
+        int8 and scales ``(resident, n)`` f32."""
         self._q8_cols: Optional[Dict[str, np.ndarray]] = None
-        self._q8_cols_dev: Optional[Dict[str, torch.Tensor]] = None
+        self._q8_cols_dev: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._q8_stage: List[Dict[str, Any]] = []
+        self._q8_keys: Tuple[str, ...] = ()
         if not self._q8_enabled:
-            self._q8_keys, self._q8_stage = (), {}
             return
         q_mask = self._row_codec.q_mask
         self._q8_keys = tuple(k for k in self._megastep_plan.eligible_keys() if k in q_mask)
         if not self._q8_keys:
-            self._q8_stage = {}
             return
         sizes = self._layout.buffer_sizes()
-        r, dev = self._resident, self._device
-        self._q8_stage = {"flags": torch.zeros((r,), dtype=torch.int32, device=dev)}
-        for k in self._q8_keys:
-            self._q8_stage[k] = (torch.zeros((r, sizes[k]), dtype=torch.int8, device=dev),
-                                 torch.zeros((r, sizes[k]), dtype=torch.float32, device=dev))
+        r = self._resident
+        for dev in self._shard_devices:
+            stage: Dict[str, Any] = {"flags": torch.zeros((r,), dtype=torch.int32, device=dev)}
+            for k in self._q8_keys:
+                stage[k] = (torch.zeros((r, sizes[k]), dtype=torch.int8, device=dev),
+                            torch.zeros((r, sizes[k]), dtype=torch.float32, device=dev))
+            self._q8_stage.append(stage)
+            # the same masks on each device, made once: K7 reads them on every step
+            self._q8_cols_dev[dev] = {k: torch.from_numpy(q_mask[k].astype(np.int32)).to(dev) for k in self._q8_keys}
         self._q8_cols = {k: q_mask[k] for k in self._q8_keys}
-        # the same masks on the device, made once: K7 reads them on every step
-        self._q8_cols_dev = {k: torch.from_numpy(q_mask[k].astype(np.int32)).to(dev) for k in self._q8_keys}
 
-    def _q8_payload(self) -> Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]:
-        """The staging every step of a q8 engine passes to K7 (all flags zero
-        when nothing is staged); None when staging is off."""
+    def _q8_payload(self, shard: int = 0) -> Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]:
+        """The staging every step of a q8 engine passes to K7 for shard
+        ``shard`` (all flags zero when nothing is staged); None when staging
+        is off."""
         if not self._q8_keys:
             return None
-        flags = self._q8_stage["flags"]
-        return {k: (flags,) + tuple(self._q8_stage[k]) for k in self._q8_keys}
+        stage = self._q8_stage[shard]
+        return {k: (stage["flags"],) + tuple(stage[k]) for k in self._q8_keys}
 
     def _q8_clear(self) -> None:
-        if self._q8_keys:
-            self._q8_stage["flags"].zero_()
+        for stage in self._q8_stage if self._q8_keys else ():
+            stage["flags"].zero_()
 
     def _q8_flush(self) -> None:
         """Seat any PENDING staged slots through the host decode (the codec's
@@ -636,53 +750,61 @@ class MultiStreamEngine(StreamingEngine):
         never ran the kernel's seed."""
         if not self._q8_keys:
             return
-        js = torch.nonzero(self._q8_stage["flags"]).reshape(-1)
-        if js.numel():
+        for w, stage in enumerate(self._q8_stage):
+            js = torch.nonzero(stage["flags"]).reshape(-1)
+            if not js.numel():
+                continue
+            bufs = self._shard_bufs(w)
             for k in self._q8_keys:
-                codes, scales = (_host(t[js]) for t in self._q8_stage[k])
+                codes, scales = (_host(t[js]) for t in stage[k])
                 mask = self._q8_cols[k]
-                rows = _host(self._state[k][js])
+                rows = _host(bufs[k][js])
                 rows[:, mask] = (codes.astype(np.float32) * scales)[:, mask]
-                self._state[k][js] = torch.from_numpy(rows).to(self._device, self._state[k].dtype)
+                bufs[k][js] = torch.from_numpy(rows).to(bufs[k].device, bufs[k].dtype)
         self._q8_clear()
 
     # --------------------------------------------------------------------- readers
 
-    def _decoded_spill_row(self, stream: int) -> Optional[Dict[str, np.ndarray]]:
-        """One stream's spilled row from host RAM, decoded when stored
-        compressed (the ``quant_decode`` site; pure in the stored row, so a
-        transient retries clean)."""
-        row = self._pager.spilled_row(_SHARD, stream)
-        if row is not None and self._row_codec is not None and self._row_codec.is_encoded(row):
-            row = self._codec_call("quant_decode", self._row_codec.decode_buffers, row)
-        return row
+    def _decoded_spill_row(self, shard: int, row: int) -> Optional[Dict[str, np.ndarray]]:
+        """One spilled pager row of ``shard`` from host RAM, decoded when
+        stored compressed (the ``quant_decode`` site; pure in the stored row,
+        so a transient retries clean)."""
+        got = self._pager.spilled_row(shard, row)
+        if got is not None and self._row_codec is not None and self._row_codec.is_encoded(got):
+            got = self._codec_call("quant_decode", self._row_codec.decode_buffers, got)
+        return got
 
     def _fetch_row(self, sid: int, pane: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """ONE (stream, pane) packed arena row on the device: its slot when
-        resident, the host-spilled copy when paged out (no eviction), else the
-        init row. ``pane`` defaults to the current one."""
-        loc = self._home_row(sid, pane)
-        slot = self._pager.slot_of(_SHARD, loc)
+        """ONE (stream, pane) packed arena row on the engine's device: its
+        slot when resident, the host-spilled copy when paged out (no
+        eviction), else the init row. ``pane`` defaults to the current one."""
+        w, loc = self._home_row(sid, pane)
+        slot = self._pager.slot_of(w, loc)
         if slot is not None:
-            return {k: v[slot] for k, v in self._state.items()}
-        row = self._decoded_spill_row(loc) or self._init_row
-        return {k: torch.from_numpy(np.asarray(v)).to(self._device, self._state[k].dtype) for k, v in row.items()}
+            return {k: v[slot].to(self._device) for k, v in self._shard_bufs(w).items()}
+        row = self._decoded_spill_row(w, loc) or self._init_row
+        return {k: torch.from_numpy(np.asarray(v)).to(self._device, self._state_dtype(k)) for k, v in row.items()}
+
+    def _state_dtype(self, key: str) -> torch.dtype:
+        return self._shard_bufs(0)[key].dtype
 
     def _all_rows(self) -> Dict[str, torch.Tensor]:
-        """Every pager row, ``(S, n)`` per dtype on the device (``(S * panes,
-        n)`` under a ring window, row ``sid * panes + pane``): the init row
-        tiled, the spilled rows (decoded when stored compressed) written in
-        one upload per dtype, then the resident slots in one device gather per
-        dtype (a resident row has no spill entry)."""
-        dev, s = self._device, self._row_universe()
-        out = {k: torch.from_numpy(self._init_row[k]).to(dev, buf.dtype).expand(s, -1).clone()
-               for k, buf in self._state.items()}
+        """Every pager row, ``(S, n)`` per dtype on the engine's device
+        (``(S * panes, n)`` under a ring window, row ``sid * panes + pane``):
+        the init row tiled, the spilled rows (decoded when stored compressed)
+        written in one upload per dtype, then the resident slots, one device
+        gather per dtype and shard (a resident row has no spill entry).
+        Shard ``w``'s local row ``loc`` is global row ``loc * W + w``."""
+        dev, s, world = self._device, self._row_universe(), self._world
+        out = {k: torch.from_numpy(self._init_row[k]).to(dev, self._state_dtype(k)).expand(s, -1).clone()
+               for k in self._init_row}
         encoded: List[Tuple[int, Dict[str, np.ndarray]]] = []
         plain: List[Tuple[int, Dict[str, np.ndarray]]] = []
-        for sid in self._pager.spilled_streams(_SHARD):
-            row = self._pager.spilled_row(_SHARD, sid)
-            is_enc = self._row_codec is not None and self._row_codec.is_encoded(row)
-            (encoded if is_enc else plain).append((sid, row))
+        for w in range(world):
+            for loc in self._pager.spilled_streams(w):
+                row = self._pager.spilled_row(w, loc)
+                is_enc = self._row_codec is not None and self._row_codec.is_encoded(row)
+                (encoded if is_enc else plain).append((loc * world + w, row))
         for group, decode in ((encoded, True), (plain, False)):
             if not group:
                 continue
@@ -690,14 +812,18 @@ class MultiStreamEngine(StreamingEngine):
             stacked = {key: np.stack([g[1][key] for g in group]) for key in group[0][1]}
             if decode:
                 stacked = self._codec_call("quant_decode", self._row_codec.decode_buffers, stacked)
-            for k in self._state:
+            for k in out:
                 scatter_rows(out[k], sids, torch.from_numpy(stacked[k]).to(dev))
-        resident = self._pager.resident_streams(_SHARD)
-        if resident:
-            sids = torch.from_numpy(np.asarray(resident, np.int64)).to(dev)
-            slots = torch.from_numpy(np.asarray([self._pager.slot_of(_SHARD, r) for r in resident], np.int64)).to(dev)
-            for k, buf in self._state.items():
-                scatter_rows(out[k], sids, gather_rows(buf, slots))
+        for w in range(world):
+            resident = self._pager.resident_streams(w)
+            if not resident:
+                continue
+            bufs = self._shard_bufs(w)
+            sids = torch.from_numpy(np.asarray(resident, np.int64) * world + w).to(dev)
+            slots = torch.from_numpy(np.asarray([self._pager.slot_of(w, r) for r in resident], np.int64)).to(
+                bufs[next(iter(bufs))].device)
+            for k, buf in bufs.items():
+                scatter_rows(out[k], sids, gather_rows(buf, slots).to(dev))
         return out
 
     def _stream_ring(self, sid: int) -> Any:
@@ -709,7 +835,13 @@ class MultiStreamEngine(StreamingEngine):
             rows = [self._fetch_row(sid, pane=p) for p in range(self._pane_rows)]
             return self._layout.unpack_stacked({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
         pick = (lambda x: x[:, sid]) if self._win_stacked else (lambda x: x[sid])
-        return tree_map(pick, self._unpack(self._state))
+        return tree_map(pick, self._unsharded_tree())
+
+    def _unsharded_tree(self) -> Any:
+        """The unsharded form's ``(S, ...)`` logical state: views of the
+        carried state, or the boundary merge of the shards' states under
+        deferred sync."""
+        return self._merged_state() if self._deferred else self._unpack(self._state)
 
     def _stream_tree(self, sid: int) -> Any:
         """One stream's RESULT view: its state, or under a window the open
@@ -718,7 +850,7 @@ class MultiStreamEngine(StreamingEngine):
             if self._pane_rows == 1 or self._window.kind == "tumbling":
                 return self._layout.unpack(self._fetch_row(sid))
             return self._metric.merge_stacked_states(self._stream_ring(sid))
-        tree = self._unpack(self._state)
+        tree = self._unsharded_tree()
         if not self._win_stacked:
             return tree_map(lambda x: x[sid], tree)
         if self._window.kind == "tumbling":
@@ -737,7 +869,7 @@ class MultiStreamEngine(StreamingEngine):
         ...)`` under a ring window, the pane axis outermost (views of the live
         state when unsharded; the paged form assembles it afresh)."""
         if not self._stream_shard:
-            return self._unpack(self._state)
+            return self._unsharded_tree()
         if self._pane_rows == 1:
             return self._layout.unpack_stacked(self._all_rows())
         return self._layout.unpack_stacked(self._paged_rows(range(self._pane_rows)), lead=2)
@@ -746,7 +878,7 @@ class MultiStreamEngine(StreamingEngine):
         """The ``(S, ...)``-stacked RESULT view of every stream: the state, or
         under a window its open pane or the fold of its panes."""
         if not self._stream_shard:
-            return self._window_tree(self._unpack(self._state))
+            return self._window_tree(self._unsharded_tree())
         if self._pane_rows == 1:
             return self._layout.unpack_stacked(self._all_rows())
         if self._window.kind == "tumbling":
@@ -767,7 +899,7 @@ class MultiStreamEngine(StreamingEngine):
             # rung is released (the cache is cleared)
             with self._state_lock:
                 cached = self._result_cache.get(sid)
-                cold = self._pager.slot_of(_SHARD, sid) is None if self._stream_shard else True
+                cold = self._pager.slot_of(*self._home_row(sid)) is None if self._stream_shard else True
             if cached is not None and cold:
                 self._stats.record_deferred_read()
                 if tr is not None:
@@ -827,17 +959,23 @@ class MultiStreamEngine(StreamingEngine):
             self._result_cache.pop(sid, None)
             if self._stream_shard:
                 for p in range(self._pane_rows):
-                    self._pager.drop(_SHARD, self._home_row(sid, p))
+                    self._pager.drop(*self._home_row(sid, p))
                 self._refresh_gauges()
                 return
             init = tree_leaves(self._metric.init_state())
-            for leaf, fresh in zip(tree_leaves(self._unpack(self._state)), init):
-                # in place: the leaves view the arena (the stream axis sits
-                # under the pane axis of a ring)
-                if self._win_stacked:
-                    leaf[:, sid] = fresh.to(leaf.device)
-                else:
-                    leaf[sid] = fresh.to(leaf.device)
+            # every shard's local state under deferred sync: the merge would
+            # fold a stale shard's rows back in
+            trees = ([self._unpack_row(v) for v in self._shard_states()] if self._deferred
+                     else [self._unpack(self._state)])
+            for tree in trees:
+                for leaf, fresh in zip(tree_leaves(tree), init):
+                    # in place: the leaves view the arena (the stream axis sits
+                    # under the pane axis of a ring)
+                    if self._win_stacked:
+                        leaf[:, sid] = fresh.to(leaf.device)
+                    else:
+                        leaf[sid] = fresh.to(leaf.device)
+            self._state_version += 1
 
     def _reset_locked(self) -> None:
         if self._pager is not None:
@@ -857,7 +995,10 @@ class MultiStreamEngine(StreamingEngine):
         # Staged q8 rows are seated first: their quantized columns are still
         # zero in the arena until a step decodes them
         self._q8_flush()
-        arena: Dict[str, Any] = {k: v[None] for k, v in state_to_numpy(self._state).items()}  # (world=1, R, n)
+        if self._mesh is None:
+            arena: Dict[str, Any] = {k: v[None] for k, v in state_to_numpy(self._state).items()}  # (world=1, R, n)
+        else:
+            arena = state_to_numpy(self._stacked_carried())  # (W, R, n)
         if self._compress and self._row_codec is not None:
             arena = self._codec_call("quant_encode", self._row_codec.encode_buffers, arena)
         # spilled rows are already in their at-rest form (encoded on the way
@@ -868,7 +1009,7 @@ class MultiStreamEngine(StreamingEngine):
     def _snapshot_meta_extra(self) -> Dict[str, Any]:
         if not self._stream_shard:
             return {}
-        return {"stream_shard": 1, "num_streams": self._num_streams, "resident": self._resident, "world": 1}
+        return {"stream_shard": 1, "num_streams": self._num_streams, "resident": self._resident, "world": self._world}
 
     def _decoded_pager_payload(self, payload: Dict[str, Any], codec: Optional[ArenaRowCodec]) -> Dict[str, Any]:
         """A pager payload with its spilled rows decoded when they are stored
@@ -919,18 +1060,19 @@ class MultiStreamEngine(StreamingEngine):
         return out
 
     def _seeded_pager_payload(self, rows: Dict[str, np.ndarray], init_row: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """A pager payload for THIS engine (world 1, ``resident`` slots): an
-        empty slot table and every non-init stream row in the spill store,
-        so each faults in on its first touch. A row holding NaN compares
+        """A pager payload for THIS engine (its world, ``resident`` slots): an
+        empty slot table and every non-init stream row in the spill store at
+        its home, so each faults in on its first touch. A row holding NaN compares
         unequal and spills: conservative, never lossy."""
-        payload: Dict[str, Any] = {"slots": np.full((1, self._resident), -1, np.int64)}
+        payload: Dict[str, Any] = {"slots": np.full((self._world, self._resident), -1, np.int64)}
         keys = sorted(rows)
         diff = np.zeros((self._row_universe(),), bool)
         for k in keys:
             diff |= ~np.all(np.asarray(rows[k]) == np.asarray(init_row[k])[None], axis=1)
         sids = np.nonzero(diff)[0].astype(np.int64)
         if sids.size:
-            payload["spill_coords"] = np.stack([np.zeros_like(sids), sids], axis=1)
+            # stream sid's home: shard sid % W, local row sid // W
+            payload["spill_coords"] = np.stack([sids % self._world, sids // self._world], axis=1)
             for k in keys:
                 payload[f"spill_{k}"] = np.asarray(rows[k])[sids]
         return payload
@@ -975,7 +1117,7 @@ class MultiStreamEngine(StreamingEngine):
         return layout.unpack_stacked({k: _tensor_from_numpy(np.asarray(v)[ext]) for k, v in rows.items()}, lead=2)
 
     def _restore_commit(self, state: Any, meta: Dict[str, Any]) -> None:
-        """The stream-shard restore matrix (the JAX package's, at world 1):
+        """The stream-shard restore matrix (the JAX package's):
 
         * paged snapshot -> paged engine of the same world and residency
           (same S): verbatim, arena rows into their slots and the pager's
@@ -1002,7 +1144,7 @@ class MultiStreamEngine(StreamingEngine):
             # of the world and the panes); a world change or a merge into an
             # unsharded engine would re-interleave mid-ring coordinates
             w_snap = int(meta.get("world", 1))
-            if not self._stream_shard or w_snap != 1:
+            if not self._stream_shard or w_snap != self._world:
                 raise MetricsTPUUserError(
                     "a WINDOWED stream-shard snapshot restores into a same-world stream-sharded topology only "
                     f"(snapshot world {w_snap}): pane-extended pager rows have no exact cross-world re-homing — "
@@ -1047,12 +1189,16 @@ class MultiStreamEngine(StreamingEngine):
             )
         if not self._stream_shard:
             decoded = {"arena": arena, "pager": self._decoded_pager_payload(pager_payload, snap_codec)}
-            self._finish_restore(self._put_state(self.sshard_piece_logical(self._metric, decoded, meta)), meta)
+            logical = self.sshard_piece_logical(self._metric, decoded, meta)
+            carried = self._put_shards(self._shard0_trees(logical)) if self._deferred else self._put_state(logical)
+            self._finish_restore(carried, meta)
             return
         init_row = self._host_init_row(self._metric)
-        if world_snap == 1 and r_snap == self._resident:
-            carried = {k: _tensor_from_numpy(np.asarray(arena[k])[0]).to(self._device, buf.dtype)
-                       for k, buf in self._state.items()}
+        if world_snap == self._world and r_snap == self._resident:
+            dtypes = {k: self._state_dtype(k) for k in arena}
+            stacked = {k: _tensor_from_numpy(np.asarray(arena[k])).to(dtypes[k]) for k in arena}
+            carried = ({k: v[0].to(self._device) for k, v in stacked.items()} if self._mesh is None
+                       else self._put_stacked_carried(stacked))
             payload = self._normalized_pager_payload(pager_payload, snap_codec)
         else:
             # another topology: slot tables are topology-local, the rows are
@@ -1066,6 +1212,37 @@ class MultiStreamEngine(StreamingEngine):
             self._finish_restore(carried, meta)
             self._pager.load_payload(payload)
             self._q8_clear()
+            self._refresh_gauges()
+
+    # ------------------------------------------------------------ elastic reshard
+
+    def _topology_state(self) -> Dict[str, Any]:
+        t = super()._topology_state()
+        if self._stream_shard:
+            t.update(pager=self._pager, resident=self._resident, local_streams=self._local_streams,
+                     q8=(self._q8_stage, self._q8_cols_dev), pages=self._shard_pages)
+        return t
+
+    def _apply_topology_state(self, t: Dict[str, Any]) -> None:
+        super()._apply_topology_state(t)
+        if self._stream_shard:
+            self._pager, self._resident, self._local_streams = t["pager"], t["resident"], t["local_streams"]
+            self._q8_stage, self._q8_cols_dev = t["q8"]
+            self._shard_pages = t["pages"]
+            self._refresh_gauges()
+
+    def _apply_topology(self, mesh: Mesh, world: int, policy: Any, resident_streams: Optional[int] = None) -> None:
+        if self._stream_shard:
+            # the stream-shard factor IS the world: the per-shard stream census
+            # and a FRESH pager; the restore right after re-homes every row
+            self._local_streams = -(-self._num_streams // world) * self._pane_rows
+            r = int(resident_streams) if resident_streams is not None else self._resident
+            self._resident = min(max(1, r), self._local_streams)
+            self._pager = StreamPager(world, self._resident)
+            self._shard_pages = [[0, 0] for _ in range(world)]
+        super()._apply_topology(mesh, world, policy, resident_streams)
+        if self._stream_shard:
+            self._q8_reset_stage()
             self._refresh_gauges()
 
     @property

@@ -75,8 +75,8 @@ refuses each submit before it queues (a refused batch never takes a replay
 cursor; a submit whose enqueue then fails is refunded), and a ``ladder``
 ticks once per dispatcher group (and on a producer's shed rejection),
 engaging or releasing one rung at a time: ``widen_coalesce`` moves
-``coalesce_window_ms``, ``quantize_sync`` is a recorded no-op without a
-mesh, ``defer_cold_reads`` serves a cold stream's cached ``result()``,
+``coalesce_window_ms``, ``quantize_sync`` forces the q8 sync policy on a
+mesh (a recorded no-op without one), ``defer_cold_reads`` serves a cold stream's cached ``result()``,
 ``shed`` rejects the lowest priority class.
 
 Windows (``engine/windows.py``, ``engine/tracker.py``): ``window`` serves a
@@ -94,18 +94,40 @@ retried rotation clears or decays exactly once. A ``drift`` detector reads
 the closing pane's result at each rotation (``drift_eval``, a pure read) and
 records it once. Snapshots carry the ring's provenance and restore mid-ring.
 
-Meshes and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A):
-their ``EngineConfig`` fields, and an injector plan naming one of their fault
-sites, raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
+Meshes (``parallel/mesh.py``, ``parallel/embedded.py``): with ``mesh`` the
+engine is one controller driving the mesh's W shards, as the JAX package's
+``shard_map``-ped step is. Each padded bucket splits over the shards as
+JAX's ``P(axis)`` splits it (``bucketing.shard_blocks``: W contiguous
+``bucket / W``-row blocks, pad rows in the last shards), and every step runs
+the world-1 step once per shard, on the shard's rows, on the shard's device
+and stream: on the card a captured graph per (bucket, device), replayed W
+times a step on a one-device mesh. ``mesh_sync="step"`` folds each shard's
+rows into a fresh state, merges the W deltas in one fused collective bundle
+and merges the global delta into the carried GLOBAL state;
+``mesh_sync="deferred"`` carries each shard's LOCAL state (the ``(W, n)``
+arena on one device, one arena per device across devices) and issues no
+collective until a boundary (``result``, ``state``, a snapshot), where the
+whole states merge in one bundle, memoized on the state version, behind the
+``merge`` fault site. The mesh's layout picks the transport: NCCL group calls
+across distinct CUDA devices, a reduction over a stacked shard axis on one
+device. ``reshard()`` moves a live engine to another world through its own
+snapshot and the restore matrix (rolling back on a refusal, behind the
+``reshard_snapshot``/``reshard_restore`` sites), and ``elastic_min_world``
+arms the ``shard_loss`` site's recovery: a lost shard reshards the engine to
+the largest bucket-compatible smaller world and re-runs the chunk. Windows on
+a mesh and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A): they
+raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`, as does an
+injector plan naming a fleet site.
 """
 import copy
+import functools
 import queue
 import threading
 import time
 import weakref
 from collections import deque
 from contextlib import contextmanager, nullcontext
-from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +143,7 @@ from metrics_tpu_torch.engine.bucketing import (
     on_card,
     pad_leaves,
     padded_shape,
+    shard_blocks,
     torch_dtype,
 )
 from metrics_tpu_torch.engine.faults import (
@@ -142,6 +165,15 @@ from metrics_tpu_torch.engine.trace import ENGINE_TRACE, TraceRecorder, render_o
 from metrics_tpu_torch.engine.tracker import DriftDetector
 from metrics_tpu_torch.engine.windows import WindowPolicy
 from metrics_tpu_torch.metric import StateSpec
+from metrics_tpu_torch.parallel.collectives import fused_sync_plan, sync_payload_bytes
+from metrics_tpu_torch.parallel.embedded import (
+    boundary_merge_error,
+    sharded_local_step,
+    sharded_masked_step,
+    sharded_state_merge,
+    stream_sharded_step,
+)
+from metrics_tpu_torch.parallel.mesh import Mesh
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.data import _aux_leaves_equal, infer_batch_size, is_batch_leaf
 from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError, NotPortedError
@@ -151,14 +183,12 @@ from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tr
 __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
-_NOT_PORTED_FIELDS = (
-    "compilation_cache_dir", "mesh", "axis", "mesh_sync", "donate", "elastic_min_world",
-)
+_NOT_PORTED_FIELDS = ("compilation_cache_dir",)
 #: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
 _PORTED_FAULT_SITES = (
-    "ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
-    "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
-    "pane_rotate", "drift_eval",
+    "ingest", "coalesce", "compile", "step", "kernel", "shard_loss", "watchdog", "merge", "page_out", "page_in",
+    "quant_encode", "quant_decode", "reshard_snapshot", "reshard_restore", "snapshot_write", "snapshot_corrupt",
+    "snapshot_read", "dispatcher_kill", "admission", "pane_rotate", "drift_eval",
 )
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
@@ -226,9 +256,10 @@ class EngineConfig:
             at every site the engines wire (``ingest``, ``coalesce``,
             ``compile``, ``step``, ``kernel``, ``watchdog``, ``page_out``,
             ``page_in``, ``quant_encode``, ``quant_decode``, the snapshot
-            sites, ``dispatcher_kill``, ``admission``, ``pane_rotate`` and
-            ``drift_eval``); a plan naming a
-            site of a layer the port does not have yet raises
+            sites, ``dispatcher_kill``, ``admission``, ``pane_rotate``,
+            ``drift_eval`` and the mesh's ``shard_loss``, ``merge``,
+            ``reshard_snapshot`` and ``reshard_restore``); a plan naming a
+            fleet site (``host_loss``, ``fleet_barrier``) raises
             :class:`NotPortedError`.
         screen: optional :class:`~metrics_tpu_torch.engine.faults.ScreenPolicy`:
             each batch is screened on the host before anything is uploaded;
@@ -277,7 +308,7 @@ class EngineConfig:
             histogram when one is attached, the stats ring otherwise; the
             pager's spill rate; queue fill) and applies or releases rungs on
             its transitions: widen ``coalesce_window_ms``, ``quantize_sync``
-            (a recorded no-op: the port has no mesh), defer cold-stream
+            (the q8 sync policy on a mesh; a recorded no-op without one), defer cold-stream
             ``result()`` reads, shed the lowest priority class (needs
             ``admission``). Every transition is a ``ladder`` trace event.
 
@@ -296,6 +327,27 @@ class EngineConfig:
             transient retries and the detector records once); transitions
             are ``drift_alarm`` trace events and the ``drift_alarms``
             OpenMetrics counter. Needs a rotating ``window``.
+        mesh: optional :class:`~metrics_tpu_torch.parallel.mesh.Mesh`
+            (``MeshConfig(...).make_mesh()``): the engine's steps shard each
+            bucket over the mesh. Its first device must be the metric's.
+        axis: the mesh axis (or tuple of axes) carrying the batch shards;
+            the port's engines shard over every axis of their mesh.
+        mesh_sync: WHEN shard contributions merge (with a mesh): ``"step"``
+            merges the per-shard deltas in every step, so the carried state
+            is always the global one, at one fused collective bundle a step;
+            ``"deferred"`` carries shard-local states, issues no collective
+            in the steady state and merges whole states at boundaries
+            (``result``, ``state``, snapshots), which also serves the scan
+            strategy (the capacity curves) on a mesh.
+        donate: the JAX package's buffer donation. A captured step always
+            writes the state in place; the field keeps JAX's default of
+            ``transactional`` (on when donation is off or not possible, as
+            on the CPU).
+        elastic_min_world: arm shard-loss recovery: a non-transient
+            ``shard_loss`` fault reshards the engine in place to the largest
+            bucket-compatible world below the current one, never below this
+            floor, and the chunk re-runs there. 0 (default): shard loss goes
+            sticky like any other fault.
 
     Any other field of the JAX package's ``EngineConfig`` raises
     :class:`NotPortedError`.
@@ -330,6 +382,11 @@ class EngineConfig:
         ladder: Optional[DegradationLadder] = None,
         window: Optional[WindowPolicy] = None,
         drift: Optional[DriftDetector] = None,
+        mesh: Optional[Mesh] = None,
+        axis: Any = "dp",
+        mesh_sync: str = "step",
+        donate: bool = True,
+        elastic_min_world: int = 0,
         **fields: Any,
     ) -> None:
         unported = sorted(k for k in fields if k in _NOT_PORTED_FIELDS)
@@ -371,6 +428,11 @@ class EngineConfig:
         self.ladder = ladder
         self.window = window
         self.drift = drift
+        self.mesh = mesh
+        self.axis = axis
+        self.mesh_sync = mesh_sync
+        self.donate = bool(donate)
+        self.elastic_min_world = int(elastic_min_world)
 
     def __repr__(self) -> str:
         return (f"EngineConfig(buckets={self.buckets}, max_queue={self.max_queue}, in_flight={self.in_flight}, "
@@ -384,7 +446,8 @@ class EngineConfig:
                 f"step_timeout_s={self.step_timeout_s}, transactional={self.transactional}, "
                 f"degrade_kernel={self.degrade_kernel}, telemetry_capacity={self.telemetry_capacity}, "
                 f"trace={self.trace!r}, admission={self.admission!r}, ladder={self.ladder!r}, "
-                f"window={self.window!r}, drift={self.drift!r})")
+                f"window={self.window!r}, drift={self.drift!r}, mesh={self.mesh!r}, axis={self.axis!r}, "
+                f"mesh_sync={self.mesh_sync!r}, donate={self.donate}, elastic_min_world={self.elastic_min_world})")
 
 
 _STOP = object()  # the dispatcher's stop sentinel
@@ -431,6 +494,43 @@ def _same_batch_leaf(a: Any, b: Any) -> bool:
     return False
 
 
+def _reshard_devices(home: List[torch.device], world: int) -> List[torch.device]:
+    """The devices of a ``reshard(world=...)`` target. ``home`` is the
+    distinct devices of the mesh the engine was built with, the metric's
+    first: it repeated on a one-device engine and at world 1, else ``home``
+    in order, then the machine's other CUDA devices. Shrinking and growing
+    back returns to the same devices, the metric's first."""
+    if world == 1 or len(home) == 1:
+        return [home[0]] * world
+    others = (torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    devs = list(home) + [d for d in others if d not in home]
+    if world > len(devs):
+        raise MetricsTPUUserError(f"reshard(world={world}) exceeds the {len(devs)} available cuda devices")
+    return devs[:world]
+
+
+def _norm_device(dev: torch.device) -> torch.device:
+    """``cuda`` with its index (the current device's when unnamed), so equal
+    devices compare and hash equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _mesh_step_unsupported_reason(metric: Any) -> Optional[str]:
+    """Step sync merges per-shard DELTAS (a masked update from a fresh
+    state, synced, merged into the carry): exact for the delta and custom
+    strategies, not for a scan-strategy member, whose states (the capacity
+    curves' buffers) do not merge per step. Deferred sync serves those."""
+    strategies = (metric.masked_update_strategies() if hasattr(metric, "masked_update_strategies")
+                  else {type(metric).__name__: metric.masked_update_strategy()})
+    for name, strategy in strategies.items():
+        if strategy == "scan":
+            return (f"member {name!r} needs the sequential masked fallback, which has no exact step-sync mesh "
+                    "(shard-and-merge) form; serve it on a single device or under EngineConfig(mesh_sync='deferred')")
+    return None
+
+
 def _metric_device(metric: Any) -> torch.device:
     if hasattr(metric, "_defaults"):
         return metric.device
@@ -465,10 +565,18 @@ class StreamingEngine:
         # the same config (shallow: the injector, recorder and policy objects
         # are meant to be shared)
         self._cfg = copy.copy(config) if config is not None else EngineConfig()
-        reason = self._update_path_unsupported_reason(metric)
+        self._init_mesh()
+        reason = self._serving_unsupported_reason(metric)
         if reason is not None:
             raise MetricsTPUUserError(f"metric cannot be served by the streaming engine: {reason}")
-        self._device = _metric_device(metric)
+        self._device = _norm_device(_metric_device(metric))
+        if self._mesh is not None:
+            self._check_mesh_device(self._mesh)
+        # the devices a reshard(world=...) picks first: the built mesh's own, in order
+        self._home_devices = ([self._device] if self._mesh is None
+                              else list(dict.fromkeys(_norm_device(d) for d in self._axis.devices)))
+        if self._cfg.elastic_min_world < 0:
+            raise MetricsTPUUserError(f"elastic_min_world must be >= 0, got {self._cfg.elastic_min_world}")
         if self._cfg.max_retries < 0:
             raise MetricsTPUUserError(f"max_retries must be >= 0, got {self._cfg.max_retries}")
         if self._cfg.step_timeout_s < 0:
@@ -488,8 +596,11 @@ class StreamingEngine:
                 f"config.ladder must be a DegradationLadder, got {type(self._cfg.ladder).__name__}")
         if self._cfg.snapshot_every > 0 and not self._cfg.snapshot_dir:
             raise MetricsTPUUserError("snapshot_every > 0 requires snapshot_dir")
-        self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value)
+        self._policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value, divisor=self._world)
         self._stats = EngineStats(self._cfg.telemetry_capacity)
+        if self._mesh is not None:
+            self._stats.mesh_sync = "deferred" if self._deferred else "step"
+            self._stats.mesh_transport = self._mesh.transport
         self._init_window(metric)
         # None (the default) keeps every site at one `is not None` test
         self._admission = self._cfg.admission
@@ -512,6 +623,7 @@ class StreamingEngine:
         self._ladder_ticks = 0
         self._ladder_p99: Optional[float] = None  # the throttled signal
         self._ladder_saved_window = self._cfg.coalesce_window_ms
+        self._ladder_quantized = False  # the quantize rung forced the q8 policy
         self._defer_cold_reads = False
         self._result_cache: Dict[Any, Any] = {}
         # the flight recorder: None means every site is one None test
@@ -545,12 +657,29 @@ class StreamingEngine:
                 self._megastep_plan = MegastepPlan(metric, self._layout)
                 for key, why in sorted(self._megastep_plan.fallback_reasons().items()):
                     self._stats.record_kernel_fallback(f"dtype.{key}:{why}")
+        # -- the shards: per device a stream and, across devices, a replica
+        # of the metric with its megastep plan (shard 0 runs on the metric)
+        cuda = self._device.type == "cuda"
+        #: every copy, replay and page-in of this engine runs on its device's stream
+        self._stream: Optional[torch.cuda.Stream] = torch.cuda.Stream(self._device) if cuda else None
+        self._dev_streams: Dict[torch.device, torch.cuda.Stream] = {self._device: self._stream} if cuda else {}
+        self._dev_metrics: Dict[torch.device, Any] = {self._device: metric}
+        self._dev_plans: Dict[torch.device, Optional[MegastepPlan]] = {self._device: self._megastep_plan}
+        self._setup_shards()
+        # bumped by a reshard; the dispatcher binds its per-device streams
+        # anew when its own mark differs
+        self._topology_epoch = 0
+        self._worker_epoch = 0
+        # the boundary merge's memo, keyed on the state version (bumped by
+        # every commit, restore, reset and reshard)
+        self._state_version = 0
+        self._merged_memo: Optional[Tuple[int, Any]] = None
+        self._payload_split: Optional[Tuple[int, int]] = None
+        self._deltas: Optional[List[Any]] = None  # step sync's per-shard delta buffers
+        self._delta_init: Optional[List[Any]] = None
         self._state = self._put_state(self._init_state_tree())
         # -- the dispatcher and its captured steps
         self._aot = aot_cache if aot_cache is not None else AotCache()
-        cuda = self._device.type == "cuda"
-        #: every copy, replay and page-in of this engine runs on this stream
-        self._stream: Optional[torch.cuda.Stream] = torch.cuda.Stream(self._device) if cuda else None
         # the production step on the card is the captured one; the eager step
         # stays reachable here only to compare the two (bit-equality, timing)
         self._capture = cuda
@@ -572,12 +701,13 @@ class StreamingEngine:
         # transactional steps: None follows the JAX package's rule for donated
         # state, since a captured step writes the state in place as a donating
         # step consumes it: on the card with an injector or an armed
-        # watchdog (whose expiry recovery needs the shadow), always on the
-        # CPU, where JAX's shadow is a free reference and the port's one host
-        # copy a step
+        # watchdog (whose expiry recovery needs the shadow), or with donation
+        # off; always on the CPU, where JAX's shadow is a free reference and
+        # the port's one host copy a step
+        self._donate = self._cfg.donate and cuda
         self._transactional = (
             bool(self._cfg.transactional) if self._cfg.transactional is not None
-            else (not cuda) or inj is not None or self._cfg.step_timeout_s > 0
+            else (not self._donate) or inj is not None or self._cfg.step_timeout_s > 0
         )
         #: the pre-step copy a failed step rolls back from, allocated at the first step
         self._shadow: Any = None
@@ -645,6 +775,228 @@ class StreamingEngine:
 
     def _update_path_unsupported_reason(self, metric: Any) -> Optional[str]:
         return metric.masked_update_unsupported_reason()
+
+    def _serving_unsupported_reason(self, metric: Any) -> Optional[str]:
+        """The update capability, then the mesh's: deferred sync needs every
+        state to merge across a stack axis at the boundary; step sync needs
+        an exact per-step delta merge (no scan-strategy member)."""
+        reason = self._update_path_unsupported_reason(metric)
+        if reason is not None or self._mesh is None:
+            return reason
+        if self._deferred:
+            r = metric.stacked_merge_unsupported_reason()
+            return None if r is None else f"deferred-sync mesh serving needs dist_reduce_fx-mergeable states: {r}"
+        return _mesh_step_unsupported_reason(metric)
+
+    # ------------------------------------------------------------------ the mesh
+
+    def _init_mesh(self) -> None:
+        """Validate the mesh fields as the JAX package does and pin the sync
+        mode, the axis and the world."""
+        cfg = self._cfg
+        if cfg.mesh_sync not in ("step", "deferred"):
+            raise MetricsTPUUserError(f"mesh_sync must be 'step' or 'deferred', got {cfg.mesh_sync!r}")
+        if cfg.mesh_sync == "deferred" and cfg.mesh is None:
+            raise MetricsTPUUserError(
+                "mesh_sync='deferred' needs a mesh: without one there are no shard-local states to defer the merge "
+                "of (drop mesh_sync or set mesh)"
+            )
+        if cfg.mesh is not None and not isinstance(cfg.mesh, Mesh):
+            raise MetricsTPUUserError(
+                f"config.mesh must be a metrics_tpu_torch.parallel.mesh.Mesh (MeshConfig(...).make_mesh()), got "
+                f"{type(cfg.mesh).__name__}"
+            )
+        win = cfg.window
+        if cfg.mesh is not None and isinstance(win, WindowPolicy) and win.kind != "cumulative":
+            raise NotPortedError("windowed serving on a mesh (EngineConfig(mesh=..., window=...)) is not ported yet "
+                                 "(see ROADMAP.md §A)")
+        self._mesh: Optional[Mesh] = cfg.mesh
+        self._deferred = self._mesh is not None and cfg.mesh_sync == "deferred"
+        self._axis = self._mesh.axis(cfg.axis) if self._mesh is not None else None
+        self._world = self._axis.world if self._axis is not None else 1
+        self._nccl = self._mesh is not None and self._mesh.transport == "nccl"
+
+    def _setup_shards(self) -> None:
+        """Each shard's device, and per device its stream and (across
+        devices) the metric replica and megastep plan its steps run on."""
+        self._shard_devices: List[torch.device] = (
+            [self._device] if self._mesh is None else [_norm_device(d) for d in self._axis.devices])
+        for dev in self._shard_devices:
+            if dev in self._dev_metrics:
+                continue
+            self._dev_streams[dev] = torch.cuda.Stream(dev)
+            replica = copy.deepcopy(self._metric).to(dev)
+            self._dev_metrics[dev] = replica
+            self._dev_plans[dev] = MegastepPlan(replica, self._layout) if self._megastep_plan is not None else None
+
+    def _shard_metric(self, shard: int) -> Any:
+        return self._dev_metrics[self._shard_devices[shard]] if shard else self._metric
+
+    def _shard_plan(self, shard: int) -> Optional[MegastepPlan]:
+        """Shard ``shard``'s megastep plan (None once demoted)."""
+        if self._megastep_plan is None or not shard:
+            return self._megastep_plan
+        return self._dev_plans[self._shard_devices[shard]]
+
+    def _shard_stream(self, shard: int) -> Optional[torch.cuda.Stream]:
+        return self._dev_streams.get(self._shard_devices[shard])
+
+    def _streams(self) -> List[torch.cuda.Stream]:
+        """The distinct streams of the engine's devices (none on the CPU)."""
+        return list({id(st): st for st in (self._shard_stream(k) for k in range(self._world))
+                     if st is not None}.values())
+
+    def _bind_streams(self) -> None:
+        """Make the engine's stream the current one of each of its devices on
+        the calling thread (the dispatcher's; thread-local, per device: every
+        launch of the thread goes there), the first device current."""
+        self._worker_epoch = self._topology_epoch
+        if self._stream is None:
+            return
+        for st in self._streams():
+            torch.cuda.set_stream(st)  # also makes its device current
+        torch.cuda.set_device(self._stream.device)
+
+    def _sync_tag(self) -> str:
+        """The sync mode every program key carries (JAX's ``_sync_tag``):
+        step-sync and deferred steps differ over identical payloads."""
+        return "deferred" if self._deferred else "step"
+
+    def _shard_view(self, shard: int) -> Any:
+        """Shard ``shard``'s LOCAL carried state under deferred sync: a row
+        view of the ``(W, ...)`` buffers on one device, its own buffers across
+        devices."""
+        if self._nccl:
+            return self._state[shard]
+        return tree_map(lambda x: x[shard], self._state)
+
+    def _shard_states(self) -> List[Any]:
+        return [self._shard_view(k) for k in range(self._world)]
+
+    def _put_shards(self, trees: List[Any]) -> Any:
+        """The deferred carried form of the W shards' LOGICAL trees."""
+        if self._nccl:
+            return [self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(dev), t))
+                    for t, dev in zip(trees, self._shard_devices)]
+        leaves = [tree_flatten(t)[0] for t in trees]
+        treedef = tree_flatten(trees[0])[1]
+        stacked = tree_unflatten(treedef, [torch.stack([torch.as_tensor(x).to(self._device) for x in col])
+                                           for col in zip(*leaves)])
+        return stacked if self._layout is None else self._layout.pack_stacked(stacked)
+
+    def _put_stacked_carried(self, stacked: Any) -> Any:
+        """A snapshot's ``(W, ...)`` shard-stacked carried form, verbatim."""
+        if self._nccl:
+            return [tree_map(lambda x, k=k, dev=dev: torch.as_tensor(x[k]).to(dev), stacked)
+                    for k, dev in enumerate(self._shard_devices)]
+        return tree_map(lambda x: torch.as_tensor(x).to(self._device), stacked)
+
+    def _stacked_carried(self) -> Any:
+        """The deferred carried state as ``(W, ...)`` tensors (gathered onto
+        the first device across devices): a snapshot's form."""
+        if not self._nccl:
+            return self._state
+        leaves = [tree_flatten(s)[0] for s in self._state]
+        return tree_unflatten(tree_flatten(self._state[0])[1],
+                              [torch.stack([x.to(self._device) for x in col]) for col in zip(*leaves)])
+
+    def _shard0_trees(self, tree: Any) -> List[Any]:
+        """The exact deferred embedding of a GLOBAL state: shard 0 holds it,
+        every other shard the init state, which the boundary merge folds away."""
+        return [tree] + [self._kind_init_state_tree() for _ in range(self._world - 1)]
+
+    def _delta_targets(self) -> List[Any]:
+        """Step sync's per-shard delta buffers, reset to the init state: each
+        shard's fold starts from a fresh state (its masked delta)."""
+        if self._deltas is None:
+            self._delta_init = [self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(dev),
+                                                         self._kind_init_state_tree()))
+                                for dev in self._shard_devices]
+            self._deltas = [tree_map(torch.empty_like, init) for init in self._delta_init]
+        for dst, src in zip(self._deltas, self._delta_init):
+            self._write_state(src, into=dst)
+        return self._deltas
+
+    def _mesh_step(self, fold: Callable[[int, Any, Any], Any], parts: List[Any]) -> Any:
+        """One mesh step through its builder (``parallel/embedded.py``) over
+        the shards' parts and folds (``fold(k, target, part)``, None where the graph
+        wrote ``target`` in place): deferred sync the local step (the
+        stream-sharded routed step on the paged engine) over the shards'
+        local states; step sync the masked step, each shard's delta its fold
+        into its reset delta buffer, merged into the engine's one replica
+        of the global state. Returns what the commit writes: the W new
+        local states (None: written), or the new global state."""
+        blocks = [(part, part[4] - part[3]) for part in parts]
+        if self._deferred:
+            build = stream_sharded_step if getattr(self, "_stream_shard", False) else sharded_local_step
+            step = build(lambda state, part, k: fold(k, state, part), self._mesh, self._cfg.axis)
+            return step(self._shard_states(), blocks)[0]
+        deltas = self._deltas
+
+        def delta(k: int, part: Any) -> Any:
+            out = fold(k, deltas[k], part)
+            if out is not None:  # delta buffers are scratch: written at once
+                self._write_state(out, into=deltas[k])
+            return deltas[k]
+
+        step = sharded_masked_step(self._metric, self._mesh, self._cfg.axis, self._layout, delta_fn=delta)
+        new = step([self._state], blocks)[0][0]
+        self._stats.record_sync_payload(*self._sync_payload_split())
+        return new
+
+    def _payload_leaf_info(self) -> Optional[List[Any]]:
+        """The ``(fx, leaf, precision)`` triples one fused sync of this
+        engine's logical state moves."""
+        return self._metric.sync_leaf_info()
+
+    def _sync_payload_split(self) -> Tuple[int, int]:
+        """(exact, quantized) bytes one shard contributes to one fused sync
+        (``fused_sync_plan``), memoized per topology."""
+        if self._payload_split is None:
+            info = self._payload_leaf_info()
+            if not info:
+                self._payload_split = (0, 0)
+            else:
+                total = sync_payload_bytes(info, self._world)
+                quant = 4 * fused_sync_plan(info, self._world)["q8_words"]
+                self._payload_split = (total - quant, quant)
+        return self._payload_split
+
+    def _merged_state(self) -> Any:
+        """The deferred boundary merge (caller holds the state lock, inside
+        :meth:`_device_section`): the shard-local states through one fused
+        bundle into the global LOGICAL state, behind the ``merge`` fault site
+        and the bounded retry, blocked on before returning, and memoized on
+        the state version so reads between updates share one merge. The
+        merge only reads the shard states: a failure leaves them intact."""
+        if self._merged_memo is not None and self._merged_memo[0] == self._state_version:
+            return self._merged_memo[1]
+        merge = sharded_state_merge(self._metric, self._mesh, self._cfg.axis,
+                                    unpack=self._unpack_row if self._layout is not None else None)
+
+        def merge_once() -> Tuple[Any, float]:
+            self._fault("merge")
+            t0 = time.perf_counter()
+            merged = merge(self._shard_states())
+            for st in self._streams():
+                torch.cuda.current_stream(st.device).synchronize()
+            return merged, t0
+
+        try:
+            merged, t0 = self._retry_transient(merge_once)
+        except BaseException as e:  # noqa: BLE001 - typed below
+            err = boundary_merge_error(self._cfg.axis, self._world, e)
+            if err is e:
+                raise
+            raise err from e
+        merge_us = (time.perf_counter() - t0) * 1e6
+        self._stats.record_merge(merge_us)
+        self._stats.record_sync_payload(*self._sync_payload_split())
+        if self._trace is not None:
+            self._trace.complete("merge", trace=ENGINE_TRACE, dur_us=merge_us)
+            self._trace.observe("merge_latency_us", merge_us)
+        self._merged_memo = (self._state_version, merged)
+        return merged
 
     def _megastep_unsupported_reason(self) -> Optional[str]:
         """Why this engine cannot take the megastep path at all (None: it can).
@@ -720,7 +1072,10 @@ class StreamingEngine:
         return tree_map(lambda x: x[self._pane_cursor], tree)
 
     def _put_state(self, tree: Any) -> Any:
-        """The carried form of a logical state tree, on the engine's device."""
+        """The carried form of a logical state tree, on the engine's device
+        (under deferred sync every shard's local state starts from it)."""
+        if self._deferred:
+            return self._put_shards([tree] * self._world)
         return self._pack(tree_map(lambda x: torch.as_tensor(x).to(self._device), tree))
 
     def _write_state(self, carried: Any, into: Any = None) -> None:
@@ -734,39 +1089,45 @@ class StreamingEngine:
     @contextmanager
     def _device_section(self) -> Iterator[None]:
         """Hold the state lock for a read or write of the carried state on the
-        caller's thread: the caller's stream first waits for the engine
-        stream's work, and the engine stream's later work waits for the
-        caller's."""
+        caller's thread: on each of the engine's devices the caller's stream
+        first waits for the engine stream's work, and the engine stream's
+        later work waits for the caller's."""
         with self._state_lock:
-            if self._stream is None:
+            streams = self._streams()
+            if not streams:
                 yield
                 return
-            caller = torch.cuda.current_stream(self._device)
-            caller.wait_stream(self._stream)
+            callers = [torch.cuda.current_stream(st.device) for st in streams]
+            for caller, st in zip(callers, streams):
+                caller.wait_stream(st)
             try:
                 yield
             finally:
-                self._stream.wait_stream(caller)
+                for caller, st in zip(callers, streams):
+                    st.wait_stream(caller)
 
     # -------------------------------------------------------------------- the step
 
-    def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor) -> Any:
+    def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor, shard: int = 0) -> Any:
         """The step body on the LOGICAL state tree (the multi-stream engine
-        reroutes it to the segmented update)."""
+        reroutes it to the segmented update), on shard ``shard``'s metric."""
         a, kw = payload
-        return self._metric.update_state_masked(state_tree, *a, mask=mask, **kw)
+        return self._shard_metric(shard).update_state_masked(state_tree, *a, mask=mask, **kw)
 
-    def _step_aux(self) -> Any:
+    def _step_aux(self, shard: int = 0) -> Any:
         """The engine's per-step extras besides the carried state (the paged
-        engine's q8 staging); None here."""
+        engine's q8 staging of shard ``shard``); None here."""
         return None
 
-    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor) -> Any:
-        """One padded step on the carried state; returns the new carried
-        state and writes none of its inputs (it is what a graph captures)."""
-        if self._megastep_plan is not None:
-            return self._megastep_plan.apply_masked(state, a, kw, mask)
-        return self._pack_row(self._traced_update(self._unpack_row(state), (a, kw), mask))
+    def _step_state(self, state: Any, aux: Any, a: Tuple[Any, ...], kw: Dict[str, Any], mask: torch.Tensor,
+                    shard: int = 0) -> Any:
+        """One padded step of shard ``shard`` on its carried state; returns
+        the new carried state and writes none of its inputs (it is what a
+        graph captures)."""
+        plan = self._shard_plan(shard)
+        if plan is not None:
+            return plan.apply_masked(state, a, kw, mask)
+        return self._pack_row(self._traced_update(self._unpack_row(state), (a, kw), mask, shard))
 
     def _kernel_tag(self) -> str:
         return "megastep" if self._megastep_plan is not None else "auto"
@@ -776,19 +1137,32 @@ class StreamingEngine:
 
     def _graph_keepalive(self) -> Tuple[Any, ...]:
         """What a captured step reads without owning it: the metric (its
-        config tensors) and the megastep plan (its op rows)."""
-        return (self._metric, self._megastep_plan)
+        config tensors) and the megastep plan (its op rows), replicas too."""
+        return (self._metric, self._megastep_plan, tuple(self._dev_metrics.values()),
+                tuple(self._dev_plans.values()))
+
+    def _shard_target(self, shard: int) -> Any:
+        """What shard ``shard``'s fold reads and writes: the step target
+        without a mesh, the shard's local state under deferred sync, its
+        delta buffer under step sync (reset by :meth:`_delta_targets`)."""
+        if self._mesh is None:
+            return self._step_target()
+        if self._deferred:
+            return self._shard_view(shard)
+        return self._deltas[shard]
 
     def _program(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
-                 bucket: int) -> Tuple[Any, Optional[PinnedRing]]:
-        """The cache entry of this step's signature and the engine's pinned
-        ring for it (None without host leaves). A miss on the card captures
-        the step from this chunk."""
+                 bucket: int, shard: int = 0) -> Tuple[Any, Optional[PinnedRing]]:
+        """The cache entry of this step's signature on shard ``shard``'s
+        device and the engine's pinned ring for it (None without host
+        leaves): one per (bucket, device). A miss on the card captures the
+        step from this chunk."""
+        dev = self._shard_devices[shard]
         abstract = tree_unflatten(treedef, [
             leaf if kind is None else StateSpec(padded_shape(leaf, kind, bucket), torch_dtype(leaf.dtype))
             for leaf, kind in zip(leaves, kinds)])
         host = tuple(kind is not None and not on_card(leaf) for leaf, kind in zip(leaves, kinds))
-        memo_key = (AotCache.signature_of(abstract), bucket, host)
+        memo_key = (AotCache.signature_of(abstract), bucket, host, dev)
         hit = self._program_memo.get(memo_key)
         if hit is not None:
             self._aot.count_hit()
@@ -796,14 +1170,15 @@ class StreamingEngine:
             return hit
         if self._metric_fp is None:
             self._metric_fp = metric_fingerprint(self._metric)
-        target = self._step_target()
+        target = self._shard_target(shard)
         if self._carried_sig is None:
-            self._carried_sig = AotCache.signature_of((target, self._step_aux()))
+            self._carried_sig = AotCache.signature_of((target, self._step_aux(shard)))
         key = self._aot.program_key(
             f"{self._update_kind()}+k.{self._kernel_tag()}", self._metric_fp,
             arg_tree=(self._carried_sig, abstract, tuple(kinds), StateSpec((bucket,), torch.bool)),
-            layout=self._layout, backend=self._kernel_tag(), device=self._device,
-            precision=self._precision_tag,
+            layout=self._layout, backend=self._kernel_tag(), device=dev, precision=self._precision_tag,
+            mesh=self._mesh.describe() if self._mesh is not None else None,
+            sync=self._sync_tag() if self._mesh is not None else None,
         )
         # this engine's own outcome (under a shared cache, another engine's
         # capture between the test and the lookup can only mislabel a duel)
@@ -813,14 +1188,18 @@ class StreamingEngine:
         else:
             specs = {i: (padded_shape(leaf, kind, bucket), torch_dtype(leaf.dtype))
                      for i, (leaf, kind, on_host) in enumerate(zip(leaves, kinds, host)) if on_host}
-            ring = PinnedRing(specs, self._cfg.in_flight + 1) if specs else None
+            # the shards of a one-device mesh fill the same ring in turn
+            fills = self._world if not self._nccl else 1
+            ring = PinnedRing(specs, (self._cfg.in_flight + 1) * fills) if specs else None
+            stream = self._shard_stream(shard)
+            step_fn = functools.partial(self._step_state, shard=shard)
 
             def build() -> CapturedStep:
-                inputs = StepBuffers(leaves, kinds, treedef, bucket, self._device)
-                prog = CapturedStep(target, self._step_aux(), inputs, self._graph_keepalive())
-                inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                prog.load(target, self._step_aux())  # the warm-up runs on this copy, never the live state
-                self._aot.capture(prog, self._step_state, self._device)
+                inputs = StepBuffers(leaves, kinds, treedef, bucket, dev)
+                prog = CapturedStep(target, self._step_aux(shard), inputs, self._graph_keepalive())
+                inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, stream)
+                prog.load(target, self._step_aux(shard))  # the warm-up runs on this copy, never the live state
+                self._aot.capture(prog, step_fn, dev)
                 self._stats.warmup_steps += 1
                 return prog
 
@@ -829,37 +1208,52 @@ class StreamingEngine:
         return entry, ring
 
     def _padded_tensors(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
-                        bucket: int) -> Tuple[Tuple[Any, ...], Dict[str, Any], torch.Tensor]:
-        """The uncaptured step's padded chunk, as fresh tensors on the device."""
+                        bucket: int, device: Optional[torch.device] = None
+                        ) -> Tuple[Tuple[Any, ...], Dict[str, Any], torch.Tensor]:
+        """The uncaptured step's padded chunk, as fresh tensors on ``device``
+        (the engine's by default)."""
+        dev = device if device is not None else self._device
         out = pad_leaves(leaves, kinds, start, stop, bucket, self._cfg.pad_value)
         out = [leaf if kind is None else torch.as_tensor(np.array(leaf) if isinstance(leaf, np.ndarray) else leaf)
-               .to(self._device) for leaf, kind in zip(out, kinds)]
+               .to(dev) for leaf, kind in zip(out, kinds)]
         a, kw = tree_unflatten(treedef, out)
-        mask = torch.arange(bucket, device=self._device) < (stop - start)
+        mask = torch.arange(bucket, device=dev) < (stop - start)
         return a, kw, mask
+
+    def _shard_parts(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
+                     bucket: int) -> List[Tuple[List[Any], List[Optional[str]], Any, int, int]]:
+        """One padded chunk as the shards' parts ``(leaves, kinds, treedef,
+        start, stop)``: itself without a mesh, else JAX's ``P(axis)`` split of
+        the bucket (:func:`~metrics_tpu_torch.engine.bucketing.shard_blocks`)."""
+        if self._mesh is None:
+            return [(leaves, kinds, treedef, start, stop)]
+        return [(leaves, kinds, treedef, lo, hi) for lo, hi in shard_blocks(start, stop, bucket, self._world)]
 
     def _run_padded_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
                          bucket: int, coalesced: int, queue_wait_us: float = 0.0,
-                         t0: Optional[float] = None) -> None:
+                         t0: Optional[float] = None, parts: Optional[List[Any]] = None) -> None:
         """One padded step, transactionally: rows ``[start, stop)`` of the ROWS
-        leaves padded to ``bucket``, the other leaves as they are. The shadow
-        takes the pre-step state; a failed attempt rolls back onto it and
-        :meth:`_recover_step` retries it, demotes the kernels or lets it go
-        sticky with the step and bucket attached. ``t0`` is when the host
+        leaves padded to ``bucket``, the other leaves as they are (on a mesh,
+        each shard's block of them, or the routed ``parts`` given). The
+        shadow takes the pre-step state; a failed attempt rolls back onto it
+        and :meth:`_recover_step` retries it, demotes the kernels or lets it
+        go sticky with the step and bucket attached. ``t0`` is when the host
         began building this chunk (the paged form: its round, paging
         included): the ``pad`` span and the telemetry record start there."""
         t_pad = time.perf_counter()
         if t0 is None:
             t0 = t_pad
+        if parts is None:
+            parts = self._shard_parts(leaves, kinds, treedef, start, stop, bucket)
         tr = self._trace
         if tr is not None:
             tr.complete("pad", trace=self._group_tid or ENGINE_TRACE, dur_us=(t_pad - t0) * 1e6, bucket=bucket,
-                        rows=stop - start)
+                        rows=sum(p[4] - p[3] for p in parts))
         attempt = 0
         while True:
             shadow = self._step_shadow()
             try:
-                self._do_step(leaves, kinds, treedef, start, stop, bucket, coalesced, queue_wait_us, t0, t_pad)
+                self._do_step(parts, bucket, coalesced, queue_wait_us, t0, t_pad)
                 return
             except Exception as e:
                 if not self._recover_step(e, shadow, attempt):
@@ -867,33 +1261,40 @@ class StreamingEngine:
                     raise
                 attempt += 1
 
-    def _do_step(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
-                 bucket: int, coalesced: int, queue_wait_us: float, t0: float, t_pad: float) -> None:
+    def _do_step(self, parts: List[Any], bucket: int, coalesced: int, queue_wait_us: float, t0: float,
+                 t_pad: float) -> None:
         """One attempt of a step, and its commit. Its fault sites fire in the
         JAX package's order: ``compile``, ``kernel`` (while on the megastep
-        kernels), the step itself, then ``step`` (the device work is enqueued
-        and, on the card, has written the state in place: the rollback's
-        case) and ``watchdog``. On the card it replays the step's captured
-        graph (capturing it on a miss); elsewhere it runs eagerly and the new
-        state is written only at the commit. With a recorder attached the
-        capture lookup is an ``aot`` span (``cache`` hit or miss) and the
-        device work a ``device_step`` span, enqueued under the profiler label
-        ``device_step:<step>``."""
+        kernels), ``shard_loss`` (on a mesh, before anything runs), the step
+        itself, then ``step`` (the device work is enqueued and, on the card,
+        has written the state in place: the rollback's case) and
+        ``watchdog``. Each shard's fold replays its captured graph on the
+        card (capturing it on a miss) and runs eagerly elsewhere; step sync
+        then merges the shards' deltas (one fused bundle) into the global
+        state. New state that was not written in place is written at the
+        commit. With a recorder attached the capture lookup is an ``aot``
+        span (``cache`` hit or miss) and the device work a ``device_step``
+        span, enqueued under the profiler label ``device_step:<step>``."""
         tr = self._trace
         gid = self._group_tid or ENGINE_TRACE
-        valid = stop - start
+        valid = sum(p[4] - p[3] for p in parts)
+        per = bucket // self._world
         self._fault("compile")
         if self._kernel_tag() == "megastep":
             # a runtime failure of the whole-arena kernels: meaningless once
             # the engine is on the per-leaf ones
             self._fault("kernel")
-        prog = ring = None
+        if self._mesh is not None:
+            # a shard dying: consulted before the step runs, so nothing has
+            # folded when it fires (elastic_min_world's recovery re-runs the chunk)
+            self._fault("shard_loss")
+        if self._mesh is not None and not self._deferred:
+            self._delta_targets()
+        progs: List[Any] = [(None, None)] * len(parts)
         if self._capture or self._stream is None:
-            if tr is None:
-                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
-            else:
-                aot_handle = tr.begin("aot", trace=gid, bucket=bucket)
-                prog, ring = self._program(leaves, kinds, treedef, start, stop, bucket)
+            aot_handle = tr.begin("aot", trace=gid, bucket=bucket) if tr is not None else None
+            progs = [self._program(*part, per, shard=k) for k, part in enumerate(parts)]
+            if aot_handle is not None:
                 tr.end(aot_handle, cache=self._last_aot_outcome)
         depth = self._queue.qsize()
         step_handle = None
@@ -901,16 +1302,29 @@ class StreamingEngine:
         if tr is not None:
             step_handle = tr.begin("device_step", trace=gid, step=self._step, bucket=bucket, valid=valid)
             label = torch.profiler.record_function(f"device_step:{self._step}")
-        new = None
-        target = self._step_target()  # a ring's current pane row: the rows of the other panes stay as they are
-        with label:
+
+        def fold(k: int, target: Any, part: Any) -> Any:
+            """Shard ``k``'s fold of its block into ``target``: the captured
+            graph's replay, in place (None), or the eager step's new state."""
+            leaves, kinds, treedef, start, stop = part
+            prog, ring = progs[k]
             if self._capture:
-                with self._aot.exclusive(self._stream):
-                    prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, self._stream)
-                    prog.replay(target, self._step_aux())
+                stream = self._shard_stream(k)
+                # a graph replays on its device's current stream: across
+                # devices, make shard k's the current one
+                on_shard = torch.cuda.stream(stream) if self._nccl else nullcontext()
+                with on_shard, self._aot.exclusive(stream):
+                    prog.inputs.fill(leaves, start, stop, self._cfg.pad_value, ring, stream)
+                    prog.replay(target, self._step_aux(k))
+                return None
+            a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, per, self._shard_devices[k])
+            return self._step_state(target, self._step_aux(k), a, kw, mask, shard=k)
+
+        with label:
+            if self._mesh is None:
+                new = fold(0, self._step_target(), parts[0])
             else:
-                a, kw, mask = self._padded_tensors(leaves, kinds, treedef, start, stop, bucket)
-                new = self._step_state(target, self._step_aux(), a, kw, mask)
+                new = self._mesh_step(fold, parts)
         self._fault("step")
         sync_us: Optional[float] = None
         if self._watchdog_enabled:
@@ -921,8 +1335,14 @@ class StreamingEngine:
             if tr is not None:
                 tr.complete("watchdog_sync", trace=gid, dur_us=sync_us)
         if new is not None:
-            self._write_state(new, into=target)
+            if self._deferred:
+                for k, out in enumerate(new):
+                    if out is not None:
+                        self._write_state(out, into=self._shard_view(k))
+            else:
+                self._write_state(new, into=self._step_target() if self._mesh is None else None)
         self._step += 1
+        self._state_version += 1
         if not self._watchdog_enabled:  # a watched step was drained before its commit
             sync_us = self._bound_inflight()
             if sync_us is not None and tr is not None:
@@ -935,35 +1355,51 @@ class StreamingEngine:
         self._stats.record_step(bucket=bucket, valid=valid, queue_depth=depth, ingest_us=pad_us, sync_us=sync_us,
                                 pad_us=pad_us, queue_wait_us=queue_wait_us, wall_us=wall_us, coalesced=coalesced)
 
+    def _record_events(self) -> List[torch.cuda.Event]:
+        """One CUDA event on each of the engine's streams, after its work."""
+        events = []
+        for st in self._streams():
+            ev = torch.cuda.Event()
+            ev.record(st)
+            events.append(ev)
+        return events
+
     def _watch(self) -> None:
-        """The watchdog's wait: poll the step's CUDA event until it completes
-        or ``step_timeout_s`` passes (no waiter thread; the hung work keeps
-        running on the engine stream, and the rollback is ordered after it).
-        Without a timeout it drains the step. On the CPU the step has run."""
-        if self._stream is None:
+        """The watchdog's wait: poll the step's CUDA events (one per device
+        stream; the step is done when every one is) until they complete or
+        ``step_timeout_s`` passes (no waiter thread; the hung work keeps
+        running on the engine streams, and the rollback is ordered after
+        it). Without a timeout it drains the step. On the CPU the step has
+        run."""
+        events = self._record_events()
+        if not events:
             return
-        ev = torch.cuda.Event()
-        ev.record(self._stream)
         timeout = self._cfg.step_timeout_s
         if timeout > 0:
             deadline = time.monotonic() + timeout
-            while not ev.query():
+            while not all(ev.query() for ev in events):
                 if time.monotonic() >= deadline:
                     raise StepTimeoutError(f"device step did not complete within the {timeout:.3f}s watchdog")
                 time.sleep(_WATCH_POLL_S)
         else:
-            ev.synchronize()
+            for ev in events:
+                ev.synchronize()
         self._inflight.clear()
+
+    def _shadow_target(self) -> Any:
+        """What a step writes, and so what the shadow covers: a ring's current
+        pane row or the state without a mesh, every shard's state (deferred)
+        or the global state (step sync) on one."""
+        return self._step_target() if self._mesh is None else self._state
 
     def _step_shadow(self) -> Any:
         """The pre-step state a failed step rolls back onto, or None when the
         engine is not transactional (a failure then goes sticky). The shadow
         is allocated once and refreshed in place before every step, on the
-        engine's stream; it covers what the step writes (a ring's current
-        pane row)."""
+        engine's streams; it covers what the step writes."""
         if not self._transactional:
             return None
-        target = self._step_target()
+        target = self._shadow_target()
         if self._shadow is None:
             self._shadow = tree_map(torch.empty_like, target)
         for dst, src in zip(tree_leaves(self._shadow), tree_leaves(target)):
@@ -977,12 +1413,13 @@ class StreamingEngine:
         if shadow is None:
             return False
         try:
-            # in place, on the engine stream: after whatever the failed or hung
-            # attempt enqueued, so no late write lands on the rolled-back state
-            for dst, src in zip(tree_leaves(self._step_target()), tree_leaves(shadow)):
+            # in place, on the engine streams: after whatever the failed or
+            # hung attempt enqueued, so no late write lands on the rolled-back state
+            for dst, src in zip(tree_leaves(self._shadow_target()), tree_leaves(shadow)):
                 dst.copy_(src)
         except RuntimeError:  # a broken device: the original error goes sticky
             return False
+        self._merged_memo = None
         self._stats.rollbacks += 1
         tr = self._trace
         if tr is not None:
@@ -1010,44 +1447,61 @@ class StreamingEngine:
 
     def _bound_inflight(self) -> Optional[float]:
         """At most ``in_flight`` steps run ahead of the host: past that, wait
-        for the oldest; returns the µs the dispatcher waited, or None when it
-        did not have to. The count is the JAX package's (one token a step,
-        cleared by the watchdog, ``reset`` and ``restore``), so its
-        ``inflight_sync`` spans fall on the same steps; on the CPU a step
-        has run when it returns, and its token is None."""
-        ev = None
-        if self._stream is not None:
-            ev = torch.cuda.Event()
-            ev.record(self._stream)
-        self._inflight.append(ev)
+        for the oldest (every device stream's event of it); returns the µs
+        the dispatcher waited, or None when it did not have to. The count is
+        the JAX package's (one token a step, cleared by the watchdog,
+        ``reset`` and ``restore``), so its ``inflight_sync`` spans fall on the
+        same steps; on the CPU a step has run when it returns, and its token
+        is empty."""
+        self._inflight.append(self._record_events())
         if len(self._inflight) <= max(1, self._cfg.in_flight):
             return None
         oldest = self._inflight.popleft()
         t0 = time.perf_counter()
-        if oldest is not None:
-            oldest.synchronize()
+        for ev in oldest:
+            ev.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
     def _execute_payload(self, merged: Tuple[Tuple[Any, ...], Dict[str, Any]], n: int, coalesced: int,
                          queue_wait_us: float = 0.0) -> None:
         """Run one merged (args, kwargs) batch of ``n`` rows through its
         bucketed chunks; the first chunk's step counts the coalesced batches
-        and the group's queue wait. An escaping error carries
-        ``_committed_chunks`` (summed over nested calls), which tells the
-        caller whether re-running the batches one by one would fold a row
+        and the group's queue wait. A non-transient ``shard_loss`` under
+        ``elastic_min_world`` reshards the engine to the surviving world and
+        re-runs the chunk there (nothing of it had folded). An escaping error
+        carries ``_committed_chunks`` (summed over nested calls), which tells
+        the caller whether re-running the batches one by one would fold a row
         twice."""
         leaves, treedef = tree_flatten(merged)
         committed = 0
         try:
             for i, (start, stop, bucket) in enumerate(self._policy.chunks(n)):
                 t0 = time.perf_counter()
-                kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
-                self._run_padded_step(leaves, kinds, treedef, start, stop, bucket, coalesced if i == 0 else 1,
-                                      queue_wait_us if i == 0 else 0.0, t0)
+                while True:
+                    kinds = classify_leaves(leaves, n, bucket, self._policy.divisor)
+                    try:
+                        self._run_padded_step(leaves, kinds, treedef, start, stop, bucket,
+                                              coalesced if i == 0 else 1, queue_wait_us if i == 0 else 0.0, t0)
+                        break
+                    except InjectedFault as e:
+                        if not self._lost_shard_resharded(e):
+                            raise
                 committed += 1
         except Exception as e:
             _add_committed(e, committed)
             raise
+
+    def _lost_shard_resharded(self, e: BaseException) -> bool:
+        """A non-transient ``shard_loss`` under ``elastic_min_world``: reshard
+        to the surviving world (True: re-run what failed); anything else
+        stays an error (False)."""
+        target = (self._shard_loss_target()
+                  if isinstance(e, InjectedFault) and e.site == "shard_loss" and not e.transient else None)
+        if target is None:
+            return False
+        self._stats.shard_losses += 1
+        self._reshard_locked(world=target, auto=True)
+        return True
 
     def _latch_payload(self, merged: Any) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
         """The (args, kwargs) a host-attr latch row is cut from (the
@@ -1076,8 +1530,8 @@ class StreamingEngine:
     def start(self) -> "StreamingEngine":
         """Start the dispatcher thread (a no-op while it runs)."""
         if self._worker is None or not self._worker.is_alive():
-            if self._stream is not None:  # what the caller's stream made (the state) comes first
-                self._stream.wait_stream(torch.cuda.current_stream(self._device))
+            for st in self._streams():  # what the caller's streams made (the state) comes first
+                st.wait_stream(torch.cuda.current_stream(st.device))
             self._worker = threading.Thread(target=self._run, name="metrics-tpu-torch-engine", daemon=True)
             self._worker.start()
         return self
@@ -1118,9 +1572,7 @@ class StreamingEngine:
 
     def _run(self) -> None:
         try:
-            if self._stream is not None:
-                torch.cuda.set_device(self._stream.device)
-                torch.cuda.set_stream(self._stream)  # thread-local: every launch of this thread goes there
+            self._bind_streams()
             torch.set_grad_enabled(False)
         except Exception as e:  # noqa: BLE001 - no batch may be dropped unreported
             self._error = e
@@ -1220,6 +1672,9 @@ class StreamingEngine:
                 tr.end(handle)
 
     def _process_group_locked(self, group: List[Any], queue_wait_us: float = 0.0) -> None:
+        if self._worker_epoch != self._topology_epoch:
+            # a reshard brought devices this thread has no stream bound for
+            self._bind_streams()
         # a FATAL fault here models the dispatcher dying outright
         self._fault("dispatcher_kill")
         if self._window is not None and self._window.pane_seconds > 0:
@@ -1472,10 +1927,10 @@ class StreamingEngine:
                 self._queue.all_tasks_done.notify_all()
 
     def _sync(self) -> None:
-        """Wait for every step enqueued on the engine stream (the in-flight
+        """Wait for every step enqueued on the engine's streams (the in-flight
         tokens stay: they count steps, as the JAX package's do)."""
-        if self._stream is not None:
-            self._stream.synchronize()
+        for st in self._streams():
+            st.synchronize()
 
     # ------------------------------------------------------------------- coalescing
 
@@ -1791,11 +2246,20 @@ class StreamingEngine:
         handle = tr.begin("result", trace=ENGINE_TRACE) if tr is not None else None
         self.flush()
         with self._device_section(), traced_rows():
-            value = self._owned(self._metric.compute_from(self._window_tree(self._unpack(self._state))))
+            value = self._owned(self._metric.compute_from(self._logical_state()))
         if handle is not None:
             self._value_in_hand()
             tr.observe("result_latency_us", tr.end(handle))
         return value
+
+    def _logical_state(self) -> Any:
+        """The global LOGICAL state a result reads (inside
+        :meth:`_device_section`): the deferred boundary merge on a deferred
+        mesh, else the carried state unpacked, under a window its result
+        view."""
+        if self._deferred:
+            return self._merged_state()
+        return self._window_tree(self._unpack(self._state))
 
     def _owned(self, value: Any) -> Any:
         """``value`` with every tensor that shares memory with the carried
@@ -1803,7 +2267,8 @@ class StreamingEngine:
         matrix does), and the engine's later steps write the state in place,
         so a value handed out must not be a view of it (the JAX package's
         values are immutable)."""
-        live = {t.untyped_storage().data_ptr() for t in tree_leaves(self._state)}
+        held = tree_leaves(self._state) + (tree_leaves(self._merged_memo[1]) if self._merged_memo else [])
+        live = {t.untyped_storage().data_ptr() for t in held}
         return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
                         and x.untyped_storage().data_ptr() in live else x, value)
 
@@ -1818,7 +2283,7 @@ class StreamingEngine:
         pane-stacked, ``(panes, ...)``, under a ring window)."""
         self.flush()
         with self._device_section():
-            return tree_map(torch.clone, self._unpack(self._state))
+            return tree_map(torch.clone, self._merged_state() if self._deferred else self._unpack(self._state))
 
     def reset(self) -> None:
         """Fresh accumulation, written into the state's buffers in place;
@@ -1834,6 +2299,7 @@ class StreamingEngine:
         self._inflight.clear()
         self._result_cache.clear()
         self._write_state(self._put_state(self._init_state_tree()))
+        self._state_version += 1
         self._step = 0
         self._batches_done = 0
         if self._window is not None:
@@ -1882,8 +2348,11 @@ class StreamingEngine:
 
     def _snapshot_doc(self) -> Tuple[Any, Dict[str, Any]]:
         """``(host_state, meta)``: the engine's durable form and its
-        provenance, with the JAX package's meta keys (a single-device,
-        single-host engine: ``mesh_sync="single"``, world 1)."""
+        provenance, with the JAX package's meta keys: ``mesh_sync`` (the
+        sync mode on a mesh, ``"single"`` without one) and ``world`` (the
+        shard count of a deferred engine's shard-stacked state, else 1);
+        one host. Shared by the snapshot writer and :meth:`reshard`'s
+        in-memory capture."""
         host_state = self._snapshot_state()
         meta: Dict[str, Any] = {
             "step": self._step,
@@ -1894,8 +2363,8 @@ class StreamingEngine:
             # leaves, never the raw arena
             "packed": int(self._layout is not None and not self._compress),
             "arena_fp": self._layout.fingerprint() if self._layout is not None else "",
-            "mesh_sync": "single",
-            "world": 1,
+            "mesh_sync": self._sync_tag() if self._mesh is not None else "single",
+            "world": self._world if self._deferred else 1,
             "num_hosts": 1,
             "process_id": 0,
         }
@@ -1920,6 +2389,14 @@ class StreamingEngine:
         (the packed arena, or the logical tree without one), or under
         ``compress_payloads`` the logical tree with the metric's
         quantized-policy leaves codec-wrapped (``engine/quantize.py``)."""
+        if self._deferred:
+            # every shard's LOCAL state, ``(W, ...)``: the merged view is
+            # derivable from it, the locals are not from the merge
+            stacked = self._stacked_carried()
+            if not self._compress:
+                return state_to_numpy(stacked)
+            tree = self._layout.unpack_stacked(stacked) if self._layout is not None else stacked
+            return self._codec_call("quant_encode", encode_state_tree, self._metric, state_to_numpy(tree))
         if not self._compress:
             return state_to_numpy(self._state)
         return self._codec_call("quant_encode", encode_state_tree, self._metric,
@@ -1987,9 +2464,13 @@ class StreamingEngine:
 
     def _restore_commit(self, state: Any, meta: Dict[str, Any]) -> None:
         """Validate a loaded snapshot against this engine and commit it (the
-        restore matrix of a single-device engine): a single-device or
-        step-sync snapshot seats verbatim; a deferred-sync mesh snapshot's
-        shard-stacked locals merge on the host (``merge_stacked_states``).
+        JAX package's restore matrix): a deferred snapshot into a deferred
+        engine of the same world restores verbatim, each shard its local
+        state; a deferred snapshot of another world merges its shard locals
+        on the host (``merge_stacked_states``), refused when the merged
+        shapes do not fit (``cat`` buffers grow with the shard count); a
+        single-device or step-sync snapshot seats verbatim, or into a
+        deferred engine embeds into shard 0 with the init state elsewhere.
         Everything is checked before anything is written."""
         self._check_window_provenance(meta)
         if str(meta.get("codec", "") or ""):
@@ -2025,7 +2506,16 @@ class StreamingEngine:
                     f"snapshot arena does not match this metric's layout ({self._layout!r}); was the metric "
                     "reconfigured since the snapshot?"
                 )
-        if snap_deferred:
+        if snap_deferred and self._deferred and snap_world == self._world:
+            # the same world: every shard resumes with exactly its local state
+            stacked = state if packed or self._layout is None else self._layout.pack_stacked(state)
+            if not packed and self._layout is None and not self._fits_template(tree_map(lambda x: x[0], state)):
+                raise MetricsTPUUserError(
+                    "snapshot state does not match this metric's state structure and shapes; was the metric "
+                    "reconfigured since the snapshot?"
+                )
+            carried = self._put_stacked_carried(stacked)
+        elif snap_deferred:
             # a deferred mesh snapshot holds each shard's LOCAL state: merge
             # them into the global state (exact for mergeable reductions;
             # refused when cat buffers grew with the shard count)
@@ -2037,7 +2527,16 @@ class StreamingEngine:
                     "(cat-state buffers scale with the shard count); restore it into a deferred engine with the "
                     "same mesh size"
                 )
-            carried = self._put_state(logical)
+            carried = self._put_shards(self._shard0_trees(logical)) if self._deferred else self._put_state(logical)
+        elif self._deferred:
+            # a global state embeds into shard 0, the init state elsewhere
+            logical = self._layout.unpack(state) if packed else state
+            if not self._fits_template(logical):
+                raise MetricsTPUUserError(
+                    "snapshot state does not match this metric's state structure and shapes; was the metric "
+                    "reconfigured since the snapshot?"
+                )
+            carried = self._put_shards(self._shard0_trees(logical))
         elif packed:
             carried = {k: v.to(self._device) for k, v in state.items()}
         else:
@@ -2066,6 +2565,8 @@ class StreamingEngine:
             self._needs_attr_latch = any(v is None for v in self._metric.host_compute_attrs().values())
             self._sync()
             self._write_state(carried)
+            self._state_version += 1
+            self._merged_memo = None
             self._inflight.clear()
             self._result_cache.clear()
             self._error = None
@@ -2088,6 +2589,183 @@ class StreamingEngine:
             self._stats.resumes += 1
             if int(meta.get("generations_skipped", 0) or 0) > 0:
                 self._stats.snapshot_fallbacks += 1
+
+    # ------------------------------------------------------------ elastic reshard
+
+    def reshard(self, *, world: Optional[int] = None, mesh: Optional[Mesh] = None,
+                resident_streams: Optional[int] = None, stream_shard: Optional[bool] = None) -> Dict[str, Any]:
+        """Live elastic resharding: grow or shrink the mesh world (or, on the
+        stream-sharded engine, the stream-shard factor) without losing state.
+
+        Snapshot through the restore matrix, in memory: drain, capture the
+        engine's durable form with its topology (the document
+        :meth:`snapshot` writes, behind the ``reshard_snapshot`` site), swap
+        the topology (mesh, world, bucket divisor, shard devices, fresh
+        buffers, step keys), and restore the capture through the
+        cross-topology restore matrix (behind ``reshard_restore``): states
+        that merge merge or embed exactly; ``cat`` and scan states refuse
+        across worlds, and a refusal ROLLS BACK to the captured topology, so
+        the engine serves on as it was. Stream-sharded engines re-home every
+        stream under the new ``sid % world`` rule through the spill store.
+
+        Pass ``world=`` (single-axis meshes: the same device repeated on a
+        one-device mesh; across devices the built mesh's own first, see
+        :meth:`_target_mesh`) or an explicit ``mesh=`` starting on the
+        metric's device. Returns ``{"from_world", "to_world",
+        "cursor"}``; the cursor is unchanged (everything submitted folded
+        before the drain). Also the recovery behind the ``shard_loss`` site
+        (``config.elastic_min_world``)."""
+        self._join_queue()
+        with self._device_section():
+            return self._reshard_locked(world=world, mesh=mesh, resident_streams=resident_streams,
+                                        stream_shard=stream_shard, auto=False)
+
+    def _reshard_locked(self, *, world: Optional[int] = None, mesh: Optional[Mesh] = None,
+                        resident_streams: Optional[int] = None, stream_shard: Optional[bool] = None,
+                        auto: bool = False) -> Dict[str, Any]:
+        if stream_shard is not None and bool(stream_shard) != bool(getattr(self, "_stream_shard", False)):
+            raise MetricsTPUUserError(
+                "toggling stream sharding live is not supported: snapshot this engine and restore into a "
+                "newly-constructed one with the desired stream_shard setting"
+            )
+        if resident_streams is not None and not getattr(self, "_stream_shard", False):
+            raise MetricsTPUUserError("resident_streams only applies to stream-sharded engines")
+        if resident_streams is not None and int(resident_streams) <= 0:
+            raise MetricsTPUUserError(f"resident_streams must be positive, got {resident_streams!r}")
+        if self._mesh is None:
+            raise MetricsTPUUserError(
+                "reshard() needs a mesh engine (a single-device engine has no topology to change); construct with "
+                "EngineConfig(mesh=...)"
+            )
+        new_mesh, new_world = self._target_mesh(world, mesh)
+        # bucket divisibility validates BEFORE anything mutates
+        try:
+            new_policy = BucketPolicy(self._cfg.buckets, pad_value=self._cfg.pad_value, divisor=new_world)
+        except ValueError as e:
+            raise MetricsTPUUserError(
+                f"reshard(world={new_world}) is incompatible with the declared buckets {self._cfg.buckets}: {e}"
+            ) from e
+        old_world = self._world
+        self._sync()
+
+        def capture() -> Tuple[Any, Dict[str, Any]]:
+            self._fault("reshard_snapshot")
+            return self._snapshot_doc()
+
+        state, meta = self._retry_transient(capture)
+        old_topo = self._topology_state()
+
+        def commit() -> None:
+            self._fault("reshard_restore")
+            self._restore_commit(state, meta)
+
+        try:
+            self._apply_topology(new_mesh, new_world, new_policy, resident_streams)
+            self._retry_transient(commit)
+        except BaseException:
+            # refusals (a target mesh off the metric's device, a cat state
+            # across worlds) stay loud AND non-destructive: back to the
+            # captured topology, the same document recommitted verbatim
+            self._apply_topology_state(old_topo)
+            self._restore_commit(state, meta)
+            raise
+        self._stats.record_reshard(old_world, new_world, self._batches_done, auto)
+        if self._trace is not None:
+            self._trace.event("reshard", trace=ENGINE_TRACE, from_world=old_world, to_world=new_world,
+                              cursor=self._batches_done, auto=auto)
+        return {"from_world": old_world, "to_world": new_world, "cursor": self._batches_done}
+
+    def _target_mesh(self, world: Optional[int], mesh: Optional[Mesh]) -> Tuple[Mesh, int]:
+        """The reshard target: an explicit mesh (carrying the engine's axes;
+        its first device must be the metric's, checked by :meth:`_set_mesh`),
+        or ``world`` shards on the engine's layout
+        (:func:`_reshard_devices`)."""
+        names = self._axis.names
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise MetricsTPUUserError(f"reshard(mesh=...) takes a Mesh, got {type(mesh).__name__}")
+            missing = [a for a in names if a not in mesh.axis_names]
+            if missing:
+                raise MetricsTPUUserError(
+                    f"target mesh lacks the engine's sync axes {missing} (mesh axes: {sorted(mesh.axis_names)})")
+            return mesh, mesh.axis(self._cfg.axis).world
+        if world is None:
+            raise MetricsTPUUserError("reshard() needs world= or mesh=")
+        w = int(world)
+        if w <= 0:
+            raise MetricsTPUUserError(f"world must be positive, got {world!r}")
+        if len(names) != 1:
+            raise MetricsTPUUserError(
+                "reshard(world=...) supports single-axis meshes; pass an explicit mesh= for multi-axis topologies")
+        arr = np.empty((w,), dtype=object)
+        arr[:] = _reshard_devices(self._home_devices, w)
+        return Mesh(arr, names), w
+
+    def _topology_state(self) -> Dict[str, Any]:
+        """Everything a reshard rollback puts back (the stream-sharded engine
+        adds its pager and residency)."""
+        return {"mesh": self._mesh, "policy": self._policy, "state": self._state, "shadow": self._shadow,
+                "deltas": (self._deltas, self._delta_init)}
+
+    def _apply_topology_state(self, t: Dict[str, Any]) -> None:
+        self._set_mesh(t["mesh"])
+        self._policy = t["policy"]
+        self._state, self._shadow = t["state"], t["shadow"]
+        self._deltas, self._delta_init = t["deltas"]
+        self._invalidate_topology_memos()
+
+    def _apply_topology(self, mesh: Mesh, world: int, policy: BucketPolicy,
+                        resident_streams: Optional[int] = None) -> None:
+        """Swap the live topology (state lock held), with fresh buffers of
+        the new shape; :meth:`_restore_commit` right after moves the state
+        across."""
+        self._set_mesh(mesh)
+        if threading.current_thread() is self._worker:  # the shard-loss reshard, on the dispatcher
+            self._bind_streams()
+        self._policy = policy
+        self._shadow = None
+        self._deltas = self._delta_init = None
+        self._state = self._put_state(self._init_state_tree())
+        self._invalidate_topology_memos()
+
+    def _check_mesh_device(self, mesh: Mesh) -> None:
+        """Shard 0 runs on the metric itself (its state, replicas' source and
+        plan): a mesh must start on the metric's device."""
+        first = _norm_device(mesh.axis(self._cfg.axis).devices[0])
+        if first != self._device:
+            raise MetricsTPUUserError(
+                f"the mesh's first device ({first}) must be the metric's ({self._device}): shard 0 runs on the "
+                "metric itself"
+            )
+
+    def _set_mesh(self, mesh: Mesh) -> None:
+        self._check_mesh_device(mesh)
+        self._cfg.mesh = mesh
+        self._init_mesh()
+        self._stats.mesh_transport = mesh.transport
+        self._setup_shards()
+        self._topology_epoch += 1  # the dispatcher re-binds its per-device streams
+
+    def _invalidate_topology_memos(self) -> None:
+        # every step key embeds the mesh; the merge and the payload
+        # accounting embed the world: all of it rebuilds lazily
+        self._program_memo.clear()
+        self._carried_sig = None
+        self._merged_memo = None
+        self._payload_split = None
+        self._state_version += 1
+
+    def _shard_loss_target(self) -> Optional[int]:
+        """The world a shard-loss reshard shrinks to: the largest
+        bucket-compatible world strictly below the current one, never under
+        ``config.elastic_min_world`` (0 disarms). None: go sticky."""
+        lo = int(self._cfg.elastic_min_world)
+        if lo <= 0 or self._mesh is None:
+            return None
+        for w in range(self._world - 1, lo - 1, -1):
+            if all(b % w == 0 for b in self._cfg.buckets):
+                return w
+        return None
 
     # ----------------------------------------------------------------- fault plumbing
 
@@ -2205,12 +2883,14 @@ class StreamingEngine:
     def _engage_rung(self, rung: str) -> None:
         """Apply one rung (state lock held). Rungs are idempotent and
         reversible; one that does not apply to this engine (``shed`` without
-        an admission policy, ``quantize_sync`` without a mesh, which the port
-        does not have) is a recorded no-op: the transition still counts and
-        is traced, so the ladder's walk is the same on every engine kind."""
+        an admission policy, ``quantize_sync`` without a mesh) is a recorded
+        no-op: the transition still counts and is traced, so the ladder's
+        walk is the same on every engine kind."""
         if rung == "widen_coalesce":
             self._ladder_saved_window = self._cfg.coalesce_window_ms
             self._cfg.coalesce_window_ms = max(self._cfg.coalesce_window_ms, self._ladder.widen_window_ms)
+        elif rung == "quantize_sync":
+            self._engage_quantize()
         elif rung == "defer_cold_reads":
             self._defer_cold_reads = True
         elif rung == "shed":
@@ -2220,12 +2900,44 @@ class StreamingEngine:
     def _release_rung(self, rung: str) -> None:
         if rung == "widen_coalesce":
             self._cfg.coalesce_window_ms = self._ladder_saved_window
+        elif rung == "quantize_sync":
+            self._release_quantize()
         elif rung == "defer_cold_reads":
             self._defer_cold_reads = False
             self._result_cache.clear()
         elif rung == "shed":
             if self._admission is not None:
                 self._admission.shed_lowest(False)
+
+    def _engage_quantize(self) -> None:
+        """The quantize rung, as the JAX package's: the blanket ``q8_block``
+        sync policy for the eligible states (float sums; counts, ``cat`` and
+        min/max stay exact) while engaged, on a mesh engine only (the policy
+        governs its sync bundle), from an exact policy only (an operator's
+        policy is never overridden) and not under ``compress_payloads``
+        (the at-rest codec's identity is pinned at construction). The policy
+        is part of the metric's fingerprint and every step key, so the
+        identity refreshes."""
+        m = self._metric
+        if self._mesh is None or self._precision_tag != "exact" or self._compress:
+            return
+        m.set_sync_precision("q8_block")
+        if m.sync_precision_tag() != "exact":
+            self._ladder_quantized = True
+            self._refresh_policy_identity()
+
+    def _release_quantize(self) -> None:
+        if self._ladder_quantized:
+            self._metric.set_sync_precision("exact")
+            self._ladder_quantized = False
+            self._refresh_policy_identity()
+
+    def _refresh_policy_identity(self) -> None:
+        self._precision_tag = self._metric.sync_precision_tag()
+        self._metric_fp = None
+        self._program_memo.clear()
+        self._payload_split = None
+        self._merged_memo = None
 
     # ------------------------------------------------------------------ telemetry
 
@@ -2316,6 +3028,10 @@ class StreamingEngine:
         fallbacks = s.kernel_fallbacks_by_reason()
         if fallbacks:
             labeled["kernel_fallbacks"] = ("reason", fallbacks)
+        if s.sync_payload_exact_bytes or s.sync_payload_quant_bytes:
+            # mesh engines only: the bytes one shard contributed per fused sync, by rider
+            labeled["sync_payload_bytes"] = ("kind", {"exact": s.sync_payload_exact_bytes,
+                                                      "quantized": s.sync_payload_quant_bytes})
         gauges = {"compiled_programs": aot["programs"]}
         admission = s.admission_summary()
         if admission is not None:
@@ -2327,6 +3043,8 @@ class StreamingEngine:
             counters["ladder_transitions"] = admission["ladder_transitions"]
             counters["deferred_reads"] = admission["deferred_reads"]
             gauges["ladder_level"] = admission["ladder_level"]
+        if s.reshards:
+            counters["reshards"] = s.reshards
         if s.paging_summary() is not None:
             counters.update(routed_steps=s.routed_steps, page_hits=s.page_hits, page_faults=s.page_faults,
                             page_ins=s.page_ins, page_outs=s.page_outs)

@@ -309,6 +309,9 @@ class RaggedEngine(MultiStreamEngine):
                 f"RaggedEngine serves group-keyed metrics only: {type(metric).__name__} declares no "
                 "grouped_update_spec() (built-in retrieval metrics with a segment kind do)"
             )
+        if config is not None and config.mesh is not None:
+            raise NotPortedError("RaggedEngine on a mesh (EngineConfig(mesh=...): the deferred boundary merge of "
+                                 "grouped states, group_shard across shards) is not ported yet (see ROADMAP.md §A)")
         if config is not None and resolve_kernel_backend(config.kernel_backend) == "megastep":
             raise MetricsTPUUserError(
                 "ragged serving has no megastep form: the grouped capacity write (the INGEST scatter) is a 2-d "

@@ -9,12 +9,13 @@ time, and the sync latency of the steps that actually blocked (the in-flight
 bound means most steps don't) — the device's own time lives in
 ``torch.profiler`` traces (``engine/trace.py``'s ``device_trace_session``).
 
-The blocks of layers the port does not have yet (windows, ragged serving,
-the fleet, live resharding) are kept, and return None as in the JAX package
-while nothing records into them. The port adds three counters of its own:
-``warmup_steps`` (steps run once on a copy of the state before a CUDA graph
-capture), ``q8_staged_rows`` (paged-in rows seated as int8 codes for K7 to
-decode) and ``result_device_calls`` in :meth:`EngineStats.summary`.
+The blocks of layers the port does not have yet (the fleet) are kept, and
+return None as in the JAX package while nothing records into them. The port
+adds counters of its own: ``warmup_steps`` (steps run once on a copy of the
+state before a CUDA graph capture), ``q8_staged_rows`` (paged-in rows seated
+as int8 codes for K7 to decode) and ``result_device_calls`` in
+:meth:`EngineStats.summary`, and in the ``mesh_sync`` block a mesh engine's
+``transport`` and ``shard_losses``.
 """
 import json
 import math
@@ -62,8 +63,13 @@ class EngineStats:
         # collective_share compares like with like on runs longer than the
         # ring window.
         self.mesh_sync: Optional[str] = None
+        # the mesh's collective transport ("nccl" across devices,
+        # "one_device" for shards on one device), fixed at construction
+        self.mesh_transport: Optional[str] = None
         self.merges = 0
         self.merge_us_total = 0.0
+        # non-transient shard losses the engine survived by resharding
+        self.shard_losses = 0
         self.wall_us_total = 0.0
         self.sync_us_total = 0.0
         # quantized-sync payload accounting: bytes one shard
@@ -681,6 +687,9 @@ class EngineStats:
             "merges": self.merges,
             "merge_us_total": round(self.merge_us_total, 1),
         }
+        if self.mesh_transport is not None:
+            out["transport"] = self.mesh_transport
+            out["shard_losses"] = self.shard_losses
         if self.sync_payload_exact_bytes or self.sync_payload_quant_bytes:
             out["sync_payload_bytes"] = {
                 "exact": self.sync_payload_exact_bytes,

@@ -89,7 +89,7 @@ from metrics_tpu_torch.parallel.collectives import (
     in_mapped_context,
     q8_sum_error_bound,
 )
-from metrics_tpu_torch.parallel.mesh import current_metric_axis
+from metrics_tpu_torch.parallel.mesh import MeshAxis, current_metric_axis
 from metrics_tpu_torch.ops.kernels.common import int32_bits
 from metrics_tpu_torch.utils.checks import (
     _is_batched,
@@ -253,19 +253,30 @@ def _sync_entries(entries: List[Tuple["Metric", str, Any]], group: Any, eager: b
     as ``cat``). ``eager`` is the multi-host semantics of ``sync()``: exact
     precisions, list states returned as a one-element list, ``dist_sync_fn``
     not called; otherwise a metric's ``dist_sync_fn`` takes its leaves as
-    ``(fx, value, group)`` and its ``sync_precision`` policy applies."""
-    _check_list_lengths(entries, group)
+    ``(fx, value, group)`` and its ``sync_precision`` policy applies. Over a
+    :class:`~metrics_tpu_torch.parallel.mesh.MeshAxis` each value is the list
+    of the W shards' values, and so is each result: the axis is no process
+    group, so ``dist_sync_fn`` is not called, and list states, which have
+    no fixed shape to gather, raise."""
+    mesh = isinstance(group, MeshAxis)
+    if mesh:
+        for m, k, v in entries:
+            if isinstance(v[0], list):
+                raise MetricsTPUUserError(
+                    f"{type(m).__name__}.{k} is a list state: a mesh sync gathers fixed-shape states only")
+    else:
+        _check_list_lengths(entries, group)
     results: List[Any] = [None] * len(entries)
-    bundle: List[Tuple[Any, Tensor]] = []
+    bundle: List[Tuple[Any, Any]] = []
     precs: List[str] = []
     slots: List[int] = []
     for j, (m, k, v) in enumerate(entries):
-        was_list = isinstance(v, list)
+        was_list = not mesh and isinstance(v, list)
         fx = m._reductions[k]
         fx = "cat" if fx is None and was_list else fx
         if was_list:
             v = dim_zero_cat(v) if v else torch.zeros((0,), device=m.device)
-        if not eager and m.dist_sync_fn is not None:
+        if not eager and not mesh and m.dist_sync_fn is not None:
             results[j] = m.dist_sync_fn(fx, v, group)
             continue
         bundle.append((fx, v))
@@ -276,19 +287,36 @@ def _sync_entries(entries: List[Tuple["Metric", str, Any]], group: Any, eager: b
     return results
 
 
-def _sync_trees(pairs: List[Tuple["Metric", Dict[str, Any]]], group: Any) -> List[Dict[str, Any]]:
+def _sync_trees(pairs: List[Tuple["Metric", Any]], group: Any) -> List[Any]:
     """The pure sync of several ``(metric, state)`` pairs (a collection's
     members) in one fused bundle; the synced states, in order. Unchanged
-    without an initialised group, or outside ``group``."""
-    if group_size(group) < 1:
+    without an initialised group, or outside ``group``. Over a
+    :class:`~metrics_tpu_torch.parallel.mesh.MeshAxis` each state is the list
+    of the W shards' states (shard ``k`` on the axis's device ``k``), and so
+    is each result."""
+    mesh = isinstance(group, MeshAxis)
+    if not mesh and group_size(group) < 1:
         return [state for _, state in pairs]
-    entries: List[Tuple[Metric, str, Any]] = []
-    for metric, state in pairs:
-        metric._sync_tree_entries(state, entries)
+    n = group.world if mesh else 1
+    shards = [states if mesh else [states] for _, states in pairs]
+    for states in shards:
+        if len(states) != n:
+            raise MetricsTPUUserError(f"a mesh sync over {n} shards got {len(states)} shard states")
+    per_shard: List[List[Tuple[Metric, str, Any]]] = [[] for _ in range(n)]
+    for (metric, _), states in zip(pairs, shards):
+        for k in range(n):
+            metric._sync_tree_entries(states[k], per_shard[k])
+    entries = per_shard[0]
     for m in {id(m): m for m, _, _ in entries}.values():
         m._check_spec_consumed()
-    synced = iter(_sync_entries(entries, group, eager=False))
-    return [metric._sync_tree_build(state, synced) for metric, state in pairs]
+    if mesh:
+        entries = [(m, key, [shard[j][2] for shard in per_shard]) for j, (m, key, _) in enumerate(entries)]
+    synced = _sync_entries(entries, group, eager=False)
+    built = []
+    for k in range(n):
+        it = iter([s[k] for s in synced] if mesh else synced)
+        built.append([metric._sync_tree_build(states[k], it) for (metric, _), states in zip(pairs, shards)])
+    return [list(col) for col in zip(*built)] if mesh else built[0]
 
 
 class _InstanceCache:
@@ -863,7 +891,12 @@ class Metric(nn.Module):
         metric's ``dist_sync_fn`` takes its own leaves instead. Without an
         initialised group (or outside it) the state comes back unchanged; at
         world 1 the bundle still runs, as the JAX package's does on a
-        one-device mesh."""
+        one-device mesh.
+
+        ``group`` may be a mesh axis (``Mesh.axis(...)``): ``state`` is then
+        the list of the W shards' states and so is the result, every shard
+        holding the global state, as each device does after JAX's in-step
+        ``psum``."""
         return _sync_trees([(self, state)], self._group(group))[0]
 
     def _sync_child_states(self, children_state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
-"""Cross-process state sync over ``torch.distributed`` (port of
-``metrics_tpu/parallel``): the collectives, the fused sync bundle with its
-q8 carrier, and the ambient sync group."""
+"""State synchronisation (port of ``metrics_tpu/parallel``): the collectives
+and the fused sync bundle with its q8 carrier, over a ``torch.distributed``
+process group or over the shards of an in-process device mesh; the mesh
+(``MeshConfig``); the mesh engine's step builders; the ambient sync group."""
 from metrics_tpu_torch.parallel.collectives import (
     all_gather_cat,
     all_gather_stack,
@@ -11,18 +12,23 @@ from metrics_tpu_torch.parallel.collectives import (
     reduce,
     sync_axis_state,
 )
-from metrics_tpu_torch.parallel.mesh import current_metric_axis, metric_axis, set_metric_axis
+from metrics_tpu_torch.parallel.embedded import data_parallel_mesh, sharded_masked_step
+from metrics_tpu_torch.parallel.mesh import Mesh, MeshConfig, current_metric_axis, metric_axis, set_metric_axis
 
 __all__ = [
+    "Mesh",
+    "MeshConfig",
     "all_gather_cat",
     "all_gather_stack",
     "axis_size_or_one",
     "class_reduce",
     "current_metric_axis",
+    "data_parallel_mesh",
     "fused_axis_sync",
     "in_mapped_context",
     "metric_axis",
     "reduce",
     "set_metric_axis",
+    "sharded_masked_step",
     "sync_axis_state",
 ]

@@ -41,17 +41,29 @@ rounding, near-subnormal blocks flushed below :data:`Q8_FLUSH`); each rank's
 contribution is decoded against its own scales and the sum folds in f32, so
 the error is bounded by :func:`q8_sum_error_bound`.
 
-Every collective this module issues adds one to :func:`collective_counts`.
+The in-process mesh form: with a :class:`~metrics_tpu_torch.parallel.mesh.MeshAxis`
+in place of a process group, every value is a LIST of the W shards' tensors
+(shard ``k`` on the axis's device ``k``), and every result one too (JAX's
+``shard_map`` view: each shard sees the replicated result). The bundle is the
+same one (the same buckets, the same rider and codec); only the transport
+differs, picked by the mesh's layout alone: ``"nccl"`` issues each collective
+as ONE ``torch.cuda.nccl`` group call over the W per-device tensors,
+``"one_device"`` stacks the shards on a leading axis and reduces over it.
+A failure raises; the transport never changes.
+
+Every collective this module issues adds one to :func:`collective_counts`,
+in either form.
 ``hierarchical_fold_bytes`` (the fleet's fold) is not ported yet, and
 ``HLO_COLLECTIVE_RE`` has no counterpart (it reads XLA's HLO text).
 """
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.parallel.mesh import MeshAxis
 from metrics_tpu_torch.utils.data import METRIC_EPS
 
 Tensor = torch.Tensor
@@ -70,6 +82,9 @@ _REDUCE_OPS = {"sum": "SUM", "mean": "SUM", "min": "MIN", "max": "MAX"}
 
 _COUNTS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 
+#: ``ncclRedOp_t`` values (``torch.cuda.nccl`` names only SUM)
+_NCCL_OPS = {"SUM": 0, "MAX": 2, "MIN": 3}
+
 
 def collective_counts() -> Dict[str, int]:
     """Collectives issued by this module since :func:`reset_collective_counts`,
@@ -86,8 +101,11 @@ def reset_collective_counts() -> None:
 
 
 def group_size(group: Optional[Any] = None) -> int:
-    """The world size of ``group`` (None = the default group), or 0 when no
-    process group is initialised or this rank is not a member of it."""
+    """The world size of ``group`` (None = the default group; a
+    :class:`MeshAxis` counts its shards), or 0 when no process group is
+    initialised or this rank is not a member of it."""
+    if isinstance(group, MeshAxis):
+        return group.world
     if not (dist.is_available() and dist.is_initialized()):
         return 0
     if group is not None and dist.get_rank(group) < 0:
@@ -122,21 +140,60 @@ def _all_gather(x: Tensor, group: Optional[Any]) -> Tensor:
     return out.reshape((world,) + tuple(x.shape))
 
 
-def all_gather_cat(x: Tensor, group: Optional[Any] = None) -> Tensor:
+def _mesh_all_reduce(parts: List[Tensor], op: str, axis: MeshAxis) -> List[Tensor]:
+    """One all-reduce over the W shards' flat tensors: the result on every
+    shard's device (one tensor, shared, on a one-device mesh)."""
+    _COUNTS["all_reduce"] += 1
+    if axis.transport == "nccl":
+        import torch.cuda.nccl as nccl
+
+        parts = [p.contiguous() for p in parts]
+        nccl.all_reduce(parts, op=_NCCL_OPS[op])
+        return parts
+    stacked = torch.stack(parts)
+    if op == "SUM":
+        red = stacked.sum(0, dtype=stacked.dtype)
+    else:
+        red = stacked.amin(0) if op == "MIN" else stacked.amax(0)
+    return [red] * len(parts)
+
+
+def _mesh_all_gather(parts: List[Tensor], axis: MeshAxis) -> List[Tensor]:
+    """``(world,) + x.shape`` on every shard's device: each shard's ``x``
+    stacked in shard order."""
+    _COUNTS["all_gather"] += 1
+    flat = [p.contiguous().reshape(-1) for p in parts]
+    shape = (len(parts),) + tuple(parts[0].shape)
+    if axis.transport == "nccl":
+        import torch.cuda.nccl as nccl
+
+        outs = [f.new_empty((len(flat) * f.numel(),)) for f in flat]
+        nccl.all_gather(flat, outs)
+        return [o.reshape(shape) for o in outs]
+    return [torch.stack(flat).reshape(shape)] * len(parts)
+
+
+def all_gather_cat(x: Any, group: Optional[Any] = None) -> Any:
     """Gather shards along dim 0 (the "cat" reduction): ``(n, ...)`` ->
-    ``(world*n, ...)``."""
+    ``(world*n, ...)`` (per shard, from the W shards' tensors, over a
+    :class:`MeshAxis`)."""
+    if isinstance(group, MeshAxis):
+        return [g.reshape((-1,) + tuple(x[0].shape[1:])) for g in _mesh_all_gather(x, group)]
     g = _all_gather(x, group)
     return g.reshape((-1,) + tuple(x.shape[1:]))
 
 
-def all_gather_stack(x: Tensor, group: Optional[Any] = None) -> Tensor:
+def all_gather_stack(x: Any, group: Optional[Any] = None) -> Any:
     """Gather shards stacked on a new leading dim: ``(...)`` -> ``(world, ...)``,
     the post-sync layout of ``dist_reduce_fx=None`` tensor states."""
+    if isinstance(group, MeshAxis):
+        return _mesh_all_gather(x, group)
     return _all_gather(x, group)
 
 
-def sync_axis_state(reduce_fx: Any, value: Tensor, group: Optional[Any] = None) -> Tensor:
-    """One state's ``dist_reduce_fx`` as the matching collective over ``group``."""
+def sync_axis_state(reduce_fx: Any, value: Any, group: Optional[Any] = None) -> Any:
+    """One state's ``dist_reduce_fx`` as the matching collective over ``group``
+    (per shard, from the W shards' tensors, over a :class:`MeshAxis`)."""
     return fused_axis_sync([(reduce_fx, value)], group)[0]
 
 
@@ -263,6 +320,116 @@ def _from_bytes(raw: Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> Tens
     return own.view(dtype).reshape((raw.shape[0],) + tuple(shape))
 
 
+class _GroupTransport:
+    """The bundle's transport over a process group: one participant, this
+    rank's tensors."""
+
+    def __init__(self, group: Optional[Any], device: torch.device):
+        self.group = group
+        self.world = axis_size_or_one(group)
+        self.devices = [device]
+        self.decoded = range(1)
+
+    def all_reduce(self, parts: List[Tensor], op: str) -> List[Tensor]:
+        return [_all_reduce(parts[0], op, self.group)]
+
+    def all_gather(self, parts: List[Tensor]) -> List[Tensor]:
+        return [_all_gather(parts[0], self.group)]
+
+    def spread(self, per: List[Tensor]) -> List[Tensor]:
+        return per
+
+
+class _MeshTransport:
+    """The bundle's transport over a :class:`MeshAxis`: the W shards are the
+    participants, each collective one call over their payloads. On a
+    one-device mesh the shards' results are one tensor, decoded once and
+    shared."""
+
+    def __init__(self, axis: MeshAxis):
+        self.axis = axis
+        self.world = axis.world
+        self.devices = axis.devices
+        self.decoded = range(axis.world if axis.transport == "nccl" else 1)
+
+    def all_reduce(self, parts: List[Tensor], op: str) -> List[Tensor]:
+        return _mesh_all_reduce(parts, op, self.axis)
+
+    def all_gather(self, parts: List[Tensor]) -> List[Tensor]:
+        return _mesh_all_gather(parts, self.axis)
+
+    def spread(self, per: List[Tensor]) -> List[Tensor]:
+        return per if len(per) == self.world else per * self.world
+
+
+def _from_gathered(fx: Any, raw: Tensor, ref: Tensor, world: int) -> Tensor:
+    """A gather-bucket leaf from its ``(world, nbytes)`` slab: ``cat`` as
+    ``(world*n, ...)``, None as ``(world, ...)``, a callable folding the
+    ranks' values pairwise in rank order."""
+    piece = _from_bytes(raw, ref.dtype, tuple(ref.shape))
+    if fx == "cat":
+        return piece.reshape((-1,) + tuple(ref.shape[1:]))
+    if fx is None:
+        return piece
+    acc = piece[0]
+    for w in range(1, world):
+        acc = fx(acc, piece[w])
+    return acc
+
+
+def _fused_sync(leaves: List[Tuple[Any, List[Tensor]]], t: Any,
+                precisions: Optional[Sequence[Optional[str]]]) -> List[List[Tensor]]:
+    """The bundle over transport ``t``: each leaf's value is the list of the
+    participants' tensors (this rank's alone over a process group, the W
+    shards' over a mesh axis), and so is each result."""
+    n_parts = len(t.devices)
+    out: List[Optional[List[Tensor]]] = [None] * len(leaves)
+    buckets: Dict[str, List[int]] = {"sum": [], "gather": [], "q8": []}
+    reduce_buckets: Dict[Tuple[str, torch.dtype], List[int]] = {}
+    for i, (fx, parts) in enumerate(leaves):
+        if len(parts) != n_parts:
+            raise ValueError(f"a sync over {n_parts} participants got {len(parts)} values for a leaf")
+        kind = _bucket(fx, parts[0].dtype, precisions[i] if precisions is not None else None)
+        if kind == "reduce":
+            reduce_buckets.setdefault((fx, parts[0].dtype), []).append(i)
+        else:
+            buckets[kind].append(i)
+    world = t.world
+
+    def collect(idxs: List[int], encode: Callable[[int, Tensor], Tensor]) -> Tuple[List[Tensor], List[int]]:
+        """Each participant's flat payload of ``idxs``, on its device; each
+        leaf's size in it."""
+        pieces = [[encode(i, leaves[i][1][k]) for i in idxs] for k in range(n_parts)]
+        return [torch.cat(p).to(t.devices[k]) for k, p in enumerate(pieces)], [p.numel() for p in pieces[0]]
+
+    def unpack(idxs: List[int], sizes: List[int], synced: List[Tensor],
+               decode: Callable[[int, int, Tensor], Tensor]) -> None:
+        off = 0
+        for i, n in zip(idxs, sizes):
+            out[i] = t.spread([decode(i, k, synced[k][..., off : off + n]) for k in t.decoded])
+            off += n
+
+    if buckets["sum"]:
+        bits = _int_split_bits(world)
+        payloads, sizes = collect(buckets["sum"], lambda i, v: _to_sum_rider(v, bits))
+        unpack(buckets["sum"], sizes, t.all_reduce(payloads, "SUM"),
+               lambda i, k, piece: _from_sum_rider(piece, leaves[i][1][k], bits))
+
+    for (fx, dtype), idxs in reduce_buckets.items():
+        wire = _wire_dtype(fx, dtype)
+        payloads, sizes = collect(idxs, lambda i, v: v.reshape(-1).to(wire))
+        unpack(idxs, sizes, t.all_reduce(payloads, _REDUCE_OPS[fx]),
+               lambda i, k, piece: _from_reduced(piece, fx, dtype, world).reshape(leaves[i][1][k].shape))
+
+    gather, q8 = buckets["gather"] + buckets["q8"], set(buckets["q8"])
+    if gather:
+        payloads, sizes = collect(gather, lambda i, v: _q8_carrier(v) if i in q8 else _to_bytes(v))
+        unpack(gather, sizes, t.all_gather(payloads),  # (world, bytes) a participant
+               lambda i, k, raw: (_q8_sum_from_gathered(raw, leaves[i][1][k]) if i in q8
+                                  else _from_gathered(leaves[i][0], raw, leaves[i][1][k], world)))
+    return out  # type: ignore[return-value]
+
+
 def fused_axis_sync(
     leaves: List[Tuple[Any, Tensor]],
     group: Optional[Any] = None,
@@ -277,61 +444,15 @@ def fused_axis_sync(
     keeps every leaf exact. Returns the synced values in input order: sums,
     means, mins and maxes in the leaf's shape; ``cat`` as ``(world*n, ...)``;
     None as ``(world, ...)``; a callable folds the ranks' values pairwise in
-    rank order.
+    rank order. Over a :class:`MeshAxis` every value and result is the list
+    of the W shards' tensors: the same bundle, over the mesh's transport.
     """
-    out: List[Optional[Tensor]] = [None] * len(leaves)
-    buckets: Dict[str, List[int]] = {"sum": [], "gather": [], "q8": []}
-    reduce_buckets: Dict[Tuple[str, torch.dtype], List[int]] = {}
-    for i, (fx, v) in enumerate(leaves):
-        kind = _bucket(fx, v.dtype, precisions[i] if precisions is not None else None)
-        if kind == "reduce":
-            reduce_buckets.setdefault((fx, v.dtype), []).append(i)
-        else:
-            buckets[kind].append(i)
-    world = axis_size_or_one(group)
-    device = leaves[0][1].device if leaves else None
-
-    if buckets["sum"]:
-        bits = _int_split_bits(world)
-        payloads = [_to_sum_rider(leaves[i][1], bits) for i in buckets["sum"]]
-        synced = _all_reduce(torch.cat(payloads).to(device), "SUM", group)
-        off = 0
-        for i, p in zip(buckets["sum"], payloads):
-            out[i] = _from_sum_rider(synced[off : off + p.numel()], leaves[i][1], bits)
-            off += p.numel()
-
-    for (fx, dtype), idxs in reduce_buckets.items():
-        wire = _wire_dtype(fx, dtype)
-        vals = [leaves[i][1].reshape(-1).to(wire) for i in idxs]
-        synced = _all_reduce(torch.cat(vals).to(device), _REDUCE_OPS[fx], group)
-        off = 0
-        for i, v in zip(idxs, vals):
-            piece = synced[off : off + v.numel()]
-            out[i] = _from_reduced(piece, fx, dtype, world).reshape(leaves[i][1].shape)
-            off += v.numel()
-
-    if buckets["gather"] or buckets["q8"]:
-        payloads = [_to_bytes(leaves[i][1]) for i in buckets["gather"]]
-        payloads += [_q8_carrier(leaves[i][1]) for i in buckets["q8"]]
-        gathered = _all_gather(torch.cat(payloads).to(device), group)  # (world, bytes)
-        off = 0
-        for i, p in zip(buckets["gather"], payloads):
-            fx, v = leaves[i]
-            piece = _from_bytes(gathered[:, off : off + p.numel()], v.dtype, tuple(v.shape))
-            off += p.numel()
-            if fx == "cat":
-                out[i] = piece.reshape((-1,) + tuple(v.shape[1:]))
-            elif fx is None:
-                out[i] = piece
-            else:
-                acc = piece[0]
-                for w in range(1, world):
-                    acc = fx(acc, piece[w])
-                out[i] = acc
-        for i, p in zip(buckets["q8"], payloads[len(buckets["gather"]):]):
-            out[i] = _q8_sum_from_gathered(gathered[:, off : off + p.numel()], leaves[i][1])
-            off += p.numel()
-    return out  # type: ignore[return-value]
+    if not leaves:
+        return []
+    if isinstance(group, MeshAxis):
+        return _fused_sync(leaves, _MeshTransport(group), precisions)
+    synced = _fused_sync([(fx, [v]) for fx, v in leaves], _GroupTransport(group, leaves[0][1].device), precisions)
+    return [s[0] for s in synced]
 
 
 # ------------------------------------------------------------ the q8_block rider

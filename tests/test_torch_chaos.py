@@ -2,10 +2,10 @@
 package's, on the CPU.
 
 * **The canonical plans**: JAX's ``chaos_injectors()`` (``metrics_tpu/engine/
-  chaos_smoke.py``) minus the plans naming a site the port still refuses
-  (shard loss, merges, reshards, the fleet; the ``elastic`` plan's
-  ``admission`` site is ported, its shard loss and reshards are not; the
-  ``windows`` and ``ewma`` plans run in ``tests/test_torch_windows.py``). The same
+  chaos_smoke.py``) minus the plan naming a site the port still refuses
+  (the fleet's; the ``windows`` and ``ewma`` plans run in
+  ``tests/test_torch_windows.py``, the mesh's ``elastic`` and ``merge`` in
+  ``tests/test_torch_reshard.py``). The same
   seeded plan drives a JAX engine and a port engine over the same numpy
   traffic; ``inj.summary()``, the recovery counters, the quarantine ledger,
   the restored cursor and the results must agree: integer states bit-equal
@@ -60,7 +60,8 @@ BUCKETS = (8, 32)
 #: the sites this slice wires into the port's engines
 NEW_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
              "quant_decode", "dispatcher_kill")
-PORTED = set(NEW_SITES) | {"snapshot_write", "snapshot_corrupt", "snapshot_read", "pane_rotate", "drift_eval"}
+PORTED = set(NEW_SITES) | {"snapshot_write", "snapshot_corrupt", "snapshot_read", "pane_rotate", "drift_eval",
+                            "admission", "shard_loss", "merge", "reshard_snapshot", "reshard_restore"}
 #: sites only a mesh consults (JAX's stream-sharded engine runs on one)
 MESH_ONLY = ("shard_loss", "merge")
 COUNTERS = ("retries", "rollbacks", "kernel_demotions", "coalesce_degraded", "coalesce_shrinks", "watchdog_timeouts",
@@ -147,7 +148,8 @@ def _canonical():
 
 
 def test_canonical_plans_in_scope_are_those_of_ported_sites():
-    assert sorted(_canonical()) == ["chaos", "dispatcher_kill", "ewma", "paging", "quant", "snapshot_read", "windows"]
+    assert sorted(_canonical()) == ["chaos", "dispatcher_kill", "elastic", "ewma", "merge", "paging", "quant",
+                                    "snapshot_read", "windows"]
     # every other plan names a site that is still refused
     for name, inj in chaos_injectors().items():
         if name not in _canonical():
@@ -790,7 +792,7 @@ def _port_q8(traffic, inj=None):
     do_step = eng._do_step
 
     def watched(*a, **kw):  # the staged slots each step attempt sees
-        staged_at.append(int(eng._q8_stage["flags"].sum()) if eng._q8_keys else 0)
+        staged_at.append(int(eng._q8_stage[0]["flags"].sum()) if eng._q8_keys else 0)
         return do_step(*a, **kw)
 
     eng._do_step = watched

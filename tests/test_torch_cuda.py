@@ -1582,10 +1582,10 @@ def test_paged_q8_snapshot_with_staged_rows_loses_none(cuda, tmp_path):
     assert spilled
     want = {sid: eng.stream_state(sid) for sid in spilled}
     with eng._device_section():
-        eng._page_round(spilled)
-    assert int(eng._q8_stage["flags"].sum()) == len(spilled)
+        eng._page_round({0: spilled})
+    assert int(eng._q8_stage[0]["flags"].sum()) == len(spilled)
     path = eng.snapshot()
-    assert int(eng._q8_stage["flags"].sum()) == 0
+    assert int(eng._q8_stage[0]["flags"].sum()) == 0
     restored = _snapshot_engine("paged_q8", cuda, str(tmp_path))
     restored.restore(path)
     for sid in spilled:
@@ -2671,3 +2671,183 @@ def test_map_on_card_equals_map_on_cpu(cuda, class_metrics):
     for k in want:
         assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
     assert float(want["map"]) > 0.1
+
+
+# ------------------------------------------------------------------ serving on a mesh
+
+
+def _mesh_layouts(cuda):
+    """The W = 4 layouts this machine has: four shards on one card always,
+    four cards (the NCCL transport) when there are four."""
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    out = [MeshConfig(shape=(4,), devices=[cuda] * 4).make_mesh()]
+    if torch.cuda.device_count() >= 4:
+        out.append(MeshConfig(shape=(4,)).make_mesh())
+    return out
+
+
+def _mesh_coll(device, q8=False):
+    import metrics_tpu_torch as mp
+
+    return mp.MetricCollection({
+        "acc": mp.Accuracy(num_classes=3, average="macro", device=device),
+        "ap": mp.BinnedAveragePrecision(num_classes=3, thresholds=10, device=device,
+                                        sync_precision="q8_block" if q8 else None),
+        "cm": mp.ConfusionMatrix(num_classes=3, device=device)})
+
+
+def _mesh_batches(n=24, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for k in rng.randint(3, 300, n):
+        p = rng.rand(k, 3).astype(np.float32)
+        out.append((p / p.sum(1, keepdims=True), rng.randint(0, 3, k)))
+    return out
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _trees_equal(got, want):
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(_trees_equal(got[k], want[k]) for k in want)
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["step", "deferred"])
+@pytest.mark.parametrize("backend", ["megastep", None])
+def test_mesh_engine_on_card_equals_the_cpu_port(cuda, mode, backend):
+    """The captured mesh engine (every shard's step a CUDA graph: K5 or K1, K2
+    and K3 at the shard's block of bucket / 4 rows) against the CPU port at
+    W = 4 (the plain versions at the same shapes), bit for bit, in each
+    layout the machine has."""
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    batches = _mesh_batches()
+    cpu = pe.StreamingEngine(_mesh_coll("cpu"), pe.EngineConfig(
+        buckets=(64, 256), kernel_backend=backend, mesh=MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh(),
+        mesh_sync=mode))
+    with cpu:
+        for b in batches:
+            cpu.submit(*b)
+    want = _host_tree(cpu.state())
+    for mesh in _mesh_layouts(cuda):
+        eng = pe.StreamingEngine(_mesh_coll(mesh.device_list()[0]), pe.EngineConfig(
+            buckets=(64, 256), kernel_backend=backend, mesh=mesh, mesh_sync=mode))
+        with eng:
+            for b in batches:
+                eng.submit(*(torch.from_numpy(x).to(cuda) for x in b))
+        assert eng.stats.warmup_steps > 0 and eng.stats.summary()["mesh_sync"]["transport"] == mesh.transport
+        assert _trees_equal(_host_tree(eng.state()), want), mesh
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q8", [False, True])
+def test_stream_sharded_mesh_on_card_equals_the_cpu_port(cuda, q8):
+    """The paged tenancy at W = 4 (K6, and K7 decoding q8-staged slots, at
+    (resident, n) slot buffers a shard and 16- or 64-row blocks) against the
+    CPU port's plain versions, stream for stream."""
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    rng = np.random.RandomState(4)
+    streams = 40
+    traffic = []
+    for sid in rng.randint(0, streams, 60):
+        k = int(rng.randint(1, 40))
+        p = rng.rand(k, 3).astype(np.float32)
+        traffic.append((int(sid), p / p.sum(1, keepdims=True), rng.randint(0, 3, k)))
+
+    def run(mesh, dev):
+        eng = pe.MultiStreamEngine(_mesh_coll(dev, q8), streams, pe.EngineConfig(
+            buckets=(64, 256), kernel_backend="megastep", coalesce=1, compress_payloads=q8, mesh=mesh,
+            mesh_sync="deferred"), stream_shard=True, resident_streams=3)
+        with eng:
+            for sid, p, t in traffic:
+                eng.submit(sid, p, t)
+        return eng
+
+    want = _host_tree(run(MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh(), "cpu").state())
+    for mesh in _mesh_layouts(cuda):
+        eng = run(mesh, mesh.device_list()[0])
+        assert eng.stats.page_outs > 0 and (eng.stats.q8_staged_rows > 0) == q8
+        assert _trees_equal(_host_tree(eng.state()), want), mesh
+
+
+@pytest.mark.requires_cuda
+def test_nccl_group_call_issues_the_plans_collectives(cuda):
+    """Across cards each collective of the fused bundle is ONE
+    ``torch.cuda.nccl`` group call over the per-device tensors:
+    ``collective_counts()`` equals ``fused_sync_plan``'s count, and the synced
+    states equal the stacked merge."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the NCCL transport spans distinct devices")
+    from metrics_tpu_torch.parallel.collectives import collective_counts, fused_sync_plan, reset_collective_counts
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    w = min(4, torch.cuda.device_count())
+    axis = MeshConfig(shape=(w,)).make_mesh().axis("dp")
+    coll = _mesh_coll("cpu")
+    states = []
+    for k, (p, t) in enumerate(_mesh_batches(n=w, seed=3)):
+        s = coll.init_state()
+        s = {name: coll[name].update_state(s[name], torch.from_numpy(p), torch.from_numpy(t)) for name in s}
+        states.append(s)
+    want = coll.merge_stacked_states({name: {leaf: torch.stack([s[name][leaf] for s in states])
+                                             for leaf in states[0][name]} for name in states[0]})
+    placed = [{n: {leaf: v.to(dev) for leaf, v in m.items()} for n, m in s.items()}
+              for s, dev in zip(states, axis.devices)]
+    reset_collective_counts()
+    synced = coll.sync_states(placed, axis)
+    assert sum(collective_counts().values()) == fused_sync_plan(coll.sync_leaf_info(), w)["collectives"]
+    for k, dev in enumerate(axis.devices):
+        assert all(v.device == dev for m in synced[k].values() for v in m.values())
+        assert _trees_equal(_host_tree(synced[k]), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["step", "deferred"])
+def test_mesh_reshard_across_cards_keeps_its_devices(cuda, mode):
+    """An engine built on cuda:1 and cuda:2 reshards to one shard on cuda:1
+    and grows back onto cuda:1 and cuda:2 (shard 0 stays on the metric's
+    card); a target mesh that starts on cuda:0 is refused. Its state equals
+    the CPU port's at W = 2."""
+    if torch.cuda.device_count() < 3:
+        pytest.skip("needs three cards: a mesh that does not start at cuda:0")
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    batches = _mesh_batches(seed=6)
+    cpu = pe.StreamingEngine(_mesh_coll("cpu"), pe.EngineConfig(
+        buckets=(64, 256), mesh=MeshConfig(shape=(2,), devices=["cpu"] * 2).make_mesh(), mesh_sync=mode))
+    with cpu:
+        for b in batches:
+            cpu.submit(*b)
+    home = [torch.device("cuda", 1), torch.device("cuda", 2)]
+    eng = pe.StreamingEngine(_mesh_coll(home[0]), pe.EngineConfig(
+        buckets=(64, 256), kernel_backend="megastep", mesh=MeshConfig(shape=(2,), devices=home).make_mesh(),
+        mesh_sync=mode))
+    half = len(batches) // 2
+    with eng:
+        for b in batches[:half]:
+            eng.submit(*(torch.from_numpy(x).to(home[0]) for x in b))
+        eng.flush()
+        eng.reshard(world=1)
+        assert eng._shard_devices == [home[0]]
+        eng.reshard(world=2)
+        assert eng._shard_devices == home and eng.stats.summary()["mesh_sync"]["transport"] == "nccl"
+        with pytest.raises(MetricsTPUUserError, match="first device"):
+            eng.reshard(mesh=MeshConfig(shape=(2,), devices=[torch.device("cuda", 0), home[1]]).make_mesh())
+        assert eng._shard_devices == home
+        for b in batches[half:]:
+            eng.submit(*(torch.from_numpy(x).to(home[0]) for x in b))
+    state = eng.state()
+    assert all(v.device == home[0] for m in state.values() for v in m.values())
+    assert _trees_equal(_host_tree(state), _host_tree(cpu.state()))

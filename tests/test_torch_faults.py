@@ -38,7 +38,9 @@ from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedErr
 
 PORTED_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
                 "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
-                "pane_rotate", "drift_eval")
+                "pane_rotate", "drift_eval", "shard_loss", "merge", "reshard_snapshot", "reshard_restore")
+#: the sites only a mesh engine consults, each fired alone on a 4-shard engine
+MESH_SITES = ("shard_loss", "merge", "reshard_snapshot", "reshard_restore")
 
 
 def _plan(mod, site):
@@ -275,6 +277,53 @@ def test_plan_naming_an_unported_site_is_refused(site):
         EngineConfig(fault_injector=FaultInjector(0, {site: FaultSpec(schedule=(0,))}))
 
 
+def _mesh_site_run(jax_side, site):
+    """One mesh site alone in a plan, on a deferred engine at W = 4 (JAX's on
+    four of the eight virtual devices): a lost shard for good under
+    ``elastic_min_world=2``, a transient merge failure under ``result()``, a
+    transient capture or restore failure under a manual ``reshard(world=2)``."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    spec = {"shard_loss": dict(schedule=(2,), transient=False)}.get(site, dict(schedule=(0,)))
+    if jax_side:
+        e = mt.engine
+        mesh, kw = JaxMesh(np.asarray(jax.devices()[:4]), ("dp",)), {"kernel_backend": "xla", "axis": "dp"}
+        coll = mt.MetricCollection([mt.Accuracy(), mt.MeanSquaredError()])
+    else:
+        import metrics_tpu_torch.engine as e
+        mesh, kw, coll = MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh(), {}, _collection()
+    inj = e.FaultInjector(0, {site: e.FaultSpec(**spec)})
+    eng = e.StreamingEngine(coll, e.EngineConfig(buckets=(8, 32), coalesce=1, mesh=mesh, mesh_sync="deferred",
+                                                 elastic_min_world=2, fault_injector=inj, **kw))
+    batches = _batches()
+    with eng:
+        for i, b in enumerate(batches):
+            eng.submit(*b)
+            eng.flush()
+            if i == 2 and site.startswith("reshard"):
+                eng.reshard(world=2)
+        values = _values(eng.result())
+    st = eng.stats
+    return {"values": values, "summary": inj.summary(), "world": eng._world,
+            "counters": (st.retries, st.rollbacks, st.reshards, st.merges)}
+
+
+@pytest.mark.parametrize("site", MESH_SITES)
+def test_mesh_site_fires_and_recovers_as_jax(site):
+    j, p = _mesh_site_run(True, site), _mesh_site_run(False, site)
+    assert p["summary"] == j["summary"]
+    assert p["summary"]["fired"].get(site, 0) == 1
+    assert p["counters"] == j["counters"]
+    assert p["world"] == j["world"] == (4 if site == "merge" else 2)
+    want = _oracle(_batches())
+    for k in want:
+        assert np.array_equal(p["values"][k], j["values"][k]), k
+        assert np.array_equal(p["values"][k], want[k]), k
+
+
 def test_recovery_config_checks():
     cfg = EngineConfig(snapshot_every=2, snapshot_keep=3, max_retries=0, backoff_base_ms=0.0,
                        fault_injector=FaultInjector(0, {s: FaultSpec() for s in PORTED_SITES}))
@@ -285,15 +334,16 @@ def test_recovery_config_checks():
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(max_retries=-1))
     with pytest.raises(MetricsTPUUserError, match="snapshot_dir"):
         StreamingEngine(mp.Accuracy(device="cpu")).snapshot()
-    for field in ("compilation_cache_dir", "donate", "elastic_min_world"):
+    for field in ("compilation_cache_dir",):
         with pytest.raises(NotPortedError, match=field):
             EngineConfig(**{field: None})
-    # the fault layer's own fields, and the observability and overload ones,
-    # are accepted, with the JAX package's defaults and checks
+    # the fault layer's own fields, the observability and overload ones and
+    # the mesh's are accepted, with the JAX package's defaults and checks
     cfg = EngineConfig()
     want = mt.engine.EngineConfig()
     for field in ("screen", "quarantine_capacity", "step_timeout_s", "transactional", "degrade_kernel",
-                  "telemetry_capacity", "trace", "admission", "ladder"):
+                  "telemetry_capacity", "trace", "admission", "ladder", "mesh", "axis", "mesh_sync", "donate",
+                  "elastic_min_world"):
         assert getattr(cfg, field) == getattr(want, field), field
     with pytest.raises(MetricsTPUUserError, match="step_timeout_s"):
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(step_timeout_s=-1.0))
@@ -301,6 +351,8 @@ def test_recovery_config_checks():
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(screen="nan"))
     with pytest.raises(MetricsTPUUserError, match="FaultInjector"):
         StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(fault_injector=object()))
+    with pytest.raises(MetricsTPUUserError, match="elastic_min_world"):
+        StreamingEngine(mp.Accuracy(device="cpu"), EngineConfig(elastic_min_world=-1))
 
 
 # ------------------------------------------------------------------ utils/checkpoint.py
