@@ -7248,6 +7248,484 @@ def mesh_phase(dev, preds, target, preds_np, target_np, gpu_state):
     return out
 
 
+# ------------------------------------------------------------ phase 26: the mesh forms that remain
+
+MESH_WIN_PAGED_BATCHES = 800  # 26(b): 19(d)'s prefix of phase 9's traffic
+MESH_WIN_PAGED_PANE = 300  # 26(b): batches per tumbling pane (two rotations: the open pane is [600, 800))
+MESH_EMB_TOL = 1e-4  # 26(e): FID, KID and IS at W = 4 against phase 23's world-1 values, relative
+MESH_BERT_TOL = 1e-5  # 26(e): BERTScore's P/R/F1 at W = 4 against phase 21's, absolute
+MESH_PIPE_TOL = 1e-4  # 26(e): the pipeline host's hidden states against the world-1 encoder's, absolute
+MESH_PIPE_PAIRS = 256  # 26(e): the pairs whose token rows go through the pipeline host
+MESH_PIPE_BUCKET = 64  # 26(e): the pipeline host's one bucket, four microbatches of 16 rows
+MESH_HOST_REPS = 4  # 26(e): requests a turn, the hosts' pieces captured against eager across cards
+
+
+def on_mesh(mesh):
+    """The engine config of deferred sync on ``mesh`` (world 1 without one)."""
+    return dict(mesh=mesh, mesh_sync="deferred") if mesh is not None else {}
+
+
+def mesh_windows(dev, preds, target, mesh):
+    """26(a): phase 19's tumbling (16 batches, 3 panes) and sliding (3 panes
+    of 16) rings on phase 7's engine and traffic, deferred at W = 4, in
+    lockstep with the same rings at world 1: after every rotation the merged
+    pane-stacked states equal world 1's bit for bit (every float state of
+    the flagship is a count), and the window's value at the end too. A
+    cumulative deferred engine warms the cache first; the windowed engines
+    replay its graphs (a pane row is the step's target) and capture nothing
+    across their rotations. Host ms a warm step, windowed against
+    cumulative, at W = 4."""
+    from metrics_tpu_torch.engine import AotCache, WindowPolicy
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    submit = submit_rows(preds, target)
+    aot_mesh, aot_one = AotCache(), AotCache()
+    for aot, m in ((aot_mesh, mesh), (aot_one, None)):
+        run_engine(windowed_engine(dev, None, aot, **on_mesh(m)), True, batches, submit)
+    warm = aot_mesh.misses
+    out = {"warmup_captures": warm}
+    policies = {"tumbling": lambda: WindowPolicy.tumbling(pane_batches=WIN_PANE, n_panes=WIN_TUMBLING),
+                "sliding": lambda: WindowPolicy.sliding(n_panes=WIN_SLIDE, pane_batches=WIN_PANE)}
+    for kind, policy in policies.items():
+        eng, ref = windowed_engine(dev, policy(), aot_mesh, **on_mesh(mesh)), windowed_engine(dev, policy(), aot_one)
+        before = counts()
+        checked = 0
+        t0 = time.perf_counter()
+        with eng, ref:
+            for i, b in enumerate(batches):
+                submit(eng, b)
+                submit(ref, b)
+                if (i + 1) % WIN_PANE == 0:
+                    eng.flush()
+                    ref.flush()
+                    check(eng.rotations == ref.rotations == (i + 1) // WIN_PANE, f"26(a) {kind}: rotations")
+                    compare_states(eng.state(), ref.state(), f"26(a) {kind} after rotation {eng.rotations}")
+                    checked += 1
+            bit_equal_values(eng.result(), ref.result(), f"26(a) {kind}: the window's value")
+        seconds = time.perf_counter() - t0
+        d = delta(before)
+        check(eng.stats.warmup_steps == 0 and aot_mesh.misses == warm,
+              f"26(a) {kind}: {eng.stats.warmup_steps} captures across {eng.rotations} rotations")
+        check(d["megastep_fold"] > 0 and d["fold_rows"] == 0, f"26(a) {kind}: launches {d}")
+        check(eng.stats.kernel_fallbacks_by_reason() == {}, f"26(a) {kind}: the windowed mesh engine fell back")
+        out[kind] = {"rotations_checked": checked, "rotations": eng.rotations, "steps": eng.steps,
+                     "captures": eng.stats.warmup_steps, "lockstep_s": seconds, "launches": d,
+                     "merges": eng.stats.merges}
+    # host ms a warm step at W = 4: cumulative, sliding, sliding, cumulative
+    cost = {"cumulative": [], "windowed": []}
+    for kind in ("cumulative", "windowed", "windowed", "cumulative"):
+        eng = windowed_engine(dev, policies["sliding"]() if kind == "windowed" else None, aot_mesh, **on_mesh(mesh))
+        seconds = run_engine(eng, True, batches, submit)
+        check(eng.stats.warmup_steps == 0, f"26(a) timing: the warm {kind} engine captured")
+        cost[kind].append(seconds / eng.steps * 1e3)
+    out["host_ms_per_step"] = cost
+    return out
+
+
+def mesh_window_paged(dev, preds, target, mesh):
+    """26(b): phase 25(c)'s tenancy (10 000 streams, Zipf 1.05, 32 slots a
+    shard, exact) on 19(d)'s 800-batch prefix of phase 9's traffic under
+    ``tumbling(300 batches, 2 panes)``, stream-sharded at W = 4 (stream
+    ``sid`` on shard ``sid % 4`` at pager row ``(sid // 4) * 2 + pane``)
+    against the same ring at world 1 with 128 slots: every stream's two pane
+    rows bit-equal; page-ins and page-outs by shard."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, WindowPolicy
+
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)[:MESH_WIN_PAGED_BATCHES]
+    traffic = list(zip(sids, batches[:MESH_WIN_PAGED_BATCHES]))
+    submit = lambda e, b: e.submit(int(b[0]), preds[b[1][0]:b[1][1]], target[b[1][0]:b[1][1]])  # noqa: E731
+    engs, runs = {}, {}
+    for name, world in (("mesh", MESH_WORLD), ("world_1", 1)):
+        cfg = dict(buckets=PAGED_BUCKETS, kernel_backend="megastep", coalesce=1,
+                   window=WindowPolicy.tumbling(pane_batches=MESH_WIN_PAGED_PANE, n_panes=2))
+        if world > 1:
+            cfg.update(mesh=mesh, mesh_sync="deferred")
+        engs[name] = MultiStreamEngine(make_collection(dev), PAGED_STREAMS, EngineConfig(**cfg), stream_shard=True,
+                                       resident_streams=RESIDENT // world)
+        before = counts()
+        runs[name] = (run_engine(engs[name], True, traffic, submit), delta(before))
+    eng, one = engs["mesh"], engs["world_1"]
+    check(eng.rotations == one.rotations == MESH_WIN_PAGED_BATCHES // MESH_WIN_PAGED_PANE,
+          f"26(b): {eng.rotations} rotations")
+    check(runs["mesh"][1]["megastep_segment"] > 0 and runs["mesh"][1]["segment_reduce"] == 0,
+          f"26(b): launches {runs['mesh'][1]}")
+    x, y = stacked_host(eng), stacked_host(one)
+    for k in y:
+        for s in y[k]:
+            check(x[k][s].shape == y[k][s].shape and x[k][s].dtype == y[k][s].dtype
+                  and np.array_equal(x[k][s], y[k][s]), f"26(b): {k}.{s} differs from the world-1 ring")
+    st = eng.stats
+    check(st.page_outs > 0 and st.routed_steps > 0, "26(b): nothing spilled at W = 4")
+    return {"batches": len(traffic), "rotations": eng.rotations, "seconds": runs["mesh"][0], "steps": eng.steps,
+            "host_ms_per_step": runs["mesh"][0] / eng.steps * 1e3, "world_1_seconds": runs["world_1"][0],
+            "world_1_steps": one.steps, "launches": runs["mesh"][1], "pages_by_shard": eng.pages_by_shard(),
+            "page_ins": st.page_ins, "page_outs": st.page_outs, "world_1_page_ins": one.stats.page_ins,
+            "world_1_page_outs": one.stats.page_outs}
+
+
+def mesh_window_reshard(dev, preds, target, mesh):
+    """26(c): 26(a)'s sliding ring at W = 4 resharded 4 -> 2 -> 4 half a pane
+    into its fourth pane (the world axis merged, the panes and the cursor
+    kept), then served to the end; and the same ring losing a shard for good
+    under ``elastic_min_world=2``, serving on at world 2. Both end bit-equal
+    to the uninterrupted world-1 ring."""
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.engine import AotCache
+
+    batches = ragged_batches(SEED + 2, 16, BUCKET)
+    submit = submit_rows(preds, target)
+    window = lambda: pe.WindowPolicy.sliding(n_panes=WIN_SLIDE, pane_batches=WIN_PANE)  # noqa: E731
+    ref = windowed_engine(dev, window(), AotCache())
+    run_engine(ref, True, batches, submit)
+    want = ref.state()
+    at = min(3 * WIN_PANE + WIN_PANE // 2, len(batches) // 2)  # half a pane into the fourth pane
+    eng = windowed_engine(dev, window(), AotCache(), **on_mesh(mesh))
+    ms = []
+    with eng:
+        for b in batches[:at]:
+            submit(eng, b)
+        eng.flush()
+        cursor = eng.pane_cursor
+        for w in (2, MESH_WORLD):
+            t0 = time.perf_counter()
+            info = eng.reshard(world=w)
+            sync_devices(mesh)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(info["to_world"] == w and info["cursor"] == at and eng.pane_cursor == cursor,
+                  f"26(c): reshard gave {info}, cursor {eng.pane_cursor}")
+        for b in batches[at:]:
+            submit(eng, b)
+    compare_states(eng.state(), want, "26(c): the ring resharded 4 -> 2 -> 4 mid-pane vs world 1")
+    bit_equal_values(eng.result(), ref.result(), "26(c): the resharded ring's value")
+    out = {"at_batch": at, "cursor": cursor, "ms_4_to_2": ms[0], "ms_2_to_4": ms[1]}
+    inj = pe.FaultInjector(0, {"shard_loss": pe.FaultSpec(schedule=(MESH_SHARD_LOSS_AT,), transient=False)})
+    lost = windowed_engine(dev, window(), AotCache(), fault_injector=inj, elastic_min_world=2, **on_mesh(mesh))
+    seconds = run_engine(lost, True, batches, submit)
+    check(lost._world == 2 and lost.stats.shard_losses == 1, f"26(c): world {lost._world} after the loss")
+    compare_states(lost.state(), want, "26(c): the ring after a lost shard vs world 1")
+    out["shard_loss"] = {"seconds": seconds, "steps": lost.steps, "world_after": lost._world,
+                         "rotations": lost.rotations}
+    return out
+
+
+def mesh_ragged(dev, mesh):
+    """26(d): ``ragged_bench.py``'s protocols at W = 4. (i) 512 Zipf groups,
+    240 batches, buckets (8, 24) through the deferred-mesh
+    ``RaggedEngine(RetrievalMAP())``: the aggregate (four K1 folds on the
+    merged state) equals its oracle and the world-1 engine's, every group's
+    value and count too. (ii) the 10^6-group universe (200 000 Zipf(1.2)
+    rows, capacity 16) through ``group_shard`` with 8 192 resident groups a
+    shard: the capacity-blocked sweep over every shard's touched rows, one
+    K4 block per 1 024 touched groups, its value the eager segment path's
+    (the world-1 sweep's reference in 20(d)). Ingest, aggregate and sweep ms,
+    K1 and K4 launches."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import EngineConfig, RaggedEngine
+    from metrics_tpu_torch.engine.ragged import _AGG_BLOCK_ROWS
+    from metrics_tpu_torch.ops.kernels.fold_cuda import fold_rows_cuda
+    from metrics_tpu_torch.ops.kernels.segment_cuda import segment_reduce_cuda
+
+    traffic, capacity, touched = ragged_traffic()
+    engs = {name: RaggedEngine(mp.RetrievalMAP(device=dev), num_groups=RAG_GROUPS, capacity=capacity,
+                               config=EngineConfig(buckets=RAG_BUCKETS, **cfg))
+            for name, cfg in (("mesh", dict(mesh=mesh, mesh_sync="deferred")), ("world_1", {}))}
+    out = {}
+    with engs["mesh"], engs["world_1"]:
+        ingest_s = rag_serve(engs["mesh"], traffic, binary_target)
+        rag_serve(engs["world_1"], traffic, binary_target)
+        k1 = fold_rows_cuda.launches
+        t0 = time.perf_counter()
+        value = float(engs["mesh"].aggregate())
+        first_ms = (time.perf_counter() - t0) * 1e3
+        k1_first = fold_rows_cuda.launches - k1
+        agg_ms = rag_timed(lambda: float(engs["mesh"].aggregate()))
+        oracle = float(engs["mesh"].aggregate(oracle=True))
+        one = float(engs["world_1"].aggregate())
+        per = engs["mesh"].results()
+        per_one = engs["world_1"].results()
+        counts_mesh = engs["mesh"].state()["count"].cpu()
+        counts_one = engs["world_1"].state()["count"].cpu()
+        steps = engs["mesh"].steps
+    check(engs["mesh"].aggregate_path() == ("device", "batched fold over the stacked buffers"), "26(d): the path")
+    check(k1_first == 4, f"26(d): {k1_first} K1 launches in the first aggregate, not 4")
+    check(torch.equal(counts_mesh, counts_one), "26(d): the merged counts differ from world 1's")
+    per_err = max(abs(float(per[g]) - float(per_one[g])) for g in range(RAG_GROUPS))
+    check(per_err <= 1e-6, f"26(d): per-group values {per_err} from world 1's")
+    out["zipf"] = {"groups": RAG_GROUPS, "batches": len(traffic), "touched": touched, "capacity": capacity,
+                   "value": value, "ingest_s": ingest_s, "steps": steps, "host_ms_per_step": ingest_s / steps * 1e3,
+                   "first_aggregate_ms": first_ms, "aggregate_ms": agg_ms, "k1_per_aggregate": k1_first,
+                   "merges": engs["mesh"].stats.merges, "per_group_max_abs_err": per_err,
+                   "rel_err": {"oracle": rel_close(value, oracle, "26(d): the mesh aggregate vs its oracle"),
+                               "world_1": rel_close(value, one, "26(d): the mesh aggregate vs world 1's")}}
+    # (ii) the million-group universe, group_shard at W = 4
+    preds, target, gids = paged_ragged_rows()
+    n, touched = int(gids.size), int(np.unique(gids).size)
+    eng = RaggedEngine(mp.RetrievalMAP(device=dev), num_groups=RAG_PAGED_GROUPS, capacity=RAG_PAGED_CAPACITY,
+                       config=EngineConfig(buckets=RAG_PAGED_BUCKETS, mesh=mesh, mesh_sync="deferred"),
+                       group_shard=True, resident_groups=RAG_PAGED_RESIDENT)
+    with eng:
+        t0 = time.perf_counter()
+        for lo in range(0, n, RAG_PAGED_CHUNK):
+            eng.submit(gids[lo:lo + RAG_PAGED_CHUNK], preds[lo:lo + RAG_PAGED_CHUNK], target[lo:lo + RAG_PAGED_CHUNK])
+        eng.flush()
+        ingest_s = time.perf_counter() - t0
+        check(eng.aggregate_path()[0] == "device", "26(d): the paged aggregate did not take the device sweep")
+        blocks0 = eng.stats.ragged_summary()["agg_blocks"]
+        k1, k4 = fold_rows_cuda.launches, segment_reduce_cuda.launches
+        t0 = time.perf_counter()
+        value = float(eng.aggregate())
+        first_ms = (time.perf_counter() - t0) * 1e3
+        blocks = eng.stats.ragged_summary()["agg_blocks"] - blocks0
+        k1_first, k4_first = fold_rows_cuda.launches - k1, segment_reduce_cuda.launches - k4
+        sweep_ms = rag_timed(lambda: float(eng.aggregate()), runs=3)
+        st = eng.stats
+        paging = {"routed_steps": st.routed_steps, "page_outs": st.page_outs, "page_ins": st.page_ins,
+                  "pages_by_shard": eng.pages_by_shard()}
+    per_sweep = -(-touched // _AGG_BLOCK_ROWS)
+    check(blocks == per_sweep, f"26(d): the sweep ran {blocks} blocks for {touched} touched groups, not {per_sweep}")
+    check(k4_first == blocks and k1_first == blocks + 3, f"26(d): {k4_first} K4 and {k1_first} K1 launches a sweep")
+    eager = rag_eager(dev, lambda d: mp.RetrievalMAP(device=d), (preds, target, gids.astype(np.int64)))
+    out["paged"] = {"rows": n, "touched_groups": touched, "resident_a_shard": RAG_PAGED_RESIDENT, "blocks": blocks,
+                    "k4_per_sweep": k4_first, "k1_per_sweep": k1_first, "ingest_s": ingest_s,
+                    "ingest_rows_per_s": n / ingest_s, "first_sweep_ms": first_ms, "sweep_ms": sweep_ms,
+                    "value": value, "paging": paging,
+                    "rel_err": rel_close(value, eager, "26(d): the W = 4 paged aggregate vs the eager segment path")}
+    return out
+
+
+def bert_stage_params(state, stages):
+    """BERT-base's 12 layers as ``stages`` stages of 12 / stages, stacked
+    ``(S, ...)`` leaf by leaf: stage ``s``'s row holds its layers' weights."""
+    per = BERT_BASE["layers"] // stages
+    names = sorted({k.split(".", 3)[3] for k in state if k.startswith("encoder.layer.")})
+    return {f"l{j}": {name: torch.stack([state[f"encoder.layer.{s * per + j}.{name}"] for s in range(stages)])
+                      for name in names} for j in range(per)}
+
+
+def bert_layer(p, x, bias):
+    """One BERT layer as ``BertBase.forward`` computes it, from its weights."""
+    F = torch.nn.functional
+    n, length, h = x.shape
+    heads, eps = BERT_BASE["heads"], BERT_BASE["eps"]
+    q, k, v = (F.linear(x, p[f"attention.self.{m}.weight"], p[f"attention.self.{m}.bias"])
+               .view(n, length, heads, -1).transpose(1, 2) for m in ("query", "key", "value"))
+    probs = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1]) + bias, dim=-1)
+    ctx = (probs @ v).transpose(1, 2).reshape(n, length, -1)
+    x = F.layer_norm(F.linear(ctx, p["attention.output.dense.weight"], p["attention.output.dense.bias"]) + x, (h,),
+                     p["attention.output.LayerNorm.weight"], p["attention.output.LayerNorm.bias"], eps)
+    inter = F.gelu(F.linear(x, p["intermediate.dense.weight"], p["intermediate.dense.bias"]))
+    return F.layer_norm(F.linear(inter, p["output.dense.weight"], p["output.dense.bias"]) + x, (h,),
+                        p["output.LayerNorm.weight"], p["output.LayerNorm.bias"], eps)
+
+
+def bert_stage(p, x):
+    """One pipeline stage: the mask rides the activation's last channel (a
+    stage sees only its microbatch), the stage's layers run on the rest."""
+    mask, h = x[..., -1], x[..., :-1]
+    bias = (1.0 - mask[:, None, None, :]) * torch.finfo(h.dtype).min
+    for j in range(len(p)):
+        h = bert_layer(p[f"l{j}"], h, bias)
+    return torch.cat([h, mask[..., None]], dim=-1)
+
+
+def bert_embed(encoder):
+    """``embed_fn``: BERT-base's embeddings and their LayerNorm, the mask as
+    one more channel."""
+    e = encoder.embeddings
+
+    def embed(ids, mask):
+        length = ids.shape[1]
+        x = e["word_embeddings"](ids.long()) + e["position_embeddings"].weight[:length] \
+            + e["token_type_embeddings"].weight[0]
+        return torch.cat([e["LayerNorm"](x), mask[..., None].to(x.dtype)], dim=-1)
+
+    return embed
+
+
+def mesh_models(dev, mesh, embedded, text):
+    """26(e): the model meshes at W = 4. FID at 299 x 299 over phase 23's
+    2 048 images a side through ``FID(mesh=...)`` (the batch layout) and
+    through the model host's hybrid stem-tensor layout (FID and KID sharing
+    one model); KID and IS at their defaults with ``mesh=``; each value
+    against phase 23's world-1 one within :data:`MESH_EMB_TOL`, and one
+    batch's features against the world-1 extractor within
+    :data:`EMB_FEATURE_TOL`. BERTScore with ``mesh=`` on phase 21's 2 000
+    pairs at bert-base width, its means against phase 21's within
+    :data:`MESH_BERT_TOL` and the first 64 pairs against a world-1 run
+    pair for pair. ``encoder_host(stage_fn=...)`` with bert-base's 12 layers
+    as 4 stages of 3 and the embeddings in ``embed_fn``: its hidden states
+    against the world-1 encoder's within :data:`MESH_PIPE_TOL`. Images/s and
+    pairs/s a layout, gathers and hand-offs a forward, peak memory a device."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine.model_host import ModelHostConfig, encoder_host, reset_host_registry
+    from metrics_tpu_torch.functional import bert_score
+    from metrics_tpu_torch.functional.text import bert as fbert
+    from metrics_tpu_torch.models.inception import STEM_LAYERS, InceptionFeatureExtractor
+    from metrics_tpu_torch.parallel.collectives import collective_counts, reset_collective_counts
+
+    devices = list(dict.fromkeys(mesh.device_list()))
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    params = emb_weights()
+    world1 = embedded["inception"]["values"]
+    sides = [(True, 0, EMB_IMAGES), (False, 0, EMB_IMAGES)]
+    out = {"images_per_side": EMB_IMAGES}
+    errs = {}
+    # the batch layout
+    fid = mp.FID(feature=2048, params=params, mesh=mesh, device=dev)
+    out["fid_batch"] = timed_updates(dev, fid, sides)
+    value, out["fid_batch"]["compute"] = timed_compute(dev, fid)
+    errs["fid_batch"] = rel_err(value, world1["fid"])
+    imgs = emb_images(dev, 0, EMB_BATCH, fake=False)
+    direct = InceptionFeatureExtractor("2048", params=params, device=dev)(imgs)
+    reset_collective_counts()
+    sharded = fid.inception(imgs)  # the batch layout runs uncaptured: its gathers counted
+    out["fid_batch"]["collectives_per_forward"] = collective_counts()
+    errs["features_batch"] = max_abs_err(sharded, direct) / float(direct.abs().max())
+    kid = mp.KID(feature=2048, params=params, seed=SEED + 25, mesh=mesh, device=dev, **EMB_KID)
+    out["kid"] = timed_updates(dev, kid, sides)
+    kv, out["kid"]["compute"] = timed_compute(dev, kid)
+    errs["kid_mean"] = rel_err(kv[0], world1["kid"][0])
+    is_list = mp.IS(params=params, splits=EMB_IS_SPLITS, seed=SEED + 26, mesh=mesh, device=dev)
+    out["is"] = timed_updates(dev, is_list, [(None, 0, EMB_IMAGES)])
+    iv, out["is"]["compute"] = timed_compute(dev, is_list)
+    errs["is_mean"] = rel_err(iv[0], world1["is"][0])
+    fid = kid = is_list = None
+    # the model host's hybrid stem-tensor layout
+    reset_host_registry()
+    try:
+        cfg = ModelHostConfig(mesh=mesh)
+        hfid = mp.FID(feature=2048, params=params, model_host=cfg, device=dev)
+        hkid = mp.KID(feature=2048, params=params, subsets=10, subset_size=100, model_host=cfg, device=dev)
+        host = hfid.model_host
+        tel = host.telemetry()
+        check(host is hkid.model_host and host.counters()["shared_by"] == 2, "26(e): FID and KID do not share a host")
+        check(tel["sharding"] == "mesh" and tel["allowed_collectives"] == ["all_gather"], f"26(e): host {tel}")
+        hosted = host.infer(imgs[:32])
+        reset_collective_counts()  # one forward called directly, outside the bucket's entry: its gathers counted
+        with torch.no_grad():
+            host._fwd(host.params, imgs[:32])
+        out["host_collectives_per_forward"] = collective_counts()
+        errs["features_host"] = max_abs_err(hosted, direct[:32]) / float(direct[:32].abs().max())
+        out["fid_host"] = timed_updates(dev, hfid, sides)
+        hv, out["fid_host"]["compute"] = timed_compute(dev, hfid)
+        errs["fid_host"] = rel_err(hv, world1["fid"])
+        if mesh.transport == "nccl":
+            out["host_images_per_s_captured_eager"] = captured_against_eager(host, (imgs,))
+        out["host_counters"] = host.counters()
+        out["host_captures"] = host.aot.misses
+        out["host_shard_graphs"] = host.shard_graphs.aot.stats()
+        check(host.aot.misses <= len(host.config.buckets), f"26(e): the host captured {host.aot.misses} programs")
+        # across cards every bucket's forward is its pieces' graphs: five stem layers and the trunk a shard
+        pieces = (len(STEM_LAYERS) + 1) * MESH_WORLD * host.aot.misses if mesh.transport == "nccl" else 0
+        check(host.shard_graphs.aot.misses == pieces,
+              f"26(e): the host captured {host.shard_graphs.aot.misses} shard graphs, not {pieces}")
+    finally:
+        reset_host_registry()
+    hfid = hkid = None
+    for k in ("fid_batch", "kid_mean", "is_mean", "fid_host"):
+        check(errs[k] <= MESH_EMB_TOL, f"26(e): {k} at W = 4 vs world 1: {errs[k]}")
+    for k in ("features_batch", "features_host"):
+        check(errs[k] <= EMB_FEATURE_TOL, f"26(e): {k} at W = 4 vs world 1: {errs[k]}")
+    out["rel_err_vs_world_1"] = errs
+    # BERTScore, batch-sharded
+    hyps, refs = text_corpus()
+    state = fbert.bert_state_dict_from_flax(bert_flax_params(BERT_BASE))
+    encoder = BertBase(BERT_BASE).eval().to(dev)
+    encoder.load_state_dict(state, strict=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = bert_score(hyps, refs, model=encoder, max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH, device=dev,
+                     mesh=mesh)
+    torch.cuda.synchronize(dev)
+    bert_s = time.perf_counter() - t0
+    want = text["bert"]["runs"]["plain"]
+    bert_err = max(abs(float(np.mean(got[k])) - want[f"mean_{k}"]) for k in ("precision", "recall", "f1"))
+    check(bert_err <= MESH_BERT_TOL, f"26(e): BERTScore means at W = 4 vs phase 21's: {bert_err}")
+    first = bert_score(hyps[:64], refs[:64], model=encoder, max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH,
+                       device=dev)
+    pair_err = max(abs(a - b) for k in ("precision", "recall", "f1") for a, b in zip(got[k][:64], first[k]))
+    check(pair_err <= MESH_BERT_TOL, f"26(e): BERTScore's first 64 pairs at W = 4 vs world 1: {pair_err}")
+    out["bert"] = {"pairs": len(hyps), "seconds": bert_s, "pairs_per_s": len(hyps) / bert_s,
+                   "mean_abs_err_vs_phase_21": bert_err, "first_pairs_max_abs_err": pair_err}
+    # the pipeline host: 4 stages of 3 layers, stage s on shard s
+    tok = fbert._simple_whitespace_tokenizer(list(hyps[:MESH_PIPE_PAIRS]) + list(refs[:MESH_PIPE_PAIRS]),
+                                             BERT_MAX_LENGTH)
+    ids = torch.from_numpy(tok["input_ids"]).to(dev)
+    mask = torch.from_numpy(tok["attention_mask"]).to(dev)
+    stages = bert_stage_params({k: v.to(dev) for k, v in encoder.state_dict().items()}, MESH_WORLD)
+    reset_host_registry()
+    try:
+        host = encoder_host(stage_fn=bert_stage, stage_params=stages, embed_fn=bert_embed(encoder),
+                            config=ModelHostConfig(buckets=(MESH_PIPE_BUCKET,), coalesce_window_ms=0.0, mesh=mesh))
+        tel = host.telemetry()
+        check(tel["allowed_collectives"] == ["ppermute"] and tel["sharding"] == "mesh", f"26(e): pipeline host {tel}")
+        with torch.no_grad():
+            host.infer(ids[:MESH_PIPE_BUCKET], mask[:MESH_PIPE_BUCKET])
+            reset_collective_counts()  # one forward called directly, outside the bucket's entry: its hand-offs counted
+            host._fwd(host.params, ids[:MESH_PIPE_BUCKET], mask[:MESH_PIPE_BUCKET])
+            hand_offs = collective_counts()
+            check(hand_offs["ppermute"] == (MESH_WORLD + MESH_WORLD - 1) + (MESH_WORLD - 1)
+                  and hand_offs["all_gather"] == hand_offs["all_reduce"] == 0, f"26(e): hand-offs {hand_offs}")
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            piped = host.infer(ids, mask)
+            torch.cuda.synchronize(dev)
+            pipe_s = time.perf_counter() - t0
+            plain = torch.cat([encoder(ids[i:i + BERT_BATCH], mask[i:i + BERT_BATCH])
+                               for i in range(0, ids.shape[0], BERT_BATCH)])
+        pipe_err = max_abs_err(piped[..., :-1], plain)
+        check(pipe_err <= MESH_PIPE_TOL, f"26(e): the pipeline host's hidden states vs world 1: {pipe_err}")
+        # across cards a bucket's forward is the embeddings' graph and one stage graph a shard
+        pieces = (1 + MESH_WORLD) * host.aot.misses if mesh.transport == "nccl" else 0
+        check(host.shard_graphs.aot.misses == pieces,
+              f"26(e): the pipeline host captured {host.shard_graphs.aot.misses} shard graphs, not {pieces}")
+        out["pipeline"] = {"rows": int(ids.shape[0]), "seconds": pipe_s, "rows_per_s": int(ids.shape[0]) / pipe_s,
+                           "hand_offs_per_forward": hand_offs["ppermute"], "max_abs_err": pipe_err,
+                           "host_captures": host.aot.misses, "shard_graphs": host.shard_graphs.aot.stats()}
+        if mesh.transport == "nccl":
+            out["pipeline"]["rows_per_s_captured_eager"] = captured_against_eager(host, (ids, mask))
+    finally:
+        reset_host_registry()
+    out["peak_memory_gb"] = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in devices}
+    return out
+
+
+def captured_against_eager(host, args, reps=MESH_HOST_REPS):
+    """Rows/s of ``host.infer(*args)`` across cards with its shards' pieces
+    replayed as graphs and run eagerly (the host before they were captured),
+    in turns: captured, eager, eager, captured; ``reps`` requests a turn."""
+    rows = int(args[0].shape[0])
+    out = []
+    for enabled in (True, False, False, True):
+        host.shard_graphs.enabled = enabled
+        host.infer(*args)  # the turn's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            host.infer(*args)
+        out.append(reps * rows / (time.perf_counter() - t0))
+    host.shard_graphs.enabled = True
+    return {"captured": [out[0], out[3]], "eager": [out[1], out[2]]}
+
+
+def mesh_forms_phase(dev, preds, target, embedded, text):
+    """Phase 26: the mesh forms that remain at W = 4, (a)-(e); the line
+    names the layout and the transport."""
+    mesh = mesh_layout(dev)
+    out = {"world": MESH_WORLD, "layout": [str(d) for d in mesh.device_list()], "transport": mesh.transport}
+    for name, fn in (("windows", lambda: mesh_windows(dev, preds, target, mesh)),
+                     ("window_paged", lambda: mesh_window_paged(dev, preds, target, mesh)),
+                     ("window_reshard", lambda: mesh_window_reshard(dev, preds, target, mesh)),
+                     ("ragged", lambda: mesh_ragged(dev, mesh)),
+                     ("models", lambda: mesh_models(dev, mesh, embedded, text))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -7509,6 +7987,24 @@ def main():
     launches = {k: launches[k] + mesh_launches[k] for k in launches}
     print(json.dumps({"mesh_phase": mesh, "launches": dict(mesh_launches, toeplitz_solve=0, greedy_match=0),
                       "layout": mesh["layout"], "transport": mesh["transport"],
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
+    # phase 26, its counts from 0: K2 and K3 (every shard's flagship step), K5 (the windowed megastep shard steps),
+    # K6 (the windowed stream-sharded tenancy), K1 (the ragged aggregates) and K4 (the ragged paged sweep) must
+    # launch; K8 and K9 must stay 0
+    for fn in kernels.values():
+        fn.launches = 0
+    toeplitz_solve_cuda.launches = greedy_match_cuda.launches = 0
+    t0 = time.perf_counter()
+    forms = mesh_forms_phase(dev, preds, target, embedded, text)
+    forms_launches = counts()
+    for k in ("fold_rows", "histogram", "binned_counts", "segment_reduce", "megastep_fold", "megastep_segment"):
+        check(forms_launches[k] > 0, f"kernel {k} was not launched by the mesh-forms phase")
+    check(toeplitz_solve_cuda.launches == 0 and greedy_match_cuda.launches == 0,
+          "the mesh-forms phase launched K8 or K9")
+    launches = {k: launches[k] + forms_launches[k] for k in launches}
+    print(json.dumps({"mesh_forms_phase": forms, "launches": dict(forms_launches, toeplitz_solve=0, greedy_match=0),
+                      "layout": forms["layout"], "transport": forms["transport"],
                       "seconds": time.perf_counter() - t0, "card": card}))
 
     # phase 4 against the CPU port (plain versions) and numpy

@@ -121,6 +121,12 @@ def _fingerprint_value(v: Any, h: "hashlib._Hash") -> None:
         h.update(repr(v)[:256].encode())
 
 
+def _mesh_fingerprint(mesh: Any) -> str:
+    """A mesh's identity in program and registry keys (JAX's name): its axes,
+    shape, transport and devices, in order; ``"none"`` without one."""
+    return "none" if mesh is None else mesh.describe()
+
+
 def metric_fingerprint(metric: Any) -> str:
     """Structural fingerprint of a metric's or collection's step: its class
     tree and every configuration attribute (scalars, strings, small tensors

@@ -1,4 +1,4 @@
-"""Embedded-model serving at world 1: a shared, bucketed, coalescing model host (port of ``metrics_tpu/engine/model_host.py``).
+"""Embedded-model serving: a shared, bucketed, coalescing model host (port of ``metrics_tpu/engine/model_host.py``).
 
 FID's InceptionV3 and BERTScore's encoder are inference workloads inside a
 metric. A :class:`ModelHost` owns one resident model and serves feature
@@ -27,11 +27,32 @@ requests from any number of metric streams:
 
 ``full_f32`` sets process-global settings (``utils/precision.py``): while the
 worker runs an f32 forward, another thread's bf16 convolutions also run
-strict. The mesh layouts (``ModelHostConfig(mesh=...)``, the host's
-parameter shardings, ``encoder_host``'s pipeline stages) and the on-disk
-compile cache (``cache_dir=``; a CUDA graph holds a process's addresses)
-raise ``NotPortedError``.
+strict.
+
+Meshes (``ModelHostConfig(mesh=..., mesh_axis=...)``, ``parallel/embedded.py``):
+the bucket divisor is the axis size, and the parameters are placed once, in
+the layout of the mode (``param_shardings``, the forward's ``place``):
+
+* :func:`inception_host` takes the hybrid layout, a tensor-parallel stem
+  over the 128-lane padded stem (``stem_lanes=128``: the widths
+  128/128/128/128/192 divide over the axis) then a data-parallel trunk; its
+  only collective is ``all_gather``;
+* :func:`encoder_host` with ``stage_fn``/``stage_params``/``embed_fn`` takes
+  the pipeline layout, stage ``s``'s parameters on shard ``s``; its only
+  collective is ``ppermute``.
+
+The registry key holds the mesh (``_mesh_fingerprint``) and the layout
+(``"stem_tensor"``, ``"pipeline"`` or ``"single"``); the telemetry says
+``sharding: "mesh"``. On a mesh of one device the whole sharded forward of a
+bucket is one captured graph on that device. A CUDA graph spans one device,
+so across devices each shard's piece of work between two collectives is a
+graph of its own on its device (:class:`ShardGraphs`: each shard's slice of
+each stem layer and its trunk; each stage's microbatch step and the
+embeddings), and the gathers and hand-offs run between the replays. The
+on-disk compile cache (``cache_dir=``; a CUDA graph holds a process's
+addresses) raises ``NotPortedError``.
 """
+import functools
 import hashlib
 import queue
 import threading
@@ -43,8 +64,10 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from metrics_tpu_torch.engine.aot import EAGER, AotCache, CapturedStep, _fingerprint_value, _ForwardBuffers
+from metrics_tpu_torch.engine.aot import EAGER, AotCache, CapturedStep, _fingerprint_value, _ForwardBuffers, \
+    _mesh_fingerprint
 from metrics_tpu_torch.engine.bucketing import BucketPolicy
+from metrics_tpu_torch.parallel.mesh import Mesh
 from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
 from metrics_tpu_torch.utils.exceptions import NotPortedError
 from metrics_tpu_torch.utils.precision import full_f32
@@ -55,6 +78,7 @@ __all__ = [
     "HostStats",
     "ModelHost",
     "ModelHostConfig",
+    "ShardGraphs",
     "encoder_host",
     "inception_host",
     "q8_roundtrip_traced",
@@ -67,7 +91,6 @@ Tensor = torch.Tensor
 #: activation precision policies; "f32" is the default and the bit-exactness oracle
 HOST_PRECISIONS = ("f32", "bf16", "int8")
 
-MESH_NOT_PORTED = "ModelHostConfig(mesh=...) (the sharded host layouts) is not ported yet (ROADMAP.md A)"
 CACHE_DIR_NOT_PORTED = ("ModelHostConfig(cache_dir=...) has no counterpart: a captured CUDA graph holds one "
                         "process's device addresses, so there is no on-disk compile cache")
 
@@ -84,7 +107,9 @@ class ModelHostConfig:
         coalesce_window_ms: how long the worker waits for more compatible
             requests once it holds one (0 serves at once).
         queue_depth: bound on queued requests (a full queue blocks ``submit``).
-        mesh / mesh_axis, cache_dir: not ported (``NotPortedError``).
+        mesh / mesh_axis: serve the model's sharded layout over this
+            :class:`~metrics_tpu_torch.parallel.mesh.Mesh` axis.
+        cache_dir: has no counterpart (``NotPortedError``).
     """
 
     buckets: Tuple[int, ...] = (8, 32)
@@ -99,8 +124,11 @@ class ModelHostConfig:
     def __post_init__(self) -> None:
         if self.precision not in HOST_PRECISIONS:
             raise ValueError(f"precision must be one of {HOST_PRECISIONS}, got {self.precision!r}")
-        if self.mesh is not None:
-            raise NotPortedError(MESH_NOT_PORTED)
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise ValueError(
+                f"ModelHostConfig.mesh must be a metrics_tpu_torch.parallel.mesh.Mesh (MeshConfig(...).make_mesh()), "
+                f"got {type(self.mesh).__name__}"
+            )
         if self.cache_dir is not None:
             raise NotPortedError(CACHE_DIR_NOT_PORTED)
 
@@ -170,6 +198,43 @@ def _as_tensor(a: Any) -> Tensor:
     return torch.as_tensor(a)
 
 
+class ShardGraphs:
+    """The shards' pieces of a mesh forward across cards, each a captured
+    graph on its device. A collective sits between two pieces of a shard's
+    work (a gather after each stem layer, a hand-off after each pipeline
+    step) and a CUDA graph spans one device, so ``self(tag, fn, *xs)``
+    captures ``fn`` over fixed input buffers on ``xs``' device, once a
+    (tag, device, input signature), through an :class:`AotCache` of its own
+    (``self.aot``: misses are captures, hits replays), and replays it on the
+    device's current stream; the collectives run between the replays. A
+    tag names one piece of the forward, and ``fn`` stays what it was at the
+    capture (the host's resident parameters). On a mesh of one device, or
+    off the card, a piece runs as it is: there the host captures the whole
+    forward."""
+
+    def __init__(self, mesh: Optional[Mesh]) -> None:
+        self.enabled = mesh is not None and mesh.transport == "nccl"
+        self.aot = AotCache()
+
+    def __call__(self, tag: str, fn: Callable[..., Any], *xs: Tensor) -> Any:
+        dev = xs[0].device
+        if not self.enabled or dev.type != "cuda":
+            return fn(*xs)
+
+        def build() -> CapturedStep:
+            leaves, treedef = pytree.tree_flatten((xs, {}))
+            inputs = _ForwardBuffers(leaves, tuple(range(len(leaves))), treedef, dev)
+            prog = CapturedStep((), (), inputs, keepalive=(fn,), extra_out=True)
+            inputs.fill(leaves)
+            self.aot.capture(prog, lambda _s, _a, a, _kw, _m: ((), fn(*a)), dev)
+            return prog
+
+        prog = self.aot.get_or_capture((tag, str(dev), AotCache.signature_of(xs)), build)
+        with self.aot.exclusive(torch.cuda.current_stream(dev)):
+            prog.inputs.fill(list(xs))
+            return prog.replay((), ())[1]
+
+
 class ModelHost:
     """One resident embedded model served on ``device`` (default ``cuda``).
 
@@ -182,6 +247,12 @@ class ModelHost:
     ``infer(*batch)`` submits and waits; ``submit(*batch)`` returns a handle
     whose ``.get()`` gives the rows (tensors on ``device``) or the serving
     error, so several streams can overlap their requests.
+
+    With ``config.mesh`` the host serves on the mesh (``device`` is its first
+    shard's): the buckets divide by the axis size, and ``param_shardings``,
+    a placement of ``params`` (the forward's ``place``), lays the parameters
+    out once. ``shard_graphs``: the :class:`ShardGraphs` that the forward's
+    pieces run through across cards.
     """
 
     def __init__(
@@ -196,18 +267,19 @@ class ModelHost:
         allowed_collectives: Tuple[str, ...] = (),
         param_shardings: Optional[Any] = None,
         aot: Optional[AotCache] = None,
+        shard_graphs: Optional[ShardGraphs] = None,
         device: DeviceLike = None,
     ) -> None:
-        if param_shardings is not None:
-            raise NotPortedError(MESH_NOT_PORTED)
         self.kind = str(kind)
         self.config = config or ModelHostConfig()
         self.unit = str(unit)
         self.allowed_collectives = tuple(allowed_collectives)
-        self.device = resolve_device(device)
+        mesh = self.config.mesh
+        self.device = mesh.axis(self.config.mesh_axis).devices[0] if mesh is not None else resolve_device(device)
         self.stats = HostStats()
         # `is not None`: a shared but still empty AotCache is falsy (len 0)
         self.aot = aot if aot is not None else AotCache()
+        self.shard_graphs = shard_graphs
         self.shared_by = 1  # bumped by shared_host on every dedup hit
 
         fwd_map = dict(forward) if isinstance(forward, dict) else {"f32": forward}
@@ -223,8 +295,10 @@ class ModelHost:
             _fingerprint_value(pytree.tree_leaves(params), h)
             fingerprint = h.hexdigest()[:16]
         self.fingerprint = str(fingerprint)
-        self._policy = BucketPolicy(self.config.buckets)
-        self.params = params
+        divisor = mesh.axis(self.config.mesh_axis).world if mesh is not None else 1
+        self._policy = BucketPolicy(self.config.buckets, divisor=divisor)
+        # the parameters are resident: placed once, in the layout of the mode
+        self.params = param_shardings(params) if param_shardings is not None else params
 
         self._queue: "queue.Queue" = queue.Queue(maxsize=self.config.queue_depth)
         self._carry: Optional[Any] = None
@@ -328,14 +402,19 @@ class ModelHost:
             return (), self._fwd(self.params, *a)
 
     def _program_key(self, padded_args: Tuple[Tensor, ...]) -> Tuple:
+        mesh = self.config.mesh
         return self.aot.program_key(f"model_host_{self.kind}", self.fingerprint, arg_tree=padded_args,
-                                    device=self.device, precision=self.config.precision)
+                                    device=self.device, precision=self.config.precision,
+                                    mesh=_mesh_fingerprint(mesh) if mesh is not None else None)
 
     def _run_program(self, padded_args: Tuple[Tensor, ...]) -> Any:
         """One padded chunk through its bucket's entry: captured on the card
-        (on a miss, here on the worker thread), eager on the CPU."""
+        (on a miss, here on the worker thread), eager on the CPU. Across
+        cards the entry only counts the bucket: the forward's pieces replay
+        their own graphs (:class:`ShardGraphs`) between the collectives."""
         key = self._program_key(padded_args)
-        if self.device.type != "cuda":
+        mesh = self.config.mesh
+        if self.device.type != "cuda" or (mesh is not None and mesh.transport == "nccl"):
             self.aot.get_or_capture(key, lambda: EAGER)
             with torch.no_grad():
                 return self._step((), (), padded_args, {}, None)[1]
@@ -376,7 +455,7 @@ class ModelHost:
             "unit": self.unit,
             "precision": self.config.precision,
             "buckets": list(self._policy.buckets),
-            "sharding": "none",
+            "sharding": "none" if self.config.mesh is None else "mesh",
             "allowed_collectives": list(self.allowed_collectives),
             "counters": self.counters(),
             "bucket_hit_histogram": {str(k): v for k, v in sorted(self.stats.bucket_hits.items())},
@@ -482,13 +561,19 @@ def inception_host(
 ) -> ModelHost:
     """Build (or resolve from the registry) the resident InceptionV3 host.
 
-    The canonical module forward, captured per bucket: ``precision="f32"``
-    features are bit-equal to ``InceptionFeatureExtractor``'s at the same
-    padded shape; ``"bf16"`` is the module's compute-dtype path; ``"int8"``
-    sends the tap through the q8_block codec. ``params`` is the port's state
-    dict or the JAX package's Flax variables; without them the seeded fill.
+    Single-device: the canonical module forward, captured per bucket:
+    ``precision="f32"`` features are bit-equal to
+    ``InceptionFeatureExtractor``'s at the same padded shape; ``"bf16"`` is
+    the module's compute-dtype path; ``"int8"`` sends the tap through the
+    q8_block codec. With ``config.mesh``: the hybrid layout, a
+    tensor-parallel stem over the 128-lane padded stem parameters
+    (``stem_lanes`` defaults to 128; each shard one output-channel slice of
+    each stem layer) then a data-parallel trunk
+    (``parallel.embedded.stem_tensor_batch_forward``), whose only collective
+    is ``all_gather``. ``params`` is the port's state dict or the JAX
+    package's Flax variables; without them the seeded fill.
     ``shared=True`` routes through :func:`shared_host`: FID and KID over the
-    same (tap, weights, precision, buckets, device) get ONE model.
+    same (tap, weights, mesh, precision, buckets, device) get ONE model.
     """
     from metrics_tpu_torch.models.inception import FEATURE_DIMS, _as_state_dict, random_inception_params
 
@@ -496,7 +581,7 @@ def inception_host(
     if feature not in FEATURE_DIMS:
         raise ValueError(f"feature must be one of {tuple(FEATURE_DIMS)}, got {feature!r}")
     config = config or ModelHostConfig()
-    dev = resolve_device(device)
+    dev = config.mesh.axis(config.mesh_axis).devices[0] if config.mesh is not None else resolve_device(device)
     if params is None:
         rank_zero_warn(
             "No pretrained InceptionV3 params provided (no network egress in this build); the model host is using"
@@ -505,11 +590,15 @@ def inception_host(
             UserWarning,
         )
         params = random_inception_params(input_size=input_size, seed=seed)
+    if config.mesh is not None and stem_lanes is None:
+        stem_lanes = 128  # the padded stem's widths double as the tensor-shard grain
     state = _as_state_dict(params)
     h = hashlib.sha256()
     _fingerprint_value(state, h)  # names, dtypes, shapes and values (large tensors sampled)
     fp = h.hexdigest()[:16]
-    key = ("inception", feature, fp, None, "single", config.precision, tuple(config.buckets), stem_lanes, str(dev))
+    key = ("inception", feature, fp, _mesh_fingerprint(config.mesh),
+           "stem_tensor" if config.mesh is not None else "single", config.precision, tuple(config.buckets),
+           stem_lanes, str(dev))
 
     def factory() -> ModelHost:
         return _build_inception_host(feature, state, config, stem_lanes, fp, dev)
@@ -519,21 +608,51 @@ def inception_host(
 
 def _build_inception_host(feature: str, state: Dict[str, Tensor], config: ModelHostConfig,
                           stem_lanes: Optional[int], fp: str, device: torch.device) -> ModelHost:
-    from metrics_tpu_torch.models.inception import InceptionV3, _nchw, pad_stem_params
+    from metrics_tpu_torch.models.inception import InceptionV3, _nchw, pad_stem_params, split_stem_variables, stem_apply
 
     dtype = torch.bfloat16 if config.precision == "bf16" else None
-    module = InceptionV3(compute_dtype=dtype, stem_lanes=stem_lanes)
-    module.load_state_dict(pad_stem_params(state, stem_lanes) if stem_lanes is not None else state)
-    module = module.to(device).eval()
-    for p in module.parameters():
-        p.requires_grad_(False)
+    padded = pad_stem_params(state, stem_lanes) if stem_lanes is not None else state
 
-    def fwd(_params: Any, imgs: Tensor) -> Tensor:
-        return module(_nchw(imgs, device))[feature].to(torch.float32)
+    def module_on(dev: torch.device) -> InceptionV3:
+        module = InceptionV3(compute_dtype=dtype, stem_lanes=stem_lanes)
+        module.load_state_dict(padded)
+        return module.to(dev).eval().requires_grad_(False)
 
-    # the module's own bf16 path serves "bf16"; "int8" wraps the f32 forward
-    return ModelHost("inception", {"f32": fwd, "bf16": fwd}, dict(module.state_dict()), config=config,
-                     fingerprint=fp, unit="imgs", device=device)
+    if config.mesh is None:
+        module = module_on(device)
+
+        def fwd(_params: Any, imgs: Tensor) -> Tensor:
+            return module(_nchw(imgs, device))[feature].to(torch.float32)
+
+        # the module's own bf16 path serves "bf16"; "int8" wraps the f32 forward
+        return ModelHost("inception", {"f32": fwd, "bf16": fwd}, dict(module.state_dict()), config=config,
+                         fingerprint=fp, unit="imgs", device=device)
+
+    from metrics_tpu_torch.parallel.embedded import stem_tensor_batch_forward
+
+    # the hybrid layout: the stem's channel slices and one trunk module a
+    # device, laid out once (the modules' own stem weights go unread)
+    mesh, axis = config.mesh, config.mesh_axis
+    graphs = ShardGraphs(mesh)
+
+    def stem_fn(sv: Any, xs: Any, gather_axis: Any) -> Any:
+        return stem_apply(sv, xs, compute_dtype=dtype, stem_lanes=stem_lanes, gather_axis=gather_axis,
+                          segment=graphs)
+
+    def trunk_fn(module: Any, x_local: Tensor) -> Dict[str, Tensor]:
+        return graphs("trunk", module.trunk, x_local)
+
+    sharded = stem_tensor_batch_forward(stem_fn, trunk_fn, mesh, axis)
+
+    def hybrid(p: Any, imgs: Tensor) -> Tensor:
+        return sharded(p["stem"], p["trunk"], _nchw(imgs, device))[feature].to(torch.float32)
+
+    def place(params: Dict[str, Tensor]) -> Dict[str, Any]:
+        stem, trunk = sharded.place(split_stem_variables(params)[0], module_on(device))
+        return {"stem": stem, "trunk": trunk}
+
+    return ModelHost("inception", {"f32": hybrid, "bf16": hybrid}, padded, config=config, fingerprint=fp,
+                     unit="imgs", allowed_collectives=("all_gather",), param_shardings=place, shard_graphs=graphs)
 
 
 def encoder_host(
@@ -547,25 +666,59 @@ def encoder_host(
     shared: bool = True,
     device: DeviceLike = None,
 ) -> ModelHost:
-    """Build (or resolve) the resident text-encoder host of BERTScore:
-    ``forward_fn(input_ids, attention_mask) -> (B, L, D)``, served through
-    the host's buckets, coalescing and captured forwards. The pipeline-staged
-    layout (``stage_fn``/``stage_params``/``embed_fn``) needs a mesh and
-    raises ``NotPortedError``."""
+    """Build (or resolve) the resident text-encoder host of BERTScore. Two
+    layouts:
+
+    * ``forward_fn(input_ids, attention_mask) -> (B, L, D)``, any encoder
+      callable, served single-device through the host's buckets, coalescing
+      and captured forwards;
+    * ``stage_fn`` + ``stage_params`` (+ ``embed_fn(ids, mask)``): a
+      pipeline-decomposed encoder over ``config.mesh``, the stage parameters
+      stacked ``(S, ...)`` with row ``s`` on shard ``s``, activations handed
+      shard to shard (``parallel.embedded.pipeline_stage_forward``); its only
+      collective is ``ppermute``.
+    """
     config = config or ModelHostConfig()
     if (forward_fn is None) == (stage_fn is None):
         raise ValueError("encoder_host needs exactly one of forward_fn / stage_fn")
     if stage_fn is not None:
-        raise NotPortedError("encoder_host's pipeline stages (stage_fn=) need a mesh, which is not ported yet "
-                             "(ROADMAP.md A)")
-    dev = resolve_device(device)
+        if config.mesh is None:
+            raise ValueError("pipeline-staged encoder_host needs config.mesh")
+        if stage_params is None:
+            raise ValueError("stage_fn needs stage_params (stacked (S, ...) pytree)")
+        from metrics_tpu_torch.parallel.embedded import pipeline_stage_forward
+
+        mesh = config.mesh
+        graphs = ShardGraphs(mesh)
+        pipe = pipeline_stage_forward(lambda p, x: graphs("stage", functools.partial(stage_fn, p), x), mesh,
+                                      config.mesh_axis)
+
+        def staged(p: Any, ids: Tensor, mask: Tensor) -> Tensor:
+            x = graphs("embed", embed_fn, ids, mask) if embed_fn is not None else ids
+            return pipe(p, x)
+
+        if fingerprint is None:
+            h = hashlib.sha256()
+            _fingerprint_value(pytree.tree_leaves(stage_params), h)
+            if embed_fn is not None:
+                h.update(getattr(embed_fn, "__qualname__", repr(embed_fn)).encode())
+            fingerprint = h.hexdigest()[:16]
+        key = ("encoder", fingerprint, _mesh_fingerprint(mesh), "pipeline", config.precision, tuple(config.buckets))
+
+        def pipeline_factory() -> ModelHost:
+            return ModelHost("encoder", staged, stage_params, config=config, fingerprint=fingerprint, unit="pairs",
+                             allowed_collectives=("ppermute",), param_shardings=pipe.place, shard_graphs=graphs)
+
+        return shared_host(key, pipeline_factory) if shared else pipeline_factory()
+    dev = config.mesh.axis(config.mesh_axis).devices[0] if config.mesh is not None else resolve_device(device)
     if fingerprint is None:
         fingerprint = getattr(forward_fn, "__qualname__", type(forward_fn).__name__) + f"@{id(forward_fn):x}"
 
     def fwd(_params: Any, ids: Tensor, mask: Tensor) -> Tensor:
         return forward_fn(ids, mask)
 
-    key = ("encoder", fingerprint, None, "single", config.precision, tuple(config.buckets), str(dev))
+    key = ("encoder", fingerprint, _mesh_fingerprint(config.mesh), "single", config.precision,
+           tuple(config.buckets), str(dev))
 
     def factory() -> ModelHost:
         return ModelHost("encoder", fwd, (), config=config, fingerprint=fingerprint, unit="pairs", device=dev)

@@ -54,16 +54,19 @@ of another world or residency (a JAX engine at world 2 or 4, or another
 spill store, faulting in on first touch; into an unsharded engine the rows
 merge into the ``(S, ...)`` state; anything else is refused with JAX's
 message. ``reshard()`` re-homes every stream under the new ``sid % W`` rule
-the same way. Windows stay at world 1 (no mesh), as ROADMAP §A says.
+the same way.
 
 Windows (``engine/windows.py``): on the unsharded form the pane axis stacks
 OUTSIDE the stream axis (``(panes, S, ...)`` logical state; a step writes the
-current pane's ``(S, ...)`` row), and a drift detector records one series per
+current pane's ``(S, ...)`` row; under deferred sync every shard carries its
+own ring, ``(W, panes, n)``), and a drift detector records one series per
 stream at each rotation. On the paged form the pane extends the pager's
-stream coordinate (``row = stream * panes + pane``): each (stream, pane) pair
-is its own pager row, so cold panes spill like cold streams, a step touches
-only the current pane's rows, and a rotation expires the incoming pane's
-rows in the pager's tables with no device work. A sliding ``result(sid)``
+local stream coordinate (stream ``sid`` on shard ``sid % W`` at row
+``(sid // W) * panes + pane``): each (stream, pane) pair is its own pager
+row, so cold panes spill like cold streams, a step touches only the current
+pane's rows, and a rotation expires the incoming pane's rows of every
+shard's tables (``StreamPager.pane_expiry_plan``) with no device work. A
+read reassembles rows by JAX's extended id ``row * W + shard``. A sliding ``result(sid)``
 stacks the stream's pane rows and folds them. EWMA and drift are refused
 there, with the JAX package's messages.
 
@@ -106,9 +109,6 @@ from metrics_tpu_torch.utils.state_bridge import _pager_row, _payload_row, _tens
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["MultiStreamEngine"]
-
-_SHARD = 0  # the pager shard of a pane ring (windows run at world 1)
-
 
 def _spill_part(payload: Dict[str, Any]) -> Dict[str, Any]:
     """The spilled-row matrices of a pager payload, by buffer key (the slot
@@ -539,14 +539,19 @@ class MultiStreamEngine(StreamingEngine):
         return locs * self._pane_rows + self._pane_cursor if self._pane_rows > 1 else locs
 
     def _row_universe(self) -> int:
-        """Pager rows a paged engine can address: one per (stream, pane)."""
-        return self._num_streams * self._pane_rows
+        """The extended row ids a paged engine can address (JAX's
+        ``_ext_universe``): the streams, or under a ring window every (shard,
+        pager row) pair as ``row * W + shard``, ``ceil(S / W) * panes`` rows a
+        shard, ids past S included (never touched, read as init rows)."""
+        return self._local_streams * self._world if self._pane_rows > 1 else self._num_streams
 
     def _pane_index(self, panes: Any) -> np.ndarray:
-        """The ``(len(panes), S)`` pager rows of every stream in each listed
-        pane, pane-major like the logical ``(panes, S, ...)`` state."""
+        """The ``(len(panes), S)`` extended row ids of every stream in each
+        listed pane, pane-major like the logical ``(panes, S, ...)`` state
+        (JAX's ``_ext_ids``)."""
         sids = np.arange(self._num_streams, dtype=np.int64)
-        return sids[None, :] * self._pane_rows + np.asarray(list(panes), np.int64)[:, None]
+        base = (sids // self._world) * self._pane_rows * self._world + sids % self._world
+        return base[None, :] + np.asarray(list(panes), np.int64)[:, None] * self._world
 
     # ------------------------------------------------------------- pane rotation
 
@@ -577,7 +582,7 @@ class MultiStreamEngine(StreamingEngine):
         """Every stream's closing-pane value, one series per stream: ONE
         batched (vmapped) computation over the stream axis of the closing
         pane's row (the whole state under EWMA), copied to the host at once."""
-        tree = self._unpack_row(self._pane_row(self._pane_cursor)) if self._win_stacked else self._unpack(self._state)
+        tree = self._closing_pane_tree()
         with traced_rows():
             values = torch.func.vmap(self._metric.compute_from)(tree)
             return list(enumerate(_values_to_host(values, self._num_streams)))
@@ -790,7 +795,8 @@ class MultiStreamEngine(StreamingEngine):
 
     def _all_rows(self) -> Dict[str, torch.Tensor]:
         """Every pager row, ``(S, n)`` per dtype on the engine's device
-        (``(S * panes, n)`` under a ring window, row ``sid * panes + pane``):
+        (the extended ``(ceil(S / W) * panes * W, n)`` universe under a ring
+        window, :meth:`_row_universe`):
         the init row tiled, the spilled rows (decoded when stored compressed)
         written in one upload per dtype, then the resident slots, one device
         gather per dtype and shard (a resident row has no spill entry).
@@ -965,7 +971,7 @@ class MultiStreamEngine(StreamingEngine):
             init = tree_leaves(self._metric.init_state())
             # every shard's local state under deferred sync: the merge would
             # fold a stale shard's rows back in
-            trees = ([self._unpack_row(v) for v in self._shard_states()] if self._deferred
+            trees = ([self._unpack(v) for v in self._shard_states()] if self._deferred
                      else [self._unpack(self._state)])
             for tree in trees:
                 for leaf, fresh in zip(tree_leaves(tree), init):

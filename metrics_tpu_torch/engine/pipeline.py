@@ -114,10 +114,20 @@ device. ``reshard()`` moves a live engine to another world through its own
 snapshot and the restore matrix (rolling back on a refusal, behind the
 ``reshard_snapshot``/``reshard_restore`` sites), and ``elastic_min_world``
 arms the ``shard_loss`` site's recovery: a lost shard reshards the engine to
-the largest bucket-compatible smaller world and re-runs the chunk. Windows on
-a mesh and XLA's ``compilation_cache_dir`` are not ported (ROADMAP §A): they
-raise :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`, as does an
-injector plan naming a fleet site.
+the largest bucket-compatible smaller world and re-runs the chunk.
+
+Windows on a mesh take ``mesh_sync="deferred"`` (step sync refuses them with
+JAX's words, and ``cat`` states are refused: the world merge would flatten
+the shard axis into the pane axis). Each shard carries its own pane ring,
+JAX's ``(world, panes, n)`` form (one ``(panes, n)`` ring per device across
+devices); a step's target is the shard's row of the OPEN pane, which the
+captured graph loads and writes back, so a rotation only moves the row the
+replay addresses and never captures. A rotation writes the init row into the
+incoming pane of every shard at the same boundary. The boundary merge folds
+the world axis first and keeps the panes (JAX's order), then the window's
+fold reads them. XLA's ``compilation_cache_dir`` is not ported (ROADMAP §A):
+it raises :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`, as does
+an injector plan naming a fleet site.
 """
 import copy
 import functools
@@ -320,7 +330,9 @@ class EngineConfig:
             cadence is ``pane_batches`` (replay-cursor exact) or
             ``pane_seconds`` of the policy's injectable clock; a coalesced
             group never crosses a batch-cadence boundary. The cumulative
-            policy is the default behaviour (no pane axis).
+            policy is the default behaviour (no pane axis). On a mesh a
+            rotating window needs ``mesh_sync="deferred"`` (every shard its
+            own ring) and refuses ``cat`` states.
         drift: optional :class:`~metrics_tpu_torch.engine.tracker.DriftDetector`:
             at every rotation the dispatcher records the CLOSING pane's
             result into it (the ``drift_eval`` fault site; a pure read, so a
@@ -726,7 +738,12 @@ class StreamingEngine:
             raise MetricsTPUUserError(f"config.window must be a WindowPolicy, got {type(win).__name__}")
         self._window: Optional[WindowPolicy] = win if (win is not None and win.kind != "cumulative") else None
         if self._window is not None:
-            reason = self._window.unsupported_reason(metric)
+            if self._mesh is not None and not self._deferred:
+                raise MetricsTPUUserError(
+                    "windowed serving on a mesh requires mesh_sync='deferred': a pane rotation is a state-structure "
+                    "operation with no per-step delta form for the step-sync merge"
+                )
+            reason = self._window.unsupported_reason(metric, mesh_deferred=self._deferred)
             if reason is not None:
                 raise MetricsTPUUserError(
                     f"metric cannot serve under WindowPolicy {self._window.fingerprint()!r}: {reason}")
@@ -769,7 +786,7 @@ class StreamingEngine:
         if self._window is not None:
             self._stats.window_policy = self._window.fingerprint()
             self._stats.live_panes = 1
-        self._ring_init: Any = None  # one pane's init row, made at the first rotation
+        self._ring_init: Optional[Dict[torch.device, Any]] = None  # one pane's init row a device
 
     # -------------------------------------------------------------- capability checks
 
@@ -806,10 +823,6 @@ class StreamingEngine:
                 f"config.mesh must be a metrics_tpu_torch.parallel.mesh.Mesh (MeshConfig(...).make_mesh()), got "
                 f"{type(cfg.mesh).__name__}"
             )
-        win = cfg.window
-        if cfg.mesh is not None and isinstance(win, WindowPolicy) and win.kind != "cumulative":
-            raise NotPortedError("windowed serving on a mesh (EngineConfig(mesh=..., window=...)) is not ported yet "
-                                 "(see ROADMAP.md §A)")
         self._mesh: Optional[Mesh] = cfg.mesh
         self._deferred = self._mesh is not None and cfg.mesh_sync == "deferred"
         self._axis = self._mesh.axis(cfg.axis) if self._mesh is not None else None
@@ -876,13 +889,13 @@ class StreamingEngine:
     def _put_shards(self, trees: List[Any]) -> Any:
         """The deferred carried form of the W shards' LOGICAL trees."""
         if self._nccl:
-            return [self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(dev), t))
+            return [self._pack(tree_map(lambda x: torch.as_tensor(x).to(dev), t))
                     for t, dev in zip(trees, self._shard_devices)]
         leaves = [tree_flatten(t)[0] for t in trees]
         treedef = tree_flatten(trees[0])[1]
         stacked = tree_unflatten(treedef, [torch.stack([torch.as_tensor(x).to(self._device) for x in col])
                                            for col in zip(*leaves)])
-        return stacked if self._layout is None else self._layout.pack_stacked(stacked)
+        return stacked if self._layout is None else self._layout.pack_stacked(stacked, lead=self._shard_lead())
 
     def _put_stacked_carried(self, stacked: Any) -> Any:
         """A snapshot's ``(W, ...)`` shard-stacked carried form, verbatim."""
@@ -900,10 +913,16 @@ class StreamingEngine:
         return tree_unflatten(tree_flatten(self._state[0])[1],
                               [torch.stack([x.to(self._device) for x in col]) for col in zip(*leaves)])
 
+    def _shard_lead(self) -> int:
+        """The leading stack axes of the one-device deferred carried form:
+        ``(W, ...)``, or ``(W, panes, ...)`` under a ring window."""
+        return 2 if self._win_stacked else 1
+
     def _shard0_trees(self, tree: Any) -> List[Any]:
         """The exact deferred embedding of a GLOBAL state: shard 0 holds it,
-        every other shard the init state, which the boundary merge folds away."""
-        return [tree] + [self._kind_init_state_tree() for _ in range(self._world - 1)]
+        every other shard the init state (pane-stacked under a ring), which
+        the boundary merge folds away."""
+        return [tree] + [self._init_state_tree() for _ in range(self._world - 1)]
 
     def _delta_targets(self) -> List[Any]:
         """Step sync's per-shard delta buffers, reset to the init state: each
@@ -930,7 +949,7 @@ class StreamingEngine:
         if self._deferred:
             build = stream_sharded_step if getattr(self, "_stream_shard", False) else sharded_local_step
             step = build(lambda state, part, k: fold(k, state, part), self._mesh, self._cfg.axis)
-            return step(self._shard_states(), blocks)[0]
+            return step([self._shard_target(k) for k in range(self._world)], blocks)[0]
         deltas = self._deltas
 
         def delta(k: int, part: Any) -> Any:
@@ -972,7 +991,7 @@ class StreamingEngine:
         if self._merged_memo is not None and self._merged_memo[0] == self._state_version:
             return self._merged_memo[1]
         merge = sharded_state_merge(self._metric, self._mesh, self._cfg.axis,
-                                    unpack=self._unpack_row if self._layout is not None else None)
+                                    unpack=self._unpack if self._layout is not None else None)
 
         def merge_once() -> Tuple[Any, float]:
             self._fault("merge")
@@ -1148,7 +1167,8 @@ class StreamingEngine:
         if self._mesh is None:
             return self._step_target()
         if self._deferred:
-            return self._shard_view(shard)
+            view = self._shard_view(shard)
+            return tree_map(lambda x: x[self._pane_cursor], view) if self._win_stacked else view
         return self._deltas[shard]
 
     def _program(self, leaves: List[Any], kinds: List[Optional[str]], treedef: Any, start: int, stop: int,
@@ -1338,7 +1358,7 @@ class StreamingEngine:
             if self._deferred:
                 for k, out in enumerate(new):
                     if out is not None:
-                        self._write_state(out, into=self._shard_view(k))
+                        self._write_state(out, into=self._shard_target(k))
             else:
                 self._write_state(new, into=self._step_target() if self._mesh is None else None)
         self._step += 1
@@ -1775,6 +1795,9 @@ class StreamingEngine:
         planned = self._plan_rotation(incoming)
         # ---- commit: nothing below is consulted by a fault site
         self._commit_rotation(planned, incoming)
+        # the commit wrote the state in place: a deferred merge memoized before
+        # it (the drift read's, or a read's) would hand out the old panes
+        self._state_version += 1
         self._result_cache.clear()
         self._pane_cursor = incoming
         self._rotations += 1
@@ -1799,30 +1822,46 @@ class StreamingEngine:
         def rotate_once() -> Any:
             self._fault("pane_rotate")
             if self._win_stacked:
-                return self._ring_init_row()
+                return [self._ring_init_row(dev) for dev in self._shard_devices] if self._deferred \
+                    else self._ring_init_row(self._device)
             return tree_map(lambda x: x * torch.tensor(self._window.decay, dtype=x.dtype, device=x.device), self._state)
 
         return self._retry_transient(rotate_once)
 
-    def _ring_init_row(self) -> Any:
-        """One pane's carried init row on the engine's device, made once and
+    def _ring_init_row(self, dev: torch.device) -> Any:
+        """One pane's carried init row on ``dev``, made once a device and
         only ever read."""
         if self._ring_init is None:
-            self._ring_init = self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(self._device),
-                                                      self._kind_init_state_tree()))
-        return self._ring_init
+            self._ring_init = {}
+        if dev not in self._ring_init:
+            self._ring_init[dev] = self._pack_row(tree_map(lambda x: torch.as_tensor(x).to(dev),
+                                                           self._kind_init_state_tree()))
+        return self._ring_init[dev]
 
     def _commit_rotation(self, planned: Any, incoming: int) -> None:
         """The infallible half: write the plan into the state, in place (the
-        incoming pane's row, or every decayed buffer)."""
-        self._write_state(planned, into=self._pane_row(incoming) if self._win_stacked else None)
+        incoming pane's row, of every shard on a deferred mesh, all at the
+        same boundary; or every decayed buffer)."""
+        if not self._win_stacked:
+            self._write_state(planned)
+        elif self._deferred:
+            for k, row in enumerate(planned):
+                self._write_state(row, into=tree_map(lambda x: x[incoming], self._shard_view(k)))
+        else:
+            self._write_state(planned, into=self._pane_row(incoming))
+
+    def _closing_pane_tree(self) -> Any:
+        """The CLOSING pane's global logical tree (the whole decayed state
+        under EWMA): what the drift detector reads before a rotation."""
+        tree = self._carried_logical()
+        return tree_map(lambda x: x[self._pane_cursor], tree) if self._win_stacked else tree
 
     def _drift_values_locked(self) -> List[Tuple[Optional[int], Any]]:
         """The CLOSING pane's result, ``(series key, value)`` pairs: one
         anonymous series here, one per stream on the multi-stream engine. A
         pure read, computed traced as ``result()`` is, owning its memory: the
         commit that follows writes the state in place."""
-        tree = self._unpack_row(self._pane_row(self._pane_cursor)) if self._win_stacked else self._unpack(self._state)
+        tree = self._closing_pane_tree()
         with traced_rows():
             return [(None, self._owned(self._metric.compute_from(tree)))]
 
@@ -2257,9 +2296,14 @@ class StreamingEngine:
         :meth:`_device_section`): the deferred boundary merge on a deferred
         mesh, else the carried state unpacked, under a window its result
         view."""
-        if self._deferred:
-            return self._merged_state()
-        return self._window_tree(self._unpack(self._state))
+        return self._window_tree(self._carried_logical())
+
+    def _carried_logical(self) -> Any:
+        """The global LOGICAL carried tree (inside :meth:`_device_section`),
+        pane-stacked under a ring window: the deferred boundary merge on a
+        deferred mesh (the world axis folded first, the panes kept), else the
+        carried state unpacked."""
+        return self._merged_state() if self._deferred else self._unpack(self._state)
 
     def _owned(self, value: Any) -> Any:
         """``value`` with every tensor that shares memory with the carried
@@ -2395,7 +2439,8 @@ class StreamingEngine:
             stacked = self._stacked_carried()
             if not self._compress:
                 return state_to_numpy(stacked)
-            tree = self._layout.unpack_stacked(stacked) if self._layout is not None else stacked
+            tree = self._layout.unpack_stacked(stacked, lead=self._shard_lead()) if self._layout is not None \
+                else stacked
             return self._codec_call("quant_encode", encode_state_tree, self._metric, state_to_numpy(tree))
         if not self._compress:
             return state_to_numpy(self._state)
@@ -2508,7 +2553,8 @@ class StreamingEngine:
                 )
         if snap_deferred and self._deferred and snap_world == self._world:
             # the same world: every shard resumes with exactly its local state
-            stacked = state if packed or self._layout is None else self._layout.pack_stacked(state)
+            stacked = state if packed or self._layout is None else \
+                self._layout.pack_stacked(state, lead=self._shard_lead())
             if not packed and self._layout is None and not self._fits_template(tree_map(lambda x: x[0], state)):
                 raise MetricsTPUUserError(
                     "snapshot state does not match this metric's state structure and shapes; was the metric "
@@ -2530,7 +2576,7 @@ class StreamingEngine:
             carried = self._put_shards(self._shard0_trees(logical)) if self._deferred else self._put_state(logical)
         elif self._deferred:
             # a global state embeds into shard 0, the init state elsewhere
-            logical = self._layout.unpack(state) if packed else state
+            logical = self._unpack(state) if packed else state
             if not self._fits_template(logical):
                 raise MetricsTPUUserError(
                     "snapshot state does not match this metric's state structure and shapes; was the metric "

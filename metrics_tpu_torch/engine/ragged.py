@@ -1,6 +1,6 @@
 """Ragged serving: group-keyed metrics through the multi-stream engine.
 
-Port of ``metrics_tpu/engine/ragged.py`` at world 1. A retrieval metric's
+Port of ``metrics_tpu/engine/ragged.py``. A retrieval metric's
 eager state is a BAG OF ROWS per query (``dist_reduce_fx=None`` cat lists),
 which every other engine refuses. Given a static shape, the grouped state is
 the multi-stream state at a finer grain (a query id is a small stream id), so
@@ -44,9 +44,16 @@ host RAM.
   declines (an empty corpus, a bundle past the metric's budget) and
   ``group_shard`` (groups paged out) take the oracle.
 
-Not ported (ROADMAP.md): the mesh forms (the deferred boundary merge,
-``group_shard`` across ranks, :meth:`GroupedStateMetric.sync_states` over a
-process group). The JAX package's aggregate jaxpr audit has no counterpart.
+On a mesh (``EngineConfig(mesh=..., mesh_sync="deferred")``): each shard
+carries the ``(G, capacity, ...)`` buffers of the rows it was sent, and a
+read merges them at the boundary through
+:meth:`GroupedStateMetric.sync_states`, one fused ``all_gather`` of every
+leaf then the replica-major compaction, so the per-group reads, the fold
+aggregate and the corpus aggregate run on the merged state. Under
+``group_shard`` group ``g`` lives on shard ``g % W`` and pages through that
+shard's slots (``resident_groups`` a shard), and the paged sweep takes every
+shard's touched rows. The same merge runs over a process group. The JAX
+package's aggregate jaxpr audit has no counterpart.
 """
 import threading
 from typing import Any, Dict, List, Optional, Tuple
@@ -61,7 +68,9 @@ from metrics_tpu_torch.metric import GroupedUpdateSpec, Metric, distributed_avai
 from metrics_tpu_torch.ops.kernels import fold_rows_masked, segment_reduce_masked
 from metrics_tpu_torch.utils.checks import traced_rows
 from metrics_tpu_torch.utils.device import as_input
-from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedError
+from metrics_tpu_torch.parallel.collectives import fused_axis_sync
+from metrics_tpu_torch.parallel.mesh import MeshAxis
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
 # the paged aggregate sweep's fixed block: one block shape serves any touched
 # population (the last block pads with ok=False rows)
@@ -230,15 +239,32 @@ class GroupedStateMetric(Metric):
         return out
 
     def sync_states(self, state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
-        """At world 1 the state is already global. A process group of more
-        ranks needs the gather-then-compact merge over it, which is not
-        ported (ROADMAP.md A.1)."""
-        if not distributed_available(self._group(group)):
+        """The grouped merge over ``group`` (a process group, or a mesh axis
+        whose ``state`` is the list of the W shards' states): every leaf,
+        ``count`` and buffers alike, rides ONE fused ``all_gather`` bundle
+        stacked ``(world, ...)`` (``fused_axis_sync`` with no reduction), then
+        :meth:`merge_stacked_states` compacts each group's rows
+        replica-major, in rank (shard) order, on every participant. A psum'd
+        count beside world-stacked buffers would be no logical state, so the
+        per-leaf default cannot serve. Outside a group of more than one rank
+        the state comes back as it is."""
+        group = self._group(group)
+        if not distributed_available(group):
             return state
-        raise NotPortedError(
-            "GroupedStateMetric.sync_states over a process group of more than one rank (the ragged engine's "
-            "deferred boundary merge) is not ported yet"
-        )
+        if not isinstance(group, MeshAxis):
+            keys = sorted(state)
+            gathered = fused_axis_sync([(None, as_input(state[k], self.device)) for k in keys], group)
+            return self.merge_stacked_states(dict(zip(keys, gathered)))
+        keys = sorted(state[0])
+        gathered = fused_axis_sync([(None, [s[k] for s in state]) for k in keys], group)
+        merged: Dict[int, Dict[str, Any]] = {}  # one merge a distinct gathered copy (one on a one-device mesh)
+        out = []
+        for w in range(group.world):
+            col = [g[w] for g in gathered]
+            if id(col[0]) not in merged:
+                merged[id(col[0])] = self.merge_stacked_states(dict(zip(keys, col)))
+            out.append(merged[id(col[0])])
+        return out
 
     def merge_stacked_states(self, stacked: Dict[str, Any]) -> Dict[str, Any]:
         """Fold a leading stack axis of grouped states: counts SUM; buffers
@@ -309,9 +335,6 @@ class RaggedEngine(MultiStreamEngine):
                 f"RaggedEngine serves group-keyed metrics only: {type(metric).__name__} declares no "
                 "grouped_update_spec() (built-in retrieval metrics with a segment kind do)"
             )
-        if config is not None and config.mesh is not None:
-            raise NotPortedError("RaggedEngine on a mesh (EngineConfig(mesh=...): the deferred boundary merge of "
-                                 "grouped states, group_shard across shards) is not ported yet (see ROADMAP.md §A)")
         if config is not None and resolve_kernel_backend(config.kernel_backend) == "megastep":
             raise MetricsTPUUserError(
                 "ragged serving has no megastep form: the grouped capacity write (the INGEST scatter) is a 2-d "
@@ -433,7 +456,7 @@ class RaggedEngine(MultiStreamEngine):
 
     def _drift_values_locked(self) -> List[Tuple[Optional[int], Any]]:
         """Every group's closing-pane value, one series per group, batched."""
-        tree = self._unpack_row(self._pane_row(self._pane_cursor)) if self._win_stacked else self._unpack(self._state)
+        tree = self._closing_pane_tree()
         with traced_rows():
             return list(enumerate(_values_to_host(self._metric.group_values(tree), self._num_streams)))
 
@@ -582,21 +605,23 @@ class RaggedEngine(MultiStreamEngine):
         spilled groups from the pager's host store), never the dense ``(G,
         n)`` universe. A group both resident and spilled keeps the spilled
         copy, as the row reassembly does."""
-        arena = {k: v.cpu().numpy() for k, v in self._state.items()}
+        carried = self._stacked_carried() if self._mesh is not None else {k: v[None] for k, v in self._state.items()}
+        arena = {k: v.cpu().numpy() for k, v in carried.items()}  # (W, resident, n)
         payload = self._decoded_pager_payload(self._pager.snapshot_payload(), self._row_codec)
-        num = self._num_streams
+        world, num = self._world, self._num_streams
         parts_g: List[np.ndarray] = []
         parts_r: Dict[str, List[np.ndarray]] = {k: [] for k in arena}
-        _, j_idx = np.nonzero(np.asarray(payload["slots"]) >= 0)
-        if j_idx.size:
-            sid, pane = self._ext_to_sid_pane(np.asarray(payload["slots"])[0, j_idx].astype(np.int64))
+        slots = np.asarray(payload["slots"])
+        w_idx, j_idx = np.nonzero(slots >= 0)
+        if w_idx.size:
+            sid, pane = self._ext_to_sid_pane(slots[w_idx, j_idx].astype(np.int64) * world + w_idx)
             keep = (sid < num) & self._pane_open(pane)
             parts_g.append(sid[keep])
             for k in arena:
-                parts_r[k].append(arena[k][j_idx[keep]])
+                parts_r[k].append(arena[k][w_idx[keep], j_idx[keep]])
         coords = np.asarray(payload.get("spill_coords", np.zeros((0, 2), np.int64))).reshape(-1, 2)
         if coords.size:
-            sid, pane = self._ext_to_sid_pane(coords[:, 1].astype(np.int64))
+            sid, pane = self._ext_to_sid_pane(coords[:, 1].astype(np.int64) * world + coords[:, 0].astype(np.int64))
             keep = (sid < num) & self._pane_open(pane)
             parts_g.append(sid[keep])
             for k in arena:
@@ -611,10 +636,13 @@ class RaggedEngine(MultiStreamEngine):
         return gids[sel], {k: v[sel] for k, v in rows.items()}
 
     def _ext_to_sid_pane(self, ext: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Pager row ids (``sid * panes + pane``) back to ``(sid, pane)``."""
+        """Extended row ids (``row * W + shard``, the pager row
+        ``(sid // W) * panes + pane`` under a ring) back to ``(sid, pane)``."""
         if self._pane_rows == 1:
             return ext, np.zeros_like(ext)
-        return ext // self._pane_rows, ext % self._pane_rows
+        w = ext % self._world
+        q = ext // self._world
+        return (q // self._pane_rows) * self._world + w, q % self._pane_rows
 
     def _pane_open(self, pane: np.ndarray) -> np.ndarray:
         """The rows of the aggregate's pane view: all of them unwindowed, the
@@ -652,7 +680,7 @@ class RaggedEngine(MultiStreamEngine):
                 for key, v in rows.items():
                     pad = np.zeros((b_rows, v.shape[-1]), v.dtype)
                     pad[:k] = v[lo:lo + k]
-                    blk[key] = torch.from_numpy(pad).to(dev, self._state[key].dtype)
+                    blk[key] = torch.from_numpy(pad).to(dev, self._state_dtype(key))
                 ok = torch.from_numpy(blk_ok).to(dev)
                 value, keep, flag, counts = self._batch_scores(self._layout.unpack_stacked(blk))
                 keep, flag, over = keep & ok, flag & ok, (counts > self._capacity) & ok

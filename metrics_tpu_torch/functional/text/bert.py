@@ -13,6 +13,12 @@ each axis, then the weighted means and F1: plain tensor ops on that device.
 :func:`bert_state_dict_from_flax` carries the JAX package's Flax BERT
 checkpoint (its parameter tree as numpy arrays) into HF torch ``BertModel``
 key names and layouts, so the same weights score the same text in both.
+
+``mesh=`` runs the encoder batch-parallel over the mesh's ``mesh_axis``
+(``parallel.embedded.shard_batch_forward``, the embeddings gathered onto the
+first shard's device): ids and mask are split over the shards, and a
+``model`` (or a loaded checkpoint) has one replica a device of the mesh; a
+``user_forward_fn`` is called on each shard's block on that shard's device.
 """
 import os
 import sys
@@ -24,7 +30,6 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
-from metrics_tpu_torch.utils.exceptions import NotPortedError
 from metrics_tpu_torch.utils.imports import _TRANSFORMERS_AVAILABLE
 
 Tensor = torch.Tensor
@@ -33,10 +38,6 @@ Tensor = torch.Tensor
 # sweep does not pin every model in memory
 _LOADED_MODEL_CACHE_MAX = 4
 _LOADED_MODEL_CACHE: "OrderedDict[Tuple[str, str], Any]" = OrderedDict()
-
-MESH_NOT_PORTED = (
-    "BERTScore's `mesh=` (a batch-sharded encoder) is not ported: it waits for the port's mesh layer (ROADMAP.md A)"
-)
 
 
 def _simple_whitespace_tokenizer(sentences: List[str], max_length: int) -> Dict[str, np.ndarray]:
@@ -158,6 +159,30 @@ def _hf_forward(hf_model: Any) -> Callable[[Tensor, Tensor], Tensor]:
     return forward
 
 
+def _module_forward(model: Any) -> Callable[[Tensor, Tensor], Tensor]:
+    """A ``model``'s encoder call: a HF torch model's keyword form, else the
+    documented ``model(ids, mask)``."""
+    return _hf_forward(model) if _is_hf_torch_model(model) else (lambda ids, mask: model(ids, mask))
+
+
+def _sharded_encoder(fn: Callable, module: Any, mesh: Any, mesh_axis: Any) -> Callable[[Any, Any], Tensor]:
+    """``fn`` batch-parallel over ``mesh`` (``shard_batch_forward`` with
+    ``out_axis=None``: the embeddings gathered onto the first shard's device).
+    A ``torch.nn.Module`` encoder is a replicated argument, placed once: one
+    replica a device of the mesh (its own device keeps the original); any
+    other callable runs on each shard's block as it is."""
+    from metrics_tpu_torch.parallel.embedded import shard_batch_forward
+
+    def shard(replica: Any, ids: Tensor, mask: Tensor) -> Tensor:
+        with torch.inference_mode():
+            out = (fn if replica is None else _module_forward(replica))(ids, mask)
+        return out if isinstance(out, Tensor) else torch.from_numpy(np.asarray(out)).to(ids.device)
+
+    sharded = shard_batch_forward(shard, mesh, mesh_axis, out_axis=None, replicated_argnums=(0,))
+    placed = sharded.place(module if isinstance(module, torch.nn.Module) else None)
+    return lambda ids, mask: sharded(placed, ids, mask)
+
+
 def _load_local_model(model_name_or_path: str, device: torch.device) -> Any:
     """A local HF torch checkpoint through ``transformers.AutoModel``, in
     eval mode on ``device``; cached by (path, device), at most four."""
@@ -184,23 +209,31 @@ def _resolve_forward(
     model: Optional[Any],
     model_name_or_path: Optional[str],
     device: torch.device,
+    mesh: Optional[Any] = None,
+    mesh_axis: Any = "dp",
 ) -> Callable[[Tensor, Tensor], Tensor]:
     """The encoder ``(ids, mask) -> (N, L, D)`` tensor on ``device``, in the
     order ``user_forward_fn``, ``model``, ``model_name_or_path``. It runs
     under ``torch.inference_mode()``; an output that is not a tensor (a
-    numpy array) becomes one on ``device``. Shared by the functional and the
-    module."""
+    numpy array) becomes one on ``device``. With ``mesh`` it runs
+    batch-parallel over the mesh's axis (:func:`_sharded_encoder`). Shared by
+    the functional and the module."""
+    module = None
     if user_forward_fn is not None:
         fn = user_forward_fn
     elif model is not None:
-        fn = _hf_forward(model) if _is_hf_torch_model(model) else (lambda ids, mask: model(ids, mask))
+        module = model
     elif model_name_or_path is not None:
-        fn = _hf_forward(_load_local_model(model_name_or_path, device))
+        module = _load_local_model(model_name_or_path, device)
     else:
         raise ValueError(
             "BERTScore needs an encoder: pass `user_forward_fn`, `model`, or a local `model_name_or_path`"
             " (this build cannot download pretrained weights)."
         )
+    if module is not None:
+        fn = _module_forward(module)
+    if mesh is not None:
+        fn = _sharded_encoder(fn, module, mesh, mesh_axis)
 
     def forward(ids: Tensor, mask: Tensor) -> Tensor:
         with torch.inference_mode():
@@ -391,10 +424,9 @@ def bert_score(
     emb``, ``model``, ``model_name_or_path`` (a LOCAL HF torch checkpoint).
     Tokenization uses ``user_tokenizer`` (``tok(texts, max_length)``
     returning ``input_ids``/``attention_mask``) or a whitespace tokenizer.
-    ``mesh=`` is not ported (ROADMAP.md A).
+    ``mesh=`` shards the encoder's batch over the mesh's ``mesh_axis``
+    (module docstring).
     """
-    if mesh is not None:
-        raise NotPortedError(MESH_NOT_PORTED)
     if len(predictions) != len(references):
         raise ValueError("Number of predicted and reference sentences must be the same!")
     dev = resolve_device(device)
@@ -419,7 +451,7 @@ def bert_score(
     pred_ids, pred_mask = ids_u[inverse[:n]], mask_u[inverse[:n]]
     tgt_ids, tgt_mask = ids_u[inverse[n:]], mask_u[inverse[n:]]
 
-    forward = _resolve_forward(user_forward_fn, model, model_name_or_path, dev)
+    forward = _resolve_forward(user_forward_fn, model, model_name_or_path, dev, mesh, mesh_axis)
     precision, recall, f1 = _score_tokenized(
         forward, pred_ids, pred_mask, tgt_ids, tgt_mask, idf=idf, batch_size=batch_size, device=dev,
         dedup=(ids_u, mask_u, inverse),

@@ -94,7 +94,9 @@ class FID(Metric):
             (default: whenever ``d`` is known).
         model_host: serve the forward from a resident ``ModelHost``
             (``engine/model_host.py``): ``True``, a ``ModelHostConfig`` or a
-            host. ``mesh=`` raises ``NotPortedError``.
+            host; with ``mesh=``, the host's hybrid stem-tensor layout.
+        mesh, mesh_axis: run the built-in forward batch-sharded over the
+            mesh's axis (``parallel.embedded.shard_batch_forward``).
     """
 
     is_differentiable = False

@@ -25,9 +25,17 @@ runs its convolutions in full f32; cuDNN otherwise takes TF32 on an H100.
 and the conv weights are cast to bf16 (the f32 master weights stay), the
 taps' means accumulate in f32.
 
-``stem_apply`` and ``split_stem_variables``, which serve the JAX package's
-mesh layouts, wait for the port's mesh layer (ROADMAP.md A).
+Meshes (``parallel/embedded.py``): ``mesh=`` on the extractor runs the
+forward batch-parallel (``shard_batch_forward``: one module a device, the
+batch split over the shards, the features gathered). :func:`stem_apply` and
+:func:`split_stem_variables` serve the model host's hybrid layout: the five
+stem layers as a function of their parameters, whose output channels the
+shards split (each shard one slice of each layer, gathered back in channel
+order before the next), then :meth:`InceptionV3.trunk` per shard on its
+batch block.
 """
+import functools
+import itertools
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -43,10 +51,16 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 Tensor = torch.Tensor
 StateDict = Dict[str, Tensor]
 
-MESH_NOT_PORTED = "mesh= (the sharded embedded-model layouts) is not ported yet (ROADMAP.md A)"
-
 # output width of each feature tap (FID/IS/KID size their streaming buffers by it)
 FEATURE_DIMS = {"64": 64, "192": 192, "768": 768, "2048": 2048, "logits_unbiased": 1008}
+
+_BN_EPS = 0.001
+
+# the five stem layers in application order (everything before the '192'
+# tap; the rest is the trunk): (in channels, out channels, kernel, stride,
+# padding), the padding in NCHW. The module's stem and stem_apply read it.
+_STEM = ((3, 32, 3, 2, 0), (32, 32, 3, 1, 0), (32, 64, 3, 1, 1), (64, 80, 1, 1, 0), (80, 192, 3, 1, 0))
+STEM_LAYERS = tuple(f"stem.{i}" for i in range(len(_STEM)))
 
 
 class _BatchNorm(nn.Module):
@@ -61,7 +75,7 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, 0.001)
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, _BN_EPS)
 
 
 class BasicConv2d(nn.Module):
@@ -170,6 +184,18 @@ class InceptionE(nn.Module):
         return torch.cat([k[0](x), b2, b3, k[8](pooled)], 1)
 
 
+def _preprocess(x: Tensor, preprocess_folded: bool, dt: Optional[torch.dtype]) -> Tensor:
+    """uint8 images, or floats in [0, 1] quantised by ``floor(x * 255)``,
+    then ``(x - 128) / 128`` unless folded into the first conv."""
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32)
+    else:
+        x = torch.floor(x.to(torch.float32) * 255.0)
+    if not preprocess_folded:
+        x = (x - 128.0) / 128.0
+    return x if dt is None else x.to(dt)
+
+
 def _tap_mean(v: Tensor) -> Tensor:
     # the taps feed f32 and float-float statistics: the spatial mean is taken in f32
     return torch.mean(v.to(torch.float32), dim=(2, 3))
@@ -196,10 +222,8 @@ class InceptionV3(nn.Module):
         def st(features: int) -> int:
             return features if stem_lanes is None or features >= stem_lanes else stem_lanes
 
-        self.stem = nn.ModuleList([
-            BasicConv2d(3, st(32), 3, stride=2, dtype=dt), BasicConv2d(st(32), st(32), 3, dtype=dt),
-            BasicConv2d(st(32), st(64), 3, padding="SAME", dtype=dt), BasicConv2d(st(64), st(80), 1, dtype=dt),
-            BasicConv2d(st(80), 192, 3, dtype=dt)])
+        self.stem = nn.ModuleList([BasicConv2d(cin if i == 0 else st(cin), st(cout), k, stride=stride, padding=pad,
+                                               dtype=dt) for i, (cin, cout, k, stride, pad) in enumerate(_STEM)])
         self.mixed = nn.ModuleList([
             InceptionA(192, 32, dt), InceptionA(256, 64, dt), InceptionA(288, 64, dt), InceptionB(288, dt),
             InceptionC(768, 128, dt), InceptionC(768, 160, dt), InceptionC(768, 160, dt), InceptionC(768, 192, dt),
@@ -207,21 +231,19 @@ class InceptionV3(nn.Module):
         self.fc = nn.Linear(2048, num_classes, bias=False)
 
     def forward(self, x: Tensor) -> Dict[str, Tensor]:
+        stem_vars = {f"stem.{k}": v for k, v in itertools.chain(self.stem.named_parameters(),
+                                                                 self.stem.named_buffers())}
+        x, out = stem_apply(stem_vars, x, compute_dtype=self.compute_dtype, preprocess_folded=self.preprocess_folded,
+                            stem_lanes=self.stem_lanes)
+        out.update(self.trunk(x))
+        return out
+
+    def trunk(self, x: Tensor) -> Dict[str, Tensor]:
+        """Everything after the ``'192'`` tap, on the post-stem activation
+        (JAX's ``InceptionV3(stem_input=True)``): the ``'768'``, ``'2048'``
+        and ``'logits_unbiased'`` taps."""
         dt = self.compute_dtype
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32)
-        else:
-            x = torch.floor(x.to(torch.float32) * 255.0)
-        if not self.preprocess_folded:
-            x = (x - 128.0) / 128.0
-        if dt is not None:
-            x = x.to(dt)
         out: Dict[str, Tensor] = {}
-        s = self.stem
-        x = F.max_pool2d(s[2](s[1](s[0](x))), 3, stride=2)
-        out["64"] = _tap_mean(x[:, :64] if self.stem_lanes is not None else x)
-        x = F.max_pool2d(s[4](s[3](x)), 3, stride=2)
-        out["192"] = _tap_mean(x)
         for block in self.mixed[:4]:
             x = block(x)
         out["768"] = _tap_mean(x)
@@ -354,6 +376,94 @@ def pad_stem_params(state: StateDict, lanes: int = 128) -> StateDict:
     return out
 
 
+def split_stem_variables(variables: Any) -> Tuple[StateDict, StateDict]:
+    """Split a state dict (or the JAX package's Flax variables) into
+    ``(stem_vars, trunk_vars)``: the five stem layers' entries, consumed by
+    :func:`stem_apply`, and everything else, consumed by
+    :meth:`InceptionV3.trunk`. Pure; tensors are shared, not copied."""
+    state = _as_state_dict(variables)
+    stem = {k: v for k, v in state.items() if k.split(".conv.")[0].split(".bn.")[0] in STEM_LAYERS}
+    return stem, {k: v for k, v in state.items() if k not in stem}
+
+
+def _conv_bn_relu(x: Tensor, sv: StateDict, i: int, dt: Optional[torch.dtype]) -> Tensor:
+    """Stem layer ``i`` as :class:`BasicConv2d` computes it, from ``sv``:
+    conv, inference BatchNorm, ReLU."""
+    p = STEM_LAYERS[i]
+    w = sv[f"{p}.conv.weight"]
+    y = F.conv2d(x, w if dt is None else w.to(dt), None, _STEM[i][3], _STEM[i][4])
+    y = F.batch_norm(y, sv[f"{p}.bn.running_mean"], sv[f"{p}.bn.running_var"], sv[f"{p}.bn.weight"],
+                     sv[f"{p}.bn.bias"], False, 0.0, _BN_EPS)
+    return F.relu(y, inplace=True)
+
+
+def _run_piece(tag: str, fn: Callable[..., Any], *xs: Tensor) -> Any:
+    return fn(*xs)
+
+
+def stem_apply(stem_variables: Any, x: Any, *, compute_dtype: Optional[torch.dtype] = None,
+               preprocess_folded: bool = False, stem_lanes: Optional[int] = None,
+               gather_axis: Optional[Any] = None, segment: Callable[..., Any] = _run_piece) -> Tuple[Any, Any]:
+    """The stem as a function: preprocessing, the five stem layers, the two
+    max pools and the ``'64'``/``'192'`` taps. Returns ``(post_stem, taps)``;
+    ``post_stem`` feeds :meth:`InceptionV3.trunk`. :meth:`InceptionV3.forward`
+    runs its stem through it.
+
+    ``gather_axis`` (a mesh axis, ``Mesh.axis(...)``): the tensor-parallel
+    stem of the model host. ``stem_variables`` is then the list of the W
+    shards' output-channel slices (conv weights split on dim 0, BN vectors
+    on their channel) and ``x`` the list of the W shards' copies of the
+    images; each shard computes its slice of each layer and one tiled
+    ``all_gather`` restores the full channels, in order, before the next.
+    Both come back as lists, one entry a shard. Each shard's slice of a layer
+    runs as ``segment(tag, fn, x)`` (default ``fn(x)``): the model host
+    across cards captures it there, one graph a layer and shard."""
+    if gather_axis is None:
+        sv = _as_state_dict(stem_variables)
+        x = _preprocess(x, preprocess_folded, compute_dtype)
+        taps: Dict[str, Tensor] = {}
+        for i in range(len(STEM_LAYERS)):
+            x = _conv_bn_relu(x, sv, i, compute_dtype)
+            if i == 2:
+                x = F.max_pool2d(x, 3, stride=2)
+                taps["64"] = _tap_mean(x[:, :64] if stem_lanes is not None else x)
+            elif i == 4:
+                x = F.max_pool2d(x, 3, stride=2)
+                taps["192"] = _tap_mean(x)
+        return x, taps
+    from metrics_tpu_torch.parallel.collectives import mesh_all_gather_tiled
+    from metrics_tpu_torch.parallel.embedded import _on
+
+    devices = gather_axis.devices
+    memo: Dict[int, Any] = {}
+
+    def per_copy(xs: List[Tensor], fn: Callable[[Tensor], Any]) -> List[Any]:
+        """``fn`` once a distinct tensor (the shards of one device share it)."""
+        memo.clear()
+        for t in xs:
+            if id(t) not in memo:
+                with _on(t.device):
+                    memo[id(t)] = fn(t)
+        return [memo[id(t)] for t in xs]
+
+    xs = per_copy(list(x), lambda t: _preprocess(t, preprocess_folded, compute_dtype))
+    taps_of: List[Dict[str, Tensor]] = [{} for _ in xs]
+    for i in range(len(STEM_LAYERS)):
+        parts = []
+        for k, dev in enumerate(devices):
+            with _on(dev):
+                parts.append(segment(STEM_LAYERS[i], functools.partial(_conv_bn_relu, sv=stem_variables[k], i=i,
+                                                                       dt=compute_dtype), xs[k]))
+        xs = mesh_all_gather_tiled(parts, gather_axis, dim=1)
+        if i in (2, 4):
+            xs = per_copy(xs, lambda t: F.max_pool2d(t, 3, stride=2))
+            name = "64" if i == 2 else "192"
+            means = per_copy(xs, lambda t: _tap_mean(t[:, :64] if name == "64" and stem_lanes is not None else t))
+            for k, m in enumerate(means):
+                taps_of[k][name] = m
+    return xs, taps_of
+
+
 def _as_state_dict(params: Any) -> StateDict:
     """A port state dict from ``params``: a state dict, or Flax variables."""
     if isinstance(params, dict) and "params" in params:
@@ -379,9 +489,10 @@ def resolve_feature_extractor(
     (``True``: the registry's host for this identity; a
     ``ModelHostConfig``: one built to it; a ``ModelHost``: that one).
     Returns ``(extractor, feature_dim)``, ``feature_dim`` None for a
-    callable. ``mesh=`` raises ``NotPortedError``."""
-    if mesh is not None:
-        raise NotPortedError(MESH_NOT_PORTED)
+    callable. ``mesh=`` builds the batch-sharded extractor, or with
+    ``model_host`` the host's hybrid stem-tensor layout; a callable with
+    ``mesh=`` raises JAX's ``ValueError`` (shard it yourself with
+    ``parallel.shard_batch_forward``)."""
     if model_host is not None and model_host is not False:
         if callable(feature) and not isinstance(feature, (str, int)):
             raise ValueError(
@@ -394,7 +505,8 @@ def resolve_feature_extractor(
         if isinstance(model_host, ModelHost):
             host = model_host
         else:
-            config = model_host if isinstance(model_host, ModelHostConfig) else ModelHostConfig()
+            config = model_host if isinstance(model_host, ModelHostConfig) else ModelHostConfig(
+                mesh=mesh, mesh_axis=mesh_axis)
             host = inception_host(str(feature), params, config=config, device=device)
 
         def extractor(imgs: Any) -> Tensor:
@@ -403,10 +515,18 @@ def resolve_feature_extractor(
         extractor.model_host = host
         return extractor, FEATURE_DIMS[str(feature)]
     if callable(feature):
+        if mesh is not None:
+            raise ValueError(
+                f"{metric_name}(mesh=...) only applies to the built-in InceptionV3 (feature in {valid}). For a "
+                "callable `feature`, shard it yourself with metrics_tpu_torch.parallel.shard_batch_forward(fn, mesh) "
+                "and pass the wrapped callable."
+            )
         return feature, None
     if str(feature) not in valid:
         raise ValueError(f"Input to argument `feature` must be one of {valid}, but got {feature}.")
-    return InceptionFeatureExtractor(feature=str(feature), params=params, device=device), FEATURE_DIMS[str(feature)]
+    extractor = InceptionFeatureExtractor(feature=str(feature), params=params, mesh=mesh, mesh_axis=mesh_axis,
+                                          device=device)
+    return extractor, FEATURE_DIMS[str(feature)]
 
 
 def _nchw(imgs: Any, device: torch.device) -> Tensor:
@@ -430,8 +550,14 @@ class InceptionFeatureExtractor:
     meaningless for real FID values). ``compute_dtype=torch.bfloat16`` is
     the bf16 path; ``fold_preprocess`` and ``stem_lanes`` transform the
     params as the JAX extractor does (features equal to f32 rounding).
-    Rebinding ``params`` reloads the model. ``mesh=`` raises
-    ``NotPortedError``. The f32 forward runs under :func:`full_f32`.
+    Rebinding ``params`` reloads the model. The f32 forward runs under
+    :func:`full_f32`.
+
+    ``mesh=`` runs the forward batch-parallel over the mesh's ``mesh_axis``
+    (``parallel.embedded.shard_batch_forward``): one module a device of the
+    mesh, the batch split over the shards, the features gathered onto the
+    first shard's device (JAX's ``out_axis=None``), which is then the
+    extractor's device.
     """
 
     def __init__(
@@ -447,13 +573,12 @@ class InceptionFeatureExtractor:
         stem_lanes: Optional[int] = None,
         device: DeviceLike = None,
     ) -> None:
-        if mesh is not None:
-            raise NotPortedError(MESH_NOT_PORTED)
         self.feature = str(feature)
         self.compute_dtype = compute_dtype
         self.fold_preprocess = bool(fold_preprocess)
         self.stem_lanes = stem_lanes
-        self.device = resolve_device(device)
+        self._sharded: Optional[Callable] = None
+        self.device = mesh.axis(mesh_axis).devices[0] if mesh is not None else resolve_device(device)
         if params is None:
             rank_zero_warn(
                 "No pretrained InceptionV3 params provided (no network egress in this build); using the seeded"
@@ -461,8 +586,17 @@ class InceptionFeatureExtractor:
                 UserWarning,
             )
             params = random_inception_params(input_size=input_size, seed=seed)
-        self.module = InceptionV3(compute_dtype=compute_dtype, preprocess_folded=self.fold_preprocess,
-                                  stem_lanes=stem_lanes).to(self.device).eval().requires_grad_(False)
+        module = InceptionV3(compute_dtype=compute_dtype, preprocess_folded=self.fold_preprocess,
+                             stem_lanes=stem_lanes).eval().requires_grad_(False)
+        if mesh is not None:
+            from metrics_tpu_torch.parallel.embedded import shard_batch_forward
+
+            self._sharded = shard_batch_forward(self._tap, mesh, mesh_axis, out_axis=None, replicated_argnums=(0,))
+            self._placed = self._sharded.place(module)  # one module a device: shards on one device share it
+            self._replicas = list({id(m): m for m in self._placed}.values())
+        else:
+            self._replicas = [module.to(self.device)]
+        self.module = self._replicas[0]
         self.params = params
 
     @property
@@ -477,7 +611,8 @@ class InceptionFeatureExtractor:
             state = fold_preprocess_into_params(state)
         if self.stem_lanes is not None:
             state = pad_stem_params(state, self.stem_lanes)
-        self.module.load_state_dict(state)
+        for module in self._replicas:
+            module.load_state_dict(state)
 
     @staticmethod
     def load_params(path: str) -> Any:
@@ -486,13 +621,19 @@ class InceptionFeatureExtractor:
         with open(path, "rb") as f:
             return pickle.load(f)
 
+    def _tap(self, module: nn.Module, imgs: Tensor) -> Tensor:
+        return module(imgs)[self.feature].to(torch.float32)
+
     def forward_nchw(self, imgs: Tensor) -> Tensor:
-        """The tap of NCHW ``imgs`` already on the device, as f32."""
+        """The tap of NCHW ``imgs`` already on the device, as f32 (on a mesh,
+        each shard's block on its device, gathered)."""
+        run = (lambda x: self._sharded(self._placed, x)) if self._sharded is not None \
+            else (lambda x: self._tap(self.module, x))
         with torch.no_grad():
             if self.compute_dtype is None:
                 with full_f32():
-                    return self.module(imgs)[self.feature].to(torch.float32)
-            return self.module(imgs)[self.feature].to(torch.float32)
+                    return run(imgs)
+            return run(imgs)
 
     def __call__(self, imgs: Any) -> Tensor:
         return self.forward_nchw(_nchw(imgs, self.device))

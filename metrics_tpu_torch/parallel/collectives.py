@@ -80,7 +80,7 @@ Q8_FLUSH = 1.5e-36
 
 _REDUCE_OPS = {"sum": "SUM", "mean": "SUM", "min": "MIN", "max": "MAX"}
 
-_COUNTS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+_COUNTS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "ppermute": 0}
 
 #: ``ncclRedOp_t`` values (``torch.cuda.nccl`` names only SUM)
 _NCCL_OPS = {"SUM": 0, "MAX": 2, "MIN": 3}
@@ -88,7 +88,7 @@ _NCCL_OPS = {"SUM": 0, "MAX": 2, "MIN": 3}
 
 def collective_counts() -> Dict[str, int]:
     """Collectives issued by this module since :func:`reset_collective_counts`,
-    by kind (``all_reduce``, ``all_gather``)."""
+    by kind (``all_reduce``, ``all_gather``, ``ppermute``)."""
     return dict(_COUNTS)
 
 
@@ -171,6 +171,32 @@ def _mesh_all_gather(parts: List[Tensor], axis: MeshAxis) -> List[Tensor]:
         nccl.all_gather(flat, outs)
         return [o.reshape(shape) for o in outs]
     return [torch.stack(flat).reshape(shape)] * len(parts)
+
+
+def mesh_all_gather_tiled(parts: List[Tensor], axis: MeshAxis, dim: int = 0) -> List[Tensor]:
+    """JAX's tiled ``all_gather`` over a mesh axis: the W shards' tensors
+    concatenated along ``dim`` in shard order, on every shard's device (one
+    tensor, shared, on a one-device mesh). One ``all_gather``."""
+    gathered = _mesh_all_gather(parts, axis)
+    out: Dict[int, Tensor] = {}
+    for g in gathered:
+        if id(g) not in out:  # (W, ...) -> the W slices laid end to end along dim
+            out[id(g)] = torch.cat(list(g.unbind(0)), dim=dim)
+    return [out[id(g)] for g in gathered]
+
+
+def mesh_ppermute(parts: List[Optional[Tensor]], axis: MeshAxis, perm: Sequence[Tuple[int, int]]) -> List[Optional[Tensor]]:
+    """JAX's ``ppermute`` over a mesh axis: for each ``(src, dst)`` of
+    ``perm``, shard ``dst`` receives shard ``src``'s tensor on its own
+    device; a shard no pair names receives None. Across devices each is one
+    peer copy, which PyTorch orders against both devices' current streams
+    with events (no device-wide synchronize). One ``ppermute``."""
+    _COUNTS["ppermute"] += 1
+    out: List[Optional[Tensor]] = [None] * axis.world
+    for src, dst in perm:
+        if parts[src] is not None:
+            out[dst] = parts[src].to(axis.devices[dst], non_blocking=True)
+    return out
 
 
 def all_gather_cat(x: Any, group: Optional[Any] = None) -> Any:

@@ -30,26 +30,55 @@ These are the streaming engine's own steps (``engine/pipeline.py``): its
 blocks are the shards' row ranges of the host batch, and its fold replays
 the shard's captured graph on its device's stream (K5 under
 ``kernel_backend="megastep"``, K1/K4 otherwise; the collectives sit between
-the graphs) or runs the eager step. The sharded embedded-model forwards
-(``shard_batch_forward``, ``stem_tensor_batch_forward``,
-``pipeline_stage_forward``) are not ported yet (ROADMAP.md §A).
-"""
-from typing import Any, Callable, List, Optional, Tuple
+the graphs) or runs the eager step.
 
+The sharded embedded-model forwards run a model inside a metric over the
+mesh, each shard's work on its device (its current stream; across devices
+the shards' launches overlap), the collectives between them:
+
+* :func:`shard_batch_forward`: parameters replicated (one copy a device),
+  the batch split over the axis with zero pad rows cut off the result; the
+  output stays sharded (a list of the shards' row blocks), is gathered
+  (``out_axis=None``), or is sharded over an in-order prefix of the axes;
+* :func:`stem_tensor_batch_forward`: the model host's Inception layout, a
+  tensor-parallel stem (each shard computes an output-channel slice of each
+  stem layer, gathered back in order) then a data-parallel trunk whose rows
+  are gathered;
+* :func:`pipeline_stage_forward`: GPipe stages, stage ``s``'s parameters on
+  shard ``s`` only, microbatches handed shard to shard by
+  :func:`~metrics_tpu_torch.parallel.collectives.mesh_ppermute`, the only
+  operation between devices.
+
+Each returned forward has a ``place(params)`` method that lays parameters
+out once, in the layout it needs (:class:`PlacedParams`); a forward given
+raw parameters places them on every call.
+"""
+import copy
+import itertools
+import math
+from contextlib import nullcontext
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
-from metrics_tpu_torch.parallel.mesh import AxisName, Mesh, MeshConfig
+from metrics_tpu_torch.parallel.collectives import mesh_all_gather_tiled, mesh_ppermute
+from metrics_tpu_torch.parallel.mesh import AxisName, Mesh, MeshAxis, MeshConfig
 from metrics_tpu_torch.utils.data import is_batch_leaf
 from metrics_tpu_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = [
+    "PlacedParams",
     "boundary_merge_error",
     "data_parallel_mesh",
     "merge_step_deltas",
+    "pipeline_stage_forward",
+    "shard_batch_forward",
     "sharded_local_step",
     "sharded_masked_step",
     "sharded_state_merge",
     "split_bucket",
+    "stem_tensor_batch_forward",
     "stream_sharded_step",
 ]
 
@@ -180,6 +209,267 @@ def sharded_state_merge(metric: Any, mesh: Mesh, axis: AxisName,
         return metric.sync_states(trees, ax)[0]
 
     return merge
+
+
+# ------------------------------------------------------- the embedded-model forwards
+
+
+class PlacedParams:
+    """Parameters laid out for a mesh forward: ``shards[k]`` is what shard
+    ``k`` reads (the whole tree, a channel slice or a stage row), on shard
+    ``k``'s device; shards on one device share one copy of a replicated
+    tree."""
+
+    def __init__(self, shards: Sequence[Any]):
+        self.shards = list(shards)
+
+    def __iter__(self) -> Iterator[Any]:
+        return iter(self.shards)
+
+
+def _axis_size(mesh: Mesh, axis: AxisName) -> int:
+    names = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    return int(math.prod(mesh.shape[a] for a in names))
+
+
+def _on(dev: torch.device) -> Any:
+    """Make ``dev`` current for a shard's launches (a no-op off the card)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def _to_dev(tree: Any, dev: torch.device) -> Any:
+    """``tree`` on ``dev``: each tensor moved, each ``torch.nn.Module``
+    copied there (the module itself where it already lives)."""
+    def move(x: Any) -> Any:
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, torch.nn.Module):
+            home = next(itertools.chain(x.parameters(), x.buffers()), None)
+            return x if home is None or home.device == dev else copy.deepcopy(x).to(dev)
+        return x
+
+    return tree_map(move, tree)
+
+
+def _replicate(tree: Any, ax: MeshAxis) -> PlacedParams:
+    """One copy of ``tree`` (tensors and modules) a device, shared by the
+    shards on it."""
+    copies = {}
+    for dev in ax.devices:
+        if dev not in copies:
+            copies[dev] = _to_dev(tree, dev)
+    return PlacedParams([copies[dev] for dev in ax.devices])
+
+
+def _as_batch(a: Any) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def shard_batch_forward(fn: Callable, mesh: Mesh, axis: AxisName = "dp", out_axis: Optional[AxisName] = "__same__",
+                        replicated_argnums: Sequence[int] = ()) -> Callable:
+    """``fn`` batch-parallel over ``mesh``'s ``axis`` (JAX's signature).
+
+    Every positional argument but ``replicated_argnums`` has a leading batch
+    dimension: the batch is zero-padded to a multiple of the axis size and
+    split into W contiguous blocks, block ``k`` on shard ``k``'s device,
+    where ``fn`` runs on it; the replicated arguments (parameters) reach
+    every shard whole, one copy a device (pass :class:`PlacedParams` from
+    the forward's ``place`` to place them once). Pad rows never reach the
+    caller.
+
+    ``out_axis``: the default keeps the output sharded, the list of the W
+    shards' row blocks (each a tensor or a pytree of them, on its shard's
+    device); ``None`` gathers it (one ``all_gather`` a leaf) into one result
+    on the first shard's device; an in-order PREFIX of the batch axes (``"dp"``
+    of ``("dp", "grp")``) gathers the trailing axes and leaves one block per
+    prefix index. Any other subset would permute rows: ``ValueError``. The
+    axis must cover the mesh's axes in order, as the port's mesh axes do."""
+    ax = mesh.axis(axis)
+    n = ax.world
+    rep = frozenset(int(i) for i in replicated_argnums)
+    axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    if out_axis is None:
+        blocks = 1
+    elif out_axis == "__same__":
+        blocks = n
+    else:
+        out_axes = tuple(out_axis) if isinstance(out_axis, (tuple, list)) else (out_axis,)
+        if out_axes != axes[: len(out_axes)]:
+            raise ValueError(
+                f"out_axis {out_axes} must be an in-order prefix of the batch axes {axes} (anything else would "
+                "permute output rows); gather fully with out_axis=None instead."
+            )
+        blocks = _axis_size(mesh, out_axes)
+
+    def place(params: Any) -> PlacedParams:
+        return _replicate(params, ax)
+
+    def forward(*args: Any) -> Any:
+        batch_ix = [i for i in range(len(args)) if i not in rep]
+        if not batch_ix:
+            raise ValueError("shard_batch_forward needs at least one batch argument")
+        args = tuple(a if i in rep else _as_batch(a) for i, a in enumerate(args))
+        b = int(args[batch_ix[0]].shape[0])
+        per = -(-b // n)
+        reps = {i: (args[i] if isinstance(args[i], PlacedParams) else place(args[i])) for i in rep}
+        outs = []
+        for k, dev in enumerate(ax.devices):
+            shard_args = []
+            for i, a in enumerate(args):
+                if i in rep:
+                    shard_args.append(reps[i].shards[k])
+                    continue
+                blk = a[min(k * per, b):min((k + 1) * per, b)]
+                if blk.shape[0] < per:  # the zero pad rows of the last shards
+                    blk = torch.cat([blk, blk.new_zeros((per - blk.shape[0],) + tuple(blk.shape[1:]))])
+                shard_args.append(blk.to(dev))
+            with _on(dev):
+                outs.append(fn(*shard_args))
+        treedef = tree_flatten(outs[0])[1]
+        cols = list(zip(*(tree_flatten(o)[0] for o in outs)))
+        if blocks == n:
+            return [tree_unflatten(treedef, [c[k][: max(0, min(per, b - k * per))] for c in cols]) for k in range(n)]
+        full = [mesh_all_gather_tiled(list(c), ax, 0) for c in cols]
+        g = n // blocks  # shards a block gathers
+        out = []
+        for j in range(blocks):
+            lo, hi = j * g * per, min((j + 1) * g * per, b)
+            out.append(tree_unflatten(treedef, [f[j * g][lo:hi] for f in full]))
+        return out[0] if blocks == 1 else out
+
+    forward.place = place
+    return forward
+
+
+def _stem_slice(tree: Any, k: int, world: int, dev: torch.device) -> Any:
+    """Shard ``k``'s output-channel slice of a stem tree on ``dev``: every
+    tensor leaf split on dim 0 (a PyTorch conv weight's ``cout``, a BN
+    vector's channel), where JAX's HWIO kernels split on their last dim."""
+    def cut(x: Any) -> Any:
+        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x.to(dev) if isinstance(x, torch.Tensor) else x
+        c = x.shape[0] // world
+        return x[k * c:(k + 1) * c].to(dev)
+
+    return tree_map(cut, tree)
+
+
+def stem_tensor_batch_forward(stem_fn: Callable, trunk_fn: Callable, mesh: Mesh, axis: AxisName = "dp") -> Callable:
+    """The hybrid tensor-then-data sharded forward: the model host's
+    Inception layout (JAX's signature). ``fwd(stem_vars, trunk_vars, x)``:
+
+    1. the image batch ``x`` is replicated (one copy a device) and the stem's
+       parameters are split on the output channel (:func:`_stem_slice`), so
+       shard ``k`` computes channel slice ``k`` of every stem layer;
+       ``stem_fn(stem_slices, xs, gather_axis) -> (x_stems, auxes)`` takes the
+       W shards' slices and copies and the mesh axis, gathers each layer's
+       slices back in channel order (``models.inception.stem_apply``), and
+       returns every shard's post-stem activation and its taps (the
+       ``'64'``/``'192'`` taps, from the full batch);
+    2. shard ``k`` runs ``trunk_fn(trunk_vars, x_k) -> dict`` on its own
+       ``B / W``-row block of the post-stem activation, and the per-row
+       outputs are gathered in shard order.
+
+    The result (on the first shard's device) is the trunk's outputs and the
+    stem's taps. A batch that does not divide by the axis size raises
+    JAX's ``ValueError``. ``fwd.place(stem_vars, trunk_vars)`` lays both
+    out once; the only collective is ``all_gather``."""
+    ax = mesh.axis(axis)
+    world = ax.world
+
+    def place(stem_vars: Any, trunk_vars: Any) -> Tuple[PlacedParams, PlacedParams]:
+        stem = PlacedParams([_stem_slice(stem_vars, k, world, dev) for k, dev in enumerate(ax.devices)])
+        return stem, _replicate(trunk_vars, ax)
+
+    def fwd(stem_vars: Any, trunk_vars: Any, x: Any) -> Any:
+        x = _as_batch(x)
+        if x.shape[0] % world:
+            raise ValueError(
+                f"stem_tensor_batch_forward: batch {x.shape[0]} not divisible by axis {axis!r} size {world} — serve "
+                f"it through a bucket set with divisor={world}"
+            )
+        stem = stem_vars if isinstance(stem_vars, PlacedParams) else place(stem_vars, None)[0]
+        trunk = trunk_vars if isinstance(trunk_vars, PlacedParams) else _replicate(trunk_vars, ax)
+        xs = _replicate(x, ax).shards
+        x_stems, auxes = stem_fn(stem.shards, xs, ax)
+        b = x.shape[0] // world
+        outs = []
+        for k, dev in enumerate(ax.devices):
+            with _on(dev):
+                outs.append(trunk_fn(trunk.shards[k], x_stems[k][k * b:(k + 1) * b]))
+        out = {key: mesh_all_gather_tiled([o[key] for o in outs], ax, 0)[0] for key in outs[0]}
+        out.update(auxes[0])
+        return out
+
+    fwd.place = place
+    return fwd
+
+
+def pipeline_stage_forward(stage_fn: Callable, mesh: Mesh, axis: AxisName = "dp",
+                           microbatches: Optional[int] = None) -> Callable:
+    """GPipe pipeline-parallel forward over ``mesh``'s ``axis`` (JAX's
+    signature): ``fwd(params, x)``, ``params`` a pytree stacked ``(S, ...)``
+    whose row ``s`` lives only on shard ``s`` (``fwd.place(params)`` lays
+    the rows out once).
+
+    The batch splits into ``M`` microbatches (default ``M = S``); the
+    schedule runs ``S + M - 1`` steps, shard ``s`` taking microbatch ``t -
+    s`` at step ``t`` through ``stage_fn(stage_params, x_mb) -> x_mb`` (shape
+    preserving), and each step ends in one hand-off
+    (:func:`~metrics_tpu_torch.parallel.collectives.mesh_ppermute`, JAX's
+    ``ppermute``): across devices a peer copy, ordered against the sender's
+    and the receiver's streams by events. The last stage's output buffer
+    then goes round the ring in ``S - 1`` more hand-offs, so every shard
+    holds it; the result is shard 0's copy. Hand-offs per forward: ``S + M -
+    1 + S - 1``, and no other operation between devices. A batch that does
+    not divide by ``M`` raises JAX's ``ValueError``."""
+    ax = mesh.axis(axis)
+    world = ax.world
+    hand = [(i, i + 1) for i in range(world - 1)]
+    ring = [(i, (i + 1) % world) for i in range(world)]
+
+    def place(params: Any) -> PlacedParams:
+        return PlacedParams([tree_map(lambda a, s=s, dev=dev: a[s].to(dev), params)
+                             for s, dev in enumerate(ax.devices)])
+
+    def fwd(params: Any, x: Any) -> Any:
+        m = microbatches or world
+        x = _as_batch(x)
+        if x.shape[0] % m:
+            raise ValueError(
+                f"pipeline_stage_forward: batch {x.shape[0]} not divisible by microbatch count {m} — serve it "
+                f"through a bucket set with divisor={m}"
+            )
+        stages = params if isinstance(params, PlacedParams) else place(params)
+        mb = x.shape[0] // m
+        x0 = x.to(ax.devices[0])
+        state: List[Optional[torch.Tensor]] = [None] * world
+        out: List[torch.Tensor] = []
+        for t in range(m + world - 1):
+            new: List[Optional[torch.Tensor]] = [None] * world
+            for s, dev in enumerate(ax.devices):
+                j = t - s
+                if 0 <= j < m:
+                    with _on(dev):
+                        new[s] = stage_fn(stages.shards[s], x0[j * mb:(j + 1) * mb] if s == 0 else state[s])
+            if new[world - 1] is not None:
+                out.append(new[world - 1])
+            state = mesh_ppermute(new, ax, hand)
+        last = ax.devices[world - 1]
+        with _on(last):
+            buf = torch.cat(out) if len(out) > 1 else out[0]
+        held: List[Optional[torch.Tensor]] = [None] * world
+        held[world - 1] = buf
+        cur = list(held)
+        for _ in range(world - 1):
+            cur = mesh_ppermute(cur, ax, ring)
+            for d, y in enumerate(cur):
+                if y is not None:
+                    held[d] = y
+        return held[0]
+
+    fwd.place = place
+    return fwd
 
 
 def boundary_merge_error(axis: AxisName, world: int, cause: BaseException) -> BaseException:

@@ -11,7 +11,6 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.functional.text.bert import (
-    MESH_NOT_PORTED,
     _apply_baseline,
     _load_baseline_row,
     _resolve_baseline_path,
@@ -20,7 +19,6 @@ from metrics_tpu_torch.functional.text.bert import (
     _simple_whitespace_tokenizer,
 )
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utils.exceptions import NotPortedError
 
 Tensor = torch.Tensor
 
@@ -78,7 +76,9 @@ class BERTScore(Metric):
     HF torch checkpoint, see :func:`~metrics_tpu_torch.functional.bert_score`);
     it runs on the metric's device, or on a resident ``ModelHost`` with
     ``model_host=`` (``True``, a ``ModelHostConfig`` or a host). ``mesh=``
-    is not ported (ROADMAP.md A).
+    runs the compute-time encoder forward batch-parallel over the mesh's
+    ``mesh_axis`` (``parallel.embedded.shard_batch_forward``), and a host
+    built here serves on that mesh.
     """
 
     is_differentiable = False
@@ -108,8 +108,6 @@ class BERTScore(Metric):
         length_buckets: Optional[Sequence[int]] = None,
         **kwargs: Any,
     ) -> None:
-        if mesh is not None:
-            raise NotPortedError(MESH_NOT_PORTED)
         super().__init__(**kwargs)
         self.model_name_or_path = model_name_or_path
         self.max_length = max_length
@@ -126,7 +124,7 @@ class BERTScore(Metric):
         path = _resolve_baseline_path(rescale_with_baseline, baseline_path, baseline_url)
         self.baseline = _load_baseline_row(path, num_layers) if path is not None else None
         # a missing encoder fails at construction
-        self.forward_fn = _resolve_forward(user_forward_fn, model, model_name_or_path, self.device)
+        self.forward_fn = _resolve_forward(user_forward_fn, model, model_name_or_path, self.device, mesh, mesh_axis)
 
         # model_host: serve the encoder from a resident ModelHost (bucketed,
         # coalesced, one captured forward a bucket on the card; shared by
@@ -138,7 +136,8 @@ class BERTScore(Metric):
             if isinstance(model_host, ModelHost):
                 host = model_host
             else:
-                config = model_host if isinstance(model_host, ModelHostConfig) else ModelHostConfig()
+                config = model_host if isinstance(model_host, ModelHostConfig) else ModelHostConfig(
+                    mesh=mesh, mesh_axis=mesh_axis)
                 host = encoder_host(forward_fn=self.forward_fn, config=config, device=self.device)
             self.model_host = host
 

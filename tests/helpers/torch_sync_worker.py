@@ -421,6 +421,36 @@ def case_retrieval(ctx: Ctx, group: str, interleaved: bool) -> Any:
     return out
 
 
+#: the grouped-state case: the group universe, the capacity, rows a rank
+GROUPED_G, GROUPED_CAP, GROUPED_ROWS = 12, 16, 24
+
+
+def grouped_rows(rank: int):
+    """Rank ``rank``'s retrieval rows ``(preds, target, group ids)``, preds
+    tied at one decimal."""
+    rng = np.random.RandomState(300 + rank)
+    return (np.round(rng.rand(GROUPED_ROWS), 1).astype(np.float32), rng.randint(0, 2, GROUPED_ROWS),
+            rng.randint(0, GROUPED_G, GROUPED_ROWS))
+
+
+def case_grouped(ctx: Ctx, group: str) -> Any:
+    """Each rank serves its rows through a world-1 ``RaggedEngine``; returns
+    its local grouped state and ``GroupedStateMetric.sync_states`` of it over
+    ``group`` (one gather bundle, then the compaction merge)."""
+    if not ctx.member(group):
+        return None
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import EngineConfig, RaggedEngine
+
+    eng = RaggedEngine(mp.RetrievalMAP(device="cpu"), GROUPED_G, config=EngineConfig(buckets=(32,)),
+                       capacity=GROUPED_CAP)
+    with eng:
+        eng.submit_update(*grouped_rows(ctx.pos(group)))
+        eng.flush()
+        local = eng.state()
+    return {"local": to_np(local), "synced": to_np(eng._metric.sync_states(local, ctx.groups[group]))}
+
+
 #: the text metrics of the gather case, by name: their constructor keywords
 TEXT_SUITE = {
     "WordErrorRate": {},
@@ -555,6 +585,7 @@ CASES: Dict[str, Callable[..., Any]] = {
     "signal": case_signal,
     "text": case_text,
     "retrieval": case_retrieval,
+    "grouped": case_grouped,
     "list_refusal": case_list_refusal,
     "fused": case_fused,
     "suite": case_suite,

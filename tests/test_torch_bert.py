@@ -28,7 +28,6 @@ import metrics_tpu_torch as mp
 import metrics_tpu_torch.functional as pf
 from metrics_tpu.functional.text import bert as jbert
 from metrics_tpu_torch.functional.text import bert as pbert
-from metrics_tpu_torch.utils.exceptions import NotPortedError
 from metrics_tpu_torch.utils.imports import _TRANSFORMERS_AVAILABLE
 
 ATOL = 1e-5
@@ -259,23 +258,26 @@ def test_the_encoder_runs_under_inference_mode_on_the_device():
     assert seen == [(True, CPU, CPU, torch.int32)]
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"model_host": True}])
+@pytest.mark.parametrize("kw", [{"mesh": "four cpu shards"}, {"model_host": True}])
 def test_mesh_and_model_host_are_not_ported(kw):
-    """``mesh=`` is refused by the class and the functional. ``model_host=``
-    was ported with the model host: that case checks that the class takes it
-    and serves the encoder from a host, with the direct path's scores."""
-    if "mesh" in kw:
-        with pytest.raises(NotPortedError, match="ROADMAP.md A"):
-            mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **kw)
-        with pytest.raises(NotPortedError, match="ROADMAP.md A"):
-            pf.bert_score(["a"], ["a"], user_forward_fn=sin_torch, device="cpu", **kw)
-        return
+    """Both were refused until ported: ``mesh=`` now runs the encoder
+    batch-sharded over four CPU shards in the class and the functional, the
+    scores equal to the direct path's, and a host built with it serves on
+    the mesh; ``model_host=`` serves the encoder from a host, with the direct
+    path's scores."""
     from metrics_tpu_torch.engine.model_host import reset_host_registry
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
 
+    if "mesh" in kw:
+        kw = {"mesh": MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh()}
+        preds, refs = ["a b c", "d e", "f g h i", "j", "k l"], ["a c", "d e f", "g h", "j k", "l"]
+        want = pf.bert_score(preds, refs, user_forward_fn=sin_torch, device="cpu")
+        assert pf.bert_score(preds, refs, user_forward_fn=sin_torch, device="cpu", **kw) == want
     try:
-        hosted, direct = mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **kw), \
+        hosted, direct = mp.BERTScore(user_forward_fn=sin_torch, device="cpu", **{**kw, "model_host": True}), \
             mp.BERTScore(user_forward_fn=sin_torch, device="cpu")
         assert hosted.model_host is not None and hosted.model_host.device == CPU
+        assert hosted.model_host.telemetry()["sharding"] == ("mesh" if "mesh" in kw else "none")
         for m in (hosted, direct):
             m.update(["a b c", "d e"], ["a c", "d e f"])
         assert hosted.compute() == direct.compute()

@@ -2851,3 +2851,118 @@ def test_mesh_reshard_across_cards_keeps_its_devices(cuda, mode):
     state = eng.state()
     assert all(v.device == home[0] for m in state.values() for v in m.values())
     assert _trees_equal(_host_tree(state), _host_tree(cpu.state()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["tumbling", "sliding"])
+def test_mesh_windowed_engine_on_card_equals_the_cpu_port(cuda, kind):
+    """A deferred windowed ring at W = 4 (each shard's pane row the captured
+    step's target) against the CPU port's at W = 4, bit for bit, in each
+    layout the machine has; after a cumulative twin warmed the shared cache,
+    the ring captures nothing across its rotations."""
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    batches = _mesh_batches(n=30, seed=8)
+    window = {"tumbling": lambda: pe.WindowPolicy.tumbling(pane_batches=4, n_panes=3),
+              "sliding": lambda: pe.WindowPolicy.sliding(n_panes=3, pane_batches=4)}[kind]
+
+    def run(mesh, dev, aot=None, win=True):
+        eng = pe.StreamingEngine(_mesh_coll(dev), pe.EngineConfig(
+            buckets=(64, 256), kernel_backend="megastep", coalesce=1, mesh=mesh, mesh_sync="deferred",
+            window=window() if win else None), aot_cache=aot)
+        with eng:
+            for b in batches:
+                eng.submit(*(torch.from_numpy(x).to(dev) for x in b))
+        return eng
+
+    want = _host_tree(run(MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh(), "cpu").state())
+    for mesh in _mesh_layouts(cuda):
+        aot = pe.AotCache()
+        run(mesh, mesh.device_list()[0], aot, win=False)
+        eng = run(mesh, mesh.device_list()[0], aot)
+        assert eng.rotations == len(batches) // 4 and eng.stats.warmup_steps == 0, mesh
+        assert _trees_equal(_host_tree(eng.state()), want), mesh
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("group_shard", [False, True])
+def test_mesh_ragged_engine_on_card_equals_the_cpu_port(cuda, group_shard):
+    """The ragged engine at W = 4, deferred (the boundary merge of the
+    grouped buffers) and ``group_shard`` (the paged sweep over every shard:
+    K4 blocks, K1 folds): states equal the CPU port's bit for bit, the
+    aggregate within 1e-6 relative (the per-group scores round apart on the
+    card)."""
+    import metrics_tpu_torch as mp
+    import metrics_tpu_torch.engine as pe
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    rng = np.random.RandomState(5)
+    plan = [(np.round(rng.rand(24), 1).astype(np.float32), rng.randint(0, 2, 24), rng.randint(0, 40, 24))
+            for _ in range(6)]
+    kw = dict(group_shard=True, resident_groups=3) if group_shard else {}
+
+    def run(mesh, dev):
+        # coalesce=1: which shard a row lands on follows the coalesced chunk's split, which follows timing
+        eng = pe.RaggedEngine(mp.RetrievalMAP(device=dev), 40, config=pe.EngineConfig(
+            buckets=(32,), coalesce=1, mesh=mesh, mesh_sync="deferred"), capacity=32, **kw)
+        with eng:
+            for p, t, g in plan:
+                eng.submit(g, p, t.astype(np.float32))
+            eng.flush()
+            return eng, float(eng.aggregate()), _host_tree(eng.state())
+
+    _, want_value, want = run(MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh(), "cpu")
+    for mesh in _mesh_layouts(cuda):
+        eng, value, state = run(mesh, mesh.device_list()[0])
+        assert _trees_equal(state, want), mesh
+        assert abs(value - want_value) <= 1e-6 * abs(want_value), mesh
+        assert eng.aggregate_path()[0] == "device"
+
+
+@pytest.mark.requires_cuda
+def test_mesh_model_forwards_on_card_equal_world_1(cuda):
+    """The sharded embedded-model forwards on the card, in each layout: the
+    batch-sharded Inception extractor and the model host's stem-tensor
+    layout against the world-1 extractor (features within 1e-4 of the
+    largest: cuDNN picks its algorithm per batch size and channel count),
+    and the pipeline stages, bare and in the pipeline host, against the
+    stages run in order (1e-5). Across cards each shard's pieces of the
+    hosts' forwards are graphs on its device, captured once: five stem
+    layers and the trunk a shard, the embeddings and one stage a shard."""
+    from metrics_tpu_torch.engine.model_host import ModelHostConfig, encoder_host, inception_host
+    from metrics_tpu_torch.models import inception as inc
+    from metrics_tpu_torch.parallel import embedded as emb
+
+    params = inc.random_inception_params(input_size=75, seed=1)
+    imgs = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (8, 3, 75, 75)).astype(np.uint8)).to(cuda)
+    want = inc.InceptionFeatureExtractor("2048", params=params, input_size=75, device=cuda)(imgs)
+    stages = torch.from_numpy((np.random.RandomState(3).randn(4, 32, 32) * 0.2).astype(np.float32))
+    x = torch.from_numpy(np.random.RandomState(4).randn(8, 32).astype(np.float32)).to(cuda)
+    plain = x
+    for s in range(4):
+        plain = torch.tanh(plain @ stages[s].to(cuda)) + plain
+    stage = lambda w, v: torch.tanh(v @ w) + v  # noqa: E731
+    for mesh in _mesh_layouts(cuda):
+        nccl = mesh.transport == "nccl"
+        sharded = inc.InceptionFeatureExtractor("2048", params=params, input_size=75, mesh=mesh)(imgs)
+        cfg = ModelHostConfig(buckets=(8,), coalesce_window_ms=0.0, mesh=mesh)
+        host = inception_host("2048", params, config=cfg, shared=False)
+        hosted = host.infer(imgs)
+        again = host.infer(imgs)
+        assert host.shard_graphs.aot.misses == (6 * 4 if nccl else 0), mesh
+        assert host.shard_graphs.aot.hits == (6 * 4 if nccl else 0), mesh
+        host.close()
+        scale = float(want.abs().max())
+        for got in (sharded, hosted, again):
+            assert got.device == mesh.device_list()[0]
+            assert float((got - want).abs().max()) <= 1e-4 * scale, mesh
+        piped = emb.pipeline_stage_forward(stage, mesh)(stages, x)
+        assert float((piped.to(cuda) - plain).abs().max()) <= 1e-5, mesh
+        pipe_host = encoder_host(stage_fn=stage, stage_params=stages, embed_fn=lambda ids, mask: ids * mask,
+                                 config=cfg, shared=False)
+        for _ in range(2):
+            got = pipe_host.infer(x, torch.ones_like(x))
+            assert float((got.to(cuda) - plain).abs().max()) <= 1e-5, mesh
+        assert pipe_host.shard_graphs.aot.misses == (5 if nccl else 0), mesh
+        pipe_host.close()

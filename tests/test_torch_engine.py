@@ -44,7 +44,7 @@ from metrics_tpu.engine import MultiStreamEngine as JaxMulti
 from metrics_tpu.engine import StreamingEngine as JaxStreaming
 from metrics_tpu.engine.traffic import zipf_stream_ids
 from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
-from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError, NotPortedError
+from metrics_tpu_torch.utils.exceptions import KernelBackendError, MetricsTPUUserError
 from metrics_tpu_torch.utils.state_bridge import engine_state_from_numpy, engine_state_to_numpy
 
 C, T, S = 3, 5, 6
@@ -224,9 +224,10 @@ def test_typed_refusals():
     from metrics_tpu_torch.parallel.mesh import MeshConfig
 
     mesh = MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh()
-    with pytest.raises(NotPortedError, match="ROADMAP"):  # windows on a mesh wait for a later slice
-        StreamingEngine(_port(), EngineConfig(buckets=BUCKETS, mesh=mesh, mesh_sync="deferred",
-                                              window=WindowPolicy.tumbling(pane_batches=2)))
+    with pytest.raises(MetricsTPUUserError, match="requires mesh_sync='deferred'"):  # windows on a mesh: deferred
+        StreamingEngine(_port(), EngineConfig(buckets=BUCKETS, mesh=mesh, window=WindowPolicy.tumbling(pane_batches=2)))
+    StreamingEngine(_port(), EngineConfig(buckets=BUCKETS, mesh=mesh, mesh_sync="deferred",
+                                          window=WindowPolicy.tumbling(pane_batches=2)))
     with pytest.raises(TypeError):
         EngineConfig(bucket=(8,))
     with pytest.raises(MetricsTPUUserError, match="resident_streams"):

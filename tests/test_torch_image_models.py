@@ -605,13 +605,24 @@ def test_fid_kid_is_on_the_builtin_inception_match_jax():
 
 
 def test_refusals_and_argument_errors():
-    """``mesh=`` raises ``NotPortedError`` everywhere; the feature checks
-    raise JAX's messages."""
-    for make in (lambda: mp.FID(mesh=object(), device="cpu"), lambda: mp.KID(mesh=object(), device="cpu"),
-                 lambda: mp.IS(mesh=object(), device="cpu"),
-                 lambda: p_inc.InceptionFeatureExtractor(mesh=object(), device="cpu")):
-        with pytest.raises(NotPortedError, match="mesh"):
-            make()
+    """``mesh=`` with a callable feature raises JAX's message (the built-in
+    extractor takes a mesh since the model meshes were ported:
+    ``tests/test_torch_model_mesh.py``); the feature checks raise JAX's
+    messages."""
+    from jax.sharding import Mesh as JaxMesh
+
+    from metrics_tpu_torch.parallel.mesh import MeshConfig
+
+    pmesh = MeshConfig(shape=(4,), devices=["cpu"] * 4).make_mesh()
+    jmesh = JaxMesh(np.asarray(jax.devices()[:4]), ("dp",))
+    for pcls, jcls, kw in ((mp.FID, mt.FID, {"feature_dim": 8}), (mp.KID, mt.KID, {}),
+                           (mp.IS, mt.IS, {"feature_dim": 8})):
+        with pytest.raises(ValueError, match="mesh") as pe:
+            pcls(feature=p_feat, mesh=pmesh, device="cpu", **kw)
+        with pytest.raises(ValueError) as je:
+            jcls(feature=p_feat, mesh=jmesh, **kw)
+        assert str(pe.value) == str(je.value).replace("metrics_tpu.", "metrics_tpu_torch.")
+    assert p_inc.InceptionFeatureExtractor(input_size=SIZE, mesh=pmesh).device == CPU
     for pcls, jcls, kw in ((mp.FID, mt.FID, {"feature": 100}), (mp.FID, mt.FID, {"feature": p_feat,
                                                                                    "streaming": True}),
                            (mp.IS, mt.IS, {"feature": p_feat, "streaming": True})):

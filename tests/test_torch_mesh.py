@@ -155,12 +155,18 @@ def test_mesh_refusals_as_jax():
         pe.StreamingEngine(scan(mp, device="cpu"), pe.EngineConfig(buckets=BUCKETS, mesh=mesh))
     assert str(perr.value) == str(jerr.value)
     pe.StreamingEngine(scan(mp, device="cpu"), pe.EngineConfig(buckets=BUCKETS, mesh=mesh, mesh_sync="deferred"))
-    # what waits for later slices
-    with pytest.raises(NotPortedError, match="ROADMAP"):
+    # a window needs deferred sync, with JAX's words; the deferred ring and the ragged engine serve
+    with pytest.raises(mt.utils.exceptions.MetricsTPUUserError) as jerr:
+        je.StreamingEngine(_coll(mt), je.EngineConfig(buckets=BUCKETS, mesh=_jmesh(), axis="dp",
+                                                      window=je.WindowPolicy.sliding(pane_batches=2, n_panes=2)))
+    with pytest.raises(MetricsTPUUserError) as perr:
         pe.StreamingEngine(_coll(mp, device="cpu"), pe.EngineConfig(
-            mesh=mesh, mesh_sync="deferred", window=pe.WindowPolicy.sliding(pane_batches=2, n_panes=2)))
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        pe.RaggedEngine(mp.RetrievalMAP(device="cpu"), 4, pe.EngineConfig(mesh=mesh, mesh_sync="deferred"))
+            buckets=BUCKETS, mesh=mesh, window=pe.WindowPolicy.sliding(pane_batches=2, n_panes=2)))
+    assert str(perr.value) == str(jerr.value)
+    pe.StreamingEngine(_coll(mp, device="cpu"), pe.EngineConfig(
+        buckets=BUCKETS, mesh=mesh, mesh_sync="deferred", window=pe.WindowPolicy.sliding(pane_batches=2, n_panes=2)))
+    pe.RaggedEngine(mp.RetrievalMAP(device="cpu"), 4, pe.EngineConfig(buckets=BUCKETS, mesh=mesh, mesh_sync="deferred"))
+    # what waits for later slices
     with pytest.raises(NotPortedError, match="compilation_cache_dir"):
         pe.EngineConfig(compilation_cache_dir="x")
 

@@ -214,16 +214,24 @@ def test_shared_host_dedupes_by_key_and_bumps_shared_by():
 
 
 def test_refusals_name_what_is_not_ported():
-    with pytest.raises(NotPortedError, match="mesh"):
+    # the mesh layouts are ported (tests/test_torch_model_mesh.py): a mesh must
+    # be the port's, param_shardings is the placement applied once, and the
+    # pipeline stages need a mesh, with JAX's message
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         pmh.ModelHostConfig(mesh=object())
     with pytest.raises(NotPortedError, match="cache_dir"):
         pmh.ModelHostConfig(cache_dir="/nonexistent")
     with pytest.raises(ValueError, match="precision"):
         pmh.ModelHostConfig(precision="fp8")
-    with pytest.raises(NotPortedError):
-        pmh.ModelHost("demo", p_forward, {}, param_shardings={}, device="cpu")
-    with pytest.raises(NotPortedError, match="stage"):
+    placed = pmh.ModelHost("demo", p_forward, {"w": torch.ones(2)}, param_shardings=lambda p: {"w": p["w"] * 2},
+                           device="cpu")
+    assert torch.equal(placed.params["w"], torch.full((2,), 2.0))
+    placed.close()
+    with pytest.raises(ValueError, match="needs config.mesh") as perr:
         pmh.encoder_host(stage_fn=lambda p, x: x, stage_params={}, device="cpu")
+    with pytest.raises(ValueError) as jerr:
+        jmh.encoder_host(stage_fn=lambda p, x: x, stage_params={})
+    assert str(perr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="exactly one"):
         pmh.encoder_host(device="cpu")
     with pytest.raises(ValueError, match="feature"):

@@ -493,7 +493,8 @@ def test_a_group_travels_with_clone_and_not_with_pickle(group_handling):
 def test_world_1_group_runs_the_bundle_unchanged(group_handling):
     solo = group_handling[2]
     assert solo["solo_equal"] is True
-    assert solo["solo_counts"] == {"all_reduce": 1, "all_gather": 0}  # every count rides the sum rider
+    # every count rides the sum rider; no hand-off (the `ppermute` kind counts the pipeline's)
+    assert solo["solo_counts"] == {"all_reduce": 1, "all_gather": 0, "ppermute": 0}
 
 
 def test_constructor_takes_the_sync_keywords():
