@@ -5805,7 +5805,10 @@ SIG_BATCH = 16  # 32 updates of 16 mixtures
 SIG_CPU_MIXTURES = 64  # 22(a): the prefix the CPU twin takes
 SIG_FILTER = 512
 SIG_PIN_MIXTURES = 16  # 22(c)
-FP64_OPS_PER_S = 34e12  # K8's float64 recursion: the H100 SXM's FP64 rate outside the tensor cores (NVIDIA's data sheet)
+# K8's float64 recursion: the H100 SXM's FP64 rate outside the tensor cores (NVIDIA's data sheet). Its dot
+# products and element updates are vector work with no matrix product, so the tensor cores' 67 TFLOP/s
+# (DMMA), the card's FP64 peak, would halve a bound that no form of the recursion can reach
+FP64_OPS_PER_S = 34e12
 IMG_COUNT = 50  # DIV2K's validation set has 100 images: half of them
 IMG_SHAPE = (3, 1356, 2040)
 IMG_BATCH = 10
@@ -6001,7 +6004,9 @@ def signal_solve_timing(p, t, launches):
     Toeplitz systems of ``SIG_FILTER``): the kernel against its plain version,
     both timed, beside PyTorch's own LU of the full matrices (its pick of
     backend, MAGMA's batched LU at this size: ``library_ms``) and cuSOLVER's
-    LU (the one that captures), with the SDR each solve gives."""
+    LU (the one that captures), with the SDR each solve gives; and K8 at PIT
+    over SDR's shape (one (estimate, source) pair's ``SIG_BATCH`` systems,
+    ``pit_pair_ms``), held against its plain version there too."""
     from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize, _toeplitz
     from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
 
@@ -6024,13 +6029,21 @@ def signal_solve_timing(p, t, launches):
     finally:
         torch.backends.cuda.preferred_linalg_library(saved)
     systems, length = acf.numel() // SIG_FILTER, SIG_FILTER
+    # PIT over SDR solves each (estimate, source) pair's systems apart: SIG_BATCH of them a launch
+    pit_acf, pit_xcorr = _compute_autocorr_crosscorr(_normalize(t[:, 0]), _normalize(p[:, 1]), SIG_FILTER)
+    pit_acf, pit_xcorr = pit_acf.contiguous(), pit_xcorr.contiguous()
+    pit_plain = toeplitz_solve_plain(pit_acf, pit_xcorr)
+    pit_err = max_abs_err(toeplitz_solve_cuda(pit_acf, pit_xcorr), pit_plain)
+    check(pit_err <= 1e-4 * float(pit_plain.abs().max()), f"22(a): K8 vs its plain version at PIT's pair {pit_err}")
     entry = {"name": "toeplitz_solve", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/toeplitz.cu",
-             "replaces": "metrics_tpu/functional/audio/sdr.py:87 (jnp.linalg.solve through XLA; no Pallas kernel)",
+             "replaces": "metrics_tpu/functional/audio/sdr.py:77 (jnp.linalg.solve through XLA; no Pallas kernel)",
              "shape": f"({systems}, {length}) f32 systems, float64 inside", "launches": launches,
              "max_abs_err": max_abs_err(got, plain),
              "ms": gpu_ms(lambda: toeplitz_solve_cuda(acf, xcorr)),
              "plain_ms": gpu_ms(lambda: toeplitz_solve_plain(acf, xcorr), runs=3),
              "library_ms": lu["default"][0], "cusolver_lu_ms": lu["cusolver"][0],
+             "pit_pair_shape": f"({pit_acf.shape[0]}, {length}) f32 systems", "pit_pair_max_abs_err": pit_err,
+             "pit_pair_ms": gpu_ms(lambda: toeplitz_solve_cuda(pit_acf, pit_xcorr)),
              "sdr_max_abs_diff_db": {"plain": max_abs_err(sdr_of(got), sdr_of(plain)),
                                      "magma_lu": max_abs_err(sdr_of(got), sdr_of(lu["default"][1])),
                                      "cusolver_lu": max_abs_err(sdr_of(got), sdr_of(lu["cusolver"][1]))}}
@@ -6856,6 +6869,75 @@ def detection_phase(dev):
                det_kernel_entry(k9_corpus_args, out["ragged"]["k9_launches"], "24(c) corpus aggregate")]
     out["k9_launches_total"] = greedy_match_cuda.launches
     return out, entries
+
+
+# --------------------------------------------------------- K8 and K9 alone, for a parent's kernels against the tree's
+
+TOEPLITZ_LENGTHS = (2, 32, 256, 512, 1024)  # redesign_times: K8's step time at 1, 8 and 16 elements a lane, and above
+TOEPLITZ_BATCHES = (2 * SIG_BATCH, 1000)  # one SDR update's systems, and enough to fill every SM
+
+
+def redesign_inputs(dev):
+    """K8's and K9's inputs at every shape the main path gives them, from the
+    phases' seeds: 22(a)'s one update (``SIG_BATCH`` x 2 SDR systems of
+    ``SIG_FILTER``, and PIT over SDR's ``SIG_BATCH`` systems of one pair),
+    24(a)'s packed pairs and 24(c)'s corpus aggregate."""
+    from metrics_tpu_torch.detection.map import _pair_geometry
+    from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize
+
+    preds, target, _ = speech_mixtures(dev)
+    acf, xcorr = _compute_autocorr_crosscorr(_normalize(target[:SIG_BATCH]), _normalize(preds[:SIG_BATCH]),
+                                             SIG_FILTER)
+    k8 = {"22(a) one update": (acf.contiguous(), xcorr.contiguous())}
+    # PIT over SDR solves each (estimate, source) pair's SIG_BATCH systems apart
+    acf, xcorr = _compute_autocorr_crosscorr(_normalize(target[:SIG_BATCH, 0]), _normalize(preds[:SIG_BATCH, 1]),
+                                             SIG_FILTER)
+    k8["22(a) PIT over SDR, one pair"] = (acf.contiguous(), xcorr.contiguous())
+    det_p, det_t, _ = coco_corpus()
+    m, _ = det_metric(dev, det_p, det_t)
+    pairs = m._pack_pairs(m._get_classes(), m.max_detection_thresholds[-1])
+    args = m._upload_pairs(pairs)
+    ious, gt_ign, _ = _pair_geometry(args[0], args[1], args[2], args[3], args[5])
+    index = torch.arange(ious.shape[0], dtype=torch.int32, device=dev)
+    k9 = {"24(a) packed pairs": (ious, index, args[1], args[3], gt_ign, args[4])}
+    _, k9["24(c) corpus aggregate"] = det_ragged(dev, det_p[:DET_RAGGED_IMAGES], det_t[:DET_RAGGED_IMAGES])
+    return k8, k9
+
+
+def redesign_times(dev):
+    """``{kernel: {shape: ms}}``: K8's and K9's median device ms at each
+    main-path shape, each first held against its plain version as phases 22
+    and 24 hold it, and K8's ms at ``TOEPLITZ_LENGTHS`` x ``TOEPLITZ_BATCHES``
+    systems. Run it in a parent's unpacked tree (with this file copied
+    over the parent's own) and in the tree, in turns, in one call."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    k8, k9 = redesign_inputs(dev)
+    out = {"toeplitz_solve": {}, "greedy_match": {}}
+    for what, (r, b) in k8.items():
+        got, want = toeplitz_solve_cuda(r, b), toeplitz_solve_plain(r, b)
+        check(max_abs_err(got, want) <= 1e-4 * float(want.abs().max()), f"K8 vs its plain version at {what}")
+        out["toeplitz_solve"][what] = gpu_ms(lambda: toeplitz_solve_cuda(r, b))
+    for what, args in k9.items():
+        dm, mi = greedy_match_cuda(*args)
+        pdm, pmi = greedy_match_plain(*args)
+        check(torch.equal(dm, pdm) and torch.equal(mi, pmi), f"K9 differs from its plain version at {what}")
+        out["greedy_match"][what] = gpu_ms(lambda: greedy_match_cuda(*args), runs=10)
+    # K8 at seeded SPD systems of each length and batch: (ms(L) - ms(2)) / (L - 2) is the time of one of the
+    # recursion's sequential steps at that length
+    out["toeplitz_solve_by_length"] = {}
+    for batch in TOEPLITZ_BATCHES:
+        g, by_length = torch.Generator().manual_seed(SEED + 25), {}
+        for length in TOEPLITZ_LENGTHS:
+            sig = torch.randn(batch, 4 * length, generator=g, dtype=torch.float64)
+            spec = torch.fft.rfft(sig, n=8 * length)
+            r = torch.fft.irfft(spec * spec.conj(), n=8 * length)[..., :length]
+            r = (r / r[..., :1]).float().contiguous().to(dev)
+            b = torch.randn(batch, length, generator=g).to(dev)
+            by_length[length] = gpu_ms(lambda: toeplitz_solve_cuda(r, b))
+        out["toeplitz_solve_by_length"][batch] = by_length
+    return out
 
 
 # --------------------------------------------------------- phase 25: serving on a mesh

@@ -4,8 +4,9 @@ The JAX package matches detections to ground truths with ``_greedy_match_single`
 (``metrics_tpu/detection/map.py:200-239``), a ``lax.scan`` over the score-sorted
 detections carrying the matched-gt mask, vmapped over IoU thresholds, area
 ranges and problems; no Pallas kernel lies there. :func:`greedy_match_cuda`
-runs that scan for every ``(problem, area, threshold)`` cell at once, one warp
-a cell (``csrc/match.cu``); :func:`greedy_match_plain` is the same scan as a
+runs that scan for every ``(problem, area, threshold)`` cell at once in one
+launch, one thread a cell for ``G <= 32`` and one warp a cell above
+(``csrc/match.cu``); :func:`greedy_match_plain` is the same scan as a
 Python loop over the detections with tensor ops over ``(P, A, T, G)``, and
 :func:`greedy_match` picks by the tensor's device.
 

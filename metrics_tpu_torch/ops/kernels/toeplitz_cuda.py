@@ -4,11 +4,12 @@ The JAX package solves SDR's ``(L, L)`` system ``T(r) x = b``, with
 ``T[i, j] = r[|i - j|]``, by XLA's LU (``metrics_tpu/functional/audio/sdr.py``);
 no Pallas kernel lies there. PyTorch's own batched solve at SDR's default
 ``L = 512`` runs on MAGMA, which a CUDA graph cannot capture, so the port
-solves with the Levinson recursion instead (``csrc/toeplitz.cu``): one thread
-block a system, the recursion's ``L - 1`` steps inside the kernel, float32
-in memory and float64 inside. :func:`toeplitz_solve_cuda` is the
-wrapper, :func:`toeplitz_solve_plain` the same recursion in PyTorch, in
-float64, and :func:`toeplitz_solve` picks by the tensor's device. Nothing
+solves with the Levinson recursion instead (``csrc/toeplitz.cu``): one warp
+a system with no block barrier up to ``L = 512`` (one block a system
+above), the recursion's ``L - 1`` steps inside the kernel, float32 in
+memory and float64 inside. :func:`toeplitz_solve_cuda` is the wrapper,
+:func:`toeplitz_solve_plain` the same recursion in PyTorch, in float64, and
+:func:`toeplitz_solve` picks by the tensor's device. Nothing
 reads the solve's status on the host: a silent target (``r = 0``) gives NaN,
 and a system the recursion cannot solve gives inf or NaN.
 """

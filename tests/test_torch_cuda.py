@@ -2457,22 +2457,33 @@ def test_sdr_forward_at_filter_length_512_is_captured_on_card(cuda, pit):
         torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 3, 33), (32, 512), (2, 6144)])
-def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
-    """K8 against its plain version on float32 SPD autocorrelation systems
-    (loaded diagonal), a silent row giving NaN in both; it raises on inputs it
-    does not take: another dtype, or L over 6144."""
-    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
-
-    g = torch.Generator().manual_seed(sum(shape))
+def _toeplitz_systems(shape, seed):
+    """Float32 SPD autocorrelation systems ``(r, b)`` of ``shape`` (a loaded
+    diagonal), made in float64 from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
     length = shape[-1]
     sig = torch.randn(*shape[:-1], 2 * length + 8, generator=g, dtype=torch.float64)
     spec = torch.fft.rfft(sig, n=4 * length + 16)
     r = torch.fft.irfft(spec * spec.conj(), n=4 * length + 16)[..., :length]
     r = r / r[..., :1]
     r[..., 0] += 0.05
-    b = torch.randn(shape, generator=g, dtype=torch.float64)
+    return r, torch.randn(shape, generator=g, dtype=torch.float64)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 3, 33), (32, 512), (2, 6144), (32, 31), (32, 32), (32, 33),
+                                   (1000, 512), (4, 513)])
+def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
+    """K8 against its plain version on float32 SPD autocorrelation systems
+    (loaded diagonal), a silent row giving NaN in both; L on both sides of
+    a warp's 32 lanes and of 512, the longest system one warp solves with
+    its elements in registers, and a batch of 1000 systems, several a
+    block; it raises on inputs it does not take: another dtype, or L over
+    6144."""
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    length = shape[-1]
+    r, b = _toeplitz_systems(shape, sum(shape))
     r.view(-1, length)[0] = 0.0  # a silent target: its autocorrelation and cross-correlation are 0
     b.view(-1, length)[0] = 0.0
     r, b = r.float(), b.float()
@@ -2485,6 +2496,46 @@ def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
             toeplitz_solve_cuda(r.to(cuda, dtype), b.to(cuda, dtype))
     with pytest.raises(ValueError):
         toeplitz_solve_cuda(torch.ones(2, 6145, device=cuda), torch.ones(2, 6145, device=cuda))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("length", [1, 2, 31, 32, 33, 512, 513, 6144])
+def test_toeplitz_kernel_solves_one_system_on_card(cuda, length):
+    """K8 on a batch of one system against its plain version: a block of
+    one warp up to L = 512, a block of its own above."""
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    r, b = (x.float() for x in _toeplitz_systems((1, length), length))
+    got = toeplitz_solve_cuda(r.to(cuda), b.to(cuda)).cpu()
+    torch.testing.assert_close(got, toeplitz_solve_plain(r, b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_toeplitz_kernel_on_an_indefinite_pure_tone_system_on_card(cuda):
+    """A 440 Hz pure-tone target at SDR's L = 512: its float32
+    autocorrelation matrix is numerically indefinite (smallest eigenvalue
+    < 0), and Levinson's float64 recursion still solves it. K8 gives its
+    plain version's solution within 1e-4 of the largest entry, as phase 22
+    holds it, and its SDR within 1e-2 dB."""
+    from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize, _toeplitz
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    n, fs = 32000, 8000
+    tone = np.sin(2 * np.pi * 440 * np.arange(n) / fs).astype(np.float32)[None]
+    preds = tone + 0.3 * np.random.RandomState(1).randn(n).astype(np.float32)
+    acf, xcorr = _compute_autocorr_crosscorr(_normalize(torch.from_numpy(tone)), _normalize(torch.from_numpy(preds)),
+                                             corr_len=512)
+    assert float(torch.linalg.eigvalsh(_toeplitz(acf.double()))[..., 0]) < 0.0
+    got = toeplitz_solve_cuda(acf.to(cuda), xcorr.to(cuda)).cpu()
+    want = toeplitz_solve_plain(acf, xcorr)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+    def sdr_db(sol):
+        coh = (xcorr.double() * sol.double()).sum(-1)
+        return 10 * torch.log10(coh / (1 - coh))
+
+    assert float((sdr_db(got) - sdr_db(want)).abs().max()) <= 1e-2
 
 
 # ------------------------------------------------------------ embedded models (FID, KID, IS, LPIPS)
@@ -2597,10 +2648,16 @@ def _match_inputs(rng, b, p, d, g, a, t, device):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1, 1, 1), (3, 7, 33, 5, 4, 10), (5, 64, 70, 40, 4, 10),
-                                   (2, 9, 12, 1024, 2, 3), (6, 300, 8, 64, 3, 7), (1, 3, 65, 31, 1, 1)])
+                                   (2, 9, 12, 1024, 2, 3), (6, 300, 8, 64, 3, 7), (1, 3, 65, 31, 1, 1),
+                                   (4, 50, 1, 8, 4, 10), (4, 50, 32, 31, 4, 10), (4, 50, 33, 32, 4, 10),
+                                   (4, 50, 32, 33, 4, 10), (3, 20, 1, 1024, 4, 10), (3, 20, 33, 1024, 4, 10),
+                                   (3, 10, 150, 8, 4, 100), (2, 30, 200, 1, 1, 3)])
 def test_match_kernel_matches_its_plain_version_on_card(cuda, shape):
-    """K9 at ragged sizes (D and G across the 32-lane boundaries, G at its
-    limit of 1024) with dense ties: ``dm`` and ``mi`` equal the plain loop."""
+    """K9 at ragged sizes (D and G across the 32-lane boundaries, G on both
+    sides of the switch from a thread a cell to a warp a cell, and at its
+    limit of 1024; D across the thread path's chunks; more cells a problem
+    than a block's threads) with dense ties: ``dm`` and ``mi`` equal the
+    plain loop."""
     from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
 
     args = _match_inputs(np.random.RandomState(sum(shape)), *shape, cuda)
@@ -2614,6 +2671,48 @@ def test_match_kernel_matches_its_plain_version_on_card(cuda, shape):
     u8 = [x.to(torch.uint8) for x in args[2:5]]
     udm, umi = greedy_match_cuda(args[0], args[1], *u8, args[5])
     assert torch.equal(udm, dm) and torch.equal(umi, mi)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("g", [8, 40])
+def test_match_kernel_orders_edge_ious_as_the_plain_loop_on_card(cuda, g):
+    """K9's two paths (a thread a cell at G = 8, a warp a cell at G = 40)
+    on IoUs of exactly 1.0, the next float above it (an IoU never exceeds
+    1.0, but the kernel orders any float as its value), infinity, the
+    smallest denormals and both zeros, against thresholds of 0, a denormal,
+    1.0 and NaN: bit-equal to the plain loop."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    tiny = np.nextafter(np.float32(0.0), np.float32(1.0))  # the smallest denormal
+    grid = np.asarray([-0.0, 0.0, tiny, 2 * tiny, np.finfo(np.float32).tiny, 0.5, 1.0,
+                       np.nextafter(np.float32(1.0), np.float32(2.0)), np.inf], np.float32)
+    rng = np.random.RandomState(g)
+    b, p, d, a = 3, 40, 24, 4
+    thresholds = np.asarray([0.0, tiny, 0.5, 1.0, np.nan], np.float32)
+    args = (torch.from_numpy(rng.choice(grid, (b, d, g))).to(cuda),
+            torch.from_numpy(rng.randint(0, b, p).astype(np.int32)).to(cuda),
+            torch.from_numpy(rng.rand(p, d) > 0.1).to(cuda),
+            torch.from_numpy(rng.rand(p, g) > 0.1).to(cuda),
+            torch.from_numpy(rng.rand(p, a, g) > 0.7).to(cuda),
+            torch.from_numpy(thresholds).to(cuda))
+    dm, mi = greedy_match_cuda(*args)
+    pdm, pmi = greedy_match_plain(*args)
+    assert torch.equal(dm, pdm) and torch.equal(mi, pmi)
+    assert int(dm[:, :, 3].sum()) > 0  # at threshold 1.0 the IoUs of 1.0 and above match
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("p,g,a,t", [(400_000, 1, 4, 10), (70_000, 33, 1, 1)])
+def test_match_kernel_grids_past_65535_blocks_on_card(cuda, p, g, a, t):
+    """More than 65 535 blocks along the grid's first dimension on each
+    path (a thread path block holds six problems at A * T = 40; a warp path
+    grid has a column a problem): bit-equal to the plain loop."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    args = _match_inputs(np.random.RandomState(p), 7, p, 2, g, a, t, cuda)
+    dm, mi = greedy_match_cuda(*args)
+    pdm, pmi = greedy_match_plain(*args)
+    assert torch.equal(dm, pdm) and torch.equal(mi, pmi)
 
 
 @pytest.mark.requires_cuda
