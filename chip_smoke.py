@@ -360,6 +360,11 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    the pin taken out, how far each score moves (recorded). (d) ``PESQ``
    and ``pesq`` raise
    ``ModuleNotFoundError`` (no ``pesq`` package on the card's machine).
+   (e) SDR at ``filter_length=8192`` over 4 mixtures on the card against
+   the CPU port (1e-2 dB, aggregate and per signal): K8's global-scratch
+   form, past the 6144 whose vectors fit in shared memory; K8's ``kernels``
+   entry at those (8, 8192) systems against its plain version (float64),
+   with PyTorch's LU of the full matrices.
    K1-K7 launch none (JAX's path has no Pallas kernel): their counts must
    stay 0.
 23. The embedded-model image metrics (``image/fid.py``, ``kid.py``,
@@ -407,8 +412,41 @@ and exits non-zero, printing no result, without them. Phases, each fatal on fail
    and to the eager metric key for key; aggregate and oracle ms, the
    aggregate split (plan, device, copy, host finish). (d) K9's ``kernels``
    entries at (a)'s packed shape and (c)'s corpus shape, each held
-   against its plain version there. K1-K8 launch none; K9 launches in no
+   against its plain version there. (e) Crowds, past the warp path's 1 024
+   ground truths: an eager ``MAP`` over 8 images whose first holds 1 025
+   ground truths of one class (K9's block path at the packed G = 1 032),
+   and ``RaggedEngine(MAP(), capacity=2048)`` over 8 images whose first
+   holds 1 100, in two rounds (the aggregate's K9 call at G = 2 048); each
+   on the card against the CPU port's eager ``MAP``, key for key, with a
+   ``kernels`` entry at each shape. K1-K8 launch none; K9 launches in no
    earlier phase.
+25. Serving on a mesh and 26. the mesh forms: see their functions.
+27. The fleet (``engine/fleet/``): two host processes on the card machine,
+   each a ``FleetEngine`` with its own representative device, ``cuda:0``
+   and ``cuda:1`` over NCCL when there are two cards, else both on
+   ``cuda:0`` over gloo (the runtime's pick for hosts sharing a card); the
+   phase line names the layout and the transport. (a) Phase 7's megastep
+   engine and traffic, batches homed by plan position, cuts every 16 plan
+   batches; host 1 is killed (``os._exit``) after batch 72, past cut 3;
+   both hosts restore from the last consistent cut and replay: each host's
+   folded state bit-equal (sha256 of every leaf) to the single-process
+   engine's on the card, values within 1e-6. (b) Phase 9's tenancy (10 000
+   streams, Zipf 1.05, 128 resident slots a host, buckets 64/256, q8 off)
+   stream-sharded under a tumbling window of 200 plan batches and 3 panes,
+   cuts every 100, over the first 800 batches: at batch 440 both hosts'
+   folded states bit-equal to the single-process paged engine's, through
+   spills (a host's live rows outgrow its slots from batch 366 / 417); host 1
+   killed after 450; ``restore_fleet_into`` of the pieces into one
+   unsharded engine on the card equals the single-process state at the cut
+   (400); both hosts restore, replay past spills and equal the engine at
+   800. Per host: fold ms (p50, the fleet's own timer), barrier ms, cut
+   ms, per-fold bytes by leg, K2/K5/K6 launches (each non-zero),
+   ``collective_counts()`` over steady steps between cuts (0) and over a
+   fold (>= 1), host ms a plan batch over a window between two cuts, with
+   the engine steps and the captures made in it, beside the single-process
+   engine's over the same plan batches (a host and one process coalesce
+   different batches into a step, so steps do not compare). The first
+   cut's ms includes waiting for the other host to reach it.
 
 The engines run in their production form: ``submit`` enqueues, a dispatcher
 thread coalesces queued batches and replays each (bucket, signature) step as
@@ -422,14 +460,16 @@ step once on a copy of the state first (a warm-up), so each launch check
 counts ``steps + warmup_steps``.
 
 Every kernel's launch count is set to 0 before phase 4 and read after phase 9,
-and set to 0 again before each of phases 10 to 24 and read after it;
+and set to 0 again before each of phases 10 to 27 and read after it;
 each must be non-zero (phase 10: K1, K2, K5 and K6; phase 11: K1, K2 and
 K3; phase 12: K2, K3, K5 and K6; phase 13: K1, K4, K5 and K6; phases 14
 and 15: K2 and K3; phase 16: K2–K7; phases 17 and 18: K1–K7; phase 19: K2,
 K3, K5, K6 and K7; phase 20: K1 and K4; in phases 21, 22, 23 and 24 each must stay 0; K8 is set to 0 at the
 start of 22(a) and read before its timing, and must be non-zero, and again before phase 24, where it must stay
 0; K9 is set to 0 before phase 4, must still read 0 before phase 24, and must launch once in 24(a)'s
-``compute()`` and once in each of 24(c)'s device aggregates), and K2 must launch once per batch and per step
+``compute()``, once in each of 24(c)'s device aggregates and once in each of 24(e)'s computes; K8 once more
+in 22(e); phases 25 and 26 as their lines say; phase 27: K2, K5 and K6 in the single-process references and
+in each host process, which counts its own), and K2 must launch once per batch and per step
 for each confusion matrix. A
 ``torch.profiler`` trace of one megastep bucket (``submit`` + ``flush``,
 captured and uncaptured) and one per-leaf masked bucket
@@ -5809,6 +5849,8 @@ SIG_PIN_MIXTURES = 16  # 22(c)
 # products and element updates are vector work with no matrix product, so the tensor cores' 67 TFLOP/s
 # (DMMA), the card's FP64 peak, would halve a bound that no form of the recursion can reach
 FP64_OPS_PER_S = 34e12
+SIG_LONG_FILTER = 8192  # 22(e): past the 6144 whose vectors fit in shared memory: K8's global-scratch form
+SIG_LONG_MIXTURES = 4  # 22(e): mixtures through SDR at that length, card and CPU (8 systems)
 IMG_COUNT = 50  # DIV2K's validation set has 100 images: half of them
 IMG_SHAPE = (3, 1356, 2040)
 IMG_BATCH = 10
@@ -6230,13 +6272,76 @@ def signal_pesq(dev, preds, target):
     return raised
 
 
+def signal_long_filter(dev, preds, target):
+    """22(e): SDR at ``filter_length=8192`` over the first ``SIG_LONG_MIXTURES``
+    mixtures on the card (K8's global-scratch form, past the 6144 whose
+    vectors fit in shared memory) against the CPU port (the float64 Levinson
+    loop), within ``SIG_SDR_TOL``; then K8's ``kernels`` entry at those
+    ``(8, 8192)`` systems, held against its plain version (float64) there
+    and timed beside PyTorch's LU of the full matrices."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _normalize, _toeplitz
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
+
+    p, t = preds[:SIG_LONG_MIXTURES], target[:SIG_LONG_MIXTURES]
+    toeplitz_solve_cuda.launches = 0
+    card, cpu = mp.SignalDistortionRatio(filter_length=SIG_LONG_FILTER, device=dev), \
+        mp.SignalDistortionRatio(filter_length=SIG_LONG_FILTER, device="cpu")
+    t0 = time.perf_counter()
+    card.update(p, t)
+    got = float(card.compute())
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    launches = toeplitz_solve_cuda.launches
+    check(launches > 0, "22(e): SDR at filter_length=8192 did not launch K8")
+    t0 = time.perf_counter()
+    cpu.update(p.cpu(), t.cpu())
+    want = float(cpu.compute())
+    cpu_s = time.perf_counter() - t0
+    check(math.isfinite(want) and abs(got - want) <= SIG_SDR_TOL, f"22(e): SDR(8192) card {got} vs CPU {want}")
+    from metrics_tpu_torch.functional import signal_distortion_ratio
+
+    per_card = signal_distortion_ratio(p, t, filter_length=SIG_LONG_FILTER)
+    per_cpu = signal_distortion_ratio(p.cpu(), t.cpu(), filter_length=SIG_LONG_FILTER)
+    per_err = max_abs_err(per_card, per_cpu)
+    check(per_err <= SIG_SDR_TOL, f"22(e): per-signal SDR(8192) card vs CPU err {per_err}")
+    out = {"mixtures": SIG_LONG_MIXTURES, "filter_length": SIG_LONG_FILTER, "sdr_card": got, "sdr_cpu": want,
+           "per_signal_max_abs_err_db": per_err, "card_s": card_s, "cpu_s": cpu_s, "k8_launches": launches}
+
+    acf, xcorr = _compute_autocorr_crosscorr(_normalize(t), _normalize(p), SIG_LONG_FILTER)
+    acf, xcorr = acf.reshape(-1, SIG_LONG_FILTER).contiguous(), xcorr.reshape(-1, SIG_LONG_FILTER).contiguous()
+    systems, length = acf.shape
+    sol = toeplitz_solve_cuda(acf, xcorr)
+    plain = toeplitz_solve_plain(acf, xcorr)
+    err = max_abs_err(sol, plain)
+    check(err <= 1e-4 * float(plain.abs().max()), f"22(e): K8 vs its plain version at L={length}: {err}")
+    a, b = _toeplitz(acf), xcorr[..., None]
+    entry = {"name": "toeplitz_solve", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/toeplitz.cu",
+             "replaces": "metrics_tpu/functional/audio/sdr.py:77 (jnp.linalg.solve through XLA; no Pallas kernel)",
+             "shape": f"({systems}, {length}) f32 systems, float64 inside, the global-scratch form",
+             "launches": launches, "max_abs_err": err,
+             "ms": gpu_ms(lambda: toeplitz_solve_cuda(acf, xcorr), runs=5),
+             "device_us": device_us(lambda: toeplitz_solve_cuda(acf, xcorr), runs=3),
+             "plain_ms": gpu_ms(lambda: toeplitz_solve_plain(acf, xcorr), runs=1),
+             "library_ms": gpu_ms(lambda: torch.linalg.solve_ex(a, b, check_errors=False)[0], runs=2)}
+    del a, b
+    entry["bound_ms"], entry["bound_by"] = bound_ms(3 * 4 * systems * length, 0)
+    ops_ms = systems * 4 * length * length / FP64_OPS_PER_S * 1e3
+    if ops_ms > entry["bound_ms"]:
+        entry["bound_ms"], entry["bound_by"] = ops_ms, "operations"
+    out["solve"] = entry
+    return out
+
+
 def signal_phase(dev):
     """Phase 22: audio and the signal-level image metrics on the card (module docstring)."""
     speech, preds, target = signal_speech(dev)
+    long_filter = signal_long_filter(dev, preds, target)
     images, img_p, img_t = signal_images(dev)
     pin = signal_pin(dev, preds, target, img_p, img_t)
     pesq_raised = signal_pesq(dev, preds, target)
-    return {"speech": speech, "images": images, "precision_pin": pin, "pesq": pesq_raised}
+    return {"speech": speech, "long_filter": long_filter, "images": images, "precision_pin": pin,
+            "pesq": pesq_raised}
 
 
 # --------------------------------------------------------------------------- phase 23: embedded-model image metrics
@@ -6582,6 +6687,10 @@ DET_HOST_IMAGES = 100  # 24(b): the prefix the host matcher takes
 DET_RAGGED_IMAGES = 64  # 24(c)
 DET_RAGGED_CAPACITY = 256
 DET_TIMED = 5  # ragged aggregates per median
+DET_CROWD_IMAGES = 8  # 24(e): images of a crowd corpus, the first a crowd of one class
+DET_CROWD_GTS = 1025  # 24(e): the eager crowd, one past the warp path's 1024 (G = 1032 packed): K9's block path
+DET_RAGGED_CROWD_GTS = 1100  # 24(e): the ragged engine's crowd, its rows within ...
+DET_CROWD_CAPACITY = 2048  # ... a capacity of 2048: the aggregate's K9 call takes G = 2048
 
 
 def coco_corpus(seed=SEED + 24):
@@ -6824,12 +6933,26 @@ def det_ragged_split(eng, dev):
     return split, problems.match_args
 
 
+def k9_iou_reads(ious, index, dvalid, gvalid):
+    """The IoUs K9's function needs on this data: per IoU block, each (d, g)
+    pair that some problem on the block holds as a valid detection against a
+    valid ground truth. The padding around them is never read."""
+    b, d, g = ious.shape
+    idx = index.to(torch.int64)
+    ok = (idx >= 0) & (idx < b)
+    pairs = (dvalid.to(torch.bool)[:, :, None] & gvalid.to(torch.bool)[:, None, :] & ok[:, None, None])
+    need = torch.zeros((b, d * g), dtype=torch.int32, device=ious.device)
+    need.index_add_(0, torch.where(ok, idx, 0), pairs.reshape(-1, d * g).to(torch.int32))
+    return int((need > 0).sum())
+
+
 def det_kernel_entry(k9_args, launches, what):
     """24(d): a ``kernels`` entry of K9 at one of its main-path shapes, held
-    against its plain version there. Bound: every input read once and both
-    outputs written once over the HBM rate, against the compares this data
-    needs (each valid detection of a problem against each of its valid
-    ground truths, for every area range and threshold) over 67 T/s."""
+    against its plain version there. Bound: the IoUs this data needs
+    (``k9_iou_reads``), every other input read once and both outputs written
+    once over the HBM rate, against the compares this data needs (each valid
+    detection of a problem against each of its valid ground truths, for
+    every area range and threshold) over 67 T/s."""
     from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
 
     ious, index, dvalid, gvalid, gt_ign, thr = k9_args
@@ -6838,7 +6961,8 @@ def det_kernel_entry(k9_args, launches, what):
     dm, mi = greedy_match_cuda(*k9_args)
     pdm, pmi = greedy_match_plain(*k9_args)
     err = max(max_abs_err(dm, pdm), max_abs_err(mi, pmi))
-    nbytes = 4 * b * d * g + 4 * p + p * d + p * g + p * a * g + 4 * t + 5 * p * a * t * d
+    iou_reads = k9_iou_reads(ious, index, dvalid, gvalid)
+    nbytes = 4 * iou_reads + 4 * p + p * d + p * g + p * a * g + 4 * t + 5 * p * a * t * d
     compares = a * t * int((dvalid.sum(dim=1, dtype=torch.int64) * gvalid.sum(dim=1, dtype=torch.int64)).sum())
     entry = {"name": "greedy_match", "route": "cuda", "source": "metrics_tpu_torch/ops/kernels/csrc/match.cu",
              "replaces": "metrics_tpu/detection/map.py:200 (_greedy_match_single, a lax.scan; no Pallas kernel)",
@@ -6847,10 +6971,101 @@ def det_kernel_entry(k9_args, launches, what):
              "ms": gpu_ms(lambda: greedy_match_cuda(*k9_args), runs=10),
              "device_us": device_us(lambda: greedy_match_cuda(*k9_args), runs=5),
              "plain_ms": gpu_ms(lambda: greedy_match_plain(*k9_args), runs=2), "library_ms": None,
-             "compares": compares, "bytes": nbytes}
+             "compares": compares, "iou_reads": iou_reads, "bytes": nbytes}
     check(err == 0, f"24(d): K9 vs its plain version at {what}: {err}")
     entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, compares)
     return entry
+
+
+def crowd_corpus(seed, crowd):
+    """``DET_CROWD_IMAGES`` seeded 640 x 480 images on the host, the first a
+    crowd of ``crowd`` ground truths of class 0 (a stadium, a flock), the
+    rest 3-30 of 3 classes; detections copy 80 % of the boxes with a
+    jittered corner, plus 10 false positives an image; scores rounded to
+    1/1000."""
+    rng = np.random.RandomState(seed)
+    preds, targets = [], []
+    for i in range(DET_CROWD_IMAGES):
+        ng = crowd if i == 0 else int(rng.randint(3, 31))
+        xy = np.round(rng.uniform(0, 600, (ng, 2))).astype(np.float32)
+        gt = np.concatenate([xy, xy + rng.choice(np.asarray([6, 20, 40, 90], np.float32), (ng, 2))], axis=1)
+        gl = np.zeros(ng, np.int64) if i == 0 else rng.randint(0, 3, ng)
+        keep = rng.rand(ng) < 0.8
+        fp = np.round(rng.uniform(0, 600, (10, 2))).astype(np.float32)
+        db = np.concatenate([gt[keep] + rng.choice(np.asarray([0, 1, -1, 3], np.float32), (int(keep.sum()), 4)),
+                             np.concatenate([fp, fp + 25], axis=1)])
+        dl = np.concatenate([gl[keep], rng.randint(0, 3, 10)])
+        preds.append({"boxes": torch.from_numpy(db), "labels": torch.from_numpy(dl),
+                      "scores": torch.from_numpy(np.round(rng.rand(len(db)), 3).astype(np.float32))})
+        targets.append({"boxes": torch.from_numpy(gt), "labels": torch.from_numpy(gl)})
+    return preds, targets
+
+
+def on_card(items, dev):
+    return [{k: v.to(dev) for k, v in d.items()} for d in items]
+
+
+def det_crowds(dev):
+    """24(e): past the warp path's 1024 ground truths. An eager ``MAP`` whose
+    crowd pair holds ``DET_CROWD_GTS`` (the packed G), and a
+    ``RaggedEngine(MAP(), capacity=2048)`` over a crowd of
+    ``DET_RAGGED_CROWD_GTS`` in two rounds (its aggregate's K9 call at G =
+    2048), each on the card against the CPU port's eager ``MAP``, key for
+    key; K9's ``kernels`` entries at both shapes. The eager pair's G pads to
+    a multiple of 8 (1032), as JAX's packing does."""
+    from metrics_tpu_torch.detection import MAP
+    from metrics_tpu_torch.detection.map import _pair_geometry
+    from metrics_tpu_torch.engine import RaggedEngine
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    out, entries = {}, []
+    preds, targets = crowd_corpus(SEED + 25, DET_CROWD_GTS)
+    card, cpu = MAP(device=dev), MAP(device="cpu")
+    card.update(on_card(preds, dev), on_card(targets, dev))
+    cpu.update(preds, targets)
+    before = greedy_match_cuda.launches
+    got = det_values(card.compute())
+    launches = greedy_match_cuda.launches - before
+    check(launches == 1, f"24(e): the crowd's compute launched K9 {launches} times")
+    same_det_values(got, det_values(cpu.compute()), "24(e): the eager crowd, card vs CPU")
+    pairs = card._pack_pairs(card._get_classes(), card.max_detection_thresholds[-1])
+    args = card._upload_pairs(pairs)
+    ious, gt_ign, _ = _pair_geometry(args[0], args[1], args[2], args[3], args[5])
+    k9_args = (ious, torch.arange(ious.shape[0], dtype=torch.int32, device=dev), args[1], args[3], gt_ign, args[4])
+    check(ious.shape[2] > 1024, f"24(e): the packed G is {ious.shape[2]}: not past the warp path's 1024")
+    entries.append(det_kernel_entry(k9_args, launches, "24(e) eager crowd, the block path"))
+    out["eager"] = {"images": DET_CROWD_IMAGES, "crowd_gts": DET_CROWD_GTS, "G": int(ious.shape[2]),
+                    "k9_launches": launches, "map": float(got["map"])}
+
+    preds, targets = crowd_corpus(SEED + 26, DET_RAGGED_CROWD_GTS)
+    eng = RaggedEngine(MAP(device=dev), num_groups=len(preds), capacity=DET_CROWD_CAPACITY)
+    with eng:
+        for half in (0, 1):
+            for i, (p, t) in enumerate(zip(preds, targets)):
+                nd, ng = len(p["labels"]), len(t["labels"])
+                ds = slice(0, nd // 2) if half == 0 else slice(nd // 2, nd)
+                gs = slice(0, ng // 2) if half == 0 else slice(ng // 2, ng)
+                eng.submit_update(on_card([{k: v[ds] for k, v in p.items()}], dev),
+                                  on_card([{k: v[gs] for k, v in t.items()}], dev), [i])
+        eng.flush()
+        path = eng.aggregate_path()
+        before = greedy_match_cuda.launches
+        t0 = time.perf_counter()
+        got = det_values(eng.aggregate())
+        torch.cuda.synchronize(dev)
+        aggregate_ms = (time.perf_counter() - t0) * 1e3
+        launches = greedy_match_cuda.launches - before
+        split, k9_args = det_ragged_split(eng, dev)
+    check(path[0] == "device" and launches == 1, f"24(e): the ragged crowd took {path}, {launches} K9 launches")
+    cpu = MAP(device="cpu")
+    cpu.update(preds, targets)
+    same_det_values(got, det_values(cpu.compute()), "24(e): the ragged crowd at capacity 2048, card vs CPU")
+    check(k9_args[0].shape[2] == DET_CROWD_CAPACITY, f"24(e): the aggregate's G is {k9_args[0].shape[2]}")
+    entries.append(det_kernel_entry(k9_args, launches, "24(e) ragged aggregate at capacity 2048, the block path"))
+    out["ragged"] = {"images": DET_CROWD_IMAGES, "crowd_gts": DET_RAGGED_CROWD_GTS, "capacity": DET_CROWD_CAPACITY,
+                     "path": path[0], "k9_launches": launches, "aggregate_ms": aggregate_ms, "split": split,
+                     "map": float(got["map"])}
+    return out, entries
 
 
 def detection_phase(dev):
@@ -6867,6 +7082,8 @@ def detection_phase(dev):
     out["ragged"], k9_corpus_args = det_ragged(dev, preds[:DET_RAGGED_IMAGES], targets[:DET_RAGGED_IMAGES])
     entries = [det_kernel_entry(k9_args, out["card"]["k9_launches"], "24(a) packed pairs"),
                det_kernel_entry(k9_corpus_args, out["ragged"]["k9_launches"], "24(c) corpus aggregate")]
+    out["crowds"], crowd_entries = det_crowds(dev)
+    entries += crowd_entries
     out["k9_launches_total"] = greedy_match_cuda.launches
     return out, entries
 
@@ -7808,6 +8025,432 @@ def mesh_forms_phase(dev, preds, target, embedded, text):
     return out
 
 
+# --------------------------------------------------------------------------- phase 27: the fleet
+
+FLEET_HOSTS = 2
+FLEET_CUT_A = 16  # 27(a): plan batches a cut
+FLEET_STEADY_A = (33, 46)  # 27(a): plan batches between two cuts whose steps the collective count reads
+FLEET_KILL_A = 72  # 27(a): host 1 dies after this plan batch, past cut 3 (at 64)
+FLEET_PLAN_B = 800  # 27(b): the prefix of phase 9's traffic
+FLEET_CUT_B = 100
+FLEET_PANE_B = 200  # 27(b): a tumbling pane of two cuts ...
+FLEET_PANES_B = 3  # ... three live: a host's live (stream, pane) rows outgrow its 128 slots from batch 417 (366)
+FLEET_STEADY_B = (110, 190)
+FLEET_AT_B = 440  # 27(b): the hosts' results against the single-process engine, mid-pane, both hosts spilled
+FLEET_KILL_B = 450  # 27(b): host 1 dies after this plan batch, past cut 3 (at 400, a rotation too)
+FLEET_FOLDS = (5, 2)  # timed folds and barriers a host: (a), (b)
+FLEET_EXIT = 17  # the killed host's exit code
+FLEET_TIMEOUT_S = 420
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "phase27"  # gitignored; removed after the phase
+
+
+def fleet_layout():
+    """Phase 27's representative devices: ``cuda:0`` and ``cuda:1`` when the
+    machine has two cards (NCCL), else both hosts on ``cuda:0`` (gloo, which
+    the runtime picks when hosts share a card)."""
+    if torch.cuda.device_count() >= FLEET_HOSTS:
+        return ["cuda:0", "cuda:1"], "two hosts, a card each", "nccl"
+    return ["cuda:0", "cuda:0"], "two hosts on one card", "gloo"
+
+
+def state_digest(tree):
+    """sha256 of every leaf of a state tree (dtype, shape and bytes, in
+    flatten order): bit-equality across processes without moving the state."""
+    import hashlib
+
+    from metrics_tpu_torch.utils.tree import tree_flatten
+
+    h = hashlib.sha256()
+    for leaf in tree_flatten(tree)[0]:
+        x = leaf.detach().contiguous().cpu()
+        h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+        h.update(x.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def stacked_values(results):
+    """Every stream's values as one ``(S, ...)`` float64 tensor a key."""
+    keys = results[0].keys()
+    return {k: torch.stack([flat_values({k: results[s][k]})[k] for s in sorted(results)]) for k in keys}
+
+
+def values_close(got, want, what, tol=1e-6):
+    """Each value within ``tol`` of ``want``'s, NaN where it is NaN (a stream
+    no batch touched)."""
+    for k in want:
+        g, w = got[k].double(), want[k].double()
+        nan = torch.isnan(w)
+        check(g.shape == w.shape and torch.equal(torch.isnan(g), nan), f"{what}: {k} shape or NaN pattern")
+        diff = (g - w).abs()[~nan]
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(err <= tol, f"{what}: {k} err {err}")
+
+
+def fleet_plans(dev):
+    """27's shared plans: (a) phase 7's ragged batches over the main rows, (b)
+    phase 9's first ``FLEET_PLAN_B`` (stream, batch) pairs."""
+    preds, target, _, _ = main_rows(dev)
+    batches = ragged_batches(SEED + 4, 8, 64)
+    sids = zipf_stream_ids(PAGED_STREAMS, len(batches), ALPHA, SEED + 4)
+    return preds, target, ragged_batches(SEED + 2, 16, BUCKET), list(zip(sids, batches))[:FLEET_PLAN_B]
+
+
+def fleet_window():
+    from metrics_tpu_torch.engine import WindowPolicy
+
+    return WindowPolicy.tumbling(pane_batches=FLEET_PANE_B, n_panes=FLEET_PANES_B)
+
+
+def fleet_engine_b_config(**kw):
+    """27(b)'s engine: phase 9's paged tenancy under the tumbling window."""
+    from metrics_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(buckets=PAGED_BUCKETS, kernel_backend="megastep", coalesce=8, window=fleet_window(), **kw)
+
+
+def fleet_of(dev, pid, spec, form):
+    from metrics_tpu_torch.engine import EngineConfig
+    from metrics_tpu_torch.engine.fleet import FleetConfig, FleetEngine
+
+    base = dict(num_processes=FLEET_HOSTS, process_id=pid, coordinator_address=spec["coord"],
+                snapshot_dir=os.path.join(spec["dir"], form))
+    if form == "a":
+        cfg = FleetConfig(engine=EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"),
+                          snapshot_every=FLEET_CUT_A, **base)
+    else:
+        cfg = FleetConfig(engine=fleet_engine_b_config(), num_streams=PAGED_STREAMS, stream_shard=True,
+                          resident_streams=RESIDENT, snapshot_every=FLEET_CUT_B, **base)
+    return FleetEngine(make_collection(dev), cfg)
+
+
+def timed_cuts(fleet):
+    """Wrap ``fleet.fleet_snapshot`` (which ``ingest`` calls at each cut) to
+    record each cut's host ms: the barrier, the piece and the marker."""
+    times, write = [], fleet.fleet_snapshot
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        path = write(*a, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return path
+
+    fleet.fleet_snapshot = timed
+    return times
+
+
+def fleet_numbers(fleet, read, folds):
+    """A host's fold ms (the fleet's own fold timer, ``folds`` reads), barrier
+    ms (``folds`` bare cut barriers) and per-fold bytes by leg."""
+    st = fleet.engine.stats
+    fold_ms = []
+    for _ in range(folds):
+        before = st.fleet_merge_us_total
+        read()
+        fold_ms.append((st.fleet_merge_us_total - before) / 1e3)
+    barrier_ms = []
+    for _ in range(folds):
+        t0 = time.perf_counter()
+        fleet._barrier(fleet._next_cut)
+        barrier_ms.append((time.perf_counter() - t0) * 1e3)
+    exact, quant = fleet._fleet_payload_split()
+    return {"fold_ms": fold_ms, "fold_ms_p50": float(np.median(fold_ms)), "barrier_ms": barrier_ms,
+            "barrier_ms_p50": float(np.median(barrier_ms)),
+            "fold_bytes": {"intra": fleet._fleet_intra_bytes(), "cross_exact": exact, "cross_q8": quant}}
+
+
+def steady_window(eng, bounds, since=None):
+    """The steady window over plan batches ``bounds`` (inclusive), read the
+    same way on a host and on the single-process engine: ``steady_window(eng,
+    bounds)`` opens it, ``steady_window(eng, bounds, opened)`` closes it
+    with host ms a plan batch, the engine steps and the captures made in it."""
+    now = (time.perf_counter(), eng.steps, eng.aot_cache.misses)
+    if since is None:
+        return now
+    return {"host_ms_per_plan_batch": (now[0] - since[0]) * 1e3 / (bounds[1] - bounds[0] + 1),
+            "steps": now[1] - since[1], "captures": now[2] - since[2]}
+
+
+def fleet_serve(dev, pid, spec, out):
+    """Round 1 of a host: (a) to ``FLEET_KILL_A`` and (b) to ``FLEET_KILL_B``,
+    cuts riding the plan; the steady steps' collectives, a fold's, the
+    timings; (b)'s state digest and values at ``FLEET_AT_B``."""
+    from metrics_tpu_torch.parallel.collectives import collective_counts, reset_collective_counts
+
+    preds, target, plan_a, plan_b = fleet_plans(dev)
+    fa = fleet_of(dev, pid, spec, "a")
+    cuts = timed_cuts(fa)
+    with fa:
+        for i, (lo, hi) in enumerate(plan_a[:FLEET_KILL_A]):
+            if i == FLEET_STEADY_A[0]:
+                fa.flush()
+                reset_collective_counts()
+                opened = steady_window(fa.engine, FLEET_STEADY_A)
+            fa.ingest(preds[lo:hi], target[lo:hi])
+            if i == FLEET_STEADY_A[1]:
+                fa.flush()
+                steady, window = collective_counts(), steady_window(fa.engine, FLEET_STEADY_A, opened)
+        fa.flush()
+        reset_collective_counts()
+        fa.result()
+        fold = collective_counts()
+        out["a"] = dict(fleet_numbers(fa, fa.result, FLEET_FOLDS[0]), cut_ms=cuts, steady_collectives=steady,
+                        fold_collectives=fold, steps=fa.engine.steps, cursor=fa.global_cursor,
+                        cuts=fa.engine.stats.fleet_cuts, steady=window,
+                        fleet_block=fa.telemetry()["fleet"])
+    fb = fleet_of(dev, pid, spec, "b")
+    cuts = timed_cuts(fb)
+    with fb:
+        for i, (sid, (lo, hi)) in enumerate(plan_b[:FLEET_KILL_B]):
+            if i == FLEET_STEADY_B[0]:
+                fb.flush()
+                reset_collective_counts()
+                opened = steady_window(fb.engine, FLEET_STEADY_B)
+            fb.ingest(int(sid), preds[lo:hi], target[lo:hi])
+            if i == FLEET_STEADY_B[1]:
+                fb.flush()
+                steady, window = collective_counts(), steady_window(fb.engine, FLEET_STEADY_B, opened)
+            if i + 1 == FLEET_AT_B:
+                reset_collective_counts()
+                values = stacked_values(fb.results())
+                fold = collective_counts()
+                out["b_at"] = {"digest": state_digest(fb.fleet_state()), "cursor": fb.global_cursor}
+                torch.save(values, os.path.join(spec["dir"], f"b_at_host{pid}.pt"))
+                numbers = fleet_numbers(fb, fb.results, FLEET_FOLDS[1])
+        fb.flush()
+        tenancy = fb.engine.pager.tenancy_stats()
+        out["b"] = dict(numbers, cut_ms=cuts, steady_collectives=steady, fold_collectives=fold,
+                        steps=fb.engine.steps, cursor=fb.global_cursor, cuts=fb.engine.stats.fleet_cuts,
+                        page_outs=fb.engine.stats.page_outs,
+                        rotations=fb.engine.stats.pane_rotations, tenancy=tenancy, steady=window,
+                        fleet_block=fb.telemetry()["fleet"])
+
+
+def fleet_restore(dev, pid, spec, out):
+    """Round 2 of a host: both forms restore from the last consistent cut
+    (digest of (b)'s folded state there), replay the rest of the plan, and
+    report the final digests and values."""
+    preds, target, plan_a, plan_b = fleet_plans(dev)
+    fa = fleet_of(dev, pid, spec, "a")
+    meta = fa.restore()
+    with fa:
+        for lo, hi in plan_a[fa.global_cursor:]:
+            fa.ingest(preds[lo:hi], target[lo:hi])
+        out["a"] = {"cut": int(meta["fleet_cut"]), "cursor": int(meta["fleet_plan_cursor"]),
+                    "digest": state_digest(fa.fleet_state()),
+                    "values": {k: v.tolist() for k, v in flat_values(fa.result()).items()}}
+    fb = fleet_of(dev, pid, spec, "b")
+    meta = fb.restore()
+    with fb:
+        at_cut = state_digest(fb.fleet_state())
+        for sid, (lo, hi) in plan_b[fb.global_cursor:]:
+            fb.ingest(int(sid), preds[lo:hi], target[lo:hi])
+        values = stacked_values(fb.results())
+        torch.save(values, os.path.join(spec["dir"], f"b_final_host{pid}.pt"))
+        out["b"] = {"cut": int(meta["fleet_cut"]), "cursor": int(meta["fleet_plan_cursor"]), "at_cut_digest": at_cut,
+                    "digest": state_digest(fb.fleet_state()),
+                    "spilled_rows": int(fb.engine.pager.tenancy_stats()["spilled_rows"]),
+                    "page_outs": fb.engine.stats.page_outs}
+
+
+def fleet_host(pid, spec_path):
+    """One host of phase 27, a spawned process: its round, its kernel counts,
+    the artifact written, then ``os._exit`` (the killed host's code after
+    round 1)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out, rc = {"pid": pid}, 0
+    try:
+        dev = torch.device(spec["devices"][pid])
+        torch.cuda.set_device(dev)
+        from metrics_tpu_torch.ops.kernels import build
+
+        for name in build.SOURCES:
+            build.library(name)
+        for fn in kernel_wrappers().values():
+            fn.launches = 0
+        (fleet_serve if spec["round"] == "serve" else fleet_restore)(dev, pid, spec, out)
+        torch.cuda.synchronize(dev)
+        out["launches"] = counts()
+        out["backend"] = __import__("torch.distributed", fromlist=["_"]).get_backend()
+    except BaseException:  # noqa: BLE001 - the parent reports it and fails
+        import traceback
+
+        out["error"] = traceback.format_exc()
+        rc = 1
+    with open(spec["out"][pid], "w") as f:
+        json.dump(out, f)
+    os._exit(FLEET_EXIT if rc == 0 and spec["round"] == "serve" and pid == 1 else rc)
+
+
+def fleet_round(name, devices):
+    """Spawn the two hosts of one round and wait for both, bounded; kill any
+    still alive at the deadline. Returns their exit codes and artifacts."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = {"round": name, "devices": devices, "coord": f"tcp://127.0.0.1:{port}", "dir": str(FLEET_DIR),
+            "out": [str(FLEET_DIR / f"{name}_host{p}.json") for p in range(FLEET_HOSTS)]}
+    spec_path = FLEET_DIR / f"{name}_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=fleet_host, args=(p, str(spec_path))) for p in range(FLEET_HOSTS)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    outs = []
+    for path in spec["out"]:
+        try:
+            outs.append(json.loads(Path(path).read_text()))
+        except (OSError, ValueError):
+            outs.append({"error": f"artifact missing: {path}"})
+    return [proc.exitcode for proc in procs], outs
+
+
+def fleet_references(dev, preds, target):
+    """The single-process engines on the card serving 27's plans: (a) phase
+    7's megastep engine, (b) the paged tenancy under the window, read at
+    the last consistent cut (400), at ``FLEET_AT_B`` and at the end; each
+    with the steady window the hosts read (``steady_window``)."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, StreamingEngine
+
+    _, _, plan_a, plan_b = fleet_plans(dev)
+    eng = StreamingEngine(make_collection(dev), EngineConfig(buckets=(256, BUCKET), kernel_backend="megastep"))
+    ref = {"a": {}}
+    with eng:
+        for lo, hi, tag in ((0, FLEET_STEADY_A[0], None), (FLEET_STEADY_A[0], FLEET_STEADY_A[1] + 1, "steady"),
+                            (FLEET_STEADY_A[1] + 1, len(plan_a), None)):
+            opened = steady_window(eng, FLEET_STEADY_A)
+            for r0, r1 in plan_a[lo:hi]:
+                eng.submit(preds[r0:r1], target[r0:r1])
+            eng.flush()
+            if tag:
+                ref["a"]["steady"] = steady_window(eng, FLEET_STEADY_A, opened)
+        ref["a"].update(digest=state_digest(eng.state()), values=flat_values(eng.result()))
+    eng = MultiStreamEngine(make_collection(dev), PAGED_STREAMS, fleet_engine_b_config(), stream_shard=True,
+                            resident_streams=RESIDENT)
+    b = {}
+    with eng:
+        cut = (FLEET_KILL_B // FLEET_CUT_B) * FLEET_CUT_B  # the last consistent cut's plan position
+        marks = sorted([(FLEET_STEADY_B[0], None), (FLEET_STEADY_B[1] + 1, "steady"), (cut, "cut"),
+                        (FLEET_AT_B, "at"), (FLEET_PLAN_B, "final")], key=lambda m: m[0])
+        for (lo, _), (hi, tag) in zip([(0, None)] + marks[:-1], marks):
+            opened = steady_window(eng, FLEET_STEADY_B)
+            for sid, (r0, r1) in plan_b[lo:hi]:
+                eng.submit(int(sid), preds[r0:r1], target[r0:r1])
+            eng.flush()
+            if tag == "steady":
+                b["steady"] = steady_window(eng, FLEET_STEADY_B, opened)
+            elif tag:
+                b[f"{tag}_digest"] = state_digest(eng.state())
+                if tag != "cut":
+                    b[f"{tag}_values"] = stacked_values(eng.results())
+    b["page_outs"] = eng.stats.page_outs
+    ref["b"] = b
+    return ref
+
+
+def fleet_phase(dev, preds, target):
+    """Phase 27: the fleet (module docstring). Returns the phase's line."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine
+    from metrics_tpu_torch.engine.fleet import last_consistent_cut, restore_fleet_into
+
+    devices, layout, transport = fleet_layout()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        ref = fleet_references(dev, preds, target)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rcs, serve = fleet_round("serve", devices)
+        serve_s = time.perf_counter() - t0
+        for p, o in enumerate(serve):
+            check("error" not in o, f"27 round 1 host {p} failed:\n{o.get('error')}")
+        check(rcs == [0, FLEET_EXIT], f"27 round 1 exit codes {rcs}, wanted [0, {FLEET_EXIT}]")
+        for p, o in enumerate(serve):
+            check(o["backend"] == transport, f"27 host {p} took {o['backend']}, the layout names {transport}")
+            for k in ("histogram", "megastep_fold", "megastep_segment"):
+                check(o["launches"][k] > 0, f"27 host {p}: kernel {k} was not launched")
+            for form in ("a", "b"):
+                n = o[form]
+                check(not any(n["steady_collectives"].values()), f"27({form}) host {p}: collectives in steady steps "
+                      f"{n['steady_collectives']}")
+                check(sum(n["fold_collectives"].values()) >= 1, f"27({form}) host {p}: a fold issued no collective")
+            check(o["a"]["cuts"] == FLEET_KILL_A // FLEET_CUT_A and o["b"]["cuts"] == FLEET_KILL_B // FLEET_CUT_B,
+                  f"27 host {p} cuts {o['a']['cuts']}, {o['b']['cuts']}")
+            check(o["b"]["page_outs"] > 0 and o["b"]["tenancy"]["spilled_rows"] > 0, f"27(b) host {p} never spilled")
+            check(o["b_at"]["digest"] == ref["b"]["at_digest"], f"27(b) host {p}: state at {FLEET_AT_B} differs "
+                  "from the single-process paged engine's")
+            values_close(torch.load(FLEET_DIR / f"b_at_host{p}.pt"), ref["b"]["at_values"],
+                         f"27(b) host {p} results at {FLEET_AT_B}")
+        cut_a = last_consistent_cut(str(FLEET_DIR / "a"), FLEET_HOSTS)
+        cut_b = last_consistent_cut(str(FLEET_DIR / "b"), FLEET_HOSTS)
+        check(cut_a == FLEET_KILL_A // FLEET_CUT_A - 1 and cut_b == FLEET_KILL_B // FLEET_CUT_B - 1,
+              f"27: last consistent cuts {cut_a}, {cut_b}")
+        # 27(b)'s pieces merged into one unsharded engine on the card: the fleet's state at the cut
+        t0 = time.perf_counter()
+        merged = MultiStreamEngine(make_collection(dev), PAGED_STREAMS,
+                                   EngineConfig(buckets=PAGED_BUCKETS, window=fleet_window()))
+        meta = restore_fleet_into(merged, str(FLEET_DIR / "b"))
+        merged_digest = state_digest(merged.state())
+        merge_s = time.perf_counter() - t0
+        check(int(meta["merged_from_hosts"]) == FLEET_HOSTS and merged_digest == ref["b"]["cut_digest"],
+              "27(b): restore_fleet_into's state differs from the single-process engine's at the cut")
+        del merged
+        t0 = time.perf_counter()
+        rcs, restore = fleet_round("restore", devices)
+        restore_s = time.perf_counter() - t0
+        for p, o in enumerate(restore):
+            check("error" not in o, f"27 round 2 host {p} failed:\n{o.get('error')}")
+        check(rcs == [0, 0], f"27 round 2 exit codes {rcs}")
+        for p, o in enumerate(restore):
+            check(o["a"]["cut"] == cut_a and o["b"]["cut"] == cut_b, f"27 host {p} restored cuts {o['a']['cut']}, "
+                  f"{o['b']['cut']}")
+            check(o["a"]["digest"] == ref["a"]["digest"], f"27(a) host {p}: replayed state differs from the "
+                  "single-process engine's")
+            values_close({k: torch.tensor(v) for k, v in o["a"]["values"].items()}, ref["a"]["values"],
+                         f"27(a) host {p} values")
+            check(o["b"]["at_cut_digest"] == ref["b"]["cut_digest"] == merged_digest,
+                  f"27(b) host {p}: the restored state differs from the engine's at the cut")
+            check(o["b"]["digest"] == ref["b"]["final_digest"], f"27(b) host {p}: replayed state differs")
+            # page-outs, not the rows spilled at the end: the rotation at 800 drops the expired pane's rows
+            check(o["b"]["page_outs"] > 0, f"27(b) host {p}: the replay never spilled")
+            values_close(torch.load(FLEET_DIR / f"b_final_host{p}.pt"), ref["b"]["final_values"],
+                         f"27(b) host {p} replayed results")
+        hosts = []
+        for p, o in enumerate(serve):
+            hosts.append({"host": p, "device": devices[p], "launches": o["launches"],
+                          **{form: {k: o[form][k] for k in ("fold_ms_p50", "fold_ms", "barrier_ms_p50", "cut_ms",
+                                                            "fold_bytes", "steady_collectives", "fold_collectives",
+                                                            "steps", "steady")}
+                             for form in ("a", "b")},
+                          "b_tenancy": o["b"]["tenancy"], "b_page_outs": o["b"]["page_outs"],
+                          "b_rotations": o["b"]["rotations"], "b_replay_page_outs": restore[p]["b"]["page_outs"]})
+        return {"layout": layout, "transport": transport, "devices": devices,
+                "plans": {"a": {"batches": FLEET_KILL_A, "cut_every": FLEET_CUT_A, "killed_after": FLEET_KILL_A},
+                          "b": {"batches": FLEET_PLAN_B, "streams": PAGED_STREAMS, "resident_a_host": RESIDENT,
+                                "cut_every": FLEET_CUT_B, "pane": FLEET_PANE_B, "panes": FLEET_PANES_B,
+                                "killed_after": FLEET_KILL_B}},
+                "restored_cuts": {"a": cut_a, "b": cut_b}, "hosts": hosts,
+                "single_process_steady": {"a": ref["a"]["steady"], "b": ref["b"]["steady"]},
+                "seconds": {"references": ref_s, "round_1": serve_s, "merge_into_one": merge_s,
+                            "round_2": restore_s}}
+    finally:
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -8089,6 +8732,23 @@ def main():
                       "layout": forms["layout"], "transport": forms["transport"],
                       "seconds": time.perf_counter() - t0, "card": card}))
 
+    # phase 27, its counts from 0: the single-process references here launch K2 and K5 (27(a), phase 7's engine)
+    # and K6 (27(b)'s paged tenancy); each host process counts its own K2, K5 and K6, which must be non-zero
+    # (checked inside); K8 and K9 must stay 0
+    for fn in kernels.values():
+        fn.launches = 0
+    toeplitz_solve_cuda.launches = greedy_match_cuda.launches = 0
+    t0 = time.perf_counter()
+    fleet = fleet_phase(dev, preds, target)
+    fleet_launches = counts()
+    for k in ("histogram", "megastep_fold", "megastep_segment"):
+        check(fleet_launches[k] > 0, f"kernel {k} was not launched by the fleet phase's references")
+    check(toeplitz_solve_cuda.launches == 0 and greedy_match_cuda.launches == 0, "the fleet phase launched K8 or K9")
+    launches = {k: launches[k] + fleet_launches[k] for k in launches}
+    print(json.dumps({"fleet_phase": fleet, "launches": dict(fleet_launches, toeplitz_solve=0, greedy_match=0),
+                      "layout": fleet["layout"], "transport": fleet["transport"],
+                      "seconds": time.perf_counter() - t0, "card": card}))
+
     # phase 4 against the CPU port (plain versions) and numpy
     cpu = torch.device("cpu")
     cpu_state, cpu_values, _ = main_path(cpu, torch.from_numpy(preds_np), torch.from_numpy(target_np))
@@ -8127,6 +8787,7 @@ def main():
         e["card"] = card
         entries.append(e)
     entries.append(dict(signal["speech"]["solve"], card=card))  # K8: its launches are 22(a)'s
+    entries.append(dict(signal["long_filter"]["solve"], card=card))  # K8 past 6144: its launches are 22(e)'s
     for e in k9_entries:  # K9: its launches are 24(a)'s compute and 24(c)'s first aggregate
         entries.append(dict(e, card=card))
     print(json.dumps({"kernels": entries}))

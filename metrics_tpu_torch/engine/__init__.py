@@ -11,8 +11,10 @@ recorder and its OpenMetrics view (``engine/trace.py``), admission control
 and the degradation ladder (``engine/admission.py``), windowed serving
 (tumbling, sliding and EWMA pane rings, ``engine/windows.py``) with drift
 alarms over the closed panes (``engine/tracker.py``), ragged serving of
-group-keyed metrics (:class:`RaggedEngine`, ``engine/ragged.py``), and the
-seeded Zipf traffic the serving checks share (``engine/traffic.py``)."""
+group-keyed metrics (:class:`RaggedEngine`, ``engine/ragged.py``), the
+multi-host fleet over ``torch.distributed`` (:class:`FleetEngine`,
+``engine/fleet/``), and the seeded Zipf traffic the serving checks share
+(``engine/traffic.py``)."""
 from metrics_tpu_torch.engine.admission import (
     LADDER_RUNGS,
     AdmissionPolicy,
@@ -24,6 +26,16 @@ from metrics_tpu_torch.engine.admission import (
 from metrics_tpu_torch.engine.aot import AotCache, metric_fingerprint
 from metrics_tpu_torch.engine.arena import ArenaLayout
 from metrics_tpu_torch.engine.bucketing import BucketPolicy
+from metrics_tpu_torch.engine.fleet import (
+    FleetBarrierError,
+    FleetConfig,
+    FleetEngine,
+    FleetHostLostError,
+    FleetTopologyError,
+    fleet_mesh,
+    last_consistent_cut,
+    restore_fleet_into,
+)
 from metrics_tpu_torch.engine.faults import (
     BackpressureTimeout,
     BoundaryMergeError,
@@ -81,6 +93,11 @@ __all__ = [
     "FaultInjector",
     "FaultSpec",
     "FixedBucketHistogram",
+    "FleetBarrierError",
+    "FleetConfig",
+    "FleetEngine",
+    "FleetHostLostError",
+    "FleetTopologyError",
     "GroupedStateMetric",
     "InjectedFault",
     "LADDER_RUNGS",
@@ -103,13 +120,16 @@ __all__ = [
     "device_trace_session",
     "encode_state_tree",
     "flat_reductions",
+    "fleet_mesh",
     "generations",
+    "last_consistent_cut",
     "latest_snapshot",
     "load_snapshot",
     "metric_fingerprint",
     "q8_decode_array",
     "q8_encode_array",
     "render_openmetrics",
+    "restore_fleet_into",
     "save_snapshot",
     "zipf_stream_ids",
     "zipf_traffic",

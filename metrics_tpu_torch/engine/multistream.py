@@ -312,6 +312,18 @@ class MultiStreamEngine(StreamingEngine):
         return [(fx, StateSpec((self._num_streams,) + tuple(leaf.shape), leaf.dtype), prec)
                 for fx, leaf, prec in info]
 
+    def _fleet_leaf_info(self) -> Optional[List[Any]]:
+        # the fold moves this host's LOGICAL state: the paged form's
+        # reassembled (S, ...) tree, (panes, S, ...) under a ring, so its
+        # fleet accounting scales by S although its per-mesh one does not
+        if not self._stream_shard:
+            return super()._fleet_leaf_info()
+        info = StreamingEngine._payload_leaf_info(self)
+        if not info:
+            return info
+        lead = (self._num_streams,) if self._pane_rows == 1 else (self._pane_rows, self._num_streams)
+        return [(fx, StateSpec(lead + tuple(leaf.shape), leaf.dtype), prec) for fx, leaf, prec in info]
+
     # -------------------------------------------------------------------- the step
 
     def _traced_update(self, state_tree: Any, payload: Any, mask: torch.Tensor, shard: int = 0) -> Any:
@@ -1142,6 +1154,7 @@ class MultiStreamEngine(StreamingEngine):
         if not snap_shard and not self._stream_shard:
             super()._restore_commit(state, meta)
             return
+        self._check_host_topology(meta)
         # pager rows MEAN (stream, pane) only under the policy that wrote them
         self._check_window_provenance(meta)
         if snap_shard and str(meta.get("window", "") or ""):

@@ -126,8 +126,14 @@ replay addresses and never captures. A rotation writes the init row into the
 incoming pane of every shard at the same boundary. The boundary merge folds
 the world axis first and keeps the panes (JAX's order), then the window's
 fold reads them. XLA's ``compilation_cache_dir`` is not ported (ROADMAP §A):
-it raises :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`, as does
-an injector plan naming a fleet site.
+it raises :class:`~metrics_tpu_torch.utils.exceptions.NotPortedError`.
+
+Fleet seams: an engine serving as one host of a
+:class:`~metrics_tpu_torch.engine.fleet.FleetEngine` carries its host
+topology (``_fleet_hosts``, ``_fleet_pid``) into every snapshot's meta, with
+the cut and plan cursor of a fleet cut, and refuses a piece of another
+topology on restore; under ``_fleet_rotation`` its pane ring rotates only
+when the fleet calls :meth:`StreamingEngine.rotate_pane`.
 """
 import copy
 import functools
@@ -175,7 +181,7 @@ from metrics_tpu_torch.engine.trace import ENGINE_TRACE, TraceRecorder, render_o
 from metrics_tpu_torch.engine.tracker import DriftDetector
 from metrics_tpu_torch.engine.windows import WindowPolicy
 from metrics_tpu_torch.metric import StateSpec
-from metrics_tpu_torch.parallel.collectives import fused_sync_plan, sync_payload_bytes
+from metrics_tpu_torch.parallel.collectives import sync_payload_split
 from metrics_tpu_torch.parallel.embedded import (
     boundary_merge_error,
     sharded_local_step,
@@ -194,12 +200,6 @@ __all__ = ["EngineConfig", "EngineStats", "StreamingEngine"]
 
 #: ``metrics_tpu.engine.EngineConfig`` fields the port does not have yet
 _NOT_PORTED_FIELDS = ("compilation_cache_dir",)
-#: the fault sites the port's engines consult (``engine/faults.py`` FAULT_SITES lists the JAX package's all)
-_PORTED_FAULT_SITES = (
-    "ingest", "coalesce", "compile", "step", "kernel", "shard_loss", "watchdog", "merge", "page_out", "page_in",
-    "quant_encode", "quant_decode", "reshard_snapshot", "reshard_restore", "snapshot_write", "snapshot_corrupt",
-    "snapshot_read", "dispatcher_kill", "admission", "pane_rotate", "drift_eval",
-)
 #: the JAX package's backends that choose a lowering the port chooses by device
 _DEVICE_RULE_BACKENDS = ("xla", "pallas_interpret", "megastep_interpret")
 
@@ -267,10 +267,11 @@ class EngineConfig:
             ``compile``, ``step``, ``kernel``, ``watchdog``, ``page_out``,
             ``page_in``, ``quant_encode``, ``quant_decode``, the snapshot
             sites, ``dispatcher_kill``, ``admission``, ``pane_rotate``,
-            ``drift_eval`` and the mesh's ``shard_loss``, ``merge``,
-            ``reshard_snapshot`` and ``reshard_restore``); a plan naming a
-            fleet site (``host_loss``, ``fleet_barrier``) raises
-            :class:`NotPortedError`.
+            ``drift_eval``, the mesh's ``shard_loss``, ``merge``,
+            ``reshard_snapshot`` and ``reshard_restore``, and the fleet's
+            ``host_loss`` and ``fleet_barrier``, which a
+            :class:`~metrics_tpu_torch.engine.fleet.FleetEngine` consults at
+            its boundaries).
         screen: optional :class:`~metrics_tpu_torch.engine.faults.ScreenPolicy`:
             each batch is screened on the host before anything is uploaded;
             ``"quarantine"`` dead-letters it (the replay cursor still
@@ -406,13 +407,6 @@ class EngineConfig:
             raise NotPortedError(f"EngineConfig fields {unported} are not ported yet (see ROADMAP.md §A)")
         if fields:
             raise TypeError(f"EngineConfig got unexpected fields {sorted(fields)}")
-        if isinstance(fault_injector, FaultInjector):  # anything else is refused by the engine
-            sites = sorted(site for site in fault_injector.plan if site not in _PORTED_FAULT_SITES)
-            if sites:
-                raise NotPortedError(
-                    f"fault injector plan names sites {sites}, which the port's engines do not consult yet "
-                    f"(they consult {list(_PORTED_FAULT_SITES)}; see ROADMAP.md §A)"
-                )
         self.buckets = tuple(int(b) for b in buckets)
         self.max_queue = int(max_queue)
         self.in_flight = int(in_flight)
@@ -687,6 +681,16 @@ class StreamingEngine:
         self._state_version = 0
         self._merged_memo: Optional[Tuple[int, Any]] = None
         self._payload_split: Optional[Tuple[int, int]] = None
+        # host topology: (1, 0) is one process; a FleetEngine stamps its host's
+        # (num_hosts, process_id), which every snapshot carries and restore
+        # checks, and the cut and plan cursor while it writes a cut's piece
+        self._fleet_hosts = 1
+        self._fleet_pid = 0
+        self._fleet_cut: Optional[int] = None
+        self._fleet_plan_cursor = 0
+        # a fleet host's ring rotates only at shared-plan positions, through
+        # rotate_pane(): its own cadence counts owned batches, which differ per host
+        self._fleet_rotation = False
         self._deltas: Optional[List[Any]] = None  # step sync's per-shard delta buffers
         self._delta_init: Optional[List[Any]] = None
         self._state = self._put_state(self._init_state_tree())
@@ -968,17 +972,29 @@ class StreamingEngine:
         engine's logical state moves."""
         return self._metric.sync_leaf_info()
 
+    def _fleet_leaf_info(self) -> Optional[List[Any]]:
+        """The ``(fx, leaf, precision)`` triples ONE host's logical state
+        contributes to the fleet's fold, shaped as :meth:`state` returns it:
+        a pane-stacked ring scales by the pane count (the fold moves the
+        whole ring)."""
+        info = self._payload_leaf_info()
+        if not info or not self._win_stacked:
+            return info
+        return [(fx, StateSpec((self._panes,) + tuple(leaf.shape), leaf.dtype), prec) for fx, leaf, prec in info]
+
+    def _payload_split_for(self, world: int, leaf_info: Optional[List[Any]] = None) -> Tuple[int, int]:
+        """(exact, quantized) bytes one participant contributes to a fused
+        sync over ``world`` ranks (``fused_sync_plan``): of this engine's
+        state, or of ``leaf_info`` (the fleet's host-logical triples at world
+        = the host count)."""
+        info = leaf_info if leaf_info is not None else self._payload_leaf_info()
+        return sync_payload_split(info, world) if info else (0, 0)
+
     def _sync_payload_split(self) -> Tuple[int, int]:
-        """(exact, quantized) bytes one shard contributes to one fused sync
-        (``fused_sync_plan``), memoized per topology."""
+        """(exact, quantized) bytes one shard contributes to one fused sync,
+        memoized per topology."""
         if self._payload_split is None:
-            info = self._payload_leaf_info()
-            if not info:
-                self._payload_split = (0, 0)
-            else:
-                total = sync_payload_bytes(info, self._world)
-                quant = 4 * fused_sync_plan(info, self._world)["q8_words"]
-                self._payload_split = (total - quant, quant)
+            self._payload_split = self._payload_split_for(self._world)
         return self._payload_split
 
     def _merged_state(self) -> Any:
@@ -1753,7 +1769,7 @@ class StreamingEngine:
         ``pane_seconds`` per rotation, so a stalled dispatcher catches up
         pane by pane."""
         w = self._window
-        if w is None:
+        if w is None or self._fleet_rotation:  # a fleet host rotates when its FleetEngine says so
             return
         due = w.rotations_due(self._batches_done, self._last_rotate_batches, self._win_clock(),
                               self._last_rotate_time)
@@ -2409,9 +2425,16 @@ class StreamingEngine:
             "arena_fp": self._layout.fingerprint() if self._layout is not None else "",
             "mesh_sync": self._sync_tag() if self._mesh is not None else "single",
             "world": self._world if self._deferred else 1,
-            "num_hosts": 1,
-            "process_id": 0,
+            # a fleet host's piece names which host of how many wrote it, and
+            # the cut it belongs to; absent fields read back as one process
+            "num_hosts": self._fleet_hosts,
+            "process_id": self._fleet_pid,
         }
+        if self._fleet_hosts > 1:
+            meta["host_homing"] = "sid_mod_num_hosts"
+        if self._fleet_cut is not None:
+            meta["fleet_cut"] = int(self._fleet_cut)
+            meta["fleet_plan_cursor"] = int(self._fleet_plan_cursor)
         if self._compress:
             meta["codec"] = CODEC_ID
             meta["codec_fp"] = self._precision_tag
@@ -2499,6 +2522,21 @@ class StreamingEngine:
                 "restore into an engine constructed with the same WindowPolicy"
             )
 
+    def _check_host_topology(self, meta: Dict[str, Any]) -> None:
+        """A fleet host's piece is PARTIAL state: it restores only into the
+        same host of a same-size fleet (a snapshot without the fields is one
+        process's). The JAX package's message."""
+        snap_hosts = int(meta.get("num_hosts", 1) or 1)
+        snap_pid = int(meta.get("process_id", 0) or 0)
+        if snap_hosts != self._fleet_hosts or snap_pid != self._fleet_pid:
+            raise MetricsTPUUserError(
+                f"snapshot host topology (num_hosts={snap_hosts}, process_id={snap_pid}) does not match this "
+                f"engine's (num_hosts={self._fleet_hosts}, process_id={self._fleet_pid}): a fleet host piece "
+                "restores only into the SAME host of a same-size fleet — merge a whole fleet snapshot into a "
+                "single-process engine with engine.fleet.restore_fleet_into(), or adopt a single-process "
+                "snapshot into a fleet with FleetEngine.adopt_single()"
+            )
+
     def _fits_template(self, tree: Any) -> bool:
         """Does a logical carried tree have this engine's structure and shapes
         (pane-stacked under a ring window)?"""
@@ -2521,16 +2559,7 @@ class StreamingEngine:
         if str(meta.get("codec", "") or ""):
             # codec-wrapped leaves are self-describing: decode first
             state = self._codec_call("quant_decode", decode_state_tree, state)
-        snap_hosts = int(meta.get("num_hosts", 1) or 1)
-        snap_pid = int(meta.get("process_id", 0) or 0)
-        if snap_hosts != 1 or snap_pid != 0:
-            raise MetricsTPUUserError(
-                f"snapshot host topology (num_hosts={snap_hosts}, process_id={snap_pid}) does not match this "
-                "engine's (num_hosts=1, process_id=0): a fleet host piece restores only into the SAME host of a "
-                "same-size fleet — merge a whole fleet snapshot into a single-process engine with "
-                "engine.fleet.restore_fleet_into(), or adopt a single-process snapshot into a fleet with "
-                "FleetEngine.adopt_single()"
-            )
+        self._check_host_topology(meta)
         packed = bool(int(meta.get("packed", 0)))
         snap_deferred = str(meta.get("mesh_sync", "") or "") == "deferred"
         snap_world = int(meta.get("world", 1))

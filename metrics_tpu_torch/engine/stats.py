@@ -9,9 +9,10 @@ time, and the sync latency of the steps that actually blocked (the in-flight
 bound means most steps don't) — the device's own time lives in
 ``torch.profiler`` traces (``engine/trace.py``'s ``device_trace_session``).
 
-The blocks of layers the port does not have yet (the fleet) are kept, and
-return None as in the JAX package while nothing records into them. The port
-adds counters of its own: ``warmup_steps`` (steps run once on a copy of the
+Each layer's block returns None while nothing records into it, as in the
+JAX package: the ``fleet`` block only for an engine a
+:class:`~metrics_tpu_torch.engine.fleet.FleetEngine` manages, so a
+single-process engine's document stays byte-stable. The port adds counters of its own: ``warmup_steps`` (steps run once on a copy of the
 state before a CUDA graph capture), ``q8_staged_rows`` (paged-in rows seated
 as int8 codes for K7 to decode) and ``result_device_calls`` in
 :meth:`EngineStats.summary`, and in the ``mesh_sync`` block a mesh engine's

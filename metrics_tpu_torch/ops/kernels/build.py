@@ -52,11 +52,11 @@ _SIGNATURES = {
         "binned_scratch_ints": (_L, _I, _I),
     },
     "segment": {"segment_fold": (_P,) * 11 + (_I,) * 5 + (_P,), "segment_scratch_ints": (_I, _I, _I)},
-    "toeplitz": {"toeplitz_solve": (_P, _P, _P, _L, _I, _P), "toeplitz_max_length": ()},
-    "match": {"greedy_match": (_P,) * 8 + (_L, _L, _I, _I, _I, _I, _P), "match_max_gts": ()},
+    "toeplitz": {"toeplitz_solve": (_P, _P, _P, _P, _L, _I, _P), "toeplitz_shared_length": ()},
+    "match": {"greedy_match": (_P,) * 9 + (_L, _L, _I, _I, _I, _I, _P), "match_scratch_words": (_L, _I, _I, _I)},
 }
 # return types other than int (a CUDA error code)
-_RESTYPES = {"segment_scratch_ints": _L, "binned_scratch_ints": _L}
+_RESTYPES = {"segment_scratch_ints": _L, "binned_scratch_ints": _L, "match_scratch_words": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

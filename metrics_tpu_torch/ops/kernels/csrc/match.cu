@@ -42,6 +42,17 @@
 //   then the largest lo among the lanes that hold it. Lane d % 32 keeps detection d's
 //   result, and the warp writes 32 results at a time, coalesced.
 //
+//   G > 1024, the block path (any G): one block a cell, the open set a bitset of G bits in
+//   shared memory up to 2^18 ground truths (32 KB), in the cell's slice of a global scratch
+//   beyond. Thread i scans g = i + 256 j for each valid detection with the same key, split
+//   as (class << 32 | ord) and g so that any G orders; a shuffle tree and one barrier fold
+//   the warps' best, and thread 0 clears the winner's bit and writes the detection's result.
+//   Two barriers a valid detection: a rare size (COCO's crowds stay far below it), kept
+//   simple.
+//
+// Every path loops over the cells in launches of at most 65 535 grid rows, so A * T has no
+// limit but the outputs'.
+//
 // Arithmetic: comparisons only, no rounding: the IoUs arrive computed (PyTorch's
 // elementwise ops, as JAX's box_iou), so nothing here can contract into an FMA; no flag
 // flushes denormals, so they compare as their values.
@@ -53,7 +64,9 @@ namespace {
 
 constexpr int WARPS = 8;  // the warp path: one cell a warp
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_G = 1024;       // 32 ground truths a lane on the warp path
+constexpr int WARP_MAX_G = 1024;  // 32 ground truths a lane on the warp path
+constexpr int SHARED_BITSET_G = 1 << 18;  // the block path's open set in shared memory: 32 KB
+constexpr int64_t MAX_GRID_Y = 65535;
 constexpr int THREAD_MAX_G = 32;  // the thread path: the matched set is one 32-bit mask
 constexpr int MAX_CHUNK = 64;     // detections a chunk on the thread path
 constexpr int THREAD_SMEM = 48 * 1024;
@@ -61,8 +74,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float effective_threshold(float t) { return t > 1.0f ? 1.0f : t; }
 
-// grid (ceil(P / pb), ceil(A * T / cb)), pb * cb threads: thread tid runs the cell
-// (p0 + tid / cb, cy0 + tid % cb) of the flattened (a, t) index. Shared memory per chunk of
+// grid (ceil(P / pb), rows y0 .. of ceil(A * T / cb)), pb * cb threads: thread tid runs the
+// cell (p0 + tid / cb, cy0 + tid % cb) of the flattened (a, t) index. Shared memory per chunk of
 // dc detections: IoU rows (pb, dc, G) float, match indices (pb * cb, dc) int, detection flags
 // (pb, dc) bytes.
 __global__ void __launch_bounds__(THREADS)
@@ -70,7 +83,7 @@ __global__ void __launch_bounds__(THREADS)
                         const uint8_t* __restrict__ det_valid, const uint8_t* __restrict__ gt_valid,
                         const uint8_t* __restrict__ gt_ignore, const float* __restrict__ thresholds,
                         uint8_t* __restrict__ dm, int* __restrict__ mi, int64_t blocks, int64_t P, int D, int G,
-                        int A, int T, int pb, int cb, int dc) {
+                        int A, int T, int pb, int cb, int dc, int y0) {
   extern __shared__ float smem[];
   float* s_iou = smem;
   int* s_mi = reinterpret_cast<int*>(s_iou + pb * dc * G);
@@ -79,7 +92,7 @@ __global__ void __launch_bounds__(THREADS)
   const int cells = A * T;
   const int64_t p0 = static_cast<int64_t>(blockIdx.x) * pb;
   const int pbn = static_cast<int>(P - p0 < pb ? P - p0 : pb);
-  const int cy0 = blockIdx.y * cb;
+  const int cy0 = (y0 + static_cast<int>(blockIdx.y)) * cb;
   const int cbn = cells - cy0 < cb ? cells - cy0 : cb;
   const int pi = tid / cb, ci = tid - pi * cb;
   const bool active = pi < pbn && ci < cbn;
@@ -163,16 +176,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// grid (P, ceil(A * T / WARPS)), WARPS warps a block, one (a, t) cell a warp; the warps of a
+// grid (P, rows y0 .. of ceil(A * T / WARPS)), WARPS warps a block, one (a, t) cell a warp; the warps of a
 // block share their problem's IoU block, so its rows come from L1 after the first warp reads
 // them.
 __global__ void __launch_bounds__(THREADS)
     match_warp_kernel(const float* __restrict__ iou, const int* __restrict__ iou_index,
                       const uint8_t* __restrict__ det_valid, const uint8_t* __restrict__ gt_valid,
                       const uint8_t* __restrict__ gt_ignore, const float* __restrict__ thresholds,
-                      uint8_t* __restrict__ dm, int* __restrict__ mi, int64_t blocks, int D, int G, int A, int T) {
+                      uint8_t* __restrict__ dm, int* __restrict__ mi, int64_t blocks, int D, int G, int A, int T,
+                      int y0) {
   const int lane = threadIdx.x & 31;
-  const int cell = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  const int cell = (y0 + static_cast<int>(blockIdx.y)) * WARPS + (threadIdx.x >> 5);
   if (cell >= A * T) return;  // whole warps only: the reductions below see all 32 lanes
   const int64_t p = blockIdx.x;
   const int a = cell / T, t = cell % T;
@@ -228,43 +242,168 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+
+// The block path's candidate order: key = class << 32 | ord (class 2 regular, 1 ignored, 0
+// none), then the larger g. Returns whether (k2, g2) beats (k1, g1).
+__device__ __forceinline__ bool beats(unsigned long long k2, int64_t g2, unsigned long long k1, int64_t g1) {
+  return k2 > k1 || (k2 == k1 && g2 > g1);
+}
+
+// grid (P, cells y0 ..), THREADS threads a block, one (a, t) cell a block. open is the cell's
+// G-bit open set: dynamic shared memory when scratch is null, else the block's slice of
+// scratch (words a block).
+__global__ void __launch_bounds__(THREADS)
+    match_block_kernel(const float* __restrict__ iou, const int* __restrict__ iou_index,
+                       const uint8_t* __restrict__ det_valid, const uint8_t* __restrict__ gt_valid,
+                       const uint8_t* __restrict__ gt_ignore, const float* __restrict__ thresholds,
+                       uint8_t* __restrict__ dm, int* __restrict__ mi, int64_t blocks, int D, int G, int A, int T,
+                       int y0, uint32_t* scratch) {
+  extern __shared__ uint32_t s_open[];
+  __shared__ unsigned long long s_key[WARPS];
+  __shared__ int64_t s_g[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t p = blockIdx.x;
+  const int cell = y0 + static_cast<int>(blockIdx.y);
+  const int a = cell / T, t = cell % T;
+  const float thr = effective_threshold(thresholds[t]);
+  const int64_t block = iou_index[p];
+  const bool in_range = block >= 0 && block < blocks;
+  const int64_t words = (static_cast<int64_t>(G) + 31) >> 5;
+  uint32_t* open =
+      scratch == nullptr ? s_open
+                         : scratch + (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * words;
+  const uint8_t* gvalid = gt_valid + p * G;
+  const uint8_t* ignored = gt_ignore + (p * A + a) * static_cast<int64_t>(G);
+  for (int64_t w = tid; w < words; w += THREADS) {
+    uint32_t bits = 0;
+    if (in_range)
+      for (int j = 0; j < 32; ++j) {
+        const int64_t g = (w << 5) + j;
+        if (g < G && gvalid[g]) bits |= 1u << j;
+      }
+    open[w] = bits;
+  }
+  __syncthreads();
+  const float* rows = iou + (in_range ? block : 0) * static_cast<int64_t>(D) * G;
+  const uint8_t* dvalid = det_valid + p * D;
+  const int64_t out = ((p * A + a) * T + t) * static_cast<int64_t>(D);
+  for (int d = 0; d < D; ++d) {
+    if (!dvalid[d]) {  // the same flag in every thread: the whole block skips it
+      if (tid == 0) {
+        dm[out + d] = 0;
+        mi[out + d] = -1;
+      }
+      continue;
+    }
+    const float* row = rows + static_cast<int64_t>(d) * G;
+    unsigned long long key = 0;
+    int64_t best = -1;
+    for (int64_t g = tid; g < G; g += THREADS) {
+      if (!((open[g >> 5] >> (g & 31)) & 1u)) continue;
+      const float v = __ldg(row + g);
+      if (v >= thr) {
+        const uint32_t u = v == 0.0f ? 0u : __float_as_uint(v);
+        const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+        const unsigned long long k = (static_cast<unsigned long long>(ignored[g] ? 1u : 2u) << 32) | ord;
+        if (beats(k, g, key, best)) {
+          key = k;
+          best = g;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long k2 = __shfl_xor_sync(FULL, key, o);
+      const int64_t g2 = __shfl_xor_sync(FULL, best, o);
+      if (beats(k2, g2, key, best)) {
+        key = k2;
+        best = g2;
+      }
+    }
+    if (lane == 0) {
+      s_key[warp] = key;
+      s_g[warp] = best;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < WARPS; ++w)
+        if (beats(s_key[w], s_g[w], key, best)) {
+          key = s_key[w];
+          best = s_g[w];
+        }
+      if (key != 0) open[best >> 5] &= ~(1u << (best & 31));
+      dm[out + d] = key != 0;
+      mi[out + d] = key != 0 ? static_cast<int>(best) : -1;
+    }
+    __syncthreads();  // the open set and the slots settled before the next detection
+  }
+}
+
+// Launches of kernel over rows 0 .. rows - 1 of grid y, at most MAX_GRID_Y a launch.
+template <typename Launch>
+int over_rows(int64_t rows, Launch launch) {
+  for (int64_t y0 = 0; y0 < rows; y0 += MAX_GRID_Y) {
+    launch(static_cast<int>(y0), static_cast<unsigned>(rows - y0 < MAX_GRID_Y ? rows - y0 : MAX_GRID_Y));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+int64_t block_path_rows(int64_t cells) { return cells < MAX_GRID_Y ? cells : MAX_GRID_Y; }
+
 }  // namespace
 
 extern "C" {
 
-// The largest ground-truth count G the kernel takes.
-int match_max_gts() { return MAX_G; }
+// 32-bit words of global scratch greedy_match needs for these sizes: the block path's open
+// sets when G is past what shared memory holds, else 0.
+int64_t match_scratch_words(int64_t problems, int A, int T, int G) {
+  if (G <= SHARED_BITSET_G) return 0;
+  return problems * block_path_rows(static_cast<int64_t>(A) * T) * ((static_cast<int64_t>(G) + 31) >> 5);
+}
 
 // dm, mi (P, A, T, D) <- the greedy match of every problem p against its IoU block
 // iou[iou_index[p]] of (blocks, D, G), under the area range's ignore flags gt_ignore (P, A, G)
 // and each threshold; det_valid (P, D), gt_valid (P, G) and gt_ignore are 0/1 bytes, mi is -1
-// where a detection is unmatched. All contiguous. 1 <= G <= match_max_gts(), D >= 1,
-// 1 <= P < 2^31, 1 <= A * T <= 65535 * WARPS. One kernel launch: the thread path for
-// G <= 32, the warp path above. Returns a CUDA error code (cudaErrorInvalidValue for
-// arguments out of range).
+// where a detection is unmatched. All contiguous. G, D, A, T >= 1, 1 <= P < 2^31, A * T <
+// 2^31, and scratch holds match_scratch_words(P, A, T, G) words (null when that is 0). The
+// thread path for G <= 32, the warp path up to 1024, the block path above, each in launches
+// of at most 65 535 grid rows. Returns a CUDA error code (cudaErrorInvalidValue for arguments
+// out of range).
 int greedy_match(const float* iou, const int* iou_index, const uint8_t* det_valid, const uint8_t* gt_valid,
-                 const uint8_t* gt_ignore, const float* thresholds, uint8_t* dm, int* mi, int64_t blocks,
-                 int64_t problems, int D, int G, int A, int T, void* stream) {
-  if (G < 1 || G > MAX_G || D < 1 || A < 1 || T < 1 || blocks < 1 || problems < 1 ||
-      problems >= (int64_t{1} << 31) || static_cast<int64_t>(A) * T > int64_t{65535} * WARPS)
+                 const uint8_t* gt_ignore, const float* thresholds, uint8_t* dm, int* mi, uint32_t* scratch,
+                 int64_t blocks, int64_t problems, int D, int G, int A, int T, void* stream) {
+  const int64_t cells64 = static_cast<int64_t>(A) * T;
+  if (G < 1 || D < 1 || A < 1 || T < 1 || blocks < 1 || problems < 1 || problems >= (int64_t{1} << 31) ||
+      cells64 >= (int64_t{1} << 31) || (match_scratch_words(problems, A, T, G) > 0 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cells = A * T;
+  const int cells = static_cast<int>(cells64);
   if (G <= THREAD_MAX_G) {
     const int cb = cells < THREADS ? cells : THREADS;
     const int pb = THREADS / cb;
     const int per_detection = pb * (4 * G + 4 * cb + 1);  // bytes of shared memory a detection of the chunk
     int dc = D < MAX_CHUNK ? D : MAX_CHUNK;
     if (dc * per_detection > THREAD_SMEM) dc = THREAD_SMEM / per_detection;
-    const dim3 grid(static_cast<unsigned>((problems + pb - 1) / pb), static_cast<unsigned>((cells + cb - 1) / cb));
-    match_thread_kernel<<<grid, pb * cb, static_cast<size_t>(dc) * per_detection, s>>>(
-        iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, dm, mi, blocks, problems, D, G, A, T, pb, cb, dc);
-  } else {
-    const dim3 grid(static_cast<unsigned>(problems), static_cast<unsigned>((cells + WARPS - 1) / WARPS));
-    match_warp_kernel<<<grid, THREADS, 0, s>>>(iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, dm, mi,
-                                                blocks, D, G, A, T);
+    const unsigned px = static_cast<unsigned>((problems + pb - 1) / pb);
+    return over_rows((cells + cb - 1) / cb, [&](int y0, unsigned rows) {
+      match_thread_kernel<<<dim3(px, rows), pb * cb, static_cast<size_t>(dc) * per_detection, s>>>(
+          iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, dm, mi, blocks, problems, D, G, A, T, pb, cb,
+          dc, y0);
+    });
   }
-  return static_cast<int>(cudaGetLastError());
+  if (G <= WARP_MAX_G)
+    return over_rows((cells + WARPS - 1) / WARPS, [&](int y0, unsigned rows) {
+      match_warp_kernel<<<dim3(static_cast<unsigned>(problems), rows), THREADS, 0, s>>>(
+          iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, dm, mi, blocks, D, G, A, T, y0);
+    });
+  const size_t smem = G <= SHARED_BITSET_G ? ((static_cast<size_t>(G) + 31) >> 5) * sizeof(uint32_t) : 0;
+  return over_rows(cells, [&](int y0, unsigned rows) {
+    match_block_kernel<<<dim3(static_cast<unsigned>(problems), rows), THREADS, smem, s>>>(
+        iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, dm, mi, blocks, D, G, A, T, y0,
+        G <= SHARED_BITSET_G ? nullptr : scratch);
+  });
 }
 
 }  // extern "C"

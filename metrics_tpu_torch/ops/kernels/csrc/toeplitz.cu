@@ -34,12 +34,18 @@
 //   pair of interleaved five-level shuffle trees sums e_f' and e_x' while the element
 //   updates run.
 //
-//   L > 512 (levinson_block): a step's element work outgrows one warp (at L = 1024 one warp
-//   took 2.7x as long as a block), so one block of BLOCK_THREADS threads runs one system,
-//   r, b, f and x in shared memory in double, two block barriers a step.
+//   512 < L <= 6144 (levinson_block): a step's element work outgrows one warp (at L = 1024
+//   one warp took 2.7x as long as a block), so one block of BLOCK_THREADS threads runs one
+//   system, r, b, f and x in shared memory in double, two block barriers a step.
 //
-// Shared memory: 16 KB a system at L <= 512; 32 bytes an element above (192 KB at L = 6144,
-// one system a block there).
+//   L > 6144 (levinson_global): the same block recursion with f and x in a global scratch of
+//   2L doubles a system, which the caller allocates on the launch's stream, and r and b read
+//   from the float32 inputs (each converts exactly to the double the shared form stores).
+//   The block's barriers order its global accesses as they order shared ones; the vectors
+//   stay in the SM's L1 and the L2. No length limit but the batch's scratch.
+//
+// Shared memory: 16 KB a system at L <= 512; 32 bytes an element up to 6144 (192 KB there,
+// one system a block); none but the barrier slots above.
 //
 // A silent target gives r = 0: 1/r[0] is inf and the solution NaN, as the LU's. A system
 // the recursion cannot solve (a singular or indefinite leading block) gives inf or NaN,
@@ -51,13 +57,13 @@
 
 namespace {
 
-constexpr int MAX_L = 6144;
+constexpr int MAX_SHARED_L = 6144;         // the longest system of the shared-memory block form
 constexpr int MAX_WARPS = 8;            // systems a block of the register form
 constexpr int REGISTER_L = 512;         // the longest system of the register form
 constexpr int REGISTER_J = REGISTER_L / 32;  // the register form's elements a lane
 constexpr int BLOCK_THREADS = 256;      // the block form's threads, one system a block
 constexpr int BLOCK_WARPS = BLOCK_THREADS / 32;
-constexpr int MAX_SMEM = 32 * MAX_L;    // the block form's r, b, f, x in double at L = 6144: 192 KB
+constexpr int MAX_SMEM = 32 * MAX_SHARED_L;  // the block form's r, b, f, x in double at L = 6144: 192 KB
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -204,40 +210,32 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   }
 }
 
-// The block form for L > REGISTER_L: grid (B), one block of BLOCK_THREADS threads a system;
-// r, b, f and x in shared memory in double (4L doubles). A thread updates f in pairs
-// (i, k - i), reading both before writing both; after a barrier each thread updates its
-// x[i] and forms its share of the next step's two dot products, which one warp-shuffle
-// tree and one barrier fold into a per-warp slot. The slots alternate between two buffers
-// by step parity, so a step needs two barriers.
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    levinson_block(const float* __restrict__ r_g, const float* __restrict__ b_g, float* __restrict__ x_g,
-                   int64_t batch, int L) {
-  extern __shared__ double sh[];
-  double* r = sh;
-  double* b = sh + L;
-  double* f = sh + 2 * L;
-  double* x = sh + 3 * L;
-  __shared__ double red[2][2][BLOCK_WARPS];  // [step parity][e_f, e_x][warp]
+// The block recursion for L > REGISTER_L, one block of BLOCK_THREADS threads a system. R and B
+// read r and b (a double array in shared memory, or the float32 input row); f and x are 2L
+// doubles (shared memory, or the system's global scratch). A thread updates f in pairs
+// (i, k - i), reading both before writing both; after a barrier each thread updates its x[i]
+// and forms its share of the next step's two dot products, which one warp-shuffle tree and
+// one barrier fold into a per-warp slot. The slots alternate between two buffers by step
+// parity, so a step needs two barriers.
+template <typename R>
+__device__ __forceinline__ void levinson_block_body(R r, R b, double* f, double* x, float* x_out, int L,
+                                                    double (*red)[2][BLOCK_WARPS]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * L;
   for (int i = tid; i < L; i += BLOCK_THREADS) {
-    r[i] = static_cast<double>(r_g[base + i]);
-    b[i] = static_cast<double>(b_g[base + i]);
     f[i] = 0.0;
     x[i] = 0.0;
   }
   __syncthreads();
   if (tid == 0) {
-    f[0] = 1.0 / r[0];
-    x[0] = b[0] / r[0];
+    f[0] = 1.0 / r(0);
+    x[0] = b(0) / r(0);
   }
   __syncthreads();
   {  // the dot products of step 1
     double pf = 0.0, px = 0.0;
     if (tid == 0 && L > 1) {
-      pf = r[1] * f[0];
-      px = r[1] * x[0];
+      pf = r(1) * f[0];
+      px = r(1) * x[0];
     }
     warp_sum2(pf, px);
     if (lane == 0) {
@@ -263,15 +261,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
       if (q != p) f[q] = (fq - ef * fp) * inv;
     }
     __syncthreads();
-    const double g = b[k] - ex;
+    const double g = b(k) - ex;
     double pf = 0.0, px = 0.0;
     const bool next = k + 1 < L;
     for (int i = tid; i <= k; i += BLOCK_THREADS) {
       const double xi = x[i] + g * f[k - i];
       x[i] = xi;
       if (next) {
-        pf += r[k + 1 - i] * f[i];
-        px += r[k + 1 - i] * xi;
+        pf += r(k + 1 - i) * f[i];
+        px += r(k + 1 - i) * xi;
       }
     }
     warp_sum2(pf, px);
@@ -281,7 +279,44 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     }
     __syncthreads();
   }
-  for (int i = tid; i < L; i += BLOCK_THREADS) x_g[base + i] = static_cast<float>(x[i]);
+  for (int i = tid; i < L; i += BLOCK_THREADS) x_out[i] = static_cast<float>(x[i]);
+}
+
+// A double vector in shared memory, and a float32 input row read as double.
+struct SharedVector {
+  const double* v;
+  __device__ __forceinline__ double operator()(int i) const { return v[i]; }
+};
+struct InputRow {
+  const float* v;
+  __device__ __forceinline__ double operator()(int i) const { return static_cast<double>(__ldg(v + i)); }
+};
+
+// 512 < L <= MAX_SHARED_L: grid (B); r, b, f and x in shared memory in double (4L doubles).
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    levinson_block(const float* __restrict__ r_g, const float* __restrict__ b_g, float* __restrict__ x_g,
+                   int64_t batch, int L) {
+  extern __shared__ double sh[];
+  __shared__ double red[2][2][BLOCK_WARPS];  // [step parity][e_f, e_x][warp]
+  double* r = sh;
+  double* b = sh + L;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * L;
+  for (int i = threadIdx.x; i < L; i += BLOCK_THREADS) {
+    r[i] = static_cast<double>(r_g[base + i]);
+    b[i] = static_cast<double>(b_g[base + i]);
+  }  // the body's first barrier orders these loads before any read
+  levinson_block_body(SharedVector{r}, SharedVector{b}, sh + 2 * L, sh + 3 * L, x_g + base, L, red);
+}
+
+// L > MAX_SHARED_L: grid (B); f and x in the system's 2L doubles of global scratch, r and b
+// read from the inputs.
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    levinson_global(const float* __restrict__ r_g, const float* __restrict__ b_g, float* __restrict__ x_g,
+                    double* scratch, int64_t batch, int L) {
+  __shared__ double red[2][2][BLOCK_WARPS];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * L;
+  double* f = scratch + 2 * base;
+  levinson_block_body(InputRow{r_g + base}, InputRow{b_g + base}, f, f + L, x_g + base, L, red);
 }
 
 // Whether each device has opted each form of the kernel (0 registers, 1 block) in to more than
@@ -317,12 +352,17 @@ int launch_registers(int device, const float* r, const float* b, float* x, int64
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const float* r, const float* b, float* x, int64_t batch, int L, cudaStream_t stream) {
+int launch(const float* r, const float* b, float* x, double* scratch, int64_t batch, int L, cudaStream_t stream) {
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (L <= REGISTER_L) return launch_registers(device, r, b, x, batch, L, stream);
+  if (L > MAX_SHARED_L) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    levinson_global<<<static_cast<unsigned>(batch), BLOCK_THREADS, 0, stream>>>(r, b, x, scratch, batch, L);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = 4 * static_cast<size_t>(L) * sizeof(double);
   const int opt = opt_in(reinterpret_cast<const void*>(levinson_block), 1, device, smem);
   if (opt != 0) return opt;
@@ -334,15 +374,16 @@ int launch(const float* r, const float* b, float* x, int64_t batch, int L, cudaS
 
 extern "C" {
 
-// The largest system size the kernel takes.
-int toeplitz_max_length() { return MAX_L; }
+// The longest system the kernel solves without global scratch.
+int toeplitz_shared_length() { return MAX_SHARED_L; }
 
 // x (batch, L) <- T(r)^-1 b for each of the batch's rows; r, b, x contiguous float32;
-// 1 <= L <= toeplitz_max_length(), 1 <= batch < 2^31. Returns a CUDA error code
-// (cudaErrorInvalidValue for arguments out of range).
-int toeplitz_solve(const float* r, const float* b, float* x, int64_t batch, int L, void* stream) {
-  if (L < 1 || L > MAX_L || batch < 1 || batch >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(r, b, x, batch, L, static_cast<cudaStream_t>(stream));
+// L >= 1, 1 <= batch < 2^31. Above toeplitz_shared_length(), scratch holds 2 L batch
+// doubles the launch may overwrite (it is not read for shorter systems and may be null).
+// Returns a CUDA error code (cudaErrorInvalidValue for arguments out of range).
+int toeplitz_solve(const float* r, const float* b, float* x, double* scratch, int64_t batch, int L, void* stream) {
+  if (L < 1 || batch < 1 || batch >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(r, b, x, scratch, batch, L, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -4,9 +4,10 @@ The JAX package matches detections to ground truths with ``_greedy_match_single`
 (``metrics_tpu/detection/map.py:200-239``), a ``lax.scan`` over the score-sorted
 detections carrying the matched-gt mask, vmapped over IoU thresholds, area
 ranges and problems; no Pallas kernel lies there. :func:`greedy_match_cuda`
-runs that scan for every ``(problem, area, threshold)`` cell at once in one
-launch, one thread a cell for ``G <= 32`` and one warp a cell above
-(``csrc/match.cu``); :func:`greedy_match_plain` is the same scan as a
+runs that scan for every ``(problem, area, threshold)`` cell at once, one
+thread a cell for ``G <= 32``, one warp a cell up to ``G = 1024`` and one
+block a cell above (``csrc/match.cu``), in one launch unless the cells
+outnumber a grid's 65 535 rows; :func:`greedy_match_plain` is the same scan as a
 Python loop over the detections with tensor ops over ``(P, A, T, G)``, and
 :func:`greedy_match` picks by the tensor's device.
 
@@ -94,7 +95,9 @@ def greedy_match_cuda(iou: torch.Tensor, iou_index: torch.Tensor, det_valid: tor
                       gt_ignore: torch.Tensor, thresholds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`greedy_match_plain` on the card: float32 ``iou`` and
     ``thresholds``, int32 ``iou_index``, bool or uint8 flags, all on one CUDA
-    device, ``G <= 1024``; raises on anything else."""
+    device, any ``G`` and ``A * T``; raises on anything else. Past ``2**18``
+    ground truths the open sets live in an int32 scratch allocated here on
+    the call's stream."""
     p, a, t, d, g = _check_shapes(iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds, "greedy_match_cuda")
     tensors = (iou, iou_index, det_valid, gt_valid, gt_ignore, thresholds)
     if iou.device.type != "cuda" or any(x.device != iou.device for x in tensors):
@@ -105,10 +108,6 @@ def greedy_match_cuda(iou: torch.Tensor, iou_index: torch.Tensor, det_valid: tor
         raise TypeError(f"greedy_match_cuda takes an int32 iou_index, got {iou_index.dtype}")
     flags = [_flags(x, n) for x, n in ((det_valid, "det_valid"), (gt_valid, "gt_valid"), (gt_ignore, "gt_ignore"))]
     lib = build.library("match")
-    if g > lib.match_max_gts():
-        raise ValueError(f"greedy_match_cuda takes G <= {lib.match_max_gts()} ground truths, got {g}")
-    if a * t > 65535 * 8:
-        raise ValueError(f"greedy_match_cuda takes A * T <= {65535 * 8} cells a problem, got {a * t}")
     if min(p, a, t, d, g) == 0 or iou.shape[0] == 0:  # nothing to match: no launch
         return (torch.zeros((p, a, t, d), dtype=torch.uint8, device=iou.device),
                 torch.full((p, a, t, d), -1, dtype=torch.int32, device=iou.device))
@@ -116,10 +115,13 @@ def greedy_match_cuda(iou: torch.Tensor, iou_index: torch.Tensor, det_valid: tor
     mi = torch.empty((p, a, t, d), dtype=torch.int32, device=iou.device)
     iou, iou_index, thresholds = iou.contiguous(), iou_index.contiguous(), thresholds.contiguous()
     with torch.cuda.device(iou.device):
+        words = lib.match_scratch_words(p, a, t, g)
+        scratch = torch.empty((words,), dtype=torch.int32, device=iou.device) if words else None
         stream = torch.cuda.current_stream(iou.device).cuda_stream
         err = lib.greedy_match(iou.data_ptr(), iou_index.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
                                flags[2].data_ptr(), thresholds.data_ptr(), dm.data_ptr(), mi.data_ptr(),
-                               iou.shape[0], p, d, g, a, t, stream)
+                               scratch.data_ptr() if scratch is not None else None, iou.shape[0], p, d, g, a, t,
+                               stream)
     build.check(err, "greedy_match launch")
     greedy_match_cuda.launches += 1
     return dm, mi

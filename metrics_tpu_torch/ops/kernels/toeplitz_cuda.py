@@ -5,9 +5,10 @@ The JAX package solves SDR's ``(L, L)`` system ``T(r) x = b``, with
 no Pallas kernel lies there. PyTorch's own batched solve at SDR's default
 ``L = 512`` runs on MAGMA, which a CUDA graph cannot capture, so the port
 solves with the Levinson recursion instead (``csrc/toeplitz.cu``): one warp
-a system with no block barrier up to ``L = 512`` (one block a system
-above), the recursion's ``L - 1`` steps inside the kernel, float32 in
-memory and float64 inside. :func:`toeplitz_solve_cuda` is the wrapper,
+a system with no block barrier up to ``L = 512``, one block a system
+above (its vectors in shared memory up to ``L = 6144``, in a global
+scratch beyond), the recursion's ``L - 1`` steps inside the kernel,
+float32 in memory and float64 inside. :func:`toeplitz_solve_cuda` is the wrapper,
 :func:`toeplitz_solve_plain` the same recursion in PyTorch, in float64, and
 :func:`toeplitz_solve` picks by the tensor's device. Nothing
 reads the solve's status on the host: a silent target (``r = 0``) gives NaN,
@@ -42,8 +43,9 @@ def toeplitz_solve_plain(r: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def toeplitz_solve_cuda(r: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`toeplitz_solve_plain` on the card. ``r`` and ``b`` are ``(..., L)``
-    float32 (SDR's dtype) on one CUDA device, with ``1 <= L <= 6144``;
-    raises on anything else."""
+    float32 (SDR's dtype) on one CUDA device, ``L >= 1``; raises on anything
+    else. Above ``L = 6144`` the kernel keeps ``f`` and ``x`` in a float64
+    scratch of ``2 L`` a system, allocated here on the call's stream."""
     if r.device.type != "cuda" or b.device != r.device:
         raise ValueError("toeplitz_solve_cuda: r and b must lie on one CUDA device")
     if r.dtype != torch.float32 or b.dtype != torch.float32:
@@ -53,15 +55,17 @@ def toeplitz_solve_cuda(r: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(r.shape)} and {tuple(b.shape)}")
     length = r.shape[-1]
     lib = build.library("toeplitz")
-    if length > lib.toeplitz_max_length():
-        raise ValueError(f"toeplitz_solve_cuda takes L <= {lib.toeplitz_max_length()}, got {length}")
     x = torch.empty_like(r, memory_format=torch.contiguous_format)
     if x.numel() == 0:
         return x
     r, b = r.contiguous(), b.contiguous()
+    batch = r.numel() // length
     with torch.cuda.device(r.device):
+        scratch = (torch.empty((batch, 2, length), dtype=torch.float64, device=r.device)
+                   if length > lib.toeplitz_shared_length() else None)
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.toeplitz_solve(r.data_ptr(), b.data_ptr(), x.data_ptr(), r.numel() // length, length, stream)
+        err = lib.toeplitz_solve(r.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                 scratch.data_ptr() if scratch is not None else None, batch, length, stream)
     build.check(err, "toeplitz_solve launch")
     toeplitz_solve_cuda.launches += 1
     return x

@@ -52,9 +52,8 @@ as ONE ``torch.cuda.nccl`` group call over the W per-device tensors,
 A failure raises; the transport never changes.
 
 Every collective this module issues adds one to :func:`collective_counts`,
-in either form.
-``hierarchical_fold_bytes`` (the fleet's fold) is not ported yet, and
-``HLO_COLLECTIVE_RE`` has no counterpart (it reads XLA's HLO text).
+in either form. :func:`hierarchical_fold_bytes` counts the fleet's fold
+by leg. ``HLO_COLLECTIVE_RE`` has no counterpart (it reads XLA's HLO text).
 """
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -634,6 +633,34 @@ def sync_payload_bytes(
     for (fx, dtype_name), elems in plan["reduce_elems"].items():
         nbytes += _wire_dtype(fx, getattr(torch, dtype_name)).itemsize * elems
     return int(nbytes)
+
+
+def sync_payload_split(
+    leaves: Sequence[Tuple[Any, Any, Optional[str]]], world: int, block: int = Q8_BLOCK
+) -> Tuple[int, int]:
+    """(exact, quantized) bytes one rank contributes to the fused sync: the
+    q8 carriers apart from the rest of :func:`sync_payload_bytes`."""
+    quant = 4 * fused_sync_plan(leaves, world, block)["q8_words"]
+    return int(sync_payload_bytes(leaves, world, block) - quant), int(quant)
+
+
+def hierarchical_fold_bytes(
+    leaves: Sequence[Tuple[Any, Any, Optional[str]]], hosts: int, block: int = Q8_BLOCK
+) -> Dict[str, int]:
+    """Bytes of the fleet's fold by leg: ``intra_bytes``, the host's LOGICAL
+    leaves (``(dist_reduce_fx, tensor or StateSpec, precision)`` triples,
+    the engine's ``_fleet_leaf_info``) that each host folds before anything
+    leaves it; ``cross_exact_bytes`` and ``cross_quant_bytes``, what one
+    host contributes to the fused sync over ``hosts`` ranks, from
+    :func:`sync_payload_bytes` and :func:`fused_sync_plan` (bytes where
+    JAX's plan counts u32 words). The cross legs scale with the hosts, not
+    the streams: the stream axis lives inside each leaf."""
+    intra = 0
+    for _fx, leaf, _prec in leaves:
+        dtype, shape = _leaf_dtype_shape(leaf)
+        intra += math.prod(shape) * dtype.itemsize
+    exact, quant = sync_payload_split(leaves, hosts, block)
+    return {"intra_bytes": int(intra), "cross_exact_bytes": exact, "cross_quant_bytes": quant}
 
 
 # ------------------------------------------------------------------ reductions

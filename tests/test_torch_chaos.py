@@ -54,14 +54,14 @@ from metrics_tpu.engine.chaos_smoke import (
 from metrics_tpu.ops import kernels as jk
 from metrics_tpu_torch.ops import kernels as pk
 from metrics_tpu_torch.ops.binned_update import binned_counts
-from metrics_tpu_torch.utils.exceptions import NotPortedError
 
 BUCKETS = (8, 32)
 #: the sites this slice wires into the port's engines
 NEW_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
              "quant_decode", "dispatcher_kill")
 PORTED = set(NEW_SITES) | {"snapshot_write", "snapshot_corrupt", "snapshot_read", "pane_rotate", "drift_eval",
-                            "admission", "shard_loss", "merge", "reshard_snapshot", "reshard_restore"}
+                            "admission", "shard_loss", "merge", "reshard_snapshot", "reshard_restore", "host_loss",
+                            "fleet_barrier"}
 #: sites only a mesh consults (JAX's stream-sharded engine runs on one)
 MESH_ONLY = ("shard_loss", "merge")
 COUNTERS = ("retries", "rollbacks", "kernel_demotions", "coalesce_degraded", "coalesce_shrinks", "watchdog_timeouts",
@@ -148,13 +148,50 @@ def _canonical():
 
 
 def test_canonical_plans_in_scope_are_those_of_ported_sites():
-    assert sorted(_canonical()) == ["chaos", "dispatcher_kill", "elastic", "ewma", "merge", "paging", "quant",
-                                    "snapshot_read", "windows"]
-    # every other plan names a site that is still refused
-    for name, inj in chaos_injectors().items():
-        if name not in _canonical():
-            with pytest.raises(NotPortedError):
-                pe.EngineConfig(fault_injector=SIDES[1].injector(inj))
+    # every site is consulted now (the fleet's since the fleet runtime): every plan is in scope
+    assert sorted(_canonical()) == sorted(chaos_injectors()) == [
+        "chaos", "dispatcher_kill", "elastic", "ewma", "fleet", "merge", "paging", "quant", "snapshot_read", "windows"]
+    for inj in _canonical().values():
+        pe.EngineConfig(fault_injector=SIDES[1].injector(inj))
+
+
+def _fleet_plan(side, snapdir, injector):
+    """JAX's chaos fleet phase: a one-host fleet serves the seeded Zipf
+    stream, cuts once and reads every stream; under the ``fleet`` plan the
+    first barrier entry and the first fold fail transiently and retry."""
+    from metrics_tpu.engine.chaos_smoke import zipf_fleet_traffic
+
+    f = __import__("metrics_tpu.engine.fleet" if side.jax else "metrics_tpu_torch.engine.fleet", fromlist=["_"])
+    fleet = f.FleetEngine(side.coll(), f.FleetConfig(
+        num_streams=6, snapshot_dir=snapdir,
+        engine=side.config(buckets=(8, 32), coalesce=1, fault_injector=injector)))
+    with fleet:
+        for sid, p, t in zipf_fleet_traffic():
+            fleet.ingest(sid, p, t)
+        fleet.fleet_snapshot()
+        out = {sid: _values(r) for sid, r in fleet.results().items()}
+    return out, _counters(fleet.engine)
+
+
+def test_fleet_plan_retries_the_barrier_and_the_fold_as_jax(tmp_path):
+    """The canonical ``fleet`` plan on both packages' degenerate fleets: each
+    site fires once and retries; every stream's value equals the fault-free
+    twin's and JAX's, with the same counters and fault summary."""
+    got = {}
+    for side in SIDES:
+        inj = side.injector(_canonical()["fleet"])
+        faulty = _fleet_plan(side, str(tmp_path / side.name), inj)
+        clean = _fleet_plan(side, str(tmp_path / f"{side.name}_clean"), None)
+        assert inj.fired.get("fleet_barrier", 0) == 1 and inj.fired.get("host_loss", 0) == 1
+        for sid in clean[0]:
+            for k in clean[0][sid]:
+                assert np.array_equal(faulty[0][sid][k], clean[0][sid][k], equal_nan=True), (side.name, sid, k)
+        got[side.name] = (faulty, _summary(inj))
+    assert got["port"][0][1] == got["jax"][0][1]
+    assert got["port"][1] == got["jax"][1]
+    for sid, vals in got["jax"][0][0].items():
+        for k, v in vals.items():
+            np.testing.assert_allclose(got["port"][0][0][sid][k], v, rtol=1e-6, atol=0, equal_nan=True)
 
 
 # ------------------------------------------------------------------ the canonical plans

@@ -2388,6 +2388,24 @@ def test_stoi_and_ssim_on_card_ignore_the_process_tf32_settings(cuda):
 
 
 @pytest.mark.requires_cuda
+def test_sdr_at_filter_length_8192_on_card_equals_the_cpu_port(cuda):
+    """SDR at ``filter_length=8192``, past the 6144 whose vectors fit in
+    shared memory: K8's global-scratch form solves every system, and the
+    values equal the CPU port's (the float64 Levinson loop) within SDR's
+    1e-2 dB."""
+    from metrics_tpu_torch.functional import signal_distortion_ratio
+    from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda
+
+    p, t = _speech_pairs(7, 2, 16000)
+    before = toeplitz_solve_cuda.launches
+    got = signal_distortion_ratio(p.to(cuda), t.to(cuda), filter_length=8192)
+    assert toeplitz_solve_cuda.launches > before
+    want = signal_distortion_ratio(p, t, filter_length=8192)
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-2)
+
+
+@pytest.mark.requires_cuda
 def test_sdr_of_a_silent_target_is_nan_on_card_without_an_exception(cuda):
     from metrics_tpu_torch.functional import signal_distortion_ratio
 
@@ -2472,14 +2490,15 @@ def _toeplitz_systems(shape, seed):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 3, 33), (32, 512), (2, 6144), (32, 31), (32, 32), (32, 33),
-                                   (1000, 512), (4, 513)])
+                                   (1000, 512), (4, 513), (2, 6145), (8, 8192)])
 def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
     """K8 against its plain version on float32 SPD autocorrelation systems
     (loaded diagonal), a silent row giving NaN in both; L on both sides of
-    a warp's 32 lanes and of 512, the longest system one warp solves with
-    its elements in registers, and a batch of 1000 systems, several a
-    block; it raises on inputs it does not take: another dtype, or L over
-    6144."""
+    a warp's 32 lanes, of 512, the longest system one warp solves with its
+    elements in registers, and of 6144, the longest whose vectors fit in
+    shared memory (the global-scratch form above, up to SDR's
+    ``filter_length=8192``), and a batch of 1000 systems, several a block;
+    it raises on another dtype."""
     from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
 
     length = shape[-1]
@@ -2494,15 +2513,14 @@ def test_toeplitz_kernel_matches_its_plain_version_on_card(cuda, shape):
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
             toeplitz_solve_cuda(r.to(cuda, dtype), b.to(cuda, dtype))
-    with pytest.raises(ValueError):
-        toeplitz_solve_cuda(torch.ones(2, 6145, device=cuda), torch.ones(2, 6145, device=cuda))
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("length", [1, 2, 31, 32, 33, 512, 513, 6144])
+@pytest.mark.parametrize("length", [1, 2, 31, 32, 33, 512, 513, 6144, 6145, 8192])
 def test_toeplitz_kernel_solves_one_system_on_card(cuda, length):
     """K8 on a batch of one system against its plain version: a block of
-    one warp up to L = 512, a block of its own above."""
+    one warp up to L = 512, a block of its own above, its vectors in global
+    scratch past 6144."""
     from metrics_tpu_torch.ops.kernels.toeplitz_cuda import toeplitz_solve_cuda, toeplitz_solve_plain
 
     r, b = (x.float() for x in _toeplitz_systems((1, length), length))
@@ -2651,13 +2669,14 @@ def _match_inputs(rng, b, p, d, g, a, t, device):
                                    (2, 9, 12, 1024, 2, 3), (6, 300, 8, 64, 3, 7), (1, 3, 65, 31, 1, 1),
                                    (4, 50, 1, 8, 4, 10), (4, 50, 32, 31, 4, 10), (4, 50, 33, 32, 4, 10),
                                    (4, 50, 32, 33, 4, 10), (3, 20, 1, 1024, 4, 10), (3, 20, 33, 1024, 4, 10),
-                                   (3, 10, 150, 8, 4, 100), (2, 30, 200, 1, 1, 3)])
+                                   (3, 10, 150, 8, 4, 100), (2, 30, 200, 1, 1, 3), (2, 5, 40, 1025, 2, 3),
+                                   (3, 6, 70, 2048, 4, 10), (1, 2, 9, 5000, 1, 2)])
 def test_match_kernel_matches_its_plain_version_on_card(cuda, shape):
     """K9 at ragged sizes (D and G across the 32-lane boundaries, G on both
-    sides of the switch from a thread a cell to a warp a cell, and at its
-    limit of 1024; D across the thread path's chunks; more cells a problem
-    than a block's threads) with dense ties: ``dm`` and ``mi`` equal the
-    plain loop."""
+    sides of the switch from a thread a cell to a warp a cell, at 1024 and
+    past it, where a block takes a cell; D across the thread path's chunks;
+    more cells a problem than a block's threads) with dense ties: ``dm``
+    and ``mi`` equal the plain loop."""
     from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
 
     args = _match_inputs(np.random.RandomState(sum(shape)), *shape, cuda)
@@ -2716,12 +2735,26 @@ def test_match_kernel_grids_past_65535_blocks_on_card(cuda, p, g, a, t):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("g", [8, 40, 1100])
+def test_match_kernel_loops_past_65535_grid_rows_on_card(cuda, g):
+    """More cells a problem (A * T) than 65 535 grid rows hold on each path
+    (the thread path's rows of 256 cells, the warp path's of 8, the block
+    path's of one): the launches loop over the rows, bit-equal to the plain
+    loop."""
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda, greedy_match_plain
+
+    t = {8: 65535 * 256 + 3, 40: 65535 * 8 + 5, 1100: 65535 + 7}[g]
+    p = 1 if g == 8 else 2
+    args = _match_inputs(np.random.RandomState(g), 2, p, 3, g, 1, t, cuda)
+    dm, mi = greedy_match_cuda(*args)
+    pdm, pmi = greedy_match_plain(*args)
+    assert torch.equal(dm, pdm) and torch.equal(mi, pmi)
+
+
+@pytest.mark.requires_cuda
 def test_match_kernel_refusals_on_card(cuda):
     from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
 
-    args = list(_match_inputs(np.random.RandomState(0), 2, 3, 4, 1025, 1, 2, cuda))
-    with pytest.raises(ValueError, match="1024"):
-        greedy_match_cuda(*args)
     args = list(_match_inputs(np.random.RandomState(0), 2, 3, 4, 5, 1, 2, cuda))
     for i, bad in ((0, args[0].double()), (1, args[1].long()), (2, args[2].int()), (5, args[5].half())):
         with pytest.raises(TypeError):
@@ -2770,6 +2803,111 @@ def test_map_on_card_equals_map_on_cpu(cuda, class_metrics):
     for k in want:
         assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
     assert float(want["map"]) > 0.1
+
+
+def _crowd_images(n, seed, crowd=1100):
+    """``n`` images, the first a crowd of ``crowd`` ground truths of one
+    class (past the warp path's 1024), each with detections copying most of
+    its boxes with a jitter, plus false positives; integer-pixel boxes."""
+    rng = np.random.RandomState(seed)
+    preds, targets = [], []
+    for i in range(n):
+        ng = crowd if i == 0 else rng.randint(3, 30)
+        xy = np.round(rng.uniform(0, 600, (ng, 2))).astype(np.float32)
+        gt = np.concatenate([xy, xy + rng.choice(np.asarray([6, 20, 40, 90], np.float32), (ng, 2))], axis=1)
+        gl = np.zeros(ng, np.int64) if i == 0 else rng.randint(0, 3, ng)
+        keep = rng.rand(ng) < 0.8
+        fp = np.round(rng.uniform(0, 600, (10, 2))).astype(np.float32)
+        db = np.concatenate([gt[keep] + rng.choice(np.asarray([0, 1, -1, 3], np.float32), (int(keep.sum()), 4)),
+                             np.concatenate([fp, fp + 25], axis=1)])
+        dl = np.concatenate([gl[keep], rng.randint(0, 3, 10)])
+        preds.append({"boxes": torch.from_numpy(db), "labels": torch.from_numpy(dl),
+                      "scores": torch.from_numpy(np.round(rng.rand(len(db)), 3).astype(np.float32))})
+        targets.append({"boxes": torch.from_numpy(gt), "labels": torch.from_numpy(gl)})
+    return preds, targets
+
+
+@pytest.mark.requires_cuda
+def test_map_with_a_crowd_past_1024_ground_truths_on_card_equals_the_cpu(cuda):
+    """An eager ``MAP`` whose (class, image) pair holds 1100 ground truths:
+    K9's block path on the card, key for key equal to the CPU port."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    preds, targets = _crowd_images(6, 11)
+    card, host = mp.MAP(), mp.MAP(device="cpu")
+    card.update([{k: v.to(cuda) for k, v in d.items()} for d in preds],
+                [{k: v.to(cuda) for k, v in d.items()} for d in targets])
+    host.update(preds, targets)
+    before = greedy_match_cuda.launches
+    got, want = card.compute(), host.compute()
+    assert greedy_match_cuda.launches == before + 1
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert float(want["map"]) > 0.1
+
+
+@pytest.mark.requires_cuda
+def test_ragged_map_at_capacity_2048_on_card_equals_the_cpu_port(cuda):
+    """``RaggedEngine(MAP(), capacity=2048)``: the device aggregate's K9
+    call takes G = 2048 (the block path), over two rounds of six images,
+    one a crowd of 1100 ground truths; key for key equal to the CPU port's
+    eager ``MAP`` on the same images."""
+    import metrics_tpu_torch as mp
+    from metrics_tpu_torch.engine import RaggedEngine
+    from metrics_tpu_torch.ops.kernels.match_cuda import greedy_match_cuda
+
+    preds, targets = _crowd_images(6, 12)
+    eng = RaggedEngine(mp.MAP(device=cuda), num_groups=len(preds), capacity=2048)
+    with eng:
+        for half in (0, 1):
+            for i, (p, t) in enumerate(zip(preds, targets)):
+                nd, ng = len(p["labels"]), len(t["labels"])
+                ds = slice(0, nd // 2) if half == 0 else slice(nd // 2, nd)
+                gs = slice(0, ng // 2) if half == 0 else slice(ng // 2, ng)
+                eng.submit_update([{k: v[ds].to(cuda) for k, v in p.items()}],
+                                  [{k: v[gs].to(cuda) for k, v in t.items()}], [i])
+        eng.flush()
+        assert eng.aggregate_path()[0] == "device"
+        before = greedy_match_cuda.launches
+        got = eng.aggregate()
+        assert greedy_match_cuda.launches == before + 1
+    host = mp.MAP(device="cpu")
+    host.update(preds, targets)
+    want = host.compute()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ------------------------------------------------------------------ the fleet
+
+
+@pytest.mark.requires_cuda
+def test_two_process_fleet_on_one_card_equals_the_single_process_engine(cuda, tmp_path):
+    """The fleet harness's serve round with both hosts on ``cuda:0``: the
+    runtime picks gloo (two ranks share the card), and each host's
+    ``results()``, plain and stream-sharded under the tumbling window,
+    equal a single-process engine on the card serving the same plan, with
+    no collective in the steady steps and at least one in a fold."""
+    from metrics_tpu_torch.engine import EngineConfig, MultiStreamEngine, WindowPolicy
+    from metrics_tpu_torch.engine.fleet import harness
+
+    rcs, outs = harness.run_pair("serve", str(tmp_path), "card", device="cuda:0")
+    assert rcs == [0, 0], [o.get("error") for o in outs]
+    assert [o["backend"] for o in outs] == ["gloo", "gloo"]
+    window = WindowPolicy.tumbling(pane_batches=harness.PANE_BATCHES, n_panes=harness.N_PANES)
+    for form, w in (("plain", None), ("tenancy", window)):
+        eng = MultiStreamEngine(harness._collection("cuda:0"), harness.S, EngineConfig(buckets=harness.BUCKETS,
+                                                                                        window=w))
+        with eng:
+            for sid, p, t in harness.traffic():
+                eng.submit(sid, p, t)
+            want = harness.jsonable_results(eng.results())
+        for o in outs:
+            for r in o[form]:
+                assert harness.results_equal(r["results"], want), form
+                assert not any(r["steady_collectives"].values()) and sum(r["fold_collectives"].values()) >= 1
+                assert r["steady_compiles"] == 0
 
 
 # ------------------------------------------------------------------ serving on a mesh

@@ -8,9 +8,8 @@ drives, on the CPU.
 * the engine's snapshot sites: a periodic write fault is contained and
   counted, an explicit ``snapshot()`` raises, a transient read is retried
   inside ``restore()`` (counted), an injected corruption falls back one
-  generation with exact replay, and a plan naming a site of a layer the
-  port does not have yet raises ``NotPortedError`` (the other sites are
-  ``tests/test_torch_chaos.py``'s);
+  generation with exact replay, and a plan naming a fleet site builds and
+  the fleet consults it (the other sites are ``tests/test_torch_chaos.py``'s);
 * ``utils/checkpoint.py`` crosses both ways with JAX's pickle checkpoint.
 
 The JAX package writes orbax checkpoints when orbax is installed, which the
@@ -38,7 +37,8 @@ from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, NotPortedErr
 
 PORTED_SITES = ("ingest", "coalesce", "compile", "step", "kernel", "watchdog", "page_out", "page_in", "quant_encode",
                 "quant_decode", "snapshot_write", "snapshot_corrupt", "snapshot_read", "dispatcher_kill", "admission",
-                "pane_rotate", "drift_eval", "shard_loss", "merge", "reshard_snapshot", "reshard_restore")
+                "pane_rotate", "drift_eval", "shard_loss", "merge", "reshard_snapshot", "reshard_restore", "host_loss",
+                "fleet_barrier")
 #: the sites only a mesh engine consults, each fired alone on a 4-shard engine
 MESH_SITES = ("shard_loss", "merge", "reshard_snapshot", "reshard_restore")
 
@@ -271,10 +271,23 @@ def test_injected_corruption_falls_back_one_generation_with_exact_replay(tmp_pat
         assert np.array_equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("site", [s for s in jf.FAULT_SITES if s not in PORTED_SITES])
-def test_plan_naming_an_unported_site_is_refused(site):
-    with pytest.raises(NotPortedError, match=site):
-        EngineConfig(fault_injector=FaultInjector(0, {site: FaultSpec(schedule=(0,))}))
+@pytest.mark.parametrize("site", ["host_loss", "fleet_barrier"])
+def test_plan_naming_a_fleet_site_builds_and_the_fleet_consults_it(site, tmp_path):
+    """Every site of JAX's ``FAULT_SITES`` is consulted now, the fleet's
+    last: a plan naming one builds an engine config, and a degenerate fleet
+    fires it once at its boundary (the cut barrier, the fold) and retries."""
+    from metrics_tpu_torch.engine.fleet import FleetConfig, FleetEngine
+
+    assert sorted(jf.FAULT_SITES) == sorted(PORTED_SITES)
+    inj = FaultInjector(0, {site: FaultSpec(schedule=(0,))})
+    fleet = FleetEngine(mp.Accuracy(device="cpu"), FleetConfig(
+        engine=EngineConfig(buckets=(8,), fault_injector=inj), snapshot_dir=str(tmp_path)))
+    with fleet:
+        fleet.ingest(np.asarray([0.5, 0.25], np.float32), np.asarray([1, 0], np.int32))
+        fleet.fleet_snapshot()
+        value = fleet.result()
+    assert inj.fired.get(site, 0) == 1 and fleet.engine.stats.retries == 1
+    assert float(value) == 1.0  # 0.5 and 0.25 threshold to 1 and 0
 
 
 def _mesh_site_run(jax_side, site):
